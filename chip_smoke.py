@@ -1,0 +1,407 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one CUDA card; hold each kernel against its plain version.
+
+Run from the root of a checkout, on a machine with one NVIDIA Hopper card and
+the CUDA toolkit:
+
+    python3 chip_smoke.py
+
+It imports only the port (``src/repro_torch``), never JAX or the JAX package.
+Without a card, or outside a checkout, it exits non-zero and prints no result.
+Every phase that fails raises, so the script exits non-zero.
+
+1. build   — nvcc every ``src/repro_torch/csrc/*.cu`` for sm_90a, one process
+             per source, and print each kernel's registers, shared memory and
+             spills;
+2. path    — serve the FULL ``ample-gcn`` config on the Yelp-scale graph
+             (716,847 nodes, 300 features, random weights from seed 0):
+             ``infer`` three times (cold, warm, warm; warm must equal cold
+             bitwise, and each request must launch the AGE kernel 4 times and
+             the int8 matmul twice), then ``infer_batch`` of three cora-sized
+             graphs. Launch counts are set to 0 just before and read just after;
+             one more warm request runs under torch.profiler to show where its
+             time goes;
+3. kernels — each kernel against its plain PyTorch version on the card, at
+             the path's shapes (AGE within 1e-4 and run-to-run bitwise; int8
+             matmul bitwise), timed with CUDA events beside the plain
+             version, one PyTorch library call and the card's bound;
+4. cpu     — the same model served on the CPU (plain versions) on a
+             cora-sized graph, against the card's output at the
+             mixed-precision tolerance;
+5. summary — a JSON line of kernels, the card's name and power limit, and
+             the result line.
+
+Details of every measurement also go to ``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32 (no tensor
+# cores) flop/s, int8 tensor-core op/s.
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
+INT8_OPS = 1979e12
+
+AGE_ATOL = 1e-4  # unit-normal features, summation order differs
+MIXED_ATOL, MIXED_RTOL, MIXED_FLIP = 6e-2, 2e-3, 2e-3  # int8 code flips
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound(nbytes: float, ops: float, peak_ops: float):
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_build():
+    from repro_torch.kernels import build
+
+    report = build.build()
+    build.library()
+    log(f"[build] {report.library.name}: {report.seconds:.2f} s"
+        + (" (reused)" if report.seconds == 0.0 else ""))
+    for line in report.ptxas_log.splitlines():
+        if any(w in line for w in ("Compiling entry", "registers", "spill", "==")):
+            log("[build]   " + line.strip())
+    return report
+
+
+def phase_path(cfg, g, batch_graphs):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.serve.gnn_engine import GNNRequest, GNNServeEngine
+
+    srv = GNNServeEngine(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    per_request, outs = [], []
+    for i in range(3):
+        before = build.launch_counts()
+        resp = srv.infer(g, g.features)
+        after = build.launch_counts()
+        delta = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+        per_request.append(delta)
+        outs.append(resp)
+        log(f"[path] yelp infer {i}: cache_hit={resp.cache_hit} "
+            f"plan_ms={resp.plan_ms:.1f} run_ms={resp.run_ms:.3f} launches={delta}")
+    reqs = [GNNRequest(graph=b, features=b.features) for b in batch_graphs]
+    before = build.launch_counts()
+    batch = srv.infer_batch(reqs)
+    after = build.launch_counts()
+    batch_delta = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    log(f"[path] infer_batch of {len(reqs)} graphs "
+        f"({sum(b.num_nodes for b in batch_graphs)} nodes): "
+        f"plan_ms={batch[0].plan_ms:.1f} run_ms={batch[0].run_ms:.3f} launches={batch_delta}")
+    counts = build.launch_counts()  # the whole main path
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[path] launches over the path: {counts}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+
+    want = {"segment_agg": 4, "quant_matmul": 2}
+    for i, d in enumerate(per_request):
+        if d != want:
+            raise RuntimeError(f"request {i} launched {d}, expected {want}")
+    if batch_delta != want:
+        raise RuntimeError(f"infer_batch launched {batch_delta}, expected {want}")
+    y = outs[0].outputs
+    if y.shape != (g.num_nodes, cfg.vocab_size) or not np.isfinite(y).all():
+        raise RuntimeError(f"bad yelp outputs: shape {y.shape}, finite {np.isfinite(y).all()}")
+    for r in outs[1:]:
+        if not r.cache_hit or not np.array_equal(r.outputs, y):
+            raise RuntimeError("warm request differs from the cold one")
+    for r, b in zip(batch, batch_graphs):
+        if r.outputs.shape != (b.num_nodes, cfg.vocab_size) or not np.isfinite(r.outputs).all():
+            raise RuntimeError("bad batch outputs")
+    log("[path] warm == cold bitwise; outputs finite, shape "
+        f"{y.shape}")
+    return srv, outs, batch, counts, peak
+
+
+def phase_profile(srv, g):
+    """Where one warm Yelp request's time goes: device time by kernel or copy
+    (torch.profiler), against the wall time of the whole ``infer`` call
+    (host padding, upload, forward, download; run_ms covers the upload and
+    the forward). Prints "not measured" when the profiler records no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        resp = srv.infer(g, g.features)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    # Device-side events only (kernels, copies, memsets): an operator's own
+    # entry repeats the device time of the kernels it launched.
+    rows = sorted(
+        ((e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
+         if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0),
+        key=lambda r: -r[1],
+    )
+    busy = sum(ms for _, ms, _ in rows)
+    if not rows:
+        log(f"[profile] warm infer wall_ms={wall_ms:.3f} run_ms={resp.run_ms:.3f}; "
+            "device time not measured")
+        return dict(wall_ms=wall_ms, run_ms=resp.run_ms, device_ms=None, top=[])
+    log(f"[profile] warm infer wall_ms={wall_ms:.3f} run_ms={resp.run_ms:.3f}, device "
+        f"busy {busy:.3f} ms (idle share of the call {max(0.0, 1 - busy / wall_ms):.3f})")
+    for name, ms, count in rows[:14]:
+        log(f"[profile]   {ms:9.3f} ms  x{count:<4d} {name[:90]}")
+    return dict(wall_ms=wall_ms, run_ms=resp.run_ms, device_ms=busy,
+                top=[dict(name=n, ms=ms, count=c) for n, ms, c in rows[:24]])
+
+
+def _group_csr(plan, n):
+    """The plan's coefficient matrix as a torch CSR [n, n] (library yardstick)."""
+    import numpy as np
+    import torch
+
+    live = plan.edge_ids >= 0
+    t_idx = np.nonzero(live)[0]
+    dst = plan.out_node[t_idx, plan.seg_ids[live]].astype(np.int64)
+    src = plan.gather_idx[live].astype(np.int64)
+    coo = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([dst, src])), torch.from_numpy(plan.coeff[live]),
+        (n, n),
+    ).coalesce()
+    return coo.to_sparse_csr().cuda()
+
+
+def phase_age(engine, mode, x300):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    from repro_torch.kernels.segment_agg.ref import aggregate_tiles_ref
+
+    n = engine.graph.num_nodes
+    plans = engine.plans(mode)
+    dplans = engine._device_plans(mode, plans, torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x256 = torch.randn((n, 256), generator=gen, device="cuda")
+    rows = []
+    for tag in ("int8", "float"):
+        p, dp = plans[tag], dplans[tag]
+        args = (dp.gather_idx, dp.coeff, dp.seg_ids, dp.out_node, dp.split)
+        lib_a = _group_csr(p, n)
+        live = p.edge_ids >= 0
+        uniq = np.unique(p.gather_idx[live]).size
+        plan_bytes = sum(t.numel() * t.element_size() for t in args[:4]) + sum(
+            t.numel() * t.element_size()
+            for t in (dp.split.slot_of, dp.split.split_ptr, dp.split.split_node)
+        )
+        for x in (x300, x256):
+            d = x.shape[1]
+            out = seg_ops.aggregate_tiles(x, *args, num_nodes=n)
+            again = seg_ops.aggregate_tiles(x, *args, num_nodes=n)
+            plain = aggregate_tiles_ref(x, *args, num_nodes=n)
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(out, again))
+            err = float((out - plain).abs().max())
+            ms = cuda_ms(lambda: seg_ops.aggregate_tiles(x, *args, num_nodes=n), reps=5)
+            plain_ms = cuda_ms(lambda: aggregate_tiles_ref(x, *args, num_nodes=n), reps=2)
+            lib_ms = cuda_ms(lambda: torch.sparse.mm(lib_a, x), reps=5)
+            nbytes = uniq * d * 4 + plan_bytes + n * d * 4
+            b_ms, b_by = bound(nbytes, 2.0 * int(live.sum()) * d, FP32_FLOPS)
+            row = dict(group=tag, tiles=p.num_tiles, lanes=p.edges_per_tile,
+                       edges=int(live.sum()), n=n, d=d, split_slots=dp.split.num_slots,
+                       max_abs_err=err, run_to_run_bitwise=bitwise, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by, bytes=nbytes,
+                       gathered_row_bytes=int(live.sum()) * d * 4)
+            rows.append(row)
+            log(f"[kernels] segment_agg {tag} T={p.num_tiles} D={d}: err={err:.3g} "
+                f"bitwise={bitwise} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                f"library_ms={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by})")
+            if not bitwise or not err <= AGE_ATOL:
+                raise RuntimeError(f"segment_agg {tag} D={d}: err {err}, bitwise {bitwise}")
+        del lib_a
+    return rows
+
+
+def phase_gemm(m):
+    import torch
+
+    from repro_torch.kernels.quant_matmul import ops as qm_ops
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for k, n, fill in ((300, 256, None), (256, 100, None), (130, 256, None), (300, 256, -128)):
+        if fill is None:
+            a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+            w = torch.randint(-128, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+        else:
+            a = torch.full((m, k), fill, device="cuda", dtype=torch.int8)
+            w = torch.full((k, n), fill, device="cuda", dtype=torch.int8)
+        packed = qm_ops.repack_weight(w)
+        out = qm_ops.quant_matmul_repacked(a, packed)
+        plain = quant_matmul_ref(a, w)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(out, plain))
+        err = float((out.double() - plain.double()).abs().max())
+        ms = cuda_ms(lambda: qm_ops.quant_matmul_repacked(a, packed), reps=5)
+        plain_ms = cuda_ms(lambda: quant_matmul_ref(a, w), reps=2)
+        kp8, np8 = -(-k // 8) * 8, -(-n // 8) * 8
+        a8 = torch.zeros((m, kp8), dtype=torch.int8, device="cuda")
+        a8[:, :k] = a
+        w8 = torch.zeros((kp8, np8), dtype=torch.int8, device="cuda")
+        w8[:k, :n] = w
+        lib_ms = cuda_ms(lambda: torch._int_mm(a8, w8), reps=5)
+        nbytes = m * k + k * n + m * n * 4
+        b_ms, b_by = bound(nbytes, 2.0 * m * n * k, INT8_OPS)
+        row = dict(m=m, k=k, n=n, fill=fill, max_abs_err=err, bitwise=exact, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by, bytes=nbytes)
+        rows.append(row)
+        log(f"[kernels] quant_matmul M={m} K={k} N={n}"
+            f"{' all -128' if fill is not None else ''}: bitwise={exact} ms={ms:.3f} "
+            f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by})")
+        if not exact:
+            raise RuntimeError(f"quant_matmul K={k} N={n} not bitwise (max err {err})")
+        if fill is not None and int(out[0, 0]) != k * 128 * 128:
+            raise RuntimeError("quant_matmul extreme case overflowed")
+        del a, w, a8, w8, out, plain
+    return rows
+
+
+def phase_cpu(srv, cfg, g):
+    import numpy as np
+
+    from repro_torch.serve.gnn_engine import GNNServeEngine
+
+    card = srv.infer(g, g.features).outputs
+    cpu = GNNServeEngine(cfg, params=srv.params, device="cpu").infer(g, g.features).outputs
+    diff = np.abs(card - cpu)
+    flips = float((diff > MIXED_FLIP).mean())
+    log(f"[cpu] {g.num_nodes}-node graph: card vs CPU max abs diff {diff.max():.4g}, "
+        f"share of entries off by > {MIXED_FLIP}: {flips:.4f}")
+    np.testing.assert_allclose(card, cpu, atol=MIXED_ATOL, rtol=MIXED_RTOL)
+    if not flips < 0.05:
+        raise RuntimeError(f"{flips:.3f} of entries differ by > {MIXED_FLIP}")
+    return dict(nodes=g.num_nodes, max_abs_diff=float(diff.max()), flip_share=flips)
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print("chip_smoke: run from the root of a checkout (src/repro_torch is missing)",
+              file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[env] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        f"torch {torch.__version__} CUDA {torch.version.cuda}; "
+        f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.models.gnn import api as gnn_api
+
+    report = phase_build()
+    cfg = get_config("ample-gcn")
+    t0 = time.perf_counter()
+    g = make_dataset("yelp", max_feature_dim=cfg.d_model, seed=0)
+    batch_graphs = [make_dataset("cora", max_feature_dim=cfg.d_model, seed=s) for s in (1, 2, 3)]
+    log(f"[data] yelp {g.num_nodes} nodes {g.num_edges} edges, "
+        f"generated in {time.perf_counter() - t0:.1f} s")
+    srv, outs, batch, counts, peak = phase_path(cfg, g, batch_graphs)
+    profile_row = phase_profile(srv, g)
+
+    entry = next(e for _, _, e in srv._cache.values() if e.graph.num_nodes >= g.num_nodes)
+    mode = gnn_api.agg_mode(cfg)
+    x300 = torch.from_numpy(srv._pad_features(g.features, entry.graph.num_nodes)).cuda()
+    age_rows = phase_age(entry, mode, x300)
+    m = int(entry.node_groups["int8"].size)
+    del x300
+    gemm_rows = phase_gemm(m)
+    cpu_row = phase_cpu(srv, cfg, make_dataset("cora", max_feature_dim=cfg.d_model, seed=4))
+
+    age, gemm = age_rows[0], gemm_rows[0]  # int8 group, layer 1: the largest call
+    kernels = [
+        dict(name="segment_agg", route="cuda", source="src/repro_torch/csrc/segment_agg.cu",
+             replaces="src/repro/kernels/segment_agg/segment_agg.py:135",
+             launches=counts.get("segment_agg", 0), max_abs_err=age["max_abs_err"],
+             ms=age["ms"], plain_ms=age["plain_ms"], bound_ms=age["bound_ms"],
+             bound_by=age["bound_by"], library_ms=age["library_ms"],
+             shape=f"int8 group T={age['tiles']} E={age['lanes']} N={age['n']} D={age['d']}"),
+        dict(name="quant_matmul", route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
+             replaces="src/repro/kernels/quant_matmul/repack.py:108",
+             launches=counts.get("quant_matmul", 0), max_abs_err=gemm["max_abs_err"],
+             ms=gemm["ms"], plain_ms=gemm["plain_ms"], bound_ms=gemm["bound_ms"],
+             bound_by=gemm["bound_by"], library_ms=gemm["library_ms"],
+             shape=f"M={gemm['m']} K={gemm['k']} N={gemm['n']}"),
+    ]
+    details = dict(
+        card=card, device=torch.cuda.get_device_name(0), torch=torch.__version__,
+        build_seconds=report.seconds, ptxas=report.ptxas_log,
+        path=dict(requests=[dict(cache_hit=r.cache_hit, plan_ms=r.plan_ms, run_ms=r.run_ms)
+                            for r in outs],
+                  batch=dict(plan_ms=batch[0].plan_ms, run_ms=batch[0].run_ms,
+                             nodes=sum(b.num_nodes for b in batch_graphs)),
+                  launches=counts, peak_bytes=peak, yelp_nodes=g.num_nodes,
+                  yelp_edges=g.num_edges),
+        profile=profile_row, segment_agg=age_rows, quant_matmul=gemm_rows, cpu=cpu_row,
+        seconds=time.perf_counter() - t_start,
+    )
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(details, f, indent=1)
+    log(f"[done] {details['seconds']:.1f} s")
+    log(json.dumps({"kernels": kernels}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,39 @@
+"""The paper's workload plus the attention extension: GCN/GIN/GraphSAGE/GAT
+inference over Table-4 graphs.
+
+The same four registrations as the reference's ``repro/configs/ample_gnn.py``.
+d_model carries the feature width, d_ff the hidden width and vocab_size the
+class count; ``gnn_arch`` selects the registry entry, ``gnn_precision`` the
+Degree-Quant policy. The FULL configs
+are Yelp-scale (717k nodes, 300 features, 100 classes); the REDUCED ones
+run on the CPU in tests. Only ``ample-gcn`` is served by the port so far.
+"""
+import functools
+
+from repro_torch.configs.base import ModelConfig, register
+
+
+def _full(arch: str) -> ModelConfig:
+    return ModelConfig(
+        name=f"ample-{arch}", family="gnn", gnn_arch=arch,
+        num_layers=2, d_model=300, d_ff=256, vocab_size=100,  # yelp
+        # Pad union batches to coarse size classes so device shapes and the
+        # plan cache stay warm under varying request mixes.
+        gnn_union_node_bucket=1024,
+        gnn_union_edge_bucket=8192,
+    )
+
+
+def _reduced(arch: str) -> ModelConfig:
+    return ModelConfig(
+        name=f"ample-{arch}", family="gnn", gnn_arch=arch,
+        num_layers=2, d_model=32, d_ff=16, vocab_size=7, gnn_edges_per_tile=64,
+    )
+
+
+for _arch in ("gcn", "gin", "sage", "gat"):
+    register(
+        f"ample-{_arch}",
+        functools.partial(_full, _arch),
+        functools.partial(_reduced, _arch),
+    )

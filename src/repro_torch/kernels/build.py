@@ -1,0 +1,181 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources under ``repro_torch/csrc/`` have a plain C interface. On first
+use they are compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+process per source, all started together, then linked into one shared
+library under ``build/repro_torch/`` at the root of the checkout and loaded
+with ``ctypes``. The library's file name carries a hash of the sources and
+flags, so an edited source is rebuilt and a built one is reused.
+
+Each kernel wrapper calls ``count_launch`` exactly where it launches its
+kernel, so a run can show that it went through the kernels:
+``reset_launch_counts()`` before the run, ``launch_counts()`` after it.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine may have neither ``nvcc`` nor a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import torch
+
+__all__ = [
+    "BuildReport",
+    "build",
+    "library",
+    "call",
+    "count_launch",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+_PKG_DIR = Path(__file__).resolve().parents[1]
+SOURCE_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parents[1] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argument types. Every entry point returns the
+# cudaError_t of its launches (0 = success).
+_SIGNATURES = {
+    "ample_segment_agg": [
+        _I,  # device
+        _P, _P, _P, _P, _P, _P, _P, _P,  # x, gather_idx, coeff, seg_ids, out_node, slot_of, split_ptr, split_node
+        _P, _P,  # partial, out
+        _I, _I, _I, _I, _I, _I,  # num_tiles, lanes, segs, n_split, d, num_nodes
+        _P,  # stream
+    ],
+    "ample_quant_matmul": [
+        _I,  # device
+        _P, _P, _P,  # a [M, K], w [N, Kp], out [M, N]
+        _I, _I, _I, _I,  # m, k, n, kp
+        _P,  # stream
+    ],
+}
+
+_launches: Dict[str, int] = {}
+_lib: Optional[ctypes.CDLL] = None
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``name``'s launch count (called where a kernel launches)."""
+    _launches[name] = _launches.get(name, 0) + 1
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    _launches.clear()
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildReport:
+    library: Path
+    seconds: float  # 0.0 when an earlier build of the same sources was reused
+    ptxas_log: str  # nvcc -Xptxas -v output: registers, shared memory, spills
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc") or "",
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin); "
+        "the CUDA kernels need the CUDA toolkit to build"
+    )
+
+
+def _sources() -> List[Path]:
+    srcs = sorted(SOURCE_DIR.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {SOURCE_DIR}")
+    return srcs
+
+
+def build() -> BuildReport:
+    """Compile ``csrc/*.cu`` into one shared library (reused when current)."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs + sorted(SOURCE_DIR.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    lib = BUILD_DIR / f"libample_kernels-{h.hexdigest()[:16]}.so"
+    log = lib.with_suffix(".log")
+    if lib.exists() and log.exists():
+        return BuildReport(lib, 0.0, log.read_text())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}"
+    t0 = time.perf_counter()
+    procs = []
+    for src in srcs:
+        obj = BUILD_DIR / f"{src.stem}-{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    logs, failed = [], []
+    for src, _, p in procs:
+        out, _ = p.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if p.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+    tmp = BUILD_DIR / f"{lib.stem}-{tag}.tmp.so"
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", *(str(o) for _, o, _ in procs), "-o", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking {lib.name} failed:\n{link.stdout}")
+    text = "\n".join(logs)
+    log_tmp = BUILD_DIR / f"{log.name}.{tag}.tmp"
+    log_tmp.write_text(text)
+    os.replace(tmp, lib)
+    os.replace(log_tmp, log)
+    return BuildReport(lib, time.perf_counter() - t0, text)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build().library))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def call(name: str, device: torch.device, *args) -> None:
+    """Launch C entry point ``name`` on ``device``'s current stream; raise
+    if the launch was refused (the entry point returns cudaGetLastError)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    status = getattr(library(), name)(index, *args, stream)
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")

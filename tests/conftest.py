@@ -39,6 +39,10 @@ def pytest_configure(config):
         "hypothesis: property-based tests (require the hypothesis package; "
         "select with -m hypothesis, deselect with -m 'not hypothesis')",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's kernels); skipped where there is none",
+    )
 
 
 def random_graph(n: int, mean_deg: float, seed: int):
