@@ -21,20 +21,38 @@ Every phase that fails raises, so the script exits non-zero.
              graphs. Launch counts are set to 0 just before and read just after;
              one more warm request runs under torch.profiler to show where its
              time goes;
-3. kernels — each kernel against its plain PyTorch version on the card, at
-             the path's shapes (AGE within 1e-4 and run-to-run bitwise; int8
-             matmul bitwise), timed with CUDA events beside the plain
-             version, one PyTorch library call and the card's bound;
+3. kernels — the AGE and the int8 matmul against their plain PyTorch
+             versions on the card, at the path's shapes (AGE within 1e-4 and
+             run-to-run bitwise; int8 matmul bitwise), timed with CUDA events
+             beside the plain version, one PyTorch library call and the card's
+             bound;
 4. cpu     — the same model served on the CPU (plain versions) on a
              cora-sized graph, against the card's output at the
              mixed-precision tolerance;
-5. summary — a JSON line of kernels, the card's name and power limit, and
+5. gat path — the same for FULL ``ample-gat`` (4 heads, 300 → 256 → 100) on
+             the same graph: each request must launch the fused attention
+             kernel 4 times and the int8 matmul twice, warm == cold bitwise,
+             peak device memory under 20 GiB; then a profiled warm request;
+6. gat decomposed — at the Yelp layer-2 shapes (H = 4, dh = 100),
+             ``edge_softmax`` + ``aggregate(edge_coeff=…)``: the multi-head AGE
+             twice per precision group, run-to-run bitwise, within atol 5e-5,
+             rtol 1e-4 of the fused layer;
+7. gat kernels — the fused attention and multi-head AGE kernels against
+             their plain versions at the Yelp shapes (both groups, H·dh = 256
+             and 400; within 1e-4 and run-to-run bitwise), timed beside the
+             plain version, the bound and, for the multi-head AGE, one
+             ``torch.sparse.mm`` with the heads folded into the rows (no
+             single PyTorch call computes the fused attention, so it has no
+             library time);
+8. gat cpu — ``ample-gat`` served on the CPU against the card;
+9. summary — a JSON line of kernels, the card's name and power limit, and
              the result line.
 
 Details of every measurement also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -51,6 +69,7 @@ FP32_FLOPS = 67e12
 INT8_OPS = 1979e12
 
 AGE_ATOL = 1e-4  # unit-normal features, summation order differs
+ATTN_ATOL, ATTN_RTOL = 5e-5, 1e-4  # decomposed vs fused GAT layer (tests/test_gat.py:101)
 MIXED_ATOL, MIXED_RTOL, MIXED_FLIP = 6e-2, 2e-3, 2e-3  # int8 code flips
 
 
@@ -87,6 +106,11 @@ def bound(nbytes: float, ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _yelp_engine(srv, g):
+    """The engine a server built for the Yelp request (the largest one cached)."""
+    return next(e for _, _, e in srv._cache.values() if e.graph.num_nodes >= g.num_nodes)
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -100,7 +124,7 @@ def phase_build():
     return report
 
 
-def phase_path(cfg, g, batch_graphs):
+def phase_path(cfg, g, batch_graphs, want, tag="path"):
     import numpy as np
     import torch
 
@@ -118,22 +142,21 @@ def phase_path(cfg, g, batch_graphs):
         delta = {k: after.get(k, 0) - before.get(k, 0) for k in after}
         per_request.append(delta)
         outs.append(resp)
-        log(f"[path] yelp infer {i}: cache_hit={resp.cache_hit} "
+        log(f"[{tag}] yelp infer {i}: cache_hit={resp.cache_hit} "
             f"plan_ms={resp.plan_ms:.1f} run_ms={resp.run_ms:.3f} launches={delta}")
     reqs = [GNNRequest(graph=b, features=b.features) for b in batch_graphs]
     before = build.launch_counts()
     batch = srv.infer_batch(reqs)
     after = build.launch_counts()
     batch_delta = {k: after.get(k, 0) - before.get(k, 0) for k in after}
-    log(f"[path] infer_batch of {len(reqs)} graphs "
+    log(f"[{tag}] infer_batch of {len(reqs)} graphs "
         f"({sum(b.num_nodes for b in batch_graphs)} nodes): "
         f"plan_ms={batch[0].plan_ms:.1f} run_ms={batch[0].run_ms:.3f} launches={batch_delta}")
     counts = build.launch_counts()  # the whole main path
     peak = torch.cuda.max_memory_allocated()
-    log(f"[path] launches over the path: {counts}; peak device memory "
+    log(f"[{tag}] launches over the path: {counts}; peak device memory "
         f"{peak / 2**30:.2f} GiB")
 
-    want = {"segment_agg": 4, "quant_matmul": 2}
     for i, d in enumerate(per_request):
         if d != want:
             raise RuntimeError(f"request {i} launched {d}, expected {want}")
@@ -148,12 +171,12 @@ def phase_path(cfg, g, batch_graphs):
     for r, b in zip(batch, batch_graphs):
         if r.outputs.shape != (b.num_nodes, cfg.vocab_size) or not np.isfinite(r.outputs).all():
             raise RuntimeError("bad batch outputs")
-    log("[path] warm == cold bitwise; outputs finite, shape "
+    log(f"[{tag}] warm == cold bitwise; outputs finite, shape "
         f"{y.shape}")
     return srv, outs, batch, counts, peak
 
 
-def phase_profile(srv, g):
+def phase_profile(srv, g, tag="profile"):
     """Where one warm Yelp request's time goes: device time by kernel or copy
     (torch.profiler), against the wall time of the whole ``infer`` call
     (host padding, upload, forward, download; run_ms covers the upload and
@@ -178,13 +201,13 @@ def phase_profile(srv, g):
     )
     busy = sum(ms for _, ms, _ in rows)
     if not rows:
-        log(f"[profile] warm infer wall_ms={wall_ms:.3f} run_ms={resp.run_ms:.3f}; "
+        log(f"[{tag}] warm infer wall_ms={wall_ms:.3f} run_ms={resp.run_ms:.3f}; "
             "device time not measured")
         return dict(wall_ms=wall_ms, run_ms=resp.run_ms, device_ms=None, top=[])
-    log(f"[profile] warm infer wall_ms={wall_ms:.3f} run_ms={resp.run_ms:.3f}, device "
+    log(f"[{tag}] warm infer wall_ms={wall_ms:.3f} run_ms={resp.run_ms:.3f}, device "
         f"busy {busy:.3f} ms (idle share of the call {max(0.0, 1 - busy / wall_ms):.3f})")
     for name, ms, count in rows[:14]:
-        log(f"[profile]   {ms:9.3f} ms  x{count:<4d} {name[:90]}")
+        log(f"[{tag}]   {ms:9.3f} ms  x{count:<4d} {name[:90]}")
     return dict(wall_ms=wall_ms, run_ms=resp.run_ms, device_ms=busy,
                 top=[dict(name=n, ms=ms, count=c) for n, ms, c in rows[:24]])
 
@@ -265,7 +288,8 @@ def phase_gemm(m):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for k, n, fill in ((300, 256, None), (256, 100, None), (130, 256, None), (300, 256, -128)):
+    for k, n, fill in ((300, 256, None), (256, 100, None), (256, 400, None), (130, 256, None),
+                       (300, 256, -128)):
         if fill is None:
             a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
             w = torch.randint(-128, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
@@ -303,7 +327,170 @@ def phase_gemm(m):
     return rows
 
 
-def phase_cpu(srv, cfg, g):
+def _heads_csr(dp, cf_t, n):
+    """The multi-head coefficients of one plan as a torch CSR [n·H, n·H]:
+    entry ((node, h), (src, h)) sums cf_t[t, e, h] over the live lanes from
+    src to node, so that out.view(n·H, dh) = A @ x.view(n·H, dh) (library
+    yardstick: the multi-head AGE with the heads folded into the rows)."""
+    import torch
+
+    h = cf_t.shape[-1]
+    live = dp.edge_ids >= 0
+    dst = torch.gather(dp.out_node, 1, dp.seg_ids.long())[live].long()
+    src = dp.gather_idx[live].long()
+    head = torch.arange(h, device=src.device)
+    rows = (dst[:, None] * h + head).reshape(-1)
+    cols = (src[:, None] * h + head).reshape(-1)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), cf_t[live].reshape(-1),
+                                  (n * h, n * h)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def _plan_bytes(dp, *, with_coeff):
+    """Bytes of the plan arrays and split map a tile kernel reads."""
+    arrays = [dp.gather_idx, dp.seg_ids, dp.out_node, dp.split.slot_of,
+              dp.split.split_ptr, dp.split.split_node] + ([dp.coeff] if with_coeff else [])
+    return sum(t.numel() * t.element_size() for t in arrays)
+
+
+def _leaky(s):
+    import torch.nn.functional as F
+
+    from repro_torch.models.gnn.gat import LEAKY_SLOPE
+
+    return F.leaky_relu(s, LEAKY_SLOPE)
+
+
+def phase_gat_decomposed(entry):
+    """The GAT layer in two passes (edge_softmax, then aggregate with per-head
+    coefficients) at the Yelp layer-2 shapes, against the fused layer."""
+    import torch
+
+    from repro_torch.core.message_passing import AmpleEngine
+    from repro_torch.kernels import build
+
+    eng = AmpleEngine(entry.graph, plan=entry.plan)
+    n, e = eng.graph.num_nodes, eng.graph.num_edges
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    z = torch.randn((n, 4, 100), generator=gen, device="cuda")
+    scores = torch.randn((e, 4), generator=gen, device="cuda")
+    fused = eng.attention_aggregate(scores, z)
+
+    def decomposed():
+        alpha = eng.edge_softmax(_leaky(scores))
+        return eng.aggregate(z, mode="runtime", edge_coeff=alpha)
+
+    decomposed()  # warm: device plans and edge endpoints are cached
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = decomposed()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = build.launch_counts()
+    again = decomposed()
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(out, again))
+    diff = (out - fused).abs()
+    err = float(diff.max())
+    close = bool((diff <= ATTN_ATOL + ATTN_RTOL * fused.abs()).all())
+    groups = len(eng.plans("runtime"))
+    log(f"[gat decomposed] N={n} E={e} H=4 dh=100, {groups} precision groups: "
+        f"launches={counts} wall_ms={wall_ms:.3f} run-to-run bitwise={bitwise}; "
+        f"vs fused max abs diff {err:.3g} (atol {ATTN_ATOL}, rtol {ATTN_RTOL}: {close})")
+    want = {"segment_agg_mh": 2 * groups}  # denominator + aggregate, per group
+    if counts != want:
+        raise RuntimeError(f"decomposed layer launched {counts}, expected {want}")
+    if not bitwise or not close:
+        raise RuntimeError(f"decomposed layer: bitwise {bitwise}, max diff to fused {err}")
+    return dict(launches=counts, groups=groups, wall_ms=wall_ms, run_to_run_bitwise=bitwise,
+                max_abs_diff_to_fused=err)
+
+
+def phase_gat_kernels(entry):
+    """Both GAT kernels against their plain versions at the Yelp shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.aggregation import tile_edge_coeff
+    from repro_torch.kernels.segment_agg import attn_ops
+    from repro_torch.kernels.segment_agg.ref import aggregate_tiles_mh_ref, attend_tiles_ref
+    from repro_torch.models.gnn.gat import LEAKY_SLOPE
+
+    n, e = entry.graph.num_nodes, entry.graph.num_edges
+    plans = entry.plans("runtime")
+    dplans = entry._device_plans("runtime", plans, torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    scores = torch.randn((e, 4), generator=gen, device="cuda")
+    alpha = entry.edge_softmax(_leaky(scores))
+    attn_rows, mh_rows = [], []
+    for tag in ("int8", "float"):
+        p, dp = plans[tag], dplans[tag]
+        live = p.edge_ids >= 0
+        lanes = int(live.sum())
+        uniq = np.unique(p.gather_idx[live]).size
+        sc_t = tile_edge_coeff(dp, scores, fill=float("-inf"))
+        cf_t = dp.coeff.unsqueeze(-1) * tile_edge_coeff(dp, alpha)
+        tile_bytes = sc_t.numel() * 4
+        lib_a = _heads_csr(dp, cf_t, n)
+        for dh in (64, 100):
+            d = 4 * dh
+            z = torch.randn((n, 4, dh), generator=gen, device="cuda")
+            attn_args = (dp.gather_idx, sc_t, dp.coeff, dp.seg_ids, dp.out_node, dp.split)
+            mh_args = (dp.gather_idx, cf_t, dp.seg_ids, dp.out_node, dp.split)
+            zf = z.view(n * 4, dh)
+            cases = (
+                ("attention", attn_rows,
+                 lambda: attn_ops.attend_tiles(z, *attn_args, num_nodes=n, leaky_slope=LEAKY_SLOPE),
+                 lambda: attend_tiles_ref(z, *attn_args, num_nodes=n, leaky_slope=LEAKY_SLOPE),
+                 None, _plan_bytes(dp, with_coeff=True), lanes * (2.0 * d + 5 * 4)),
+                ("segment_agg_mh", mh_rows,
+                 lambda: attn_ops.aggregate_tiles_mh(z, *mh_args, num_nodes=n),
+                 lambda: aggregate_tiles_mh_ref(z, *mh_args, num_nodes=n),
+                 lambda: torch.sparse.mm(lib_a, zf),
+                 _plan_bytes(dp, with_coeff=False), lanes * 2.0 * d),
+            )
+            for name, rows, kernel, plain_fn, lib_fn, plan_bytes, ops in cases:
+                out = kernel()
+                again = kernel()
+                plain = plain_fn()
+                torch.cuda.synchronize()
+                bitwise = bool(torch.equal(out, again))
+                finite = bool(torch.isfinite(out).all())
+                err = float((out - plain).abs().max())
+                ms = cuda_ms(kernel, reps=5)
+                plain_ms = cuda_ms(plain_fn, reps=2)
+                lib_ms = lib_err = None
+                if lib_fn is not None:
+                    lib_err = float((lib_fn().view_as(out) - out).abs().max())
+                    lib_ms = cuda_ms(lib_fn, reps=5)
+                nbytes = uniq * d * 4 + tile_bytes + plan_bytes + n * d * 4
+                b_ms, b_by = bound(nbytes, ops, FP32_FLOPS)
+                rows.append(dict(group=tag, tiles=p.num_tiles, lanes=p.edges_per_tile,
+                                 edges=lanes, n=n, heads=4, dh=dh, d=d,
+                                 split_slots=dp.split.num_slots, max_abs_err=err,
+                                 run_to_run_bitwise=bitwise, ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, library_err=lib_err, bound_ms=b_ms,
+                                 bound_by=b_by, bytes=nbytes,
+                                 gathered_row_bytes=lanes * d * 4))
+                lib = "" if lib_ms is None else (
+                    f" library_ms={lib_ms:.3f} (err {lib_err:.3g})")
+                log(f"[kernels] {name} {tag} T={p.num_tiles} H=4 dh={dh}: err={err:.3g} "
+                    f"bitwise={bitwise} ms={ms:.3f} plain_ms={plain_ms:.3f}{lib} "
+                    f"bound_ms={b_ms:.3f} ({b_by})")
+                if not bitwise or not finite or not err <= AGE_ATOL:
+                    raise RuntimeError(f"{name} {tag} dh={dh}: err {err}, bitwise {bitwise}, "
+                                       f"finite {finite}")
+                if lib_err is not None and not lib_err <= AGE_ATOL:
+                    raise RuntimeError(f"{name} {tag} dh={dh}: library yardstick differs "
+                                       f"by {lib_err}")
+                del out, again, plain
+            del z, zf
+        del lib_a
+    return attn_rows, mh_rows
+
+
+def phase_cpu(srv, cfg, g, tag="cpu"):
     import numpy as np
 
     from repro_torch.serve.gnn_engine import GNNServeEngine
@@ -312,7 +499,7 @@ def phase_cpu(srv, cfg, g):
     cpu = GNNServeEngine(cfg, params=srv.params, device="cpu").infer(g, g.features).outputs
     diff = np.abs(card - cpu)
     flips = float((diff > MIXED_FLIP).mean())
-    log(f"[cpu] {g.num_nodes}-node graph: card vs CPU max abs diff {diff.max():.4g}, "
+    log(f"[{tag}] {g.num_nodes}-node graph: card vs CPU max abs diff {diff.max():.4g}, "
         f"share of entries off by > {MIXED_FLIP}: {flips:.4f}")
     np.testing.assert_allclose(card, cpu, atol=MIXED_ATOL, rtol=MIXED_RTOL)
     if not flips < 0.05:
@@ -352,43 +539,78 @@ def main() -> int:
     batch_graphs = [make_dataset("cora", max_feature_dim=cfg.d_model, seed=s) for s in (1, 2, 3)]
     log(f"[data] yelp {g.num_nodes} nodes {g.num_edges} edges, "
         f"generated in {time.perf_counter() - t0:.1f} s")
-    srv, outs, batch, counts, peak = phase_path(cfg, g, batch_graphs)
+    srv, outs, batch, counts, peak = phase_path(
+        cfg, g, batch_graphs, {"segment_agg": 4, "quant_matmul": 2})
     profile_row = phase_profile(srv, g)
 
-    entry = next(e for _, _, e in srv._cache.values() if e.graph.num_nodes >= g.num_nodes)
+    entry = _yelp_engine(srv, g)
     mode = gnn_api.agg_mode(cfg)
     x300 = torch.from_numpy(srv._pad_features(g.features, entry.graph.num_nodes)).cuda()
     age_rows = phase_age(entry, mode, x300)
     m = int(entry.node_groups["int8"].size)
     del x300
     gemm_rows = phase_gemm(m)
-    cpu_row = phase_cpu(srv, cfg, make_dataset("cora", max_feature_dim=cfg.d_model, seed=4))
+    cora = make_dataset("cora", max_feature_dim=cfg.d_model, seed=4)
+    cpu_row = phase_cpu(srv, cfg, cora)
+    del srv, entry
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    age, gemm = age_rows[0], gemm_rows[0]  # int8 group, layer 1: the largest call
+    gat_cfg = get_config("ample-gat")
+    gsrv, gouts, gbatch, gcounts, gpeak = phase_path(
+        gat_cfg, g, batch_graphs, {"attention": 4, "quant_matmul": 2}, tag="gat path")
+    if gpeak >= 20 * 2**30:
+        raise RuntimeError(f"GAT path peak device memory {gpeak / 2**30:.2f} GiB >= 20 GiB")
+    gprofile_row = phase_profile(gsrv, g, tag="gat profile")
+    gentry = _yelp_engine(gsrv, g)
+    dec_row = phase_gat_decomposed(gentry)
+    attn_rows, mh_rows = phase_gat_kernels(gentry)
+    gcpu_row = phase_cpu(gsrv, gat_cfg, cora, tag="gat cpu")
+
+    def kernel_row(name, source, replaces, launches, row, shape):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=row["library_ms"], shape=shape)
+
+    # The largest call of each kernel on its path: the int8 group, at D = 300
+    # (AGE), K = 300 (GEMM), and H·dh = 4·100 (GAT layer 2).
+    age, gemm = age_rows[0], gemm_rows[0]
+    attn = next(r for r in attn_rows if r["group"] == "int8" and r["dh"] == 100)
+    mh = next(r for r in mh_rows if r["group"] == "int8" and r["dh"] == 100)
+    gat_shape = "int8 group T={tiles} E={lanes} N={n} H={heads} dh={dh}"
     kernels = [
-        dict(name="segment_agg", route="cuda", source="src/repro_torch/csrc/segment_agg.cu",
-             replaces="src/repro/kernels/segment_agg/segment_agg.py:135",
-             launches=counts.get("segment_agg", 0), max_abs_err=age["max_abs_err"],
-             ms=age["ms"], plain_ms=age["plain_ms"], bound_ms=age["bound_ms"],
-             bound_by=age["bound_by"], library_ms=age["library_ms"],
-             shape=f"int8 group T={age['tiles']} E={age['lanes']} N={age['n']} D={age['d']}"),
-        dict(name="quant_matmul", route="cuda", source="src/repro_torch/csrc/quant_matmul.cu",
-             replaces="src/repro/kernels/quant_matmul/repack.py:108",
-             launches=counts.get("quant_matmul", 0), max_abs_err=gemm["max_abs_err"],
-             ms=gemm["ms"], plain_ms=gemm["plain_ms"], bound_ms=gemm["bound_ms"],
-             bound_by=gemm["bound_by"], library_ms=gemm["library_ms"],
-             shape=f"M={gemm['m']} K={gemm['k']} N={gemm['n']}"),
+        kernel_row("segment_agg", "src/repro_torch/csrc/segment_agg.cu",
+                   "src/repro/kernels/segment_agg/segment_agg.py:135",
+                   counts.get("segment_agg", 0), age,
+                   f"int8 group T={age['tiles']} E={age['lanes']} N={age['n']} D={age['d']}"),
+        kernel_row("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
+                   "src/repro/kernels/quant_matmul/repack.py:108",
+                   counts.get("quant_matmul", 0), gemm,
+                   f"M={gemm['m']} K={gemm['k']} N={gemm['n']}"),
+        kernel_row("attention", "src/repro_torch/csrc/attn_agg.cu",
+                   "src/repro/kernels/segment_agg/attn_kernel.py:194",
+                   gcounts.get("attention", 0), attn, gat_shape.format(**attn)),
+        kernel_row("segment_agg_mh", "src/repro_torch/csrc/attn_agg.cu",
+                   "src/repro/kernels/segment_agg/attn_kernel.py:239",
+                   dec_row["launches"].get("segment_agg_mh", 0), mh, gat_shape.format(**mh)),
     ]
+
+    def path_detail(outs, batch, counts, peak):
+        return dict(requests=[dict(cache_hit=r.cache_hit, plan_ms=r.plan_ms, run_ms=r.run_ms)
+                              for r in outs],
+                    batch=dict(plan_ms=batch[0].plan_ms, run_ms=batch[0].run_ms,
+                               nodes=sum(b.num_nodes for b in batch_graphs)),
+                    launches=counts, peak_bytes=peak, yelp_nodes=g.num_nodes,
+                    yelp_edges=g.num_edges)
+
     details = dict(
         card=card, device=torch.cuda.get_device_name(0), torch=torch.__version__,
         build_seconds=report.seconds, ptxas=report.ptxas_log,
-        path=dict(requests=[dict(cache_hit=r.cache_hit, plan_ms=r.plan_ms, run_ms=r.run_ms)
-                            for r in outs],
-                  batch=dict(plan_ms=batch[0].plan_ms, run_ms=batch[0].run_ms,
-                             nodes=sum(b.num_nodes for b in batch_graphs)),
-                  launches=counts, peak_bytes=peak, yelp_nodes=g.num_nodes,
-                  yelp_edges=g.num_edges),
-        profile=profile_row, segment_agg=age_rows, quant_matmul=gemm_rows, cpu=cpu_row,
+        path=path_detail(outs, batch, counts, peak), profile=profile_row,
+        segment_agg=age_rows, quant_matmul=gemm_rows, cpu=cpu_row,
+        gat_path=path_detail(gouts, gbatch, gcounts, gpeak), gat_profile=gprofile_row,
+        gat_decomposed=dec_row, attention=attn_rows, segment_agg_mh=mh_rows, gat_cpu=gcpu_row,
         seconds=time.perf_counter() - t_start,
     )
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

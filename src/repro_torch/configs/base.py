@@ -28,6 +28,7 @@ class ModelConfig:
     gnn_hidden: Tuple[int, ...] = ()  # explicit hidden widths; () -> (d_ff,)*(L-1)
     gnn_agg: str = ""  # aggregation coefficient mode override ("" = arch default)
     gnn_precision: str = "mixed"  # mixed (Degree-Quant int8/float) | float
+    gnn_heads: int = 1  # attention heads (gat); hidden dims must divide by it
     gnn_edges_per_tile: int = 256  # event-driven tile width (AGE lanes)
     gnn_union_node_bucket: int = 0  # pad union batches to node size classes (0=exact)
     gnn_union_edge_bucket: int = 0  # pad union tile stacks to edge size classes

@@ -11,6 +11,10 @@ dequantized, as the reference does (``repro/core/aggregation.py``).
 
 The per-edge ``coeff`` folds the aggregation function into the plan:
 sum → 1, mean → 1/deg, GCN → 1/√(d̂_i d̂_j). Invalid lanes carry coeff 0.
+Runtime coefficients (GAT attention) arrive per request in graph edge space
+and are scattered into tile layout through the plan's ``edge_ids``
+(``tile_edge_coeff``); an ``[E, H]`` matrix with ``x [N, H, dh]`` runs the
+multi-head kernel (``kernels/segment_agg/attn_ops.py``).
 """
 from __future__ import annotations
 
@@ -25,24 +29,34 @@ from repro_torch.core.quantization import (
     dequantize,
     quantize,
 )
+from repro_torch.kernels.segment_agg import attn_ops
 from repro_torch.kernels.segment_agg import ops as seg_ops
 
 __all__ = [
     "DeviceTilePlan",
     "to_device_plan",
+    "tile_edge_coeff",
     "aggregate_edge_tiles",
     "aggregate_mixed_precision",
+    "segment_max_edge_tiles",
+    "edge_segment_sum_tiles",
 ]
 
 
 class DeviceTilePlan(NamedTuple):
-    """Device mirror of ``scheduler.EdgeTilePlan`` plus its split map."""
+    """Device mirror of ``scheduler.EdgeTilePlan`` plus its split map.
+
+    ``edge_ids`` maps lanes to graph edges for runtime coefficients. It is
+    uploaded with every plan, static-coeff modes included, which never read
+    it: int32[T, E], 59 MB for the Yelp plans of both precision groups.
+    """
 
     gather_idx: torch.Tensor  # int32[T, E]
     coeff: torch.Tensor  # f32[T, E]
     seg_ids: torch.Tensor  # int32[T, E]
     out_node: torch.Tensor  # int32[T, S]
     split: seg_ops.SplitMap  # which segments feed nodes split across tiles
+    edge_ids: torch.Tensor  # int32[T, E]; -1 on padding lanes
 
 
 def to_device_plan(plan: sched.EdgeTilePlan, device) -> DeviceTilePlan:
@@ -62,22 +76,103 @@ def to_device_plan(plan: sched.EdgeTilePlan, device) -> DeviceTilePlan:
         seg_ids=up(plan.seg_ids, torch.int32),
         out_node=up(plan.out_node, torch.int32),
         split=split.to(device),
+        edge_ids=up(plan.edge_ids, torch.int32),
     )
+
+
+def tile_edge_coeff(
+    dplan: DeviceTilePlan, edge_coeff: torch.Tensor, *, fill: float = 0.0
+) -> torch.Tensor:
+    """Scatter a per-edge runtime matrix into tile layout: f32[T, E(, H)].
+
+    ``edge_coeff`` is indexed by graph edge position (the space
+    ``EdgeTilePlan.edge_ids`` maps lanes into) and may carry a trailing head
+    axis; padding lanes (edge id -1) read ``fill``.
+    """
+    e = edge_coeff.shape[0]
+    padded = torch.cat([
+        edge_coeff,
+        torch.full((1,) + tuple(edge_coeff.shape[1:]), fill, dtype=edge_coeff.dtype,
+                   device=edge_coeff.device),
+    ])
+    idx = torch.where(dplan.edge_ids < 0, e, dplan.edge_ids).long()
+    return padded[idx]
 
 
 def aggregate_edge_tiles(
-    x: torch.Tensor, dplan: DeviceTilePlan, *, num_nodes: int
+    x: torch.Tensor,
+    dplan: DeviceTilePlan,
+    *,
+    num_nodes: int,
+    edge_coeff: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Event-driven aggregation over one plan's tiles: f32[num_nodes, D]."""
-    return seg_ops.aggregate_tiles(
-        x,
-        dplan.gather_idx,
-        dplan.coeff,
-        dplan.seg_ids,
-        dplan.out_node,
-        dplan.split,
-        num_nodes=num_nodes,
+    """Event-driven aggregation over one plan's tiles: f32[num_nodes, …].
+
+    ``edge_coeff`` supplies runtime per-edge coefficients (graph edge space),
+    scattered into tile layout through ``edge_ids`` and multiplied with the
+    static coeff (1 on every real lane of a ``"runtime"`` plan). A 1-D
+    ``edge_coeff`` goes to the AGE kernel; ``[E, H]`` with ``x [N, H, dh]``
+    goes to the multi-head kernel, each head's coefficients applying to its
+    slice of the row. Head-uniform coefficients on ``x [N, H, dh]`` treat the
+    heads as feature columns.
+    """
+    coeff = dplan.coeff
+    if edge_coeff is not None:
+        tc = tile_edge_coeff(dplan, edge_coeff)  # [T, E] or [T, E, H]
+        coeff = coeff.unsqueeze(-1) * tc if tc.dim() == 3 else coeff * tc
+    args = (dplan.gather_idx, coeff, dplan.seg_ids, dplan.out_node, dplan.split)
+    if coeff.dim() == 3:
+        return attn_ops.aggregate_tiles_mh(x, *args, num_nodes=num_nodes)
+    if x.dim() == 3:
+        n, h, dh = x.shape
+        flat = seg_ops.aggregate_tiles(x.reshape(n, h * dh), *args, num_nodes=num_nodes)
+        return flat.view(num_nodes, h, dh)
+    return seg_ops.aggregate_tiles(x, *args, num_nodes=num_nodes)
+
+
+def segment_max_edge_tiles(
+    scores: torch.Tensor, dplan: DeviceTilePlan, *, num_nodes: int
+) -> torch.Tensor:
+    """Destination-segment max of per-edge scores over one plan's tiles:
+    f32[N(, H)], −inf for nodes this plan gives no edges.
+
+    The max-shift pass of the segment softmax: scores scatter into tile
+    layout through ``edge_ids`` (padding lanes read −inf) and reduce by
+    each lane's destination node. A max does not depend on the order of its
+    operands, so the scatter is the same run to run on the card too.
+    """
+    sc = tile_edge_coeff(dplan, scores, fill=float("-inf"))  # [T, E(, H)]
+    node = torch.gather(dplan.out_node, 1, dplan.seg_ids.long()).reshape(-1).long()
+    flat = sc.reshape((node.numel(),) + tuple(scores.shape[1:]))
+    if flat.dim() == 2:
+        node = node.unsqueeze(1).expand_as(flat)
+    out = torch.full((num_nodes + 1,) + tuple(scores.shape[1:]), float("-inf"),
+                     dtype=scores.dtype, device=scores.device)
+    out.scatter_reduce_(0, node, flat, "amax")
+    return out[:num_nodes]
+
+
+def edge_segment_sum_tiles(
+    values: torch.Tensor, dplan: DeviceTilePlan, *, num_nodes: int
+) -> torch.Tensor:
+    """Destination-segment sum of per-edge values over one plan's tiles:
+    f32[N(, H)].
+
+    The denominator pass of the segment softmax. The values scatter into tile
+    layout (padding lanes read 0) and become the per-head lane coefficients
+    of the multi-head AGE over rows of ones, so split nodes combine in tile
+    order as in the aggregation, with no atomics.
+    """
+    v = tile_edge_coeff(dplan, values)
+    if v.dim() == 2:
+        v = v.unsqueeze(-1)
+    h = v.shape[-1]
+    ones = torch.ones((num_nodes, h, 1), dtype=values.dtype, device=values.device)
+    out = attn_ops.aggregate_tiles_mh(
+        ones, dplan.gather_idx, v, dplan.seg_ids, dplan.out_node,
+        dplan.split, num_nodes=num_nodes,
     )
+    return out.view((num_nodes,) + tuple(values.shape[1:]))
 
 
 def aggregate_mixed_precision(
@@ -87,6 +182,7 @@ def aggregate_mixed_precision(
     num_nodes: int,
     qp: Optional[QuantParams] = None,
     device_plans: Optional[Dict[str, DeviceTilePlan]] = None,
+    edge_coeff: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mixed-precision AGE: the float plan consumes fp32 embeddings; the int8
     plan consumes int8-quantized embeddings, dequantized before accumulate.
@@ -95,7 +191,9 @@ def aggregate_mixed_precision(
     the sum of the two. ``qp`` overrides the activation scale/zero-point
     (per-call min/max calibration otherwise) — the engine passes its per-plan
     static quant state here. ``device_plans`` supplies already-uploaded
-    ``DeviceTilePlan`` mirrors keyed like ``plans``.
+    ``DeviceTilePlan`` mirrors keyed like ``plans``. ``edge_coeff`` is the
+    runtime per-edge coefficient vector or ``[E, H]`` matrix (graph edge
+    space) both streams scatter through their ``edge_ids``.
     """
     for tag in plans:
         if tag not in ("float", "int8"):
@@ -107,10 +205,14 @@ def aggregate_mixed_precision(
 
     out = torch.zeros((num_nodes,) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
     if "float" in plans:
-        out = out + aggregate_edge_tiles(x, dplan("float"), num_nodes=num_nodes)
+        out = out + aggregate_edge_tiles(
+            x, dplan("float"), num_nodes=num_nodes, edge_coeff=edge_coeff
+        )
     if "int8" in plans:
         if qp is None:
             qp = compute_scale_zp(x, symmetric=True)
         xdq = dequantize(quantize(x, qp), qp)
-        out = out + aggregate_edge_tiles(xdq, dplan("int8"), num_nodes=num_nodes)
+        out = out + aggregate_edge_tiles(
+            xdq, dplan("int8"), num_nodes=num_nodes, edge_coeff=edge_coeff
+        )
     return out

@@ -30,12 +30,17 @@ from repro_torch.core.aggregation import (
     DeviceTilePlan,
     aggregate_edge_tiles,
     aggregate_mixed_precision,
+    edge_segment_sum_tiles,
+    segment_max_edge_tiles,
+    tile_edge_coeff,
     to_device_plan,
 )
 from repro_torch.core.degree_quant import DegreeQuantConfig, inference_precision_tags
 from repro_torch.core.quantization import (
     QuantParams,
     compute_scale_zp,
+    dequantize,
+    quantize,
     quantize_per_channel,
 )
 from repro_torch.core.transformation import (
@@ -44,6 +49,7 @@ from repro_torch.core.transformation import (
 )
 from repro_torch.graphs.csr import Graph, gcn_norm_coeffs
 from repro_torch.kernels.quant_matmul import ops as qm_ops
+from repro_torch.kernels.segment_agg import attn_ops
 
 __all__ = [
     "EngineConfig",
@@ -372,6 +378,9 @@ class AmpleEngine:
         # (mode, device) -> tag -> DeviceTilePlan; device -> tag -> node ids.
         self._dplan_cache: Dict[Tuple[str, str], Dict[str, DeviceTilePlan]] = {}
         self._group_cache: Dict[str, Dict[str, torch.Tensor]] = {}
+        # device -> (src, dst) node id per edge; modes whose edge ids were checked.
+        self._endpoint_cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._eids_checked: set = set()
         # Static per-plan activation quantization state (serving): calibrated
         # once per call-site slot and reused on warm requests — see
         # begin_forward().
@@ -426,6 +435,23 @@ class AmpleEngine:
             }
         return self._dplan_cache[key]
 
+    def _require_edge_ids(self, mode: str, plans: Mapping[str, sched.EdgeTilePlan]) -> None:
+        """Refuse runtime coefficients on plans without live edge ids.
+
+        Every real edge must own exactly one live lane; a plan whose lanes
+        sit at -1 would silently zero every coefficient scattered through it.
+        """
+        if mode in self._eids_checked:
+            return
+        for tag, p in plans.items():
+            if int((p.edge_ids >= 0).sum()) != p.total_edges:
+                raise ValueError(
+                    f"plan for mode {mode!r} tag {tag!r} carries edge-id "
+                    "indirection for only part of its edges; recompile the "
+                    "plan to use edge_coeff / edge_softmax"
+                )
+        self._eids_checked.add(mode)
+
     def _device_groups(self, device: torch.device) -> Dict[str, torch.Tensor]:
         """Cached device copies of the precision groups' node ids."""
         key = str(device)
@@ -449,9 +475,39 @@ class AmpleEngine:
         return self._plans[mode]
 
     # ----------------------------------------------------------------- AGE
-    def aggregate(self, x: torch.Tensor, *, mode: str = "sum") -> torch.Tensor:
-        """Event-driven mixed-precision aggregation of node embeddings."""
+    def aggregate(
+        self,
+        x: torch.Tensor,
+        *,
+        mode: str = "sum",
+        edge_coeff: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Event-driven mixed-precision aggregation of node embeddings.
+
+        ``edge_coeff`` is a runtime per-edge coefficient vector (f32[E] in
+        this graph's edge space), scattered into tile layout through the
+        plan's ``edge_ids`` and multiplied with the static coefficients. The
+        plan stays structure-keyed, so serving caches are untouched by
+        per-request coefficients. Multi-head: ``edge_coeff`` f32[E, H] with
+        ``x`` f32[N, H, dh] aggregates all heads in one tile pass.
+        """
         plans = self.plans(mode)
+        if edge_coeff is not None:
+            edge_coeff = torch.as_tensor(edge_coeff, dtype=torch.float32, device=x.device)
+            e = self.graph.num_edges
+            if not (
+                tuple(edge_coeff.shape) == (e,)
+                or (edge_coeff.dim() == 2 and edge_coeff.shape[0] == e)
+            ):
+                raise ValueError(
+                    f"edge_coeff must be [{e}] or [{e}, H], got {tuple(edge_coeff.shape)}"
+                )
+            if edge_coeff.dim() == 2 and (x.dim() != 3 or x.shape[1] != edge_coeff.shape[1]):
+                raise ValueError(
+                    f"multi-head edge_coeff {tuple(edge_coeff.shape)} needs x shaped "
+                    f"[N, {edge_coeff.shape[1]}, dh], got {tuple(x.shape)}"
+                )
+            self._require_edge_ids(mode, plans)
         dplans = self._device_plans(mode, plans, x.device)
         if self.cfg.mixed_precision:
             qp = self._activation_qp(lambda: x, "agg") if "int8" in plans else None
@@ -461,8 +517,105 @@ class AmpleEngine:
                 num_nodes=self.graph.num_nodes,
                 qp=qp,
                 device_plans=dplans,
+                edge_coeff=edge_coeff,
             )
-        return aggregate_edge_tiles(x, dplans["float"], num_nodes=self.graph.num_nodes)
+        return aggregate_edge_tiles(
+            x, dplans["float"], num_nodes=self.graph.num_nodes, edge_coeff=edge_coeff
+        )
+
+    # ------------------------------------------------ runtime coefficients
+    def edge_endpoints(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(src, dst) node id per edge, int64[E] each on ``device`` — cached
+        structural arrays (dst follows from the CSR row layout)."""
+        key = str(device)
+        if key not in self._endpoint_cache:
+            g = self.graph
+            dst = np.repeat(np.arange(g.num_nodes, dtype=np.int64), g.degrees)
+            self._endpoint_cache[key] = (
+                torch.as_tensor(g.indices, dtype=torch.int64).to(device),
+                torch.from_numpy(dst).to(device),
+            )
+        return self._endpoint_cache[key]
+
+    def edge_softmax(self, scores: torch.Tensor, *, mode: str = "runtime") -> torch.Tensor:
+        """Destination-segment softmax of per-edge scores: f32[E(, H)].
+
+        Runs over the same event-driven tiles as aggregation, per precision
+        group (the groups cover disjoint destination sets): a segment-max
+        pass gives the per-node shift, scores are exp-shifted in edge space,
+        and a segment-sum pass (the multi-head AGE kernel on the card)
+        accumulates the denominators. Nodes with no in-edges in the plan get
+        max 0 and denominator 1, so the result is finite everywhere. Nothing
+        here sums floats with atomics, so it is the same run to run.
+        """
+        scores = torch.as_tensor(scores, dtype=torch.float32)
+        e = self.graph.num_edges
+        if not (
+            tuple(scores.shape) == (e,) or (scores.dim() == 2 and scores.shape[0] == e)
+        ):
+            raise ValueError(f"scores must be [{e}] or [{e}, H], got {tuple(scores.shape)}")
+        plans = self.plans(mode)
+        self._require_edge_ids(mode, plans)
+        dplans = self._device_plans(mode, plans, scores.device)
+        n = self.graph.num_nodes
+        rest = tuple(scores.shape[1:])
+        node_max = torch.full((n,) + rest, float("-inf"), device=scores.device)
+        for dp in dplans.values():
+            node_max = torch.maximum(node_max, segment_max_edge_tiles(scores, dp, num_nodes=n))
+        node_max = torch.where(torch.isfinite(node_max), node_max, torch.zeros_like(node_max))
+        _, dst = self.edge_endpoints(scores.device)
+        ex = torch.exp(scores - node_max[dst])
+        denom = torch.zeros((n,) + rest, device=scores.device)
+        for dp in dplans.values():
+            denom = denom + edge_segment_sum_tiles(ex, dp, num_nodes=n)
+        denom = torch.where(denom > 0, denom, torch.ones_like(denom))
+        return ex / denom[dst]
+
+    def attention_aggregate(
+        self,
+        scores: torch.Tensor,
+        z: torch.Tensor,
+        *,
+        mode: str = "runtime",
+        leaky_slope: float = 0.2,
+    ) -> torch.Tensor:
+        """One GAT layer's attention: softmax(LeakyReLU(scores)) aggregate.
+
+        ``scores`` are the RAW per-edge logits f32[E, H]; ``z`` the
+        head-stacked projected embeddings f32[N, H, dh]. Returns
+        f32[N, H, dh]. Each precision group runs the fused attention kernel
+        (LeakyReLU → tile-local segment max → exp → segment sum → weighted
+        aggregate in one tile pass, combined across tiles by a log-sum-exp
+        rescale): the float group on ``z``, the int8 group on ``z``
+        quantized to int8 and dequantized. Precision groups cover disjoint
+        destination nodes, so per-group softmax is exact. ``edge_softmax``
+        plus ``aggregate(edge_coeff=…)`` is the same layer in two passes.
+        """
+        z = torch.as_tensor(z, dtype=torch.float32)
+        scores = torch.as_tensor(scores, dtype=torch.float32, device=z.device)
+        e, n = self.graph.num_edges, self.graph.num_nodes
+        if scores.dim() != 2 or scores.shape[0] != e:
+            raise ValueError(f"scores must be [{e}, H], got {tuple(scores.shape)}")
+        h = scores.shape[1]
+        if z.dim() != 3 or z.shape[0] != n or z.shape[1] != h:
+            raise ValueError(f"z must be [{n}, {h}, dh], got {tuple(z.shape)}")
+        plans = self.plans(mode)
+        self._require_edge_ids(mode, plans)
+        dplans = self._device_plans(mode, plans, z.device)
+        qp = None
+        if self.cfg.mixed_precision and "int8" in plans:
+            qp = self._activation_qp(lambda: z, "agg")
+        out = torch.zeros_like(z)
+        for tag, dp in dplans.items():
+            x = z
+            if tag == "int8" and self.cfg.mixed_precision:
+                x = dequantize(quantize(z, qp), qp)
+            sc_t = tile_edge_coeff(dp, scores, fill=float("-inf"))
+            out = out + attn_ops.attend_tiles(
+                x, dp.gather_idx, sc_t, dp.coeff, dp.seg_ids, dp.out_node, dp.split,
+                num_nodes=n, leaky_slope=leaky_slope,
+            )
+        return out
 
     # ----------------------------------------------------------------- FTE
     def _weight_q(self, w: torch.Tensor):

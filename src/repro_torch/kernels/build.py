@@ -48,6 +48,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point -> argument types. Every entry point returns the
 # cudaError_t of its launches (0 = success).
 _SIGNATURES = {
@@ -56,6 +57,21 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P,  # x, gather_idx, coeff, seg_ids, out_node, slot_of, split_ptr, split_node
         _P, _P,  # partial, out
         _I, _I, _I, _I, _I, _I,  # num_tiles, lanes, segs, n_split, d, num_nodes
+        _P,  # stream
+    ],
+    "ample_attention": [
+        _I,  # device
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # x, gather_idx, scores, coeff, seg_ids, out_node, slot_of, split_ptr, split_node
+        _P, _P, _P, _P,  # part_a, part_m, part_l, out
+        _I, _I, _I, _I, _I, _I, _I,  # num_tiles, lanes, segs, heads, dh, n_split, num_nodes
+        _F,  # leaky slope
+        _P,  # stream
+    ],
+    "ample_segment_agg_mh": [
+        _I,  # device
+        _P, _P, _P, _P, _P, _P, _P, _P,  # x, gather_idx, coeff, seg_ids, out_node, slot_of, split_ptr, split_node
+        _P, _P,  # part_a, out
+        _I, _I, _I, _I, _I, _I, _I,  # num_tiles, lanes, segs, heads, dh, n_split, num_nodes
         _P,  # stream
     ],
     "ample_quant_matmul": [

@@ -1,15 +1,79 @@
-"""Plain PyTorch version of the AGE kernel (``csrc/segment_agg.cu``).
+"""Plain PyTorch versions of the AGE kernels (``csrc/segment_agg.cu``,
+``csrc/attn_agg.cu``).
 
-The same function as the kernel, by the same route: per-tile segment sums,
-written straight to the output for nodes that live in one tile and to compact
-partial rows for split nodes, whose partials are then summed in tile order.
-The CPU tests run it; on the card it is what the kernel is checked against.
+The same functions as the kernels, by the same route: per-tile segment
+results, written straight to the output for nodes that live in one tile and
+to compact partial rows for split nodes, whose partials are then combined in
+tile order. The CPU tests run them; on the card they are what the kernels
+are checked against.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["aggregate_tiles_ref"]
+__all__ = [
+    "aggregate_tiles_ref",
+    "aggregate_tiles_mh_ref",
+    "attend_tiles_ref",
+    "combine_attention",
+]
+
+
+def _chunks(t: int, tile_chunk: int):
+    for t0 in range(0, t, tile_chunk):
+        yield t0, min(t, t0 + tile_chunk)
+
+
+def _lane_dest(seg_ids: torch.Tensor, t0: int, t1: int, s: int) -> torch.Tensor:
+    """Row of each lane's segment in a [(t1 - t0)·S, …] chunk buffer."""
+    base = torch.arange(t1 - t0, device=seg_ids.device).unsqueeze(1) * s
+    return (base + seg_ids[t0:t1]).reshape(-1)
+
+
+def _place(out, partial, rows, out_node, split, t0, t1, num_nodes) -> None:
+    """Chunk segment rows → output rows (one-tile nodes) or partial rows."""
+    node = out_node[t0:t1].reshape(-1).long()
+    slot = split.slot_of[t0:t1].reshape(-1).long()
+    direct = (node < num_nodes) & (slot < 0)
+    out[node[direct]] = rows[direct]
+    part = slot >= 0
+    partial[slot[part]] = rows[part]
+
+
+def _split_sum(partial: torch.Tensor, split) -> torch.Tensor:
+    """Each split node's partial rows summed in tile order: [P, …]."""
+    ptr = split.split_ptr.long()
+    count = ptr[1:] - ptr[:-1]
+    acc = torch.zeros((count.numel(),) + partial.shape[1:], dtype=partial.dtype,
+                      device=partial.device)
+    for k in range(int(count.max()) if count.numel() else 0):
+        has = count > k
+        acc[has] += partial[ptr[:-1][has] + k]
+    return acc
+
+
+def _aggregate(x, gather_idx, coeff, seg_ids, out_node, split, num_nodes, tile_chunk):
+    """x f32[N, D]; coeff f32[T, E] (one per lane) or f32[T, E, H] (one per
+    lane and head, each head owning D / H consecutive columns)."""
+    t = gather_idx.shape[0]
+    s = out_node.shape[1]
+    d = x.shape[1]
+    dev = x.device
+    out = torch.zeros((num_nodes, d), dtype=x.dtype, device=dev)
+    partial = torch.zeros((split.num_slots, d), dtype=x.dtype, device=dev)
+    for t0, t1 in _chunks(t, tile_chunk):
+        msg = x[gather_idx[t0:t1].long()]  # [c, E, D]
+        cf = coeff[t0:t1]
+        if cf.dim() == 3:
+            c, e, h = cf.shape
+            msg = (msg.view(c, e, h, d // h) * cf.unsqueeze(-1)).view(c, e, d)
+        else:
+            msg = msg * cf.unsqueeze(-1)
+        sums = torch.zeros(((t1 - t0) * s, d), dtype=x.dtype, device=dev)
+        sums.index_add_(0, _lane_dest(seg_ids, t0, t1, s), msg.reshape(-1, d))
+        _place(out, partial, sums, out_node, split, t0, t1, num_nodes)
+    out[split.split_node.long()] = _split_sum(partial, split)
+    return out
 
 
 def aggregate_tiles_ref(
@@ -28,30 +92,111 @@ def aggregate_tiles_ref(
     Tiles are processed ``tile_chunk`` at a time, which bounds the gathered
     messages to ``tile_chunk · E · D`` floats.
     """
-    t, _ = gather_idx.shape
+    return _aggregate(x, gather_idx, coeff, seg_ids, out_node, split, num_nodes, tile_chunk)
+
+
+def aggregate_tiles_mh_ref(
+    x: torch.Tensor,  # f32[N, H, dh]
+    gather_idx: torch.Tensor,  # int32[T, E]
+    coeff: torch.Tensor,  # f32[T, E, H] per-head lane coefficients
+    seg_ids: torch.Tensor,  # int32[T, E]
+    out_node: torch.Tensor,  # int32[T, S]
+    split,
+    *,
+    num_nodes: int,
+    tile_chunk: int = 1024,
+) -> torch.Tensor:
+    """f32[num_nodes, H, dh]: Σ coeff[·, h]·x[gather_idx, h] per head."""
+    n, h, dh = x.shape
+    out = _aggregate(x.reshape(n, h * dh), gather_idx, coeff, seg_ids, out_node,
+                     split, num_nodes, tile_chunk)
+    return out.view(num_nodes, h, dh)
+
+
+def combine_attention(
+    m: torch.Tensor,  # f32[R, H] segment max of each partial row
+    l: torch.Tensor,  # f32[R, H] Σ exp(score − m)
+    a: torch.Tensor,  # f32[R, H, dh] Σ coeff·exp(score − m)·x
+    row_node: torch.Tensor,  # int[R] node of each row; num_nodes = none
+    *,
+    num_nodes: int,
+) -> torch.Tensor:
+    """Cross-row log-sum-exp combine → f32[num_nodes, H, dh].
+
+    ``M = max m`` per node (0 where no row is finite), ``L = Σ l·exp(m − M)``,
+    ``A = Σ a·exp(m − M)``, ``out = A / L`` (``A`` where ``L`` is 0). Rows
+    are summed in row order.
+    """
+    r, h = m.shape
+    node = row_node.long()
+    big_m = torch.full((num_nodes + 1, h), float("-inf"), dtype=m.dtype, device=m.device)
+    big_m.scatter_reduce_(0, node.unsqueeze(1).expand(r, h), m, "amax")
+    big_m = torch.where(torch.isfinite(big_m), big_m, torch.zeros_like(big_m))
+    # Rows of empty segments carry m = −inf → scale 0, so they vanish here.
+    scale = torch.exp(m - big_m[node])
+    big_l = torch.zeros((num_nodes + 1, h), dtype=m.dtype, device=m.device)
+    big_l.index_add_(0, node, l * scale)
+    big_a = torch.zeros((num_nodes + 1,) + a.shape[1:], dtype=a.dtype, device=a.device)
+    big_a.index_add_(0, node, a * scale.unsqueeze(-1))
+    denom = torch.where(big_l > 0, big_l, torch.ones_like(big_l))
+    return (big_a / denom.unsqueeze(-1))[:num_nodes]
+
+
+def attend_tiles_ref(
+    z: torch.Tensor,  # f32[N, H, dh]
+    gather_idx: torch.Tensor,  # int32[T, E]
+    scores_t: torch.Tensor,  # f32[T, E, H] raw scores, −inf on padding lanes
+    coeff: torch.Tensor,  # f32[T, E] static lane coeff
+    seg_ids: torch.Tensor,  # int32[T, E]
+    out_node: torch.Tensor,  # int32[T, S]
+    split,
+    *,
+    num_nodes: int,
+    leaky_slope: float,
+    tile_chunk: int = 512,
+) -> torch.Tensor:
+    """softmax(LeakyReLU(scores)) aggregate per destination: f32[N, H, dh].
+
+    Per tile and segment: ``m`` = segment max of the activated scores (0
+    stands in for an empty segment's −inf before the ``exp``),
+    ``l = Σ exp(sc − m)``, ``a = Σ coeff·exp(sc − m)·z[idx]``. A node in one
+    tile gets ``a / l``; a split node's rows go through ``combine_attention``.
+    """
+    n, h, dh = z.shape
+    t = gather_idx.shape[0]
     s = out_node.shape[1]
-    d = x.shape[1]
-    dev = x.device
-    out = torch.zeros((num_nodes, d), dtype=x.dtype, device=dev)
-    partial = torch.zeros((split.num_slots, d), dtype=x.dtype, device=dev)
-    base = torch.arange(min(tile_chunk, t), device=dev).unsqueeze(1) * s
-    for t0 in range(0, t, tile_chunk):
-        t1 = min(t, t0 + tile_chunk)
-        msg = x[gather_idx[t0:t1].long()] * coeff[t0:t1].unsqueeze(-1)
-        dest = (base[: t1 - t0] + seg_ids[t0:t1]).reshape(-1)
-        sums = torch.zeros(((t1 - t0) * s, d), dtype=x.dtype, device=dev)
-        sums.index_add_(0, dest, msg.reshape(-1, d))
+    d = h * dh
+    dev = z.device
+    x = z.reshape(n, d)
+    out = torch.zeros((num_nodes, h, dh), dtype=z.dtype, device=dev)
+    pm = torch.full((split.num_slots, h), float("-inf"), dtype=z.dtype, device=dev)
+    pl = torch.zeros((split.num_slots, h), dtype=z.dtype, device=dev)
+    pa = torch.zeros((split.num_slots, h, dh), dtype=z.dtype, device=dev)
+    for t0, t1 in _chunks(t, tile_chunk):
+        c = t1 - t0
+        dest = _lane_dest(seg_ids, t0, t1, s)
+        sc = scores_t[t0:t1].reshape(-1, h)
+        sc = torch.where(sc >= 0, sc, leaky_slope * sc)
+        m = torch.full((c * s, h), float("-inf"), dtype=z.dtype, device=dev)
+        m.scatter_reduce_(0, dest.unsqueeze(1).expand(-1, h), sc, "amax")
+        m_fin = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(sc - m_fin[dest])  # [c·E, H]
+        l = torch.zeros((c * s, h), dtype=z.dtype, device=dev).index_add_(0, dest, p)
+        w = p * coeff[t0:t1].reshape(-1, 1)
+        msg = x[gather_idx[t0:t1].reshape(-1).long()].view(-1, h, dh) * w.unsqueeze(-1)
+        a = torch.zeros((c * s, h, dh), dtype=z.dtype, device=dev).index_add_(0, dest, msg)
+        final = a / torch.where(l > 0, l, torch.ones_like(l)).unsqueeze(-1)
         node = out_node[t0:t1].reshape(-1).long()
         slot = split.slot_of[t0:t1].reshape(-1).long()
         direct = (node < num_nodes) & (slot < 0)
-        out[node[direct]] = sums[direct]
+        out[node[direct]] = final[direct]
         part = slot >= 0
-        partial[slot[part]] = sums[part]
+        pm[slot[part]] = m[part]
+        pl[slot[part]] = l[part]
+        pa[slot[part]] = a[part]
     ptr = split.split_ptr.long()
-    count = ptr[1:] - ptr[:-1]
-    acc = torch.zeros((count.numel(), d), dtype=x.dtype, device=dev)
-    for k in range(int(count.max()) if count.numel() else 0):
-        has = count > k
-        acc[has] += partial[ptr[:-1][has] + k]
-    out[split.split_node.long()] = acc
+    rows_of = torch.repeat_interleave(
+        torch.arange(ptr.numel() - 1, device=dev), ptr[1:] - ptr[:-1])
+    out[split.split_node.long()] = combine_attention(
+        pm, pl, pa, rows_of, num_nodes=int(ptr.numel() - 1))
     return out

@@ -1,11 +1,13 @@
 """GNN model registry — the family="gnn" model API of the port.
 
 Every arch registers an ``ArchSpec`` with three uniform, config-driven entry
-points, as in the reference (``repro/models/gnn/api.py``):
+points, as in the reference (``repro/models/gnn/api.py``), and the shapes of
+its params:
 
     init(cfg, generator, device)       -> params
     apply(cfg, params, engine, x)      -> node outputs (through AmpleEngine)
     reference(cfg, params, g, x)       -> dense float oracle (test-scale)
+    param_shapes(cfg)                  -> the params tree, a shape per leaf
 
 Layer dims, aggregation mode and precision policy all come from
 ``ModelConfig``. Params are plain dicts of tensors; they live on the device
@@ -50,13 +52,14 @@ class ArchSpec:
     init: Callable[[ModelConfig, torch.Generator, torch.device], Dict]
     apply: Callable[[ModelConfig, Dict, AmpleEngine, torch.Tensor], torch.Tensor]
     reference: Callable[[ModelConfig, Dict, Graph, torch.Tensor], torch.Tensor]
+    param_shapes: Callable[[ModelConfig], Dict]
     default_agg: str  # aggregation coefficient mode when cfg.gnn_agg == ""
     needs_self_loops: bool = False  # GCN's ∪{i} term is an explicit edge
 
 
 _ARCHS: Dict[str, ArchSpec] = {}
 
-_ARCH_MODULES = ["gcn"]
+_ARCH_MODULES = ["gcn", "gat"]
 
 
 def register_arch(
@@ -65,6 +68,7 @@ def register_arch(
     init,
     apply,
     reference,
+    param_shapes,
     default_agg: str,
     needs_self_loops: bool = False,
 ) -> ArchSpec:
@@ -73,6 +77,7 @@ def register_arch(
         init=init,
         apply=apply,
         reference=reference,
+        param_shapes=param_shapes,
         default_agg=default_agg,
         needs_self_loops=needs_self_loops,
     )
@@ -138,9 +143,18 @@ def gnn_init(
     return get_arch(cfg.gnn_arch).init(cfg, gen, dev)
 
 
+def _shapes(node):
+    if isinstance(node, dict):
+        return {k: _shapes(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_shapes(v) for v in node]
+    return tuple(node.shape)
+
+
 def params_from_numpy(cfg: ModelConfig, tree, *, device="cuda"):
     """The reference's params (the same tree with numpy leaves, e.g.
-    ``{"layers": [{"w": ndarray}, …]}`` for GCN) as f32 tensors on ``device``.
+    ``{"layers": [{"w": ndarray}, …]}`` for GCN) as f32 tensors on
+    ``device``, checked against the arch's ``param_shapes``.
 
     With it, the port and the reference compute the same model.
     """
@@ -154,12 +168,9 @@ def params_from_numpy(cfg: ModelConfig, tree, *, device="cuda"):
         return torch.from_numpy(np.array(node, np.float32)).to(dev)
 
     params = conv(tree)
-    dims = cfg.gnn_layer_dims
-    if cfg.gnn_arch == "gcn":
-        shapes = [tuple(lyr["w"].shape) for lyr in params["layers"]]
-        want = [(dims[i], dims[i + 1]) for i in range(len(dims) - 1)]
-        if shapes != want:
-            raise ValueError(f"{cfg.name} weights must be {want}, got {shapes}")
+    want, got = get_arch(cfg.gnn_arch).param_shapes(cfg), _shapes(params)
+    if got != want:
+        raise ValueError(f"{cfg.name} weights must be {want}, got {got}")
     return params
 
 

@@ -20,18 +20,18 @@ from repro_torch.graphs.csr import Graph, gcn_norm_coeffs
 from repro_torch.models.gnn import api
 from repro_torch.models.gnn.layers import glorot
 
-__all__ = ["init", "apply", "reference"]
+__all__ = ["init", "apply", "reference", "param_shapes"]
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """One weight per layer (Eq. 2 has no bias)."""
+    dims = cfg.gnn_layer_dims
+    return {"layers": [{"w": (dims[i], dims[i + 1])} for i in range(len(dims) - 1)]}
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
-    """One weight per layer (Eq. 2 has no bias)."""
-    dims = cfg.gnn_layer_dims
-    return {
-        "layers": [
-            {"w": glorot(generator, (dims[i], dims[i + 1]), device)}
-            for i in range(len(dims) - 1)
-        ]
-    }
+    return {"layers": [{"w": glorot(generator, lyr["w"], device)}
+                       for lyr in param_shapes(cfg)["layers"]]}
 
 
 def apply(
@@ -71,6 +71,7 @@ api.register_arch(
     init=init,
     apply=apply,
     reference=reference,
+    param_shapes=param_shapes,
     default_agg="gcn",
     needs_self_loops=True,
 )

@@ -10,6 +10,7 @@ This file imports only the port (no JAX), so it runs where JAX is absent.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -17,13 +18,20 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.core.aggregation import to_device_plan
+from repro_torch.core.message_passing import AmpleEngine, compile_plans
 from repro_torch.core.scheduler import build_edge_tile_plan, build_mixed_precision_plans
 from repro_torch.graphs.datasets import make_dataset, make_lognormal_graph
 from repro_torch.kernels import build
 from repro_torch.kernels.quant_matmul import ops as qm_ops
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.kernels.segment_agg import attn_ops
 from repro_torch.kernels.segment_agg import ops as seg_ops
-from repro_torch.kernels.segment_agg.ref import aggregate_tiles_ref
+from repro_torch.kernels.segment_agg.ref import (
+    aggregate_tiles_mh_ref,
+    aggregate_tiles_ref,
+    attend_tiles_ref,
+)
+from repro_torch.models.gnn import api as gnn_api
 from repro_torch.serve.gnn_engine import GNNServeEngine
 
 pytestmark = pytest.mark.gpu
@@ -131,6 +139,192 @@ def test_serving_on_card_matches_cpu(cuda):
     warm = gpu.infer(g, g.features)
     assert build.launch_counts() == {seg_ops.KERNEL: 8, qm_ops.KERNEL: 4}
     assert np.array_equal(cold.outputs, warm.outputs)
+    ref = cpu.infer(g, g.features).outputs
+    np.testing.assert_allclose(cold.outputs, ref, atol=6e-2, rtol=2e-3)
+    assert (np.abs(cold.outputs - ref) > 2e-3).mean() < 0.05
+
+
+# ------------------------------------------------------------- GAT kernels
+def _attend(z, sc, dp, n, fn):
+    return fn(z, dp.gather_idx, sc, dp.coeff, dp.seg_ids, dp.out_node, dp.split,
+              num_nodes=n, leaky_slope=0.2)
+
+
+def _mh(x, cf, dp, n, fn):
+    return fn(x, dp.gather_idx, cf, dp.seg_ids, dp.out_node, dp.split, num_nodes=n)
+
+
+def _check_kernel(run, plain_fn, kernel_fn, name):
+    """Kernel vs its plain version on the card and on the CPU, run-to-run
+    bitwise, one launch per call."""
+    before = build.launch_counts().get(name, 0)
+    out = run(kernel_fn, "cuda")
+    again = run(kernel_fn, "cuda")
+    torch.cuda.synchronize()
+    assert build.launch_counts()[name] == before + 2
+    assert torch.equal(out, again)  # no atomics: run-to-run bitwise
+    assert torch.isfinite(out).all()
+    for want in (run(plain_fn, "cuda"), run(plain_fn, "cpu")):
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
+    return out
+
+
+def _gat_inputs(heads, dh, ept=64, n=300, seed=0):
+    g = make_lognormal_graph(n, 12.0, seed=seed)
+    rng = np.random.default_rng(seed)
+    plan = build_edge_tile_plan(
+        g, edges_per_tile=ept, coeff=rng.uniform(0.5, 1.5, g.num_edges).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((n, heads, dh)).astype(np.float32))
+    lanes = rng.standard_normal(plan.gather_idx.shape + (heads,)).astype(np.float32) * 3
+    live = plan.edge_ids[..., None] >= 0
+    return plan, x, lanes, live
+
+
+@pytest.mark.parametrize("heads", [1, 2, 4])
+@pytest.mark.parametrize("dh", [8, 64, 100])
+def test_attention_matches_plain(cuda, heads, dh):
+    plan, z, lanes, live = _gat_inputs(heads, dh, seed=heads * 100 + dh)
+    sc = torch.from_numpy(np.where(live, lanes, -np.inf).astype(np.float32))
+    n = plan.num_nodes
+    dps = {"cpu": to_device_plan(plan, "cpu"), "cuda": to_device_plan(plan, cuda)}
+    _check_kernel(lambda fn, dev: _attend(z.to(dev), sc.to(dev), dps[dev], n, fn),
+                  attend_tiles_ref, attn_ops.attend_tiles, attn_ops.ATTENTION)
+
+
+@pytest.mark.parametrize("heads", [1, 2, 4])
+@pytest.mark.parametrize("dh", [8, 64, 100])
+def test_segment_agg_mh_matches_plain(cuda, heads, dh):
+    plan, x, lanes, live = _gat_inputs(heads, dh, seed=heads * 10 + dh)
+    cf = np.where(live, lanes, 0.0).astype(np.float32)
+    cf[:, ::3, 0] = 0.0  # lanes dead for head 0 only
+    cf = torch.from_numpy(cf)
+    n = plan.num_nodes
+    dps = {"cpu": to_device_plan(plan, "cpu"), "cuda": to_device_plan(plan, cuda)}
+    _check_kernel(lambda fn, dev: _mh(x.to(dev), cf.to(dev), dps[dev], n, fn),
+                  aggregate_tiles_mh_ref, attn_ops.aggregate_tiles_mh, attn_ops.SEGMENT_AGG_MH)
+
+
+def _edge_case_plan():
+    """Hand-built tiles (E = S = 8, 5 nodes): node 0 split over three tiles,
+    unused segments between real ones and the padding segment, a node whose
+    lanes all score -inf, scores near -1e30, and an all-padding tile."""
+    e, s, n = 8, 8, 5
+    sentinel = n
+    gather = np.array([[1, 2, 3, 4, 1, 2, 3, 4],
+                       [3, 4, 0, 2, 3, 0, 0, 0],
+                       [4, 1, 0, 1, 2, 3, 0, 0],
+                       [0] * 8], np.int32)
+    seg = np.array([[0] * 8,
+                    [0, 0, 0, 1, 1, 7, 7, 7],
+                    [0, 0, 2, 2, 3, 3, 7, 7],
+                    [7] * 8], np.int32)
+    out_node = np.full((4, s), sentinel, np.int32)
+    out_node[0, 0] = 0
+    out_node[1, :2] = (0, 1)
+    out_node[2, [0, 2, 3]] = (0, 2, 3)
+    edge_ids = np.where(gather == 0, -1, np.arange(32).reshape(4, 8)).astype(np.int32)
+    edge_ids[1, 2] = 10  # a real lane gathering row 0
+    edge_ids[2, 2] = 18
+    coeff = (edge_ids >= 0).astype(np.float32)
+    return dict(gather=gather, seg=seg, out_node=out_node, coeff=coeff,
+                edge_ids=edge_ids, n=n, e=e, s=s)
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_gat_kernels_edge_cases(cuda, heads):
+    p = _edge_case_plan()
+    split = seg_ops.split_segment_map(p["out_node"], p["seg"], p["n"])
+    assert split.split_node.tolist() == [0] and split.split_ptr.tolist() == [0, 3]
+    rng = np.random.default_rng(heads)
+    dh = 3
+    x = torch.from_numpy(rng.standard_normal((p["n"], heads, dh)).astype(np.float32))
+    sc = rng.standard_normal((4, 8, heads)).astype(np.float32)
+    sc[2, 2:4] = -1e30 + sc[2, 2:4]  # node 2: scores near -1e30
+    sc[2, 4:6] = -np.inf             # node 3: every lane -inf
+    sc = np.where((p["edge_ids"] >= 0)[..., None] | (p["seg"] == 3)[..., None], sc, -np.inf)
+    cf = np.where((p["edge_ids"] >= 0)[..., None], rng.uniform(0.1, 1, (4, 8, heads)), 0.0)
+    if heads > 1:
+        cf[1, 3, 1] = 0.0  # one lane zero for head 1 only
+    sc, cf = torch.from_numpy(sc.astype(np.float32)), torch.from_numpy(cf.astype(np.float32))
+
+    def dplan(dev):
+        return SimpleNamespace(
+            **{k: torch.as_tensor(p[a], device=dev) for k, a in (
+                ("gather_idx", "gather"), ("coeff", "coeff"), ("seg_ids", "seg"),
+                ("out_node", "out_node"))},
+            split=split.to(dev))
+
+    dps = {"cpu": dplan("cpu"), "cuda": dplan(cuda)}
+    att = _check_kernel(lambda fn, dev: _attend(x.to(dev), sc.to(dev), dps[dev], p["n"], fn),
+                        attend_tiles_ref, attn_ops.attend_tiles, attn_ops.ATTENTION)
+    assert not att[3].any() and not att[4].any()  # all -inf lanes / no lanes: 0
+    assert att[2].abs().max() > 0
+    mh = _check_kernel(lambda fn, dev: _mh(x.to(dev), cf.to(dev), dps[dev], p["n"], fn),
+                       aggregate_tiles_mh_ref, attn_ops.aggregate_tiles_mh,
+                       attn_ops.SEGMENT_AGG_MH)
+    assert not mh[4].any()
+
+
+def test_gat_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    plan, x, lanes, live = _gat_inputs(2, 8, n=60)
+    sc = torch.from_numpy(np.where(live, lanes, -np.inf).astype(np.float32))
+    cpu_dp, dp = to_device_plan(plan, "cpu"), to_device_plan(plan, cuda)
+    n = plan.num_nodes
+    with pytest.raises(ValueError, match="tile arrays"):
+        _attend(x.to(cuda), sc.to(cuda), cpu_dp, n, attn_ops.attend_tiles)
+    with pytest.raises(ValueError, match="tile arrays"):
+        _attend(x, sc, dp, n, attn_ops.attend_tiles)
+    with pytest.raises(ValueError, match="tile arrays"):
+        _mh(x, sc.clamp_min(0), dp, n, attn_ops.aggregate_tiles_mh)
+    with pytest.raises(ValueError, match="heads"):
+        _mh(x.to(cuda), sc[..., :1].contiguous().to(cuda), dp, n, attn_ops.aggregate_tiles_mh)
+    with pytest.raises(TypeError):
+        _attend(x.double().to(cuda), sc.to(cuda), dp, n, attn_ops.attend_tiles)
+    with pytest.raises(ValueError, match="contiguous"):
+        _attend(x.to(cuda).transpose(1, 2).contiguous().transpose(1, 2), sc.to(cuda), dp, n,
+                attn_ops.attend_tiles)
+    big = build_edge_tile_plan(make_lognormal_graph(60, 80.0, seed=1), edges_per_tile=4096)
+    bdp = to_device_plan(big, cuda)
+    bsc = torch.zeros(big.gather_idx.shape + (4,), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        _attend(torch.zeros((60, 4, 2), device=cuda), bsc, bdp, 60, attn_ops.attend_tiles)
+
+
+def test_gat_decomposed_layer_matches_fused_on_card(cuda):
+    cfg = get_config("ample-gat")
+    g = gnn_api.prepare_graph(cfg, make_lognormal_graph(500, 20.0, seed=4))
+    tags = np.where(np.arange(500) % 9 == 0, "float", "int8")
+    eng = AmpleEngine(g, plan=compile_plans(g, gnn_api.engine_config(cfg), modes=("runtime",),
+                                            precision_tags=tags))
+    rng = np.random.default_rng(5)
+    z = torch.from_numpy(rng.standard_normal((500, 4, 100)).astype(np.float32)).to(cuda)
+    s = torch.from_numpy(rng.standard_normal((g.num_edges, 4)).astype(np.float32)).to(cuda)
+    build.reset_launch_counts()
+    fused = eng.attention_aggregate(s, z)
+    alpha = eng.edge_softmax(torch.where(s >= 0, s, 0.2 * s))
+    dec = eng.aggregate(z, mode="runtime", edge_coeff=alpha)
+    again = eng.aggregate(z, mode="runtime", edge_coeff=eng.edge_softmax(
+        torch.where(s >= 0, s, 0.2 * s)))
+    torch.cuda.synchronize()
+    groups = len(eng.plans("runtime"))
+    assert build.launch_counts() == {attn_ops.ATTENTION: groups,
+                                     attn_ops.SEGMENT_AGG_MH: 4 * groups}
+    assert torch.equal(dec, again)
+    np.testing.assert_allclose(dec.cpu().numpy(), fused.cpu().numpy(), atol=5e-5, rtol=1e-4)
+
+
+def test_gat_serving_on_card_matches_cpu(cuda):
+    cfg = dataclasses.replace(get_config("ample-gat"), gnn_union_node_bucket=0,
+                              gnn_union_edge_bucket=0)
+    g = make_dataset("cora", max_nodes=400, max_feature_dim=300, seed=2)
+    gpu = GNNServeEngine(cfg, device=cuda)
+    cpu = GNNServeEngine(cfg, params=gpu.params, device="cpu")
+    build.reset_launch_counts()
+    cold = gpu.infer(g, g.features)
+    warm = gpu.infer(g, g.features)
+    assert build.launch_counts() == {attn_ops.ATTENTION: 8, qm_ops.KERNEL: 4}
+    assert np.array_equal(cold.outputs, warm.outputs) and warm.plan_ms == 0.0
+    assert cold.outputs.shape == (400, 100) and np.isfinite(cold.outputs).all()
     ref = cpu.infer(g, g.features).outputs
     np.testing.assert_allclose(cold.outputs, ref, atol=6e-2, rtol=2e-3)
     assert (np.abs(cold.outputs - ref) > 2e-3).mean() < 0.05

@@ -119,6 +119,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import sys\n"
         "import repro_torch.serve.gnn_engine\n"
         "import repro_torch.models.gnn.gcn\n"
+        "import repro_torch.models.gnn.gat\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
