@@ -45,7 +45,25 @@ Every phase that fails raises, so the script exits non-zero.
              single PyTorch call computes the fused attention, so it has no
              library time);
 8. gat cpu — ``ample-gat`` served on the CPU against the card;
-9. summary — a JSON line of kernels, the card's name and power limit, and
+9. lm path — FULL ``qwen3-8b`` (36 layers, d 4096, GQA 32/8, hd 128, bf16,
+             random weights from a CUDA generator of seed 0) through
+             ``ServeEngine.generate``: 4 prompts of 2048 tokens (numpy seed
+             0), 32 new tokens, twice (36 flash-attention launches each, the
+             repeat bitwise), once with one new token (prefill time); then
+             the serving path's logits, fed the generated tokens, against one
+             teacher-forced ``model_forward`` (argmax agreement >= 0.9, max
+             relative difference < 0.05, all finite), and a profiled
+             ``generate``;
+10. ssm path — the same for FULL ``mamba2-370m`` (48 SSD launches each);
+11. lm kernels — flash attention (Qwen3-8B and SmolLM-360M prefill in bf16
+             within 1.6e-2, a ragged S = 1000 in f32 within 1e-4) and the SSD
+             intra-chunk term (Mamba2-370M prefill and a ragged chunk, within
+             1e-4) against their plain versions, run-to-run bitwise, timed
+             beside the plain version, the bound and, for flash, one
+             ``scaled_dot_product_attention`` call;
+12. lm cpu — REDUCED ``qwen3-8b`` and ``mamba2-370m`` served on the CPU
+             against the card: the same tokens, prefill logits within 5e-4;
+13. summary — a JSON line of kernels, the card's name and power limit, and
              the result line.
 
 Details of every measurement also go to ``chiprun_out/chip_smoke.json``.
@@ -67,10 +85,20 @@ SRC = os.path.join(ROOT, "src")
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 INT8_OPS = 1979e12
+BF16_FLOPS = 989e12  # tensor cores, dense
 
 AGE_ATOL = 1e-4  # unit-normal features, summation order differs
 ATTN_ATOL, ATTN_RTOL = 5e-5, 1e-4  # decomposed vs fused GAT layer (tests/test_gat.py:101)
 MIXED_ATOL, MIXED_RTOL, MIXED_FLIP = 6e-2, 2e-3, 2e-3  # int8 code flips
+
+# LM traffic: B prompts of P tokens from numpy seed 0, NEW greedy tokens.
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+LM_MAX_LEN = LM_PROMPT + LM_NEW
+FLASH_F32_ATOL = 1e-4  # order of sums
+FLASH_BF16_ATOL = 1.6e-2  # both keep p in f32; the bf16 output: two ulps at magnitude 1
+SSD_ATOL = SSD_RTOL = 1e-4  # tests/test_kernels_ssd.py:27
+TF_AGREE, TF_REL = 0.9, 0.05  # bf16-level bounds, tests/test_int8_kv.py:37-41
+LM_CPU_ATOL, LM_CPU_RTOL = 5e-4, 1e-3  # f32 paths, tests/test_gnn_models.py:46
 
 
 def log(*args) -> None:
@@ -176,29 +204,38 @@ def phase_path(cfg, g, batch_graphs, want, tag="path"):
     return srv, outs, batch, counts, peak
 
 
+def _device_profile(fn):
+    """Run ``fn`` once under torch.profiler: (wall ms, result, rows of
+    (device op, ms, count) sorted by device time). Rows are device-side events
+    only (kernels, copies, memsets): an operator's own entry repeats the
+    device time of the kernels it launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    rows = sorted(
+        ((e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
+         if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0),
+        key=lambda r: -r[1],
+    )
+    return wall_ms, result, rows
+
+
 def phase_profile(srv, g, tag="profile"):
     """Where one warm Yelp request's time goes: device time by kernel or copy
     (torch.profiler), against the wall time of the whole ``infer`` call
     (host padding, upload, forward, download; run_ms covers the upload and
     the forward). Prints "not measured" when the profiler records no device
     time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        resp = srv.infer(g, g.features)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-
-    # Device-side events only (kernels, copies, memsets): an operator's own
-    # entry repeats the device time of the kernels it launched.
-    rows = sorted(
-        ((e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
-         if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0),
-        key=lambda r: -r[1],
-    )
+    wall_ms, resp, rows = _device_profile(lambda: srv.infer(g, g.features))
     busy = sum(ms for _, ms, _ in rows)
     if not rows:
         log(f"[{tag}] warm infer wall_ms={wall_ms:.3f} run_ms={resp.run_ms:.3f}; "
@@ -507,6 +544,277 @@ def phase_cpu(srv, cfg, g, tag="cpu"):
     return dict(nodes=g.num_nodes, max_abs_diff=float(diff.max()), flip_share=flips)
 
 
+# ------------------------------------------------------------------ LM phases
+def _cuda_gen(seed):
+    import torch
+
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _timed(fn):
+    """(result, wall ms) of ``fn`` ended by a device synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_lm_path(arch, kernel, tag):
+    """Serve the FULL ``arch`` with ``ServeEngine.generate`` (B 4 x 2048-token
+    prompts, 32 new tokens, random weights from a CUDA generator of seed 0):
+    twice (launch counts per call, the repeat bitwise), once with one new
+    token (the prefill alone), then the teacher-forced check and a profiled
+    ``generate``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.api import model_decode_step, model_forward, model_prefill
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(arch)
+    b, p, new, vocab = LM_BATCH, LM_PROMPT, LM_NEW, cfg.vocab_size
+    eng, init_ms = _timed(lambda: ServeEngine(cfg, max_len=LM_MAX_LEN, device="cuda",
+                                              generator=_cuda_gen(0)))
+    leaves = _leaves(eng.params)
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"[{tag}] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, {n_params:,} params, "
+        f"{weight_bytes / 1e9:.2f} GB of weights, made in {init_ms:.0f} ms")
+    prompts = np.random.default_rng(0).integers(0, vocab, (b, p))
+    want = {kernel: cfg.num_layers}
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for i in range(2):
+        build.reset_launch_counts()
+        out, ms = _timed(lambda: eng.generate(prompts, max_new_tokens=new))
+        counts = build.launch_counts()
+        runs.append((out, ms, counts))
+        log(f"[{tag}] generate {i}: B={b} P={p} new={new}: {ms:.1f} ms, launches {counts}")
+        if counts != want:
+            raise RuntimeError(f"{tag}: generate launched {counts}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    out = runs[0][0]
+    if not torch.equal(out, runs[1][0]):
+        raise RuntimeError(f"{tag}: the repeated generate differs")
+    if (tuple(out.shape) != (b, p + new)
+            or not torch.equal(out[:, :p].cpu(), torch.as_tensor(prompts).int())):
+        raise RuntimeError(f"{tag}: bad output {tuple(out.shape)}")
+    _, prefill_ms = _timed(lambda: eng.generate(prompts, max_new_tokens=1))
+    gen_ms = min(r[1] for r in runs)
+    decode_ms = (gen_ms - prefill_ms) / (new - 1)
+    kv_bytes = sum(t.numel() * t.element_size() for c in _meta_cache(cfg, b) for t in c)
+    logit_bytes = b * p * cfg.padded_vocab(1) * 4
+    log(f"[{tag}] prefill {prefill_ms:.1f} ms ({b * p / prefill_ms * 1e3:,.0f} tokens/s), "
+        f"decode {decode_ms:.2f} ms per token (batch {b}), peak device memory "
+        f"{peak / 2**30:.2f} GiB (weights {weight_bytes / 2**30:.2f} GiB, cache "
+        f"{kv_bytes / 2**30:.2f} GiB, prefill logits {logit_bytes / 2**30:.2f} GiB)")
+
+    # Teacher forcing: the serving path's logits, fed the generated tokens
+    # (prefill + decode steps, which reproduce generate's argmax exactly),
+    # against one forward over the whole sequences.
+    seqs = out.long()
+    with torch.inference_mode():
+        logits, cache, n = model_prefill(eng.params, cfg, {"tokens": seqs[:, :p]}, LM_MAX_LEN)
+        finite = bool(torch.isfinite(logits).all())
+        steps = [logits[:, -1, :vocab].clone()]
+        del logits  # [B, P, V] f32
+        for i in range(new - 1):
+            lg, cache = model_decode_step(eng.params, cfg, {"tokens": seqs[:, p + i : p + i + 1]},
+                                          cache, n + i)
+            steps.append(lg[:, :vocab])
+        served = torch.stack(steps, dim=1)  # [B, new, V]
+        del cache
+        fwd = model_forward(eng.params, cfg, {"tokens": seqs[:, :-1]})[0]
+        finite = finite and bool(torch.isfinite(fwd).all()) and bool(torch.isfinite(served).all())
+        tf = fwd[:, p - 1 :, :vocab]
+        reproduced = bool(torch.equal(served.argmax(-1), seqs[:, p:]))
+        agree = float((tf.argmax(-1) == seqs[:, p:]).float().mean())
+        rel = float((tf - served).abs().max() / served.abs().max())
+        del fwd, tf, served
+    log(f"[{tag}] teacher-forced forward vs served logits: argmax agreement {agree:.4f} "
+        f"(>= {TF_AGREE}), max relative difference {rel:.4g} (< {TF_REL}); served argmax "
+        f"== generated tokens: {reproduced}; all logits finite: {finite}")
+    if not (reproduced and finite and agree >= TF_AGREE and rel < TF_REL):
+        raise RuntimeError(f"{tag}: teacher-forced check failed")
+
+    build.reset_launch_counts()
+    wall_ms, _, rows = _device_profile(lambda: eng.generate(prompts, max_new_tokens=new))
+    busy = sum(ms for _, ms, _ in rows)
+    if rows:
+        log(f"[{tag} profile] generate wall_ms={wall_ms:.1f}, device busy {busy:.1f} ms "
+            f"(idle share {max(0.0, 1 - busy / wall_ms):.3f})")
+        for name, ms, count in rows[:14]:
+            log(f"[{tag} profile]   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
+    else:
+        log(f"[{tag} profile] generate wall_ms={wall_ms:.1f}; device time not measured")
+    detail = dict(arch=arch, params=n_params, weight_bytes=weight_bytes, init_ms=init_ms,
+                  generate_ms=[r[1] for r in runs], launches=runs[0][2], prefill_ms=prefill_ms,
+                  prefill_tokens_per_s=b * p / prefill_ms * 1e3, decode_ms_per_token=decode_ms,
+                  peak_bytes=peak, kv_cache_bytes=kv_bytes, teacher_forced_agreement=agree,
+                  teacher_forced_rel_diff=rel,
+                  profile=dict(wall_ms=wall_ms, device_ms=busy if rows else None,
+                               top=[dict(name=nm, ms=ms, count=c) for nm, ms, c in rows[:24]]))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return detail
+
+
+def _meta_cache(cfg, batch):
+    """The decode cache of ``cfg`` for ``batch`` sequences, on the meta device
+    (shapes and dtypes, no memory)."""
+    from repro_torch.models.lm.transformer import init_cache
+
+    return [list(c.values()) for c in init_cache(cfg, batch, LM_MAX_LEN, device="meta")]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _kernel_case(name, kernel, plain, library, atol, rtol, nbytes, ops, peak):
+    """One kernel call against its plain version: error, run-to-run bitwise,
+    times and bound."""
+    import torch
+
+    out = kernel()
+    again = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(out, again))
+    finite = bool(torch.isfinite(out).all())
+    diff = (out.float() - want.float()).abs()
+    err = float(diff.max())
+    close = bool((diff <= atol + rtol * want.float().abs()).all())
+    del want, again
+    ms = cuda_ms(kernel, reps=5)
+    plain_ms = cuda_ms(plain, reps=2)
+    lib_ms = lib_err = None
+    if library is not None:
+        lib_err = float((library().float() - out.float()).abs().max())
+        lib_ms = cuda_ms(library, reps=5)
+    b_ms, b_by = bound(nbytes, ops, peak)
+    lib = "" if lib_ms is None else f" library_ms={lib_ms:.3f} (diff {lib_err:.3g})"
+    log(f"[lm kernels] {name}: err={err:.3g} (atol {atol}, rtol {rtol}) bitwise={bitwise} "
+        f"ms={ms:.3f} plain_ms={plain_ms:.3f}{lib} bound_ms={b_ms:.3f} ({b_by})")
+    if not (bitwise and finite and close):
+        raise RuntimeError(f"{name}: err {err}, bitwise {bitwise}, finite {finite}")
+    return dict(case=name, max_abs_err=err, run_to_run_bitwise=bitwise, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, ops=ops)
+
+
+def phase_lm_kernels():
+    """Both LM kernels against their plain versions at the served shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+
+    gen = _cuda_gen(5)
+    flash = []
+    # (label, B, S, H, KV, hd, dtype): Qwen3-8B and SmolLM-360M prefill, and a
+    # sequence ragged against the kernel's 64-row blocks, in f32.
+    for label, b, s, h, kv, hd, dt in (
+        ("qwen3-8b prefill bf16", 4, 2048, 32, 8, 128, torch.bfloat16),
+        ("smollm-360m prefill bf16", 4, 2048, 15, 5, 64, torch.bfloat16),
+        ("ragged S=1000 f32", 4, 1000, 32, 8, 128, torch.float32),
+    ):
+        q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
+        k = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dt)
+        v = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dt)
+        bf16 = dt == torch.bfloat16
+        pairs = s * (s + 1) // 2  # (query, key) pairs the causal mask keeps, S == T
+        row = _kernel_case(
+            f"flash_attention {label} B={b} S={s} H={h} KV={kv} hd={hd}",
+            lambda: fa_ops.flash_attention(q, k, v),
+            lambda: flash_attention_ref(q, k, v),
+            # top-left causal == end-aligned causal when S == T
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=True).transpose(1, 2),
+            FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL, 0.0 if bf16 else FLASH_F32_ATOL,
+            nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
+            ops=4.0 * b * h * hd * pairs, peak=BF16_FLOPS if bf16 else FP32_FLOPS)
+        row.update(b=b, s=s, h=h, kv=kv, hd=hd, dtype=str(dt))
+        flash.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    ssd = []
+    for label, b, nc, q_, n, h, p in (("mamba2-370m prefill", 4, 8, 256, 128, 32, 64),
+                                      ("ragged chunk Q=200", 4, 2, 200, 128, 32, 64)):
+        cc = torch.randn((b, nc, q_, n), generator=gen, device="cuda")
+        bc = torch.randn((b, nc, q_, n), generator=gen, device="cuda")
+        xdt = torch.randn((b, nc, h, q_, p), generator=gen, device="cuda")
+        # a realistic decreasing log-decay, as tests/test_kernels_ssd.py:24
+        acum = -torch.cumsum(torch.rand((b, nc, h, q_), generator=gen, device="cuda") * 0.05, -1)
+        pairs = q_ * (q_ + 1) // 2  # (i, j) pairs with i >= j
+        row = _kernel_case(
+            f"ssd_intra_chunk {label} B={b} NC={nc} Q={q_} N={n} H={h} P={p}",
+            lambda: ssd_ops.ssd_intra_chunk(cc, bc, xdt, acum),
+            lambda: ssd_intra_chunk_ref(cc, bc, xdt, acum),
+            None, SSD_ATOL, SSD_RTOL,
+            nbytes=(cc.numel() + bc.numel() + 2 * xdt.numel() + acum.numel()) * 4,
+            # C Bᵀ once per (b, c) and the weighted P·V per head, lower triangle
+            ops=2.0 * b * nc * pairs * (n + h * p), peak=FP32_FLOPS)
+        row.update(b=b, nc=nc, q=q_, n=n, h=h, p=p)
+        ssd.append(row)
+        del cc, bc, xdt, acum
+        torch.cuda.empty_cache()
+    return flash, ssd
+
+
+def phase_lm_cpu():
+    """REDUCED qwen3-8b and mamba2-370m served on the CPU (plain versions)
+    against the card: the same tokens, prefill logits within atol 5e-4,
+    rtol 1e-3."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models.api import model_prefill, params_to
+    from repro_torch.serve.engine import ServeEngine
+
+    rows = []
+    for arch, kernel in (("qwen3-8b", fa_ops.KERNEL), ("mamba2-370m", ssd_ops.KERNEL)):
+        cfg = get_config(arch, reduced=True)
+        card = ServeEngine(cfg, max_len=64, device="cuda", generator=_cuda_gen(0))
+        cpu = ServeEngine(cfg, params_to(card.params, "cpu"), max_len=64, device="cpu")
+        prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
+        build.reset_launch_counts()
+        got = card.generate(prompts, max_new_tokens=8)
+        counts = build.launch_counts()
+        same = bool(torch.equal(got.cpu(), cpu.generate(prompts, max_new_tokens=8)))
+        toks = torch.as_tensor(prompts)
+        want = model_prefill(cpu.params, cfg, {"tokens": toks}, 64)[0]
+        lg = model_prefill(card.params, cfg, {"tokens": toks.cuda()}, 64)[0].cpu()
+        diff = (lg - want).abs()
+        err = float(diff.max())
+        close = bool((diff <= LM_CPU_ATOL + LM_CPU_RTOL * want.abs()).all())
+        log(f"[lm cpu] {arch} REDUCED: card launches {counts}, tokens equal {same}, prefill "
+            f"logits max abs diff {err:.3g} (atol {LM_CPU_ATOL}, rtol {LM_CPU_RTOL}: {close})")
+        if counts != {kernel: cfg.num_layers} or not same or not close:
+            raise RuntimeError(f"lm cpu {arch}: launches {counts}, tokens equal {same}, err {err}")
+        rows.append(dict(arch=arch, launches=counts, tokens_equal=same, max_abs_diff=err))
+    return rows
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: run from the root of a checkout (src/repro_torch is missing)",
@@ -522,11 +830,15 @@ def main() -> int:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 matmuls accumulate in f32 (as XLA's do), with no reduced-precision
+    # split-K reduction.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     log(f"[env] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn={torch.backends.cudnn.allow_tf32}")
+        f"cudnn={torch.backends.cudnn.allow_tf32}; allow_bf16_reduced_precision_reduction="
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
     from repro_torch.configs.base import get_config
     from repro_torch.graphs.datasets import make_dataset
@@ -566,6 +878,17 @@ def main() -> int:
     dec_row = phase_gat_decomposed(gentry)
     attn_rows, mh_rows = phase_gat_kernels(gentry)
     gcpu_row = phase_cpu(gsrv, gat_cfg, cora, tag="gat cpu")
+    del gsrv, gentry
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    lm_row = phase_lm_path("qwen3-8b", fa_ops.KERNEL, "lm path")
+    ssm_row = phase_lm_path("mamba2-370m", ssd_ops.KERNEL, "ssm path")
+    flash_rows, ssd_rows = phase_lm_kernels()
+    lm_cpu_rows = phase_lm_cpu()
 
     def kernel_row(name, source, replaces, launches, row, shape):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -594,6 +917,15 @@ def main() -> int:
         kernel_row("segment_agg_mh", "src/repro_torch/csrc/attn_agg.cu",
                    "src/repro/kernels/segment_agg/attn_kernel.py:239",
                    dec_row["launches"].get("segment_agg_mh", 0), mh, gat_shape.format(**mh)),
+        # Launches: one Qwen3-8B / Mamba2-370M generate (B 4 x 2048 + 32 tokens).
+        kernel_row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention/flash_attention.py:95",
+                   lm_row["launches"].get(fa_ops.KERNEL, 0), flash_rows[0],
+                   "B={b} S={s} H={h} KV={kv} hd={hd} {dtype}".format(**flash_rows[0])),
+        kernel_row("ssd_intra_chunk", "src/repro_torch/csrc/ssd_scan.cu",
+                   "src/repro/kernels/ssd_scan/ssd_scan.py:52",
+                   ssm_row["launches"].get(ssd_ops.KERNEL, 0), ssd_rows[0],
+                   "B={b} NC={nc} Q={q} N={n} H={h} P={p} f32".format(**ssd_rows[0])),
     ]
 
     def path_detail(outs, batch, counts, peak):
@@ -611,6 +943,8 @@ def main() -> int:
         segment_agg=age_rows, quant_matmul=gemm_rows, cpu=cpu_row,
         gat_path=path_detail(gouts, gbatch, gcounts, gpeak), gat_profile=gprofile_row,
         gat_decomposed=dec_row, attention=attn_rows, segment_agg_mh=mh_rows, gat_cpu=gcpu_row,
+        lm_path=lm_row, ssm_path=ssm_row, flash_attention=flash_rows, ssd_intra_chunk=ssd_rows,
+        lm_cpu=lm_cpu_rows,
         seconds=time.perf_counter() - t_start,
     )
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

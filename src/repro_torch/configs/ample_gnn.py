@@ -21,7 +21,9 @@ _HEADS_REDUCED = {"gat": 2}
 def _full(arch: str) -> ModelConfig:
     return ModelConfig(
         name=f"ample-{arch}", family="gnn", gnn_arch=arch,
-        num_layers=2, d_model=300, d_ff=256, vocab_size=100,  # yelp
+        num_layers=2, d_model=300, num_heads=1, num_kv_heads=1,
+        d_ff=256, vocab_size=100,  # yelp
+        dtype="float32",
         gnn_heads=_HEADS.get(arch, 1),
         # Pad union batches to coarse size classes so device shapes and the
         # plan cache stay warm under varying request mixes.
@@ -32,8 +34,9 @@ def _full(arch: str) -> ModelConfig:
 
 def _reduced(arch: str) -> ModelConfig:
     return ModelConfig(
-        name=f"ample-{arch}", family="gnn", gnn_arch=arch,
-        num_layers=2, d_model=32, d_ff=16, vocab_size=7, gnn_edges_per_tile=64,
+        name=f"ample-{arch}", family="gnn", gnn_arch=arch, reduced=True,
+        num_layers=2, d_model=32, num_heads=1, num_kv_heads=1,
+        d_ff=16, vocab_size=7, dtype="float32", gnn_edges_per_tile=64,
         gnn_heads=_HEADS_REDUCED.get(arch, 1),
     )
 

@@ -80,6 +80,20 @@ _SIGNATURES = {
         _I, _I, _I, _I,  # m, k, n, kp
         _P,  # stream
     ],
+    "ample_flash_attention": [
+        _I,  # device
+        _P, _P, _P, _P,  # q [B, S, H, hd], k, v [B, T, KV, hd], out [B, S, H, hd]
+        _I,  # 1 = bf16, 0 = f32
+        _I, _I, _I, _I, _I, _I,  # b, s, t, h, kv, hd
+        _F,  # scale (1 / sqrt(hd))
+        _P,  # stream
+    ],
+    "ample_ssd_intra_chunk": [
+        _I,  # device
+        _P, _P, _P, _P, _P,  # cc, bc [B, NC, Q, N], xdt [B, NC, H, Q, P], acum [B, NC, H, Q], out
+        _I, _I, _I, _I, _I, _I,  # b, nc, q, n, h, p
+        _P,  # stream
+    ],
 }
 
 _launches: Dict[str, int] = {}

@@ -22,6 +22,8 @@ from repro_torch.core.message_passing import AmpleEngine, compile_plans
 from repro_torch.core.scheduler import build_edge_tile_plan, build_mixed_precision_plans
 from repro_torch.graphs.datasets import make_dataset, make_lognormal_graph
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.quant_matmul import ops as qm_ops
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 from repro_torch.kernels.segment_agg import attn_ops
@@ -31,7 +33,11 @@ from repro_torch.kernels.segment_agg.ref import (
     aggregate_tiles_ref,
     attend_tiles_ref,
 )
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+from repro_torch.models.api import model_prefill, params_to
 from repro_torch.models.gnn import api as gnn_api
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.gnn_engine import GNNServeEngine
 
 pytestmark = pytest.mark.gpu
@@ -328,3 +334,92 @@ def test_gat_serving_on_card_matches_cpu(cuda):
     ref = cpu.infer(g, g.features).outputs
     np.testing.assert_allclose(cold.outputs, ref, atol=6e-2, rtol=2e-3)
     assert (np.abs(cold.outputs - ref) > 2e-3).mean() < 0.05
+
+
+# ------------------------------------------------------------- LM kernels
+def _close(out, want, bf16):
+    """f32: 1e-4 (order of sums); bf16: both keep p in f32 and round only the
+    output, so two bf16 ulps at magnitude 1."""
+    atol = 1.6e-2 if bf16 else 1e-4
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol,
+                               rtol=0 if bf16 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,s,t,h,kv", [
+    (16, 16, 16, 2, 2), (20, 200, 200, 3, 1), (64, 300, 300, 15, 5), (128, 130, 130, 8, 2),
+    (128, 1000, 1000, 12, 2), (64, 40, 100, 6, 1), (128, 1, 65, 4, 4),
+])
+def test_flash_attention_matches_plain(cuda, dtype, hd, s, t, h, kv):
+    gen = torch.Generator(device=cuda).manual_seed(hd + s + h)
+    q = torch.randn((2, s, h, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((2, t, kv, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, t, kv, hd), generator=gen, device=cuda).to(dtype)
+    before = build.launch_counts().get(fa_ops.KERNEL, 0)
+    out = fa_ops.flash_attention(q, k, v)
+    again = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[fa_ops.KERNEL] == before + 2
+    assert out.dtype == dtype and torch.equal(out, again)  # run-to-run bitwise
+    assert torch.isfinite(out).all()
+    bf16 = dtype == torch.bfloat16
+    _close(out, flash_attention_ref(q, k, v), bf16)
+    _close(out, flash_attention_ref(q.cpu(), k.cpu(), v.cpu()), bf16)
+
+
+@pytest.mark.parametrize("b,nc,q,n,h,p", [
+    (1, 2, 16, 8, 2, 8), (2, 3, 32, 16, 4, 16), (1, 1, 64, 32, 1, 32),
+    (2, 2, 256, 128, 9, 64), (1, 3, 200, 20, 3, 24), (1, 1, 5, 4, 2, 128),
+])
+def test_ssd_intra_chunk_matches_plain(cuda, b, nc, q, n, h, p):
+    rng = np.random.default_rng(q * h + p)
+    cc = torch.from_numpy(rng.standard_normal((b, nc, q, n)).astype(np.float32))
+    bc = torch.from_numpy(rng.standard_normal((b, nc, q, n)).astype(np.float32))
+    xdt = torch.from_numpy(rng.standard_normal((b, nc, h, q, p)).astype(np.float32))
+    acum = torch.from_numpy(
+        -np.cumsum(rng.uniform(size=(b, nc, h, q)) * 0.1, axis=-1).astype(np.float32))
+    args = [a.to(cuda) for a in (cc, bc, xdt, acum)]
+    before = build.launch_counts().get(ssd_ops.KERNEL, 0)
+    out = ssd_ops.ssd_intra_chunk(*args)
+    again = ssd_ops.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[ssd_ops.KERNEL] == before + 2
+    assert torch.equal(out, again)
+    for want in (ssd_intra_chunk_ref(*args), ssd_intra_chunk_ref(cc, bc, xdt, acum)):
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_lm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 8, 4, 16), device=cuda)
+    k = torch.zeros((1, 8, 2, 16), device=cuda)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q, k.to(torch.bfloat16), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 8, 2, 256), device=cuda)
+        fa_ops.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="k on cpu"):
+        fa_ops.flash_attention(q, k.cpu(), k.cpu())
+    cc = torch.zeros((1, 1, 300, 8), device=cuda)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ops.ssd_intra_chunk(cc, cc, torch.zeros((1, 1, 2, 300, 8), device=cuda),
+                                torch.zeros((1, 1, 2, 300), device=cuda))
+
+
+@pytest.mark.parametrize("arch,kernel", [("qwen3-8b", fa_ops.KERNEL),
+                                         ("mamba2-370m", ssd_ops.KERNEL)])
+def test_lm_generate_on_card_matches_cpu(cuda, arch, kernel):
+    cfg = get_config(arch, reduced=True)
+    gpu = ServeEngine(cfg, max_len=80, device=cuda, generator=torch.Generator().manual_seed(0))
+    cpu = ServeEngine(cfg, params_to(gpu.params, "cpu"), max_len=80, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 60))
+    build.reset_launch_counts()
+    out = gpu.generate(prompts, max_new_tokens=8)
+    assert build.launch_counts() == {kernel: cfg.num_layers}  # one prefill per layer
+    assert torch.equal(out, gpu.generate(prompts, max_new_tokens=8))
+    assert torch.equal(out.cpu(), cpu.generate(prompts, max_new_tokens=8))
+    toks = {"tokens": torch.as_tensor(prompts)}
+    want = model_prefill(cpu.params, cfg, toks, 80)[0]
+    got = model_prefill(gpu.params, cfg, {"tokens": toks["tokens"].to(cuda)}, 80)[0]
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=5e-4, rtol=1e-3)

@@ -1,0 +1,129 @@
+"""The LM kernels' plain versions against the reference's Pallas kernels, on the CPU.
+
+The same numpy inputs (from a seed) go through the reference's kernels in
+interpret mode and its oracles, and through the port's wrappers, which run
+the plain versions (``ref.py``) on CPU tensors; ``test_torch_kernels_gpu.py``
+holds the CUDA kernels against those plain versions on the card.
+
+Tolerances: atol 1e-4, rtol 1e-4 in f32 (tests/test_kernels_ssd.py:27; the
+sums run in another order). With bf16 inputs both sides keep scores and
+probabilities in f32 and round only the output to bf16, so they agree within
+1.6e-2: two bf16 ulps at magnitude 1.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as ref_fa
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.kernels.ssd_scan import ops as ref_ssd
+from repro.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+ATOL = RTOL = 1e-4
+BF16_ATOL = 1.6e-2
+
+
+def _qkv(b, s, t, h, kv, hd, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, h, hd)).astype(np.float32)
+    k = rng.standard_normal((b, t, kv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, t, kv, hd)).astype(np.float32)
+    return q, k, v
+
+
+# (hd, S, H, KV): head dims 16/20/64, S ragged against the 128 block of the
+# TPU kernel (and the 64 block of the CUDA kernel), H/KV of 1, 3 and 2.
+@pytest.mark.parametrize("hd,s,h,kv", [
+    (16, 16, 2, 2),
+    (20, 200, 3, 1),
+    (64, 300, 4, 2),
+    (16, 300, 6, 2),
+    (64, 16, 3, 1),
+    (20, 200, 2, 1),
+])
+def test_flash_plain_matches_reference_pallas_and_ref(hd, s, h, kv):
+    q, k, v = _qkv(2, s, s, h, kv, hd, seed=hd * s + h)
+    want_pallas = np.asarray(ref_fa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    want_ref = np.asarray(attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    got = fa_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, s, h, hd)
+    np.testing.assert_allclose(got.numpy(), want_pallas, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), want_ref, atol=ATOL, rtol=RTOL)
+
+
+def test_flash_plain_aligns_causality_to_the_sequence_ends():
+    """S < T (a prompt continued over a longer K/V): row i sees keys up to
+    i + T - S, as in the TPU kernel."""
+    q, k, v = _qkv(1, 40, 100, 4, 2, 16, seed=5)
+    want = np.asarray(ref_fa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    got = fa_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_flash_plain_keeps_probabilities_f32_like_the_tpu_kernel():
+    """bf16 inputs: the plain version, like the Pallas kernel, widens q, k, v,
+    keeps p in f32 for P.V and rounds only the output."""
+    q, k, v = _qkv(2, 130, 130, 4, 2, 64, seed=7)
+    qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(ref_fa.flash_attention(qb, kb, vb).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    assert np.array_equal(tq.float().numpy(), np.asarray(qb.astype(jnp.float32)))  # same rounding
+    got = fa_ops.flash_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_ATOL)
+
+
+def test_flash_wrapper_checks_shapes_and_runs_plain_on_cpu():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 4, 2, 16, seed=0))
+    build.reset_launch_counts()
+    out = fa_ops.flash_attention(q, k, v)
+    assert build.launch_counts() == {}  # CPU tensors: no kernel launch
+    assert torch.equal(out, flash_attention_ref(q, k, v))
+    with pytest.raises(ValueError, match="S <= T"):
+        fa_ops.flash_attention(q, k[:, :5], v[:, :5])
+    with pytest.raises(ValueError, match="does not match"):
+        fa_ops.flash_attention(q[..., :3, :], k, v)  # 3 q-heads over 2 kv-heads
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k, v[..., :8])
+
+
+def _ssd_inputs(b, nc, q, n, h, p, seed):
+    rng = np.random.default_rng(seed)
+    cc = rng.standard_normal((b, nc, q, n)).astype(np.float32)
+    bc = rng.standard_normal((b, nc, q, n)).astype(np.float32)
+    xdt = rng.standard_normal((b, nc, h, q, p)).astype(np.float32)
+    # a realistic decreasing log-decay (negative cumsum)
+    acum = -np.cumsum(rng.uniform(size=(b, nc, h, q)), axis=-1).astype(np.float32)
+    return cc, bc, xdt, acum
+
+
+@pytest.mark.parametrize("b,nc,q,n,h,p", [
+    (1, 2, 16, 8, 2, 8),
+    (2, 3, 32, 16, 4, 16),
+    (1, 1, 64, 32, 1, 32),
+])
+def test_ssd_plain_matches_reference_pallas_and_ref(b, nc, q, n, h, p):
+    arrs = _ssd_inputs(b, nc, q, n, h, p, seed=q * h)
+    want_pallas = np.asarray(ref_ssd.ssd_intra_chunk(*map(jnp.asarray, arrs)))
+    want_ref = np.asarray(ssd_intra_chunk_ref(*map(jnp.asarray, arrs)))
+    build.reset_launch_counts()
+    got = ssd_ops.ssd_intra_chunk(*map(torch.from_numpy, arrs))
+    assert build.launch_counts() == {}
+    assert tuple(got.shape) == (b, nc, h, q, p)
+    np.testing.assert_allclose(got.numpy(), want_pallas, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), want_ref, atol=ATOL, rtol=RTOL)
+
+
+def test_ssd_wrapper_checks_shapes():
+    cc, bc, xdt, acum = map(torch.from_numpy, _ssd_inputs(1, 2, 16, 8, 2, 8, seed=0))
+    with pytest.raises(ValueError, match="xdt"):
+        ssd_ops.ssd_intra_chunk(cc, bc, xdt[..., :4, :], acum)
+    with pytest.raises(ValueError, match="acum"):
+        ssd_ops.ssd_intra_chunk(cc, bc, xdt, acum[..., :1, :])

@@ -116,10 +116,13 @@ def test_engine_without_a_device_raises_where_cuda_is_absent(monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_reference():
     code = (
-        "import sys\n"
-        "import repro_torch.serve.gnn_engine\n"
-        "import repro_torch.models.gnn.gcn\n"
-        "import repro_torch.models.gnn.gat\n"
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import repro_torch.configs.base as cb\n"
+        "cb.list_configs()\n"
+        "assert 'repro_torch.kernels.ssd_scan.ops' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
