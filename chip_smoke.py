@@ -12,7 +12,8 @@ Every phase that fails raises, so the script exits non-zero.
 
 1. build   — nvcc every ``src/repro_torch/csrc/*.cu`` for sm_90a, one process
              per source, and print each kernel's registers, shared memory and
-             spills;
+             spills (the tensor-core flash kernel and the int8 GEMM must not
+             spill);
 2. path    — serve the FULL ``ample-gcn`` config on the Yelp-scale graph
              (716,847 nodes, 300 features, random weights from seed 0):
              ``infer`` three times (cold, warm, warm; warm must equal cold
@@ -25,7 +26,7 @@ Every phase that fails raises, so the script exits non-zero.
              versions on the card, at the path's shapes (AGE within 1e-4 and
              run-to-run bitwise; int8 matmul bitwise), timed with CUDA events
              beside the plain version, one PyTorch library call and the card's
-             bound;
+             bound (the int8 matmul's ratio to ``torch._int_mm`` printed);
 4. cpu     — the same model served on the CPU (plain versions) on a
              cora-sized graph, against the card's output at the
              mixed-precision tolerance;
@@ -48,19 +49,22 @@ Every phase that fails raises, so the script exits non-zero.
 9. lm path — FULL ``qwen3-8b`` (36 layers, d 4096, GQA 32/8, hd 128, bf16,
              random weights from a CUDA generator of seed 0) through
              ``ServeEngine.generate``: 4 prompts of 2048 tokens (numpy seed
-             0), 32 new tokens, twice (36 flash-attention launches each, the
-             repeat bitwise), once with one new token (prefill time); then
-             the serving path's logits, fed the generated tokens, against one
-             teacher-forced ``model_forward`` (argmax agreement >= 0.9, max
-             relative difference < 0.05, all finite), and a profiled
-             ``generate``;
+             0), 32 new tokens, twice (36 flash-attention launches each, all
+             on the tensor-core kernel; the repeat bitwise), once with one new
+             token (prefill time); then the serving path's logits, fed the
+             generated tokens, against one teacher-forced ``model_forward``
+             (argmax agreement >= 0.9, max relative difference < 0.05, all
+             finite), and a profiled ``generate``;
 10. ssm path — the same for FULL ``mamba2-370m`` (48 SSD launches each);
 11. lm kernels — flash attention (Qwen3-8B and SmolLM-360M prefill in bf16
-             within 1.6e-2, a ragged S = 1000 in f32 within 1e-4) and the SSD
+             on the tensor-core kernel, within 1.6e-2 and >= 99% of the bf16
+             entries bitwise equal to the plain version's; a ragged S = 1000
+             in f32 on the CUDA-core kernel within 1e-4) and the SSD
              intra-chunk term (Mamba2-370M prefill and a ragged chunk, within
              1e-4) against their plain versions, run-to-run bitwise, timed
              beside the plain version, the bound and, for flash, one
-             ``scaled_dot_product_attention`` call;
+             ``scaled_dot_product_attention`` call (variant and ratios to SDPA
+             and to the bound printed);
 12. lm cpu — REDUCED ``qwen3-8b`` and ``mamba2-370m`` served on the CPU
              against the card: the same tokens, prefill logits within 5e-4;
 13. summary — a JSON line of kernels, the card's name and power limit, and
@@ -96,6 +100,10 @@ LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_MAX_LEN = LM_PROMPT + LM_NEW
 FLASH_F32_ATOL = 1e-4  # order of sums
 FLASH_BF16_ATOL = 1.6e-2  # both keep p in f32; the bf16 output: two ulps at magnitude 1
+# Share of bf16 outputs bitwise equal to the plain version's: p kept in f32
+# moves only the order of the sums (~2^-18 relative) and flips well under 1%
+# of the roundings; one bf16 p (2^-9) flips about a third of them.
+FLASH_BF16_EQUAL = 0.99
 SSD_ATOL = SSD_RTOL = 1e-4  # tests/test_kernels_ssd.py:27
 TF_AGREE, TF_REL = 0.9, 0.05  # bf16-level bounds, tests/test_int8_kv.py:37-41
 LM_CPU_ATOL, LM_CPU_RTOL = 5e-4, 1e-3  # f32 paths, tests/test_gnn_models.py:46
@@ -139,6 +147,31 @@ def _yelp_engine(srv, g):
     return next(e for _, _, e in srv._cache.values() if e.graph.num_nodes >= g.num_nodes)
 
 
+# Kernels that must keep every value in registers (a spill would sit in the
+# inner loop): the tensor-core flash kernel and the int8 GEMM.
+NO_SPILL = ("flash_tc_kernel", "quant_matmul_kernel")
+
+
+def ptxas_table(text):
+    """{entry function: (registers, spill store bytes, spill load bytes)} from
+    ``nvcc -Xptxas -v`` output."""
+    import re
+
+    table, fn, props = {}, None, None
+    for line in text.splitlines():
+        if (hit := re.search(r"Compiling entry function '([^']+)'", line)):
+            fn = hit.group(1)
+            table[fn] = [0, 0, 0]
+        elif (hit := re.search(r"Function properties for (\S+)", line)):
+            props = hit.group(1)
+        elif props in table and (
+                hit := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            table[props][1:] = [int(hit.group(1)), int(hit.group(2))]
+        elif fn and (hit := re.search(r"Used (\d+) registers", line)):
+            table[fn][0] = int(hit.group(1))
+    return {k: tuple(v) for k, v in table.items()}
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -149,6 +182,15 @@ def phase_build():
     for line in report.ptxas_log.splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill", "==")):
             log("[build]   " + line.strip())
+    table = ptxas_table(report.ptxas_log)
+    watched = {fn: v for fn, v in table.items() if any(w in fn for w in NO_SPILL)}
+    for fn, (regs, st, ld) in sorted(watched.items()):
+        log(f"[build] {fn}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    if len({w for w in NO_SPILL for fn in watched if w in fn}) != len(NO_SPILL):
+        raise RuntimeError(f"ptxas reported none of {NO_SPILL} in {sorted(table)}")
+    spilled = [fn for fn, (_, st, ld) in watched.items() if st or ld]
+    if spilled:
+        raise RuntimeError(f"kernels spill to local memory: {spilled}")
     return report
 
 
@@ -355,7 +397,8 @@ def phase_gemm(m):
         rows.append(row)
         log(f"[kernels] quant_matmul M={m} K={k} N={n}"
             f"{' all -128' if fill is not None else ''}: bitwise={exact} ms={ms:.3f} "
-            f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by})")
+            f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by}); "
+            f"{ms / lib_ms:.3f}x torch._int_mm, {ms / b_ms:.2f}x the bound")
         if not exact:
             raise RuntimeError(f"quant_matmul K={k} N={n} not bitwise (max err {err})")
         if fill is not None and int(out[0, 0]) != k * 128 * 128:
@@ -562,12 +605,12 @@ def _timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def phase_lm_path(arch, kernel, tag):
+def phase_lm_path(arch, kernels, tag):
     """Serve the FULL ``arch`` with ``ServeEngine.generate`` (B 4 x 2048-token
     prompts, 32 new tokens, random weights from a CUDA generator of seed 0):
-    twice (launch counts per call, the repeat bitwise), once with one new
-    token (the prefill alone), then the teacher-forced check and a profiled
-    ``generate``."""
+    twice (each counter of ``kernels`` once per layer and call, the repeat
+    bitwise), once with one new token (the prefill alone), then the
+    teacher-forced check and a profiled ``generate``."""
     import numpy as np
     import torch
 
@@ -586,7 +629,7 @@ def phase_lm_path(arch, kernel, tag):
     log(f"[{tag}] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, {n_params:,} params, "
         f"{weight_bytes / 1e9:.2f} GB of weights, made in {init_ms:.0f} ms")
     prompts = np.random.default_rng(0).integers(0, vocab, (b, p))
-    want = {kernel: cfg.num_layers}
+    want = {name: cfg.num_layers for name in kernels}
     torch.cuda.reset_peak_memory_stats()
     runs = []
     for i in range(2):
@@ -718,6 +761,7 @@ def phase_lm_kernels():
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -736,6 +780,12 @@ def phase_lm_kernels():
         k = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dt)
         v = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dt)
         bf16 = dt == torch.bfloat16
+        variant = fa_ops.flash_variant(dt, hd)
+        before = build.launch_counts().get(fa_ops.TC_KERNEL, 0)
+        out = fa_ops.flash_attention(q, k, v)
+        tc_ran = build.launch_counts().get(fa_ops.TC_KERNEL, 0) - before
+        equal = float((out == flash_attention_ref(q, k, v)).float().mean())
+        del out
         pairs = s * (s + 1) // 2  # (query, key) pairs the causal mask keeps, S == T
         row = _kernel_case(
             f"flash_attention {label} B={b} S={s} H={h} KV={kv} hd={hd}",
@@ -748,7 +798,17 @@ def phase_lm_kernels():
             FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL, 0.0 if bf16 else FLASH_F32_ATOL,
             nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
             ops=4.0 * b * h * hd * pairs, peak=BF16_FLOPS if bf16 else FP32_FLOPS)
-        row.update(b=b, s=s, h=h, kv=kv, hd=hd, dtype=str(dt))
+        row.update(b=b, s=s, h=h, kv=kv, hd=hd, dtype=str(dt), variant=variant,
+                   equal_share=equal, vs_library=row["ms"] / row["library_ms"],
+                   vs_bound=row["ms"] / row["bound_ms"])
+        log(f"[lm kernels]   variant {variant} (tensor-core launches {tc_ran}); bitwise equal "
+            f"to the plain version: {equal:.5f} of entries; {row['vs_library']:.2f}x SDPA, "
+            f"{row['vs_bound']:.2f}x the bound")
+        if tc_ran != int(bf16 and hd in fa_ops.TC_HEAD_DIMS):  # served bf16 widths: tensor cores
+            raise RuntimeError(f"flash {label}: variant {variant}, tensor-core launches {tc_ran}")
+        if bf16 and not equal >= FLASH_BF16_EQUAL:
+            raise RuntimeError(f"flash {label}: only {equal:.5f} of bf16 entries equal the plain "
+                               f"version's (< {FLASH_BF16_EQUAL})")
         flash.append(row)
         del q, k, v
         torch.cuda.empty_cache()
@@ -885,8 +945,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    lm_row = phase_lm_path("qwen3-8b", fa_ops.KERNEL, "lm path")
-    ssm_row = phase_lm_path("mamba2-370m", ssd_ops.KERNEL, "ssm path")
+    lm_row = phase_lm_path("qwen3-8b", (fa_ops.KERNEL, fa_ops.TC_KERNEL), "lm path")
+    ssm_row = phase_lm_path("mamba2-370m", (ssd_ops.KERNEL,), "ssm path")
     flash_rows, ssd_rows = phase_lm_kernels()
     lm_cpu_rows = phase_lm_cpu()
 
@@ -918,10 +978,13 @@ def main() -> int:
                    "src/repro/kernels/segment_agg/attn_kernel.py:239",
                    dec_row["launches"].get("segment_agg_mh", 0), mh, gat_shape.format(**mh)),
         # Launches: one Qwen3-8B / Mamba2-370M generate (B 4 x 2048 + 32 tokens).
-        kernel_row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-                   "src/repro/kernels/flash_attention/flash_attention.py:95",
-                   lm_row["launches"].get(fa_ops.KERNEL, 0), flash_rows[0],
-                   "B={b} S={s} H={h} KV={kv} hd={hd} {dtype}".format(**flash_rows[0])),
+        # Every launch of the path went through the tensor-core variant.
+        dict(kernel_row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/flash_attention.py:95",
+                        lm_row["launches"].get(fa_ops.KERNEL, 0), flash_rows[0],
+                        "B={b} S={s} H={h} KV={kv} hd={hd} {dtype}".format(**flash_rows[0])),
+             variant=flash_rows[0]["variant"],
+             tensor_core_launches=lm_row["launches"].get(fa_ops.TC_KERNEL, 0)),
         kernel_row("ssd_intra_chunk", "src/repro_torch/csrc/ssd_scan.cu",
                    "src/repro/kernels/ssd_scan/ssd_scan.py:52",
                    ssm_row["launches"].get(ssd_ops.KERNEL, 0), ssd_rows[0],

@@ -88,6 +88,13 @@ _SIGNATURES = {
         _F,  # scale (1 / sqrt(hd))
         _P,  # stream
     ],
+    "ample_flash_attention_tc": [
+        _I,  # device
+        _P, _P, _P, _P,  # q [B, S, H, hd], k, v [B, T, KV, hd], out [B, S, H, hd], all bf16
+        _I, _I, _I, _I, _I, _I,  # b, s, t, h, kv, hd (64 or 128)
+        _F,  # scale (1 / sqrt(hd))
+        _P,  # stream
+    ],
     "ample_ssd_intra_chunk": [
         _I,  # device
         _P, _P, _P, _P, _P,  # cc, bc [B, NC, Q, N], xdt [B, NC, H, Q, P], acum [B, NC, H, Q], out

@@ -123,7 +123,9 @@ def test_int8_extreme_codes_no_overflow():
     assert int(out[0, 0]) == k * 128 * 128
 
 
-@pytest.mark.parametrize("k,n", [(1, 1), (15, 3), (16, 8), (300, 256), (130, 100)])
+@pytest.mark.parametrize(
+    "k,n", [(1, 1), (15, 3), (16, 8), (300, 256), (130, 100), (31, 7), (4096, 512)]
+)
 def test_repack_layout(k, n):
     w = torch.randint(-128, 128, (k, n), dtype=torch.int8)
     p = repack_weight(w)

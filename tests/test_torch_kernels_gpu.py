@@ -105,6 +105,36 @@ def test_quant_matmul_bitwise(cuda, m, k, n):
     assert torch.equal(quant_matmul_ref(a, b).cpu(), want)
 
 
+# Tensor-core GEMM edges: M off the 128-row tile, K off the 32-byte k step
+# and off the 16- and 4-byte copies (1, 31, 130 take byte loads, 300 4-byte
+# copies), N off the 8-column mma tile and the 128-column group; then the
+# largest weight that stays resident in shared memory (K 704) and weights
+# that stream through it in K chunks (K 720, K 4096; K 4097 with the
+# shifted loads of rows off a word boundary).
+@pytest.mark.parametrize("k", [1, 31, 130, 300])
+@pytest.mark.parametrize("n", [7, 100, 400])
+def test_quant_matmul_tensor_core_edges_bitwise(cuda, k, n):
+    _int8_bitwise(cuda, 300, k, n, seed=k * 1000 + n)
+
+
+@pytest.mark.parametrize(
+    "m,k,n", [(1000, 4096, 512), (129, 704, 256), (257, 720, 130), (70, 4097, 130)]
+)
+def test_quant_matmul_resident_and_streamed_weight_bitwise(cuda, m, k, n):
+    _int8_bitwise(cuda, m, k, n, seed=m + k + n)
+
+
+def _int8_bitwise(cuda, m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(cuda)
+    before = build.launch_counts().get(qm_ops.KERNEL, 0)
+    out = qm_ops.quant_matmul_repacked(a, qm_ops.repack_weight(b))
+    torch.cuda.synchronize()
+    assert build.launch_counts()[qm_ops.KERNEL] == before + 1
+    assert torch.equal(out.cpu(), quant_matmul_ref(a.cpu(), b.cpu()))
+
+
 def test_quant_matmul_extremes_and_unaligned_rows(cuda):
     k = 300
     a = torch.full((70, k), -128, dtype=torch.int8, device=cuda)
@@ -345,6 +375,14 @@ def _close(out, want, bf16):
                                rtol=0 if bf16 else 1e-4)
 
 
+def _bf16_equal_share(out, want):
+    """Share of bf16 entries bitwise equal. A computation that keeps p in f32
+    differs from the plain version only in the order of its sums (~2^-18
+    relative) and flips well under 1% of the output's roundings; one bf16 p
+    errs by up to 2^-9 and flips a large share of them."""
+    return float((out.cpu() == want.cpu()).float().mean())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,s,t,h,kv", [
     (16, 16, 16, 2, 2), (20, 200, 200, 3, 1), (64, 300, 300, 15, 5), (128, 130, 130, 8, 2),
@@ -356,15 +394,43 @@ def test_flash_attention_matches_plain(cuda, dtype, hd, s, t, h, kv):
     k = torch.randn((2, t, kv, hd), generator=gen, device=cuda).to(dtype)
     v = torch.randn((2, t, kv, hd), generator=gen, device=cuda).to(dtype)
     before = build.launch_counts().get(fa_ops.KERNEL, 0)
+    before_tc = build.launch_counts().get(fa_ops.TC_KERNEL, 0)
     out = fa_ops.flash_attention(q, k, v)
     again = fa_ops.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert build.launch_counts()[fa_ops.KERNEL] == before + 2
+    # bf16 with hd 64 and 128 runs on the tensor cores, everything else on the CUDA cores
+    tc = dtype == torch.bfloat16 and hd in (64, 128)
+    assert build.launch_counts().get(fa_ops.TC_KERNEL, 0) == before_tc + (2 if tc else 0)
     assert out.dtype == dtype and torch.equal(out, again)  # run-to-run bitwise
     assert torch.isfinite(out).all()
     bf16 = dtype == torch.bfloat16
-    _close(out, flash_attention_ref(q, k, v), bf16)
+    plain = flash_attention_ref(q, k, v)
+    _close(out, plain, bf16)
     _close(out, flash_attention_ref(q.cpu(), k.cpu(), v.cpu()), bf16)
+    if bf16:
+        assert _bf16_equal_share(out, plain) >= 0.99
+
+
+def test_flash_attention_unaligned_bf16_takes_the_cuda_core_kernel(cuda):
+    """A base off a 16-byte boundary cannot feed the tensor-core kernel's
+    16-byte copies: the wrapper picks the CUDA-core kernel, same function."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shape = (1, 70, 4, 64)
+    flat = torch.randn(int(np.prod(shape)) + 1, generator=gen, device=cuda).to(torch.bfloat16)
+    q = flat[1:].view(shape)
+    k, v = (torch.randn((1, 70, 2, 64), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    before = dict(build.launch_counts())
+    out = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    assert after[fa_ops.KERNEL] == before.get(fa_ops.KERNEL, 0) + 1
+    assert after.get(fa_ops.TC_KERNEL, 0) == before.get(fa_ops.TC_KERNEL, 0)
+    plain = flash_attention_ref(q, k, v)
+    _close(out, plain, True)
+    assert _bf16_equal_share(out, plain) >= 0.99
 
 
 @pytest.mark.parametrize("b,nc,q,n,h,p", [

@@ -94,6 +94,68 @@ def test_flash_wrapper_checks_shapes_and_runs_plain_on_cpu():
         fa_ops.flash_attention(q, k, v[..., :8])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("hd", [16, 20, 32, 64, 100, 128])
+def test_flash_variant_follows_dtype_and_head_dim(dtype, hd):
+    """bf16 with hd 64 or 128 (every served LM) takes the tensor-core kernel;
+    f32 (the REDUCED configs) and any other head dim the CUDA-core kernel."""
+    want = "tensor_cores" if dtype == torch.bfloat16 and hd in (64, 128) else "cuda_cores"
+    assert fa_ops.flash_variant(dtype, hd) == want
+    assert fa_ops.flash_variant(dtype, hd, aligned=False) == "cuda_cores"
+
+
+def _split_p_flash(q, k, v, *, terms=2, block=64):
+    """The tensor-core kernel's arithmetic, emulated on the CPU in f32: bf16
+    q, k, v; S = Q.K^T in f32 (each bf16 product exact); an online softmax
+    over KV blocks of ``block`` keys with f32 m and l; p split into ``terms``
+    bf16 terms (p_hi, p - p_hi, ...); each block's P.V from zero, folded
+    into the output as o * corr + pv; the output rounded once to bf16."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, s, kv, h // kv, hd)
+    kf, vf = k.float(), v.float()
+    qpos = torch.arange(s)[:, None]
+    m = torch.full((b, kv, h // kv, s), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros(m.shape + (hd,))
+    for k0 in range(0, t, block):
+        kb, vb = kf[:, k0:k0 + block], vf[:, k0:k0 + block]
+        sc = torch.einsum("bskgh,btkh->bkgst", qf, kb) * (1.0 / np.sqrt(hd))
+        kpos = torch.arange(k0, k0 + kb.shape[1])[None, :]
+        sc = sc.masked_fill(kpos - (t - s) > qpos, float("-inf"))
+        mn = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp(m - mn)
+        p = torch.exp(sc - mn[..., None])
+        l = l * corr + p.sum(-1)
+        pv, rest = 0.0, p
+        for _ in range(terms):
+            term = rest.to(torch.bfloat16).float()
+            pv = pv + torch.einsum("bkgst,btkh->bkgsh", term, vb)
+            rest = rest - term
+        acc = acc * corr[..., None] + pv
+        m = mn
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("s,t,h,kv,hd", [(130, 130, 4, 2, 64), (70, 200, 2, 1, 128)])
+def test_split_p_keeps_the_tpu_kernels_bf16_function(s, t, h, kv, hd):
+    """Two bf16 terms of p keep the f32-p function: within the bf16 tolerance
+    of the reference's Pallas kernel (interpret), and >= 99% of the bf16
+    entries bitwise equal to the plain version's, the share the card tests
+    ask of the kernel. One bf16 term falls below that share."""
+    q, k, v = _qkv(2, s, t, h, kv, hd, seed=s + hd)
+    qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(ref_fa.flash_attention(qb, kb, vb).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    plain = flash_attention_ref(tq, tk, tv)
+    got = _split_p_flash(tq, tk, tv)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_ATOL)
+    assert float((got == plain).float().mean()) >= 0.99
+    one = _split_p_flash(tq, tk, tv, terms=1)
+    assert float((one == plain).float().mean()) < 0.99
+
+
 def _ssd_inputs(b, nc, q, n, h, p, seed):
     rng = np.random.default_rng(seed)
     cc = rng.standard_normal((b, nc, q, n)).astype(np.float32)
