@@ -12,8 +12,8 @@ Every phase that fails raises, so the script exits non-zero.
 
 1. build   — nvcc every ``src/repro_torch/csrc/*.cu`` for sm_90a, one process
              per source, and print each kernel's registers, shared memory and
-             spills (the tensor-core flash kernel and the int8 GEMM must not
-             spill);
+             spills (the tensor-core flash kernel, the int8 GEMM and the GAT
+             walk must not spill);
 2. path    — serve the FULL ``ample-gcn`` config on the Yelp-scale graph
              (716,847 nodes, 300 features, random weights from seed 0):
              ``infer`` three times (cold, warm, warm; warm must equal cold
@@ -33,18 +33,21 @@ Every phase that fails raises, so the script exits non-zero.
 5. gat path — the same for FULL ``ample-gat`` (4 heads, 300 → 256 → 100) on
              the same graph: each request must launch the fused attention
              kernel 4 times and the int8 matmul twice, warm == cold bitwise,
-             peak device memory under 20 GiB; then a profiled warm request;
+             peak device memory under 20 GiB, and no copy of the scores into
+             tile layout (``tile_edge_coeff`` is counted and must stay at 0);
+             then a profiled warm request;
 6. gat decomposed — at the Yelp layer-2 shapes (H = 4, dh = 100),
              ``edge_softmax`` + ``aggregate(edge_coeff=…)``: the multi-head AGE
              twice per precision group, run-to-run bitwise, within atol 5e-5,
              rtol 1e-4 of the fused layer;
 7. gat kernels — the fused attention and multi-head AGE kernels against
-             their plain versions at the Yelp shapes (both groups, H·dh = 256
-             and 400; within 1e-4 and run-to-run bitwise), timed beside the
-             plain version, the bound and, for the multi-head AGE, one
-             ``torch.sparse.mm`` with the heads folded into the rows (no
-             single PyTorch call computes the fused attention, so it has no
-             library time);
+             their plain versions at the Yelp shapes (f32 rows in both groups
+             and int8 codes in the int8 group, H·dh = 256 and 400; within 1e-4
+             and run-to-run bitwise), timed beside the plain version, the
+             bound, the gathered-row floor (lanes × row bytes / 3.35 TB/s)
+             and, for the multi-head AGE, one ``torch.sparse.mm`` with the
+             heads folded into the rows, on the f32 rows (no single PyTorch
+             call computes the fused attention, so it has no library time);
 8. gat cpu — ``ample-gat`` served on the CPU against the card;
 9. lm path — FULL ``qwen3-8b`` (36 layers, d 4096, GQA 32/8, hd 128, bf16,
              random weights from a CUDA generator of seed 0) through
@@ -148,8 +151,8 @@ def _yelp_engine(srv, g):
 
 
 # Kernels that must keep every value in registers (a spill would sit in the
-# inner loop): the tensor-core flash kernel and the int8 GEMM.
-NO_SPILL = ("flash_tc_kernel", "quant_matmul_kernel")
+# inner loop): the tensor-core flash kernel, the int8 GEMM and the GAT walk.
+NO_SPILL = ("flash_tc_kernel", "quant_matmul_kernel", "heads_walk_kernel")
 
 
 def ptxas_table(text):
@@ -407,30 +410,57 @@ def phase_gemm(m):
     return rows
 
 
-def _heads_csr(dp, cf_t, n):
+def _heads_csr(dp, edge_coeff, n):
     """The multi-head coefficients of one plan as a torch CSR [n·H, n·H]:
-    entry ((node, h), (src, h)) sums cf_t[t, e, h] over the live lanes from
-    src to node, so that out.view(n·H, dh) = A @ x.view(n·H, dh) (library
-    yardstick: the multi-head AGE with the heads folded into the rows)."""
+    entry ((node, h), (src, h)) sums coeff · edge_coeff[edge, h] over the live
+    lanes from src to node, so that out.view(n·H, dh) = A @ x.view(n·H, dh)
+    (library yardstick: the multi-head AGE with the heads folded into the
+    rows)."""
     import torch
 
-    h = cf_t.shape[-1]
+    h = edge_coeff.shape[-1]
     live = dp.edge_ids >= 0
     dst = torch.gather(dp.out_node, 1, dp.seg_ids.long())[live].long()
     src = dp.gather_idx[live].long()
+    cf = dp.coeff[live].unsqueeze(-1) * edge_coeff[dp.edge_ids[live].long()]
     head = torch.arange(h, device=src.device)
     rows = (dst[:, None] * h + head).reshape(-1)
     cols = (src[:, None] * h + head).reshape(-1)
-    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), cf_t[live].reshape(-1),
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), cf.reshape(-1),
                                   (n * h, n * h)).coalesce()
     return coo.to_sparse_csr()
 
 
-def _plan_bytes(dp, *, with_coeff):
-    """Bytes of the plan arrays and split map a tile kernel reads."""
-    arrays = [dp.gather_idx, dp.seg_ids, dp.out_node, dp.split.slot_of,
-              dp.split.split_ptr, dp.split.split_node] + ([dp.coeff] if with_coeff else [])
+def _plan_bytes(dp):
+    """Bytes of the plan arrays and split map the GAT kernels read: the lane
+    indices, edge ids, static coeff and segments, the split map."""
+    arrays = [dp.gather_idx, dp.edge_ids, dp.coeff, dp.seg_ids, dp.out_node, dp.split.slot_of,
+              dp.split.split_ptr, dp.split.split_node]
     return sum(t.numel() * t.element_size() for t in arrays)
+
+
+class _count_tile_scatters:
+    """Count calls of ``core.aggregation.tile_edge_coeff`` (the [T, E(, H)]
+    copy of a per-edge operand) while the block runs."""
+
+    def __enter__(self):
+        from repro_torch.core import aggregation
+
+        self.count = [0]
+        self.orig = aggregation.tile_edge_coeff
+
+        def counted(*args, **kwargs):
+            self.count[0] += 1
+            return self.orig(*args, **kwargs)
+
+        aggregation.tile_edge_coeff = counted
+        return self.count
+
+    def __exit__(self, *exc):
+        from repro_torch.core import aggregation
+
+        aggregation.tile_edge_coeff = self.orig
+        return False
 
 
 def _leaky(s):
@@ -488,11 +518,12 @@ def phase_gat_decomposed(entry):
 
 
 def phase_gat_kernels(entry):
-    """Both GAT kernels against their plain versions at the Yelp shapes."""
+    """Both GAT kernels against their plain versions at the Yelp shapes: f32
+    rows in both groups and int8 codes in the int8 group, H·dh 256 and 400."""
     import numpy as np
     import torch
 
-    from repro_torch.core.aggregation import tile_edge_coeff
+    from repro_torch.core.quantization import compute_scale_zp, dequantize, quantize
     from repro_torch.kernels.segment_agg import attn_ops
     from repro_torch.kernels.segment_agg.ref import aggregate_tiles_mh_ref, attend_tiles_ref
     from repro_torch.models.gnn.gat import LEAKY_SLOPE
@@ -509,63 +540,75 @@ def phase_gat_kernels(entry):
         live = p.edge_ids >= 0
         lanes = int(live.sum())
         uniq = np.unique(p.gather_idx[live]).size
-        sc_t = tile_edge_coeff(dp, scores, fill=float("-inf"))
-        cf_t = dp.coeff.unsqueeze(-1) * tile_edge_coeff(dp, alpha)
-        tile_bytes = sc_t.numel() * 4
-        lib_a = _heads_csr(dp, cf_t, n)
+        lib_a = _heads_csr(dp, alpha, n)
+        plan_bytes = _plan_bytes(dp)
         for dh in (64, 100):
             d = 4 * dh
             z = torch.randn((n, 4, dh), generator=gen, device="cuda")
-            attn_args = (dp.gather_idx, sc_t, dp.coeff, dp.seg_ids, dp.out_node, dp.split)
-            mh_args = (dp.gather_idx, cf_t, dp.seg_ids, dp.out_node, dp.split)
-            zf = z.view(n * 4, dh)
-            cases = (
-                ("attention", attn_rows,
-                 lambda: attn_ops.attend_tiles(z, *attn_args, num_nodes=n, leaky_slope=LEAKY_SLOPE),
-                 lambda: attend_tiles_ref(z, *attn_args, num_nodes=n, leaky_slope=LEAKY_SLOPE),
-                 None, _plan_bytes(dp, with_coeff=True), lanes * (2.0 * d + 5 * 4)),
-                ("segment_agg_mh", mh_rows,
-                 lambda: attn_ops.aggregate_tiles_mh(z, *mh_args, num_nodes=n),
-                 lambda: aggregate_tiles_mh_ref(z, *mh_args, num_nodes=n),
-                 lambda: torch.sparse.mm(lib_a, zf),
-                 _plan_bytes(dp, with_coeff=False), lanes * 2.0 * d),
-            )
-            for name, rows, kernel, plain_fn, lib_fn, plan_bytes, ops in cases:
-                out = kernel()
-                again = kernel()
-                plain = plain_fn()
-                torch.cuda.synchronize()
-                bitwise = bool(torch.equal(out, again))
-                finite = bool(torch.isfinite(out).all())
-                err = float((out - plain).abs().max())
-                ms = cuda_ms(kernel, reps=5)
-                plain_ms = cuda_ms(plain_fn, reps=2)
-                lib_ms = lib_err = None
-                if lib_fn is not None:
-                    lib_err = float((lib_fn().view_as(out) - out).abs().max())
-                    lib_ms = cuda_ms(lib_fn, reps=5)
-                nbytes = uniq * d * 4 + tile_bytes + plan_bytes + n * d * 4
-                b_ms, b_by = bound(nbytes, ops, FP32_FLOPS)
-                rows.append(dict(group=tag, tiles=p.num_tiles, lanes=p.edges_per_tile,
-                                 edges=lanes, n=n, heads=4, dh=dh, d=d,
-                                 split_slots=dp.split.num_slots, max_abs_err=err,
-                                 run_to_run_bitwise=bitwise, ms=ms, plain_ms=plain_ms,
-                                 library_ms=lib_ms, library_err=lib_err, bound_ms=b_ms,
-                                 bound_by=b_by, bytes=nbytes,
-                                 gathered_row_bytes=lanes * d * 4))
-                lib = "" if lib_ms is None else (
-                    f" library_ms={lib_ms:.3f} (err {lib_err:.3g})")
-                log(f"[kernels] {name} {tag} T={p.num_tiles} H=4 dh={dh}: err={err:.3g} "
-                    f"bitwise={bitwise} ms={ms:.3f} plain_ms={plain_ms:.3f}{lib} "
-                    f"bound_ms={b_ms:.3f} ({b_by})")
-                if not bitwise or not finite or not err <= AGE_ATOL:
-                    raise RuntimeError(f"{name} {tag} dh={dh}: err {err}, bitwise {bitwise}, "
-                                       f"finite {finite}")
-                if lib_err is not None and not lib_err <= AGE_ATOL:
-                    raise RuntimeError(f"{name} {tag} dh={dh}: library yardstick differs "
-                                       f"by {lib_err}")
-                del out, again, plain
-            del z, zf
+            kinds = [("f32", z, None, z)]
+            if tag == "int8":
+                qp = compute_scale_zp(z, symmetric=True)
+                q = quantize(z, qp)
+                kinds.append(("int8", q, qp, dequantize(q, qp)))
+            for rows_kind, x, qp, xf in kinds:
+                elem = x.element_size()
+                a_args = (dp.gather_idx, dp.edge_ids, scores, dp.coeff, dp.seg_ids, dp.out_node,
+                          dp.split)
+                m_args = (dp.gather_idx, dp.edge_ids, alpha, dp.coeff, dp.seg_ids, dp.out_node,
+                          dp.split)
+                xff = xf.view(n * 4, dh)
+                cases = (
+                    ("attention", attn_rows,
+                     lambda: attn_ops.attend_tiles(x, *a_args, num_nodes=n,
+                                                   leaky_slope=LEAKY_SLOPE, qp=qp),
+                     lambda: attend_tiles_ref(x, *a_args, num_nodes=n, leaky_slope=LEAKY_SLOPE,
+                                              qp=qp),
+                     None, lanes * (2.0 * d + 5 * 4)),
+                    ("segment_agg_mh", mh_rows,
+                     lambda: attn_ops.aggregate_tiles_mh(x, *m_args, num_nodes=n, qp=qp),
+                     lambda: aggregate_tiles_mh_ref(x, *m_args, num_nodes=n, qp=qp),
+                     lambda: torch.sparse.mm(lib_a, xff), lanes * 2.0 * d),
+                )
+                for name, rows, kernel, plain_fn, lib_fn, ops in cases:
+                    out = kernel()
+                    again = kernel()
+                    plain = plain_fn()
+                    torch.cuda.synchronize()
+                    bitwise = bool(torch.equal(out, again))
+                    finite = bool(torch.isfinite(out).all())
+                    err = float((out - plain).abs().max())
+                    ms = cuda_ms(kernel, reps=5)
+                    plain_ms = cuda_ms(plain_fn, reps=2)
+                    lib_ms = lib_err = None
+                    if lib_fn is not None:
+                        lib_err = float((lib_fn().view_as(out) - out).abs().max())
+                        lib_ms = cuda_ms(lib_fn, reps=5)
+                    # Each unique row once at its precision, the per-edge
+                    # operand [E, H] through the edge ids, the plan, the output.
+                    nbytes = uniq * d * elem + lanes * 4 * 4 + plan_bytes + n * d * 4
+                    b_ms, b_by = bound(nbytes, ops, FP32_FLOPS)
+                    floor_ms = lanes * d * elem / HBM_BPS * 1e3
+                    rows.append(dict(group=tag, rows=rows_kind, tiles=p.num_tiles,
+                                     lanes=p.edges_per_tile, edges=lanes, n=n, heads=4, dh=dh,
+                                     d=d, split_slots=dp.split.num_slots, max_abs_err=err,
+                                     run_to_run_bitwise=bitwise, ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, library_err=lib_err, bound_ms=b_ms,
+                                     bound_by=b_by, bytes=nbytes, row_floor_ms=floor_ms,
+                                     gathered_row_bytes=lanes * d * elem))
+                    lib = "" if lib_ms is None else (
+                        f" library_ms={lib_ms:.3f} (err {lib_err:.3g}; {ms / lib_ms:.3f}x)")
+                    log(f"[kernels] {name} {tag} {rows_kind} rows T={p.num_tiles} H=4 dh={dh}: "
+                        f"err={err:.3g} bitwise={bitwise} ms={ms:.3f} plain_ms={plain_ms:.3f}{lib} "
+                        f"bound_ms={b_ms:.3f} ({b_by}) row_floor_ms={floor_ms:.3f} "
+                        f"({ms / floor_ms:.2f}x)")
+                    if not bitwise or not finite or not err <= AGE_ATOL:
+                        raise RuntimeError(f"{name} {tag} {rows_kind} dh={dh}: err {err}, "
+                                           f"bitwise {bitwise}, finite {finite}")
+                    if lib_err is not None and not lib_err <= AGE_ATOL:
+                        raise RuntimeError(f"{name} {tag} dh={dh}: library yardstick differs "
+                                           f"by {lib_err}")
+                    del out, again, plain
+            del z, x, xf, xff
         del lib_a
     return attn_rows, mh_rows
 
@@ -929,11 +972,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     gat_cfg = get_config("ample-gat")
-    gsrv, gouts, gbatch, gcounts, gpeak = phase_path(
-        gat_cfg, g, batch_graphs, {"attention": 4, "quant_matmul": 2}, tag="gat path")
+    with _count_tile_scatters() as scatters:
+        gsrv, gouts, gbatch, gcounts, gpeak = phase_path(
+            gat_cfg, g, batch_graphs, {"attention": 4, "quant_matmul": 2}, tag="gat path")
+        gprofile_row = phase_profile(gsrv, g, tag="gat profile")
+    log(f"[gat path] per-edge operands scattered into tile layout: {scatters[0]} times")
+    if scatters[0]:
+        raise RuntimeError("the GAT requests gathered per-edge operands into tile layout")
     if gpeak >= 20 * 2**30:
         raise RuntimeError(f"GAT path peak device memory {gpeak / 2**30:.2f} GiB >= 20 GiB")
-    gprofile_row = phase_profile(gsrv, g, tag="gat profile")
     gentry = _yelp_engine(gsrv, g)
     dec_row = phase_gat_decomposed(gentry)
     attn_rows, mh_rows = phase_gat_kernels(gentry)
@@ -959,9 +1006,12 @@ def main() -> int:
     # The largest call of each kernel on its path: the int8 group, at D = 300
     # (AGE), K = 300 (GEMM), and H·dh = 4·100 (GAT layer 2).
     age, gemm = age_rows[0], gemm_rows[0]
-    attn = next(r for r in attn_rows if r["group"] == "int8" and r["dh"] == 100)
-    mh = next(r for r in mh_rows if r["group"] == "int8" and r["dh"] == 100)
-    gat_shape = "int8 group T={tiles} E={lanes} N={n} H={heads} dh={dh}"
+    # The GAT kernels' int8 group gathers int8 codes on the path.
+    attn = next(r for r in attn_rows
+                if r["group"] == "int8" and r["dh"] == 100 and r["rows"] == "int8")
+    mh = next(r for r in mh_rows
+              if r["group"] == "int8" and r["dh"] == 100 and r["rows"] == "int8")
+    gat_shape = "int8 group T={tiles} E={lanes} N={n} H={heads} dh={dh}, {rows} rows"
     kernels = [
         kernel_row("segment_agg", "src/repro_torch/csrc/segment_agg.cu",
                    "src/repro/kernels/segment_agg/segment_agg.py:135",

@@ -11,10 +11,11 @@ dequantized, as the reference does (``repro/core/aggregation.py``).
 
 The per-edge ``coeff`` folds the aggregation function into the plan:
 sum → 1, mean → 1/deg, GCN → 1/√(d̂_i d̂_j). Invalid lanes carry coeff 0.
-Runtime coefficients (GAT attention) arrive per request in graph edge space
-and are scattered into tile layout through the plan's ``edge_ids``
-(``tile_edge_coeff``); an ``[E, H]`` matrix with ``x [N, H, dh]`` runs the
-multi-head kernel (``kernels/segment_agg/attn_ops.py``).
+Runtime coefficients (GAT attention) arrive per request in graph edge space.
+An ``[E, H]`` matrix with ``x [N, H, dh]`` runs the multi-head kernel
+(``kernels/segment_agg/attn_ops.py``), which reads it through the plan's
+``edge_ids``; its int8 group passes the codes and their scale. A 1-D vector
+is scattered into tile layout (``tile_edge_coeff``) for the AGE kernel.
 """
 from __future__ import annotations
 
@@ -105,24 +106,29 @@ def aggregate_edge_tiles(
     *,
     num_nodes: int,
     edge_coeff: Optional[torch.Tensor] = None,
+    qp: Optional[QuantParams] = None,
 ) -> torch.Tensor:
     """Event-driven aggregation over one plan's tiles: f32[num_nodes, …].
 
     ``edge_coeff`` supplies runtime per-edge coefficients (graph edge space),
-    scattered into tile layout through ``edge_ids`` and multiplied with the
-    static coeff (1 on every real lane of a ``"runtime"`` plan). A 1-D
-    ``edge_coeff`` goes to the AGE kernel; ``[E, H]`` with ``x [N, H, dh]``
-    goes to the multi-head kernel, each head's coefficients applying to its
-    slice of the row. Head-uniform coefficients on ``x [N, H, dh]`` treat the
-    heads as feature columns.
+    multiplied with the static coeff (1 on every real lane of a ``"runtime"``
+    plan). ``[E, H]`` with ``x [N, H, dh]`` goes to the multi-head kernel,
+    which reads it through ``edge_ids``, each head's coefficients applying
+    to its slice of the row; ``x`` may then be int8 codes with their ``qp``.
+    A 1-D ``edge_coeff`` is scattered into tile layout for the AGE kernel.
+    Head-uniform coefficients on ``x [N, H, dh]`` treat the heads as feature
+    columns.
     """
+    if edge_coeff is not None and edge_coeff.dim() == 2:
+        return attn_ops.aggregate_tiles_mh(
+            x, dplan.gather_idx, dplan.edge_ids, edge_coeff.contiguous(), dplan.coeff,
+            dplan.seg_ids, dplan.out_node, dplan.split, num_nodes=num_nodes, qp=qp)
+    if qp is not None:
+        x = dequantize(x, qp)
     coeff = dplan.coeff
     if edge_coeff is not None:
-        tc = tile_edge_coeff(dplan, edge_coeff)  # [T, E] or [T, E, H]
-        coeff = coeff.unsqueeze(-1) * tc if tc.dim() == 3 else coeff * tc
+        coeff = coeff * tile_edge_coeff(dplan, edge_coeff)
     args = (dplan.gather_idx, coeff, dplan.seg_ids, dplan.out_node, dplan.split)
-    if coeff.dim() == 3:
-        return attn_ops.aggregate_tiles_mh(x, *args, num_nodes=num_nodes)
     if x.dim() == 3:
         n, h, dh = x.shape
         flat = seg_ops.aggregate_tiles(x.reshape(n, h * dh), *args, num_nodes=num_nodes)
@@ -158,19 +164,17 @@ def edge_segment_sum_tiles(
     """Destination-segment sum of per-edge values over one plan's tiles:
     f32[N(, H)].
 
-    The denominator pass of the segment softmax. The values scatter into tile
-    layout (padding lanes read 0) and become the per-head lane coefficients
-    of the multi-head AGE over rows of ones, so split nodes combine in tile
-    order as in the aggregation, with no atomics.
+    The denominator pass of the segment softmax. The values are the per-head
+    lane coefficients of the multi-head AGE over rows of ones (read through
+    ``edge_ids``, padding lanes 0, static coeff one: ``1 · v`` is exact), so
+    split nodes combine in tile order as in the aggregation, with no atomics.
     """
-    v = tile_edge_coeff(dplan, values)
-    if v.dim() == 2:
-        v = v.unsqueeze(-1)
+    v = values if values.dim() == 2 else values.unsqueeze(-1)
     h = v.shape[-1]
     ones = torch.ones((num_nodes, h, 1), dtype=values.dtype, device=values.device)
     out = attn_ops.aggregate_tiles_mh(
-        ones, dplan.gather_idx, v, dplan.seg_ids, dplan.out_node,
-        dplan.split, num_nodes=num_nodes,
+        ones, dplan.gather_idx, dplan.edge_ids, v.contiguous(), None, dplan.seg_ids,
+        dplan.out_node, dplan.split, num_nodes=num_nodes,
     )
     return out.view((num_nodes,) + tuple(values.shape[1:]))
 
@@ -185,7 +189,9 @@ def aggregate_mixed_precision(
     edge_coeff: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mixed-precision AGE: the float plan consumes fp32 embeddings; the int8
-    plan consumes int8-quantized embeddings, dequantized before accumulate.
+    plan consumes int8-quantized embeddings, dequantized before accumulate
+    (inside the multi-head kernel, which takes the codes, for ``[E, H]``
+    coefficients; before the AGE kernel otherwise).
 
     The two streams write disjoint node sets, so the combined output is just
     the sum of the two. ``qp`` overrides the activation scale/zero-point
@@ -211,8 +217,7 @@ def aggregate_mixed_precision(
     if "int8" in plans:
         if qp is None:
             qp = compute_scale_zp(x, symmetric=True)
-        xdq = dequantize(quantize(x, qp), qp)
         out = out + aggregate_edge_tiles(
-            xdq, dplan("int8"), num_nodes=num_nodes, edge_coeff=edge_coeff
+            quantize(x, qp), dplan("int8"), num_nodes=num_nodes, edge_coeff=edge_coeff, qp=qp
         )
     return out

@@ -32,14 +32,12 @@ from repro_torch.core.aggregation import (
     aggregate_mixed_precision,
     edge_segment_sum_tiles,
     segment_max_edge_tiles,
-    tile_edge_coeff,
     to_device_plan,
 )
 from repro_torch.core.degree_quant import DegreeQuantConfig, inference_precision_tags
 from repro_torch.core.quantization import (
     QuantParams,
     compute_scale_zp,
-    dequantize,
     quantize,
     quantize_per_channel,
 )
@@ -586,8 +584,9 @@ class AmpleEngine:
         f32[N, H, dh]. Each precision group runs the fused attention kernel
         (LeakyReLU → tile-local segment max → exp → segment sum → weighted
         aggregate in one tile pass, combined across tiles by a log-sum-exp
-        rescale): the float group on ``z``, the int8 group on ``z``
-        quantized to int8 and dequantized. Precision groups cover disjoint
+        rescale), which reads the scores through the plan's ``edge_ids``: the
+        float group on ``z``, the int8 group on ``z``'s int8 codes, dequantized
+        inside the kernel. Precision groups cover disjoint
         destination nodes, so per-group softmax is exact. ``edge_softmax``
         plus ``aggregate(edge_coeff=…)`` is the same layer in two passes.
         """
@@ -605,15 +604,15 @@ class AmpleEngine:
         qp = None
         if self.cfg.mixed_precision and "int8" in plans:
             qp = self._activation_qp(lambda: z, "agg")
+        scores = scores.contiguous()
         out = torch.zeros_like(z)
         for tag, dp in dplans.items():
-            x = z
+            x, x_qp = z, None
             if tag == "int8" and self.cfg.mixed_precision:
-                x = dequantize(quantize(z, qp), qp)
-            sc_t = tile_edge_coeff(dp, scores, fill=float("-inf"))
+                x, x_qp = quantize(z, qp), qp
             out = out + attn_ops.attend_tiles(
-                x, dp.gather_idx, sc_t, dp.coeff, dp.seg_ids, dp.out_node, dp.split,
-                num_nodes=n, leaky_slope=leaky_slope,
+                x, dp.gather_idx, dp.edge_ids, scores, dp.coeff, dp.seg_ids, dp.out_node,
+                dp.split, num_nodes=n, leaky_slope=leaky_slope, qp=x_qp,
             )
         return out
 

@@ -38,10 +38,9 @@ extern "C" int ample_segment_agg(int device, const float* x,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (num_tiles > 0 && d > 0) {
-    const int status = launch_tiles<false>(
-        stream, x, gather_idx, nullptr, coeff, seg_ids, out_node, slot_of,
-        partial, nullptr, nullptr, out, num_tiles, lanes, segs, 1, d,
-        num_nodes, 0.f);
+    const int status = launch_tiles(stream, x, gather_idx, coeff, seg_ids, out_node,
+                                    slot_of, partial, out, num_tiles, lanes, segs, 1, d,
+                                    num_nodes);
     if (status != 0) return status;
   }
   if (n_split > 0 && d > 0) {

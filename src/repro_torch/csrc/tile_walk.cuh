@@ -1,36 +1,29 @@
-// The tile walk shared by the AGE (segment_agg.cu) and the multi-head GAT
-// kernels (attn_agg.cu).
+// The tile walk of the AGE (segment_agg.cu); attn_agg.cu shares its helpers
+// and its split-node combine.
 //
 // Over the planner's edge tiles (gather_idx, seg_ids: [T, E]; out_node:
-// [T, S]), x is [N, heads * dh] (head-packed as the FTE wrote it; the AGE is
-// heads = 1, dh = D) and each lane carries one weight per head, [T, E, heads].
-// The plan orders each tile's lanes by segment (a segment is a contiguous
-// run, padding lanes last with weight 0), and a node spans several tiles only
-// when it was split, as the first or last segment of a tile. The split map
-// (computed once per plan on the host) gives each segment of a split node a
-// compact partial row (slot_of >= 0) and -1 to every other segment.
+// [T, S]), x is [N, heads * dh] and each lane carries one weight per head,
+// [T, E, heads] (the AGE is heads = 1, dh = D). The plan orders each tile's
+// lanes by segment (a segment is a contiguous run, padding lanes last with
+// weight 0), and a node spans several tiles only when it was split, as the
+// first or last segment of a tile. The split map (computed once per plan on
+// the host) gives each segment of a split node a compact partial row
+// (slot_of >= 0) and -1 to every other segment.
 //
 //   tile_heads_kernel (one block per tile, blockIdx.y picks a column block)
 //     stages the tile's indices and its [E, heads] lane weights in shared
-//     memory (the TPU's scalar prefetch). With kAttn the weights are the raw
-//     attention scores: one thread per (segment run, head) applies LeakyReLU
-//     (-inf padding stays -inf), takes the run's max m (0 stands in for -inf
-//     before the exp, as m_fin does in the TPU kernel), l = sum exp(sc - m),
-//     and turns the weights into exp(sc - m) * coeff, in lane order. Then the
-//     threads stride over the columns and walk the lanes in order with a
-//     running sum per column held in registers, loading the rows of kBatch
-//     lanes ahead of the sums so that several row loads are in flight. A
-//     finished segment whose node lives in this tile only is final (the sum,
-//     or a / l with kAttn, 0 when l is 0); a split segment writes its partial
-//     row (and m, l with kAttn).
+//     memory (the TPU's scalar prefetch). Then the threads stride over the
+//     columns and walk the lanes in order with a running sum per column held
+//     in registers, loading the rows of kBatch lanes ahead of the sums so that
+//     several row loads are in flight. A finished segment whose node lives in
+//     this tile only is final; a split segment writes its partial row.
 //   combine_sum_kernel (one block per split node) sums that node's partial
-//     rows in tile order; attn_agg.cu has the log-sum-exp combine.
+//     rows in tile order.
 //
 // No atomics: results are the same from run to run, which warm == cold
 // serving relies on. Sums use __fmul_rn/__fadd_rn (no FMA contraction), the
-// order of the plain PyTorch versions on the CPU; exps use expf (no fast
-// math). A lane is skipped for a column whose head weight is 0: for finite x
-// it adds exactly +-0, and a lane is dead only for the heads whose weight is 0.
+// order of the plain PyTorch versions on the CPU. A lane is skipped for a
+// column whose head weight is 0: for finite x it adds exactly +-0.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,13 +40,12 @@ __device__ __forceinline__ bool finite(float v) { return fabsf(v) <= FLT_MAX; }
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 // Write one finished segment's column sums: to its partial row when its node
-// is split across tiles, else to the node's output row (attention divides by
-// the segment's exp-sum l there, as the combine would with one row).
-template <int CPT, bool kAttn>
+// is split across tiles, else to the node's output row.
+template <int CPT>
 __device__ __forceinline__ void flush_segment(
-    int s, const float (&acc)[CPT], const int (&head)[CPT], const int* s_node,
-    const int* s_slot, const float* s_l, float* __restrict__ part_a,
-    float* __restrict__ out, int col0, int d, int heads, int num_nodes) {
+    int s, const float (&acc)[CPT], const int* s_node, const int* s_slot,
+    float* __restrict__ part_a, float* __restrict__ out, int col0, int d,
+    int num_nodes) {
   const int node = s_node[s];
   if (node >= num_nodes) return;  // sentinel: unused segment
   const int slot = s_slot[s];
@@ -63,34 +55,27 @@ __device__ __forceinline__ void flush_segment(
     if (col >= d) continue;
     if (slot >= 0) {
       part_a[static_cast<int64_t>(slot) * d + col] = acc[c];
-    } else if constexpr (kAttn) {
-      const float l = s_l[s * heads + head[c]];
-      out[static_cast<int64_t>(node) * d + col] = __fdiv_rn(acc[c], l > 0.f ? l : 1.f);
     } else {
       out[static_cast<int64_t>(node) * d + col] = acc[c];
     }
   }
 }
 
-// CPT = columns per thread; a block covers kThreads * CPT columns. kAttn
-// selects the fused attention layer (scores in, softmax weights); without it
-// the lane weights are coeff [T, E, heads] as given.
-template <int CPT, bool kAttn>
+// CPT = columns per thread; a block covers kThreads * CPT columns; the lane
+// weights are coeff [T, E, heads] as given.
+template <int CPT>
 __global__ void __launch_bounds__(kThreads) tile_heads_kernel(
     const float* __restrict__ x, const int* __restrict__ gather_idx,
-    const float* __restrict__ scores, const float* __restrict__ coeff,
-    const int* __restrict__ seg_ids, const int* __restrict__ out_node,
-    const int* __restrict__ slot_of, float* __restrict__ part_a,
-    float* __restrict__ part_m, float* __restrict__ part_l,
-    float* __restrict__ out, int lanes, int segs, int heads, int dh,
-    int num_nodes, float slope) {
+    const float* __restrict__ coeff, const int* __restrict__ seg_ids,
+    const int* __restrict__ out_node, const int* __restrict__ slot_of,
+    float* __restrict__ part_a, float* __restrict__ out, int lanes, int segs,
+    int heads, int dh, int num_nodes) {
   extern __shared__ int smem[];
   int* s_idx = smem;
   int* s_seg = s_idx + lanes;
   int* s_node = s_seg + lanes;
   int* s_slot = s_node + segs;
   float* s_w = reinterpret_cast<float*>(s_slot + segs);  // [E, H]
-  float* s_l = s_w + lanes * heads;                      // [S, H], attention
 
   const int64_t t = blockIdx.x;
   const int d = heads * dh;
@@ -103,42 +88,8 @@ __global__ void __launch_bounds__(kThreads) tile_heads_kernel(
     s_node[i] = out_node[t * segs + i];
     s_slot[i] = slot_of[t * segs + i];
   }
-  for (int i = threadIdx.x; i < lh; i += kThreads) {
-    if constexpr (kAttn) {
-      const float sc = scores[t * lh + i];
-      s_w[i] = sc >= 0.f ? sc : __fmul_rn(slope, sc);  // -inf stays -inf
-    } else {
-      s_w[i] = coeff[t * lh + i];
-    }
-  }
+  for (int i = threadIdx.x; i < lh; i += kThreads) s_w[i] = coeff[t * lh + i];
   __syncthreads();
-
-  if constexpr (kAttn) {
-    for (int i = threadIdx.x; i < lh; i += kThreads) {
-      const int e0 = i / heads;
-      const int h = i - e0 * heads;
-      const int s = s_seg[e0];
-      if (e0 > 0 && s_seg[e0 - 1] == s) continue;  // not the first lane of its run
-      int e1 = e0 + 1;
-      while (e1 < lanes && s_seg[e1] == s) ++e1;
-      float m = neg_inf();
-      for (int e = e0; e < e1; ++e) m = fmaxf(m, s_w[e * heads + h]);
-      const float mf = finite(m) ? m : 0.f;
-      float l = 0.f;
-      for (int e = e0; e < e1; ++e) {
-        const float p = expf(s_w[e * heads + h] - mf);
-        l = __fadd_rn(l, p);
-        s_w[e * heads + h] = __fmul_rn(p, coeff[t * lanes + e]);
-      }
-      s_l[s * heads + h] = l;
-      const int slot = s_slot[s];
-      if (blockIdx.y == 0 && slot >= 0) {
-        part_m[static_cast<int64_t>(slot) * heads + h] = m;
-        part_l[static_cast<int64_t>(slot) * heads + h] = l;
-      }
-    }
-    __syncthreads();
-  }
 
   const int col0 = blockIdx.y * (kThreads * CPT) + threadIdx.x;
   int head[CPT];
@@ -170,8 +121,7 @@ __global__ void __launch_bounds__(kThreads) tile_heads_kernel(
       if (e < lanes) {
         const int s = s_seg[e];
         if (s != cur) {
-          flush_segment<CPT, kAttn>(cur, acc, head, s_node, s_slot, s_l, part_a, out, col0, d,
-                                    heads, num_nodes);
+          flush_segment<CPT>(cur, acc, s_node, s_slot, part_a, out, col0, d, num_nodes);
           cur = s;
 #pragma unroll
           for (int c = 0; c < CPT; ++c) acc[c] = 0.f;
@@ -184,8 +134,7 @@ __global__ void __launch_bounds__(kThreads) tile_heads_kernel(
       }
     }
   }
-  flush_segment<CPT, kAttn>(cur, acc, head, s_node, s_slot, s_l, part_a, out, col0, d,
-                            heads, num_nodes);
+  flush_segment<CPT>(cur, acc, s_node, s_slot, part_a, out, col0, d, num_nodes);
 }
 
 __global__ void __launch_bounds__(kThreads) combine_sum_kernel(
@@ -205,26 +154,21 @@ __global__ void __launch_bounds__(kThreads) combine_sum_kernel(
 
 // Launch tile_heads_kernel over num_tiles tiles with as many columns per
 // thread as heads * dh needs (at most 4; more columns take more blocks).
-// Shared memory: (2 * lanes + 2 * segs + lanes * heads) * 4 bytes, plus
-// segs * heads * 4 with kAttn.
-template <bool kAttn>
-int launch_tiles(cudaStream_t stream, const float* x, const int* gather_idx,
-                 const float* scores, const float* coeff, const int* seg_ids,
-                 const int* out_node, const int* slot_of, float* part_a,
-                 float* part_m, float* part_l, float* out, int num_tiles,
-                 int lanes, int segs, int heads, int dh, int num_nodes,
-                 float slope) {
+// Shared memory: (2 * lanes + 2 * segs + lanes * heads) * 4 bytes.
+inline int launch_tiles(cudaStream_t stream, const float* x, const int* gather_idx,
+                        const float* coeff, const int* seg_ids, const int* out_node,
+                        const int* slot_of, float* part_a, float* out, int num_tiles,
+                        int lanes, int segs, int heads, int dh, int num_nodes) {
   const int d = heads * dh;
   const int cpt = d <= kThreads ? 1 : d <= 2 * kThreads ? 2
                 : d <= 3 * kThreads ? 3 : 4;
   const int per_block = kThreads * cpt;
   const dim3 grid(num_tiles, (d + per_block - 1) / per_block);
-  const size_t smem = static_cast<size_t>(2 * lanes + 2 * segs + lanes * heads +
-                                          (kAttn ? segs * heads : 0)) * 4;
-#define AMPLE_LAUNCH(C)                                                          \
-  tile_heads_kernel<C, kAttn><<<grid, kThreads, smem, stream>>>(                 \
-      x, gather_idx, scores, coeff, seg_ids, out_node, slot_of, part_a, part_m, \
-      part_l, out, lanes, segs, heads, dh, num_nodes, slope)
+  const size_t smem = static_cast<size_t>(2 * lanes + 2 * segs + lanes * heads) * 4;
+#define AMPLE_LAUNCH(C)                                                        \
+  tile_heads_kernel<C><<<grid, kThreads, smem, stream>>>(                      \
+      x, gather_idx, coeff, seg_ids, out_node, slot_of, part_a, out, lanes,    \
+      segs, heads, dh, num_nodes)
   switch (cpt) {
     case 1: AMPLE_LAUNCH(1); break;
     case 2: AMPLE_LAUNCH(2); break;

@@ -61,17 +61,21 @@ _SIGNATURES = {
     ],
     "ample_attention": [
         _I,  # device
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # x, gather_idx, scores, coeff, seg_ids, out_node, slot_of, split_ptr, split_node
+        _P, _I, _P, _P,  # x, element bytes (4: f32, 1: int8 codes), qscale, qzero
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # gather_idx, edge_ids, scores, coeff, seg_ids, out_node, slot_of, split_ptr, split_node
         _P, _P, _P, _P,  # part_a, part_m, part_l, out
         _I, _I, _I, _I, _I, _I, _I,  # num_tiles, lanes, segs, heads, dh, n_split, num_nodes
+        _I, _I, _I, _I, _I, _I,  # chunk_bytes, groups, per_group, lanes_per_stage, threads, smem_bytes
         _F,  # leaky slope
         _P,  # stream
     ],
     "ample_segment_agg_mh": [
         _I,  # device
-        _P, _P, _P, _P, _P, _P, _P, _P,  # x, gather_idx, coeff, seg_ids, out_node, slot_of, split_ptr, split_node
+        _P, _I, _P, _P,  # x, element bytes, qscale, qzero
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # gather_idx, edge_ids, edge_coeff, coeff (or null), seg_ids, out_node, slot_of, split_ptr, split_node
         _P, _P,  # part_a, out
         _I, _I, _I, _I, _I, _I, _I,  # num_tiles, lanes, segs, heads, dh, n_split, num_nodes
+        _I, _I, _I, _I, _I, _I,  # chunk_bytes, groups, per_group, lanes_per_stage, threads, smem_bytes
         _P,  # stream
     ],
     "ample_quant_matmul": [

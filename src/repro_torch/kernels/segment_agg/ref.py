@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quantization import dequantize
+
 __all__ = [
     "aggregate_tiles_ref",
     "aggregate_tiles_mh_ref",
@@ -22,6 +24,21 @@ __all__ = [
 def _chunks(t: int, tile_chunk: int):
     for t0 in range(0, t, tile_chunk):
         yield t0, min(t, t0 + tile_chunk)
+
+
+def _lane_values(edge_ids: torch.Tensor, values: torch.Tensor, fill: float) -> torch.Tensor:
+    """Per-edge ``values [E_graph(, H)]`` read through a chunk's ``edge_ids``:
+    [c, E(, H)], ``fill`` on padding lanes (edge id -1)."""
+    live = edge_ids >= 0
+    got = values[torch.where(live, edge_ids, 0).long()]
+    if values.dim() == 2:
+        live = live.unsqueeze(-1)
+    return torch.where(live, got, torch.full((), fill, dtype=values.dtype, device=values.device))
+
+
+def _rows(x: torch.Tensor, qp) -> torch.Tensor:
+    """The rows as f32: int8 codes dequantized as ``core.quantization`` does."""
+    return x if qp is None else dequantize(x, qp)
 
 
 def _lane_dest(seg_ids: torch.Tensor, t0: int, t1: int, s: int) -> torch.Tensor:
@@ -52,9 +69,10 @@ def _split_sum(partial: torch.Tensor, split) -> torch.Tensor:
     return acc
 
 
-def _aggregate(x, gather_idx, coeff, seg_ids, out_node, split, num_nodes, tile_chunk):
-    """x f32[N, D]; coeff f32[T, E] (one per lane) or f32[T, E, H] (one per
-    lane and head, each head owning D / H consecutive columns)."""
+def _aggregate(x, gather_idx, lane_coeff, seg_ids, out_node, split, num_nodes, tile_chunk):
+    """x f32[N, D]; ``lane_coeff(t0, t1)`` gives the chunk's coefficients,
+    f32[c, E] (one per lane) or f32[c, E, H] (one per lane and head, each head
+    owning D / H consecutive columns)."""
     t = gather_idx.shape[0]
     s = out_node.shape[1]
     d = x.shape[1]
@@ -63,7 +81,7 @@ def _aggregate(x, gather_idx, coeff, seg_ids, out_node, split, num_nodes, tile_c
     partial = torch.zeros((split.num_slots, d), dtype=x.dtype, device=dev)
     for t0, t1 in _chunks(t, tile_chunk):
         msg = x[gather_idx[t0:t1].long()]  # [c, E, D]
-        cf = coeff[t0:t1]
+        cf = lane_coeff(t0, t1)
         if cf.dim() == 3:
             c, e, h = cf.shape
             msg = (msg.view(c, e, h, d // h) * cf.unsqueeze(-1)).view(c, e, d)
@@ -92,24 +110,35 @@ def aggregate_tiles_ref(
     Tiles are processed ``tile_chunk`` at a time, which bounds the gathered
     messages to ``tile_chunk · E · D`` floats.
     """
-    return _aggregate(x, gather_idx, coeff, seg_ids, out_node, split, num_nodes, tile_chunk)
+    return _aggregate(x, gather_idx, lambda t0, t1: coeff[t0:t1], seg_ids, out_node, split,
+                      num_nodes, tile_chunk)
 
 
 def aggregate_tiles_mh_ref(
-    x: torch.Tensor,  # f32[N, H, dh]
+    x: torch.Tensor,  # f32[N, H, dh], or int8 codes with qp
     gather_idx: torch.Tensor,  # int32[T, E]
-    coeff: torch.Tensor,  # f32[T, E, H] per-head lane coefficients
+    edge_ids: torch.Tensor,  # int32[T, E] graph edge of each lane, -1 on padding
+    edge_coeff: torch.Tensor,  # f32[E_graph, H] per-edge, per-head coefficients
+    coeff,  # f32[T, E] static lane coeff, or None (ones)
     seg_ids: torch.Tensor,  # int32[T, E]
     out_node: torch.Tensor,  # int32[T, S]
     split,
     *,
     num_nodes: int,
+    qp=None,  # QuantParams of int8 codes
     tile_chunk: int = 1024,
 ) -> torch.Tensor:
-    """f32[num_nodes, H, dh]: Σ coeff[·, h]·x[gather_idx, h] per head."""
+    """f32[num_nodes, H, dh]: Σ coeff·edge_coeff[edge_id, h]·x[gather_idx, h]
+    per head. The lane coefficients are ``coeff · edge_coeff`` in that order
+    (0 on padding lanes), the rows dequantized when they are codes."""
     n, h, dh = x.shape
-    out = _aggregate(x.reshape(n, h * dh), gather_idx, coeff, seg_ids, out_node,
-                     split, num_nodes, tile_chunk)
+
+    def lane_coeff(t0, t1):
+        cf = _lane_values(edge_ids[t0:t1], edge_coeff, 0.0)
+        return cf if coeff is None else coeff[t0:t1].unsqueeze(-1) * cf
+
+    out = _aggregate(_rows(x, qp).reshape(n, h * dh), gather_idx, lane_coeff, seg_ids,
+                     out_node, split, num_nodes, tile_chunk)
     return out.view(num_nodes, h, dh)
 
 
@@ -143,9 +172,10 @@ def combine_attention(
 
 
 def attend_tiles_ref(
-    z: torch.Tensor,  # f32[N, H, dh]
+    z: torch.Tensor,  # f32[N, H, dh], or int8 codes with qp
     gather_idx: torch.Tensor,  # int32[T, E]
-    scores_t: torch.Tensor,  # f32[T, E, H] raw scores, −inf on padding lanes
+    edge_ids: torch.Tensor,  # int32[T, E] graph edge of each lane, -1 on padding
+    scores: torch.Tensor,  # f32[E_graph, H] raw scores
     coeff: torch.Tensor,  # f32[T, E] static lane coeff
     seg_ids: torch.Tensor,  # int32[T, E]
     out_node: torch.Tensor,  # int32[T, S]
@@ -153,11 +183,13 @@ def attend_tiles_ref(
     *,
     num_nodes: int,
     leaky_slope: float,
+    qp=None,  # QuantParams of int8 codes
     tile_chunk: int = 512,
 ) -> torch.Tensor:
     """softmax(LeakyReLU(scores)) aggregate per destination: f32[N, H, dh].
 
-    Per tile and segment: ``m`` = segment max of the activated scores (0
+    Scores are read through ``edge_ids`` (padding lanes are −inf), codes
+    dequantized. Per tile and segment: ``m`` = segment max of the activated scores (0
     stands in for an empty segment's −inf before the ``exp``),
     ``l = Σ exp(sc − m)``, ``a = Σ coeff·exp(sc − m)·z[idx]``. A node in one
     tile gets ``a / l``; a split node's rows go through ``combine_attention``.
@@ -166,6 +198,7 @@ def attend_tiles_ref(
     t = gather_idx.shape[0]
     s = out_node.shape[1]
     d = h * dh
+    z = _rows(z, qp)
     dev = z.device
     x = z.reshape(n, d)
     out = torch.zeros((num_nodes, h, dh), dtype=z.dtype, device=dev)
@@ -175,7 +208,7 @@ def attend_tiles_ref(
     for t0, t1 in _chunks(t, tile_chunk):
         c = t1 - t0
         dest = _lane_dest(seg_ids, t0, t1, s)
-        sc = scores_t[t0:t1].reshape(-1, h)
+        sc = _lane_values(edge_ids[t0:t1], scores, float("-inf")).reshape(-1, h)
         sc = torch.where(sc >= 0, sc, leaky_slope * sc)
         m = torch.full((c * s, h), float("-inf"), dtype=z.dtype, device=dev)
         m.scatter_reduce_(0, dest.unsqueeze(1).expand(-1, h), sc, "amax")

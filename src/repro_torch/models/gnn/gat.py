@@ -7,9 +7,9 @@
 
 The aggregation coefficient is not a structural constant: α depends on the
 node features, per layer, per request. The engine therefore compiles plans in
-``"runtime"`` mode (static coeff 1 as a pure lane mask) and the raw scores are
-scattered into tile layout through the plan's ``edge_ids`` at request time, so
-plans and size classes stay structure-keyed as for GCN. Each layer runs the
+``"runtime"`` mode (static coeff 1 as a pure lane mask) and the kernel reads the
+raw per-edge scores through the plan's ``edge_ids`` at request time, so plans
+and size classes stay structure-keyed as for GCN. Each layer runs the
 fused attention kernel once per precision group
 (``AmpleEngine.attention_aggregate``); the projection W reuses the engine's
 mixed-precision FTE, so Degree-Quant tags carry over unchanged. Attention

@@ -33,7 +33,9 @@ from repro.serve.gnn_engine import GNNRequest as RefRequest
 from repro.serve.gnn_engine import GNNServeEngine as RefServe
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.base import get_config as port_get_config
+from repro_torch.core import aggregation as port_aggregation
 from repro_torch.core.aggregation import to_device_plan
+from repro_torch.core.quantization import compute_scale_zp, dequantize, quantize
 from repro_torch.graphs.csr import Graph
 from repro_torch.kernels import build
 from repro_torch.kernels.segment_agg import attn_ops
@@ -74,14 +76,33 @@ def _engines(rcfg, pcfg, g, use_kernel=False):
 
 
 def _tiles(heads, dh, ept=16, n=90, seed=0):
-    """A tile plan with split nodes, static coeffs, and per-lane inputs."""
+    """A tile plan with split nodes, static coeffs, and per-edge inputs
+    [E_graph, H] (the port's operands; the reference takes them in tile
+    layout, ``_tile_layout``)."""
     g = make_lognormal_graph(n, 8.0, seed=seed)
     rng = np.random.default_rng(seed)
     plan = build_edge_tile_plan(
         g, edges_per_tile=ept, coeff=rng.uniform(0.5, 1.5, g.num_edges).astype(np.float32))
     z = rng.standard_normal((n, heads, dh)).astype(np.float32)
-    lanes = rng.standard_normal(plan.gather_idx.shape + (heads,)).astype(np.float32)
-    return plan, z, lanes
+    edges = rng.standard_normal((g.num_edges, heads)).astype(np.float32)
+    return plan, z, edges
+
+
+def _tile_layout(plan, edges, fill):
+    """Per-edge values [E_graph, H] in the reference kernels' tile layout
+    [T, E, H], ``fill`` on padding lanes."""
+    live = plan.edge_ids >= 0
+    return np.where(live[..., None], edges[np.where(live, plan.edge_ids, 0)],
+                    fill).astype(np.float32)
+
+
+def _codes(z):
+    """int8 codes of z with symmetric per-tensor scale (as the engine makes
+    them), their QuantParams, and dequantize(quantize(z)) as numpy."""
+    zt = torch.from_numpy(z)
+    qp = compute_scale_zp(zt, symmetric=True)
+    q = quantize(zt, qp)
+    return q, qp, dequantize(q, qp).numpy()
 
 
 # ------------------------------------------------------------------ configs
@@ -98,22 +119,44 @@ def test_configs_match_reference_on_shared_fields(arch, reduced):
 
 
 # ------------------------------------------------------------------ kernels
+def _attend_port(plan, z, scores, qp=None):
+    dp = to_device_plan(plan, "cpu")
+    return attn_ops.attend_tiles(z, dp.gather_idx, dp.edge_ids, torch.from_numpy(scores),
+                                 dp.coeff, dp.seg_ids, dp.out_node, dp.split,
+                                 num_nodes=plan.num_nodes, leaky_slope=0.2, qp=qp).numpy()
+
+
+def _attend_reference(plan, z, scores):
+    """The reference's Pallas kernel (interpret mode) and its ref.py."""
+    kw = dict(num_nodes=plan.num_nodes, leaky_slope=0.2,
+              segments_per_tile=plan.segments_per_tile)
+    rargs = [jnp.asarray(a) for a in (z, plan.gather_idx, _tile_layout(plan, scores, -np.inf),
+                                      plan.coeff, plan.seg_ids, plan.out_node)]
+    return (np.asarray(ref_attn.attend_tiles(*rargs, interpret=True, **kw)),
+            np.asarray(ref_ref.attend_tiles_ref(*rargs, **kw)))
+
+
 @pytest.mark.parametrize("heads,dh", [(1, 8), (2, 12), (4, 5)])
 def test_attend_tiles_plain_matches_reference_pallas_and_ref(heads, dh):
-    plan, z, lanes = _tiles(heads, dh, seed=heads)
-    scores = np.where(plan.edge_ids[..., None] >= 0, lanes, -np.inf).astype(np.float32)
-    kw = dict(num_nodes=plan.num_nodes, leaky_slope=0.2)
-    dp = to_device_plan(plan, "cpu")
-    port = attn_ops.attend_tiles(torch.from_numpy(z), dp.gather_idx, torch.from_numpy(scores),
-                                 dp.coeff, dp.seg_ids, dp.out_node, dp.split, **kw).numpy()
-    rargs = [jnp.asarray(a) for a in (z, plan.gather_idx, scores, plan.coeff, plan.seg_ids,
-                                      plan.out_node)]
-    pallas = ref_attn.attend_tiles(*rargs, segments_per_tile=plan.segments_per_tile,
-                                   interpret=True, **kw)
-    oracle = ref_ref.attend_tiles_ref(*rargs, segments_per_tile=plan.segments_per_tile, **kw)
+    plan, z, scores = _tiles(heads, dh, seed=heads)
+    port = _attend_port(plan, torch.from_numpy(z), scores)
+    pallas, oracle = _attend_reference(plan, z, scores)
     assert port.shape == (plan.num_nodes, heads, dh) and np.isfinite(port).all()
-    np.testing.assert_allclose(port, np.asarray(pallas), atol=ATTN_ATOL, rtol=ATTN_RTOL)
-    np.testing.assert_allclose(port, np.asarray(oracle), atol=ATTN_ATOL, rtol=ATTN_RTOL)
+    np.testing.assert_allclose(port, pallas, atol=ATTN_ATOL, rtol=ATTN_RTOL)
+    np.testing.assert_allclose(port, oracle, atol=ATTN_ATOL, rtol=ATTN_RTOL)
+
+
+@pytest.mark.parametrize("heads,dh", [(1, 8), (2, 12), (4, 5)])
+def test_attend_tiles_int8_codes_plain_matches_reference_and_f32_rows(heads, dh):
+    """int8 codes with their scale: bitwise the f32 plain version on
+    dequantize(quantize(z)), and the reference on those rows."""
+    plan, z, scores = _tiles(heads, dh, seed=20 + heads)
+    q, qp, zdq = _codes(z)
+    port = _attend_port(plan, q, scores, qp=qp)
+    assert np.array_equal(port, _attend_port(plan, torch.from_numpy(zdq), scores))
+    pallas, oracle = _attend_reference(plan, zdq, scores)
+    np.testing.assert_allclose(port, pallas, atol=ATTN_ATOL, rtol=ATTN_RTOL)
+    np.testing.assert_allclose(port, oracle, atol=ATTN_ATOL, rtol=ATTN_RTOL)
 
 
 def test_combine_attention_matches_reference():
@@ -135,34 +178,103 @@ def test_combine_attention_matches_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATTN_ATOL, rtol=ATTN_RTOL)
 
 
+def _mh_port(plan, x, coeff, qp=None):
+    dp = to_device_plan(plan, "cpu")
+    return attn_ops.aggregate_tiles_mh(x, dp.gather_idx, dp.edge_ids, torch.from_numpy(coeff),
+                                       dp.coeff, dp.seg_ids, dp.out_node, dp.split,
+                                       num_nodes=plan.num_nodes, qp=qp).numpy()
+
+
+def _mh_reference(plan, x, coeff):
+    """The reference takes the lane weights coeff·edge_coeff in tile layout."""
+    lanes = (plan.coeff[..., None] * _tile_layout(plan, coeff, 0.0)).astype(np.float32)
+    rargs = [jnp.asarray(a) for a in (x, plan.gather_idx, lanes, plan.seg_ids, plan.out_node)]
+    kw = dict(num_nodes=plan.num_nodes, segments_per_tile=plan.segments_per_tile)
+    return (np.asarray(ref_attn.aggregate_tiles_mh(*rargs, interpret=True, **kw)),
+            np.asarray(ref_ref.aggregate_tiles_mh_ref(*rargs, **kw)))
+
+
+def _mh_edges(heads, dh, seed):
+    plan, x, coeff = _tiles(heads, dh, seed=seed)
+    if heads > 1:
+        coeff[::3, 0] = 0.0  # edges dead for one head only
+    return plan, x, coeff
+
+
 @pytest.mark.parametrize("heads,dh", [(1, 8), (2, 12), (4, 5)])
 def test_aggregate_tiles_mh_plain_matches_reference_pallas_and_ref(heads, dh):
-    plan, x, coeff = _tiles(heads, dh, seed=10 + heads)
-    coeff = np.where(plan.edge_ids[..., None] >= 0, coeff, 0.0).astype(np.float32)
-    if heads > 1:
-        coeff[:, ::3, 0] = 0.0  # lanes dead for one head only
+    plan, x, coeff = _mh_edges(heads, dh, seed=10 + heads)
+    port = _mh_port(plan, torch.from_numpy(x), coeff)
+    pallas, oracle = _mh_reference(plan, x, coeff)
+    np.testing.assert_allclose(port, pallas, atol=1e-4)
+    np.testing.assert_allclose(port, oracle, atol=1e-4)
+
+
+@pytest.mark.parametrize("heads,dh", [(1, 8), (2, 12), (4, 5)])
+def test_aggregate_tiles_mh_int8_codes_plain_matches_reference_and_f32_rows(heads, dh):
+    plan, x, coeff = _mh_edges(heads, dh, seed=30 + heads)
+    q, qp, xdq = _codes(x)
+    port = _mh_port(plan, q, coeff, qp=qp)
+    assert np.array_equal(port, _mh_port(plan, torch.from_numpy(xdq), coeff))
+    pallas, oracle = _mh_reference(plan, xdq, coeff)
+    np.testing.assert_allclose(port, pallas, atol=1e-4)
+    np.testing.assert_allclose(port, oracle, atol=1e-4)
+
+
+def test_aggregate_tiles_mh_without_static_coeff_is_ones():
+    """coeff None stands for ones (the softmax denominator pass): the same
+    result as a static coeff of ones, bitwise."""
+    plan, x, coeff = _mh_edges(2, 3, seed=6)
     dp = to_device_plan(plan, "cpu")
-    port = attn_ops.aggregate_tiles_mh(torch.from_numpy(x), dp.gather_idx,
-                                       torch.from_numpy(coeff), dp.seg_ids, dp.out_node,
-                                       dp.split, num_nodes=plan.num_nodes).numpy()
-    rargs = [jnp.asarray(a) for a in (x, plan.gather_idx, coeff, plan.seg_ids, plan.out_node)]
-    kw = dict(num_nodes=plan.num_nodes, segments_per_tile=plan.segments_per_tile)
-    pallas = ref_attn.aggregate_tiles_mh(*rargs, interpret=True, **kw)
-    oracle = ref_ref.aggregate_tiles_mh_ref(*rargs, **kw)
-    np.testing.assert_allclose(port, np.asarray(pallas), atol=1e-4)
-    np.testing.assert_allclose(port, np.asarray(oracle), atol=1e-4)
+    args = (torch.from_numpy(x), dp.gather_idx, dp.edge_ids, torch.from_numpy(coeff))
+    rest = (dp.seg_ids, dp.out_node, dp.split)
+    none = attn_ops.aggregate_tiles_mh(*args, None, *rest, num_nodes=plan.num_nodes)
+    ones = attn_ops.aggregate_tiles_mh(*args, torch.ones_like(dp.coeff), *rest,
+                                       num_nodes=plan.num_nodes)
+    assert torch.equal(none, ones)
 
 
 def test_gat_wrappers_on_cpu_tensors_run_plain_versions_without_a_launch():
-    plan, z, lanes = _tiles(2, 4, seed=5)
+    plan, z, edges = _tiles(2, 4, seed=5)
     dp = to_device_plan(plan, "cpu")
     before = build.launch_counts()
-    attn_ops.attend_tiles(torch.from_numpy(z), dp.gather_idx, torch.from_numpy(lanes),
-                          dp.coeff, dp.seg_ids, dp.out_node, dp.split,
+    attn_ops.attend_tiles(torch.from_numpy(z), dp.gather_idx, dp.edge_ids,
+                          torch.from_numpy(edges), dp.coeff, dp.seg_ids, dp.out_node, dp.split,
                           num_nodes=plan.num_nodes, leaky_slope=0.2)
-    attn_ops.aggregate_tiles_mh(torch.from_numpy(z), dp.gather_idx, torch.from_numpy(lanes),
-                                dp.seg_ids, dp.out_node, dp.split, num_nodes=plan.num_nodes)
+    attn_ops.aggregate_tiles_mh(torch.from_numpy(z), dp.gather_idx, dp.edge_ids,
+                                torch.from_numpy(edges), dp.coeff, dp.seg_ids, dp.out_node,
+                                dp.split, num_nodes=plan.num_nodes)
     assert build.launch_counts() == before
+
+
+@pytest.mark.parametrize("elem", [4, 1])
+@pytest.mark.parametrize("d", [256, 400])
+def test_walk_geometry_fills_the_load_slots(d, elem):
+    """At the served widths the column map takes 16-byte chunks and keeps at
+    least 90% of the block's threads on a chunk; two blocks fit on an SM."""
+    wk = attn_ops.walk_geometry(256, 256, 4, d, elem)
+    assert wk.chunk_bytes == 16 and wk.chunks * 16 == d * elem
+    assert wk.live_share >= 0.9 and wk.threads % 32 == 0 and wk.threads >= 256
+    assert wk.lanes_per_stage >= 2 and -(-wk.per_group // wk.lanes_per_stage) >= 2
+    assert (wk.groups - 1) * wk.per_group < 256 <= wk.groups * wk.per_group
+    assert 2 * (wk.smem_bytes + 1024) <= 233472
+
+
+@pytest.mark.parametrize("d,elem,base,chunk", [
+    (400, 4, 4, 4), (20, 4, 0, 16), (5, 4, 0, 4), (20, 1, 0, 4), (24, 1, 4, 4),
+    (400, 1, 2, 1), (3, 1, 0, 1), (4, 4, 0, 16),
+])
+def test_walk_geometry_chunks_follow_row_alignment(d, elem, base, chunk):
+    wk = attn_ops.walk_geometry(64, 64, 1, d, elem, base)
+    assert wk.chunk_bytes == chunk and wk.chunks * chunk == d * elem
+    assert wk.groups * wk.chunks <= wk.threads <= 512
+
+
+def test_walk_geometry_refuses_what_the_kernel_cannot_hold():
+    with pytest.raises(ValueError, match="shared memory"):
+        attn_ops.walk_geometry(4096, 4096, 4, 8, 4)
+    with pytest.raises(ValueError, match="threads"):
+        attn_ops.walk_geometry(256, 256, 4, 4100, 4)
 
 
 # ------------------------------------------------------------------- engine
@@ -324,3 +436,28 @@ def test_gat_infer_batch_matches_reference(pool, buckets):
         eng.begin_forward()
         y = port_api.gnn_apply(port.cfg, port.params, eng, torch.from_numpy(x))
         assert not y[n_real:].any()  # padding rows stay zero
+
+
+def test_gat_forward_makes_no_tile_layout_copy_of_the_scores(pool, graph, monkeypatch):
+    """The served GAT layer and the multi-head aggregate read per-edge
+    operands through ``edge_ids``: nothing builds a [T, E, H] copy with
+    ``tile_edge_coeff`` (which raises here)."""
+    ref, port = _serve_pair()
+    rcfg, pcfg = _small(precision="mixed", heads=3)
+    _, peng = _engines(rcfg, pcfg, graph)
+    rng = np.random.default_rng(9)
+    z = torch.from_numpy(rng.standard_normal((graph.num_nodes, 3, 4)).astype(np.float32))
+    alpha = peng.edge_softmax(torch.from_numpy(
+        rng.standard_normal((peng.graph.num_edges, 3)).astype(np.float32)))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("tile_edge_coeff called")
+
+    monkeypatch.setattr(port_aggregation, "tile_edge_coeff", refuse)
+    g = pool[0]
+    got = port.infer(_port_graph(g), g.features).outputs
+    assert got.shape == (g.num_nodes, 8) and np.isfinite(got).all()
+    assert_mixed_close(got, ref.infer(g, g.features).outputs)
+    assert torch.isfinite(peng.aggregate(z, mode="runtime", edge_coeff=alpha)).all()
+    with pytest.raises(AssertionError, match="tile_edge_coeff"):
+        peng.aggregate(z.reshape(graph.num_nodes, 12), mode="runtime", edge_coeff=alpha[:, 0])

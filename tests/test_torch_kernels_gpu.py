@@ -18,8 +18,10 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.core.aggregation import to_device_plan
+from repro_torch.core.quantization import QuantParams, compute_scale_zp, quantize
 from repro_torch.core.message_passing import AmpleEngine, compile_plans
 from repro_torch.core.scheduler import build_edge_tile_plan, build_mixed_precision_plans
+from repro_torch.graphs.csr import Graph
 from repro_torch.graphs.datasets import make_dataset, make_lognormal_graph
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -181,13 +183,14 @@ def test_serving_on_card_matches_cpu(cuda):
 
 
 # ------------------------------------------------------------- GAT kernels
-def _attend(z, sc, dp, n, fn):
-    return fn(z, dp.gather_idx, sc, dp.coeff, dp.seg_ids, dp.out_node, dp.split,
-              num_nodes=n, leaky_slope=0.2)
+def _attend(z, sc, dp, n, fn, qp=None):
+    return fn(z, dp.gather_idx, dp.edge_ids, sc, dp.coeff, dp.seg_ids, dp.out_node, dp.split,
+              num_nodes=n, leaky_slope=0.2, qp=qp)
 
 
-def _mh(x, cf, dp, n, fn):
-    return fn(x, dp.gather_idx, cf, dp.seg_ids, dp.out_node, dp.split, num_nodes=n)
+def _mh(x, cf, dp, n, fn, qp=None):
+    return fn(x, dp.gather_idx, dp.edge_ids, cf, dp.coeff, dp.seg_ids, dp.out_node, dp.split,
+              num_nodes=n, qp=qp)
 
 
 def _check_kernel(run, plain_fn, kernel_fn, name):
@@ -205,22 +208,51 @@ def _check_kernel(run, plain_fn, kernel_fn, name):
     return out
 
 
-def _gat_inputs(heads, dh, ept=64, n=300, seed=0):
-    g = make_lognormal_graph(n, 12.0, seed=seed)
+def _hub_graph(n=700, hub=600, seed=0):
+    """A lognormal graph plus node 0 with ``hub`` in-edges: 256-lane tiles
+    hold whole-tile runs of node 0 (every lane group shares the segment) and
+    split it across three tiles."""
+    g = make_lognormal_graph(n, 6.0, seed=seed)
+    rows = [np.arange(1, hub + 1, dtype=np.int32)] + [
+        g.indices[g.indptr[i]:g.indptr[i + 1]] for i in range(1, n)]
+    indptr = np.concatenate([[0], np.cumsum([r.size for r in rows])]).astype(np.int64)
+    return Graph(indptr=indptr, indices=np.concatenate(rows).astype(np.int32), num_nodes=n)
+
+
+def _gat_inputs(heads, dh, ept=64, n=300, seed=0, hub=False):
+    g = _hub_graph(seed=seed) if hub else make_lognormal_graph(n, 12.0, seed=seed)
     rng = np.random.default_rng(seed)
     plan = build_edge_tile_plan(
         g, edges_per_tile=ept, coeff=rng.uniform(0.5, 1.5, g.num_edges).astype(np.float32))
-    x = torch.from_numpy(rng.standard_normal((n, heads, dh)).astype(np.float32))
-    lanes = rng.standard_normal(plan.gather_idx.shape + (heads,)).astype(np.float32) * 3
-    live = plan.edge_ids[..., None] >= 0
-    return plan, x, lanes, live
+    x = torch.from_numpy(rng.standard_normal((g.num_nodes, heads, dh)).astype(np.float32))
+    edges = torch.from_numpy(
+        rng.standard_normal((g.num_edges, heads)).astype(np.float32) * 3)
+    return plan, x, edges
+
+
+def _rows(x, rows, dev):
+    """x on ``dev`` as f32 rows or int8 codes (with QuantParams on ``dev``);
+    ``offset`` elements of slack put the rows off a 16-byte boundary."""
+    kind, offset = rows
+    if kind == "int8":
+        qp = compute_scale_zp(x, symmetric=True)
+        q = quantize(x, qp)
+        qp = QuantParams(qp.scale.to(dev), qp.zero_point.to(dev))
+        x = q
+    else:
+        qp = None
+    if offset:
+        flat = torch.zeros(x.numel() + offset, dtype=x.dtype)
+        flat[offset:] = x.reshape(-1)
+        flat = flat.to(dev)
+        return flat[offset:].view(x.shape), qp
+    return x.to(dev), qp
 
 
 @pytest.mark.parametrize("heads", [1, 2, 4])
 @pytest.mark.parametrize("dh", [8, 64, 100])
 def test_attention_matches_plain(cuda, heads, dh):
-    plan, z, lanes, live = _gat_inputs(heads, dh, seed=heads * 100 + dh)
-    sc = torch.from_numpy(np.where(live, lanes, -np.inf).astype(np.float32))
+    plan, z, sc = _gat_inputs(heads, dh, seed=heads * 100 + dh)
     n = plan.num_nodes
     dps = {"cpu": to_device_plan(plan, "cpu"), "cuda": to_device_plan(plan, cuda)}
     _check_kernel(lambda fn, dev: _attend(z.to(dev), sc.to(dev), dps[dev], n, fn),
@@ -230,20 +262,102 @@ def test_attention_matches_plain(cuda, heads, dh):
 @pytest.mark.parametrize("heads", [1, 2, 4])
 @pytest.mark.parametrize("dh", [8, 64, 100])
 def test_segment_agg_mh_matches_plain(cuda, heads, dh):
-    plan, x, lanes, live = _gat_inputs(heads, dh, seed=heads * 10 + dh)
-    cf = np.where(live, lanes, 0.0).astype(np.float32)
-    cf[:, ::3, 0] = 0.0  # lanes dead for head 0 only
-    cf = torch.from_numpy(cf)
+    plan, x, cf = _gat_inputs(heads, dh, seed=heads * 10 + dh)
+    cf = cf.abs()
+    cf[::3, 0] = 0.0  # edges dead for head 0 only
     n = plan.num_nodes
     dps = {"cpu": to_device_plan(plan, "cpu"), "cuda": to_device_plan(plan, cuda)}
     _check_kernel(lambda fn, dev: _mh(x.to(dev), cf.to(dev), dps[dev], n, fn),
                   aggregate_tiles_mh_ref, attn_ops.aggregate_tiles_mh, attn_ops.SEGMENT_AGG_MH)
 
 
+def _softmax_weights(plan, edges):
+    """Per-edge softmax over each destination's in-edges (GAT's alpha):
+    weights in (0, 1] that sum to 1 per node, so a 600-lane hub sums to the
+    size of one row, as in the decomposed GAT layer."""
+    dst = torch.from_numpy(np.repeat(np.arange(plan.num_nodes), np.diff(_plan_indptr(plan))))
+    ex = torch.exp(edges - edges.max())
+    den = torch.zeros((plan.num_nodes, edges.shape[1])).index_add_(0, dst, ex)
+    return ex / den[dst]
+
+
+def _plan_indptr(plan):
+    """CSR row pointers of the plan's graph, from the lanes' destinations."""
+    live = plan.edge_ids >= 0
+    dst = np.empty(plan.total_edges, np.int64)
+    t_idx = np.nonzero(live)[0]
+    dst[plan.edge_ids[live]] = plan.out_node[t_idx, plan.seg_ids[live]]
+    return np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=plan.num_nodes))])
+
+
+# Rows as f32 and as int8 codes, 16-byte aligned and not (an offset of one
+# element: 4-byte chunks for f32, 1-byte for codes; 4 codes: 4-byte chunks);
+# lane counts that give two- and four-stage rings; a 256-lane hub.
+ROWS = [("f32", 0), ("int8", 0), ("f32", 1), ("int8", 1), ("int8", 4)]
+
+
+@pytest.mark.parametrize("rows", ROWS, ids=lambda r: f"{r[0]}+{r[1]}")
+@pytest.mark.parametrize("heads,dh", [(4, 64), (4, 100), (2, 12), (1, 8), (4, 5)])
+@pytest.mark.parametrize("ept,hub", [(16, False), (64, False), (256, True)])
+def test_gat_kernels_rows_at_their_precision_match_plain(cuda, rows, heads, dh, ept, hub):
+    plan, x, edges = _gat_inputs(heads, dh, ept=ept, seed=heads + dh + ept, hub=hub)
+    n = plan.num_nodes
+    dps = {"cpu": to_device_plan(plan, "cpu"), "cuda": to_device_plan(plan, cuda)}
+    xs = {dev: _rows(x, rows, dev) for dev in ("cpu", "cuda")}
+    assert rows[1] == 0 or xs["cuda"][0].data_ptr() % 16 != 0
+    cf = _softmax_weights(plan, edges)  # what the decomposed layer feeds the mh kernel
+    _check_kernel(lambda fn, dev: _attend(xs[dev][0], edges.to(dev), dps[dev], n, fn,
+                                          qp=xs[dev][1]),
+                  attend_tiles_ref, attn_ops.attend_tiles, attn_ops.ATTENTION)
+    _check_kernel(lambda fn, dev: _mh(xs[dev][0], cf.to(dev), dps[dev], n, fn, qp=xs[dev][1]),
+                  aggregate_tiles_mh_ref, attn_ops.aggregate_tiles_mh, attn_ops.SEGMENT_AGG_MH)
+
+
+@pytest.mark.parametrize("rows", [("f32", 0), ("int8", 0)], ids=lambda r: r[0])
+@pytest.mark.parametrize("heads,dh", [(4, 1), (4, 5), (4, 100)])
+@pytest.mark.parametrize("ept", [16, 64])
+def test_gat_kernels_walk_many_tiles_per_block(cuda, rows, heads, dh, ept):
+    """Enough tiles that each block of the persistent grid walks several,
+    staging the next tile's metadata and scores during the current one (dh 1
+    is the softmax denominator's rows of ones; at 16 lanes a tile is one or
+    two ring steps)."""
+    plan, x, edges = _gat_inputs(heads, dh, ept=ept, n=6000, seed=ept + dh)
+    assert plan.num_tiles > 132 * 8
+    n = plan.num_nodes
+    dps = {"cpu": to_device_plan(plan, "cpu"), "cuda": to_device_plan(plan, cuda)}
+    xs = {dev: _rows(x, rows, dev) for dev in ("cpu", "cuda")}
+    _check_kernel(lambda fn, dev: _attend(xs[dev][0], edges.to(dev), dps[dev], n, fn,
+                                          qp=xs[dev][1]),
+                  attend_tiles_ref, attn_ops.attend_tiles, attn_ops.ATTENTION)
+    cf = _softmax_weights(plan, edges)
+    _check_kernel(lambda fn, dev: _mh(xs[dev][0], cf.to(dev), dps[dev], n, fn, qp=xs[dev][1]),
+                  aggregate_tiles_mh_ref, attn_ops.aggregate_tiles_mh, attn_ops.SEGMENT_AGG_MH)
+
+
+def test_gat_kernels_int8_codes_at_the_extremes(cuda):
+    """Codes at +-127 (and -128) with a nonzero zero point: the kernel's
+    dequantization is the plain version's."""
+    plan, _, edges = _gat_inputs(4, 16, seed=7)
+    n = plan.num_nodes
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.choice(np.array([-128, -127, 127, 0, 5], np.int8), (n, 4, 16)))
+    dps = {"cpu": to_device_plan(plan, "cpu"), "cuda": to_device_plan(plan, cuda)}
+
+    def qp(dev):
+        return QuantParams(torch.tensor(0.0371, device=dev), torch.tensor(-3.0, device=dev))
+
+    _check_kernel(lambda fn, dev: _attend(q.to(dev), edges.to(dev), dps[dev], n, fn, qp=qp(dev)),
+                  attend_tiles_ref, attn_ops.attend_tiles, attn_ops.ATTENTION)
+    _check_kernel(lambda fn, dev: _mh(q.to(dev), edges.abs().to(dev), dps[dev], n, fn,
+                                      qp=qp(dev)),
+                  aggregate_tiles_mh_ref, attn_ops.aggregate_tiles_mh, attn_ops.SEGMENT_AGG_MH)
+
+
 def _edge_case_plan():
-    """Hand-built tiles (E = S = 8, 5 nodes): node 0 split over three tiles,
-    unused segments between real ones and the padding segment, a node whose
-    lanes all score -inf, scores near -1e30, and an all-padding tile."""
+    """Hand-built tiles (E = S = 8, 5 nodes, 32 graph edges): node 0 split
+    over three tiles, unused segments between real ones and the padding
+    segment, padding lanes (edge id -1), a node whose lanes all score -inf,
+    scores near -1e30, and an all-padding tile."""
     e, s, n = 8, 8, 5
     sentinel = n
     gather = np.array([[1, 2, 3, 4, 1, 2, 3, 4],
@@ -274,20 +388,19 @@ def test_gat_kernels_edge_cases(cuda, heads):
     rng = np.random.default_rng(heads)
     dh = 3
     x = torch.from_numpy(rng.standard_normal((p["n"], heads, dh)).astype(np.float32))
-    sc = rng.standard_normal((4, 8, heads)).astype(np.float32)
-    sc[2, 2:4] = -1e30 + sc[2, 2:4]  # node 2: scores near -1e30
-    sc[2, 4:6] = -np.inf             # node 3: every lane -inf
-    sc = np.where((p["edge_ids"] >= 0)[..., None] | (p["seg"] == 3)[..., None], sc, -np.inf)
-    cf = np.where((p["edge_ids"] >= 0)[..., None], rng.uniform(0.1, 1, (4, 8, heads)), 0.0)
+    sc = rng.standard_normal((32, heads)).astype(np.float32)
+    sc[18:20] = -1e30 + sc[18:20]  # node 2 (tile 2, lanes 2-3): scores near -1e30
+    sc[20:22] = -np.inf             # node 3 (tile 2, lanes 4-5): every lane -inf
+    cf = rng.uniform(0.1, 1, (32, heads)).astype(np.float32)
     if heads > 1:
-        cf[1, 3, 1] = 0.0  # one lane zero for head 1 only
-    sc, cf = torch.from_numpy(sc.astype(np.float32)), torch.from_numpy(cf.astype(np.float32))
+        cf[11, 1] = 0.0  # one lane (tile 1, lane 3) zero for head 1 only
+    sc, cf = torch.from_numpy(sc), torch.from_numpy(cf)
 
     def dplan(dev):
         return SimpleNamespace(
             **{k: torch.as_tensor(p[a], device=dev) for k, a in (
                 ("gather_idx", "gather"), ("coeff", "coeff"), ("seg_ids", "seg"),
-                ("out_node", "out_node"))},
+                ("out_node", "out_node"), ("edge_ids", "edge_ids"))},
             split=split.to(dev))
 
     dps = {"cpu": dplan("cpu"), "cuda": dplan(cuda)}
@@ -302,8 +415,7 @@ def test_gat_kernels_edge_cases(cuda, heads):
 
 
 def test_gat_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    plan, x, lanes, live = _gat_inputs(2, 8, n=60)
-    sc = torch.from_numpy(np.where(live, lanes, -np.inf).astype(np.float32))
+    plan, x, sc = _gat_inputs(2, 8, n=60)
     cpu_dp, dp = to_device_plan(plan, "cpu"), to_device_plan(plan, cuda)
     n = plan.num_nodes
     with pytest.raises(ValueError, match="tile arrays"):
@@ -311,17 +423,19 @@ def test_gat_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="tile arrays"):
         _attend(x, sc, dp, n, attn_ops.attend_tiles)
     with pytest.raises(ValueError, match="tile arrays"):
-        _mh(x, sc.clamp_min(0), dp, n, attn_ops.aggregate_tiles_mh)
+        _mh(x, sc.abs(), dp, n, attn_ops.aggregate_tiles_mh)
     with pytest.raises(ValueError, match="heads"):
-        _mh(x.to(cuda), sc[..., :1].contiguous().to(cuda), dp, n, attn_ops.aggregate_tiles_mh)
+        _mh(x.to(cuda), sc[:, :1].contiguous().to(cuda), dp, n, attn_ops.aggregate_tiles_mh)
     with pytest.raises(TypeError):
         _attend(x.double().to(cuda), sc.to(cuda), dp, n, attn_ops.attend_tiles)
+    with pytest.raises(TypeError):  # codes without their QuantParams
+        _attend(x.to(torch.int8).to(cuda), sc.to(cuda), dp, n, attn_ops.attend_tiles)
     with pytest.raises(ValueError, match="contiguous"):
         _attend(x.to(cuda).transpose(1, 2).contiguous().transpose(1, 2), sc.to(cuda), dp, n,
                 attn_ops.attend_tiles)
     big = build_edge_tile_plan(make_lognormal_graph(60, 80.0, seed=1), edges_per_tile=4096)
     bdp = to_device_plan(big, cuda)
-    bsc = torch.zeros(big.gather_idx.shape + (4,), device=cuda)
+    bsc = torch.zeros((big.total_edges, 4), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         _attend(torch.zeros((60, 4, 2), device=cuda), bsc, bdp, 60, attn_ops.attend_tiles)
 
