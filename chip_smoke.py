@@ -12,8 +12,9 @@ Every phase that fails raises, so the script exits non-zero.
 
 1. build   — nvcc every ``src/repro_torch/csrc/*.cu`` for sm_90a, one process
              per source, and print each kernel's registers, shared memory and
-             spills (the tensor-core flash kernel, the int8 GEMM and the GAT
-             walk must not spill);
+             spills (the tensor-core flash kernel, the int8 GEMM, the tile
+             walk of the AGE and the GAT kernels, and the SSD kernel must not
+             spill);
 2. path    — serve the FULL ``ample-gcn`` config on the Yelp-scale graph
              (716,847 nodes, 300 features, random weights from seed 0):
              ``infer`` three times (cold, warm, warm; warm must equal cold
@@ -21,12 +22,18 @@ Every phase that fails raises, so the script exits non-zero.
              the int8 matmul twice), then ``infer_batch`` of three cora-sized
              graphs. Launch counts are set to 0 just before and read just after;
              one more warm request runs under torch.profiler to show where its
-             time goes;
+             time goes. The requests must call ``quantization.dequantize`` no
+             time (the int8 group's rows reach the AGE as codes), and the
+             profile must show the AGE's 4 launches on ``heads_walk_kernel``,
+             none of the retired ``tile_heads_kernel`` and no full-size add
+             (the two precision groups share one output);
 3. kernels — the AGE and the int8 matmul against their plain PyTorch
              versions on the card, at the path's shapes (AGE within 1e-4 and
-             run-to-run bitwise; int8 matmul bitwise), timed with CUDA events
-             beside the plain version, one PyTorch library call and the card's
-             bound (the int8 matmul's ratio to ``torch._int_mm`` printed);
+             run-to-run bitwise, on f32 rows and, in the int8 group, on int8
+             codes, at D 300 also at a row stride of 304 bytes; int8 matmul
+             bitwise), timed with CUDA events beside the plain version, one
+             PyTorch library call and the card's bound (the int8 matmul's
+             ratio to ``torch._int_mm`` printed);
 4. cpu     — the same model served on the CPU (plain versions) on a
              cora-sized graph, against the card's output at the
              mixed-precision tolerance;
@@ -64,10 +71,12 @@ Every phase that fails raises, so the script exits non-zero.
              entries bitwise equal to the plain version's; a ragged S = 1000
              in f32 on the CUDA-core kernel within 1e-4) and the SSD
              intra-chunk term (Mamba2-370M prefill and a ragged chunk, within
-             1e-4) against their plain versions, run-to-run bitwise, timed
-             beside the plain version, the bound and, for flash, one
-             ``scaled_dot_product_attention`` call (variant and ratios to SDPA
-             and to the bound printed);
+             1e-4 of the plain version run with TF32 off) against their plain
+             versions, run-to-run bitwise, timed beside the plain version, the
+             bound and, for flash, one ``scaled_dot_product_attention`` call
+             (variant and ratios to SDPA and to the bound printed; the SSD's
+             bound counts its three TF32 products at the TF32 peak, and the
+             f32 CUDA-core bound of PR 13-15 is printed beside it);
 12. lm cpu — REDUCED ``qwen3-8b`` and ``mamba2-370m`` served on the CPU
              against the card: the same tokens, prefill logits within 5e-4;
 13. summary — a JSON line of kernels, the card's name and power limit, and
@@ -93,6 +102,7 @@ HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12  # tensor cores, dense
+TF32_FLOPS = 494.7e12  # tensor cores, dense
 
 AGE_ATOL = 1e-4  # unit-normal features, summation order differs
 ATTN_ATOL, ATTN_RTOL = 5e-5, 1e-4  # decomposed vs fused GAT layer (tests/test_gat.py:101)
@@ -151,8 +161,13 @@ def _yelp_engine(srv, g):
 
 
 # Kernels that must keep every value in registers (a spill would sit in the
-# inner loop): the tensor-core flash kernel, the int8 GEMM and the GAT walk.
-NO_SPILL = ("flash_tc_kernel", "quant_matmul_kernel", "heads_walk_kernel")
+# inner loop): the tensor-core flash kernel, the int8 GEMM, the tile walk
+# (AGE and GAT) and the SSD's two kernels.
+NO_SPILL = ("flash_tc_kernel", "quant_matmul_kernel", "heads_walk_kernel", "ssd_cb_kernel",
+            "ssd_tc_kernel")
+# The rows the GCN path's int8 group hands the AGE at D 300 (phase_age's row
+# kinds): int8 codes at a row stride of 304 bytes (aggregation._int8_rows).
+AGE_PATH_ROWS = "int8 stride 304"
 
 
 def ptxas_table(text):
@@ -291,7 +306,27 @@ def phase_profile(srv, g, tag="profile"):
     for name, ms, count in rows[:14]:
         log(f"[{tag}]   {ms:9.3f} ms  x{count:<4d} {name[:90]}")
     return dict(wall_ms=wall_ms, run_ms=resp.run_ms, device_ms=busy,
-                top=[dict(name=n, ms=ms, count=c) for n, ms, c in rows[:24]])
+                top=[dict(name=n, ms=ms, count=c) for n, ms, c in rows[:24]],
+                kernels={n: c for n, _, c in rows})
+
+
+def check_gcn_profile(row):
+    """The GCN request's profile: the AGE's 4 launches all on the walk, no
+    launch of the retired tile_heads_kernel, and no full-size contiguous add
+    (what ``zeros + float + int8`` launched twice per layer)."""
+    if row["device_ms"] is None:
+        log("[profile] device time not measured: the profile checks did not run")
+        return
+    kernels = row["kernels"]
+    walk = sum(c for n, c in kernels.items() if "heads_walk_kernel" in n)
+    old = sum(c for n, c in kernels.items() if "tile_heads_kernel" in n)
+    adds = sum(c for n, c in kernels.items()
+               if "vectorized_elementwise_kernel" in n and "CUDAFunctor_add<float>" in n)
+    log(f"[profile] AGE launches on heads_walk_kernel {walk}, on tile_heads_kernel {old}; "
+        f"contiguous f32 adds {adds}")
+    if walk != 4 or old or adds:
+        raise RuntimeError(f"GCN profile: walk launches {walk}, tile_heads_kernel {old}, "
+                           f"adds {adds}")
 
 
 def _group_csr(plan, n):
@@ -311,9 +346,16 @@ def _group_csr(plan, n):
 
 
 def phase_age(engine, mode, x300):
+    """The AGE against its plain version at the GCN request's shapes, per
+    precision group and width (D 300, 256): on f32 rows and, in the int8
+    group, on int8 codes: contiguous, and at D 300 also as the path hands
+    them, at a row stride of 304 bytes (16-byte chunks, the last one reading
+    the padding)."""
     import numpy as np
     import torch
 
+    from repro_torch.core.aggregation import _int8_rows
+    from repro_torch.core.quantization import compute_scale_zp, dequantize, quantize
     from repro_torch.kernels.segment_agg import ops as seg_ops
     from repro_torch.kernels.segment_agg.ref import aggregate_tiles_ref
 
@@ -328,6 +370,7 @@ def phase_age(engine, mode, x300):
         args = (dp.gather_idx, dp.coeff, dp.seg_ids, dp.out_node, dp.split)
         lib_a = _group_csr(p, n)
         live = p.edge_ids >= 0
+        lanes = int(live.sum())
         uniq = np.unique(p.gather_idx[live]).size
         plan_bytes = sum(t.numel() * t.element_size() for t in args[:4]) + sum(
             t.numel() * t.element_size()
@@ -335,29 +378,46 @@ def phase_age(engine, mode, x300):
         )
         for x in (x300, x256):
             d = x.shape[1]
-            out = seg_ops.aggregate_tiles(x, *args, num_nodes=n)
-            again = seg_ops.aggregate_tiles(x, *args, num_nodes=n)
-            plain = aggregate_tiles_ref(x, *args, num_nodes=n)
-            torch.cuda.synchronize()
-            bitwise = bool(torch.equal(out, again))
-            err = float((out - plain).abs().max())
-            ms = cuda_ms(lambda: seg_ops.aggregate_tiles(x, *args, num_nodes=n), reps=5)
-            plain_ms = cuda_ms(lambda: aggregate_tiles_ref(x, *args, num_nodes=n), reps=2)
-            lib_ms = cuda_ms(lambda: torch.sparse.mm(lib_a, x), reps=5)
-            nbytes = uniq * d * 4 + plan_bytes + n * d * 4
-            b_ms, b_by = bound(nbytes, 2.0 * int(live.sum()) * d, FP32_FLOPS)
-            row = dict(group=tag, tiles=p.num_tiles, lanes=p.edges_per_tile,
-                       edges=int(live.sum()), n=n, d=d, split_slots=dp.split.num_slots,
-                       max_abs_err=err, run_to_run_bitwise=bitwise, ms=ms,
-                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by, bytes=nbytes,
-                       gathered_row_bytes=int(live.sum()) * d * 4)
-            rows.append(row)
-            log(f"[kernels] segment_agg {tag} T={p.num_tiles} D={d}: err={err:.3g} "
-                f"bitwise={bitwise} ms={ms:.3f} plain_ms={plain_ms:.3f} "
-                f"library_ms={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by})")
-            if not bitwise or not err <= AGE_ATOL:
-                raise RuntimeError(f"segment_agg {tag} D={d}: err {err}, bitwise {bitwise}")
+            kinds = [("f32", x, None)]
+            if tag == "int8":
+                qp = compute_scale_zp(x, symmetric=True)
+                kinds.append(("int8", quantize(x, qp), qp))
+                if d % 16:  # the path's codes: rows at a stride of 16-byte multiples
+                    codes = _int8_rows(x, qp)
+                    kinds.append((f"int8 stride {codes.stride(0)}", codes, qp))
+            for rows_kind, xr, qp in kinds:
+                elem = xr.element_size()
+                xf = xr if qp is None else dequantize(xr, qp)
+                out = seg_ops.aggregate_tiles(xr, *args, num_nodes=n, qp=qp)
+                again = seg_ops.aggregate_tiles(xr, *args, num_nodes=n, qp=qp)
+                plain = aggregate_tiles_ref(xr, *args, num_nodes=n, qp=qp)
+                torch.cuda.synchronize()
+                bitwise = bool(torch.equal(out, again))
+                err = float((out - plain).abs().max())
+                ms = cuda_ms(lambda: seg_ops.aggregate_tiles(xr, *args, num_nodes=n, qp=qp),
+                             reps=5)
+                plain_ms = cuda_ms(lambda: aggregate_tiles_ref(xr, *args, num_nodes=n, qp=qp),
+                                   reps=2)
+                # the library call on the f32 rows (the dequantized codes)
+                lib_ms = cuda_ms(lambda: torch.sparse.mm(lib_a, xf), reps=5)
+                # each unique row once at its precision, the plan, the output
+                nbytes = uniq * d * elem + plan_bytes + n * d * 4
+                b_ms, b_by = bound(nbytes, 2.0 * lanes * d, FP32_FLOPS)
+                row = dict(group=tag, rows=rows_kind, tiles=p.num_tiles,
+                           lanes=p.edges_per_tile, edges=lanes, n=n, d=d,
+                           split_slots=dp.split.num_slots, max_abs_err=err,
+                           run_to_run_bitwise=bitwise, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                           gathered_row_bytes=lanes * d * elem)
+                rows.append(row)
+                log(f"[kernels] segment_agg {tag} {rows_kind} rows T={p.num_tiles} D={d}: "
+                    f"err={err:.3g} bitwise={bitwise} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                    f"library_ms={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by}) row_floor_ms="
+                    f"{lanes * d * elem / HBM_BPS * 1e3:.3f}")
+                if not bitwise or not err <= AGE_ATOL:
+                    raise RuntimeError(f"segment_agg {tag} {rows_kind} D={d}: err {err}, "
+                                       f"bitwise {bitwise}")
+                del out, again, plain, xf
         del lib_a
     return rows
 
@@ -439,27 +499,35 @@ def _plan_bytes(dp):
     return sum(t.numel() * t.element_size() for t in arrays)
 
 
-class _count_tile_scatters:
-    """Count calls of ``core.aggregation.tile_edge_coeff`` (the [T, E(, H)]
-    copy of a per-edge operand) while the block runs."""
+class _count_calls:
+    """Count the calls of the port's function ``module.name`` while the block
+    runs: every module of the port that holds it (by import) gets a counting
+    wrapper."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
 
     def __enter__(self):
-        from repro_torch.core import aggregation
+        import importlib
 
+        orig = getattr(importlib.import_module(self.module), self.name)
         self.count = [0]
-        self.orig = aggregation.tile_edge_coeff
+        self.holders = [m for m in list(sys.modules.values())
+                        if getattr(m, "__name__", "").startswith("repro_torch")
+                        and getattr(m, self.name, None) is orig]
+        self.orig = orig
 
         def counted(*args, **kwargs):
             self.count[0] += 1
-            return self.orig(*args, **kwargs)
+            return orig(*args, **kwargs)
 
-        aggregation.tile_edge_coeff = counted
+        for m in self.holders:
+            setattr(m, self.name, counted)
         return self.count
 
     def __exit__(self, *exc):
-        from repro_torch.core import aggregation
-
-        aggregation.tile_edge_coeff = self.orig
+        for m in self.holders:
+            setattr(m, self.name, self.orig)
         return False
 
 
@@ -865,15 +933,24 @@ def phase_lm_kernels():
         # a realistic decreasing log-decay, as tests/test_kernels_ssd.py:24
         acum = -torch.cumsum(torch.rand((b, nc, h, q_), generator=gen, device="cuda") * 0.05, -1)
         pairs = q_ * (q_ + 1) // 2  # (i, j) pairs with i >= j
+        # C Bᵀ once per (b, c) and the weighted P·V per head, lower triangle
+        ops = 2.0 * b * nc * pairs * (n + h * p)
+        nbytes = (cc.numel() + bc.numel() + 2 * xdt.numel() + acum.numel()) * 4
+        # the bound: the bytes, or the three TF32 products of the split at
+        # the TF32 peak; beside it the f32 CUDA-core bound of PR 13-15
         row = _kernel_case(
             f"ssd_intra_chunk {label} B={b} NC={nc} Q={q_} N={n} H={h} P={p}",
             lambda: ssd_ops.ssd_intra_chunk(cc, bc, xdt, acum),
             lambda: ssd_intra_chunk_ref(cc, bc, xdt, acum),
-            None, SSD_ATOL, SSD_RTOL,
-            nbytes=(cc.numel() + bc.numel() + 2 * xdt.numel() + acum.numel()) * 4,
-            # C Bᵀ once per (b, c) and the weighted P·V per head, lower triangle
-            ops=2.0 * b * nc * pairs * (n + h * p), peak=FP32_FLOPS)
-        row.update(b=b, nc=nc, q=q_, n=n, h=h, p=p)
+            None, SSD_ATOL, SSD_RTOL, nbytes=nbytes, ops=3 * ops, peak=TF32_FLOPS)
+        f32_ms, f32_by = bound(nbytes, ops, FP32_FLOPS)
+        row.update(b=b, nc=nc, q=q_, n=n, h=h, p=p, f32_bound_ms=f32_ms, f32_bound_by=f32_by,
+                   tflops=ops / row["ms"] / 1e9)
+        log(f"[lm kernels]   {ops / 1e9:.2f} GFLOP at {row['tflops']:.1f} TFLOP/s; bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; three TF32 products at "
+            f"{TF32_FLOPS / 1e12:.1f} TFLOP/s: {3 * ops / TF32_FLOPS * 1e3:.4f} ms), f32 "
+            f"CUDA-core bound {f32_ms:.4f} ms ({f32_by}); {row['ms'] / row['bound_ms']:.2f}x "
+            f"the bound")
         ssd.append(row)
         del cc, bc, xdt, acum
         torch.cuda.empty_cache()
@@ -954,9 +1031,14 @@ def main() -> int:
     batch_graphs = [make_dataset("cora", max_feature_dim=cfg.d_model, seed=s) for s in (1, 2, 3)]
     log(f"[data] yelp {g.num_nodes} nodes {g.num_edges} edges, "
         f"generated in {time.perf_counter() - t0:.1f} s")
-    srv, outs, batch, counts, peak = phase_path(
-        cfg, g, batch_graphs, {"segment_agg": 4, "quant_matmul": 2})
-    profile_row = phase_profile(srv, g)
+    with _count_calls("repro_torch.core.quantization", "dequantize") as dequantized:
+        srv, outs, batch, counts, peak = phase_path(
+            cfg, g, batch_graphs, {"segment_agg": 4, "quant_matmul": 2})
+        profile_row = phase_profile(srv, g)
+    log(f"[path] dequantize calls during the requests: {dequantized[0]}")
+    if dequantized[0]:
+        raise RuntimeError("the GCN requests dequantized the int8 group before the AGE")
+    check_gcn_profile(profile_row)
 
     entry = _yelp_engine(srv, g)
     mode = gnn_api.agg_mode(cfg)
@@ -972,7 +1054,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     gat_cfg = get_config("ample-gat")
-    with _count_tile_scatters() as scatters:
+    with _count_calls("repro_torch.core.aggregation", "tile_edge_coeff") as scatters:
         gsrv, gouts, gbatch, gcounts, gpeak = phase_path(
             gat_cfg, g, batch_graphs, {"attention": 4, "quant_matmul": 2}, tag="gat path")
         gprofile_row = phase_profile(gsrv, g, tag="gat profile")
@@ -1004,8 +1086,11 @@ def main() -> int:
                     bound_by=row["bound_by"], library_ms=row["library_ms"], shape=shape)
 
     # The largest call of each kernel on its path: the int8 group, at D = 300
-    # (AGE), K = 300 (GEMM), and H·dh = 4·100 (GAT layer 2).
-    age, gemm = age_rows[0], gemm_rows[0]
+    # on the rows the path hands it (AGE), K = 300 (GEMM), and H·dh = 4·100
+    # (GAT layer 2).
+    age = next(r for r in age_rows
+               if r["group"] == "int8" and r["d"] == 300 and r["rows"] == AGE_PATH_ROWS)
+    gemm = gemm_rows[0]
     # The GAT kernels' int8 group gathers int8 codes on the path.
     attn = next(r for r in attn_rows
                 if r["group"] == "int8" and r["dh"] == 100 and r["rows"] == "int8")
@@ -1016,7 +1101,8 @@ def main() -> int:
         kernel_row("segment_agg", "src/repro_torch/csrc/segment_agg.cu",
                    "src/repro/kernels/segment_agg/segment_agg.py:135",
                    counts.get("segment_agg", 0), age,
-                   f"int8 group T={age['tiles']} E={age['lanes']} N={age['n']} D={age['d']}"),
+                   f"int8 group T={age['tiles']} E={age['lanes']} N={age['n']} D={age['d']}, "
+                   f"{age['rows']} rows"),
         kernel_row("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
                    "src/repro/kernels/quant_matmul/repack.py:108",
                    counts.get("quant_matmul", 0), gemm,
@@ -1035,10 +1121,11 @@ def main() -> int:
                         "B={b} S={s} H={h} KV={kv} hd={hd} {dtype}".format(**flash_rows[0])),
              variant=flash_rows[0]["variant"],
              tensor_core_launches=lm_row["launches"].get(fa_ops.TC_KERNEL, 0)),
-        kernel_row("ssd_intra_chunk", "src/repro_torch/csrc/ssd_scan.cu",
-                   "src/repro/kernels/ssd_scan/ssd_scan.py:52",
-                   ssm_row["launches"].get(ssd_ops.KERNEL, 0), ssd_rows[0],
-                   "B={b} NC={nc} Q={q} N={n} H={h} P={p} f32".format(**ssd_rows[0])),
+        dict(kernel_row("ssd_intra_chunk", "src/repro_torch/csrc/ssd_scan.cu",
+                        "src/repro/kernels/ssd_scan/ssd_scan.py:52",
+                        ssm_row["launches"].get(ssd_ops.KERNEL, 0), ssd_rows[0],
+                        "B={b} NC={nc} Q={q} N={n} H={h} P={p} f32".format(**ssd_rows[0])),
+             f32_bound_ms=ssd_rows[0]["f32_bound_ms"]),
     ]
 
     def path_detail(outs, batch, counts, peak):

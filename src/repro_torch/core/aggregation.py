@@ -7,15 +7,17 @@ their partial sums (partial-response combining). Compute ∝ E.
 
 ``aggregate_mixed_precision`` runs it once per Degree-Quant precision group:
 the float group on f32 rows, the int8 group on rows quantized to int8 and
-dequantized, as the reference does (``repro/core/aggregation.py``).
+dequantized, as the reference does (``repro/core/aggregation.py``). The int8
+group passes the codes and their scale: the kernels dequantize in registers,
+so it gathers a quarter of the bytes. Both groups write their disjoint node
+rows into one zero-filled output.
 
 The per-edge ``coeff`` folds the aggregation function into the plan:
 sum → 1, mean → 1/deg, GCN → 1/√(d̂_i d̂_j). Invalid lanes carry coeff 0.
-Runtime coefficients (GAT attention) arrive per request in graph edge space.
-An ``[E, H]`` matrix with ``x [N, H, dh]`` runs the multi-head kernel
-(``kernels/segment_agg/attn_ops.py``), which reads it through the plan's
-``edge_ids``; its int8 group passes the codes and their scale. A 1-D vector
-is scattered into tile layout (``tile_edge_coeff``) for the AGE kernel.
+Runtime coefficients (GAT attention) arrive per request in graph edge space
+and run the multi-head kernel (``kernels/segment_agg/attn_ops.py``), which
+reads them through the plan's ``edge_ids``: an ``[E, H]`` matrix with
+``x [N, H, dh]``, a 1-D vector as one head ``[E, 1]``.
 """
 from __future__ import annotations
 
@@ -24,12 +26,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.core import scheduler as sched
-from repro_torch.core.quantization import (
-    QuantParams,
-    compute_scale_zp,
-    dequantize,
-    quantize,
-)
+from repro_torch.core.quantization import QuantParams, compute_scale_zp, quantize
 from repro_torch.kernels.segment_agg import attn_ops
 from repro_torch.kernels.segment_agg import ops as seg_ops
 
@@ -107,33 +104,38 @@ def aggregate_edge_tiles(
     num_nodes: int,
     edge_coeff: Optional[torch.Tensor] = None,
     qp: Optional[QuantParams] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Event-driven aggregation over one plan's tiles: f32[num_nodes, …].
 
-    ``edge_coeff`` supplies runtime per-edge coefficients (graph edge space),
-    multiplied with the static coeff (1 on every real lane of a ``"runtime"``
-    plan). ``[E, H]`` with ``x [N, H, dh]`` goes to the multi-head kernel,
-    which reads it through ``edge_ids``, each head's coefficients applying
-    to its slice of the row; ``x`` may then be int8 codes with their ``qp``.
-    A 1-D ``edge_coeff`` is scattered into tile layout for the AGE kernel.
-    Head-uniform coefficients on ``x [N, H, dh]`` treat the heads as feature
-    columns.
+    ``x`` is f32 or int8 codes with their ``qp``. ``edge_coeff`` supplies
+    runtime per-edge coefficients (graph edge space), multiplied with the
+    static coeff (1 on every real lane of a ``"runtime"`` plan), and read
+    through ``edge_ids`` by the multi-head kernel: ``[E, H]`` with ``x [N,
+    H, dh]``, each head's coefficients applying to its slice of the row; a
+    1-D ``edge_coeff`` as one head over the whole row (head-uniform
+    coefficients on ``x [N, H, dh]`` treat the heads as feature columns).
+    With ``out`` (f32, contiguous, ``(num_nodes,) + x.shape[1:]``) the rows
+    of this plan's nodes are written into it and every other row is left as
+    it is; without, they go into zeros.
     """
     if edge_coeff is not None and edge_coeff.dim() == 2:
         return attn_ops.aggregate_tiles_mh(
             x, dplan.gather_idx, dplan.edge_ids, edge_coeff.contiguous(), dplan.coeff,
-            dplan.seg_ids, dplan.out_node, dplan.split, num_nodes=num_nodes, qp=qp)
-    if qp is not None:
-        x = dequantize(x, qp)
-    coeff = dplan.coeff
-    if edge_coeff is not None:
-        coeff = coeff * tile_edge_coeff(dplan, edge_coeff)
-    args = (dplan.gather_idx, coeff, dplan.seg_ids, dplan.out_node, dplan.split)
-    if x.dim() == 3:
-        n, h, dh = x.shape
-        flat = seg_ops.aggregate_tiles(x.reshape(n, h * dh), *args, num_nodes=num_nodes)
-        return flat.view(num_nodes, h, dh)
-    return seg_ops.aggregate_tiles(x, *args, num_nodes=num_nodes)
+            dplan.seg_ids, dplan.out_node, dplan.split, num_nodes=num_nodes, qp=qp, out=out)
+    rows = x.reshape(x.shape[0], -1)
+    flat = None if out is None else out.view(num_nodes, -1)
+    if edge_coeff is None:
+        res = seg_ops.aggregate_tiles(rows, dplan.gather_idx, dplan.coeff, dplan.seg_ids,
+                                      dplan.out_node, dplan.split, num_nodes=num_nodes, qp=qp,
+                                      out=flat)
+    else:
+        res = attn_ops.aggregate_tiles_mh(
+            rows.unsqueeze(1), dplan.gather_idx, dplan.edge_ids,
+            edge_coeff.reshape(-1, 1).contiguous(), dplan.coeff, dplan.seg_ids, dplan.out_node,
+            dplan.split, num_nodes=num_nodes, qp=qp,
+            out=None if flat is None else flat.unsqueeze(1))
+    return res.view((num_nodes,) + tuple(x.shape[1:]))
 
 
 def segment_max_edge_tiles(
@@ -189,17 +191,18 @@ def aggregate_mixed_precision(
     edge_coeff: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mixed-precision AGE: the float plan consumes fp32 embeddings; the int8
-    plan consumes int8-quantized embeddings, dequantized before accumulate
-    (inside the multi-head kernel, which takes the codes, for ``[E, H]``
-    coefficients; before the AGE kernel otherwise).
+    plan consumes int8-quantized embeddings, passed to the kernels as codes
+    with their ``QuantParams`` and dequantized before accumulate.
 
-    The two streams write disjoint node sets, so the combined output is just
-    the sum of the two. ``qp`` overrides the activation scale/zero-point
-    (per-call min/max calibration otherwise) — the engine passes its per-plan
-    static quant state here. ``device_plans`` supplies already-uploaded
-    ``DeviceTilePlan`` mirrors keyed like ``plans``. ``edge_coeff`` is the
-    runtime per-edge coefficient vector or ``[E, H]`` matrix (graph edge
-    space) both streams scatter through their ``edge_ids``.
+    The two streams write disjoint node sets into one zero-filled output:
+    nothing is added. A row whose sum is -0.0 stays -0.0 where the sum
+    ``zeros + float + int8`` gave +0.0; ``torch.equal`` and every comparison
+    by value treat the two as equal. ``qp`` overrides the activation
+    scale/zero-point (per-call min/max calibration otherwise) — the engine
+    passes its per-plan static quant state here. ``device_plans`` supplies
+    already-uploaded ``DeviceTilePlan`` mirrors keyed like ``plans``.
+    ``edge_coeff`` is the runtime per-edge coefficient vector or ``[E, H]``
+    matrix (graph edge space) both streams read through their ``edge_ids``.
     """
     for tag in plans:
         if tag not in ("float", "int8"):
@@ -211,13 +214,25 @@ def aggregate_mixed_precision(
 
     out = torch.zeros((num_nodes,) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
     if "float" in plans:
-        out = out + aggregate_edge_tiles(
-            x, dplan("float"), num_nodes=num_nodes, edge_coeff=edge_coeff
-        )
+        aggregate_edge_tiles(x, dplan("float"), num_nodes=num_nodes, edge_coeff=edge_coeff,
+                             out=out)
     if "int8" in plans:
         if qp is None:
             qp = compute_scale_zp(x, symmetric=True)
-        out = out + aggregate_edge_tiles(
-            quantize(x, qp), dplan("int8"), num_nodes=num_nodes, edge_coeff=edge_coeff, qp=qp
-        )
+        aggregate_edge_tiles(_int8_rows(x, qp), dplan("int8"), num_nodes=num_nodes,
+                             edge_coeff=edge_coeff, qp=qp, out=out)
     return out
+
+
+def _int8_rows(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:
+    """The int8 group's rows as codes. On the card, rows [N, D] whose D is
+    not a multiple of 16 are written at a row stride rounded up to 16 bytes
+    (the padding zero), so the walk gathers them in 16-byte chunks: at D 300
+    that took 2.679 ms against 3.733 ms from contiguous rows (NVIDIA H100
+    80GB HBM3, 700.00 W; chip_smoke.py)."""
+    if x.device.type != "cuda" or x.dim() != 2 or x.shape[1] % 16 == 0:
+        return quantize(x, qp)
+    n, d = x.shape
+    buf = torch.empty((n, -(-d // 16) * 16), dtype=torch.int8, device=x.device)
+    buf[:, d:].zero_()
+    return quantize(x, qp, out=buf[:, :d])

@@ -483,8 +483,8 @@ class AmpleEngine:
         """Event-driven mixed-precision aggregation of node embeddings.
 
         ``edge_coeff`` is a runtime per-edge coefficient vector (f32[E] in
-        this graph's edge space), scattered into tile layout through the
-        plan's ``edge_ids`` and multiplied with the static coefficients. The
+        this graph's edge space), read through the plan's ``edge_ids`` and
+        multiplied with the static coefficients. The
         plan stays structure-keyed, so serving caches are untouched by
         per-request coefficients. Multi-head: ``edge_coeff`` f32[E, H] with
         ``x`` f32[N, H, dh] aggregates all heads in one tile pass.
@@ -605,14 +605,14 @@ class AmpleEngine:
         if self.cfg.mixed_precision and "int8" in plans:
             qp = self._activation_qp(lambda: z, "agg")
         scores = scores.contiguous()
-        out = torch.zeros_like(z)
+        out = torch.zeros_like(z)  # the groups write their disjoint node rows into it
         for tag, dp in dplans.items():
             x, x_qp = z, None
             if tag == "int8" and self.cfg.mixed_precision:
                 x, x_qp = quantize(z, qp), qp
-            out = out + attn_ops.attend_tiles(
+            attn_ops.attend_tiles(
                 x, dp.gather_idx, dp.edge_ids, scores, dp.coeff, dp.seg_ids, dp.out_node,
-                dp.split, num_nodes=n, leaky_slope=leaky_slope, qp=x_qp,
+                dp.split, num_nodes=n, leaky_slope=leaky_slope, qp=x_qp, out=out,
             )
         return out
 

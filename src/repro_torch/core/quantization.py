@@ -77,10 +77,12 @@ def quantize(
     qmin: int = INT8_MIN,
     qmax: int = INT8_MAX,
     dtype=torch.int8,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Eq. 5: clip(round(x/s + z))."""
-    q = torch.round(x / qp.scale + qp.zero_point)
-    return torch.clamp(q, qmin, qmax).to(dtype)
+    """Eq. 5: clip(round(x/s + z)); written into ``out`` (a tensor of x's
+    shape, possibly a view) when given."""
+    q = torch.clamp(torch.round(x / qp.scale + qp.zero_point), qmin, qmax)
+    return q.to(dtype) if out is None else out.copy_(q)
 
 
 def dequantize(

@@ -54,14 +54,16 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ample_segment_agg": [
         _I,  # device
-        _P, _P, _P, _P, _P, _P, _P, _P,  # x, gather_idx, coeff, seg_ids, out_node, slot_of, split_ptr, split_node
+        _P, _I, _P, _P, _I,  # x, element bytes (4: f32, 1: int8 codes), qscale, qzero, row stride
+        _P, _P, _P, _P, _P, _P, _P,  # gather_idx, coeff, seg_ids, out_node, slot_of, split_ptr, split_node
         _P, _P,  # partial, out
-        _I, _I, _I, _I, _I, _I,  # num_tiles, lanes, segs, n_split, d, num_nodes
+        _I, _I, _I, _I, _I, _I,  # num_tiles, lanes, segs, d, n_split, num_nodes
+        _I, _I, _I, _I, _I, _I,  # chunk_bytes, groups, per_group, lanes_per_stage, threads, smem_bytes
         _P,  # stream
     ],
     "ample_attention": [
         _I,  # device
-        _P, _I, _P, _P,  # x, element bytes (4: f32, 1: int8 codes), qscale, qzero
+        _P, _I, _P, _P, _I,  # x, element bytes (4: f32, 1: int8 codes), qscale, qzero, row stride
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # gather_idx, edge_ids, scores, coeff, seg_ids, out_node, slot_of, split_ptr, split_node
         _P, _P, _P, _P,  # part_a, part_m, part_l, out
         _I, _I, _I, _I, _I, _I, _I,  # num_tiles, lanes, segs, heads, dh, n_split, num_nodes
@@ -71,7 +73,7 @@ _SIGNATURES = {
     ],
     "ample_segment_agg_mh": [
         _I,  # device
-        _P, _I, _P, _P,  # x, element bytes, qscale, qzero
+        _P, _I, _P, _P, _I,  # x, element bytes, qscale, qzero, row stride
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # gather_idx, edge_ids, edge_coeff, coeff (or null), seg_ids, out_node, slot_of, split_ptr, split_node
         _P, _P,  # part_a, out
         _I, _I, _I, _I, _I, _I, _I,  # num_tiles, lanes, segs, heads, dh, n_split, num_nodes
@@ -102,7 +104,9 @@ _SIGNATURES = {
     "ample_ssd_intra_chunk": [
         _I,  # device
         _P, _P, _P, _P, _P,  # cc, bc [B, NC, Q, N], xdt [B, NC, H, Q, P], acum [B, NC, H, Q], out
+        _P,  # C Bᵀ scratch
         _I, _I, _I, _I, _I, _I,  # b, nc, q, n, h, p
+        _I,  # heads per block
         _P,  # stream
     ],
 }

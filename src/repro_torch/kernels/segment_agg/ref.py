@@ -4,8 +4,11 @@
 The same functions as the kernels, by the same route: per-tile segment
 results, written straight to the output for nodes that live in one tile and
 to compact partial rows for split nodes, whose partials are then combined in
-tile order. The CPU tests run them; on the card they are what the kernels
-are checked against.
+tile order. Rows are f32 or int8 codes with their ``QuantParams``,
+dequantized as ``core.quantization.dequantize`` does. Like the kernels, each
+writes the rows of its plan's nodes into a caller's ``out`` when given one
+and leaves every other row as it is. The CPU tests run them; on the card
+they are what the kernels are checked against.
 """
 from __future__ import annotations
 
@@ -69,15 +72,18 @@ def _split_sum(partial: torch.Tensor, split) -> torch.Tensor:
     return acc
 
 
-def _aggregate(x, gather_idx, lane_coeff, seg_ids, out_node, split, num_nodes, tile_chunk):
+def _aggregate(x, gather_idx, lane_coeff, seg_ids, out_node, split, num_nodes, tile_chunk,
+               out=None):
     """x f32[N, D]; ``lane_coeff(t0, t1)`` gives the chunk's coefficients,
     f32[c, E] (one per lane) or f32[c, E, H] (one per lane and head, each head
-    owning D / H consecutive columns)."""
+    owning D / H consecutive columns). ``out``: f32[num_nodes, D], or None
+    for zeros."""
     t = gather_idx.shape[0]
     s = out_node.shape[1]
     d = x.shape[1]
     dev = x.device
-    out = torch.zeros((num_nodes, d), dtype=x.dtype, device=dev)
+    if out is None:
+        out = torch.zeros((num_nodes, d), dtype=x.dtype, device=dev)
     partial = torch.zeros((split.num_slots, d), dtype=x.dtype, device=dev)
     for t0, t1 in _chunks(t, tile_chunk):
         msg = x[gather_idx[t0:t1].long()]  # [c, E, D]
@@ -95,7 +101,7 @@ def _aggregate(x, gather_idx, lane_coeff, seg_ids, out_node, split, num_nodes, t
 
 
 def aggregate_tiles_ref(
-    x: torch.Tensor,  # f32[N, D]
+    x: torch.Tensor,  # f32[N, D], or int8 codes with qp
     gather_idx: torch.Tensor,  # int32[T, E]
     coeff: torch.Tensor,  # f32[T, E]
     seg_ids: torch.Tensor,  # int32[T, E]
@@ -103,15 +109,18 @@ def aggregate_tiles_ref(
     split,  # ops.SplitMap over the same tiles
     *,
     num_nodes: int,
+    qp=None,  # QuantParams of int8 codes
+    out=None,  # f32[num_nodes, D]
     tile_chunk: int = 1024,
 ) -> torch.Tensor:
-    """f32[num_nodes, D]: Σ coeff·x[gather_idx] over each node's segments.
+    """f32[num_nodes, D]: Σ coeff·x[gather_idx] over each node's segments,
+    the rows dequantized when they are codes.
 
     Tiles are processed ``tile_chunk`` at a time, which bounds the gathered
     messages to ``tile_chunk · E · D`` floats.
     """
-    return _aggregate(x, gather_idx, lambda t0, t1: coeff[t0:t1], seg_ids, out_node, split,
-                      num_nodes, tile_chunk)
+    return _aggregate(_rows(x, qp), gather_idx, lambda t0, t1: coeff[t0:t1], seg_ids, out_node,
+                      split, num_nodes, tile_chunk, out)
 
 
 def aggregate_tiles_mh_ref(
@@ -126,6 +135,7 @@ def aggregate_tiles_mh_ref(
     *,
     num_nodes: int,
     qp=None,  # QuantParams of int8 codes
+    out=None,  # f32[num_nodes, H, dh]
     tile_chunk: int = 1024,
 ) -> torch.Tensor:
     """f32[num_nodes, H, dh]: Σ coeff·edge_coeff[edge_id, h]·x[gather_idx, h]
@@ -137,9 +147,10 @@ def aggregate_tiles_mh_ref(
         cf = _lane_values(edge_ids[t0:t1], edge_coeff, 0.0)
         return cf if coeff is None else coeff[t0:t1].unsqueeze(-1) * cf
 
-    out = _aggregate(_rows(x, qp).reshape(n, h * dh), gather_idx, lane_coeff, seg_ids,
-                     out_node, split, num_nodes, tile_chunk)
-    return out.view(num_nodes, h, dh)
+    flat = None if out is None else out.view(num_nodes, h * dh)
+    res = _aggregate(_rows(x, qp).reshape(n, h * dh), gather_idx, lane_coeff, seg_ids,
+                     out_node, split, num_nodes, tile_chunk, flat)
+    return res.view(num_nodes, h, dh)
 
 
 def combine_attention(
@@ -184,6 +195,7 @@ def attend_tiles_ref(
     num_nodes: int,
     leaky_slope: float,
     qp=None,  # QuantParams of int8 codes
+    out=None,  # f32[num_nodes, H, dh]
     tile_chunk: int = 512,
 ) -> torch.Tensor:
     """softmax(LeakyReLU(scores)) aggregate per destination: f32[N, H, dh].
@@ -201,7 +213,8 @@ def attend_tiles_ref(
     z = _rows(z, qp)
     dev = z.device
     x = z.reshape(n, d)
-    out = torch.zeros((num_nodes, h, dh), dtype=z.dtype, device=dev)
+    if out is None:
+        out = torch.zeros((num_nodes, h, dh), dtype=z.dtype, device=dev)
     pm = torch.full((split.num_slots, h), float("-inf"), dtype=z.dtype, device=dev)
     pl = torch.zeros((split.num_slots, h), dtype=z.dtype, device=dev)
     pa = torch.zeros((split.num_slots, h, dh), dtype=z.dtype, device=dev)

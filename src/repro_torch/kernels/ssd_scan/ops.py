@@ -2,8 +2,9 @@
 ``repro/kernels/ssd_scan``: cc/bc f32 [B,NC,Q,N], xdt f32 [B,NC,H,Q,P],
 acum f32 [B,NC,H,Q] in, f32 [B,NC,H,Q,P] out.
 
-A CUDA tensor launches ``csrc/ssd_scan.cu``; a CPU tensor takes the plain
-version (``ref.py``).
+A CUDA tensor launches ``csrc/ssd_scan.cu`` (f32 kept on the TF32 tensor
+cores by splitting each operand in two TF32 terms); a CPU tensor takes the
+plain version (``ref.py``).
 """
 from __future__ import annotations
 
@@ -12,11 +13,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 
-__all__ = ["KERNEL", "MAX_CHUNK", "MAX_HEADDIM", "ssd_intra_chunk"]
+__all__ = ["KERNEL", "MAX_CHUNK", "MAX_HEADDIM", "HEADS_PER_BLOCK", "ssd_intra_chunk"]
 
 KERNEL = "ssd_intra_chunk"
 MAX_CHUNK = 256  # C Bᵀ rows of a block stay in shared memory: 64 x Q f32
 MAX_HEADDIM = 128
+HEADS_PER_BLOCK = 2  # heads of one block of the main kernel
 
 
 def ssd_intra_chunk(cc, bc, xdt, acum):
@@ -43,11 +45,17 @@ def ssd_intra_chunk(cc, bc, xdt, acum):
     if q > MAX_CHUNK or p > MAX_HEADDIM:
         raise ValueError(f"chunk {q} and head dim {p} must be <= {MAX_CHUNK} and "
                          f"{MAX_HEADDIM}")
+    if n == 0:
+        raise ValueError("the state size N must be positive")
     out = torch.empty((b, nc, h, q, p), dtype=torch.float32, device=cc.device)
+    q64 = -(-q // 64) * 64
+    # C Bᵀ of every chunk, in the kernel's fragment layout (the lower triangle is used)
+    cb = torch.empty((b * nc * (q64 // 16) * (q64 // 8) * 128,), dtype=torch.float32,
+                     device=cc.device)
     build.call(
         "ample_ssd_intra_chunk", cc.device,
         cc.data_ptr(), bc.data_ptr(), xdt.data_ptr(), acum.data_ptr(), out.data_ptr(),
-        b, nc, q, n, h, p,
+        cb.data_ptr(), b, nc, q, n, h, p, HEADS_PER_BLOCK,
     )
     build.count_launch(KERNEL)
     return out

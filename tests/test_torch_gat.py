@@ -270,6 +270,25 @@ def test_walk_geometry_chunks_follow_row_alignment(d, elem, base, chunk):
     assert wk.groups * wk.chunks <= wk.threads <= 512
 
 
+# The AGE's walk (one head) at the GCN widths: (d, element bytes, row stride,
+# chunk bytes). Codes at d 300 take 4-byte chunks from contiguous rows and
+# 16-byte chunks from rows padded to a stride of 304.
+@pytest.mark.parametrize("d,elem,ld,chunk", [
+    (300, 4, 300, 16), (256, 4, 256, 16), (300, 1, 300, 4), (256, 1, 256, 16),
+    (300, 1, 304, 16),
+])
+def test_walk_geometry_for_the_age(d, elem, ld, chunk):
+    wk = attn_ops.walk_geometry(256, 256, 1, d, elem, 0, ld)
+    assert wk.chunk_bytes == chunk and wk.chunks == -(-d * elem // chunk)
+    assert wk.chunks * chunk <= ld * elem
+    best = max(g * wk.chunks / (-(-g * wk.chunks // 32) * 32)
+               for g in range(1, 512 // wk.chunks + 1))
+    assert wk.live_share >= 0.9 or wk.live_share == best
+    assert wk.threads % 32 == 0 and wk.threads >= 256
+    assert (wk.groups - 1) * wk.per_group < 256 <= wk.groups * wk.per_group
+    assert 2 * (wk.smem_bytes + 1024) <= 233472  # two blocks on an SM
+
+
 def test_walk_geometry_refuses_what_the_kernel_cannot_hold():
     with pytest.raises(ValueError, match="shared memory"):
         attn_ops.walk_geometry(4096, 4096, 4, 8, 4)
@@ -439,9 +458,9 @@ def test_gat_infer_batch_matches_reference(pool, buckets):
 
 
 def test_gat_forward_makes_no_tile_layout_copy_of_the_scores(pool, graph, monkeypatch):
-    """The served GAT layer and the multi-head aggregate read per-edge
-    operands through ``edge_ids``: nothing builds a [T, E, H] copy with
-    ``tile_edge_coeff`` (which raises here)."""
+    """The served GAT layer and the aggregate with per-edge coefficients
+    (``[E, H]``, or 1-D as one head) read them through ``edge_ids``: nothing
+    builds a [T, E(, H)] copy with ``tile_edge_coeff`` (which raises here)."""
     ref, port = _serve_pair()
     rcfg, pcfg = _small(precision="mixed", heads=3)
     _, peng = _engines(rcfg, pcfg, graph)
@@ -459,5 +478,5 @@ def test_gat_forward_makes_no_tile_layout_copy_of_the_scores(pool, graph, monkey
     assert got.shape == (g.num_nodes, 8) and np.isfinite(got).all()
     assert_mixed_close(got, ref.infer(g, g.features).outputs)
     assert torch.isfinite(peng.aggregate(z, mode="runtime", edge_coeff=alpha)).all()
-    with pytest.raises(AssertionError, match="tile_edge_coeff"):
-        peng.aggregate(z.reshape(graph.num_nodes, 12), mode="runtime", edge_coeff=alpha[:, 0])
+    assert torch.isfinite(peng.aggregate(z.reshape(graph.num_nodes, 12), mode="runtime",
+                                         edge_coeff=alpha[:, 0].contiguous())).all()

@@ -2,7 +2,8 @@
 
 AGE: the port's ``aggregate_tiles`` on CPU tensors against the reference's jnp
 path (``aggregate_edge_tiles``) and its Pallas kernel in interpret mode
-(``ops.aggregate_tiles``), atol 1e-4 (tests/test_kernels.py:34).
+(``ops.aggregate_tiles``), atol 1e-4 (tests/test_kernels.py:34); on int8
+codes with their ``QuantParams`` bitwise equal to dequantize-then-aggregate.
 int8 FTE: bitwise against ``quant_matmul`` and ``quant_matmul_repacked``
 (Pallas, interpret), including −128 codes and a ragged K.
 The kernels themselves run in ``test_torch_kernels_gpu.py``.
@@ -21,6 +22,7 @@ from repro.graphs.datasets import make_lognormal_graph
 from repro.kernels.quant_matmul import ops as ref_qm
 from repro.kernels.segment_agg import ops as ref_seg
 from repro_torch.core.aggregation import aggregate_edge_tiles, to_device_plan
+from repro_torch.core.quantization import QuantParams, compute_scale_zp, dequantize, quantize
 from repro_torch.kernels import build
 from repro_torch.kernels.quant_matmul import ops as qm_ops
 from repro_torch.kernels.quant_matmul.repack import repack_weight, unpack_weight
@@ -59,6 +61,34 @@ def test_age_mixed_groups_leave_other_rows_zero():
                              segments_per_tile=plan.segments_per_tile)
         np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-4)
         assert not out.numpy()[tags != tag].any()
+
+
+@pytest.mark.parametrize("d", [4, 300, 256])
+def test_age_plain_on_codes_equals_dequantize_then_aggregate(d):
+    """The int8 group's rows as codes with their QuantParams: bitwise the
+    aggregate of the dequantized rows, also from rows padded to a 16-byte
+    stride and written into a shared output."""
+    plan, x = _plan_and_x(90, 8.0, d, 32, seed=d)
+    dp = to_device_plan(plan, "cpu")
+    xt = torch.from_numpy(x)
+    qps = [compute_scale_zp(xt, symmetric=True),
+           QuantParams(torch.tensor(0.0371), torch.tensor(-3.0))]
+    for qp in qps:
+        q = quantize(xt, qp)
+        want = aggregate_edge_tiles(dequantize(q, qp), dp, num_nodes=90)
+        got = aggregate_edge_tiles(q, dp, num_nodes=90, qp=qp)
+        assert torch.equal(got, want)
+        ld = -(-d // 16) * 16
+        padded = torch.zeros((90, ld), dtype=torch.int8)
+        padded[:, :d] = q
+        out = torch.full((90, d), 7.0)
+        args = (dp.gather_idx, dp.coeff, dp.seg_ids, dp.out_node, dp.split)
+        got = seg_ops.aggregate_tiles(padded[:, :d], *args, num_nodes=90, qp=qp, out=out)
+        assert got is out
+        node_rows = np.unique(plan.out_node[plan.out_node < 90])
+        assert torch.equal(out[node_rows], want[node_rows])
+        others = np.setdiff1d(np.arange(90), node_rows)
+        assert (out[others] == 7.0).all()  # rows of no segment stay as they were
 
 
 def test_split_segment_map_covers_split_nodes_in_tile_order():

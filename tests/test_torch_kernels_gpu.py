@@ -54,42 +54,127 @@ def cuda():
     return torch.device("cuda")
 
 
-def _agg(x, dp, n, fn):
-    return fn(x, dp.gather_idx, dp.coeff, dp.seg_ids, dp.out_node, dp.split, num_nodes=n)
+def _agg(x, dp, n, fn, qp=None, out=None):
+    return fn(x, dp.gather_idx, dp.coeff, dp.seg_ids, dp.out_node, dp.split, num_nodes=n, qp=qp,
+              out=out)
 
 
+def _age_rows(x, kind, dev, ld=None):
+    """x [N, D] on ``dev`` as f32 rows or int8 codes (with QuantParams on
+    ``dev``); codes written at a row stride of ``ld`` when given."""
+    if kind == "f32":
+        return x.to(dev), None
+    qp = compute_scale_zp(x, symmetric=True)
+    q = quantize(x, qp)
+    if ld is not None:
+        buf = torch.zeros((x.shape[0], ld), dtype=torch.int8)
+        buf[:, :x.shape[1]] = q
+        q = buf.to(dev)[:, :x.shape[1]]
+    return q.to(dev), QuantParams(qp.scale.to(dev), qp.zero_point.to(dev))
+
+
+def _check_age(cuda, x, dp_cpu, dp, n, kind, ld=None):
+    """The AGE on the walk against its plain version on the card and on the
+    CPU (atol 1e-4), run-to-run bitwise, one launch per call."""
+    xc, qpc = _age_rows(x, kind, "cpu")
+    xg, qpg = _age_rows(x, kind, cuda, ld)
+    before = build.launch_counts().get(seg_ops.KERNEL, 0)
+    out = _agg(xg, dp, n, seg_ops.aggregate_tiles, qpg)
+    again = _agg(xg, dp, n, seg_ops.aggregate_tiles, qpg)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[seg_ops.KERNEL] == before + 2
+    assert torch.equal(out, again)  # no atomics: run-to-run bitwise
+    assert torch.isfinite(out).all()
+    for want in (_agg(xg, dp, n, aggregate_tiles_ref, qpg), _agg(xc, dp_cpu, n, aggregate_tiles_ref,
+                                                                  qpc)):
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
 @pytest.mark.parametrize("d", [1, 4, 130, 300, 600])
 @pytest.mark.parametrize("ept", [16, 64, 256])
-def test_segment_agg_matches_plain(cuda, d, ept):
+def test_segment_agg_matches_plain(cuda, d, ept, kind):
+    """The AGE on heads_walk_kernel (one head, the plan's coeff as lane
+    weights), f32 rows and int8 codes."""
     n = 300
     g = make_lognormal_graph(n, 12.0, seed=d + ept)
     rng = np.random.default_rng(d)
     coeff = rng.uniform(0.5, 1.5, g.num_edges).astype(np.float32)
     plan = build_edge_tile_plan(g, edges_per_tile=ept, coeff=coeff)
     x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
-    cpu = _agg(x, to_device_plan(plan, "cpu"), n, aggregate_tiles_ref)
-    dp = to_device_plan(plan, cuda)
-    xg = x.to(cuda)
-    before = build.launch_counts().get(seg_ops.KERNEL, 0)
-    out = _agg(xg, dp, n, seg_ops.aggregate_tiles)
-    again = _agg(xg, dp, n, seg_ops.aggregate_tiles)
-    torch.cuda.synchronize()
-    assert build.launch_counts()[seg_ops.KERNEL] == before + 2
-    assert torch.equal(out, again)  # no atomics: run-to-run bitwise
-    plain = _agg(xg, dp, n, aggregate_tiles_ref)
-    np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(), atol=1e-4)
-    np.testing.assert_allclose(out.cpu().numpy(), cpu.numpy(), atol=1e-4)
+    _check_age(cuda, x, to_device_plan(plan, "cpu"), to_device_plan(plan, cuda), n, kind)
 
 
 def test_segment_agg_padded_union_rows_stay_zero(cuda):
+    """Each precision group writes only its own nodes' rows (f32 rows and
+    int8 codes): the other group's rows of a fresh output stay zero."""
     g = make_lognormal_graph(200, 30.0, seed=1)
     tags = np.where(np.arange(200) % 7 == 0, "float", "int8")
     plans = build_mixed_precision_plans(g, tags, edges_per_tile=64)
-    x = torch.randn(200, 32, device=cuda)
-    for tag, p in plans.items():
-        out = _agg(x, to_device_plan(p, cuda), 200, seg_ops.aggregate_tiles)
-        other = torch.as_tensor(np.nonzero(tags != tag)[0], device=cuda)
-        assert torch.count_nonzero(out[other]) == 0
+    x = torch.randn(200, 32)
+    for kind in ("f32", "int8"):
+        xg, qp = _age_rows(x, kind, cuda)
+        for tag, p in plans.items():
+            out = _agg(xg, to_device_plan(p, cuda), 200, seg_ops.aggregate_tiles, qp)
+            other = torch.as_tensor(np.nonzero(tags != tag)[0], device=cuda)
+            assert torch.count_nonzero(out[other]) == 0
+
+
+# The GCN widths in both precision groups: f32 rows, int8 codes, and codes
+# at d 300 written at a row stride of 304 bytes (16-byte chunks whose last
+# reads the padding).
+@pytest.mark.parametrize("d,kind,ld", [(300, "f32", None), (256, "f32", None),
+                                       (300, "int8", None), (256, "int8", None),
+                                       (300, "int8", 304)])
+def test_segment_agg_gcn_widths_in_both_groups(cuda, d, kind, ld):
+    g = make_lognormal_graph(3000, 14.0, seed=d)
+    tags = np.where(np.arange(3000) % 11 == 0, "float", "int8")
+    rng = np.random.default_rng(d)
+    coeff = rng.uniform(0.2, 1.0, g.num_edges).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((3000, d)).astype(np.float32))
+    for p in build_mixed_precision_plans(g, tags, edges_per_tile=256, coeff=coeff).values():
+        assert p.num_tiles > 8
+        _check_age(cuda, x, to_device_plan(p, "cpu"), to_device_plan(p, cuda), 3000, kind, ld)
+
+
+def test_segment_agg_codes_at_the_extremes(cuda):
+    """Codes at +-127 (and -128) with a nonzero zero point: the walk's
+    dequantization is the plain version's."""
+    g = make_lognormal_graph(300, 12.0, seed=5)
+    plan = build_edge_tile_plan(g, edges_per_tile=64)
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.choice(np.array([-128, -127, 127, 0, 5], np.int8), (300, 48)))
+    dps = {"cpu": to_device_plan(plan, "cpu"), "cuda": to_device_plan(plan, cuda)}
+
+    def run(fn, dev):
+        qp = QuantParams(torch.tensor(0.0371, device=dev), torch.tensor(-3.0, device=dev))
+        return _agg(q.to(dev), dps[dev], 300, fn, qp)
+
+    out = run(seg_ops.aggregate_tiles, "cuda")
+    assert torch.equal(out, run(seg_ops.aggregate_tiles, "cuda"))
+    for want in (run(aggregate_tiles_ref, "cuda"), run(aggregate_tiles_ref, "cpu")):
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
+
+
+def test_segment_agg_groups_share_one_output(cuda):
+    """The int8 group written into the float group's output leaves the float
+    group's rows untouched, and the shared output equals zeros + float +
+    int8 (torch.equal)."""
+    g = make_lognormal_graph(400, 20.0, seed=6)
+    tags = np.where(np.arange(400) % 5 == 0, "float", "int8")
+    plans = {t: to_device_plan(p, cuda)
+             for t, p in build_mixed_precision_plans(g, tags, edges_per_tile=64).items()}
+    x = torch.randn(400, 300, device=cuda)
+    codes, qp = _age_rows(x.cpu(), "int8", cuda)
+    out = _agg(x, plans["float"], 400, seg_ops.aggregate_tiles)
+    float_rows = out.clone()
+    shared = _agg(codes, plans["int8"], 400, seg_ops.aggregate_tiles, qp, out=out)
+    assert shared is out
+    fl = torch.as_tensor(np.nonzero(tags == "float")[0], device=cuda)
+    assert torch.equal(out[fl], float_rows[fl])
+    alone = _agg(codes, plans["int8"], 400, seg_ops.aggregate_tiles, qp)
+    assert torch.equal(out, torch.zeros_like(out) + float_rows + alone)
 
 
 @pytest.mark.parametrize(
@@ -547,9 +632,14 @@ def test_flash_attention_unaligned_bf16_takes_the_cuda_core_kernel(cuda):
     assert _bf16_equal_share(out, plain) >= 0.99
 
 
+# The Mamba2-370M prefill shape; a ragged chunk of 200; P 16, 32, 64 and 128
+# (P 30 and N 37 take the 4-byte copies); N not a multiple of 8; H not a
+# multiple of the 8 heads of a block.
 @pytest.mark.parametrize("b,nc,q,n,h,p", [
     (1, 2, 16, 8, 2, 8), (2, 3, 32, 16, 4, 16), (1, 1, 64, 32, 1, 32),
     (2, 2, 256, 128, 9, 64), (1, 3, 200, 20, 3, 24), (1, 1, 5, 4, 2, 128),
+    (4, 8, 256, 128, 32, 64), (2, 2, 200, 128, 32, 64), (1, 2, 256, 44, 8, 16),
+    (1, 2, 192, 37, 5, 32), (1, 1, 256, 130, 3, 128), (1, 2, 100, 16, 3, 30),
 ])
 def test_ssd_intra_chunk_matches_plain(cuda, b, nc, q, n, h, p):
     rng = np.random.default_rng(q * h + p)

@@ -6,7 +6,9 @@ the plain versions (``ref.py``) on CPU tensors; ``test_torch_kernels_gpu.py``
 holds the CUDA kernels against those plain versions on the card.
 
 Tolerances: atol 1e-4, rtol 1e-4 in f32 (tests/test_kernels_ssd.py:27; the
-sums run in another order). With bf16 inputs both sides keep scores and
+sums run in another order). The SSD kernel keeps f32 on the TF32 tensor
+cores by splitting each operand in two TF32 terms; ``_split_tf32_ssd``
+emulates that arithmetic here. With bf16 inputs both sides keep scores and
 probabilities in f32 and round only the output to bf16, so they agree within
 1.6e-2: two bf16 ulps at magnitude 1.
 """
@@ -156,13 +158,13 @@ def test_split_p_keeps_the_tpu_kernels_bf16_function(s, t, h, kv, hd):
     assert float((one == plain).float().mean()) < 0.99
 
 
-def _ssd_inputs(b, nc, q, n, h, p, seed):
+def _ssd_inputs(b, nc, q, n, h, p, seed, decay=1.0):
     rng = np.random.default_rng(seed)
     cc = rng.standard_normal((b, nc, q, n)).astype(np.float32)
     bc = rng.standard_normal((b, nc, q, n)).astype(np.float32)
     xdt = rng.standard_normal((b, nc, h, q, p)).astype(np.float32)
     # a realistic decreasing log-decay (negative cumsum)
-    acum = -np.cumsum(rng.uniform(size=(b, nc, h, q)), axis=-1).astype(np.float32)
+    acum = -np.cumsum(rng.uniform(size=(b, nc, h, q)) * decay, axis=-1).astype(np.float32)
     return cc, bc, xdt, acum
 
 
@@ -189,3 +191,65 @@ def test_ssd_wrapper_checks_shapes():
         ssd_ops.ssd_intra_chunk(cc, bc, xdt[..., :4, :], acum)
     with pytest.raises(ValueError, match="acum"):
         ssd_ops.ssd_intra_chunk(cc, bc, xdt, acum[..., :1, :])
+
+
+def _tf32(x):
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest at
+    mantissa bit 13, ties away from zero."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32_ssd(cc, bc, xdt, acum, *, terms=3, step=8):
+    """The SSD kernel's arithmetic, emulated on the CPU in f32. Every operand
+    x of a product is split into hi = tf32(x) and lo = tf32(x - hi); each
+    step of ``step`` along the summed axis forms lo·hi' + hi·lo' + hi·hi' in
+    that order in a fresh sum and adds it to the running sum (``terms=1``:
+    hi·hi' alone). C Bᵀ sums over the state in steps of 8; then per key step
+    of 8, Y += W·Xdt with W = C Bᵀ ∘ exp(a_i − a_j), masked to i ≥ j."""
+    b, nc, q, n = cc.shape
+
+    def add(acc, eq, a, w):
+        ah, bh = _tf32(a), _tf32(w)
+        if terms == 1:
+            return acc + torch.einsum(eq, ah, bh)
+        al, bl = _tf32(a - ah), _tf32(w - bh)
+        part = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+        return acc + (part + torch.einsum(eq, ah, bh))
+
+    cb = torch.zeros((b, nc, q, q))
+    for n0 in range(0, n, step):
+        cb = add(cb, "bcin,bcjn->bcij", cc[..., n0:n0 + step], bc[..., n0:n0 + step])
+    causal = torch.ones((q, q), dtype=torch.bool).tril()
+    w = torch.where(causal, cb[:, :, None] * torch.exp(acum[..., :, None] - acum[..., None, :]),
+                    torch.zeros(()))
+    y = torch.zeros(xdt.shape)
+    for j0 in range(0, q, step):
+        y = add(y, "bchij,bchjp->bchip", w[..., j0:j0 + step], xdt[..., j0:j0 + step, :])
+    return y
+
+
+@pytest.mark.parametrize("b,nc,q,n,h,p", [(1, 2, 64, 32, 2, 16), (1, 1, 128, 20, 3, 24)])
+def test_ssd_tf32_split_keeps_the_f32_function(b, nc, q, n, h, p):
+    """Three TF32 products per f32 product hold the reference's Pallas kernel
+    (interpret) at 1e-4; one TF32 term alone does not."""
+    arrs = _ssd_inputs(b, nc, q, n, h, p, seed=q + n, decay=0.1)
+    want = np.asarray(ref_ssd.ssd_intra_chunk(*map(jnp.asarray, arrs)))
+    tensors = [torch.from_numpy(a) for a in arrs]
+    got = _split_tf32_ssd(*tensors)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    one = _split_tf32_ssd(*tensors, terms=1)
+    assert not np.allclose(one.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """The emulation's TF32 keeps 10 mantissa bits, rounds to nearest with
+    ties away from zero, and leaves a remainder that is exact in f32."""
+    one = 1.0 + 2.0 ** -10  # a TF32 value
+    x = torch.tensor([one, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12,
+                      1.0 + 3 * 2.0 ** -11], dtype=torch.float32)
+    want = torch.tensor([one, one, -one, 1.0, 1.0 + 2.0 ** -9], dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+    r = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    hi = _tf32(r)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert torch.equal(hi.double() + (r - hi).double(), r.double())

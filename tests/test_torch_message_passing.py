@@ -22,7 +22,12 @@ from repro.graphs.datasets import make_dataset
 from repro.models.gnn import api as ref_api
 from repro_torch.core import message_passing as port_mp
 from repro_torch.core import transformation as port_tf
-from repro_torch.core.aggregation import aggregate_mixed_precision
+from repro_torch.core.aggregation import (
+    aggregate_edge_tiles,
+    aggregate_mixed_precision,
+    to_device_plan,
+)
+from repro_torch.core.quantization import compute_scale_zp, dequantize, quantize
 from repro_torch.core.quantization import quantize_per_channel
 from repro_torch.graphs.csr import Graph
 from repro_torch.models.gnn import api as port_api
@@ -105,6 +110,34 @@ def test_aggregate_and_transform_mixed_match_reference(base_graph):
     int8 = torch.as_tensor(peng.node_groups["int8"])
     direct = port_tf.transform_int8(torch.from_numpy(x)[int8], w_q, w_qp)
     np.testing.assert_array_equal(direct.numpy(), yp.numpy()[int8.numpy()])
+
+
+@pytest.mark.parametrize("runtime", [False, True])
+def test_mixed_aggregate_shares_one_output(base_graph, runtime):
+    """Both precision groups write their disjoint node rows into one
+    zero-filled output: equal (torch.equal) to the sum zeros + float + int8
+    of the groups' separate outputs, the int8 group dequantized first, and
+    within 1e-4 of the reference engine's mixed aggregate."""
+    rcfg, pcfg = _small("mixed")
+    reng, peng = _engines(rcfg, pcfg, base_graph)
+    mode = "runtime" if runtime else "gcn"
+    plans_r, plans_p = reng.plans(mode), peng.plans(mode)
+    x = torch.from_numpy(base_graph.features)
+    ec = None
+    if runtime:
+        ec = torch.from_numpy(np.random.default_rng(4).uniform(
+            0.5, 1.5, peng.graph.num_edges).astype(np.float32))
+    got = aggregate_mixed_precision(x, plans_p, num_nodes=150, edge_coeff=ec)
+    qp = compute_scale_zp(x, symmetric=True)
+    dps = {tag: to_device_plan(p, "cpu") for tag, p in plans_p.items()}
+    old = torch.zeros((150, x.shape[1]))
+    old = old + aggregate_edge_tiles(x, dps["float"], num_nodes=150, edge_coeff=ec)
+    old = old + aggregate_edge_tiles(dequantize(quantize(x, qp), qp), dps["int8"],
+                                     num_nodes=150, edge_coeff=ec)
+    assert torch.equal(got, old)
+    ref = ref_agg_mixed(jnp.asarray(base_graph.features), plans_r, num_nodes=150,
+                        edge_coeff=None if ec is None else jnp.asarray(ec.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
 
 
 def test_engine_caches_are_static_per_plan(base_graph):

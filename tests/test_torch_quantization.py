@@ -57,3 +57,17 @@ def test_clip_and_all_zero_input():
     big = torch.tensor([1e9, -1e9])
     one = port_q.QuantParams(torch.tensor(1.0), torch.tensor(0.0))
     assert port_q.quantize(big, one).tolist() == [127, -128]
+
+
+@pytest.mark.parametrize("d", [300, 20, 256])
+def test_quantize_into_rows_at_a_wider_stride(d):
+    """Codes written into the first d columns of a wider buffer (the int8
+    group's rows at a 16-byte stride) are the codes quantize returns, and
+    the padding is left as it was."""
+    x = torch.from_numpy(np.random.default_rng(d).standard_normal((40, d)).astype(np.float32))
+    qp = port_q.compute_scale_zp(x, symmetric=True)
+    buf = torch.full((40, -(-d // 16) * 16), 9, dtype=torch.int8)
+    got = port_q.quantize(x, qp, out=buf[:, :d])
+    assert got.data_ptr() == buf.data_ptr() and got.stride(0) == buf.shape[1]
+    assert torch.equal(got, port_q.quantize(x, qp))
+    assert (buf[:, d:] == 9).all()
