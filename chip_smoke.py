@@ -30,10 +30,10 @@ Every phase that fails raises, so the script exits non-zero.
 3. kernels — the AGE and the int8 matmul against their plain PyTorch
              versions on the card, at the path's shapes (AGE within 1e-4 and
              run-to-run bitwise, on f32 rows and, in the int8 group, on int8
-             codes, at D 300 also at a row stride of 304 bytes; int8 matmul
-             bitwise), timed with CUDA events beside the plain version, one
-             PyTorch library call and the card's bound (the int8 matmul's
-             ratio to ``torch._int_mm`` printed);
+             codes, at D 300 also at the path's row stride of 304 bytes; int8
+             matmul bitwise), timed with CUDA events beside
+             the plain version, one PyTorch library call and the card's bound
+             (the int8 matmul's ratio to ``torch._int_mm`` printed);
 4. cpu     — the same model served on the CPU (plain versions) on a
              cora-sized graph, against the card's output at the
              mixed-precision tolerance;
@@ -56,7 +56,30 @@ Every phase that fails raises, so the script exits non-zero.
              heads folded into the rows, on the f32 rows (no single PyTorch
              call computes the fused attention, so it has no library time);
 8. gat cpu — ``ample-gat`` served on the CPU against the card;
-9. lm path — FULL ``qwen3-8b`` (36 layers, d 4096, GQA 32/8, hd 128, bf16,
+9. gin path, sage path — the same for FULL ``ample-gin`` and ``ample-sage``
+             (sum and mean coefficients on the raw graph): each request must
+             launch the AGE 4 times and the int8 matmul 4 (GIN) or 6 (SAGE)
+             times, warm == cold bitwise, outputs finite and [716847, 100],
+             no ``dequantize`` call; then ``infer_batch``, a profiled warm
+             request, and the CPU against the card on a cora-sized graph
+             (gin cpu, sage cpu);
+10. baseline — the event-driven AGE (``aggregate_edge_tiles``) against the
+             double-buffered baseline (``aggregate_padded_plan``, plain
+             PyTorch) on the full pubmed graph at 128 features, within 1e-4,
+             timed, with the lane occupancy and the pipeline-gap ratio; then
+             ``occupancy_report()`` of pubmed and of the Yelp GIN engine
+             (Yelp's only when the padded plan's host arrays fit in 4 GB);
+11. trace  — one warm Yelp GCN request with the trace recorder enabled: its
+             outputs bitwise equal to the untraced warm request's, the
+             ``queue``, ``plan`` and ``execute`` spans present, in that order
+             without overlap, inside the request's own wall-clock window;
+             ``execute`` within 1 ms of run_ms and ``plan`` covering plan_ms
+             (consistency: the engine takes both from the spans' stamps);
+             the request's wall time split into queue, plan, execute and
+             the remainder (the padding and the output download timed alone
+             beside it);
+             the Chrome trace goes to ``chiprun_out/trace_gcn_request.json``;
+12. lm path — FULL ``qwen3-8b`` (36 layers, d 4096, GQA 32/8, hd 128, bf16,
              random weights from a CUDA generator of seed 0) through
              ``ServeEngine.generate``: 4 prompts of 2048 tokens (numpy seed
              0), 32 new tokens, twice (36 flash-attention launches each, all
@@ -65,8 +88,8 @@ Every phase that fails raises, so the script exits non-zero.
              generated tokens, against one teacher-forced ``model_forward``
              (argmax agreement >= 0.9, max relative difference < 0.05, all
              finite), and a profiled ``generate``;
-10. ssm path — the same for FULL ``mamba2-370m`` (48 SSD launches each);
-11. lm kernels — flash attention (Qwen3-8B and SmolLM-360M prefill in bf16
+13. ssm path — the same for FULL ``mamba2-370m`` (48 SSD launches each);
+14. lm kernels — flash attention (Qwen3-8B and SmolLM-360M prefill in bf16
              on the tensor-core kernel, within 1.6e-2 and >= 99% of the bf16
              entries bitwise equal to the plain version's; a ragged S = 1000
              in f32 on the CUDA-core kernel within 1e-4) and the SSD
@@ -77,15 +100,20 @@ Every phase that fails raises, so the script exits non-zero.
              (variant and ratios to SDPA and to the bound printed; the SSD's
              bound counts its three TF32 products at the TF32 peak, and the
              f32 CUDA-core bound of PR 13-15 is printed beside it);
-12. lm cpu — REDUCED ``qwen3-8b`` and ``mamba2-370m`` served on the CPU
+15. lm cpu — REDUCED ``qwen3-8b`` and ``mamba2-370m`` served on the CPU
              against the card: the same tokens, prefill logits within 5e-4;
-13. summary — a JSON line of kernels, the card's name and power limit, and
+16. summary — a JSON line of kernels (the AGE and the int8 matmul with their
+             launches per GNN path), the card's name and power limit, and
              the result line.
+
+The int8 matmul is also held bitwise at GIN's and SAGE's K x N (300 x 300,
+256 x 256, 100 x 100). Each phase prints its seconds.
 
 Details of every measurement also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -165,7 +193,7 @@ def _yelp_engine(srv, g):
 # (AGE and GAT) and the SSD's two kernels.
 NO_SPILL = ("flash_tc_kernel", "quant_matmul_kernel", "heads_walk_kernel", "ssd_cb_kernel",
             "ssd_tc_kernel")
-# The rows the GCN path's int8 group hands the AGE at D 300 (phase_age's row
+# The rows the GNN paths' int8 group hands the AGE at D 300 (phase_age's row
 # kinds): int8 codes at a row stride of 304 bytes (aggregation._int8_rows).
 AGE_PATH_ROWS = "int8 stride 304"
 
@@ -430,7 +458,11 @@ def phase_gemm(m):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
+    # GCN and GAT's shapes, an unaligned K, GIN's and SAGE's new shapes
+    # (SAGE's φ 300 x 300 and 256 x 256, GIN's last linear 100 x 100), then
+    # the extremes
     for k, n, fill in ((300, 256, None), (256, 100, None), (256, 400, None), (130, 256, None),
+                       (300, 300, None), (256, 256, None), (100, 100, None),
                        (300, 256, -128)):
         if fill is None:
             a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
@@ -446,22 +478,24 @@ def phase_gemm(m):
         err = float((out.double() - plain.double()).abs().max())
         ms = cuda_ms(lambda: qm_ops.quant_matmul_repacked(a, packed), reps=5)
         plain_ms = cuda_ms(lambda: quant_matmul_ref(a, w), reps=2)
-        kp8, np8 = -(-k // 8) * 8, -(-n // 8) * 8
-        a8 = torch.zeros((m, kp8), dtype=torch.int8, device="cuda")
+        # torch._int_mm on zero-padded copies: cuBLASLt refused K 104 and
+        # K 112 (with N 104, 112) and took every K >= 128 the paths use
+        kp, np_ = max(-(-k // 16) * 16, 128), -(-n // 16) * 16
+        a8 = torch.zeros((m, kp), dtype=torch.int8, device="cuda")
         a8[:, :k] = a
-        w8 = torch.zeros((kp8, np8), dtype=torch.int8, device="cuda")
+        w8 = torch.zeros((kp, np_), dtype=torch.int8, device="cuda")
         w8[:k, :n] = w
         lib_ms = cuda_ms(lambda: torch._int_mm(a8, w8), reps=5)
         nbytes = m * k + k * n + m * n * 4
         b_ms, b_by = bound(nbytes, 2.0 * m * n * k, INT8_OPS)
         row = dict(m=m, k=k, n=n, fill=fill, max_abs_err=err, bitwise=exact, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                   bound_by=b_by, bytes=nbytes)
+                   plain_ms=plain_ms, library_ms=lib_ms, library_shape=(m, kp, np_),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
         rows.append(row)
         log(f"[kernels] quant_matmul M={m} K={k} N={n}"
             f"{' all -128' if fill is not None else ''}: bitwise={exact} ms={ms:.3f} "
-            f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by}); "
-            f"{ms / lib_ms:.3f}x torch._int_mm, {ms / b_ms:.2f}x the bound")
+            f"plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} (K {kp} N {np_}) bound_ms="
+            f"{b_ms:.3f} ({b_by}); {ms / lib_ms:.3f}x torch._int_mm, {ms / b_ms:.2f}x the bound")
         if not exact:
             raise RuntimeError(f"quant_matmul K={k} N={n} not bitwise (max err {err})")
         if fill is not None and int(out[0, 0]) != k * 128 * 128:
@@ -696,6 +730,131 @@ def phase_cpu(srv, cfg, g, tag="cpu"):
     if not flips < 0.05:
         raise RuntimeError(f"{flips:.3f} of entries differ by > {MIXED_FLIP}")
     return dict(nodes=g.num_nodes, max_abs_diff=float(diff.max()), flip_share=flips)
+
+
+def phase_baseline(gin_engine):
+    """The event-driven AGE against the double-buffered baseline on the full
+    pubmed graph (19,717 nodes, 128 features, as benchmarks/run.py:126-155
+    does), then the occupancy reports."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.aggregation import (
+        aggregate_edge_tiles,
+        aggregate_padded_plan,
+        to_device_plan,
+    )
+    from repro_torch.core.message_passing import AmpleEngine
+    from repro_torch.core.scheduler import build_edge_tile_plan, build_padded_plan
+    from repro_torch.graphs.datasets import make_dataset
+
+    g = make_dataset("pubmed", max_feature_dim=128, seed=0)
+    x = torch.from_numpy(g.features).cuda()
+    plan = build_edge_tile_plan(g, edges_per_tile=256)
+    dplan = to_device_plan(plan, x.device)
+    padded = build_padded_plan(g, batch_size=64)
+    event = aggregate_edge_tiles(x, dplan, num_nodes=g.num_nodes)
+    base = aggregate_padded_plan(x, padded)
+    torch.cuda.synchronize()
+    err = float((event - base).abs().max())
+    ev_ms = cuda_ms(lambda: aggregate_edge_tiles(x, dplan, num_nodes=g.num_nodes), reps=5)
+    pad_ms = cuda_ms(lambda: aggregate_padded_plan(x, padded), reps=2)
+    occ, gap = plan.lane_occupancy, padded.pipeline_gap_ratio
+    log(f"[baseline] pubmed N={g.num_nodes} E={g.num_edges} D=128: aggregate_edge_tiles "
+        f"{ev_ms:.3f} ms (lane_occupancy {occ:.4f}), aggregate_padded_plan {pad_ms:.3f} ms "
+        f"({len(padded.batches)} batches of 64, pipeline_gap_ratio {gap:.4f}); baseline / "
+        f"event-driven {pad_ms / ev_ms:.2f}x; max abs diff {err:.3g} (atol {AGE_ATOL})")
+    if not err <= AGE_ATOL:
+        raise RuntimeError(f"baseline and event-driven aggregation differ by {err}")
+    row = dict(nodes=g.num_nodes, edges=g.num_edges, d=128, event_ms=ev_ms, padded_ms=pad_ms,
+               ratio=pad_ms / ev_ms, lane_occupancy=occ, pipeline_gap_ratio=gap,
+               max_abs_diff=err)
+
+    pub = AmpleEngine(g, gin_engine.cfg).occupancy_report()
+    log(f"[baseline] occupancy_report, pubmed: {pub}")
+    row["occupancy_pubmed"] = pub
+    # The padded plan's host arrays (int32 gather + f32 coeff per lane)
+    # for the Yelp GIN engine's graph, reckoned before building them.
+    deg = gin_engine.graph.degrees
+    batches = np.maximum.reduceat(deg, np.arange(0, deg.size, 64)).clip(min=1)
+    sizes = np.diff(np.append(np.arange(0, deg.size, 64), deg.size))
+    host_bytes = int((batches * sizes).sum()) * 8
+    log(f"[baseline] Yelp GIN padded plan: {host_bytes / 1e9:.2f} GB of host arrays")
+    row["yelp_padded_host_bytes"] = host_bytes
+    if host_bytes > 4e9:
+        log("[baseline] over 4 GB: Yelp's occupancy_report not built; pubmed's stands alone")
+    else:
+        t0 = time.perf_counter()
+        yelp = gin_engine.occupancy_report()
+        log(f"[baseline] occupancy_report, Yelp GIN engine ({time.perf_counter() - t0:.1f} s): "
+            f"{yelp}")
+        row["occupancy_yelp_gin"] = yelp
+    return row
+
+
+def phase_trace(srv, g, want):
+    """One warm Yelp GCN request with the trace recorder enabled: spans
+    against the response, and where the request's wall time goes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.observe import trace as otrace
+    from repro_torch.serve.gnn_engine import request_stamp
+
+    rec = otrace.enable()
+    try:
+        t0 = request_stamp()
+        resp = srv.infer(g, g.features, admitted_at=t0)
+        t_end = request_stamp()
+    finally:
+        otrace.disable()
+    wall_ms = (t_end - t0) * 1e3
+    spans = {s.name: s for s in rec.spans() if s.trace_id == resp.trace_id}
+    missing = sorted({"queue", "plan", "execute"} - set(spans))
+    bitwise = bool(np.array_equal(resp.outputs, want))
+    ms = {k: spans[k].dur_ms for k in ("queue", "plan", "execute") if k in spans}
+    rest = wall_ms - sum(ms.values())
+    # Parts of the split, timed alone on the same inputs: the padding to the
+    # size class (the padded-union path pads inside the plan span, as the
+    # reference does) and the pageable download of the output (after the
+    # execute span).
+    entry = _yelp_engine(srv, g)
+    t = request_stamp()
+    srv._pad_features(g.features, entry.graph.num_nodes)
+    pad_ms = (request_stamp() - t) * 1e3
+    y = torch.zeros((entry.graph.num_nodes, resp.outputs.shape[1]), device="cuda")
+    torch.cuda.synchronize()
+    t = request_stamp()
+    y.cpu().numpy()
+    down_ms = (request_stamp() - t) * 1e3
+    path = os.path.join(ROOT, "chiprun_out", "trace_gcn_request.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    rec.export(path)
+    log(f"[trace] warm GCN request {resp.trace_id}: wall {wall_ms:.3f} ms = queue "
+        f"{ms.get('queue', float('nan')):.3f} + plan {ms.get('plan', float('nan')):.3f} + "
+        f"execute {ms.get('execute', float('nan')):.3f} + remainder {rest:.3f}; run_ms "
+        f"{resp.run_ms:.3f}, plan_ms {resp.plan_ms:.3f}; timed alone: the padding to the size "
+        f"class {pad_ms:.3f} ms (inside the plan span), the output download {down_ms:.3f} ms "
+        f"(inside the remainder); bitwise equal to the untraced request: {bitwise}; "
+        f"{len(rec.spans())} spans written to {os.path.relpath(path, ROOT)}")
+    if missing:
+        raise RuntimeError(f"traced request is missing spans {missing}")
+    if not bitwise:
+        raise RuntimeError("the traced request's outputs differ from the untraced one's")
+    # Against this script's own clock: the spans lie in the request's window,
+    # in order and without overlap (so they sum to no more than its wall time).
+    order = [spans[k] for k in ("queue", "plan", "execute")]
+    bounds = [t0] + [t for sp in order for t in (sp.t0, sp.t1)] + [t_end]
+    if any(b < a for a, b in zip(bounds, bounds[1:])):
+        raise RuntimeError(f"spans out of order or outside the request's {wall_ms:.3f} ms: "
+                           f"{[(sp.name, sp.t0 - t0, sp.t1 - t0) for sp in order]}")
+    # Consistency: the engine takes run_ms and plan_ms from the span stamps.
+    if abs(ms["execute"] - resp.run_ms) > 1.0 or ms["plan"] < resp.plan_ms:
+        raise RuntimeError(f"spans do not reconcile: execute {ms['execute']} vs run_ms "
+                           f"{resp.run_ms}, plan {ms['plan']} vs plan_ms {resp.plan_ms}")
+    return dict(wall_ms=wall_ms, spans_ms=ms, remainder_ms=rest, run_ms=resp.run_ms,
+                plan_ms=resp.plan_ms, padding_ms=pad_ms, download_ms=down_ms,
+                plan_args=spans["plan"].args, trace=os.path.relpath(path, ROOT))
 
 
 # ------------------------------------------------------------------ LM phases
@@ -1024,39 +1183,84 @@ def main() -> int:
     from repro_torch.graphs.datasets import make_dataset
     from repro_torch.models.gnn import api as gnn_api
 
-    report = phase_build()
+    seconds = {}
+
+    @contextlib.contextmanager
+    def phase(name):
+        t0 = time.perf_counter()
+        yield
+        seconds[name] = time.perf_counter() - t0
+        log(f"[time] {name}: {seconds[name]:.1f} s")
+
+    with phase("build"):
+        report = phase_build()
     cfg = get_config("ample-gcn")
-    t0 = time.perf_counter()
-    g = make_dataset("yelp", max_feature_dim=cfg.d_model, seed=0)
-    batch_graphs = [make_dataset("cora", max_feature_dim=cfg.d_model, seed=s) for s in (1, 2, 3)]
-    log(f"[data] yelp {g.num_nodes} nodes {g.num_edges} edges, "
-        f"generated in {time.perf_counter() - t0:.1f} s")
-    with _count_calls("repro_torch.core.quantization", "dequantize") as dequantized:
+    with phase("data"):
+        g = make_dataset("yelp", max_feature_dim=cfg.d_model, seed=0)
+        batch_graphs = [make_dataset("cora", max_feature_dim=cfg.d_model, seed=s)
+                        for s in (1, 2, 3)]
+    log(f"[data] yelp {g.num_nodes} nodes {g.num_edges} edges")
+    paths = {}  # GNN path -> (outs, batch, counts, peak)
+    with phase("path"), _count_calls("repro_torch.core.quantization",
+                                     "dequantize") as dequantized:
         srv, outs, batch, counts, peak = phase_path(
             cfg, g, batch_graphs, {"segment_agg": 4, "quant_matmul": 2})
+        paths["gcn"] = (outs, batch, counts, peak)
+    with phase("profile"), _count_calls("repro_torch.core.quantization",
+                                        "dequantize") as dequantized_profile:
         profile_row = phase_profile(srv, g)
-    log(f"[path] dequantize calls during the requests: {dequantized[0]}")
-    if dequantized[0]:
+    log(f"[path] dequantize calls during the requests: {dequantized[0] + dequantized_profile[0]}")
+    if dequantized[0] or dequantized_profile[0]:
         raise RuntimeError("the GCN requests dequantized the int8 group before the AGE")
     check_gcn_profile(profile_row)
+    with phase("trace"):
+        trace_row = phase_trace(srv, g, outs[0].outputs)
 
     entry = _yelp_engine(srv, g)
     mode = gnn_api.agg_mode(cfg)
-    x300 = torch.from_numpy(srv._pad_features(g.features, entry.graph.num_nodes)).cuda()
-    age_rows = phase_age(entry, mode, x300)
-    m = int(entry.node_groups["int8"].size)
-    del x300
-    gemm_rows = phase_gemm(m)
+    with phase("kernels"):
+        x300 = torch.from_numpy(srv._pad_features(g.features, entry.graph.num_nodes)).cuda()
+        age_rows = phase_age(entry, mode, x300)
+        m = int(entry.node_groups["int8"].size)
+        del x300
+        gemm_rows = phase_gemm(m)
     cora = make_dataset("cora", max_feature_dim=cfg.d_model, seed=4)
-    cpu_row = phase_cpu(srv, cfg, cora)
+    with phase("cpu"):
+        cpu_row = phase_cpu(srv, cfg, cora)
     del srv, entry
     gc.collect()
     torch.cuda.empty_cache()
 
+    # GIN and SAGE: the same two kernels with sum and mean coefficients on
+    # the raw graph; the Yelp GIN engine also gives the occupancy report.
+    arch_rows = {}
+    for arch, gemms in (("gin", 4), ("sage", 6)):
+        acfg = get_config(f"ample-{arch}")
+        with phase(f"{arch} path"), _count_calls("repro_torch.core.quantization",
+                                                 "dequantize") as deq:
+            asrv, aouts, abatch, acounts, apeak = phase_path(
+                acfg, g, batch_graphs, {"segment_agg": 4, "quant_matmul": gemms},
+                tag=f"{arch} path")
+            arch_rows[f"{arch} profile"] = phase_profile(asrv, g, tag=f"{arch} profile")
+        paths[arch] = (aouts, abatch, acounts, apeak)
+        log(f"[{arch} path] dequantize calls during the requests: {deq[0]}")
+        if deq[0]:
+            raise RuntimeError(f"the {arch} requests dequantized the int8 group before the AGE")
+        with phase(f"{arch} cpu"):
+            arch_rows[arch] = phase_cpu(asrv, acfg, cora, tag=f"{arch} cpu")
+        if arch == "gin":
+            with phase("baseline"):
+                baseline_row = phase_baseline(_yelp_engine(asrv, g))
+        del asrv
+        gc.collect()
+        torch.cuda.empty_cache()
+
     gat_cfg = get_config("ample-gat")
-    with _count_calls("repro_torch.core.aggregation", "tile_edge_coeff") as scatters:
+    with phase("gat path"), _count_calls("repro_torch.core.aggregation",
+                                         "tile_edge_coeff") as scatters:
         gsrv, gouts, gbatch, gcounts, gpeak = phase_path(
             gat_cfg, g, batch_graphs, {"attention": 4, "quant_matmul": 2}, tag="gat path")
+        paths["gat"] = (gouts, gbatch, gcounts, gpeak)
         gprofile_row = phase_profile(gsrv, g, tag="gat profile")
     log(f"[gat path] per-edge operands scattered into tile layout: {scatters[0]} times")
     if scatters[0]:
@@ -1064,9 +1268,12 @@ def main() -> int:
     if gpeak >= 20 * 2**30:
         raise RuntimeError(f"GAT path peak device memory {gpeak / 2**30:.2f} GiB >= 20 GiB")
     gentry = _yelp_engine(gsrv, g)
-    dec_row = phase_gat_decomposed(gentry)
-    attn_rows, mh_rows = phase_gat_kernels(gentry)
-    gcpu_row = phase_cpu(gsrv, gat_cfg, cora, tag="gat cpu")
+    with phase("gat decomposed"):
+        dec_row = phase_gat_decomposed(gentry)
+    with phase("gat kernels"):
+        attn_rows, mh_rows = phase_gat_kernels(gentry)
+    with phase("gat cpu"):
+        gcpu_row = phase_cpu(gsrv, gat_cfg, cora, tag="gat cpu")
     del gsrv, gentry
     gc.collect()
     torch.cuda.empty_cache()
@@ -1074,16 +1281,32 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    lm_row = phase_lm_path("qwen3-8b", (fa_ops.KERNEL, fa_ops.TC_KERNEL), "lm path")
-    ssm_row = phase_lm_path("mamba2-370m", (ssd_ops.KERNEL,), "ssm path")
-    flash_rows, ssd_rows = phase_lm_kernels()
-    lm_cpu_rows = phase_lm_cpu()
+    with phase("lm path"):
+        lm_row = phase_lm_path("qwen3-8b", (fa_ops.KERNEL, fa_ops.TC_KERNEL), "lm path")
+    with phase("ssm path"):
+        ssm_row = phase_lm_path("mamba2-370m", (ssd_ops.KERNEL,), "ssm path")
+    with phase("lm kernels"):
+        flash_rows, ssd_rows = phase_lm_kernels()
+    with phase("lm cpu"):
+        lm_cpu_rows = phase_lm_cpu()
 
     def kernel_row(name, source, replaces, launches, row, shape):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"], library_ms=row["library_ms"], shape=shape)
+
+    def by_path(kernel):
+        """A kernel's launches over each GNN path's run (3 Yelp infers + 1 batch)."""
+        return {p: paths[p][2].get(kernel, 0) for p in ("gcn", "gin", "sage", "gat")}
+
+    # Every kernel of the GNN paths ran on each path that uses it.
+    for kernel, users in (("segment_agg", ("gcn", "gin", "sage")),
+                          ("quant_matmul", ("gcn", "gin", "sage", "gat")),
+                          ("attention", ("gat",))):
+        idle = [p for p in users if not by_path(kernel)[p]]
+        if idle:
+            raise RuntimeError(f"{kernel} was not launched on the {idle} path(s)")
 
     # The largest call of each kernel on its path: the int8 group, at D = 300
     # on the rows the path hands it (AGE), K = 300 (GEMM), and H·dh = 4·100
@@ -1098,15 +1321,17 @@ def main() -> int:
               if r["group"] == "int8" and r["dh"] == 100 and r["rows"] == "int8")
     gat_shape = "int8 group T={tiles} E={lanes} N={n} H={heads} dh={dh}, {rows} rows"
     kernels = [
-        kernel_row("segment_agg", "src/repro_torch/csrc/segment_agg.cu",
-                   "src/repro/kernels/segment_agg/segment_agg.py:135",
-                   counts.get("segment_agg", 0), age,
-                   f"int8 group T={age['tiles']} E={age['lanes']} N={age['n']} D={age['d']}, "
-                   f"{age['rows']} rows"),
-        kernel_row("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
-                   "src/repro/kernels/quant_matmul/repack.py:108",
-                   counts.get("quant_matmul", 0), gemm,
-                   f"M={gemm['m']} K={gemm['k']} N={gemm['n']}"),
+        dict(kernel_row("segment_agg", "src/repro_torch/csrc/segment_agg.cu",
+                        "src/repro/kernels/segment_agg/segment_agg.py:135",
+                        counts.get("segment_agg", 0), age,
+                        f"int8 group T={age['tiles']} E={age['lanes']} N={age['n']} "
+                        f"D={age['d']}, {age['rows']} rows"),
+             launches_by_path=by_path("segment_agg")),
+        dict(kernel_row("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
+                        "src/repro/kernels/quant_matmul/repack.py:108",
+                        counts.get("quant_matmul", 0), gemm,
+                        f"M={gemm['m']} K={gemm['k']} N={gemm['n']}"),
+             launches_by_path=by_path("quant_matmul")),
         kernel_row("attention", "src/repro_torch/csrc/attn_agg.cu",
                    "src/repro/kernels/segment_agg/attn_kernel.py:194",
                    gcounts.get("attention", 0), attn, gat_shape.format(**attn)),
@@ -1139,12 +1364,17 @@ def main() -> int:
     details = dict(
         card=card, device=torch.cuda.get_device_name(0), torch=torch.__version__,
         build_seconds=report.seconds, ptxas=report.ptxas_log,
-        path=path_detail(outs, batch, counts, peak), profile=profile_row,
+        path=path_detail(*paths["gcn"]), profile=profile_row, trace=trace_row,
         segment_agg=age_rows, quant_matmul=gemm_rows, cpu=cpu_row,
-        gat_path=path_detail(gouts, gbatch, gcounts, gpeak), gat_profile=gprofile_row,
+        gin_path=path_detail(*paths["gin"]), gin_profile=arch_rows["gin profile"],
+        gin_cpu=arch_rows["gin"],
+        sage_path=path_detail(*paths["sage"]), sage_profile=arch_rows["sage profile"],
+        sage_cpu=arch_rows["sage"],
+        baseline=baseline_row,
+        gat_path=path_detail(*paths["gat"]), gat_profile=gprofile_row,
         gat_decomposed=dec_row, attention=attn_rows, segment_agg_mh=mh_rows, gat_cpu=gcpu_row,
         lm_path=lm_row, ssm_path=ssm_row, flash_attention=flash_rows, ssd_intra_chunk=ssd_rows,
-        lm_cpu=lm_cpu_rows,
+        lm_cpu=lm_cpu_rows, phase_seconds=seconds,
         seconds=time.perf_counter() - t_start,
     )
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

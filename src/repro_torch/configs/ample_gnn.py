@@ -7,7 +7,8 @@ class count; ``gnn_arch`` selects the registry entry, ``gnn_precision`` the
 Degree-Quant policy, ``gnn_heads`` the GAT attention heads (hidden widths
 must divide by it). The FULL configs are Yelp-scale (717k nodes, 300
 features, 100 classes); the REDUCED ones run on the CPU in tests. The port
-serves ``ample-gcn`` and ``ample-gat`` so far.
+serves all four: ``ample-gcn``, ``ample-gin``, ``ample-sage`` and
+``ample-gat``.
 """
 import functools
 

@@ -18,6 +18,11 @@ Runtime coefficients (GAT attention) arrive per request in graph edge space
 and run the multi-head kernel (``kernels/segment_agg/attn_ops.py``), which
 reads them through the plan's ``edge_ids``: an ``[E, H]`` matrix with
 ``x [N, H, dh]``, a 1-D vector as one head ``[E, 1]``.
+
+``aggregate_bucket_plan`` and ``aggregate_padded_plan`` execute the baseline
+schedules (degree buckets, double-buffered batches) in plain PyTorch, for the
+comparison the paper makes; no kernel serves them, as none does in the
+reference.
 """
 from __future__ import annotations
 
@@ -36,6 +41,8 @@ __all__ = [
     "tile_edge_coeff",
     "aggregate_edge_tiles",
     "aggregate_mixed_precision",
+    "aggregate_bucket_plan",
+    "aggregate_padded_plan",
     "segment_max_edge_tiles",
     "edge_segment_sum_tiles",
 ]
@@ -179,6 +186,55 @@ def edge_segment_sum_tiles(
         dplan.out_node, dplan.split, num_nodes=num_nodes,
     )
     return out.view((num_nodes,) + tuple(values.shape[1:]))
+
+
+def _device_buckets(buckets, device):
+    """(gather_idx, coeff, node_ids) of each bucket as tensors on ``device``."""
+    return [(torch.as_tensor(b.gather_idx, dtype=torch.int64, device=device),
+             torch.as_tensor(b.coeff, dtype=torch.float32, device=device),
+             torch.as_tensor(b.node_ids, dtype=torch.int64, device=device))
+            for b in buckets]
+
+
+def aggregate_bucket_plan(
+    x: torch.Tensor, plan: sched.BucketPlan, *, op: str = "sum"
+) -> torch.Tensor:
+    """Degree-bucketed aggregation. op ∈ {sum, mean, max}.
+
+    mean/GCN normalisation is normally folded into coeff; ``op='mean'`` here
+    divides by the true lane count instead (used by GraphSAGE whose mean is
+    over the *messages*, after φ). ``max`` masks padding lanes to -inf.
+    Plain PyTorch on the device of ``x``, as the reference computes it in
+    plain jnp (``repro/core/aggregation.py``).
+    """
+    n, d = plan.num_nodes, x.shape[1]
+    fill = float("-inf") if op == "max" else 0.0
+    out = torch.full((n + 1, d), fill, dtype=x.dtype, device=x.device)
+    for gi, cf, ids in _device_buckets(plan.buckets, x.device):
+        gathered = x[gi]  # [M, C, D]
+        live = (cf != 0).unsqueeze(-1)
+        if op == "max":
+            red = torch.where(live, gathered, float("-inf")).amax(dim=1)
+            out.scatter_reduce_(0, ids.unsqueeze(-1).expand(-1, d), red, "amax")
+        elif op == "mean":
+            cnt = (cf != 0).sum(dim=1, keepdim=True).clamp(min=1)
+            out.index_add_(0, ids, (gathered * live).sum(dim=1) / cnt)
+        else:
+            out.index_add_(0, ids, (gathered * cf.unsqueeze(-1)).sum(dim=1))
+    out = out[:n]
+    if op == "max":
+        out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+    return out
+
+
+def aggregate_padded_plan(x: torch.Tensor, plan: sched.PaddedPlan) -> torch.Tensor:
+    """Double-buffer baseline: one padded batch at a time (distinct shapes per
+    batch — the economics of static batching). Plain PyTorch on the device of
+    ``x``; each call uploads the batches' arrays, as the reference does."""
+    out = torch.zeros((plan.num_nodes, x.shape[1]), dtype=x.dtype, device=x.device)
+    for gi, cf, ids in _device_buckets(plan.batches, x.device):
+        out[ids] = (x[gi] * cf.unsqueeze(-1)).sum(dim=1)
+    return out
 
 
 def aggregate_mixed_precision(

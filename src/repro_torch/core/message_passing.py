@@ -664,3 +664,18 @@ class AmpleEngine:
             a_qp=a_qp,
             w_packed=w_packed,
         )
+
+    # ------------------------------------------------------------- metrics
+    def occupancy_report(self) -> Dict[str, float]:
+        """Lane economics vs the double-buffered baseline (same graph)."""
+        plan = sched.build_edge_tile_plan(
+            self.graph, edges_per_tile=self.cfg.edges_per_tile
+        )
+        padded = sched.build_padded_plan(self.graph, batch_size=64)
+        return {
+            "event_driven_lane_occupancy": plan.lane_occupancy,
+            "double_buffer_pipeline_gap_ratio": padded.pipeline_gap_ratio,
+            "float_node_ratio": float(
+                (self.precision_tags == "float").mean() if self.graph.num_nodes else 0
+            ),
+        }

@@ -13,6 +13,10 @@ byte-identical tile arrays for the same graph (the parity tests check it).
   mechanism (§3.3 of the paper).
 * ``build_mixed_precision_plans`` partitions nodes by their Degree-Quant tag
   and emits one plan per precision group (§3.2).
+* ``BucketPlan`` / ``PaddedPlan`` — the baselines the paper argues against:
+  power-of-two degree buckets, and the double-buffered (HyGCN-style) fixed
+  batches padded to their largest degree (``AmpleEngine.occupancy_report``
+  and the ``aggregate_bucket_plan`` / ``aggregate_padded_plan`` executors).
 """
 from __future__ import annotations
 
@@ -25,9 +29,14 @@ import numpy as np
 from repro_torch.graphs.csr import Graph
 
 __all__ = [
+    "Bucket",
+    "BucketPlan",
     "EdgeTilePlan",
+    "PaddedPlan",
+    "build_bucket_plan",
     "build_edge_tile_plan",
     "build_mixed_precision_plans",
+    "build_padded_plan",
     "concat_tile_plans",
     "graph_fingerprint",
     "plan_fingerprint",
@@ -366,6 +375,150 @@ def concat_tile_plans(
         edges_per_tile=E,
         segments_per_tile=S,
         total_edges=total_edges,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Degree buckets (power-of-two capacities)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    capacity: int
+    node_ids: np.ndarray  # int32[M]
+    gather_idx: np.ndarray  # int32[M, capacity]
+    coeff: np.ndarray  # f32[M, capacity] (0 on padding lanes)
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.node_ids.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPlan:
+    buckets: Tuple[Bucket, ...]
+    num_nodes: int
+
+    @property
+    def lane_occupancy(self) -> float:
+        lanes = sum(b.gather_idx.size for b in self.buckets)
+        edges = sum(int((b.coeff != 0).sum()) for b in self.buckets)
+        return edges / lanes if lanes else 1.0
+
+
+def build_bucket_plan(
+    g: Graph,
+    *,
+    max_capacity: int = 1 << 14,
+    coeff: Optional[np.ndarray] = None,
+    node_ids: Optional[np.ndarray] = None,
+) -> BucketPlan:
+    """Group nodes into power-of-two-capacity degree buckets.
+
+    A node of degree d lands in the bucket of capacity 2^⌈log2 d⌉ (≥ that
+    degree); nodes above ``max_capacity`` are clamped into the top bucket and
+    split across rows (rare hubs). Lane waste is < 2× by construction.
+    """
+    if node_ids is None:
+        node_ids = np.arange(g.num_nodes, dtype=np.int64)
+    else:
+        node_ids = np.asarray(node_ids, np.int64)
+    if coeff is None:
+        coeff = np.ones(g.num_edges, np.float32)
+    deg = g.degrees[node_ids]
+    buckets: List[Bucket] = []
+    active = node_ids[deg > 0]
+    if active.size:
+        adeg = g.degrees[active]
+        caps = 1 << np.ceil(np.log2(adeg.clip(min=1))).astype(np.int64)
+        caps = caps.clip(min=1, max=max_capacity)
+        for cap in np.unique(caps):
+            sel = active[caps == cap]
+            rows: List[np.ndarray] = []
+            cfr: List[np.ndarray] = []
+            ids: List[int] = []
+            for v in sel:
+                lo, hi = int(g.indptr[v]), int(g.indptr[v + 1])
+                nbrs, cfs = g.indices[lo:hi], coeff[lo:hi]
+                for pos in range(0, hi - lo, int(cap)):
+                    chunk = nbrs[pos : pos + int(cap)]
+                    cchunk = cfs[pos : pos + int(cap)]
+                    row = np.zeros(int(cap), np.int32)
+                    crow = np.zeros(int(cap), np.float32)
+                    row[: chunk.size] = chunk
+                    crow[: cchunk.size] = cchunk
+                    rows.append(row)
+                    cfr.append(crow)
+                    ids.append(int(v))
+            buckets.append(
+                Bucket(
+                    capacity=int(cap),
+                    node_ids=np.asarray(ids, np.int32),
+                    gather_idx=np.stack(rows),
+                    coeff=np.stack(cfr),
+                )
+            )
+    return BucketPlan(buckets=tuple(buckets), num_nodes=g.num_nodes)
+
+
+# ---------------------------------------------------------------------------
+# Double-buffered baseline (HyGCN-style): fixed batches, max-degree padding
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedPlan:
+    """Batches of ``batch_size`` nodeslots padded to the batch max degree."""
+
+    batches: Tuple[Bucket, ...]  # reuse Bucket container (capacity = batch max)
+    num_nodes: int
+    batch_size: int
+
+    @property
+    def pipeline_gap_ratio(self) -> float:
+        """Fraction of lane-cycles wasted waiting on the batch straggler."""
+        lanes = sum(b.gather_idx.size for b in self.batches)
+        edges = sum(int((b.coeff != 0).sum()) for b in self.batches)
+        return 1.0 - (edges / lanes) if lanes else 0.0
+
+
+def build_padded_plan(
+    g: Graph,
+    *,
+    batch_size: int = 64,
+    coeff: Optional[np.ndarray] = None,
+    node_ids: Optional[np.ndarray] = None,
+) -> PaddedPlan:
+    """The double-buffering baseline: node order as given (no degree sort —
+    HyGCN streams nodes in id order), each batch padded to its max degree."""
+    if node_ids is None:
+        node_ids = np.arange(g.num_nodes, dtype=np.int64)
+    else:
+        node_ids = np.asarray(node_ids, np.int64)
+    if coeff is None:
+        coeff = np.ones(g.num_edges, np.float32)
+    batches: List[Bucket] = []
+    for start in range(0, node_ids.size, batch_size):
+        sel = node_ids[start : start + batch_size]
+        cap = int(g.degrees[sel].max()) if sel.size else 1
+        cap = max(cap, 1)
+        gi = np.zeros((sel.size, cap), np.int32)
+        cf = np.zeros((sel.size, cap), np.float32)
+        for r, v in enumerate(sel):
+            lo, hi = int(g.indptr[v]), int(g.indptr[v + 1])
+            gi[r, : hi - lo] = g.indices[lo:hi]
+            cf[r, : hi - lo] = coeff[lo:hi]
+        batches.append(
+            Bucket(
+                capacity=cap,
+                node_ids=sel.astype(np.int32),
+                gather_idx=gi,
+                coeff=cf,
+            )
+        )
+    return PaddedPlan(
+        batches=tuple(batches), num_nodes=g.num_nodes, batch_size=batch_size
     )
 
 

@@ -84,7 +84,7 @@ extern "C" int ample_attention(int device, const void* x, int elem_bytes, const 
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (num_tiles > 0 && heads * dh > 0) {
     Walk w{num_tiles, lanes, segs, heads, dh, 0, num_nodes, ld, 0, 0, groups, per_group,
-           lanes_per_stage, 0, 0, slope};
+           lanes_per_stage, 0, slope};
     const int status = run_walk<kAttn>(device, x, elem_bytes, chunk_bytes, qscale, qzero,
                                       gather_idx, edge_ids, scores, coeff, seg_ids, out_node,
                                       slot_of, part_a, part_m, part_l, out, w, threads,
@@ -117,7 +117,7 @@ extern "C" int ample_segment_agg_mh(int device, const void* x, int elem_bytes,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (num_tiles > 0 && heads * dh > 0) {
     Walk w{num_tiles, lanes, segs, heads, dh, 0, num_nodes, ld, 0, 0, groups, per_group,
-           lanes_per_stage, 0, 0, 0.f};
+           lanes_per_stage, 0, 0.f};
     const int status = run_walk<kValues>(device, x, elem_bytes, chunk_bytes, qscale, qzero,
                                        gather_idx, edge_ids, values, coeff, seg_ids, out_node,
                                        slot_of, part_a, nullptr, nullptr, out, w, threads,

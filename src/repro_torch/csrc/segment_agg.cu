@@ -18,17 +18,20 @@
 //
 // This file is the entry point only: the AGE is the tile walk of
 // tile_walk.cuh (heads_walk_kernel, design note there) in its static mode,
-// with one head (heads = 1, dh = D) and the plan's coeff as lane weights,
-// then the split nodes' partial rows summed in tile order.
+// with one head (heads = 1, dh = D), the plan's coeff as lane weights and
+// lane groups aligned to segments (each segment summed in lane order by one
+// group: bitwise the plain version), then the split nodes' partial rows
+// summed in tile order.
 #include "tile_walk.cuh"
 
 // x: [N, d] f32 (elem_bytes 4) or int8 codes (elem_bytes 1, with device
 // scalars qscale and qzero), rows ld elements apart; gather_idx, coeff and
-// seg_ids: [T, lanes]; out_node and slot_of: [T, segs]. The walk writes the
+// seg_ids: [T, lanes], seg_ids not decreasing along a tile; out_node and
+// slot_of: [T, segs]. The walk writes the
 // rows of this plan's nodes into out ([num_nodes, d]) and no other row;
 // partial holds split_ptr[n_split] rows of d floats. The geometry
-// (chunk_bytes .. smem_bytes) comes from attn_ops.walk_geometry with one
-// head; a geometry that does not fit the call is refused with
+// (chunk_bytes .. smem_bytes) comes from ops.walk_geometry with one head;
+// a geometry that does not fit the call is refused with
 // cudaErrorInvalidValue.
 extern "C" int ample_segment_agg(int device, const void* x, int elem_bytes, const float* qscale,
                                  const float* qzero, int ld, const int* gather_idx,
@@ -44,7 +47,7 @@ extern "C" int ample_segment_agg(int device, const void* x, int elem_bytes, cons
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (num_tiles > 0 && d > 0) {
     Walk w{num_tiles, lanes, segs, 1, d, 0, num_nodes, ld, 0, 0, groups, per_group,
-           lanes_per_stage, 0, 0, 0.f};
+           lanes_per_stage, 0, 0.f};
     const int status = run_walk<kStatic>(device, x, elem_bytes, chunk_bytes, qscale, qzero,
                                          gather_idx, nullptr, nullptr, coeff, seg_ids,
                                          out_node, slot_of, partial, nullptr, nullptr, out, w,

@@ -31,22 +31,28 @@
 // - Column map. A block is `groups` lane groups of `chunks` threads; thread
 //   (g, c) owns the c-th 16-byte chunk of the row (float4, or 16 int8 codes;
 //   4- or 1-byte chunks when the rows are not 16-byte aligned) for the lanes
-//   of group g, a contiguous run of the tile. The host picks the group count
-//   so that the block is a whole number of warps of at least 256 threads
-//   with >= 90% of them owning a chunk (d = 400 f32: 3 groups of 100 in 320
-//   threads; d = 300: 4 of 75; d = 256: 4 of 64; int8 codes: 16 of 16 at
-//   d = 256). Codes whose row stride is a multiple of 16 bytes may take
-//   16-byte chunks even when d is not (d = 300 at a stride of 304): the last
-//   chunk then reads the row's padding, and columns >= d are never written.
+//   of group g, a contiguous run of the tile: lanes [g * per_group,
+//   +per_group), and in the AGE (kStatic) that run with both ends moved up
+//   to the start of a segment (see Sums). The host picks the group count
+//   (ops.walk_geometry): for the GAT kernels so that the block is a whole
+//   number of warps of at least 256 threads with >= 90% of them owning a
+//   chunk (d = 400 f32: 3 groups of 100 in 320 threads; d = 300: 4 of 75;
+//   d = 256: 4 of 64; int8 codes: 16 of 16 at d = 256); for the AGE blocks
+//   of 64 to 128 threads, many to an SM (f32 rows: one group; codes: 4 of
+//   16 at d = 256, 5 of 19 at d = 300). Codes whose row stride is a
+//   multiple of 16 bytes may take 16-byte chunks even when d is not (d = 300
+//   at a stride of 304): the last chunk then reads the row's padding, and
+//   columns >= d are never written.
 // - Staging. Rows reach shared memory through a two-stage ring of `k` lanes
 //   per group and stage, by cp.async copies: step J + 1 is copied while step
 //   J is summed. Each thread copies exactly the chunks it sums and waits for
-//   its own copies: the ring needs no barrier. `k` is as large as lets two
-//   blocks share an SM. A block is persistent over tiles blockIdx.x + i *
-//   gridDim.x: tile i + 2's metadata and tile i + 1's per-edge values (read
-//   through its edge ids) are staged by cp.async into a ring of three
-//   metadata buffers while tile i sums, and the row ring runs on across tile
-//   boundaries. Three barriers a tile.
+//   its own copies: the ring needs no barrier, and a group takes as many
+//   steps of a tile as its run needs (at least one). `k` is as large as lets
+//   two blocks share an SM (GAT), or 4 codes or 8 f32 rows (AGE). A block is
+//   persistent over tiles blockIdx.x + i * gridDim.x: tile i + 2's metadata
+//   and tile i + 1's per-edge values (read through its edge ids) are staged
+//   by cp.async into a ring of three metadata buffers while tile i sums, and
+//   the row ring runs on across tile boundaries. Three barriers a tile.
 // - Segment softmax (kAttn). One warp per head scans the tile's lanes in
 //   windows of 32, twice: a segmented inclusive max, then sum of exps, by
 //   shuffles within the window (each lane's run start found by a ballot),
@@ -55,11 +61,20 @@
 // - Sums. Each thread keeps one running sum per element of its chunk over its
 //   group's lanes in order. A segment inside one group is final there (a / l
 //   for attention; its compact partial row when its node is split across
-//   tiles). A segment that crosses groups is kept in registers by the group
-//   where it starts, which adds the later groups' partials (one shared row
-//   per group) in group order: the sum of a long segment is taken in group
-//   order, not lane order, and moves within the AGE's 1e-4 of the plain
-//   version.
+//   tiles). In the GAT kernels a segment that crosses groups is kept in
+//   registers by the group where it starts, which adds the later groups'
+//   partials (one shared row per group) in group order: the sum of a long
+//   segment is taken in group order, not lane order, and moves within 1e-4
+//   of the plain version. In the AGE no segment crosses groups: a group's
+//   run starts at the first segment that starts in its share of the lanes
+//   and ends where the next group's starts (found by bisection: a tile's
+//   seg ids do not decrease), so each segment is summed by one group in lane
+//   order, bitwise the plain version's (and the reference's jnp path). A
+//   group may take a long run (a hub's segment) while the others wait at the
+//   tile's barrier. GIN's and GraphSAGE's inputs need the order: their sums
+//   and means of int8 codes (of binary features, or requantized at the
+//   scale they were gathered at) sit on exact rounding ties of the next
+//   quantization, and a sum in another order flips those codes.
 // - Output. The walk writes the rows of its plan's nodes into the caller's
 //   out and leaves every other row as it is, so the two precision groups of
 //   one aggregation share one zero-filled out.
@@ -112,7 +127,6 @@ struct Walk {
   int groups;     // lane groups of a block
   int per_group;  // lanes of a group: group g owns [g * per_group, +per_group)
   int k;          // lanes of a group per ring stage
-  int steps;      // ring steps per tile: ceil(per_group / k)
   int row_bytes;  // ring row stride
   float slope;    // LeakyReLU slope (attention)
 };
@@ -280,6 +294,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) heads_walk_kernel(
     float* __restrict__ part_l, float* __restrict__ out, const Walk w) {
   constexpr int kVec = kChunk / static_cast<int>(sizeof(T));
   constexpr bool kStaticW = kMode == kStatic;
+  constexpr bool kAligned = kMode == kStatic;  // groups start at segments (Sums)
   extern __shared__ __align__(16) unsigned char walk_smem[];
   unsigned char* smem = walk_smem;
   const Layout lay = layout(w);
@@ -306,12 +321,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) heads_walk_kernel(
   const int c = threadIdx.x - g * w.chunks;
   const bool worker = g < w.groups;
   const int col = c * kVec;
-  const int a_g = g * w.per_group;
-  const int end_g = min(E, a_g + w.per_group);
-  int hd[kVec];
+  int hd[kVec];  // each element's head (the AGE has one)
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) hd[j] = min((col + j) / w.dh, H - 1);
-  const bool one_head = hd[0] == hd[kVec - 1];
+  for (int j = 0; j < kVec; ++j) hd[j] = kStaticW ? 0 : min((col + j) / w.dh, H - 1);
+  const bool one_head = kStaticW || hd[0] == hd[kVec - 1];
 
   auto tile_of = [&](int i) -> int64_t {
     return static_cast<int64_t>(blockIdx.x) + static_cast<int64_t>(i) * gridDim.x;
@@ -340,25 +353,52 @@ __global__ void __launch_bounds__(kMaxThreads, 1) heads_walk_kernel(
       }
     }
   };
-  // This thread's chunk of its group's rows for global step J (step J %
-  // steps of the block's tile J / steps), into ring stage J % kStages: every
-  // thread copies exactly what it will sum, so the ring needs no barrier,
-  // only each thread's own cp.async.wait_group.
-  const int total = ntiles * w.steps;
-  auto issue_rows = [&](int J) {
-    if (!worker || J >= total) return;
-    const int i = J / w.steps;
-    const int k = J - i * w.steps;
+  // The first lane at or after a that starts a segment (E if none). A
+  // tile's seg ids do not decrease along its lanes, so it is found by
+  // bisection.
+  auto seg_start = [&](const int* seg, int a) -> int {
+    if (a <= 0 || a >= E || seg[a - 1] != seg[a]) return min(max(a, 0), E);
+    const int s = seg[a];
+    int lo = a, hi = E;  // seg[lo] == s; hi == E or seg[hi] != s
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (seg[mid] == s) lo = mid;
+      else hi = mid;
+    }
+    return hi;
+  };
+  // This thread's group's lanes [x, y) of a tile (needs its seg ids
+  // visible): [g * per_group, +per_group), and with kAligned both bounds
+  // moved to the start of a segment. None for a thread outside the groups.
+  auto group_lanes = [&](const Meta& M) -> int2 {
+    if (!worker) return make_int2(0, 0);
+    const int a = g * w.per_group;
+    const int b = min(E, a + w.per_group);
+    if constexpr (kAligned) {
+      const int lo = seg_start(M.seg, a);
+      return make_int2(lo, max(lo, seg_start(M.seg, b)));
+    }
+    return make_int2(a, b);
+  };
+  // Ring steps of a group over lanes r; at least one, so that every thread
+  // takes the same turns of the ring per tile as its group.
+  auto steps_of = [&](int2 r) { return max(1, (r.y - r.x + w.k - 1) / w.k); };
+  // This thread's chunk of the rows of step k of tile i over lanes r, into
+  // ring stage J % kStages (J counts this thread's ring steps): every thread
+  // copies exactly what it will sum, so the ring needs no barrier, only each
+  // thread's own cp.async.wait_group.
+  auto issue_rows = [&](int i, int k, int2 r, int J) {
+    if (i >= ntiles) return;
     const Meta M = meta_at(smem, lay, i % 3);
     unsigned char* row =
         ring + ((J % kStages) * rows + g * w.k) * w.row_bytes + c * kChunk;
-    for (int r = 0; r < w.k; ++r) {
-      const int le = k * w.k + r;
-      const int e = a_g + le;
-      if (le >= w.per_group || e >= E) break;
+    const int e0 = r.x + k * w.k;
+    const int n = min(w.k, r.y - e0);
+    for (int q = 0; q < n; ++q) {
+      const int e = e0 + q;
       const bool live = kStaticW ? M.cf[e] != 0.f : M.eid[e] >= 0;
       if (live)
-        copy_chunk<kChunk>(row + r * w.row_bytes,
+        copy_chunk<kChunk>(row + q * w.row_bytes,
                            reinterpret_cast<const unsigned char*>(
                                x + static_cast<int64_t>(M.idx[e]) * w.ld) + c * kChunk);
     }
@@ -379,7 +419,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) heads_walk_kernel(
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  issue_rows(0);
+  int J = 0;  // this thread's ring steps so far
+  issue_rows(0, 0, group_lanes(meta_at(smem, lay, 0)), J);
   cp_async_commit();
 
   const int lane = threadIdx.x & 31;
@@ -460,17 +501,20 @@ __global__ void __launch_bounds__(kMaxThreads, 1) heads_walk_kernel(
     }
     __syncthreads();
 
-    // This group's runs: the first and last segment of its lanes. A run
-    // that continues from the group before leaves its partial in the
-    // group's shared row; a run that starts here and continues into the
-    // next group stays in this thread's registers until the combine.
+    // This group's lanes of the tile, and its runs: the first and last
+    // segment of its lanes. A run that continues from the group before
+    // leaves its partial in the group's shared row; a run that starts here
+    // and continues into the next group stays in this thread's registers
+    // until the combine (neither happens with kAligned).
+    const int2 r = group_lanes(M);
+    const bool has = r.x < r.y;
     int sf = 0, sl = 0;
     bool cont = false, beyond = false;
-    if (worker) {
-      sf = M.seg[a_g];
-      sl = M.seg[end_g - 1];
-      cont = a_g > 0 && M.seg[a_g - 1] == sf;
-      beyond = end_g < E && M.seg[end_g] == sl;
+    if (has) {
+      sf = M.seg[r.x];
+      sl = M.seg[r.y - 1];
+      cont = r.x > 0 && M.seg[r.x - 1] == sf;
+      beyond = r.y < E && M.seg[r.y] == sl;
     }
     int cur = sf;
     float acc[kVec];
@@ -484,21 +528,24 @@ __global__ void __launch_bounds__(kMaxThreads, 1) heads_walk_kernel(
         write_segment<kVec, kMode>(s, acc, hd, M, s_l, part_a, out, col, w);
     };
 
-    for (int k = 0; k < w.steps; ++k) {
-      const int J = i * w.steps + k;
+    const int steps = steps_of(r);
+    for (int k = 0; k < steps; ++k, ++J) {
       cp_async_wait<0>();  // step J has landed
-      issue_rows(J + 1);
+      if (k + 1 < steps) issue_rows(i, k + 1, r, J + 1);
+      else if (i + 1 < ntiles)  // the next tile's metadata is visible since the last tile
+        issue_rows(i + 1, 0, group_lanes(meta_at(smem, lay, (i + 1) % 3)), J + 1);
       cp_async_commit();
 
-      if (worker) {
+      if (has) {
         const unsigned char* stage = ring + ((J % kStages) * rows + g * w.k) * w.row_bytes +
                                      c * kChunk;
-        const int r_end = min(w.k, end_g - a_g - k * w.k);
-        for (int r = 0; r < r_end; ++r) {
-          const int e = a_g + k * w.k + r;
+        const int e0 = r.x + k * w.k;
+        const int n = min(w.k, r.y - e0);
+        for (int q = 0; q < n; ++q) {
+          const int e = e0 + q;
           // This lane's segment, chunk and weights, read before any flush.
           const int s = M.seg[e];
-          const Raw<kChunk> raw = load_raw<kChunk>(stage + r * w.row_bytes);
+          const Raw<kChunk> raw = load_raw<kChunk>(stage + q * w.row_bytes);
           const float* wr = kStaticW ? M.cf + e : M.w + e * H;
           const float w0 = wr[hd[0]];
           if (s != cur) {
@@ -526,14 +573,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1) heads_walk_kernel(
     }
     // The last run: continued from before (shared row), continuing past this
     // group (kept in acc, this group adds the rest), or final here.
-    if (worker && !beyond) flush(cur);
-    else if (worker && cur == sf && cont) store_chunk<kVec>(my_part, acc, kVec);
-    if (w.steps < 2) cp_async_wait<0>();  // a one-step tile: the next values
+    if (has && !beyond) flush(cur);
+    else if (has && cur == sf && cont) store_chunk<kVec>(my_part, acc, kVec);
+    if (steps < 2) cp_async_wait<0>();  // a one-step tile: the next values
     __syncthreads();  // shared rows; the next tile's values, metadata after it
 
     // Runs that cross groups: the group where one starts adds the later
     // groups' shared rows in group order.
-    if (worker && beyond && !(sf == sl && cont)) {
+    if (has && beyond && !(sf == sl && cont)) {
       for (int g2 = g + 1; g2 < w.groups && M.seg[g2 * w.per_group] == sl; ++g2) {
 #pragma unroll
         for (int j = 0; j < kVec; ++j)
@@ -606,7 +653,6 @@ int run_walk(int device, const void* x, int elem_bytes, int chunk_bytes, const f
   w.d = w.heads * w.dh;
   w.chunks = vec > 0 ? (w.d + vec - 1) / vec : 0;
   w.dp = w.chunks * vec;
-  w.steps = w.k > 0 ? (w.per_group + w.k - 1) / w.k : 0;
   w.row_bytes = align16(w.chunks * chunk_bytes);
   const uintptr_t base = reinterpret_cast<uintptr_t>(x);
   const bool ok = vec > 0 && w.ld >= w.dp && (static_cast<int64_t>(w.ld) * elem_bytes) %

@@ -27,6 +27,11 @@ _SMEM_BYTES = 232448  # shared memory a block may use on an H100 (opting in)
 _MAX_THREADS = 512  # the walk's launch bound
 _BLOCK_BYTES = 112 * 1024  # shared memory of a block such that two fit on an SM
 _MIN_LIVE = 0.9  # share of a block's threads that own a chunk of the row
+# The AGE's walk (lane groups that start at segments): block sizes, and lanes
+# a ring stage by element bytes; the fastest at the Yelp GCN and GIN shapes on
+# an NVIDIA H100 80GB HBM3 (tools/age_geometry_sweep.py).
+_ALIGNED_THREADS = (64, 128)
+_ALIGNED_LANES_PER_STAGE = {1: 4, 4: 8}
 
 
 class SplitMap(NamedTuple):
@@ -125,23 +130,11 @@ def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def walk_geometry(lanes: int, segs: int, heads: int, d: int, elem_bytes: int,
-                  base: int = 0, ld: Optional[int] = None) -> Walk:
-    """The walk for tiles of ``lanes`` lanes and ``segs`` segments over rows
-    of ``d`` elements of ``elem_bytes`` bytes (4: f32, 1: int8 codes), ``ld``
-    elements apart (default ``d``), starting at address ``base``.
-
-    16-byte chunks where the rows allow them (a row stride and a base that
+def _chunk_bytes(d: int, elem_bytes: int, base: int, ld: int) -> int:
+    """16-byte chunks where the rows allow them (a row stride and a base that
     are multiples of 16 bytes, and ``d`` a multiple of 4 floats or 16 codes;
     codes whose stride leaves room may take a last chunk that reads the row's
-    padding, when ``d`` is a multiple of 4), else 4- or 1-byte chunks. The
-    fewest lane groups whose block is a whole number of warps, at least 256
-    threads and at least 90% live; failing that, the most live share. At
-    most ``lanes // 8`` groups, so each walks a run of 8 lanes or more. A
-    two-stage ring as deep as lets two blocks share an SM (112 KB a block)
-    and leaves two steps a tile.
-    """
-    ld = d if ld is None else ld
+    padding, when ``d`` is a multiple of 4), else 4- or 1-byte chunks."""
     width, stride = d * elem_bytes, ld * elem_bytes
 
     def fits(chunk):
@@ -151,32 +144,85 @@ def walk_geometry(lanes: int, segs: int, heads: int, d: int, elem_bytes: int,
             return True
         return elem_bytes == 1 and d % 4 == 0 and -(-width // chunk) * chunk <= stride
 
-    chunk = 16 if fits(16) else 4 if fits(4) else 1
-    chunks = -(-width // chunk)
-    padded = chunks * chunk // elem_bytes  # columns the chunks cover
+    return 16 if fits(16) else 4 if fits(4) else 1
+
+
+def walk_geometry(lanes: int, segs: int, heads: int, d: int, elem_bytes: int,
+                  base: int = 0, ld: Optional[int] = None, *, aligned: bool = False) -> Walk:
+    """The walk for tiles of ``lanes`` lanes and ``segs`` segments over rows
+    of ``d`` elements of ``elem_bytes`` bytes (4: f32, 1: int8 codes), ``ld``
+    elements apart (default ``d``), starting at address ``base``, in the
+    largest chunks the rows allow (``_chunk_bytes``).
+
+    The GAT kernels: the fewest lane groups whose block is a whole number of
+    warps, at least 256 threads and at least 90% live; failing that, the
+    most live share. A two-stage ring as deep as lets two blocks share an SM
+    (112 KB a block) and leaves two steps a tile.
+
+    ``aligned``, the AGE, whose lane groups start at segments, so that a
+    block takes as long as its longest run: blocks of 64 to 128 threads (or
+    the fewest above) with the most live share, fewer groups on a tie, and
+    ``_ALIGNED_LANES_PER_STAGE`` lanes a ring stage; many small blocks an SM
+    keep more tiles in flight (``tools/age_geometry_sweep.py``).
+
+    Either way at most ``lanes // 8`` groups, so each walks a run of 8 lanes
+    or more.
+    """
+    ld = d if ld is None else ld
+    chunk = _chunk_bytes(d, elem_bytes, base, ld)
+    chunks = -(-d * elem_bytes // chunk)
     if chunks > _MAX_THREADS:
         raise ValueError(f"rows of {d} elements in {chunk}-byte chunks exceed the kernel's "
                          f"{_MAX_THREADS} threads")
+
+    def threads(g):
+        return -(-g * chunks // 32) * 32
+
+    def share(g):
+        return g * chunks / threads(g)
+
+    most = max(1, min(lanes // 8, _MAX_THREADS // chunks))
+    if aligned:
+        small, large = _ALIGNED_THREADS
+        fit = [g for g in range(1, most + 1) if threads(g) <= max(large, threads(1))]
+        wide = [g for g in fit if threads(g) >= small] or fit[-1:]
+        best = max(wide, key=lambda g: (share(g), -g))
+        return _walk(lanes, segs, heads, d, elem_bytes, chunk, best,
+                     _ALIGNED_LANES_PER_STAGE[elem_bytes])
     best, best_share = 1, 0.0
-    for g in range(1, max(1, min(lanes // 8, _MAX_THREADS // chunks)) + 1):
-        threads = -(-g * chunks // 32) * 32
-        share = g * chunks / threads
-        if share >= _MIN_LIVE and threads >= 256:
+    for g in range(1, most + 1):
+        if share(g) >= _MIN_LIVE and threads(g) >= 256:
             best = g
             break
-        if share > best_share:
-            best, best_share = g, share
-    per_group = -(-lanes // best)
+        if share(g) > best_share:
+            best, best_share = g, share(g)
+    return _walk(lanes, segs, heads, d, elem_bytes, chunk, best)
+
+
+def _walk(lanes: int, segs: int, heads: int, d: int, elem_bytes: int, chunk: int,
+          groups: int, k: Optional[int] = None) -> Walk:
+    """The walk of about ``groups`` lane groups (as many as ``lanes`` split
+    in equal runs need) over ``chunk``-byte chunks, ``k`` lanes a ring stage
+    (None: as many as lets two blocks share an SM), at most half a group's
+    run."""
+    chunks = -(-d * elem_bytes // chunk)
+    padded = chunks * chunk // elem_bytes  # columns the chunks cover
+    per_group = -(-lanes // groups)
     groups = -(-lanes // per_group)
     row_bytes = _align16(chunks * chunk)
     threads = -(-groups * chunks // 32) * 32
     meta = 4 * _align16(4 * lanes) + 2 * _align16(4 * segs) + _align16(4 * lanes * heads)
     fixed = 3 * meta + 2 * _align16(4 * segs * heads) + groups * padded * 4
     stage = 2 * groups * row_bytes  # ring bytes per lane of a group
+    if k is None:
+        k = (_BLOCK_BYTES - fixed) // stage
     # At least two ring steps a tile: the next tile's per-edge values,
     # staged with the first, then land within this tile.
-    k = max(1, min(per_group // 2, (_BLOCK_BYTES - fixed) // stage))
+    k = max(1, min(per_group // 2, k))
     smem = k * stage + fixed
+    if threads > _MAX_THREADS:
+        raise ValueError(f"{groups} groups of {chunks} chunks exceed the kernel's "
+                         f"{_MAX_THREADS} threads")
     if smem > _SMEM_BYTES:
         raise ValueError(f"tiles of {lanes} lanes, {segs} segments and {heads} heads need "
                          f"{smem} bytes, more than the {_SMEM_BYTES} bytes of shared memory "
@@ -210,10 +256,10 @@ def _rows(x: torch.Tensor, qp, num_nodes: int):
 
 
 def _geometry(x: torch.Tensor, lanes: int, segs: int, heads: int, d: int, elem: int,
-              ld: int) -> Walk:
+              ld: int, aligned: bool = False) -> Walk:
     """``walk_geometry`` for x; a last chunk that reads a row's padding must
     stay inside x's storage."""
-    wk = walk_geometry(lanes, segs, heads, d, elem, x.data_ptr(), ld)
+    wk = walk_geometry(lanes, segs, heads, d, elem, x.data_ptr(), ld, aligned=aligned)
     end = (x.storage_offset() + (x.shape[0] - 1) * ld) * elem + wk.chunks * wk.chunk_bytes
     if x.shape[0] and end > x.untyped_storage().nbytes():
         raise ValueError("the last row's padding lies outside x's storage")
@@ -244,7 +290,10 @@ def aggregate_tiles(
 
     Writes the rows of the plan's nodes into ``out`` and leaves every other
     row as it is (``out`` None: zeros), so precision groups with disjoint
-    nodes share one output.
+    nodes share one output. The kernel's lane groups start at segments, so
+    each segment is summed in lane order by one group: bitwise the plain
+    version. The plan's seg ids must not decrease along a tile (the
+    planner's never do).
     """
     if x.device.type == "cpu":
         return aggregate_tiles_ref(x, gather_idx, coeff, seg_ids, out_node, split,
@@ -253,7 +302,7 @@ def aggregate_tiles(
         raise ValueError(f"no AGE kernel for device {x.device}")
     if x.dim() != 2:
         raise ValueError(f"x must be [N, D], got {tuple(x.shape)}")
-    _, d, elem, scale, zero, ld = _rows(x.unsqueeze(1), qp, num_nodes)
+    _, d, elem, _, _, ld = _rows(x.unsqueeze(1), qp, num_nodes)
     t, e = gather_idx.shape
     s = out_node.shape[1]
     for name, ten, dtype, shape in (
@@ -266,16 +315,25 @@ def aggregate_tiles(
         ("split_ptr", split.split_ptr, torch.int32, (split.split_node.shape[0] + 1,)),
     ):
         _check(name, ten, x.device, dtype, shape)
-    wk = _geometry(x, e, s, 1, d, elem, ld)
-    out = _output(out, (num_nodes, d), x.device)
+    wk = _geometry(x, e, s, 1, d, elem, ld, aligned=True)
+    out = _launch(x, qp, gather_idx, coeff, seg_ids, out_node, split, num_nodes,
+                  _output(out, (num_nodes, d), x.device), wk)
+    build.count_launch(KERNEL)
+    return out
+
+
+def _launch(x, qp, gather_idx, coeff, seg_ids, out_node, split, num_nodes, out, wk: Walk):
+    """Launch the AGE kernel on checked arguments with the walk ``wk``."""
+    t, e = gather_idx.shape
+    s, d = out_node.shape[1], x.shape[1]
+    scale, zero = (None, None) if qp is None else (qp.scale.data_ptr(), qp.zero_point.data_ptr())
     partial = torch.empty((split.num_slots, d), dtype=torch.float32, device=x.device)
     build.call(
         "ample_segment_agg", x.device,
-        x.data_ptr(), elem, scale, zero, ld, gather_idx.data_ptr(), coeff.data_ptr(),
-        seg_ids.data_ptr(), out_node.data_ptr(), split.slot_of.data_ptr(),
+        x.data_ptr(), x.element_size(), scale, zero, x.stride(0), gather_idx.data_ptr(),
+        coeff.data_ptr(), seg_ids.data_ptr(), out_node.data_ptr(), split.slot_of.data_ptr(),
         split.split_ptr.data_ptr(), split.split_node.data_ptr(), partial.data_ptr(),
         out.data_ptr(), t, e, s, d, int(split.split_node.shape[0]), num_nodes,
         wk.chunk_bytes, wk.groups, wk.per_group, wk.lanes_per_stage, wk.threads, wk.smem_bytes,
     )
-    build.count_launch(KERNEL)
     return out

@@ -59,7 +59,7 @@ class ArchSpec:
 
 _ARCHS: Dict[str, ArchSpec] = {}
 
-_ARCH_MODULES = ["gcn", "gat"]
+_ARCH_MODULES = ["gcn", "gin", "sage", "gat"]
 
 
 def register_arch(
@@ -153,8 +153,8 @@ def _shapes(node):
 
 def params_from_numpy(cfg: ModelConfig, tree, *, device="cuda"):
     """The reference's params (the same tree with numpy leaves, e.g.
-    ``{"layers": [{"w": ndarray}, …]}`` for GCN) as f32 tensors on
-    ``device``, checked against the arch's ``param_shapes``.
+    ``{"layers": [{"w": ndarray}, …]}`` for GCN; GIN's ``eps`` is a 0-d leaf)
+    as f32 tensors on ``device``, checked against the arch's ``param_shapes``.
 
     With it, the port and the reference compute the same model.
     """

@@ -14,7 +14,12 @@ artifact:
     plan, or, with union buckets set, a union assembled from cached member
     plans and padded to a size class;
   * cached plans are bitwise-faithful: a warm request returns exactly the
-    output a cold engine would produce for the same graph and features.
+    output a cold engine would produce for the same graph and features;
+  * ``stats`` is a live view over the process metrics registry
+    (``observe.metrics``), and with the trace recorder enabled
+    (``observe.trace.enable()``) every request records its ``queue``,
+    ``plan``, ``execute`` (and, batched, ``scatter``) spans on the
+    ``request_stamp`` clock under its ``trace_id``.
 
 The engine runs on ``cuda`` unless it is given ``device="cpu"``, where the
 kernels' plain versions run (for tests).
@@ -48,9 +53,14 @@ from repro_torch.core.scheduler import (
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph, disjoint_union
 from repro_torch.models.gnn import api as gnn_api
+from repro_torch.observe import metrics as ometrics
+from repro_torch.observe import trace as otrace
 
 __all__ = ["GNNRequest", "GNNResponse", "GNNServeEngine", "request_stamp"]
 
+# The reference engine's counters. The port has no sharded, out-of-core or
+# persisted-plan path yet (ROADMAP queue 1, items 4-6), so shard_hits,
+# warm_loads, the streaming and the halo counters stay 0.
 _STAT_KEYS = (
     "requests",
     "batches",
@@ -58,11 +68,26 @@ _STAT_KEYS = (
     "cache_misses",
     "planner_calls",
     "evictions",
+    "shard_hits",
+    "warm_loads",
     "member_hits",
     "member_misses",
     "class_hits",
     "class_misses",
+    "streamed_requests",
+    "bytes_streamed",
+    "chunk_hits",
+    "chunk_misses",
+    "prefetched_uploads",
+    "stream_fallbacks",
+    "stall_ms",
+    "copy_ms",
+    "halo_exchanges",
+    "halo_bytes",
+    "halo_ms",
+    "halo_wait_ms",
 )
+_FLOAT_KEYS = ("stall_ms", "copy_ms", "halo_ms", "halo_wait_ms")
 
 
 def request_stamp() -> float:
@@ -83,6 +108,7 @@ class GNNRequest:
     features: np.ndarray  # f32[N, D]
     arch: str = ""  # "" -> the engine config's arch
     admitted_at: float = 0.0  # request_stamp() at admission; 0 = unqueued
+    trace_id: str = ""  # per-request correlation id of its trace spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +122,8 @@ class GNNResponse:
     # union call reports the same number; see run_ms_per_member)
     batch_size: int = 1  # members in the union device call that produced this
     queue_ms: float = 0.0  # admission -> execution-start wait (0.0 unqueued)
+    trace_id: str = ""  # correlation id of this request's trace spans ("" =
+    # tracing disabled or no id assigned upstream)
 
     @property
     def run_ms_per_member(self) -> float:
@@ -163,7 +191,13 @@ class GNNServeEngine:
         self._member_plans: "OrderedDict[str, Tuple[Graph, ExecutionPlan]]" = OrderedDict()
         # Size classes already served (device shapes warm); statistics only.
         self._classes_seen: "OrderedDict[str, None]" = OrderedDict()
-        self.stats: Dict[str, int] = {k: 0 for k in _STAT_KEYS}
+        # Registry-backed counters: engine.stats[...] and the registry's
+        # dump read the same cells (ints stay ints, *_ms stay floats).
+        self.instance = ometrics.next_instance("gnn_serve")
+        self.stats: ometrics.StatsView = ometrics.StatsView(
+            ometrics.get_registry(), "gnn_serve", {"engine": self.instance},
+            keys=_STAT_KEYS, float_keys=_FLOAT_KEYS,
+        )
 
     @property
     def padded_unions(self) -> bool:
@@ -372,12 +406,19 @@ class GNNServeEngine:
         )
 
     def _run(
-        self, arch: str, prepared: Graph, engine: AmpleEngine, features: np.ndarray
+        self,
+        arch: str,
+        prepared: Graph,
+        engine: AmpleEngine,
+        features: np.ndarray,
+        *,
+        trace_id: str = "",
     ) -> Tuple[np.ndarray, float]:
         """Execution step: one device call over an assembled plan.
 
         ``run_ms`` spans the feature upload, the forward and a device
-        synchronize, on the ``request_stamp`` clock.
+        synchronize, on the ``request_stamp`` clock; the ``execute`` span
+        records the same stamps.
         """
         cfg = dataclasses.replace(self.cfg, gnn_arch=arch)
         t0 = request_stamp()
@@ -387,8 +428,14 @@ class GNNServeEngine:
         )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        run_ms = (request_stamp() - t0) * 1e3
-        return y.cpu().numpy(), run_ms
+        t1 = request_stamp()
+        rec = otrace.get_recorder()
+        if rec.enabled:
+            rec.add_span(
+                "execute", t0, t1, cat="serve", trace_id=trace_id,
+                args={"arch": arch, "streamed": False},
+            )
+        return y.cpu().numpy(), (t1 - t0) * 1e3
 
     @staticmethod
     def _queue_ms(admitted_at: float, exec_start: float) -> float:
@@ -398,23 +445,41 @@ class GNNServeEngine:
         return max(exec_start - admitted_at, 0.0) * 1e3
 
     def infer(
-        self, graph: Graph, features, *, arch: str = "", admitted_at: float = 0.0
+        self,
+        graph: Graph,
+        features,
+        *,
+        arch: str = "",
+        admitted_at: float = 0.0,
+        trace_id: str = "",
     ) -> GNNResponse:
         """Serve one request; plans come from the LRU cache when warm.
 
         With padded unions enabled the request is served as a batch of one —
         its member plan piece then pre-warms every future batch containing
-        this structure.
+        this structure. With the trace recorder enabled, the request's spans
+        carry ``trace_id`` (a new id when it is "").
         """
         arch = self._arch(arch)
         features = self._validate_request(graph, features)
-        queue_ms = self._queue_ms(admitted_at, request_stamp())
+        rec = otrace.get_recorder()
+        if rec.enabled and not trace_id:
+            trace_id = otrace.new_trace_id()
+        exec_start = request_stamp()
+        queue_ms = self._queue_ms(admitted_at, exec_start)
+        if rec.enabled and admitted_at > 0.0:
+            rec.add_span("queue", admitted_at, exec_start, cat="serve", trace_id=trace_id)
         if self.padded_unions:
             prepared, plan, engine, hit, plan_ms = self._plan_for_padded([graph], arch)
             features = self._pad_features(features, prepared.num_nodes)
         else:
             prepared, plan, engine, hit, plan_ms = self._plan_for(graph, arch)
-        y, run_ms = self._run(arch, prepared, engine, features)
+        if rec.enabled:
+            rec.add_span(
+                "plan", exec_start, request_stamp(), cat="serve", trace_id=trace_id,
+                args={"cache_hit": hit, "plan_ms": plan_ms},
+            )
+        y, run_ms = self._run(arch, prepared, engine, features, trace_id=trace_id)
         self.stats["requests"] += 1
         return GNNResponse(
             outputs=y[: graph.num_nodes],
@@ -423,6 +488,7 @@ class GNNServeEngine:
             plan_ms=plan_ms,
             run_ms=run_ms,
             queue_ms=queue_ms,
+            trace_id=trace_id,
         )
 
     def infer_batch(self, requests: Sequence[GNNRequest]) -> List[GNNResponse]:
@@ -441,16 +507,33 @@ class GNNServeEngine:
         for r in requests[1:]:
             self._arch(r.arch)
         feats = [self._validate_request(r.graph, r.features) for r in requests]
+        rec = otrace.get_recorder()
         exec_start = request_stamp()
         queue_waits = [self._queue_ms(r.admitted_at, exec_start) for r in requests]
+        batch_tid = requests[0].trace_id
+        if rec.enabled:
+            if not batch_tid:
+                batch_tid = otrace.new_trace_id()
+            # Per-member queue spans carry each request's own id; the
+            # window-level plan/execute/scatter spans carry the lead member's.
+            for r in requests:
+                if r.admitted_at > 0.0:
+                    rec.add_span("queue", r.admitted_at, exec_start, cat="serve",
+                                 trace_id=r.trace_id or batch_tid)
         members = [r.graph for r in requests]
         prepared, plan, engine, hit, plan_ms = self._plan_for_batch(members, arch)
+        if rec.enabled:
+            rec.add_span(
+                "plan", exec_start, request_stamp(), cat="serve", trace_id=batch_tid,
+                args={"cache_hit": hit, "plan_ms": plan_ms, "batch": len(requests)},
+            )
         features = self._pad_features(np.concatenate(feats, axis=0), prepared.num_nodes)
-        y, run_ms = self._run(arch, prepared, engine, features)
+        y, run_ms = self._run(arch, prepared, engine, features, trace_id=batch_tid)
         self.stats["requests"] += len(requests)
         self.stats["batches"] += 1
         out: List[GNNResponse] = []
         start = 0
+        scatter_t0 = request_stamp()
         for r, q_ms in zip(requests, queue_waits):
             stop = start + r.graph.num_nodes
             out.append(
@@ -462,13 +545,19 @@ class GNNServeEngine:
                     run_ms=run_ms,
                     batch_size=len(requests),
                     queue_ms=q_ms,
+                    trace_id=r.trace_id or batch_tid,
                 )
             )
             start = stop
+        if rec.enabled:
+            rec.add_span(
+                "scatter", scatter_t0, request_stamp(), cat="serve", trace_id=batch_tid,
+                args={"batch": len(requests)},
+            )
         return out
 
     # ------------------------------------------------------------- metrics
-    def cache_info(self) -> Dict[str, int]:
+    def cache_info(self) -> Dict[str, float]:
         """Plan-cache size and capacity plus the ``stats`` counters."""
         return {"size": len(self._cache), "capacity": self.plan_cache_size, **self.stats}
 

@@ -270,23 +270,31 @@ def test_walk_geometry_chunks_follow_row_alignment(d, elem, base, chunk):
     assert wk.groups * wk.chunks <= wk.threads <= 512
 
 
-# The AGE's walk (one head) at the GCN widths: (d, element bytes, row stride,
-# chunk bytes). Codes at d 300 take 4-byte chunks from contiguous rows and
-# 16-byte chunks from rows padded to a stride of 304.
+# The AGE's walk (one head, lane groups that start at segments) at the GCN
+# widths: (d, element bytes, row stride, chunk bytes). Codes at d 300 take
+# 4-byte chunks from contiguous rows and 16-byte chunks from rows padded to a
+# stride of 304. Blocks of 64 to 128 threads with the most live share (fewer
+# groups on a tie): f32 rows one group, codes at d 256 four, at stride 304 five.
+AGE_GROUPS = {(300, 4, 300): 1, (256, 4, 256): 1, (300, 1, 300): 1, (256, 1, 256): 4,
+              (300, 1, 304): 5}
+
+
 @pytest.mark.parametrize("d,elem,ld,chunk", [
     (300, 4, 300, 16), (256, 4, 256, 16), (300, 1, 300, 4), (256, 1, 256, 16),
     (300, 1, 304, 16),
 ])
 def test_walk_geometry_for_the_age(d, elem, ld, chunk):
-    wk = attn_ops.walk_geometry(256, 256, 1, d, elem, 0, ld)
+    wk = attn_ops.walk_geometry(256, 256, 1, d, elem, 0, ld, aligned=True)
     assert wk.chunk_bytes == chunk and wk.chunks == -(-d * elem // chunk)
     assert wk.chunks * chunk <= ld * elem
-    best = max(g * wk.chunks / (-(-g * wk.chunks // 32) * 32)
-               for g in range(1, 512 // wk.chunks + 1))
-    assert wk.live_share >= 0.9 or wk.live_share == best
-    assert wk.threads % 32 == 0 and wk.threads >= 256
+    assert wk.groups == AGE_GROUPS[(d, elem, ld)]
+    assert wk.threads % 32 == 0 and 64 <= wk.threads <= 128
+    best = max(g * wk.chunks / (-(-g * wk.chunks // 32) * 32) for g in range(1, 9)
+               if 64 <= -(-g * wk.chunks // 32) * 32 <= 128)
+    assert wk.live_share == best
+    assert wk.lanes_per_stage == (4 if elem == 1 else 8)
     assert (wk.groups - 1) * wk.per_group < 256 <= wk.groups * wk.per_group
-    assert 2 * (wk.smem_bytes + 1024) <= 233472  # two blocks on an SM
+    assert 4 * (wk.smem_bytes + 1024) <= 233472  # four blocks on an SM
 
 
 def test_walk_geometry_refuses_what_the_kernel_cannot_hold():
@@ -379,7 +387,7 @@ def test_gat_full_widths_forward_matches_reference():
     assert_mixed_close(port.numpy(), np.asarray(ref))
 
 
-@pytest.mark.parametrize("arch", ["gcn", "gat"])
+@pytest.mark.parametrize("arch", ["gcn", "gin", "sage", "gat"])
 @pytest.mark.parametrize("reduced", [True, False])
 def test_param_shapes_match_reference_init(arch, reduced):
     """Each arch's ``param_shapes`` is the tree of the reference's own params,

@@ -19,7 +19,7 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.core.aggregation import to_device_plan
 from repro_torch.core.quantization import QuantParams, compute_scale_zp, quantize
-from repro_torch.core.message_passing import AmpleEngine, compile_plans
+from repro_torch.core.message_passing import AmpleEngine, EngineConfig, compile_plans
 from repro_torch.core.scheduler import build_edge_tile_plan, build_mixed_precision_plans
 from repro_torch.graphs.csr import Graph
 from repro_torch.graphs.datasets import make_dataset, make_lognormal_graph
@@ -74,8 +74,9 @@ def _age_rows(x, kind, dev, ld=None):
 
 
 def _check_age(cuda, x, dp_cpu, dp, n, kind, ld=None):
-    """The AGE on the walk against its plain version on the card and on the
-    CPU (atol 1e-4), run-to-run bitwise, one launch per call."""
+    """The AGE on the walk against its plain version on the card (atol 1e-4)
+    and on the CPU (bitwise: each segment is summed in lane order by one lane
+    group), run-to-run bitwise, one launch per call."""
     xc, qpc = _age_rows(x, kind, "cpu")
     xg, qpg = _age_rows(x, kind, cuda, ld)
     before = build.launch_counts().get(seg_ops.KERNEL, 0)
@@ -88,6 +89,7 @@ def _check_age(cuda, x, dp_cpu, dp, n, kind, ld=None):
     for want in (_agg(xg, dp, n, aggregate_tiles_ref, qpg), _agg(xc, dp_cpu, n, aggregate_tiles_ref,
                                                                   qpc)):
         np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
+    assert torch.equal(out.cpu(), want)  # the CPU's plain version, bitwise
     return out
 
 
@@ -104,6 +106,37 @@ def test_segment_agg_matches_plain(cuda, d, ept, kind):
     plan = build_edge_tile_plan(g, edges_per_tile=ept, coeff=coeff)
     x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
     _check_age(cuda, x, to_device_plan(plan, "cpu"), to_device_plan(plan, cuda), n, kind)
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("ept", [16, 64, 256])
+def test_segment_agg_lane_order_whatever_the_groups(cuda, ept, kind):
+    """Each segment is summed in lane order by one lane group however many
+    groups split a tile and however deep the ring: a hub's segment fills
+    whole tiles, short ones cross the groups' nominal bounds. Every geometry
+    gives the CPU's plain version bitwise."""
+    n, d = 400, 40
+    g = make_lognormal_graph(n, 6.0, seed=ept)
+    hub = np.arange(n)  # node 0 takes every node as an in-neighbour
+    g = Graph(indptr=np.concatenate([[0], n + np.cumsum(g.degrees)]).astype(g.indptr.dtype),
+              indices=np.concatenate([hub, g.indices]).astype(g.indices.dtype), num_nodes=n)
+    rng = np.random.default_rng(ept)
+    coeff = rng.uniform(0.5, 1.5, g.num_edges).astype(np.float32)
+    plan = build_edge_tile_plan(g, edges_per_tile=ept, coeff=coeff)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    xc, qpc = _age_rows(x, kind, "cpu")
+    xg, qpg = _age_rows(x, kind, cuda)
+    dp, dp_cpu = to_device_plan(plan, cuda), to_device_plan(plan, "cpu")
+    want = _agg(xc, dp_cpu, n, aggregate_tiles_ref, qpc)
+    args = (dp.gather_idx, dp.coeff, dp.seg_ids, dp.out_node, dp.split)
+    chunk = seg_ops.walk_geometry(ept, dp.out_node.shape[1], 1, d, xg.element_size(),
+                                  xg.data_ptr(), aligned=True).chunk_bytes
+    for groups in (1, 2, 3, 5, 8):
+        for k in (1, 2, 4, 16):
+            wk = seg_ops._walk(ept, dp.out_node.shape[1], 1, d, xg.element_size(), chunk,
+                               groups, k)
+            out = seg_ops._launch(xg, qpg, *args, n, torch.zeros((n, d), device=cuda), wk)
+            assert torch.equal(out.cpu(), want), (groups, k)
 
 
 def test_segment_agg_padded_union_rows_stay_zero(cuda):
@@ -261,6 +294,71 @@ def test_serving_on_card_matches_cpu(cuda):
     cold = gpu.infer(g, g.features)
     warm = gpu.infer(g, g.features)
     assert build.launch_counts() == {seg_ops.KERNEL: 8, qm_ops.KERNEL: 4}
+    assert np.array_equal(cold.outputs, warm.outputs)
+    ref = cpu.infer(g, g.features).outputs
+    np.testing.assert_allclose(cold.outputs, ref, atol=6e-2, rtol=2e-3)
+    assert (np.abs(cold.outputs - ref) > 2e-3).mean() < 0.05
+
+
+# GIN's and SAGE's GEMM shapes: K 300 x N 300 (SAGE's φ in layer 1), K 256 x
+# N 256 (GIN's second linear in layer 1, SAGE's φ in layer 2), K 100 x N 100
+# (GIN's last linear; 100-byte rows, not a 16-byte multiple).
+@pytest.mark.parametrize("k,n", [(300, 300), (256, 256), (100, 100)])
+@pytest.mark.parametrize("m", [1, 4099])
+def test_quant_matmul_gin_sage_shapes_bitwise(cuda, m, k, n):
+    _int8_bitwise(cuda, m, k, n, seed=m + 7 * k)
+
+
+def _isolated_graph(n=500, every=7, seed=3):
+    """A lognormal graph whose every ``every``-th node has no in-edges."""
+    full = make_lognormal_graph(n, 10.0, seed=seed)
+    isolated = np.arange(0, n, every)
+    dst = np.repeat(np.arange(n), full.degrees)
+    deg = np.where(np.isin(np.arange(n), isolated), 0, full.degrees)
+    g = Graph(indptr=np.concatenate([[0], np.cumsum(deg)]).astype(full.indptr.dtype),
+              indices=full.indices[~np.isin(dst, isolated)], num_nodes=n)
+    return g, isolated
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("d", [100, 256, 300])
+def test_age_zero_degree_rows_stay_exactly_zero(cuda, mode, d):
+    """GIN's ``sum`` and SAGE's ``mean`` plans on a raw graph with nodes
+    without in-edges: both precision groups (f32 rows, int8 codes) write one
+    zero-filled output, and the empty segments' rows stay exactly 0."""
+    g, isolated = _isolated_graph()
+    assert not g.degrees[isolated].any()
+    x = torch.from_numpy(np.random.default_rng(d).standard_normal((g.num_nodes, d))
+                         .astype(np.float32))
+    card = AmpleEngine(g, EngineConfig(edges_per_tile=64))
+    cpu = AmpleEngine(g, card.cfg)
+    assert set(card.plans(mode)) == {"int8", "float"}
+    before = build.launch_counts().get(seg_ops.KERNEL, 0)
+    out = card.aggregate(x.to(cuda), mode=mode)
+    again = card.aggregate(x.to(cuda), mode=mode)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[seg_ops.KERNEL] == before + 4  # two groups, twice
+    assert torch.equal(out, again)
+    assert torch.count_nonzero(out[torch.as_tensor(isolated, device=cuda)]) == 0
+    want = cpu.aggregate(x, mode=mode)
+    np.testing.assert_allclose(out.cpu().numpy(), want.numpy(), atol=1e-4)
+    assert torch.equal(out.cpu(), want)  # lane-order sums: the plain version, bitwise
+
+
+@pytest.mark.parametrize("arch,gemms", [("gin", 4), ("sage", 6)])
+def test_gin_sage_serving_on_card_matches_cpu(cuda, arch, gemms):
+    """FULL ample-gin / ample-sage widths on a cora-sized graph: 4 AGE
+    launches and 4 (GIN) or 6 (SAGE) int8 GEMMs per request, warm == cold
+    bitwise, card vs CPU at the mixed tolerance."""
+    cfg = dataclasses.replace(get_config(f"ample-{arch}"), gnn_union_node_bucket=0,
+                              gnn_union_edge_bucket=0)
+    g = make_dataset("cora", max_nodes=400, max_feature_dim=300, seed=2)
+    gpu = GNNServeEngine(cfg, device=cuda)
+    cpu = GNNServeEngine(cfg, params=gpu.params, device="cpu")
+    build.reset_launch_counts()
+    cold = gpu.infer(g, g.features)
+    warm = gpu.infer(g, g.features)
+    assert build.launch_counts() == {seg_ops.KERNEL: 8, qm_ops.KERNEL: 2 * gemms}
     assert np.array_equal(cold.outputs, warm.outputs)
     ref = cpu.infer(g, g.features).outputs
     np.testing.assert_allclose(cold.outputs, ref, atol=6e-2, rtol=2e-3)
