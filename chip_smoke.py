@@ -102,9 +102,31 @@ Every phase that fails raises, so the script exits non-zero.
              f32 CUDA-core bound of PR 13-15 is printed beside it);
 15. lm cpu — REDUCED ``qwen3-8b`` and ``mamba2-370m`` served on the CPU
              against the card: the same tokens, prefill logits within 5e-4;
-16. summary — a JSON line of kernels (the AGE and the int8 matmul with their
-             launches per GNN path), the card's name and power limit, and
-             the result line.
+16. h2d — the copy rate of one f32 and one int8 Yelp chunk from page-locked
+             and from pageable host memory (CUDA events, 200 copies);
+    outofcore gcn — the GCN path's engine (plans warm) serves the Yelp
+             request with ``feature_budget_bytes = features.nbytes // 8``
+             (4,096-row chunks, 176 chunks, 21 f32 and 87 int8 slots): the
+             features stay in page-locked host memory and stream through the
+             chunk prefetcher, three requests at prefetch depth 2 (the first
+             builds the stream programs) and one at depth 0; each bitwise the
+             in-memory output, with the AGE and the int8 GEMM launched and a
+             peak device memory below the in-memory request's (measured
+             just before); per request the launches, bytes_streamed, hit
+             rate, uploads, sparse rows, copy_ms, stall_ms,
+             prefetch_overlap and run_ms are printed; then ``outofcore
+             gin``/``sage``/``gat`` after their paths, at depth 2 and 0;
+17. fronts — FULL ``ample-gcn``: 16 requests (pubmed-sized and cora-sized,
+             seeds 0-7, interleaved) through ``AsyncGNNEngine`` (window 8,
+             the config's union buckets): completions in submission order,
+             each window bitwise ``infer_batch`` of its composition, its AGE
+             and GEMM launches printed; then a ``TenantRouter`` (gold weight
+             3 at priority 1, bronze weight 1) on the same requests, every
+             logged window replayed directly bitwise, per-tenant p50/p99
+             latency, requests/s and nodes/s from its telemetry;
+18. summary — a JSON line of kernels (the AGE and the int8 matmul with their
+             launches per GNN path and per streamed request), the card's
+             name and power limit, and the result line.
 
 The int8 matmul is also held bitwise at GIN's and SAGE's K x N (300 x 300,
 256 x 256, 100 x 100). Each phase prints its seconds.
@@ -875,6 +897,162 @@ def _timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+
+def _streamed_line(tag, label, resp, stats, counts, peak, mem_peak):
+    from repro_torch.kernels.quant_matmul import ops as qm_ops
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+
+    log(f"[{tag}] {label}: AGE {counts.get(seg_ops.KERNEL, 0)} GEMM "
+        f"{counts.get(qm_ops.KERNEL, 0)} launches; bytes_streamed {stats.bytes_streamed} "
+        f"({stats.bytes_streamed / 2**30:.2f} GiB) hit_rate {stats.hit_rate:.4f} "
+        f"uploads {stats.uploads} (chunk misses {stats.chunk_misses}, prefetched "
+        f"{stats.prefetched}, evictions {stats.evictions}) sparse rows {stats.sparse_rows} "
+        f"instr_bytes {stats.instr_bytes}; copy_ms {stats.copy_ms:.1f} stall_ms "
+        f"{stats.stall_ms:.1f} prefetch_overlap {stats.prefetch_overlap:.4f} run_ms "
+        f"{resp.run_ms:.1f}; peak device memory {peak / 2**30:.3f} GiB (in-memory "
+        f"{mem_peak / 2**30:.3f} GiB)")
+
+
+def phase_h2d():
+    """Host-to-device copy rates of one f32 and one int8 chunk of the Yelp
+    store (4,096 x 300 rows) from page-locked and from pageable memory."""
+    import torch
+
+    rows = {}
+    for nbytes in (4096 * 300 * 4, 4096 * 300):
+        dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        for name, src in (("pinned", torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)),
+                          ("pageable", torch.empty(nbytes, dtype=torch.uint8))):
+            def copy():
+                dst.copy_(src, non_blocking=True)
+
+            ms = cuda_ms(copy, 200, warmup=3)
+            rows[f"{name} {nbytes}"] = nbytes / ms / 1e6
+            log(f"[h2d] {name} {nbytes} B: {ms * 1e3:.1f} us a copy, "
+                f"{nbytes / ms / 1e6:.1f} GB/s")
+    return rows
+
+
+def phase_outofcore(srv, g, want, arch, depths):
+    """Serve the Yelp request on ``srv`` (whose in-memory run gave ``want``)
+    with its features on the host: budget ``features.nbytes // 8``, one
+    request per prefetch depth in ``depths``; each bitwise ``want``, with a
+    lower peak device memory than the in-memory request's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.memory.prefetcher import stream_slots
+
+    tag = f"outofcore {arch}"
+    srv.feature_budget_bytes = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem = srv.infer(g, g.features)
+    mem_peak = torch.cuda.max_memory_allocated()
+    if mem.streamed or not np.array_equal(mem.outputs, want):
+        raise RuntimeError("the in-memory request changed")
+    srv.feature_budget_bytes = g.features.nbytes // 8
+    rows = []
+    for i, depth in enumerate(depths):
+        srv.stream_prefetch_depth = depth
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        resp = srv.infer(g, g.features)
+        counts = build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        stats = srv._last_stream
+        label = f"request {i} depth {depth}" + (" (stream cold)" if stats.instr_bytes else "")
+        _streamed_line(tag, label, resp, stats, counts, peak, mem_peak)
+        if not resp.streamed or not np.array_equal(resp.outputs, want):
+            raise RuntimeError(f"{tag}: {label} differs from the in-memory request")
+        if peak >= mem_peak:
+            raise RuntimeError(f"{tag}: streamed peak {peak} >= in-memory peak {mem_peak}")
+        if depth == 0 and (stats.copy_ms or stats.stall_ms):
+            raise RuntimeError(f"{tag}: the synchronous stream claimed overlap")
+        if not 0.0 <= resp.prefetch_overlap <= 1.0:
+            raise RuntimeError(f"{tag}: prefetch_overlap {resp.prefetch_overlap}")
+        if arch in ("gcn", "gin") and not (counts.get("segment_agg")
+                                           and counts.get("quant_matmul")):
+            raise RuntimeError(f"{tag}: {label} launched {counts}")
+        rows.append(dict(depth=depth, launches=counts, peak_bytes=peak, run_ms=resp.run_ms,
+                         cache_hit=resp.cache_hit, **stats.as_dict()))
+    store = next(iter(srv._stores.values()))[1]
+    slots = {s: stream_slots(store, s, srv.feature_budget_bytes, store.num_chunks)
+             for s in ("f32", "i8")}
+    log(f"[{tag}] budget {srv.feature_budget_bytes} B = features.nbytes // 8; chunk rows "
+        f"{store.chunk_rows}, chunks {store.num_chunks}, slots {slots}; pinned {store.pinned}; "
+        "every streamed output bitwise the in-memory one")
+    return dict(budget=srv.feature_budget_bytes, chunk_rows=store.chunk_rows,
+                chunks=store.num_chunks, slots=slots, in_memory_peak_bytes=mem_peak,
+                requests=rows)
+
+
+def phase_fronts(cfg):
+    """The continuous-batching and multi-tenant fronts on FULL ``cfg``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.kernels import build
+    from repro_torch.serve.async_gnn import AsyncGNNEngine
+    from repro_torch.serve.gnn_engine import GNNRequest, GNNServeEngine
+    from repro_torch.serve.tenancy import TenantRouter
+
+    traffic = []
+    for s in range(8):
+        traffic.append(("gold", make_dataset("pubmed", max_feature_dim=cfg.d_model, seed=s)))
+        traffic.append(("bronze", make_dataset("cora", max_feature_dim=cfg.d_model, seed=s)))
+    srv = GNNServeEngine(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    front = AsyncGNNEngine(srv)
+    if front.window != 8:
+        raise RuntimeError(f"window {front.window}, expected the config's 8")
+    tickets = [front.submit(g, g.features) for _, g in traffic]
+    order, windows = [], []
+    t0 = time.perf_counter()
+    while front.pending:
+        build.reset_launch_counts()
+        done = front.step()
+        windows.append(([t.seq for t in done], build.launch_counts()))
+        order += [t.seq for t in done]
+    async_s = time.perf_counter() - t0
+    if order != list(range(len(traffic))):
+        raise RuntimeError(f"completion order {order} is not the submission order")
+    for seqs, counts in windows:
+        replay = srv.infer_batch([tickets[i].request for i in seqs])
+        if not all(np.array_equal(tickets[i].response.outputs, r.outputs)
+                   for i, r in zip(seqs, replay)):
+            raise RuntimeError("an async window differs from infer_batch of its composition")
+        nodes = sum(tickets[i].request.graph.num_nodes for i in seqs)
+        log(f"[fronts] async window {seqs}: {nodes} nodes, launches {counts}, run_ms "
+            f"{tickets[seqs[0]].response.run_ms:.2f}; bitwise infer_batch")
+    nodes = sum(g.num_nodes for _, g in traffic)
+    log(f"[fronts] async: {len(traffic)} requests ({nodes} nodes) in {async_s * 1e3:.1f} ms, "
+        f"{len(traffic) / async_s:.1f} requests/s; completions in submission order")
+
+    router = TenantRouter(AsyncGNNEngine(srv))
+    router.add_tenant("gold", weight=3.0, priority=1)
+    router.add_tenant("bronze", weight=1.0)
+    routed = [router.submit(t, g, g.features) for t, g in traffic]
+    router.drain()
+    for window in router.window_log:
+        members = [routed[seq] for _, seq in window]
+        replay = srv.infer_batch([GNNRequest(graph=rt.graph, features=rt.features)
+                                  for rt in members])
+        if not all(np.array_equal(rt.response.outputs, r.outputs)
+                   for rt, r in zip(members, replay)):
+            raise RuntimeError("a routed window differs from its direct replay")
+        log(f"[fronts] routed window {[f'{t}:{s}' for t, s in window]}: replayed bitwise")
+    snap = router.telemetry.snapshot()
+    for tenant, row in snap.items():
+        lat = row["latency_ms"]
+        log(f"[fronts] tenant {tenant}: {row['completed']} requests, latency p50 "
+            f"{lat['p50']:.2f} ms p99 {lat['p99']:.2f} ms, {row['throughput_rps']:.1f} "
+            f"requests/s, {row['node_throughput']:.0f} nodes/s")
+    return dict(async_windows=[dict(seqs=s, launches=c) for s, c in windows],
+                async_seconds=async_s, requests=len(traffic), nodes=nodes,
+                window_log=[list(w) for w in router.window_log], tenants=snap)
+
 def phase_lm_path(arch, kernels, tag):
     """Serve the FULL ``arch`` with ``ServeEngine.generate`` (B 4 x 2048-token
     prompts, 32 new tokens, random weights from a CUDA generator of seed 0):
@@ -1227,6 +1405,15 @@ def main() -> int:
     cora = make_dataset("cora", max_feature_dim=cfg.d_model, seed=4)
     with phase("cpu"):
         cpu_row = phase_cpu(srv, cfg, cora)
+    # Out-of-core: the same engine (plans warm) with the features on the host;
+    # one request per prefetch depth, each bitwise the in-memory output.
+    ooc_rows = {}
+    with phase("h2d"):
+        h2d_row = phase_h2d()
+    with phase("outofcore gcn"):
+        ooc_rows["gcn"] = phase_outofcore(srv, g, outs[0].outputs, "gcn", (2, 2, 2, 0))
+    with phase("fronts"):
+        fronts_row = phase_fronts(cfg)
     del srv, entry
     gc.collect()
     torch.cuda.empty_cache()
@@ -1248,6 +1435,8 @@ def main() -> int:
             raise RuntimeError(f"the {arch} requests dequantized the int8 group before the AGE")
         with phase(f"{arch} cpu"):
             arch_rows[arch] = phase_cpu(asrv, acfg, cora, tag=f"{arch} cpu")
+        with phase(f"outofcore {arch}"):
+            ooc_rows[arch] = phase_outofcore(asrv, g, aouts[0].outputs, arch, (2, 0))
         if arch == "gin":
             with phase("baseline"):
                 baseline_row = phase_baseline(_yelp_engine(asrv, g))
@@ -1274,6 +1463,8 @@ def main() -> int:
         attn_rows, mh_rows = phase_gat_kernels(gentry)
     with phase("gat cpu"):
         gcpu_row = phase_cpu(gsrv, gat_cfg, cora, tag="gat cpu")
+    with phase("outofcore gat"):
+        ooc_rows["gat"] = phase_outofcore(gsrv, g, gouts[0].outputs, "gat", (2, 0))
     del gsrv, gentry
     gc.collect()
     torch.cuda.empty_cache()
@@ -1299,6 +1490,11 @@ def main() -> int:
     def by_path(kernel):
         """A kernel's launches over each GNN path's run (3 Yelp infers + 1 batch)."""
         return {p: paths[p][2].get(kernel, 0) for p in ("gcn", "gin", "sage", "gat")}
+
+    def streamed(kernel):
+        """A kernel's launches in each arch's last depth-2 streamed Yelp request."""
+        return {p: [r for r in ooc_rows[p]["requests"] if r["depth"] == 2][-1]["launches"]
+                .get(kernel, 0) for p in ("gcn", "gin", "sage", "gat")}
 
     # Every kernel of the GNN paths ran on each path that uses it.
     for kernel, users in (("segment_agg", ("gcn", "gin", "sage")),
@@ -1326,12 +1522,14 @@ def main() -> int:
                         counts.get("segment_agg", 0), age,
                         f"int8 group T={age['tiles']} E={age['lanes']} N={age['n']} "
                         f"D={age['d']}, {age['rows']} rows"),
-             launches_by_path=by_path("segment_agg")),
+             launches_by_path=by_path("segment_agg"),
+             launches_streamed_request=streamed("segment_agg")),
         dict(kernel_row("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
                         "src/repro/kernels/quant_matmul/repack.py:108",
                         counts.get("quant_matmul", 0), gemm,
                         f"M={gemm['m']} K={gemm['k']} N={gemm['n']}"),
-             launches_by_path=by_path("quant_matmul")),
+             launches_by_path=by_path("quant_matmul"),
+             launches_streamed_request=streamed("quant_matmul")),
         kernel_row("attention", "src/repro_torch/csrc/attn_agg.cu",
                    "src/repro/kernels/segment_agg/attn_kernel.py:194",
                    gcounts.get("attention", 0), attn, gat_shape.format(**attn)),
@@ -1374,7 +1572,8 @@ def main() -> int:
         gat_path=path_detail(*paths["gat"]), gat_profile=gprofile_row,
         gat_decomposed=dec_row, attention=attn_rows, segment_agg_mh=mh_rows, gat_cpu=gcpu_row,
         lm_path=lm_row, ssm_path=ssm_row, flash_attention=flash_rows, ssd_intra_chunk=ssd_rows,
-        lm_cpu=lm_cpu_rows, phase_seconds=seconds,
+        lm_cpu=lm_cpu_rows, outofcore=ooc_rows, h2d_gbps=h2d_row, fronts=fronts_row,
+        phase_seconds=seconds,
         seconds=time.perf_counter() - t_start,
     )
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -26,8 +26,10 @@ def _full(arch: str) -> ModelConfig:
         d_ff=256, vocab_size=100,  # yelp
         dtype="float32",
         gnn_heads=_HEADS.get(arch, 1),
-        # Pad union batches to coarse size classes so device shapes and the
-        # plan cache stay warm under varying request mixes.
+        # Continuous batching at production scale: admit up to 8 graphs per
+        # micro-batch and pad the union to coarse size classes so device
+        # shapes and the plan cache stay warm under varying request mixes.
+        gnn_batch_window=8,
         gnn_union_node_bucket=1024,
         gnn_union_edge_bucket=8192,
     )
@@ -38,6 +40,7 @@ def _reduced(arch: str) -> ModelConfig:
         name=f"ample-{arch}", family="gnn", gnn_arch=arch, reduced=True,
         num_layers=2, d_model=32, num_heads=1, num_kv_heads=1,
         d_ff=16, vocab_size=7, dtype="float32", gnn_edges_per_tile=64,
+        gnn_batch_window=4,
         gnn_heads=_HEADS_REDUCED.get(arch, 1),
     )
 

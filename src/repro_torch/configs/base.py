@@ -10,7 +10,8 @@ Left out of the reference's fields: ``attention_impl`` (a CUDA tensor runs
 the flash kernel, a CPU tensor its plain version; there is no other switch),
 the MoE, hybrid, enc-dec, M-RoPE and embeds-input fields (their families are
 not ported yet), ``remat``/``scan_layers`` (training and XLA knobs) and the
-GNN serving knobs of modules not ported yet.
+GNN knobs of modules not ported yet (``gnn_use_kernel``, which the port has no
+use for, and the sharding knobs).
 """
 from __future__ import annotations
 
@@ -61,8 +62,28 @@ class ModelConfig:
     gnn_precision: str = "mixed"  # mixed (Degree-Quant int8/float) | float
     gnn_heads: int = 1  # attention heads (gat); hidden dims must divide by it
     gnn_edges_per_tile: int = 256  # event-driven tile width (AGE lanes)
+    # Continuous-batching serve knobs (serve/async_gnn.py + GNNServeEngine):
+    gnn_batch_window: int = 8  # max requests admitted per micro-batch union
     gnn_union_node_bucket: int = 0  # pad union batches to node size classes (0=exact)
     gnn_union_edge_bucket: int = 0  # pad union tile stacks to edge size classes
+    # Latency-aware window close: a partially filled admission window is held
+    # open until the oldest queued request has waited this long, then admits
+    # whatever arrived (0: admit immediately).
+    gnn_window_timeout_ms: float = 0.0
+    # Bounded requeue-on-failure: a micro-batch window may fail execution
+    # this many times before its tickets are completed with the error.
+    gnn_window_retries: int = 3
+    # Out-of-core serving (memory/feature_store.py + memory/prefetcher.py):
+    # requests whose feature matrix exceeds the budget keep features on the
+    # host and stream them chunk-wise (bitwise the in-memory outputs);
+    # 0 disables streaming.
+    gnn_feature_budget_bytes: int = 0  # device bytes granted to feature chunks
+    gnn_feature_chunk_rows: int = 0  # rows per chunk (0 = derive from budget)
+    # Locality controls for the streamed path: packing rebuilds tile
+    # membership around source chunks (scheduler.pack_tiles_by_chunk);
+    # reorder=False keeps plan order.
+    gnn_stream_packing: bool = False  # pack tiles by source chunk
+    gnn_stream_reorder: bool = True  # locality-reorder tile runs
 
     # --- numerics ---
     norm: str = "rmsnorm"  # rmsnorm | layernorm

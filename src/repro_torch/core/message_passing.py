@@ -8,7 +8,13 @@ the weight quantization cache (Weight Bank), and exposes the ``aggregate`` /
 
 Message-passing semantics follow Eq. 1:
     x_i' = γ(x_i, A_{j∈N(i)} φ(x_i, x_j, e_ij))
-with φ folded into per-edge coefficients for GCN (φ = c_ij · x_j).
+with φ folded into per-edge coefficients for GCN/GIN (φ = c_ij · x_j) and a
+dense pre-projection for GraphSAGE (φ = σ(W3 x_j + b)).
+
+``aggregate`` and ``transform`` also take a ``memory.StreamedFeatures``
+handle in place of a dense matrix: the features stay on the host and stream
+through the chunk prefetcher (``memory/prefetcher.py``) under its device
+budget, bitwise the dense path, through the same kernels on the card.
 
 The planning half (``compile_plans``, ``assemble_union_plan``) is host-side
 numpy, as in the reference (``repro/core/message_passing.py``); the engine runs
@@ -48,6 +54,15 @@ from repro_torch.core.transformation import (
 from repro_torch.graphs.csr import Graph, gcn_norm_coeffs
 from repro_torch.kernels.quant_matmul import ops as qm_ops
 from repro_torch.kernels.segment_agg import attn_ops
+from repro_torch.memory.prefetcher import (
+    StreamedFeatures,
+    _host_fte_qp,
+    aggregate_streamed,
+    make_device_tile_stream,
+    stream_slots,
+    transform_streamed,
+)
+from repro_torch.observe import trace as otrace
 
 __all__ = [
     "EngineConfig",
@@ -386,6 +401,15 @@ class AmpleEngine:
         self._forward_active = False
         self._agg_slot = 0
         self._fte_slot = 0
+        # (plan, schedule) pairs for the out-of-core path, keyed on
+        # (mode, tag, chunk_rows, reorder, packing) — per-plan-static. The
+        # plan is the one the stream executes: the packed variant when
+        # packing is on, the compiled plan otherwise.
+        self._chunk_schedules: Dict[tuple, tuple] = {}
+        # DeviceTileStreams (the stream's program and its device arrays),
+        # keyed like _chunk_schedules plus (stream, slots, depth, device): a
+        # warm streamed request re-uploads zero plan bytes.
+        self._stream_tiles: Dict[tuple, object] = {}
 
     _WQ_CACHE_CAP = 64  # weights per engine; LRU-evicted beyond this
 
@@ -407,11 +431,25 @@ class AmpleEngine:
         self._fte_slot = 0
 
     def _activation_qp(
-        self, values_fn: Callable[[], torch.Tensor], kind: str
+        self,
+        values_fn: Optional[Callable[[], torch.Tensor]],
+        kind: str,
+        *,
+        make_qp: Optional[Callable[[], QuantParams]] = None,
     ) -> QuantParams:
-        """Scale/zp for one quantized call site (lazy: warm slots skip the calc)."""
+        """Scale/zp for one quantized call site (lazy: warm slots skip the calc).
+
+        ``make_qp`` overrides the cold calibration source — the streamed
+        paths pass a host-side factory (bitwise-equal to the device
+        reduction) so the same slot protocol serves dense and streamed
+        forwards; a warm slot cached by either path feeds both.
+        """
+        calibrate = (
+            make_qp if make_qp is not None
+            else lambda: compute_scale_zp(values_fn(), symmetric=True)
+        )
         if not self._forward_active:
-            return compute_scale_zp(values_fn(), symmetric=True)
+            return calibrate()
         if kind == "agg":
             slot = ("agg", self._agg_slot)
             self._agg_slot += 1
@@ -419,7 +457,7 @@ class AmpleEngine:
             slot = ("fte", self._fte_slot)
             self._fte_slot += 1
         if slot not in self._act_qp:
-            self._act_qp[slot] = compute_scale_zp(values_fn(), symmetric=True)
+            self._act_qp[slot] = calibrate()
         return self._act_qp[slot]
 
     def _device_plans(
@@ -472,6 +510,100 @@ class AmpleEngine:
             )
         return self._plans[mode]
 
+    # ------------------------------------------------- out-of-core streaming
+    def _stream_plan_schedule(self, mode: str, tag: str, sf: StreamedFeatures):
+        """(plan, schedule) the streamed path executes (per-plan-static).
+
+        ``sf.packing`` swaps in the chunk-packed variant of the compiled
+        plan (``scheduler.pack_tiles_by_chunk``, bitwise-equal outputs) with
+        plan-order execution; unpacked plans keep the ``sf.reorder`` run
+        permutation.
+        """
+        key = (mode, tag, sf.store.chunk_rows, sf.reorder, sf.packing)
+        if key not in self._chunk_schedules:
+            plan = self.plans(mode)[tag]
+            if sf.packing:
+                plan = sched.pack_tiles_by_chunk(plan, sf.store.chunk_rows)
+                schedule = sched.build_chunk_schedule(plan, sf.store.chunk_rows, reorder=False)
+            else:
+                schedule = sched.build_chunk_schedule(
+                    plan, sf.store.chunk_rows, reorder=sf.reorder)
+            self._chunk_schedules[key] = (plan, schedule)
+        return self._chunk_schedules[key]
+
+    def _stream_tiles_for(self, mode: str, tag: str, stream: str, sf: StreamedFeatures):
+        """One stream's program and device arrays (plan-static): built, and
+        charged to ``instr_bytes``, once per (mode, tag, chunking, stream,
+        slots, depth, device) — warm streamed requests move feature bytes
+        only."""
+        plan, schedule = self._stream_plan_schedule(mode, tag, sf)
+        slots = stream_slots(sf.store, stream, sf.budget_bytes, schedule.num_chunks)
+        key = (mode, tag, sf.store.chunk_rows, sf.reorder, sf.packing, stream, slots,
+               max(sf.prefetch_depth, 0), str(sf.device))
+        if key not in self._stream_tiles:
+            ts = make_device_tile_stream(
+                plan, schedule, store=sf.store, stream=stream, budget_bytes=sf.budget_bytes,
+                prefetch_depth=sf.prefetch_depth, device=sf.device)
+            self._stream_tiles[key] = ts
+            sf.stats.instr_bytes += ts.nbytes  # the cold upload, charged once
+        return self._stream_tiles[key]
+
+    def _check_store(self, sf: StreamedFeatures) -> None:
+        if sf.store.num_rows != self.graph.num_nodes:
+            raise ValueError(
+                f"feature store has {sf.store.num_rows} rows but graph has "
+                f"{self.graph.num_nodes} nodes"
+            )
+
+    def _aggregate_streamed(self, sf: StreamedFeatures, mode: str) -> torch.Tensor:
+        self._check_store(sf)
+        mixed = self.cfg.mixed_precision
+        pairs = {tag: self._stream_plan_schedule(mode, tag, sf) for tag in self.plans(mode)}
+        streams = {tag: "i8" if mixed and tag == "int8" else "f32" for tag in pairs}
+        tiles = {(tag, st): self._stream_tiles_for(mode, tag, st, sf)
+                 for tag, st in streams.items()}
+        qp = None
+        if mixed and "int8" in pairs:
+            qp = self._activation_qp(None, "agg", make_qp=sf.agg_qp)
+        with otrace.get_recorder().span(f"layer:aggregate:{mode}", cat="engine",
+                                        trace_id=sf.trace_id):
+            return aggregate_streamed(
+                sf,
+                {tag: p for tag, (p, _) in pairs.items()},
+                {tag: s for tag, (_, s) in pairs.items()},
+                num_nodes=self.graph.num_nodes,
+                mixed=mixed,
+                qp=qp,
+                tiles=tiles,
+            )
+
+    def _transform_streamed(
+        self,
+        sf: StreamedFeatures,
+        w: torch.Tensor,
+        b: Optional[torch.Tensor],
+        activation: Optional[Callable[[torch.Tensor], torch.Tensor]],
+    ) -> torch.Tensor:
+        self._check_store(sf)
+        if not self.cfg.mixed_precision:
+            # A float-policy FTE over the full matrix cannot be row-blocked
+            # bitwise (f32 matmul blocking reassociates), so the store is
+            # materialized — counted in telemetry, never silent.
+            sf.stats.fallbacks += 1
+            sf.stats.fallback_bytes += sf.nbytes
+            dense = torch.from_numpy(sf.store.dense()).to(sf.device)
+            return transform_dense(dense, w, b, activation)
+        _, w_qp, w_packed = self._weight_q(w)
+        a_qp = None
+        ids = self.node_groups.get("int8")
+        if self._forward_active and ids is not None and ids.size:
+            a_qp = self._activation_qp(
+                None, "fte",
+                make_qp=lambda: _host_fte_qp(sf.store.amax_rows(ids), sf.device))
+        return transform_streamed(
+            sf, self.node_groups, w, b, activation, w_qp=w_qp, w_packed=w_packed, a_qp=a_qp,
+        )
+
     # ----------------------------------------------------------------- AGE
     def aggregate(
         self,
@@ -482,6 +614,10 @@ class AmpleEngine:
     ) -> torch.Tensor:
         """Event-driven mixed-precision aggregation of node embeddings.
 
+        ``x`` may be a ``memory.StreamedFeatures`` handle instead of a dense
+        matrix: aggregation then runs chunk-streamed through the prefetcher
+        under its feature budget, bitwise-identical to the dense path.
+
         ``edge_coeff`` is a runtime per-edge coefficient vector (f32[E] in
         this graph's edge space), read through the plan's ``edge_ids`` and
         multiplied with the static coefficients. The
@@ -489,6 +625,14 @@ class AmpleEngine:
         per-request coefficients. Multi-head: ``edge_coeff`` f32[E, H] with
         ``x`` f32[N, H, dh] aggregates all heads in one tile pass.
         """
+        if isinstance(x, StreamedFeatures):
+            if edge_coeff is not None:
+                raise ValueError(
+                    "runtime edge coefficients require dense embeddings; the "
+                    "streamed aggregation path serves static-coefficient "
+                    "plans only (attention models stream through transform())"
+                )
+            return self._aggregate_streamed(x, mode)
         plans = self.plans(mode)
         if edge_coeff is not None:
             edge_coeff = torch.as_tensor(edge_coeff, dtype=torch.float32, device=x.device)
@@ -590,6 +734,12 @@ class AmpleEngine:
         destination nodes, so per-group softmax is exact. ``edge_softmax``
         plus ``aggregate(edge_coeff=…)`` is the same layer in two passes.
         """
+        if isinstance(z, StreamedFeatures):
+            raise ValueError(
+                "attention requires dense embeddings; streamed features "
+                "cannot carry the per-edge softmax (compute z densely or "
+                "lift the feature budget)"
+            )
         z = torch.as_tensor(z, dtype=torch.float32)
         scores = torch.as_tensor(scores, dtype=torch.float32, device=z.device)
         e, n = self.graph.num_edges, self.graph.num_nodes
@@ -644,7 +794,15 @@ class AmpleEngine:
         b: Optional[torch.Tensor] = None,
         activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> torch.Tensor:
-        """Mixed-precision transformation of aggregated embeddings."""
+        """Mixed-precision transformation of aggregated embeddings.
+
+        Accepts a ``memory.StreamedFeatures`` handle for ``h``: the int8
+        group then streams chunk by chunk (1-byte rows, exact int32 matmul)
+        and the float-protected block is gathered once — bitwise the dense
+        mixed path (GraphSAGE's φ and GAT's projection over stored features).
+        """
+        if isinstance(h, StreamedFeatures):
+            return self._transform_streamed(h, w, b, activation)
         if not self.cfg.mixed_precision:
             return transform_dense(h, w, b, activation)
         w_q, w_qp, w_packed = self._weight_q(w)

@@ -17,6 +17,10 @@ byte-identical tile arrays for the same graph (the parity tests check it).
   power-of-two degree buckets, and the double-buffered (HyGCN-style) fixed
   batches padded to their largest degree (``AmpleEngine.occupancy_report``
   and the ``aggregate_bucket_plan`` / ``aggregate_padded_plan`` executors).
+* ``ChunkSchedule`` — the prefetcher's programming for out-of-core serving:
+  the feature chunks each tile gathers and a locality order that permutes
+  whole runs (``tile_runs``); ``pack_tiles_by_chunk`` rebuilds tile
+  membership around chunks (``pack_segments`` packs the units).
 """
 from __future__ import annotations
 
@@ -31,16 +35,21 @@ from repro_torch.graphs.csr import Graph
 __all__ = [
     "Bucket",
     "BucketPlan",
+    "ChunkSchedule",
     "EdgeTilePlan",
     "PaddedPlan",
     "build_bucket_plan",
+    "build_chunk_schedule",
     "build_edge_tile_plan",
     "build_mixed_precision_plans",
     "build_padded_plan",
     "concat_tile_plans",
     "graph_fingerprint",
+    "pack_segments",
+    "pack_tiles_by_chunk",
     "plan_fingerprint",
     "size_class",
+    "tile_runs",
     "union_bucket_fingerprint",
 ]
 
@@ -555,3 +564,352 @@ def build_mixed_precision_plans(
             node_ids=ids,
         )
     return plans
+
+
+# ---------------------------------------------------------------------------
+# Chunk-access schedule — the prefetcher's programming (out-of-core serving)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkSchedule:
+    """An EdgeTilePlan annotated with the feature chunks each tile gathers.
+
+    This is the host-side programming of the prefetcher (§3.3): the feature
+    matrix is split into ``chunk_rows``-row chunks, every tile is annotated
+    with the sorted chunk ids its gather lanes touch (all lanes, including
+    invalid coeff-0 lanes — those still read a row, and their ±0 products
+    must reproduce bitwise), and tiles are emitted in an execution ``order``
+    chosen to raise chunk reuse between consecutive tiles.
+
+    ``order`` only ever permutes whole *runs* (see :func:`tile_runs`): a node
+    split across tiles lands in consecutive tiles, so keeping runs intact
+    preserves each output row's scatter-add order — the streamed executor is
+    bitwise-identical to the in-memory scan however the runs are permuted.
+    """
+
+    chunk_rows: int
+    num_chunks: int
+    order: np.ndarray  # int64[T] tile execution order (permutes whole runs)
+    tile_chunks: Tuple[np.ndarray, ...]  # per plan-tile sorted unique chunk ids
+    runs: np.ndarray  # int64[R+1] run boundaries over plan tile indices
+    # Precomputed per-lane (chunk, offset) split of every tile's gather
+    # indices — plan-static, so warm streamed requests skip the divmod the
+    # prefetcher used to redo per tile per request.
+    lane_chunk: np.ndarray  # int32[T, E] gather_idx // chunk_rows
+    lane_off: np.ndarray  # int32[T, E] gather_idx % chunk_rows
+
+    @property
+    def num_tiles(self) -> int:
+        return int(self.order.shape[0])
+
+    @property
+    def num_runs(self) -> int:
+        return int(self.runs.shape[0]) - 1
+
+    @property
+    def total_chunk_visits(self) -> int:
+        """Σ over tiles of chunks touched — uploads if nothing were cached."""
+        return int(sum(c.size for c in self.tile_chunks))
+
+    def max_tile_chunks(self) -> int:
+        """Largest single-tile working set (waves needed = ceil(this/slots))."""
+        return int(max((c.size for c in self.tile_chunks), default=0))
+
+
+def tile_runs(plan: EdgeTilePlan) -> np.ndarray:
+    """Boundaries of split-chains: maximal spans of tiles sharing an out node.
+
+    ``build_edge_tile_plan`` splits an overflowing node across *consecutive*
+    tiles (the partial-response mechanism), so a run is the unit that may be
+    reordered without perturbing any output row's accumulation order: within
+    a run the split node's partial sums stay in tile order, and no node spans
+    two runs. Returns int64[num_runs + 1] half-open boundaries.
+    """
+    T = plan.num_tiles
+    bounds = [0]
+    sentinel = plan.num_nodes
+    for t in range(1, T):
+        prev = plan.out_node[t - 1]
+        cur = plan.out_node[t]
+        prev_valid = prev[prev != sentinel]
+        cur_valid = cur[cur != sentinel]
+        if prev_valid.size and cur_valid.size and np.intersect1d(
+            prev_valid, cur_valid, assume_unique=False
+        ).size:
+            continue  # a node spans the boundary: same run
+        bounds.append(t)
+    bounds.append(T)
+    return np.asarray(bounds, np.int64)
+
+
+def build_chunk_schedule(
+    plan: EdgeTilePlan,
+    chunk_rows: int,
+    *,
+    reorder: bool = True,
+) -> ChunkSchedule:
+    """Annotate a tile plan with chunk accesses and a locality-aware order.
+
+    The reordering pass sorts *runs* by the median chunk id their tiles
+    gather from — runs whose accesses centre on the same region of the
+    feature matrix execute back-to-back, so a budget-bound chunk cache sees
+    longer reuse chains (an O(T log T) clustering heuristic; Belady eviction
+    in the prefetcher does the rest). ``reorder=False`` keeps plan order
+    (useful as the control arm when measuring the reordering win).
+    """
+    if chunk_rows <= 0:
+        raise ValueError("chunk_rows must be positive")
+    num_chunks = -(-max(plan.num_nodes, 1) // chunk_rows)
+    gi = plan.gather_idx.astype(np.int64)
+    lane_chunk = (gi // chunk_rows).astype(np.int32)
+    lane_off = (gi % chunk_rows).astype(np.int32)
+    tile_chunks = tuple(
+        np.unique(lane_chunk[t]).astype(np.int64) for t in range(plan.num_tiles)
+    )
+    runs = tile_runs(plan)
+    order = np.arange(plan.num_tiles, dtype=np.int64)
+    if reorder and runs.size > 2:
+        keys = []
+        for r in range(runs.size - 1):
+            lo, hi = int(runs[r]), int(runs[r + 1])
+            touched = np.concatenate([tile_chunks[t] for t in range(lo, hi)])
+            keys.append(float(np.median(touched)) if touched.size else 0.0)
+        run_order = np.argsort(np.asarray(keys), kind="stable")
+        order = np.concatenate(
+            [np.arange(runs[r], runs[r + 1], dtype=np.int64) for r in run_order]
+        )
+    return ChunkSchedule(
+        chunk_rows=int(chunk_rows),
+        num_chunks=int(num_chunks),
+        order=order,
+        tile_chunks=tile_chunks,
+        runs=runs,
+        lane_chunk=lane_chunk,
+        lane_off=lane_off,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Generic segment packing — reused by MoE token->expert dispatch
+# ---------------------------------------------------------------------------
+
+
+def pack_segments(
+    lengths: Sequence[int], capacity: int
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """First-fit-decreasing packing of variable-length segments into tiles.
+
+    Returns ``(tile_of_segment, offset_of_segment, num_tiles)`` where segment i
+    occupies lanes ``[offset, offset+len)`` of its tile, possibly spanning
+    multiple tiles when len > remaining capacity (partial response). Used by
+    the MoE dispatcher to bound expert-capacity padding the same way the
+    nodeslot scheduler bounds degree padding.
+    """
+    lengths = np.asarray(lengths, np.int64)
+    order = np.argsort(-lengths, kind="stable")
+    tile_of = np.zeros(lengths.size, np.int64)
+    offset_of = np.zeros(lengths.size, np.int64)
+    tile, lane = 0, 0
+    for i in order:
+        ln = int(lengths[i])
+        if ln > capacity - lane:
+            tile += 1
+            lane = 0
+        tile_of[i], offset_of[i] = tile, lane
+        lane += ln
+        while lane > capacity:  # segment longer than a whole tile: spill
+            tile += 1
+            lane -= capacity
+    num_tiles = tile + (1 if lane > 0 else 0)
+    return tile_of, offset_of, max(num_tiles, 1)
+
+
+# ---------------------------------------------------------------------------
+# Locality-aware tile packing — rebuild tile membership around feature chunks
+# ---------------------------------------------------------------------------
+
+
+def pack_tiles_by_chunk(plan: EdgeTilePlan, chunk_rows: int) -> EdgeTilePlan:
+    """Repack a tile plan so co-tiled edges share source feature chunks.
+
+    ``build_chunk_schedule(reorder=True)`` only permutes whole runs, so a hit
+    rate ceiling remains: tile membership was fixed by degree order, and on
+    graphs without neighborhood structure every tile touches most chunks.
+    This pass rebuilds tile membership around the chunk axis instead. Each
+    single-tile run is decomposed into its per-node segment spans (the unit
+    that can move without perturbing any output row's accumulation order),
+    units are bucketed by their mean source chunk and packed first-fit-
+    decreasing (:func:`pack_segments`) into fresh tiles, and buckets are
+    emitted in chunk order, so consecutive tiles draw from the same region of
+    the feature matrix. Multi-tile runs (nodes split across tiles) are
+    atomic: their tiles are copied verbatim and the block is ordered among
+    the buckets by its mean touched chunk.
+
+    Bitwise contract with the unpacked plan: every output row accumulates
+    the same lane products in the same order. A unit's lanes move as one
+    contiguous block (the intra-segment sum is unchanged); a tile that used
+    all ``S`` segments carries its trailing padding lanes along with the
+    last unit, because the in-memory scan folds their signed-zero products
+    into that segment's partial sum; and fresh padding in packed tiles maps
+    to the sentinel segment, whose partial sum the executor discards (its
+    gather index points at a row the tile already reads, so padding never
+    drags a foreign chunk into the tile's working set). Plans with
+    ``segments_per_tile == 1`` have no sentinel segment to give fresh
+    padding and are returned unchanged.
+    """
+    E, S = plan.edges_per_tile, plan.segments_per_tile
+    T = plan.num_tiles
+    if S < 2 or T <= 1 or chunk_rows <= 0:
+        return plan
+    sentinel = plan.num_nodes
+    lane_chunk = plan.gather_idx.astype(np.int64) // chunk_rows
+    valid = plan.edge_ids >= 0
+    runs = tile_runs(plan)
+
+    # blocks: (sort key, kind, payload). "verbatim" payload = (lo, hi) tile
+    # span of a multi-tile run; "pack" payload = unit indices of one new tile.
+    blocks: List[Tuple[float, str, object]] = []
+    single: List[int] = []
+    n_empty = 0  # all-padding tiles (union size-class filler): re-appended
+    for r in range(runs.size - 1):
+        lo, hi = int(runs[r]), int(runs[r + 1])
+        if hi - lo > 1:
+            v = valid[lo:hi]
+            key = float(lane_chunk[lo:hi][v].mean()) if v.any() else 0.0
+            blocks.append((key, "verbatim", (lo, hi)))
+        elif bool((plan.out_node[lo] == sentinel).all()):
+            n_empty += 1
+        else:
+            single.append(lo)
+
+    # Per-segment lane spans of the single-tile runs, extracted in one flat
+    # pass: a span starts where the segment id changes (or a tile begins).
+    # Trailing padding lanes share segment id S-1, so when a tile used all S
+    # segments they merge into the last real span automatically — exactly
+    # the lanes whose products the in-memory scan folds into that segment.
+    u_tile = u_start = u_len = u_out = u_key = np.zeros(0, np.int64)
+    if single:
+        single_arr = np.asarray(single, np.int64)
+        K = single_arr.size
+        s_flat = plan.seg_ids[single_arr].astype(np.int64).ravel()
+        tid = np.repeat(np.arange(K, dtype=np.int64), E)
+        is_start = np.ones(K * E, bool)
+        is_start[1:] = (s_flat[1:] != s_flat[:-1]) | (tid[1:] != tid[:-1])
+        starts = np.flatnonzero(is_start)
+        lens = np.diff(np.append(starts, K * E))
+        span_tile = single_arr[tid[starts]]
+        span_seg = s_flat[starts]
+        span_out = plan.out_node[span_tile, span_seg].astype(np.int64)
+        ch_flat = lane_chunk[single_arr].ravel()
+        v_flat = valid[single_arr].ravel()
+        ch_sum = np.add.reduceat(np.where(v_flat, ch_flat, 0), starts)
+        v_cnt = np.add.reduceat(v_flat.astype(np.int64), starts)
+        real = span_out != sentinel  # pure-padding spans are dropped
+        u_tile = span_tile[real]
+        u_start = (starts - tid[starts] * E)[real]
+        u_len = lens[real]
+        u_out = span_out[real]
+        u_key = ch_sum[real] // np.maximum(v_cnt[real], 1)
+
+    # Bucket units by mean source chunk; FFD-pack each bucket into tiles.
+    # A packed tile holds at most S-1 units so segment S-1 stays sentinel
+    # (fresh padding must never pollute a real segment's sum).
+    max_units = max(S - 1, 1)
+    for ckey in np.unique(u_key):
+        sel = np.flatnonzero(u_key == ckey)
+        tile_of, _, ntiles = pack_segments(u_len[sel], E)
+        groups: List[List[int]] = [[] for _ in range(ntiles)]
+        for j, i in enumerate(sel):
+            groups[int(tile_of[j])].append(int(i))
+        if any(len(gr) > max_units for gr in groups):
+            # Rare (more than S-1 units fit in E lanes): greedy longest-first
+            # refill under both the lane and the segment budget.
+            groups = []
+            cur: List[int] = []
+            lanes = 0
+            for i in sel[np.argsort(-u_len[sel], kind="stable")]:
+                ln = int(u_len[i])
+                if cur and (lanes + ln > E or len(cur) >= max_units):
+                    groups.append(cur)
+                    cur, lanes = [], 0
+                cur.append(int(i))
+                lanes += ln
+            if cur:
+                groups.append(cur)
+        for gr in groups:
+            if gr:
+                blocks.append((float(ckey), "pack", gr))
+    blocks.sort(key=lambda b: b[0])
+
+    n_pack = sum(1 for b in blocks if b[1] == "pack")
+    n_verb = sum(b[2][1] - b[2][0] for b in blocks if b[1] == "verbatim")
+    newT = max(n_pack + n_verb + n_empty, 1)
+    new_g = np.zeros((newT, E), np.int32)
+    new_c = np.zeros((newT, E), np.float32)
+    new_s = np.full((newT, E), S - 1, np.int32)
+    new_o = np.full((newT, S), sentinel, np.int32)
+    new_e = np.full((newT, E), -1, np.int32)
+
+    # Layout pass: verbatim blocks copy whole tiles; packed tiles record one
+    # (unit -> destination lane/segment) placement each, copied flat below.
+    p_unit: List[int] = []
+    p_dst_tile: List[int] = []
+    p_dst_off: List[int] = []
+    p_seg: List[int] = []
+    pack_fill: List[Tuple[int, int]] = []  # (tile, lanes used)
+    dst = 0
+    for _, kind, payload in blocks:
+        if kind == "verbatim":
+            lo, hi = payload  # type: ignore[misc]
+            n = hi - lo
+            new_g[dst : dst + n] = plan.gather_idx[lo:hi]
+            new_c[dst : dst + n] = plan.coeff[lo:hi]
+            new_s[dst : dst + n] = plan.seg_ids[lo:hi]
+            new_o[dst : dst + n] = plan.out_node[lo:hi]
+            new_e[dst : dst + n] = plan.edge_ids[lo:hi]
+            dst += n
+        else:
+            off = 0
+            for si, i in enumerate(payload):  # type: ignore[arg-type]
+                p_unit.append(i)
+                p_dst_tile.append(dst)
+                p_dst_off.append(off)
+                p_seg.append(si)
+                off += int(u_len[i])
+            pack_fill.append((dst, off))
+            dst += 1
+
+    if p_unit:
+        idx = np.asarray(p_unit, np.int64)
+        dt = np.asarray(p_dst_tile, np.int64)
+        do = np.asarray(p_dst_off, np.int64)
+        sg = np.asarray(p_seg, np.int64)
+        lens = u_len[idx]
+        total = int(lens.sum())
+        within = np.arange(total, dtype=np.int64) - np.repeat(
+            np.cumsum(lens) - lens, lens
+        )
+        src = np.repeat(u_tile[idx] * E + u_start[idx], lens) + within
+        dflat = np.repeat(dt * E + do, lens) + within
+        new_g.ravel()[dflat] = plan.gather_idx.ravel()[src]
+        new_c.ravel()[dflat] = plan.coeff.ravel()[src]
+        new_e.ravel()[dflat] = plan.edge_ids.ravel()[src]
+        new_s.ravel()[dflat] = np.repeat(sg, lens).astype(np.int32)
+        new_o[dt, sg] = u_out[idx].astype(np.int32)
+        for t, fill in pack_fill:
+            if fill < E:
+                new_g[t, fill:] = new_g[t, 0]
+
+    return EdgeTilePlan(
+        gather_idx=new_g,
+        coeff=new_c,
+        seg_ids=new_s,
+        out_node=new_o,
+        node_ids=plan.node_ids,
+        edge_ids=new_e,
+        num_nodes=plan.num_nodes,
+        edges_per_tile=E,
+        segments_per_tile=S,
+        total_edges=plan.total_edges,
+    )

@@ -58,8 +58,8 @@ class SimConfig:
     # issued up to P × (its previous node's aggregation time) before the
     # slot frees, hiding HBM latency behind the running aggregation. 0
     # reproduces the historical no-lookahead timing exactly; the measured
-    # counterpart is the reference's out-of-core chunk cache
-    # (repro/memory/prefetcher.py), which the port has not yet.
+    # counterpart is the out-of-core chunk cache's prefetch_depth
+    # (memory/prefetcher.py).
     prefetch_depth: int = 0
 
 

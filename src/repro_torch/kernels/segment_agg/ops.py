@@ -275,7 +275,7 @@ def _output(out: Optional[torch.Tensor], shape, device) -> torch.Tensor:
 
 
 def aggregate_tiles(
-    x: torch.Tensor,  # f32[N, D], or int8 codes with qp; rows may lie ld > D apart
+    x: torch.Tensor,  # f32[M, D], or int8 codes with qp; rows may lie ld > D apart
     gather_idx: torch.Tensor,  # int32[T, E]
     coeff: torch.Tensor,  # f32[T, E]
     seg_ids: torch.Tensor,  # int32[T, E]
@@ -293,7 +293,9 @@ def aggregate_tiles(
     nodes share one output. The kernel's lane groups start at segments, so
     each segment is summed in lane order by one group: bitwise the plain
     version. The plan's seg ids must not decrease along a tile (the
-    planner's never do).
+    planner's never do). ``x`` holds the rows ``gather_idx`` reads: the
+    graph's node rows, or the streamed path's gather buffer (one row per
+    lane); its row count need not be ``num_nodes``.
     """
     if x.device.type == "cpu":
         return aggregate_tiles_ref(x, gather_idx, coeff, seg_ids, out_node, split,
@@ -302,7 +304,7 @@ def aggregate_tiles(
         raise ValueError(f"no AGE kernel for device {x.device}")
     if x.dim() != 2:
         raise ValueError(f"x must be [N, D], got {tuple(x.shape)}")
-    _, d, elem, _, _, ld = _rows(x.unsqueeze(1), qp, num_nodes)
+    _, d, elem, _, _, ld = _rows(x.unsqueeze(1), qp, x.shape[0])
     t, e = gather_idx.shape
     s = out_node.shape[1]
     for name, ten, dtype, shape in (

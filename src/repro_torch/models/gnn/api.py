@@ -26,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.message_passing import AmpleEngine, EngineConfig
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph, add_self_loops
+from repro_torch.memory.prefetcher import StreamedFeatures
 
 __all__ = [
     "ArchSpec",
@@ -182,8 +183,10 @@ def _params_device(params) -> torch.device:
 
 
 def gnn_apply(cfg: ModelConfig, params: Dict, engine: AmpleEngine, x) -> torch.Tensor:
-    """Run ``cfg``'s arch through ``engine`` on the params' device."""
-    x = torch.as_tensor(x, dtype=torch.float32, device=_params_device(params))
+    """Run ``cfg``'s arch through ``engine`` on the params' device
+    (streamed handles pass through)."""
+    if not isinstance(x, StreamedFeatures):
+        x = torch.as_tensor(x, dtype=torch.float32, device=_params_device(params))
     return get_arch(cfg.gnn_arch).apply(cfg, params, engine, x)
 
 
@@ -200,12 +203,15 @@ def gnn_forward(
 
     ``batch`` carries ``graph`` (a CSR Graph) and ``features`` f32[N, D];
     callers holding a compiled engine (the serving path) pass it as
-    ``batch["engine"]`` to skip plan compilation. Returns ``(logits, aux)``
-    with logits f32[N, num_classes] on the params' device.
+    ``batch["engine"]`` to skip plan compilation. ``features`` may also be a
+    ``memory.StreamedFeatures`` handle — the out-of-core path: the feature
+    matrix stays on the host and the engine streams it chunk-wise under the
+    handle's budget. Returns ``(logits, aux)`` with logits
+    f32[N, num_classes] on the params' device.
     """
-    x = torch.as_tensor(
-        batch["features"], dtype=torch.float32, device=_params_device(params)
-    )
+    feats = batch["features"]
+    x = feats if isinstance(feats, StreamedFeatures) else torch.as_tensor(
+        feats, dtype=torch.float32, device=_params_device(params))
     engine = batch.get("engine")
     n = engine.graph.num_nodes if engine is not None else batch["graph"].num_nodes
     want = cfg.gnn_layer_dims[0]

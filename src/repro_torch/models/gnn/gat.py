@@ -87,7 +87,9 @@ def apply(
     h = _heads(cfg)
     for i, lyr in enumerate(params["layers"]):
         dh = _head_dim(cfg, i)
-        z = engine.transform(x, lyr["w"])  # [N, H·dh], one FTE for all heads
+        # One FTE for all heads, [N, H·dh]; x may be StreamedFeatures on the
+        # out-of-core first layer, and z is dense either way.
+        z = engine.transform(x, lyr["w"])
         zh = z.reshape(num_nodes, h, dh)
         src_sc = torch.einsum("nhd,hd->nh", zh, lyr["a_src"])
         dst_sc = torch.einsum("nhd,hd->nh", zh, lyr["a_dst"])

@@ -7,9 +7,9 @@ Aggregation: plain sum, no normalisation; residual on the aggregation side
 runs through the engine's mixed-precision FTE one linear at a time, so a
 layer quantizes two FTE call sites (one activation-quantization slot each).
 
-The reference also takes out-of-core ``StreamedFeatures`` as the first
-layer's input (``repro/models/gnn/gin.py``); the port has no streamed
-features yet (ROADMAP queue 1, item 4), so ``x`` is always a tensor here.
+The first layer's input may be out-of-core ``StreamedFeatures``: the
+aggregate streams through the engine and the residual through
+``scale_add_streamed``.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.message_passing import AmpleEngine
 from repro_torch.graphs.csr import Graph
+from repro_torch.memory.prefetcher import StreamedFeatures, scale_add_streamed
 from repro_torch.models.gnn import api
 from repro_torch.models.gnn.layers import mlp_init
 
@@ -66,7 +67,10 @@ def apply(
     n = len(params["layers"])
     for i, mlp in enumerate(params["layers"]):
         m = engine.aggregate(x, mode=mode)
-        h = (1.0 + params["eps"]) * x + m  # aggregation-side residual
+        if isinstance(x, StreamedFeatures):  # out-of-core first layer
+            h = scale_add_streamed(x, 1.0 + params["eps"], m)
+        else:
+            h = (1.0 + params["eps"]) * x + m  # aggregation-side residual
         x = _mlp_through_engine(engine, mlp, h)
         if i < n - 1:
             x = torch.relu(x)

@@ -7,7 +7,7 @@ Two host-side facilities with zero accelerator-path footprint:
   ``chrome://tracing``). Disabled by default; the disabled hot path is a
   single attribute check returning a shared no-op span.
 - :mod:`repro_torch.observe.metrics` — a process-wide labeled metrics registry
-  (counters, gauges) with a Prometheus-style text
+  (counters, gauges, streaming histograms) with a Prometheus-style text
   dump. The serving engines' historical ``stats`` dicts are live views over
   this registry (:class:`repro_torch.observe.metrics.StatsView`), so there is one
   copy of every counter.

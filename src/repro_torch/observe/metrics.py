@@ -1,15 +1,18 @@
 """Process-wide labeled metrics registry with a Prometheus-style dump.
 
-One registry holds every serving counter/gauge, keyed by metric name +
-label values — the single sink the engines' historical ``stats`` dicts now
-feed. Two metric kinds:
+One registry holds every serving counter/gauge/histogram, keyed by metric
+name + label values — the single sink the engines' historical ``stats``
+dicts now feed. Three metric kinds:
 
 - **counter / gauge** — a single float cell (:class:`MetricValue`). The
   distinction is exposition-only (``# TYPE``): counters are monotonically
   increasing by convention, gauges move both ways.
-
-The reference's third kind, streaming histograms, comes with the serving
-front that records into it (the tenancy router's telemetry).
+- **histogram** — a :class:`repro_torch.serve.telemetry.StreamingHistogram`
+  child per label set (O(1) memory, bounded relative quantile error).
+  Existing histogram objects can be *adopted* via
+  :meth:`MetricsRegistry.register_histogram`, so ``TenantTelemetry``'s
+  per-tenant latency histograms appear in the registry dump without a
+  second copy being maintained.
 
 :class:`StatsView` is the compatibility bridge: a ``MutableMapping`` with
 the exact shape and value semantics of the old ad-hoc ``stats`` dicts
@@ -86,6 +89,18 @@ class MetricFamily:
                 child = self._children.setdefault(key, self._make_child())
         return child
 
+    def adopt(self, child: Any, **labels: Any) -> Any:
+        """Install an externally-owned child object for a label set."""
+        if set(labels) != set(self.label_names):
+            raise ValueError(
+                f"metric {self.name!r} takes labels {self.label_names}, "
+                f"got {tuple(sorted(labels))}"
+            )
+        key = tuple(str(labels[n]) for n in self.label_names)
+        with self._lock:
+            self._children[key] = child
+        return child
+
     def samples(self) -> List[Tuple[Dict[str, str], Any]]:
         with self._lock:
             items = list(self._children.items())
@@ -146,6 +161,34 @@ class MetricsRegistry:
     ) -> MetricFamily:
         return self._family(name, "gauge", help, labels, MetricValue)
 
+    def histogram(
+        self,
+        name: str,
+        help: str = "",
+        labels: Iterable[str] = (),
+        rel_error: float = 0.025,
+    ) -> MetricFamily:
+        # Lazy import: observe sits below serve in the layering; only the
+        # histogram kind reaches up for the shared implementation.
+        from repro_torch.serve.telemetry import StreamingHistogram
+
+        return self._family(
+            name,
+            "histogram",
+            help,
+            labels,
+            lambda: StreamingHistogram(rel_error=rel_error),
+        )
+
+    def register_histogram(
+        self, name: str, hist: Any, help: str = "", **labels: Any
+    ) -> Any:
+        """Adopt an existing ``StreamingHistogram`` as a registry child."""
+        fam = self._family(
+            name, "histogram", help, tuple(sorted(labels)), lambda: None
+        )
+        return fam.adopt(hist, **labels)
+
     # --------------------------------------------------------------- query
     def get(self, name: str) -> Optional[MetricFamily]:
         with self._lock:
@@ -161,16 +204,21 @@ class MetricsRegistry:
 
     # -------------------------------------------------------------- export
     def snapshot(self) -> Dict[str, Any]:
-        """Everything as plain dicts."""
+        """Everything as plain dicts (histograms via their snapshot())."""
         out: Dict[str, Any] = {}
         for fam in self.families():
-            rows = [{"labels": labels, "value": child.value}
-                    for labels, child in fam.samples()]
+            rows = []
+            for labels, child in fam.samples():
+                if fam.kind == "histogram":
+                    value = child.snapshot() if child is not None else {}
+                else:
+                    value = child.value
+                rows.append({"labels": labels, "value": value})
             out[fam.name] = {"kind": fam.kind, "samples": rows}
         return out
 
     def prometheus_text(self) -> str:
-        """Prometheus text exposition."""
+        """Prometheus text exposition (histograms as quantile summaries)."""
         lines: List[str] = []
         for fam in self.families():
             samples = fam.samples()
@@ -178,11 +226,29 @@ class MetricsRegistry:
                 continue
             if fam.help:
                 lines.append(f"# HELP {fam.name} {fam.help}")
-            lines.append(f"# TYPE {fam.name} {fam.kind}")
+            kind = "summary" if fam.kind == "histogram" else fam.kind
+            lines.append(f"# TYPE {fam.name} {kind}")
             for labels, child in samples:
-                lines.append(
-                    f"{fam.name}{_fmt_labels(labels)} {_fmt_value(child.value)}"
-                )
+                if fam.kind == "histogram":
+                    if child is None or child.count == 0:
+                        continue
+                    for q in (0.5, 0.9, 0.99):
+                        ql = dict(labels)
+                        ql["quantile"] = repr(q)
+                        lines.append(
+                            f"{fam.name}{_fmt_labels(ql)} "
+                            f"{_fmt_value(child.percentile(q * 100))}"
+                        )
+                    lab = _fmt_labels(labels)
+                    lines.append(
+                        f"{fam.name}_sum{lab} {_fmt_value(child.total)}"
+                    )
+                    lines.append(f"{fam.name}_count{lab} {child.count}")
+                else:
+                    lines.append(
+                        f"{fam.name}{_fmt_labels(labels)} "
+                        f"{_fmt_value(child.value)}"
+                    )
         return "\n".join(lines) + ("\n" if lines else "")
 
 

@@ -15,6 +15,10 @@ artifact:
     plans and padded to a size class;
   * cached plans are bitwise-faithful: a warm request returns exactly the
     output a cold engine would produce for the same graph and features;
+  * with a feature budget, a request whose feature matrix exceeds it keeps
+    its features on the host (a page-locked ``memory.FeatureStore`` on the
+    card) and streams them through the chunk prefetcher — bitwise the
+    in-memory outputs, through the same kernels;
   * ``stats`` is a live view over the process metrics registry
     (``observe.metrics``), and with the trace recorder enabled
     (``observe.trace.enable()``) every request records its ``queue``,
@@ -52,15 +56,17 @@ from repro_torch.core.scheduler import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph, disjoint_union
+from repro_torch.memory.feature_store import FeatureStore, default_chunk_rows
+from repro_torch.memory.prefetcher import StreamedFeatures, StreamStats
 from repro_torch.models.gnn import api as gnn_api
 from repro_torch.observe import metrics as ometrics
 from repro_torch.observe import trace as otrace
 
 __all__ = ["GNNRequest", "GNNResponse", "GNNServeEngine", "request_stamp"]
 
-# The reference engine's counters. The port has no sharded, out-of-core or
-# persisted-plan path yet (ROADMAP queue 1, items 4-6), so shard_hits,
-# warm_loads, the streaming and the halo counters stay 0.
+# The reference engine's counters. The port has no sharded or persisted-plan
+# path yet (ROADMAP queue 1, items 5-6), so shard_hits, warm_loads and the
+# halo counters stay 0.
 _STAT_KEYS = (
     "requests",
     "batches",
@@ -122,6 +128,15 @@ class GNNResponse:
     # union call reports the same number; see run_ms_per_member)
     batch_size: int = 1  # members in the union device call that produced this
     queue_ms: float = 0.0  # admission -> execution-start wait (0.0 unqueued)
+    # Out-of-core telemetry (all zero on the in-memory path). Like run_ms,
+    # these describe the WHOLE device call: every member of one streamed
+    # union batch reports the same bytes_streamed.
+    streamed: bool = False  # features stayed on the host, chunk-streamed
+    bytes_streamed: int = 0  # feature bytes moved host->device by the call
+    chunk_hit_rate: float = 0.0  # chunk-cache hits / accesses
+    prefetch_overlap: float = 0.0  # share of staged copy time not waited for
+    stall_ms: float = 0.0  # wall time the stream waited for staged copies
+    copy_ms: float = 0.0  # time of the staged copies themselves
     trace_id: str = ""  # correlation id of this request's trace spans ("" =
     # tracing disabled or no id assigned upstream)
 
@@ -129,6 +144,11 @@ class GNNResponse:
     def run_ms_per_member(self) -> float:
         """Amortized device time per batch member (= run_ms when served solo)."""
         return self.run_ms / max(self.batch_size, 1)
+
+    @property
+    def bytes_streamed_per_member(self) -> float:
+        """Amortized feature traffic per batch member (= bytes_streamed solo)."""
+        return self.bytes_streamed / max(self.batch_size, 1)
 
 
 class GNNServeEngine:
@@ -147,6 +167,21 @@ class GNNServeEngine:
         nodes/tiles are padded up to the bucket so different member mixes
         share device shapes. 0 keeps exact-shape union plans. Defaults come
         from ``cfg.gnn_union_node_bucket`` / ``cfg.gnn_union_edge_bucket``.
+    feature_budget_bytes: >0 enables **out-of-core serving**: a request whose
+        feature matrix exceeds the budget keeps its features on the host in a
+        chunked ``memory.FeatureStore`` and the engine streams them through a
+        budget-bound device chunk cache (reuse-distance eviction, staged
+        prefetch) — outputs bitwise the in-memory path's. Requests that fit
+        take the in-memory path. Default ``cfg.gnn_feature_budget_bytes``.
+    feature_chunk_rows: rows per feature chunk (0 derives a size from the
+        budget). Default ``cfg.gnn_feature_chunk_rows``.
+    stream_packing: serve streamed requests through chunk-packed tile plans
+        (``scheduler.pack_tiles_by_chunk``; bitwise-identical outputs).
+        Default ``cfg.gnn_stream_packing``.
+    stream_reorder: locality-reorder tile runs on the streamed path; False
+        keeps plan order. Default ``cfg.gnn_stream_reorder``.
+    stream_prefetch_depth: lookahead of the slot prefetch (tiles) and of the
+        staging worker (copies); 0 streams synchronously.
     device: where requests run; ``cuda`` (the default) raises when there is
         no card. ``cpu`` runs the kernels' plain versions.
     generator: the ``torch.Generator`` params are drawn from (seed 0 when
@@ -162,6 +197,11 @@ class GNNServeEngine:
         plan_cache_size: int = 32,
         union_node_bucket: Optional[int] = None,
         union_edge_bucket: Optional[int] = None,
+        feature_budget_bytes: Optional[int] = None,
+        feature_chunk_rows: Optional[int] = None,
+        stream_packing: Optional[bool] = None,
+        stream_reorder: Optional[bool] = None,
+        stream_prefetch_depth: int = 2,
         device="cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -180,6 +220,16 @@ class GNNServeEngine:
         self.union_edge_bucket = (
             cfg.gnn_union_edge_bucket if union_edge_bucket is None else union_edge_bucket
         )
+        self.feature_budget_bytes = (
+            cfg.gnn_feature_budget_bytes if feature_budget_bytes is None
+            else feature_budget_bytes
+        )
+        self.feature_chunk_rows = (
+            cfg.gnn_feature_chunk_rows if feature_chunk_rows is None else feature_chunk_rows
+        )
+        self.stream_packing = cfg.gnn_stream_packing if stream_packing is None else stream_packing
+        self.stream_reorder = cfg.gnn_stream_reorder if stream_reorder is None else stream_reorder
+        self.stream_prefetch_depth = max(int(stream_prefetch_depth), 0)
         # fingerprint -> (prepared graph, plan, engine); OrderedDict as LRU.
         # The engine rides along so its device plans and weight-quant cache
         # survive across requests (params are fixed for this engine's life).
@@ -191,6 +241,11 @@ class GNNServeEngine:
         self._member_plans: "OrderedDict[str, Tuple[Graph, ExecutionPlan]]" = OrderedDict()
         # Size classes already served (device shapes warm); statistics only.
         self._classes_seen: "OrderedDict[str, None]" = OrderedDict()
+        # FeatureStore LRU for the out-of-core path, keyed on (feature array
+        # identity, row count, chunk rows) with a strong ref held — id()
+        # alone is unsound once the original is collected.
+        self._stores: "OrderedDict[tuple, Tuple[object, FeatureStore]]" = OrderedDict()
+        self._last_stream: Optional[StreamStats] = None  # of the most recent _run
         # Registry-backed counters: engine.stats[...] and the registry's
         # dump read the same cells (ints stay ints, *_ms stay floats).
         self.instance = ometrics.next_instance("gnn_serve")
@@ -405,6 +460,63 @@ class GNNServeEngine:
             axis=0,
         )
 
+    # ------------------------------------------------- out-of-core streaming
+    def _stream_eligible(self, engine: AmpleEngine, features: np.ndarray) -> bool:
+        """Stream iff a budget is set, the matrix exceeds it, and the plan
+        runs on the single-device engine. On the card the streamed path
+        launches the same kernels as the in-memory one (the AGE is bitwise
+        its plain version), so streamed == in-memory holds there too."""
+        return (
+            self.feature_budget_bytes > 0
+            and type(engine) is AmpleEngine
+            and features.nbytes > self.feature_budget_bytes
+        )
+
+    def _feature_stream(
+        self, features: np.ndarray, *, cache_store: bool = True, store_key=None
+    ) -> StreamedFeatures:
+        """Wrap ``features`` in a StreamedFeatures handle (store LRU-cached).
+
+        Repeat traffic holding the same feature array skips the store build
+        (chunking, int8 quantization and, on the card, page-locking) exactly
+        like repeat structures skip the planner. ``store_key`` is the
+        caller-held object the cache identity hangs on when ``features`` is
+        derived per call — the padded-union path pads a fresh copy each
+        request, so keying on the *original* matrix (plus the padded row
+        count) is what lets warm padded requests hit. ``cache_store=False``
+        builds an ephemeral store: the batch path concatenates a fresh union
+        matrix per call, which could never hit again.
+        """
+        rows = self.feature_chunk_rows or default_chunk_rows(
+            features.shape[0], features.shape[1], self.feature_budget_bytes
+        )
+
+        def build():
+            return FeatureStore.from_array(
+                features, chunk_rows=rows, pin_memory=self.device.type == "cuda")
+
+        if not cache_store:
+            store = build()
+        else:
+            key_obj = store_key if store_key is not None else features
+            key = (id(key_obj), features.shape[0], rows)
+            entry = self._stores.get(key)
+            if entry is None or entry[0] is not key_obj:
+                self._stores[key] = (key_obj, build())
+                while len(self._stores) > 4:
+                    self._stores.popitem(last=False)
+            else:
+                self._stores.move_to_end(key)
+            store = self._stores[key][1]
+        return StreamedFeatures(
+            store,
+            self.feature_budget_bytes,
+            prefetch_depth=self.stream_prefetch_depth,
+            reorder=self.stream_reorder,
+            packing=self.stream_packing,
+            device=self.device,
+        )
+
     def _run(
         self,
         arch: str,
@@ -412,17 +524,29 @@ class GNNServeEngine:
         engine: AmpleEngine,
         features: np.ndarray,
         *,
+        cache_store: bool = True,
+        store_key=None,
         trace_id: str = "",
     ) -> Tuple[np.ndarray, float]:
         """Execution step: one device call over an assembled plan.
 
-        ``run_ms`` spans the feature upload, the forward and a device
-        synchronize, on the ``request_stamp`` clock; the ``execute`` span
-        records the same stamps.
+        ``run_ms`` spans the feature upload (or stream), the forward and a
+        device synchronize, on the ``request_stamp`` clock; the ``execute``
+        span records the same stamps. When the feature matrix exceeds
+        ``feature_budget_bytes`` the features stay on the host and stream
+        chunk-wise — the same outputs, bit for bit; telemetry lands in
+        ``stats`` and on the response. ``cache_store``/``store_key`` as in
+        ``_feature_stream``.
         """
         cfg = dataclasses.replace(self.cfg, gnn_arch=arch)
+        self._last_stream = None
         t0 = request_stamp()
-        x = torch.from_numpy(features).to(self.device)
+        if self._stream_eligible(engine, features):
+            x = self._feature_stream(features, cache_store=cache_store, store_key=store_key)
+            x.trace_id = trace_id  # the prefetcher stamps its spans with it
+            self._last_stream = x.stats
+        else:
+            x = torch.from_numpy(features).to(self.device)
         y, _ = gnn_api.gnn_forward(
             self.params, cfg, {"graph": prepared, "features": x, "engine": engine}
         )
@@ -433,9 +557,32 @@ class GNNServeEngine:
         if rec.enabled:
             rec.add_span(
                 "execute", t0, t1, cat="serve", trace_id=trace_id,
-                args={"arch": arch, "streamed": False},
+                args={"arch": arch, "streamed": self._last_stream is not None},
             )
+        s = self._last_stream
+        if s is not None:
+            self.stats["bytes_streamed"] += s.bytes_streamed
+            self.stats["chunk_hits"] += s.chunk_hits
+            self.stats["chunk_misses"] += s.chunk_misses
+            self.stats["prefetched_uploads"] += s.prefetched
+            self.stats["stream_fallbacks"] += s.fallbacks
+            self.stats["stall_ms"] += s.stall_ms
+            self.stats["copy_ms"] += s.copy_ms
         return y.cpu().numpy(), (t1 - t0) * 1e3
+
+    def _stream_fields(self) -> Dict[str, object]:
+        """Response fields describing the most recent ``_run``'s streaming."""
+        s = self._last_stream
+        if s is None:
+            return {}
+        return {
+            "streamed": True,
+            "bytes_streamed": s.bytes_streamed,
+            "chunk_hit_rate": s.hit_rate,
+            "prefetch_overlap": s.prefetch_overlap,
+            "stall_ms": s.stall_ms,
+            "copy_ms": s.copy_ms,
+        }
 
     @staticmethod
     def _queue_ms(admitted_at: float, exec_start: float) -> float:
@@ -461,6 +608,10 @@ class GNNServeEngine:
         carry ``trace_id`` (a new id when it is "").
         """
         arch = self._arch(arch)
+        # The store-cache identity is the caller's object: validation may
+        # convert, and padding copies — keying on either derived array would
+        # rebuild the store on every warm request.
+        original = features
         features = self._validate_request(graph, features)
         rec = otrace.get_recorder()
         if rec.enabled and not trace_id:
@@ -479,8 +630,12 @@ class GNNServeEngine:
                 "plan", exec_start, request_stamp(), cat="serve", trace_id=trace_id,
                 args={"cache_hit": hit, "plan_ms": plan_ms},
             )
-        y, run_ms = self._run(arch, prepared, engine, features, trace_id=trace_id)
+        y, run_ms = self._run(
+            arch, prepared, engine, features, store_key=original, trace_id=trace_id
+        )
         self.stats["requests"] += 1
+        if self._last_stream is not None:
+            self.stats["streamed_requests"] += 1
         return GNNResponse(
             outputs=y[: graph.num_nodes],
             cache_hit=hit,
@@ -489,6 +644,7 @@ class GNNServeEngine:
             run_ms=run_ms,
             queue_ms=queue_ms,
             trace_id=trace_id,
+            **self._stream_fields(),
         )
 
     def infer_batch(self, requests: Sequence[GNNRequest]) -> List[GNNResponse]:
@@ -528,11 +684,18 @@ class GNNServeEngine:
                 args={"cache_hit": hit, "plan_ms": plan_ms, "batch": len(requests)},
             )
         features = self._pad_features(np.concatenate(feats, axis=0), prepared.num_nodes)
-        y, run_ms = self._run(arch, prepared, engine, features, trace_id=batch_tid)
+        y, run_ms = self._run(
+            arch, prepared, engine, features, cache_store=False, trace_id=batch_tid
+        )
+        # Counted only on success, so a failed-and-requeued continuous-batching
+        # window does not double-count when it retries.
         self.stats["requests"] += len(requests)
+        if self._last_stream is not None:
+            self.stats["streamed_requests"] += len(requests)
         self.stats["batches"] += 1
         out: List[GNNResponse] = []
         start = 0
+        stream_fields = self._stream_fields()
         scatter_t0 = request_stamp()
         for r, q_ms in zip(requests, queue_waits):
             stop = start + r.graph.num_nodes
@@ -546,6 +709,7 @@ class GNNServeEngine:
                     batch_size=len(requests),
                     queue_ms=q_ms,
                     trace_id=r.trace_id or batch_tid,
+                    **stream_fields,
                 )
             )
             start = stop
@@ -558,8 +722,22 @@ class GNNServeEngine:
 
     # ------------------------------------------------------------- metrics
     def cache_info(self) -> Dict[str, float]:
-        """Plan-cache size and capacity plus the ``stats`` counters."""
-        return {"size": len(self._cache), "capacity": self.plan_cache_size, **self.stats}
+        """Plan-cache size and capacity, the ``stats`` counters and derived
+        streaming rates: ``chunk_hit_rate`` and ``prefetch_overlap``
+        (``1 - stall_ms / copy_ms``) over every streamed request this engine
+        served (0.0 when nothing streamed)."""
+        accesses = self.stats["chunk_hits"] + self.stats["chunk_misses"]
+        copy_ms = self.stats["copy_ms"]
+        overlap = (
+            min(max(1.0 - self.stats["stall_ms"] / copy_ms, 0.0), 1.0) if copy_ms > 0.0 else 0.0
+        )
+        return {
+            "size": len(self._cache),
+            "capacity": self.plan_cache_size,
+            **self.stats,
+            "chunk_hit_rate": self.stats["chunk_hits"] / accesses if accesses else 0.0,
+            "prefetch_overlap": overlap,
+        }
 
 
 def _to_device(params, device: torch.device):

@@ -37,6 +37,9 @@ from repro_torch.kernels.segment_agg.ref import (
 )
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+from repro_torch.memory.feature_store import FeatureStore
+from repro_torch.memory import prefetcher
+from repro_torch.memory.prefetcher import ChunkPrefetcher, StreamedFeatures
 from repro_torch.models.api import model_prefill, params_to
 from repro_torch.models.gnn import api as gnn_api
 from repro_torch.serve.engine import ServeEngine
@@ -661,6 +664,95 @@ def test_gat_serving_on_card_matches_cpu(cuda):
     ref = cpu.infer(g, g.features).outputs
     np.testing.assert_allclose(cold.outputs, ref, atol=6e-2, rtol=2e-3)
     assert (np.abs(cold.outputs - ref) > 2e-3).mean() < 0.05
+
+
+# ------------------------------------------------------------- out-of-core
+@pytest.mark.parametrize("d", [8, 300])
+def test_host_int8_chunks_equal_the_cards_quantize(cuda, d):
+    """The store's host codes (and the FTE stream's host quantization under
+    another scale) are bitwise the card's ``quantize``: a fused or contracted
+    quantize on the card would break streamed == in-memory."""
+    rng = np.random.default_rng(d)
+    x = (rng.standard_normal((1000, d)) * 3).astype(np.float32)
+    x[0, 0] = 127.0  # scale 1: the next entries sit on rounding ties
+    x[1, : min(d, 6)] = [2.5, -3.5, 0.5, -0.5, 126.5, -126.5][: min(d, 6)]
+    store = FeatureStore.from_array(x, chunk_rows=128, pin_memory=True)
+    xt = torch.from_numpy(x).to(cuda)
+    qp = compute_scale_zp(xt, symmetric=True)
+    assert qp.scale.item() == float(store.agg_scale) == 1.0
+    np.testing.assert_array_equal(store.stream_rows("i8")[:1000], quantize(xt, qp).cpu().numpy())
+    sf = StreamedFeatures(store, 1, device=cuda)
+    assert sf.agg_qp().scale.device.type == "cuda"
+    np.testing.assert_array_equal(quantize(xt, sf.agg_qp()).cpu().numpy(),
+                                  store.stream_rows("i8")[:1000])
+    for factor in (0.37, 1.9):
+        scale = np.float32(store.agg_scale * np.float32(factor))
+        qp2 = QuantParams(torch.tensor(scale, device=cuda), torch.zeros((), device=cuda))
+        want = quantize(xt, qp2).cpu().numpy()
+        np.testing.assert_array_equal(FeatureStore._quantize_block(x, scale), want)
+        np.testing.assert_array_equal(store.stream_rows("i8", scale)[:1000], want)
+
+
+@pytest.mark.parametrize("arch", ["gcn", "gin", "sage", "gat"])
+def test_streamed_request_on_card_is_bitwise_its_in_memory_run(cuda, arch, monkeypatch):
+    """FULL widths on a cora-sized graph at a 1/8 budget: the streamed
+    request is bitwise the in-memory card request, launches the AGE (GCN,
+    GIN: the streamed layer's batches and the dense layer) and the int8 GEMM,
+    and the stream's tile step never calls ``index_add_``."""
+    cfg = dataclasses.replace(get_config(f"ample-{arch}"), gnn_union_node_bucket=0,
+                              gnn_union_edge_bucket=0)
+    g = make_dataset("cora", max_nodes=2000, max_feature_dim=300, seed=3)
+    mem = GNNServeEngine(cfg, device=cuda, generator=torch.Generator().manual_seed(0))
+    want = mem.infer(g, g.features).outputs
+    srv = GNNServeEngine(cfg, params=mem.params, feature_budget_bytes=g.features.nbytes // 8,
+                         feature_chunk_rows=128, device=cuda)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("index_add_ on the streamed path")
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", refuse)
+    for depth in (2, 0):
+        srv.stream_prefetch_depth = depth
+        build.reset_launch_counts()
+        r = srv.infer(g, g.features)
+        counts = build.launch_counts()
+        assert r.streamed and np.array_equal(r.outputs, want)
+        assert counts.get(qm_ops.KERNEL, 0) > 0
+        if arch in ("gcn", "gin"):
+            assert counts.get(seg_ops.KERNEL, 0) >= 4 and r.bytes_streamed > 0
+            assert (r.copy_ms > 0.0) == (depth > 0) and 0.0 <= r.prefetch_overlap <= 1.0
+
+
+@pytest.mark.parametrize("batch_lanes", [512, 1 << 16])
+def test_pinned_staging_gives_the_bits_of_synchronous_staging(cuda, batch_lanes, monkeypatch):
+    """A pinned store staged on the side stream (depth 2, 5) against the
+    synchronous replay (depth 0) and the in-memory card aggregate, on both
+    streams, in many AGE launches or one."""
+    from repro_torch.core import scheduler
+
+    g = make_lognormal_graph(3000, 8.0, seed=5)
+    x = np.random.default_rng(5).standard_normal((3000, 64)).astype(np.float32)
+    eng = AmpleEngine(g, EngineConfig(edges_per_tile=64))
+    want = eng.aggregate(torch.from_numpy(x).to(cuda), mode="gcn")
+    store = FeatureStore.from_array(x, chunk_rows=128, pin_memory=True)
+    assert store.pinned and store.stream_tensor("f32").is_pinned()
+    for depth in (0, 2, 5):
+        sf = StreamedFeatures(store, store.nbytes // 6, prefetch_depth=depth, device=cuda)
+        assert torch.equal(eng.aggregate(sf, mode="gcn"), want)
+        assert (sf.stats.copy_ms > 0.0) == (depth > 0)
+        assert 0.0 <= sf.stats.prefetch_overlap <= 1.0
+    plan = eng.plans("gcn")["float"]
+    schedule = scheduler.build_chunk_schedule(plan, 128)
+    out = torch.zeros_like(want)
+    before = build.launch_counts().get(seg_ops.KERNEL, 0)
+    monkeypatch.setattr(prefetcher, "BATCH_LANES", batch_lanes)
+    for depth in (0, 2):
+        got = ChunkPrefetcher(store, schedule, stream="f32", budget_bytes=store.nbytes // 6,
+                              prefetch_depth=depth, device=cuda).aggregate(plan, out=out.clone())
+        rows = torch.as_tensor(plan.node_ids, device=cuda).long()
+        assert torch.equal(got[rows], want[rows])
+    launches = build.launch_counts()[seg_ops.KERNEL] - before
+    assert (launches > 2) == (batch_lanes < plan.num_tiles * 64)  # one launch per batch
 
 
 # ------------------------------------------------------------- LM kernels

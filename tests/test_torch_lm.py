@@ -41,9 +41,6 @@ LEFT_OUT = {
     "capacity_factor", "mrope_sections", "attention_impl", "attn_layer_period",
     "attn_layer_offset", "encoder_layers", "embeds_input", "remat", "scan_layers",
     "gnn_use_kernel", "gnn_num_shards", "gnn_partitioner", "gnn_halo_overlap",
-    "gnn_batch_window", "gnn_window_timeout_ms", "gnn_window_retries",
-    "gnn_feature_budget_bytes", "gnn_feature_chunk_rows", "gnn_stream_packing",
-    "gnn_stream_reorder",
 }
 
 
