@@ -124,9 +124,35 @@ Every phase that fails raises, so the script exits non-zero.
              3 at priority 1, bronze weight 1) on the same requests, every
              logged window replayed directly bitwise, per-tenant p50/p99
              latency, requests/s and nodes/s from its telemetry;
+    sharded gcn — after the fronts, the GCN path's params served over 4
+             edge-balanced shards of Yelp (``num_shards=4``): cold, warm,
+             warm, warm == cold bitwise, the AGE once per shard, precision
+             group and layer (16) and the int8 matmul twice a request,
+             within the mixed tolerance of the unsharded output; per-shard
+             plan_ms, edge balance, halo rows and bytes, warm run_ms beside
+             the unsharded one, peak memory;
+    plan store — ``save_plan_cache`` of the unsharded and the sharded Yelp
+             engines, ``load_plan_cache`` into fresh engines with the same
+             params: the first request a cache hit, plan_ms 0.0, bitwise;
+             the load seconds beside the cold plan_ms;
+    sharded overlap — the same sharded engine with ``halo_overlap=True``,
+             its shard plans loaded from the saved cache: bitwise the
+             unsplit output, the AGE launched per non-empty half (counted
+             on the host from the plans), every exchange split; halo_ms,
+             halo_wait_ms and halo_overlap;
+    sharded mincut — a 200,000-node clustered graph (communities shuffled
+             in node order), 4 shards under ``edges`` and ``mincut``, each
+             with and without overlap: the halo volumes, the reduction and
+             the partition seconds, overlap bitwise unsplit, each within the
+             mixed tolerance of unsharded;
+    sharded gat — after the GAT path, FULL ``ample-gat`` over 4 shards:
+             the multi-head AGE on every request (the denominators and the
+             weighted aggregate), no fused attention, warm == cold, within
+             the mixed tolerance of unsharded, peak under 20 GiB;
 18. summary — a JSON line of kernels (the AGE and the int8 matmul with their
-             launches per GNN path and per streamed request), the card's
-             name and power limit, and the result line.
+             launches per GNN path, per streamed request and per sharded
+             request; the multi-head AGE per sharded GAT request), the
+             card's name and power limit, and the result line.
 
 The int8 matmul is also held bitwise at GIN's and SAGE's K x N (300 x 300,
 256 x 256, 100 x 100). Each phase prints its seconds.
@@ -139,6 +165,7 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1053,6 +1080,285 @@ def phase_fronts(cfg):
                 async_seconds=async_s, requests=len(traffic), nodes=nodes,
                 window_log=[list(w) for w in router.window_log], tenants=snap)
 
+SHARDS = 4  # the sharded phases' shard count
+
+
+def _launches(fn):
+    """(fn(), the kernel launches it made)."""
+    from repro_torch.kernels import build
+
+    before = build.launch_counts()
+    out = fn()
+    after = build.launch_counts()
+    return out, {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+
+def _mixed_close(got, want) -> float:
+    """Max |got - want|; raises outside the mixed-precision tolerance."""
+    import numpy as np
+
+    err = np.abs(got - want)
+    flips = float((err > MIXED_FLIP).mean())
+    if not np.allclose(got, want, atol=MIXED_ATOL, rtol=MIXED_RTOL) or flips >= 0.05:
+        raise RuntimeError(f"outside the mixed tolerance: max {err.max():.3e}, share of "
+                           f"entries off by > {MIXED_FLIP}: {flips:.4f}")
+    return float(err.max())
+
+
+def _sharded_entry(srv):
+    """(plan, engine) of the sharded request ``srv`` planned last."""
+    from repro_torch.distributed.graph_shard import ShardedAmpleEngine
+
+    return next((p, e) for _, p, e in reversed(list(srv._cache.values()))
+                if isinstance(e, ShardedAmpleEngine))
+
+
+def _age_launches(splan, mode, layers, split):
+    """AGE launches of one request, counted on the host from the plans: one
+    per shard, precision group and layer; split, one per non-empty half of
+    each group of a shard with halo rows."""
+    from repro_torch.core.scheduler import split_plan_by_halo
+
+    n = 0
+    for sp in splan.shards:
+        for plan in sp.plan.mode_plans[mode].values():
+            if split and sp.halo_size:
+                n += sum(h.num_tiles > 0 for h in split_plan_by_halo(plan, sp.num_owned))
+            else:
+                n += 1
+    return n * layers
+
+
+def _halo_wait(srv, fn):
+    """(fn(), the halo_wait_ms the engine's stats gained meanwhile)."""
+    before = srv.stats["halo_wait_ms"]
+    out = fn()
+    return out, srv.stats["halo_wait_ms"] - before
+
+
+def _serve3(srv, g, feats, tag, label):
+    """Cold, warm, warm: [(response, launches, halo_wait_ms)]; warm == cold."""
+    import numpy as np
+
+    rows = []
+    for i in range(3):
+        (resp, counts), wait = _halo_wait(srv, lambda: _launches(lambda: srv.infer(g, feats)))
+        rows.append((resp, counts, wait))
+        log(f"[{tag}] {label} infer {i}: cache_hit={resp.cache_hit} plan_ms={resp.plan_ms:.1f} "
+            f"run_ms={resp.run_ms:.3f} halo_bytes={resp.halo_bytes} halo_ms={resp.halo_ms:.3f} "
+            f"halo_wait_ms={wait:.3f} halo_overlap={resp.halo_overlap:.3f} launches={counts}")
+    for resp, _, _ in rows[1:]:
+        if not resp.cache_hit or resp.plan_ms != 0.0 or not np.array_equal(
+                resp.outputs, rows[0][0].outputs):
+            raise RuntimeError(f"{tag}: a warm {label} request differs from the cold one")
+    return rows
+
+
+def _request_rows(rows):
+    return [dict(cache_hit=r.cache_hit, plan_ms=r.plan_ms, run_ms=r.run_ms, halo_ms=r.halo_ms,
+                 halo_wait_ms=w, halo_bytes=r.halo_bytes, halo_overlap=r.halo_overlap,
+                 launches=c) for r, c, w in rows]
+
+
+def phase_sharded_gcn(cfg, params, g, want, base_run_ms):
+    """FULL ample-gcn on Yelp over 4 edge-balanced shards: warm == cold, the
+    AGE once per shard, group and layer, within the mixed tolerance of the
+    unsharded output."""
+    import torch
+
+    from repro_torch.serve.gnn_engine import GNNServeEngine
+
+    tag = "sharded gcn"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = GNNServeEngine(cfg, params, num_shards=SHARDS, partitioner="edges", device="cuda")
+    rows = _serve3(srv, g, g.features, tag, "unsplit")
+    peak = torch.cuda.max_memory_allocated()
+    want_age = _age_launches(_sharded_entry(srv)[0], "gcn", 2, split=False)
+    for _, counts, _ in rows:
+        if counts.get("segment_agg") != want_age or counts.get("quant_matmul") != 2:
+            raise RuntimeError(f"{tag}: launched {counts}, expected {want_age} AGE and 2 GEMM")
+    err = _mixed_close(rows[0][0].outputs, want)
+    rep = srv.shard_report()
+    warm_ms = [r.run_ms for r, _, _ in rows[1:]]
+    log(f"[{tag}] {rep['num_shards']} shards ({rep['partitioner']}): edge_balance "
+        f"{rep['edge_balance']:.4f}, halo_total {rep['halo_total']} rows "
+        f"{rep['halo_per_shard']}, edges {rep['edges_per_shard']}, owned "
+        f"{rep['owned_per_shard']}, plan_ms per shard "
+        f"{[round(m, 1) for m in rep['plan_ms_per_shard']]}")
+    log(f"[{tag}] warm run_ms {warm_ms} vs unsharded warm {base_run_ms}; halo_bytes "
+        f"{rows[1][0].halo_bytes} a request; AGE {want_age} + GEMM 2 launches a request; "
+        f"peak {peak / 2**30:.2f} GiB; vs unsharded max |diff| {err:.3e} (mixed tolerance); "
+        "warm == cold bitwise")
+    return srv, rows[0][0].outputs, dict(requests=_request_rows(rows), shard_report=rep,
+                     base_warm_run_ms=base_run_ms, peak_bytes=peak,
+                     max_abs_err_vs_unsharded=err, age_launches=want_age,
+                     launches_request=rows[-1][1])
+
+
+def phase_plan_store(cfg, params, g, cases, plan_dir):
+    """Save each engine's plan cache, load it into a fresh engine with the
+    same params: its first request is a cache hit with plan_ms 0.0, bitwise
+    the original output. ``cases``: (label, engine, its output, engine
+    kwargs, its cold plan_ms). The files stay in ``plan_dir/<label>``."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.serve.gnn_engine import GNNServeEngine
+
+    rows = {}
+    for label, srv, want, kw, cold_ms in cases:
+        d = os.path.join(plan_dir, label)
+        shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        paths = srv.save_plan_cache(d)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        fresh = GNNServeEngine(cfg, params, device="cuda", **kw)
+        t0 = time.perf_counter()
+        loaded = fresh.load_plan_cache(d)
+        load_s = time.perf_counter() - t0
+        resp = fresh.infer(g, g.features)
+        log(f"[plan store] {label}: {loaded} plans ({nbytes / 2**20:.1f} MiB) saved in "
+            f"{save_s:.2f} s, loaded in {load_s:.2f} s (cold plan_ms {cold_ms:.1f}); first "
+            f"request cache_hit={resp.cache_hit} plan_ms={resp.plan_ms} run_ms="
+            f"{resp.run_ms:.3f}, planner_calls {fresh.stats['planner_calls']}")
+        if not resp.cache_hit or resp.plan_ms != 0.0 or fresh.stats["planner_calls"]:
+            raise RuntimeError(f"plan store: the {label} engine warmed from disk planned again")
+        if not np.array_equal(resp.outputs, want):
+            raise RuntimeError(f"plan store: the {label} warm-started output differs")
+        rows[label] = dict(plans=loaded, file_bytes=nbytes, save_s=save_s, load_s=load_s,
+                           cold_plan_ms=cold_ms, run_ms=resp.run_ms)
+        del fresh
+    log("[plan store] every disk-warmed first request bitwise its engine's output")
+    return rows
+
+
+def phase_sharded_overlap(cfg, params, g, want, plan_dir):
+    """The sharded Yelp GCN with the halo exchange overlapped, its shard
+    plans warmed from the unsplit engine's saved cache: the AGE runs both
+    halves of every split group, the output is bitwise the unsplit one."""
+    import numpy as np
+
+    from repro_torch.serve.gnn_engine import GNNServeEngine
+
+    tag = "sharded gcn"
+    ov = GNNServeEngine(cfg, params, num_shards=SHARDS, partitioner="edges", halo_overlap=True,
+                        device="cuda")
+    ov.load_plan_cache(plan_dir)
+    rows = _serve3(ov, g, g.features, tag, "overlap")
+    split_age = _age_launches(_sharded_entry(ov)[0], "gcn", 2, split=True)
+    stats = _sharded_entry(ov)[1].halo_stats
+    for resp, counts, _ in rows:
+        if not np.array_equal(resp.outputs, want):
+            raise RuntimeError(f"{tag}: the overlapped output differs from the unsplit one")
+        if not resp.cache_hit or resp.plan_ms != 0.0:
+            raise RuntimeError(f"{tag}: the shard plans loaded from disk were not hit")
+        if not 0.0 <= resp.halo_overlap <= 1.0 or resp.halo_ms <= 0.0:
+            raise RuntimeError(f"{tag}: halo_ms {resp.halo_ms} overlap {resp.halo_overlap}")
+        if counts.get("segment_agg") != split_age:
+            raise RuntimeError(f"{tag}: launched {counts}, expected {split_age} AGE (split)")
+    if stats["split_exchanges"] != stats["halo_exchanges"]:
+        raise RuntimeError(f"{tag}: an overlapped exchange ran unsplit: {stats}")
+    log(f"[{tag}] overlap: bitwise the unsplit output; {split_age} AGE launches a request "
+        f"(both halves of every shard's groups); every exchange split: {stats}")
+    return dict(requests=_request_rows(rows), split_age_launches=split_age, halo_stats=stats)
+
+
+def phase_sharded_mincut(cfg, params):
+    """FULL ample-gcn on a 200,000-node clustered graph whose communities are
+    shuffled in node order, 4 shards under ``edges`` and ``mincut``, each
+    with the halo exchange overlapped and not. Min-cut is not run on Yelp:
+    its synthetic graph has no communities, so min-cut costs ~110 s of host
+    time there for a halo 1.3% smaller."""
+    import numpy as np
+
+    from repro_torch.graphs.datasets import make_clustered_graph
+    from repro_torch.graphs.partition import make_partition, partition_halo_volume
+    from repro_torch.models.gnn import api as gnn_api
+    from repro_torch.serve.gnn_engine import GNNServeEngine
+
+    tag = "sharded mincut"
+    g = make_clustered_graph(200_000, 8, seed=1, shuffle=True, inter_degree=0.5)
+    feats = np.random.default_rng(0).standard_normal((g.num_nodes, cfg.d_model)).astype(
+        np.float32)
+    want = GNNServeEngine(cfg, params, device="cuda").infer(g, feats).outputs
+    prepared = gnn_api.prepare_graph(cfg, g)
+    out = dict(nodes=g.num_nodes, edges=g.num_edges)
+    for kind in ("edges", "mincut"):
+        t0 = time.perf_counter()
+        part = make_partition(prepared, SHARDS, kind)
+        part_s = time.perf_counter() - t0
+        halo = partition_halo_volume(prepared, part)
+        ys, reqs = {}, {}
+        for overlap in (False, True):
+            srv = GNNServeEngine(cfg, params, partition=part, halo_overlap=overlap, device="cuda")
+            srv.infer(g, feats)
+            (resp, counts), wait = _halo_wait(srv, lambda: _launches(lambda: srv.infer(g, feats)))
+            ys[overlap] = resp.outputs
+            splan, eng = _sharded_entry(srv)
+            stats = eng.halo_stats
+            expect = _age_launches(splan, "gcn", 2, split=overlap)
+            if counts.get("segment_agg") != expect or (
+                    overlap and stats["split_exchanges"] != stats["halo_exchanges"]):
+                raise RuntimeError(f"{tag}: {kind} overlap={overlap} launched {counts}, "
+                                   f"expected {expect} AGE; {stats}")
+            reqs["overlap" if overlap else "unsplit"] = dict(
+                run_ms=resp.run_ms, halo_ms=resp.halo_ms, halo_wait_ms=wait,
+                halo_bytes=resp.halo_bytes, halo_overlap=resp.halo_overlap, launches=counts)
+            log(f"[{tag}] {kind} overlap={overlap}: warm run_ms={resp.run_ms:.3f} "
+                f"halo_ms={resp.halo_ms:.3f} halo_wait_ms={wait:.3f} "
+                f"halo_overlap={resp.halo_overlap:.3f} halo_bytes={resp.halo_bytes} "
+                f"launches={counts}")
+            del srv, eng
+        if not np.array_equal(ys[True], ys[False]):
+            raise RuntimeError(f"{tag}: {kind}: the overlapped output differs from the unsplit")
+        err = _mixed_close(ys[False], want)
+        out[kind] = dict(partition_s=part_s, halo_rows=halo, max_abs_err_vs_unsharded=err,
+                         requests=reqs)
+        log(f"[{tag}] {kind}: partition {part_s:.2f} s, halo {halo} rows; overlap bitwise "
+            f"unsplit; vs unsharded max |diff| {err:.3e} (mixed tolerance)")
+    out["halo_reduction"] = 1.0 - out["mincut"]["halo_rows"] / out["edges"]["halo_rows"]
+    log(f"[{tag}] {g.num_nodes} nodes {g.num_edges} edges: min-cut halo "
+        f"{out['mincut']['halo_rows']} vs edges {out['edges']['halo_rows']} rows "
+        f"({out['halo_reduction'] * 100:.1f}% fewer) for "
+        f"{out['mincut']['partition_s']:.2f} s of partitioning")
+    return out
+
+
+def phase_sharded_gat(cfg, params, g, want):
+    """FULL ample-gat on Yelp over 4 shards: the decomposed layer, its
+    softmax denominators and weighted aggregate on the multi-head AGE per
+    shard and group (launched on every request), warm == cold, within the
+    mixed tolerance of the unsharded output, peak under 20 GiB."""
+    import torch
+
+    from repro_torch.serve.gnn_engine import GNNServeEngine
+
+    tag = "sharded gat"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = GNNServeEngine(cfg, params, num_shards=SHARDS, device="cuda")
+    rows = _serve3(srv, g, g.features, tag, "unsplit")
+    peak = torch.cuda.max_memory_allocated()
+    groups = sum(len(sp.plan.mode_plans["runtime"]) for sp in _sharded_entry(srv)[0].shards)
+    for _, counts, _ in rows:
+        if not counts.get("segment_agg_mh") or counts.get("attention") or \
+                counts.get("quant_matmul") != 2:
+            raise RuntimeError(f"{tag}: launched {counts}")
+    err = _mixed_close(rows[0][0].outputs, want)
+    if peak >= 20 * 2**30:
+        raise RuntimeError(f"{tag}: peak device memory {peak / 2**30:.2f} GiB >= 20 GiB")
+    log(f"[{tag}] segment_agg_mh {rows[-1][1]['segment_agg_mh']} launches a request "
+        f"({groups} shard groups x 2 layers x (denominators + aggregate)); warm run_ms "
+        f"{[round(r.run_ms, 3) for r, _, _ in rows[1:]]}; peak {peak / 2**30:.2f} GiB; vs "
+        f"unsharded max |diff| {err:.3e} (mixed tolerance); warm == cold bitwise")
+    return dict(requests=_request_rows(rows), shard_report=srv.shard_report(), peak_bytes=peak,
+                max_abs_err_vs_unsharded=err, launches_request=rows[-1][1])
+
+
 def phase_lm_path(arch, kernels, tag):
     """Serve the FULL ``arch`` with ``ServeEngine.generate`` (B 4 x 2048-token
     prompts, 32 new tokens, random weights from a CUDA generator of seed 0):
@@ -1414,6 +1720,25 @@ def main() -> int:
         ooc_rows["gcn"] = phase_outofcore(srv, g, outs[0].outputs, "gcn", (2, 2, 2, 0))
     with phase("fronts"):
         fronts_row = phase_fronts(cfg)
+    # Sharded serving and plan persistence, on the GCN path's params. The
+    # plan files go under build/ (ignored by git) and are removed after.
+    srv.feature_budget_bytes = 0
+    plan_dir = os.path.join(ROOT, "build", "plan_cache_smoke")
+    with phase("sharded gcn"):
+        ssrv, sharded_y, sharded_row = phase_sharded_gcn(
+            cfg, srv.params, g, outs[0].outputs, [r.run_ms for r in outs[1:]])
+    with phase("plan store"):
+        store_row = phase_plan_store(cfg, srv.params, g, [
+            ("unsharded", srv, outs[0].outputs, {}, outs[0].plan_ms),
+            ("sharded", ssrv, sharded_y, dict(num_shards=SHARDS, partitioner="edges"),
+             sharded_row["requests"][0]["plan_ms"])], plan_dir)
+    with phase("sharded overlap"):
+        overlap_row = phase_sharded_overlap(cfg, srv.params, g, sharded_y,
+                                            os.path.join(plan_dir, "sharded"))
+    shutil.rmtree(plan_dir, ignore_errors=True)
+    del ssrv
+    with phase("sharded mincut"):
+        mincut_row = phase_sharded_mincut(cfg, srv.params)
     del srv, entry
     gc.collect()
     torch.cuda.empty_cache()
@@ -1465,6 +1790,9 @@ def main() -> int:
         gcpu_row = phase_cpu(gsrv, gat_cfg, cora, tag="gat cpu")
     with phase("outofcore gat"):
         ooc_rows["gat"] = phase_outofcore(gsrv, g, gouts[0].outputs, "gat", (2, 0))
+    gsrv.feature_budget_bytes = 0
+    with phase("sharded gat"):
+        sgat_row = phase_sharded_gat(gat_cfg, gsrv.params, g, gouts[0].outputs)
     del gsrv, gentry
     gc.collect()
     torch.cuda.empty_cache()
@@ -1523,19 +1851,22 @@ def main() -> int:
                         f"int8 group T={age['tiles']} E={age['lanes']} N={age['n']} "
                         f"D={age['d']}, {age['rows']} rows"),
              launches_by_path=by_path("segment_agg"),
-             launches_streamed_request=streamed("segment_agg")),
+             launches_streamed_request=streamed("segment_agg"),
+             launches_sharded_request=sharded_row["launches_request"].get("segment_agg", 0)),
         dict(kernel_row("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
                         "src/repro/kernels/quant_matmul/repack.py:108",
                         counts.get("quant_matmul", 0), gemm,
                         f"M={gemm['m']} K={gemm['k']} N={gemm['n']}"),
              launches_by_path=by_path("quant_matmul"),
-             launches_streamed_request=streamed("quant_matmul")),
+             launches_streamed_request=streamed("quant_matmul"),
+             launches_sharded_request=sharded_row["launches_request"].get("quant_matmul", 0)),
         kernel_row("attention", "src/repro_torch/csrc/attn_agg.cu",
                    "src/repro/kernels/segment_agg/attn_kernel.py:194",
                    gcounts.get("attention", 0), attn, gat_shape.format(**attn)),
-        kernel_row("segment_agg_mh", "src/repro_torch/csrc/attn_agg.cu",
-                   "src/repro/kernels/segment_agg/attn_kernel.py:239",
-                   dec_row["launches"].get("segment_agg_mh", 0), mh, gat_shape.format(**mh)),
+        dict(kernel_row("segment_agg_mh", "src/repro_torch/csrc/attn_agg.cu",
+                        "src/repro/kernels/segment_agg/attn_kernel.py:239",
+                        dec_row["launches"].get("segment_agg_mh", 0), mh, gat_shape.format(**mh)),
+             launches_sharded_request=sgat_row["launches_request"].get("segment_agg_mh", 0)),
         # Launches: one Qwen3-8B / Mamba2-370M generate (B 4 x 2048 + 32 tokens).
         # Every launch of the path went through the tensor-core variant.
         dict(kernel_row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -1573,6 +1904,8 @@ def main() -> int:
         gat_decomposed=dec_row, attention=attn_rows, segment_agg_mh=mh_rows, gat_cpu=gcpu_row,
         lm_path=lm_row, ssm_path=ssm_row, flash_attention=flash_rows, ssd_intra_chunk=ssd_rows,
         lm_cpu=lm_cpu_rows, outofcore=ooc_rows, h2d_gbps=h2d_row, fronts=fronts_row,
+        sharded_gcn=sharded_row, plan_store=store_row, sharded_overlap=overlap_row,
+        sharded_mincut=mincut_row, sharded_gat=sgat_row,
         phase_seconds=seconds,
         seconds=time.perf_counter() - t_start,
     )

@@ -62,6 +62,14 @@ class ModelConfig:
     gnn_precision: str = "mixed"  # mixed (Degree-Quant int8/float) | float
     gnn_heads: int = 1  # attention heads (gat); hidden dims must divide by it
     gnn_edges_per_tile: int = 256  # event-driven tile width (AGE lanes)
+    gnn_num_shards: int = 1  # >1: partition-aware execution (edge-balanced shards)
+    # Partitioner for sharded execution: "edges" = contiguous edge-balanced
+    # ranges; "mincut" = halo-minimizing multilevel (METIS-style) partition.
+    # Extra params ride inline, e.g. "mincut(seed=1,balance=1.1)".
+    gnn_partitioner: str = "edges"
+    # Overlap each shard's halo exchange with its interior-tile aggregation
+    # (scheduler.split_plan_by_halo); outputs stay bitwise-identical.
+    gnn_halo_overlap: bool = False
     # Continuous-batching serve knobs (serve/async_gnn.py + GNNServeEngine):
     gnn_batch_window: int = 8  # max requests admitted per micro-batch union
     gnn_union_node_bucket: int = 0  # pad union batches to node size classes (0=exact)

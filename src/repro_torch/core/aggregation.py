@@ -28,6 +28,7 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import scheduler as sched
@@ -73,6 +74,8 @@ def to_device_plan(plan: sched.EdgeTilePlan, device) -> DeviceTilePlan:
     split = seg_ops.split_segment_map(plan.out_node, plan.seg_ids, plan.num_nodes)
 
     def up(a, dtype):
+        if not a.flags.writeable:  # a plan loaded with mmap_mode="r"
+            a = np.array(a)
         return torch.as_tensor(a, dtype=dtype).to(device)
 
     return DeviceTilePlan(

@@ -16,7 +16,9 @@ handle in place of a dense matrix: the features stay on the host and stream
 through the chunk prefetcher (``memory/prefetcher.py``) under its device
 budget, bitwise the dense path, through the same kernels on the card.
 
-The planning half (``compile_plans``, ``assemble_union_plan``) is host-side
+The planning half (``compile_plans``, ``assemble_union_plan`` and, for a
+partitioned graph, ``compile_sharded_plans``: one plan per shard over its
+local subgraph, tags and coefficients computed once globally) is host-side
 numpy, as in the reference (``repro/core/message_passing.py``); the engine runs
 on whatever device its inputs live on, through the kernels on a CUDA device
 and their plain versions on the CPU.
@@ -52,6 +54,13 @@ from repro_torch.core.transformation import (
     transform_mixed_precision,
 )
 from repro_torch.graphs.csr import Graph, gcn_norm_coeffs
+from repro_torch.graphs.partition import (
+    Partition,
+    ShardSubgraph,
+    make_partition,
+    shard_subgraph,
+    validate_partition,
+)
 from repro_torch.kernels.quant_matmul import ops as qm_ops
 from repro_torch.kernels.segment_agg import attn_ops
 from repro_torch.memory.prefetcher import (
@@ -67,8 +76,13 @@ from repro_torch.observe import trace as otrace
 __all__ = [
     "EngineConfig",
     "ExecutionPlan",
+    "ShardPlan",
+    "ShardedExecutionPlan",
     "compile_plans",
+    "compile_shard_plan",
+    "compile_sharded_plans",
     "assemble_union_plan",
+    "shard_plan_key",
     "aggregation_coefficients",
     "engine_precision_tags",
     "AmpleEngine",
@@ -339,6 +353,254 @@ def assemble_union_plan(
     )
 
 
+# ---------------------------------------------------------------------------
+# Partition-aware planning: one ExecutionPlan per edge-balanced shard
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardPlan:
+    """One shard's compiled slice of a ``ShardedExecutionPlan``.
+
+    ``plan`` is a full ExecutionPlan over the shard's *local* subgraph
+    (owned rows first, halo sources appended — see
+    ``graphs.partition.shard_subgraph``), so every property of the single-graph
+    plan (hashability, persistence, bitwise-valid reuse) holds per shard.
+    ``fingerprint`` is the global identity — hash(structure, partition
+    boundaries, shard index, planner config) via
+    ``scheduler.shard_plan_fingerprint`` — and is what the serving layer keys
+    its per-shard LRU on.
+    """
+
+    fingerprint: str
+    shard: ShardSubgraph
+    plan: ExecutionPlan  # over shard.graph, in local index space
+
+    def __hash__(self) -> int:
+        return hash(self.fingerprint)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, ShardPlan) and other.fingerprint == self.fingerprint
+
+    @property
+    def num_owned(self) -> int:
+        return self.shard.num_owned
+
+    @property
+    def halo_size(self) -> int:
+        return int(self.shard.halo.size)
+
+    @property
+    def num_edges(self) -> int:
+        return self.shard.num_edges
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedExecutionPlan:
+    """A partitioned graph's execution plan: one ShardPlan per shard.
+
+    The distributed analogue of ``ExecutionPlan``: Degree-Quant tags are
+    computed once on the global graph (a node's precision must not depend on
+    which shard owns it), aggregation coefficients likewise (halo sources need
+    their global degree), and each shard gets its own edge-tile plan over its
+    local subgraph plus a precomputed halo gather map. Pure host-side and
+    hashable by fingerprint, so the serving layer caches it — and each member
+    ShardPlan independently — exactly like the single-graph plan.
+    """
+
+    fingerprint: str
+    graph_fp: str
+    partition_fp: str
+    partition: Partition
+    num_nodes: int
+    num_edges: int
+    cfg: EngineConfig
+    precision_tags: np.ndarray  # str[N] — global tags
+    node_groups: Mapping[str, np.ndarray]  # tag -> global node ids
+    shards: Tuple[ShardPlan, ...]
+
+    def __hash__(self) -> int:
+        return hash(self.fingerprint)
+
+    def __eq__(self, other) -> bool:
+        return (
+            isinstance(other, ShardedExecutionPlan)
+            and other.fingerprint == self.fingerprint
+        )
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def modes(self) -> Tuple[str, ...]:
+        return self.shards[0].plan.modes if self.shards else ()
+
+    @property
+    def halo_total(self) -> int:
+        """Rows crossing the cut per layer — the halo-exchange volume metric."""
+        return sum(s.halo_size for s in self.shards)
+
+    @property
+    def edge_balance(self) -> float:
+        """max shard edges / ideal edges-per-shard (1.0 = perfectly balanced)."""
+        if not self.shards or self.num_edges == 0:
+            return 1.0
+        ideal = self.num_edges / self.num_shards
+        return max(s.num_edges for s in self.shards) / ideal
+
+
+def shard_plan_key(
+    g: Graph,
+    part: Partition,
+    k: int,
+    cfg: EngineConfig,
+    *,
+    modes: Sequence[str],
+    precision_tags: np.ndarray,
+) -> str:
+    """The fingerprint ``compile_shard_plan`` would stamp on shard ``k``.
+
+    Separated out so a serving cache can probe its per-shard LRU *before*
+    deciding which shards actually need the planner.
+    """
+    tag_part = "tags:" + hashlib.blake2b(
+        np.asarray(precision_tags, dtype="U8").tobytes(), digest_size=16
+    ).hexdigest()
+    return sched.shard_plan_fingerprint(
+        g,
+        part,
+        k,
+        repr(cfg),
+        *sorted(dict.fromkeys(modes)),
+        tag_part,
+    )
+
+
+def compile_shard_plan(
+    g: Graph,
+    part: Partition,
+    k: int,
+    cfg: Optional[EngineConfig] = None,
+    *,
+    modes: Sequence[str] = ("sum",),
+    precision_tags: Optional[np.ndarray] = None,
+    mode_coeffs: Optional[Mapping[str, np.ndarray]] = None,
+) -> ShardPlan:
+    """Compile shard ``k`` of a partitioned graph independently.
+
+    ``precision_tags``/``mode_coeffs`` are *global* (length N / E); pass them
+    when compiling several shards so tagging and coefficient work runs once —
+    omitted, they are derived here (correct, just repeated per shard).
+    The returned ShardPlan is exactly what ``compile_sharded_plans`` would
+    have produced for this shard, so a serving cache can mix shards compiled
+    together and separately.
+    """
+    cfg = cfg if cfg is not None else EngineConfig()
+    if precision_tags is None:
+        precision_tags = engine_precision_tags(g, cfg)
+    tags = np.asarray(precision_tags)
+    if tags.shape != (g.num_nodes,):
+        raise ValueError(f"precision_tags must be [{g.num_nodes}], got {tags.shape}")
+    if mode_coeffs is None:
+        mode_coeffs = {m: aggregation_coefficients(g, m) for m in dict.fromkeys(modes)}
+    sub = shard_subgraph(g, part, k)
+    local_coeffs = {
+        m: sub.slice_edges(np.asarray(c)) for m, c in mode_coeffs.items()
+    }
+    local_tags = tags[sub.local_ids]
+    plan = compile_plans(
+        sub.graph,
+        cfg,
+        modes=modes,
+        precision_tags=local_tags,
+        coeffs=local_coeffs,
+    )
+    fp = shard_plan_key(g, part, k, cfg, modes=modes, precision_tags=tags)
+    return ShardPlan(fingerprint=fp, shard=sub, plan=plan)
+
+
+def compile_sharded_plans(
+    g: Graph,
+    cfg: Optional[EngineConfig] = None,
+    *,
+    num_shards: Optional[int] = None,
+    partition: Optional[Partition] = None,
+    partitioner: str = "edges",
+    modes: Sequence[str] = ("sum",),
+    precision_tags: Optional[np.ndarray] = None,
+    shard_plans: Optional[Mapping[int, ShardPlan]] = None,
+) -> ShardedExecutionPlan:
+    """Partition-aware planning pipeline: Partition in, sharded plan out.
+
+    Give either an explicit ``partition`` (validated against ``g``) or
+    ``num_shards`` — then ``partitioner`` selects the algorithm ("edges" =
+    contiguous edge-balanced cut, "mincut" = halo-minimizing multilevel
+    refinement; see ``graphs.partition.make_partition``). The partitioner
+    identity is folded into ``partition_fp`` so plans never collide across
+    partitioners. Degree-Quant tags and per-mode coefficients are computed
+    once globally, then each shard is compiled over its local subgraph.
+    ``shard_plans`` supplies already-compiled shards by index (the serving
+    layer's per-shard cache hits); only missing shards run the planner.
+    """
+    cfg = cfg if cfg is not None else EngineConfig()
+    if partition is None:
+        if num_shards is None:
+            raise ValueError("pass either partition or num_shards")
+        partition = make_partition(g, num_shards, partitioner)
+    else:
+        validate_partition(g, partition)
+        if num_shards is not None and partition.num_shards != num_shards:
+            raise ValueError(
+                f"partition has {partition.num_shards} shards, asked for {num_shards}"
+            )
+    if precision_tags is None:
+        tags = engine_precision_tags(g, cfg)
+    else:
+        tags = np.asarray(precision_tags)
+        if tags.shape != (g.num_nodes,):
+            raise ValueError(f"precision_tags must be [{g.num_nodes}], got {tags.shape}")
+    shard_plans = shard_plans or {}
+    mode_coeffs = None
+    if any(k not in shard_plans for k in range(partition.num_shards)):
+        # Global per-edge coefficient work runs once, and only when some
+        # shard actually needs the planner (all-warm assembly skips it).
+        mode_coeffs = {m: aggregation_coefficients(g, m) for m in dict.fromkeys(modes)}
+    shards = tuple(
+        shard_plans[k]
+        if k in shard_plans
+        else compile_shard_plan(
+            g,
+            partition,
+            k,
+            cfg,
+            modes=modes,
+            precision_tags=tags,
+            mode_coeffs=mode_coeffs,
+        )
+        for k in range(partition.num_shards)
+    )
+    groups = {tag: np.nonzero(tags == tag)[0] for tag in np.unique(tags)}
+    partition_fp = sched.partition_fingerprint(g, partition)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(partition_fp.encode())
+    for s in shards:
+        h.update(b"\x00")
+        h.update(s.fingerprint.encode())
+    return ShardedExecutionPlan(
+        fingerprint=h.hexdigest(),
+        graph_fp=sched.graph_fingerprint(g),
+        partition_fp=partition_fp,
+        partition=partition,
+        num_nodes=g.num_nodes,
+        num_edges=g.num_edges,
+        cfg=cfg,
+        precision_tags=tags,
+        node_groups=groups,
+        shards=shards,
+    )
+
+
 class AmpleEngine:
     """Thin per-graph execution wrapper around an ``ExecutionPlan``.
 
@@ -381,6 +643,10 @@ class AmpleEngine:
         self.precision_tags = plan.precision_tags
         self.node_groups: Dict[str, np.ndarray] = dict(plan.node_groups)
         self._plans: Dict[str, Mapping[str, sched.EdgeTilePlan]] = dict(plan.mode_plans)
+        self._init_runtime_state()
+
+    def _init_runtime_state(self) -> None:
+        """The per-engine caches, shared with ``ShardedAmpleEngine``."""
         # id(w) -> (w, w_q, qp, packed). The weight itself is held alongside
         # its quantized copy: a cache keyed on id() alone is unsound once the
         # original is garbage collected (CPython recycles ids), so the strong

@@ -21,6 +21,10 @@ byte-identical tile arrays for the same graph (the parity tests check it).
   the feature chunks each tile gathers and a locality order that permutes
   whole runs (``tile_runs``); ``pack_tiles_by_chunk`` rebuilds tile
   membership around chunks (``pack_segments`` packs the units).
+* Sharded execution: ``partition_fingerprint`` and ``shard_plan_fingerprint``
+  key the per-shard plan caches; ``split_plan_by_halo`` splits a shard's
+  plan at run granularity into the tiles that read only owned rows and the
+  tiles that read halo rows (the overlapped halo exchange).
 """
 from __future__ import annotations
 
@@ -47,8 +51,11 @@ __all__ = [
     "graph_fingerprint",
     "pack_segments",
     "pack_tiles_by_chunk",
+    "partition_fingerprint",
     "plan_fingerprint",
+    "shard_plan_fingerprint",
     "size_class",
+    "split_plan_by_halo",
     "tile_runs",
     "union_bucket_fingerprint",
 ]
@@ -84,6 +91,44 @@ def plan_fingerprint(g: Graph, *parts: str) -> str:
     """
     h = hashlib.blake2b(digest_size=16)
     h.update(graph_fingerprint(g).encode())
+    for p in parts:
+        h.update(b"\x00")
+        h.update(str(p).encode())
+    return h.hexdigest()
+
+
+def partition_fingerprint(g: Graph, part) -> str:
+    """Hash of (graph structure, shard assignment, partitioner identity).
+
+    ``part`` is a ``graphs.partition.Partition``. The hash covers the block
+    boundaries, the node permutation (when the assignment is
+    non-contiguous), and the partitioner ``kind`` string — including its
+    parameters — so plan caches can never serve a plan compiled under a
+    different partitioner that happened to emit the same boundaries.
+    """
+    h = hashlib.blake2b(digest_size=16)
+    h.update(graph_fingerprint(g).encode())
+    h.update(b"\x00part:")
+    h.update(np.ascontiguousarray(part.starts, dtype=np.int64).tobytes())
+    h.update(b"\x00kind:")
+    h.update(str(part.kind).encode())
+    if part.order is not None:
+        h.update(b"\x00order:")
+        h.update(np.ascontiguousarray(part.order, dtype=np.int64).tobytes())
+    return h.hexdigest()
+
+
+def shard_plan_fingerprint(g: Graph, part, shard: int, *parts: str) -> str:
+    """Fingerprint of one shard's compiled plan within a partitioned graph.
+
+    Extends ``partition_fingerprint`` with the shard index and the planner
+    configuration strings (EngineConfig repr, modes, arch …). This is the key
+    the serving layer caches per-shard plans under: repeat traffic on the same
+    (structure, partition) pair hits every shard independently.
+    """
+    h = hashlib.blake2b(digest_size=16)
+    h.update(partition_fingerprint(g, part).encode())
+    h.update(f"\x00shard:{int(shard)}".encode())
     for p in parts:
         h.update(b"\x00")
         h.update(str(p).encode())
@@ -641,6 +686,49 @@ def tile_runs(plan: EdgeTilePlan) -> np.ndarray:
         bounds.append(t)
     bounds.append(T)
     return np.asarray(bounds, np.int64)
+
+
+def split_plan_by_halo(
+    plan: EdgeTilePlan, num_owned: int
+) -> Tuple[EdgeTilePlan, EdgeTilePlan]:
+    """Split a shard-local tile plan into (interior, boundary) halves.
+
+    *Interior* tiles gather only owned rows (local id < ``num_owned``);
+    *boundary* tiles touch at least one halo source. The split is at **run**
+    granularity (``tile_runs``): a node split across consecutive tiles stays
+    within one run, so every output row's partial sums live entirely in one
+    half and executing interior-then-boundary (the boundary scan continuing
+    from the interior output buffer) reproduces the unsplit scan **bitwise**
+    — the property the overlapped halo exchange relies on. The interior half
+    can therefore run before the halo rows arrive (they may be zeros), which
+    is what hides the exchange latency.
+
+    Padding lanes (edge id −1 / coeff 0) gather row 0 and never force a run
+    into the boundary half. Either half may be empty (0 tiles).
+    """
+    bounds = tile_runs(plan)
+    real = plan.edge_ids >= 0
+    touches_halo = np.any(real & (plan.gather_idx >= num_owned), axis=1)
+    interior_tiles: list = []
+    boundary_tiles: list = []
+    for r in range(bounds.shape[0] - 1):
+        t0, t1 = int(bounds[r]), int(bounds[r + 1])
+        dest = boundary_tiles if np.any(touches_halo[t0:t1]) else interior_tiles
+        dest.extend(range(t0, t1))
+
+    def subset(tiles) -> EdgeTilePlan:
+        idx = np.asarray(tiles, np.int64)
+        return dataclasses.replace(
+            plan,
+            gather_idx=plan.gather_idx[idx],
+            coeff=plan.coeff[idx],
+            seg_ids=plan.seg_ids[idx],
+            out_node=plan.out_node[idx],
+            edge_ids=plan.edge_ids[idx],
+            total_edges=int(np.sum(real[idx])) if idx.size else 0,
+        )
+
+    return subset(interior_tiles), subset(boundary_tiles)
 
 
 def build_chunk_schedule(

@@ -32,6 +32,7 @@ __all__ = [
     "PAPER_DATASETS",
     "make_dataset",
     "make_lognormal_graph",
+    "make_clustered_graph",
     "dataset_cache_dir",
 ]
 
@@ -150,6 +151,63 @@ def make_lognormal_graph(
         num_nodes=num_nodes,
         name=name,
     )
+
+
+def make_clustered_graph(
+    num_nodes: int,
+    num_clusters: int,
+    *,
+    intra_degree: float = 8.0,
+    inter_degree: float = 1.0,
+    seed: int = 0,
+    shuffle: bool = True,
+    name: str = "clustered",
+) -> Graph:
+    """Planted-community graph: dense inside clusters, sparse across them.
+
+    Each node draws ~``intra_degree`` in-neighbours from its own cluster and
+    ~``inter_degree`` from the rest of the graph. With ``shuffle=True`` node
+    ids are permuted so cluster membership is *uncorrelated with node order*
+    — the adversarial case for contiguous-range partitioning (it cuts nearly
+    every intra-cluster edge) and exactly the structure a min-cut partitioner
+    recovers. The partitioner tests and ``chip_smoke.py``'s ``sharded mincut``
+    phase use this as the halo-volume workload.
+    """
+    if num_clusters < 1 or num_nodes < num_clusters:
+        raise ValueError("need num_nodes >= num_clusters >= 1")
+    rng = np.random.default_rng(seed)
+    cluster = np.arange(num_nodes, dtype=np.int64) % num_clusters
+    members = [np.nonzero(cluster == c)[0] for c in range(num_clusters)]
+    n_intra = rng.poisson(intra_degree, num_nodes).astype(np.int64)
+    n_inter = rng.poisson(inter_degree, num_nodes).astype(np.int64)
+    dst_parts, src_parts = [], []
+    for v in range(num_nodes):
+        mine = members[cluster[v]]
+        ki = int(n_intra[v])
+        if ki and mine.size > 1:
+            src_parts.append(mine[rng.integers(0, mine.size, ki)])
+            dst_parts.append(np.full(ki, v, np.int64))
+        ke = int(n_inter[v])
+        if ke:
+            src_parts.append(rng.integers(0, num_nodes, ke))
+            dst_parts.append(np.full(ke, v, np.int64))
+    src = np.concatenate(dst_parts and src_parts or [np.zeros(0, np.int64)])
+    dst = np.concatenate(dst_parts or [np.zeros(0, np.int64)])
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    if shuffle:
+        perm = rng.permutation(num_nodes)
+        src, dst = perm[src], perm[dst]
+    g = from_edge_list(src, dst, num_nodes, dedup=True, name=name)
+    # guarantee min in-degree 1 so every row aggregates something
+    deg = np.diff(g.indptr)
+    iso = np.nonzero(deg == 0)[0]
+    if iso.size:
+        extra_src = (iso + 1) % num_nodes
+        dsts = np.concatenate([dst, iso])
+        srcs = np.concatenate([src, extra_src])
+        g = from_edge_list(srcs, dsts, num_nodes, dedup=True, name=name)
+    return g
 
 
 def _cached_structure(

@@ -126,9 +126,41 @@ def prepare_graph(cfg: ModelConfig, g: Graph) -> Graph:
     return g
 
 
-def make_engine(cfg: ModelConfig, prepared: Graph) -> AmpleEngine:
-    """Build the (unsharded) execution engine ``cfg`` calls for."""
-    return AmpleEngine(prepared, engine_config(cfg))
+def make_engine(
+    cfg: ModelConfig,
+    prepared: Graph,
+    *,
+    num_shards: Optional[int] = None,
+    partition=None,
+    partitioner: Optional[str] = None,
+    mesh=None,
+    halo_overlap: Optional[bool] = None,
+) -> AmpleEngine:
+    """Build the execution engine ``cfg`` calls for over a *prepared* graph.
+
+    ``gnn_num_shards`` (or the explicit ``num_shards``/``partition``
+    overrides) selects between the single-plan ``AmpleEngine`` and the
+    partition-aware ``ShardedAmpleEngine``; the arch apply functions take
+    either. ``gnn_partitioner`` picks the splitting algorithm ("edges"
+    contiguous / "mincut" halo-minimizing) and ``gnn_halo_overlap`` the
+    overlapped halo exchange; the keyword arguments override the config
+    fields. ``mesh`` raises: shards run as a host loop on one device.
+    """
+    shards = cfg.gnn_num_shards if num_shards is None else num_shards
+    if partition is None and shards <= 1 and mesh is None:
+        return AmpleEngine(prepared, engine_config(cfg))
+    from repro_torch.distributed.graph_shard import make_sharded_engine
+
+    return make_sharded_engine(
+        prepared,
+        engine_config(cfg),
+        num_shards=None if partition is not None else shards,
+        partition=partition,
+        partitioner=(cfg.gnn_partitioner if partitioner is None else partitioner) or "edges",
+        modes=(agg_mode(cfg),),
+        mesh=mesh,
+        halo_overlap=cfg.gnn_halo_overlap if halo_overlap is None else halo_overlap,
+    )
 
 
 # --------------------------------------------------- uniform entry points

@@ -143,7 +143,7 @@ class AsyncGNNEngine:
     ----------
     engine: a configured ``GNNServeEngine`` — or a ``family="gnn"``
         ModelConfig, from which one is built (``engine_kwargs`` forwarded,
-        e.g. ``union_node_bucket``/``device``).
+        e.g. ``union_node_bucket``/``num_shards``/``halo_overlap``/``device``).
     window: max requests admitted into one micro-batch; defaults to
         ``cfg.gnn_batch_window``. The window is the slot count: a completed
         batch frees all its slots for the next tick's admissions.

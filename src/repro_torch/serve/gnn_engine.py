@@ -1,8 +1,8 @@
 """Plan-cached GNN serving engine on one device.
 
-The port of the reference's ``repro/serve/gnn_engine.py`` for the unsharded,
-in-memory path. The expensive part of serving a GNN request is the host-side
-planner (Degree-Quant tagging + edge-tile packing), not the device call, so
+The port of the reference's ``repro/serve/gnn_engine.py``. The expensive
+part of serving a GNN request is the host-side planner (Degree-Quant tagging
++ edge-tile packing), not the device call, so
 ``GNNServeEngine`` treats the compiled ``ExecutionPlan`` as the cacheable
 artifact:
 
@@ -19,6 +19,14 @@ artifact:
     its features on the host (a page-locked ``memory.FeatureStore`` on the
     card) and streams them through the chunk prefetcher — bitwise the
     in-memory outputs, through the same kernels;
+  * with ``num_shards`` > 1 (or a ``partition``) every served graph is
+    partitioned ("edges" or "mincut") and runs through
+    ``ShardedAmpleEngine``: one plan per shard, cached in a per-shard LRU
+    below the assembled entry, halo rows exchanged per layer (overlapped
+    with the interior tiles under ``halo_overlap``);
+  * ``save_plan_cache``/``load_plan_cache`` persist the cached plans
+    (``checkpoint/plan_store.py``), so a restarted server serves its first
+    request on a persisted structure as a cache hit;
   * ``stats`` is a live view over the process metrics registry
     (``observe.metrics``), and with the trace recorder enabled
     (``observe.trace.enable()``) every request records its ``queue``,
@@ -32,7 +40,9 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 import time
+import warnings
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -45,9 +55,15 @@ from repro_torch.core.message_passing import (
     AmpleEngine,
     EngineConfig,
     ExecutionPlan,
+    ShardPlan,
+    ShardedExecutionPlan,
+    aggregation_coefficients,
     assemble_union_plan,
     compile_plans,
+    compile_shard_plan,
+    compile_sharded_plans,
     engine_precision_tags,
+    shard_plan_key,
 )
 from repro_torch.core.scheduler import (
     plan_fingerprint,
@@ -55,7 +71,9 @@ from repro_torch.core.scheduler import (
     union_bucket_fingerprint,
 )
 from repro_torch.device import resolve_device
+from repro_torch.distributed.graph_shard import NO_MESH, ShardedAmpleEngine
 from repro_torch.graphs.csr import Graph, disjoint_union
+from repro_torch.graphs.partition import Partition, make_partition, validate_partition
 from repro_torch.memory.feature_store import FeatureStore, default_chunk_rows
 from repro_torch.memory.prefetcher import StreamedFeatures, StreamStats
 from repro_torch.models.gnn import api as gnn_api
@@ -64,9 +82,9 @@ from repro_torch.observe import trace as otrace
 
 __all__ = ["GNNRequest", "GNNResponse", "GNNServeEngine", "request_stamp"]
 
-# The reference engine's counters. The port has no sharded or persisted-plan
-# path yet (ROADMAP queue 1, items 5-6), so shard_hits, warm_loads and the
-# halo counters stay 0.
+# The reference engine's counters: shard_hits count per-shard plan-cache hits,
+# warm_loads the plans load_plan_cache read, and the halo counters the halo
+# exchanges of sharded requests (distributed.graph_shard.HaloLedger).
 _STAT_KEYS = (
     "requests",
     "batches",
@@ -126,6 +144,7 @@ class GNNResponse:
     run_ms: float  # device execution wall time of the WHOLE batch this
     # request rode in, fenced by a device synchronize (every member of one
     # union call reports the same number; see run_ms_per_member)
+    num_shards: int = 1  # shards the plan executed over (1 = unsharded path)
     batch_size: int = 1  # members in the union device call that produced this
     queue_ms: float = 0.0  # admission -> execution-start wait (0.0 unqueued)
     # Out-of-core telemetry (all zero on the in-memory path). Like run_ms,
@@ -139,6 +158,12 @@ class GNNResponse:
     copy_ms: float = 0.0  # time of the staged copies themselves
     trace_id: str = ""  # correlation id of this request's trace spans ("" =
     # tracing disabled or no id assigned upstream)
+    # Halo-exchange telemetry of sharded requests (zero elsewhere); like
+    # run_ms it describes the whole device call. On the card the times are
+    # CUDA events of the halo gathers and of the main stream's waits.
+    halo_ms: float = 0.0  # time of the halo row gathers
+    halo_bytes: int = 0  # bytes the halo gathers moved this call
+    halo_overlap: float = 0.0  # share of halo_ms not waited for (1 - wait/halo)
 
     @property
     def run_ms_per_member(self) -> float:
@@ -161,6 +186,19 @@ class GNNServeEngine:
         drawn from ``generator`` when omitted. Moved to ``device``.
     engine_cfg: EngineConfig override; derived from ``cfg`` by default.
     plan_cache_size: max distinct graph structures kept warm (LRU).
+    num_shards: >1 partitions every served graph into this many shards and
+        executes through ``ShardedAmpleEngine`` (halo exchange + one plan per
+        shard); 1 is the single-plan path. Default ``cfg.gnn_num_shards``.
+    partition: explicit ``Partition`` (validated per graph); implies the
+        sharded path and fixes ``num_shards`` to its shard count.
+    partitioner: "edges" (contiguous edge-balanced ranges) or "mincut"
+        (halo-minimizing multilevel; params inline, e.g. "mincut(seed=1)")
+        when no ``partition`` is given. Default ``cfg.gnn_partitioner``. Part
+        of the plan-cache key.
+    mesh: not supported (shards run as a host loop on one device); raises.
+    halo_overlap: overlap each shard's halo exchange with its interior
+        tiles (outputs bitwise the unsplit schedule's). Default
+        ``cfg.gnn_halo_overlap``.
     union_node_bucket / union_edge_bucket: >0 switches batched serving to
         **padded union size classes**: member graphs are planned (and cached)
         individually, the union plan is assembled by index relabelling, and
@@ -173,6 +211,7 @@ class GNNServeEngine:
         budget-bound device chunk cache (reuse-distance eviction, staged
         prefetch) — outputs bitwise the in-memory path's. Requests that fit
         take the in-memory path. Default ``cfg.gnn_feature_budget_bytes``.
+        Ignored, with a warning, on sharded engines, which serve in memory.
     feature_chunk_rows: rows per feature chunk (0 derives a size from the
         budget). Default ``cfg.gnn_feature_chunk_rows``.
     stream_packing: serve streamed requests through chunk-packed tile plans
@@ -195,6 +234,11 @@ class GNNServeEngine:
         *,
         engine_cfg: Optional[EngineConfig] = None,
         plan_cache_size: int = 32,
+        num_shards: Optional[int] = None,
+        partition: Optional[Partition] = None,
+        partitioner: Optional[str] = None,
+        mesh=None,
+        halo_overlap: Optional[bool] = None,
         union_node_bucket: Optional[int] = None,
         union_edge_bucket: Optional[int] = None,
         feature_budget_bytes: Optional[int] = None,
@@ -207,6 +251,11 @@ class GNNServeEngine:
     ):
         if cfg.family != "gnn":
             raise ValueError(f"GNNServeEngine needs a family='gnn' config, got {cfg.family!r}")
+        num_shards = cfg.gnn_num_shards if num_shards is None else num_shards
+        if num_shards < 1:
+            raise ValueError("num_shards must be >= 1")
+        if mesh is not None:
+            raise ValueError(NO_MESH)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.engine_cfg = engine_cfg if engine_cfg is not None else gnn_api.engine_config(cfg)
@@ -214,6 +263,10 @@ class GNNServeEngine:
             params = gnn_api.gnn_init(cfg, generator, device=self.device)
         self.params = _to_device(params, self.device)
         self.plan_cache_size = plan_cache_size
+        self.partition = partition
+        self.num_shards = partition.num_shards if partition is not None else num_shards
+        self.partitioner = (cfg.gnn_partitioner if partitioner is None else partitioner) or "edges"
+        self.halo_overlap = cfg.gnn_halo_overlap if halo_overlap is None else halo_overlap
         self.union_node_bucket = (
             cfg.gnn_union_node_bucket if union_node_bucket is None else union_node_bucket
         )
@@ -230,10 +283,24 @@ class GNNServeEngine:
         self.stream_packing = cfg.gnn_stream_packing if stream_packing is None else stream_packing
         self.stream_reorder = cfg.gnn_stream_reorder if stream_reorder is None else stream_reorder
         self.stream_prefetch_depth = max(int(stream_prefetch_depth), 0)
+        if self.feature_budget_bytes > 0 and self.sharded:
+            warnings.warn(
+                "feature_budget_bytes is ignored on sharded engines: the "
+                "streamed executors serve the single-device engine only; "
+                "requests will run fully in-memory",
+                stacklevel=2,
+            )
         # fingerprint -> (prepared graph, plan, engine); OrderedDict as LRU.
         # The engine rides along so its device plans and weight-quant cache
         # survive across requests (params are fixed for this engine's life).
-        self._cache: "OrderedDict[str, Tuple[Graph, ExecutionPlan, AmpleEngine]]" = OrderedDict()
+        # Sharded requests store (prepared, ShardedExecutionPlan,
+        # ShardedAmpleEngine) under the same LRU.
+        self._cache: "OrderedDict[str, Tuple[Graph, object, AmpleEngine]]" = OrderedDict()
+        # Per-shard plan LRU, keyed on shard_plan_key (structure, partition,
+        # shard index, planner config): a shard compiled for one request is
+        # reusable by any later request on the same partitioned structure.
+        self._shard_plans: "OrderedDict[str, ShardPlan]" = OrderedDict()
+        self._shard_plan_ms: Dict[str, float] = {}  # shard fingerprint -> its compile ms
         # Member-plan pieces for the padded-union path, keyed on the member's
         # structure fingerprint: value = (prepared member graph, its solo
         # ExecutionPlan). A member planned for one batch mix is reusable by
@@ -246,6 +313,7 @@ class GNNServeEngine:
         # alone is unsound once the original is collected.
         self._stores: "OrderedDict[tuple, Tuple[object, FeatureStore]]" = OrderedDict()
         self._last_stream: Optional[StreamStats] = None  # of the most recent _run
+        self._last_halo: Optional[Dict[str, float]] = None  # of the most recent _run
         # Registry-backed counters: engine.stats[...] and the registry's
         # dump read the same cells (ints stay ints, *_ms stay floats).
         self.instance = ometrics.next_instance("gnn_serve")
@@ -255,9 +323,14 @@ class GNNServeEngine:
         )
 
     @property
+    def sharded(self) -> bool:
+        return self.num_shards > 1 or self.partition is not None
+
+    @property
     def padded_unions(self) -> bool:
-        """True when batched requests plan through padded union size classes."""
-        return self.union_node_bucket > 0 or self.union_edge_bucket > 0
+        """True when batched requests plan through padded union size classes
+        (never on the sharded path, whose unions are planned exactly)."""
+        return (self.union_node_bucket > 0 or self.union_edge_bucket > 0) and not self.sharded
 
     # ------------------------------------------------------------ plan cache
     def _cache_key(self, g: Graph, arch: str, members: Optional[Sequence[Graph]]) -> str:
@@ -271,6 +344,17 @@ class GNNServeEngine:
         parts = [repr(self.engine_cfg), arch]
         if members is not None:
             parts.append("bounds:" + ",".join(str(m.num_nodes) for m in members))
+        if self.sharded:
+            if self.partition is not None:
+                parts.append("starts:" + ",".join(str(int(s)) for s in self.partition.starts))
+                parts.append(f"kind:{self.partition.kind}")
+            else:
+                parts.append(f"shards:{self.num_shards}")
+                parts.append(f"partitioner:{self.partitioner}")
+            if self.halo_overlap:
+                # plan contents are identical, but the cached engine holds
+                # split-plan device state: keep the entries distinct
+                parts.append("halo_overlap")
         return plan_fingerprint(g, *parts)
 
     def _plan_for(
@@ -403,6 +487,73 @@ class GNNServeEngine:
         self._evict()
         return union, plan, engine, False, plan_ms
 
+    def _plan_for_sharded(
+        self, g: Graph, arch: str, members: Optional[Sequence[Graph]] = None
+    ) -> Tuple[Graph, ShardedExecutionPlan, ShardedAmpleEngine, bool, float]:
+        """Sharded analogue of ``_plan_for``: per-shard plan-cache economics.
+
+        The assembled (prepared graph, ShardedExecutionPlan, engine) triple is
+        cached under the request key; below it every ShardPlan lives in a
+        per-shard LRU, so only shards never seen before run the planner.
+        ``cache_hit`` is True iff no shard needed compiling; ``plan_ms``
+        counts planner time only (0.0 on a full hit).
+        """
+        key = self._cache_key(g, arch, members)
+        if key in self._cache:
+            self._cache.move_to_end(key)
+            self.stats["cache_hits"] += 1
+            prepared, splan, engine = self._cache[key]
+            return prepared, splan, engine, True, 0.0
+
+        cfg = dataclasses.replace(self.cfg, gnn_arch=arch)
+        prepared = gnn_api.prepare_graph(cfg, g)
+        if self.partition is not None:
+            validate_partition(prepared, self.partition)
+            part = self.partition
+        else:
+            part = make_partition(prepared, self.num_shards, self.partitioner)
+        modes = (gnn_api.agg_mode(cfg),)
+        if members is not None and self.engine_cfg.mixed_precision:
+            tags = self._member_tags(cfg, members)
+        else:
+            tags = engine_precision_tags(prepared, self.engine_cfg)
+
+        plan_ms = 0.0
+        warm: Dict[int, ShardPlan] = {}
+        missing: List[int] = []
+        for k in range(part.num_shards):
+            skey = shard_plan_key(prepared, part, k, self.engine_cfg, modes=modes,
+                                  precision_tags=tags)
+            if skey in self._shard_plans:
+                self._shard_plans.move_to_end(skey)
+                warm[k] = self._shard_plans[skey]
+                self.stats["shard_hits"] += 1
+            else:
+                missing.append(k)
+        if missing:
+            self.stats["planner_calls"] += len(missing)
+            t0 = request_stamp()
+            # Global O(E) coefficient work once per request, not per shard.
+            mode_coeffs = {m: aggregation_coefficients(prepared, m) for m in modes}
+            for k in missing:
+                t_k = request_stamp()
+                sp = compile_shard_plan(prepared, part, k, self.engine_cfg, modes=modes,
+                                        precision_tags=tags, mode_coeffs=mode_coeffs)
+                self._shard_plan_ms[sp.fingerprint] = (request_stamp() - t_k) * 1e3
+                warm[k] = sp
+                self._shard_plans[sp.fingerprint] = sp
+            plan_ms = (request_stamp() - t0) * 1e3
+            while len(self._shard_plans) > self.plan_cache_size * max(self.num_shards, 1):
+                self._shard_plan_ms.pop(self._shard_plans.popitem(last=False)[0], None)
+        splan = compile_sharded_plans(prepared, self.engine_cfg, partition=part, modes=modes,
+                                      precision_tags=tags, shard_plans=warm)
+        engine = ShardedAmpleEngine(prepared, splan, halo_overlap=self.halo_overlap)
+        hit = not missing
+        self.stats["cache_hits" if hit else "cache_misses"] += 1
+        self._cache[key] = (prepared, splan, engine)
+        self._evict()
+        return prepared, splan, engine, hit, plan_ms
+
     # -------------------------------------------------------------- serving
     def _arch(self, requested: str) -> str:
         if requested and requested != self.cfg.gnn_arch:
@@ -442,11 +593,15 @@ class GNNServeEngine:
         self, members: Sequence[Graph], arch: str
     ) -> Tuple[Graph, ExecutionPlan, AmpleEngine, bool, float]:
         """Plan-assembly step for a disjoint-union batch: padded engines
-        assemble cached member pieces into a size-class plan; the default
-        engine compiles the exact union (with per-member Degree-Quant tags)."""
+        assemble cached member pieces into a size-class plan; sharded
+        engines plan the exact union per shard; the default engine compiles
+        the exact union (with per-member Degree-Quant tags)."""
         if self.padded_unions:
             return self._plan_for_padded(members, arch)
-        return self._plan_for(disjoint_union(list(members)), arch, members)
+        union = disjoint_union(list(members))
+        if self.sharded:
+            return self._plan_for_sharded(union, arch, members)
+        return self._plan_for(union, arch, members)
 
     @staticmethod
     def _pad_features(features: np.ndarray, num_nodes: int) -> np.ndarray:
@@ -540,6 +695,11 @@ class GNNServeEngine:
         """
         cfg = dataclasses.replace(self.cfg, gnn_arch=arch)
         self._last_stream = None
+        self._last_halo = None
+        halo_before = None
+        if isinstance(engine, ShardedAmpleEngine):
+            engine.trace_id = trace_id  # halo spans join this request's trace
+            halo_before = engine.halo_stats
         t0 = request_stamp()
         if self._stream_eligible(engine, features):
             x = self._feature_stream(features, cache_store=cache_store, store_key=store_key)
@@ -568,6 +728,17 @@ class GNNServeEngine:
             self.stats["stream_fallbacks"] += s.fallbacks
             self.stats["stall_ms"] += s.stall_ms
             self.stats["copy_ms"] += s.copy_ms
+        if halo_before is not None:
+            # This call's halo traffic: the delta of the engine's totals (the
+            # engine is shared across cached requests).
+            after = engine.halo_stats
+            delta = {k: after[k] - halo_before[k] for k in after}
+            if delta["halo_exchanges"] > 0:
+                self._last_halo = delta
+                self.stats["halo_exchanges"] += int(delta["halo_exchanges"])
+                self.stats["halo_bytes"] += int(delta["halo_bytes"])
+                self.stats["halo_ms"] += delta["halo_ms"]
+                self.stats["halo_wait_ms"] += delta["halo_wait_ms"]
         return y.cpu().numpy(), (t1 - t0) * 1e3
 
     def _stream_fields(self) -> Dict[str, object]:
@@ -582,6 +753,19 @@ class GNNServeEngine:
             "prefetch_overlap": s.prefetch_overlap,
             "stall_ms": s.stall_ms,
             "copy_ms": s.copy_ms,
+        }
+
+    def _halo_fields(self) -> Dict[str, object]:
+        """Response fields describing the most recent ``_run``'s halo traffic:
+        ``halo_overlap`` is the share of halo time not waited for
+        (``1 - halo_wait_ms / halo_ms``, in [0, 1])."""
+        h = self._last_halo
+        if h is None:
+            return {}
+        return {
+            "halo_ms": h["halo_ms"],
+            "halo_bytes": int(h["halo_bytes"]),
+            "halo_overlap": _overlap(h["halo_wait_ms"], h["halo_ms"]),
         }
 
     @staticmethod
@@ -623,6 +807,8 @@ class GNNServeEngine:
         if self.padded_unions:
             prepared, plan, engine, hit, plan_ms = self._plan_for_padded([graph], arch)
             features = self._pad_features(features, prepared.num_nodes)
+        elif self.sharded:
+            prepared, plan, engine, hit, plan_ms = self._plan_for_sharded(graph, arch)
         else:
             prepared, plan, engine, hit, plan_ms = self._plan_for(graph, arch)
         if rec.enabled:
@@ -642,9 +828,11 @@ class GNNServeEngine:
             fingerprint=plan.fingerprint,
             plan_ms=plan_ms,
             run_ms=run_ms,
+            num_shards=getattr(plan, "num_shards", 1),
             queue_ms=queue_ms,
             trace_id=trace_id,
             **self._stream_fields(),
+            **self._halo_fields(),
         )
 
     def infer_batch(self, requests: Sequence[GNNRequest]) -> List[GNNResponse]:
@@ -695,7 +883,7 @@ class GNNServeEngine:
         self.stats["batches"] += 1
         out: List[GNNResponse] = []
         start = 0
-        stream_fields = self._stream_fields()
+        stream_fields = {**self._stream_fields(), **self._halo_fields()}
         scatter_t0 = request_stamp()
         for r, q_ms in zip(requests, queue_waits):
             stop = start + r.graph.num_nodes
@@ -706,6 +894,7 @@ class GNNServeEngine:
                     fingerprint=plan.fingerprint,
                     plan_ms=plan_ms,
                     run_ms=run_ms,
+                    num_shards=getattr(plan, "num_shards", 1),
                     batch_size=len(requests),
                     queue_ms=q_ms,
                     trace_id=r.trace_id or batch_tid,
@@ -720,24 +909,99 @@ class GNNServeEngine:
             )
         return out
 
+    # --------------------------------------------------------- persistence
+    def save_plan_cache(self, directory: str) -> List[str]:
+        """Persist every cached plan (npz via ``checkpoint.plan_store``).
+
+        One file per cache entry, named by the serve-cache key; the prepared
+        graph structure rides along so ``load_plan_cache`` can rebuild the
+        execution engine without re-running arch preprocessing. The member
+        plans of the padded-union path are saved too (``member_key``): an
+        assembled plan is a warm hit only when its members are.
+        """
+        from repro_torch.checkpoint.plan_store import save_plan
+
+        os.makedirs(directory, exist_ok=True)
+        paths = []
+        entries = [(key, "serve_key", prepared, plan)
+                   for key, (prepared, plan, _) in self._cache.items()]
+        entries += [(key, "member_key", prepared, plan)
+                    for key, (prepared, plan) in self._member_plans.items()]
+        for key, kind, prepared, plan in entries:
+            path = os.path.join(directory, f"{key}.plan.npz")
+            save_plan(path, plan, graph=prepared, extra={kind: key})
+            paths.append(path)
+        return paths
+
+    def load_plan_cache(self, directory: str) -> int:
+        """Warm the plan cache from ``save_plan_cache`` output; returns count.
+
+        A restarted server calls this instead of paying the planner again:
+        the first request on a persisted structure reports ``cache_hit=True``
+        with ``plan_ms == 0.0``, exactly like in-memory repeat traffic.
+        Entries whose file lacks a serve (or member) key or graph are
+        skipped; the count is of serve entries.
+        """
+        from repro_torch.checkpoint.plan_store import load_plan
+
+        if not os.path.isdir(directory):
+            return 0
+        loaded = 0
+        for name in sorted(os.listdir(directory)):
+            if not name.endswith(".plan.npz"):
+                continue
+            rec = load_plan(os.path.join(directory, name))
+            key = rec.extra.get("serve_key")
+            if rec.graph is None:
+                continue
+            if "member_key" in rec.extra:
+                self._member_plans[rec.extra["member_key"]] = (rec.graph, rec.plan)
+                continue
+            if key is None:
+                continue
+            if isinstance(rec.plan, ShardedExecutionPlan):
+                engine: AmpleEngine = ShardedAmpleEngine(
+                    rec.graph, rec.plan, halo_overlap=self.halo_overlap)
+                for sp in rec.plan.shards:
+                    self._shard_plans[sp.fingerprint] = sp
+            else:
+                engine = AmpleEngine(rec.graph, plan=rec.plan)
+            self._cache[key] = (rec.graph, rec.plan, engine)
+            loaded += 1
+        self._evict()
+        self.stats["warm_loads"] += loaded
+        return loaded
+
     # ------------------------------------------------------------- metrics
     def cache_info(self) -> Dict[str, float]:
         """Plan-cache size and capacity, the ``stats`` counters and derived
-        streaming rates: ``chunk_hit_rate`` and ``prefetch_overlap``
-        (``1 - stall_ms / copy_ms``) over every streamed request this engine
-        served (0.0 when nothing streamed)."""
+        rates over every request this engine served (0.0 when none):
+        ``chunk_hit_rate``, ``prefetch_overlap`` (``1 - stall_ms /
+        copy_ms``) and ``halo_overlap`` (``1 - halo_wait_ms / halo_ms``)."""
         accesses = self.stats["chunk_hits"] + self.stats["chunk_misses"]
-        copy_ms = self.stats["copy_ms"]
-        overlap = (
-            min(max(1.0 - self.stats["stall_ms"] / copy_ms, 0.0), 1.0) if copy_ms > 0.0 else 0.0
-        )
         return {
             "size": len(self._cache),
             "capacity": self.plan_cache_size,
             **self.stats,
             "chunk_hit_rate": self.stats["chunk_hits"] / accesses if accesses else 0.0,
-            "prefetch_overlap": overlap,
+            "prefetch_overlap": _overlap(self.stats["stall_ms"], self.stats["copy_ms"]),
+            "halo_overlap": _overlap(self.stats["halo_wait_ms"], self.stats["halo_ms"]),
         }
+
+    def shard_report(self) -> Optional[Dict[str, object]]:
+        """Shard economics (edge balance, halo volume, each shard's compile
+        ms where this engine compiled it, else None) of the most recently
+        planned sharded request; None when nothing sharded is cached."""
+        for _, splan, engine in reversed(list(self._cache.values())):
+            if isinstance(engine, ShardedAmpleEngine):
+                return dict(engine.shard_report(), plan_ms_per_shard=[
+                    self._shard_plan_ms.get(s.fingerprint) for s in splan.shards])
+        return None
+
+
+def _overlap(waited_ms: float, total_ms: float) -> float:
+    """Share of ``total_ms`` not waited for, in [0, 1] (0.0 when nothing ran)."""
+    return min(max(1.0 - waited_ms / total_ms, 0.0), 1.0) if total_ms > 0.0 else 0.0
 
 
 def _to_device(params, device: torch.device):

@@ -883,3 +883,106 @@ def test_lm_generate_on_card_matches_cpu(cuda, arch, kernel):
     want = model_prefill(cpu.params, cfg, toks, 80)[0]
     got = model_prefill(gpu.params, cfg, {"tokens": toks["tokens"].to(cuda)}, 80)[0]
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=5e-4, rtol=1e-3)
+
+
+# ------------------------------------------------------------------ sharded
+def _split_launches(splan, mode):
+    """AGE launches of one sharded pass split at the halo: one per non-empty
+    half of each shard's precision groups (whole groups where a shard has no
+    halo rows), and the number of groups."""
+    from repro_torch.core.scheduler import split_plan_by_halo
+
+    n = groups = 0
+    for sp in splan.shards:
+        for plan in sp.plan.mode_plans[mode].values():
+            groups += 1
+            n += (sum(h.num_tiles > 0 for h in split_plan_by_halo(plan, sp.num_owned))
+                  if sp.halo_size else 1)
+    return n, groups
+
+
+# (partitioner, inter-community degree, lanes a tile): with few cut edges and
+# small tiles every group of the min-cut shards has interior tiles, so each
+# split group runs as two launches; on the edge-balanced cut of a
+# well-mixed graph every tile reads a halo row and the interior half is empty.
+SPLITS = [("mincut", 0.02, 16), ("edges", 0.5, 64)]
+
+
+@pytest.mark.parametrize("kind,inter,ept", SPLITS)
+@pytest.mark.parametrize("mode", ["gcn", "runtime"])
+def test_sharded_split_halves_are_bitwise_the_unsplit_on_card(cuda, kind, inter, ept, mode):
+    """Both halves of a split group through the AGE (static coeff) or the
+    multi-head AGE (per-edge [E, H] coeff), into one output: bitwise the
+    unsplit schedule, the halo gather on the side stream."""
+    from repro_torch.core.message_passing import compile_sharded_plans
+    from repro_torch.distributed.graph_shard import ShardedAmpleEngine
+    from repro_torch.graphs.datasets import make_clustered_graph
+    from repro_torch.graphs.partition import make_partition
+
+    g = make_clustered_graph(20000, 8, seed=1, shuffle=True, inter_degree=inter)
+    splan = compile_sharded_plans(g, EngineConfig(edges_per_tile=ept),
+                                  partition=make_partition(g, 4, kind), modes=(mode,))
+    launches, groups = _split_launches(splan, mode)
+    if kind == "mincut":
+        assert launches == 2 * groups  # every group split in two
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((g.num_nodes, 300)).astype(np.float32)).to(cuda)
+    coeff = None
+    if mode == "runtime":
+        x = x[:, :256].reshape(-1, 4, 64).contiguous()
+        coeff = torch.rand((g.num_edges, 4), device=cuda)
+    plain, split = ShardedAmpleEngine(g, splan), ShardedAmpleEngine(g, splan, halo_overlap=True)
+    a = plain.aggregate(x, mode=mode, edge_coeff=coeff)
+    build.reset_launch_counts()
+    b = split.aggregate(x, mode=mode, edge_coeff=coeff)
+    torch.cuda.synchronize()
+    kernel = seg_ops.KERNEL if mode == "gcn" else attn_ops.SEGMENT_AGG_MH
+    assert build.launch_counts() == {kernel: launches}
+    assert torch.equal(a, b)
+    stats = split.halo_stats
+    assert stats["split_exchanges"] == stats["halo_exchanges"] == 4
+    assert stats["halo_ms"] > 0.0 and stats["halo_wait_ms"] >= 0.0
+
+
+@pytest.mark.parametrize("arch", ["gcn", "gin", "sage", "gat"])
+def test_sharded_request_on_card_matches_cpu(cuda, arch):
+    """A 4-shard request at FULL widths on the card within the mixed
+    tolerance of the same request on the CPU; warm == cold."""
+    cfg = dataclasses.replace(get_config(f"ample-{arch}"), gnn_union_node_bucket=0,
+                              gnn_union_edge_bucket=0)
+    g = make_dataset("cora", max_nodes=400, max_feature_dim=300, seed=2)
+    gpu = GNNServeEngine(cfg, device=cuda, num_shards=4)
+    cpu = GNNServeEngine(cfg, params=gpu.params, device="cpu", num_shards=4)
+    cold, warm = gpu.infer(g, g.features), gpu.infer(g, g.features)
+    assert cold.num_shards == 4 and warm.cache_hit and warm.plan_ms == 0.0
+    assert np.array_equal(cold.outputs, warm.outputs)
+    ref = cpu.infer(g, g.features).outputs
+    np.testing.assert_allclose(cold.outputs, ref, atol=6e-2, rtol=2e-3)
+    assert (np.abs(cold.outputs - ref) > 2e-3).mean() < 0.05
+
+
+def test_halo_overlap_on_card_launches_the_split(cuda):
+    """halo_overlap=True serves split on the card, with no unsplit fallback:
+    every exchange split, two AGE launches per split group, bitwise the
+    unsplit request, the overlap in [0, 1]."""
+    from repro_torch.graphs.datasets import make_clustered_graph
+
+    cfg = dataclasses.replace(get_config("ample-gcn"), gnn_union_node_bucket=0,
+                              gnn_union_edge_bucket=0, gnn_edges_per_tile=16)
+    g = make_clustered_graph(20000, 8, seed=1, shuffle=True, inter_degree=0.02)
+    feats = np.random.default_rng(0).standard_normal((20000, 300)).astype(np.float32)
+    plain = GNNServeEngine(cfg, device=cuda, num_shards=4, partitioner="mincut")
+    split = GNNServeEngine(cfg, params=plain.params, device=cuda, num_shards=4,
+                           partitioner="mincut", halo_overlap=True)
+    want = plain.infer(g, feats)
+    split.infer(g, feats)
+    build.reset_launch_counts()
+    got = split.infer(g, feats)
+    splan, eng = next((p, e) for _, p, e in split._cache.values())
+    launches, groups = _split_launches(splan, "gcn")
+    assert launches == 2 * groups
+    assert build.launch_counts() == {seg_ops.KERNEL: 2 * launches, qm_ops.KERNEL: 2}
+    assert np.array_equal(got.outputs, want.outputs)
+    stats = eng.halo_stats
+    assert stats["split_exchanges"] == stats["halo_exchanges"] == 16  # 4 shards, 2 layers, 2 requests
+    assert got.halo_ms > 0.0 and 0.0 <= got.halo_overlap <= 1.0 and got.halo_bytes > 0

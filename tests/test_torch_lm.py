@@ -40,7 +40,7 @@ LEFT_OUT = {
     "num_experts", "experts_per_token", "moe_layer_period", "moe_shared_expert",
     "capacity_factor", "mrope_sections", "attention_impl", "attn_layer_period",
     "attn_layer_offset", "encoder_layers", "embeds_input", "remat", "scan_layers",
-    "gnn_use_kernel", "gnn_num_shards", "gnn_partitioner", "gnn_halo_overlap",
+    "gnn_use_kernel",
 }
 
 
