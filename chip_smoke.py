@@ -89,19 +89,46 @@ Every phase that fails raises, so the script exits non-zero.
              (argmax agreement >= 0.9, max relative difference < 0.05, all
              finite), and a profiled ``generate``;
 13. ssm path — the same for FULL ``mamba2-370m`` (48 SSD launches each);
-14. lm kernels — flash attention (Qwen3-8B and SmolLM-360M prefill in bf16
-             on the tensor-core kernel, within 1.6e-2 and >= 99% of the bf16
-             entries bitwise equal to the plain version's; a ragged S = 1000
-             in f32 on the CUDA-core kernel within 1e-4) and the SSD
-             intra-chunk term (Mamba2-370M prefill and a ragged chunk, within
-             1e-4 of the plain version run with TF32 off) against their plain
-             versions, run-to-run bitwise, timed beside the plain version, the
-             bound and, for flash, one ``scaled_dot_product_attention`` call
-             (variant and ratios to SDPA and to the bound printed; the SSD's
-             bound counts its three TF32 products at the TF32 peak, and the
-             f32 CUDA-core bound of PR 13-15 is printed beside it);
-15. lm cpu — REDUCED ``qwen3-8b`` and ``mamba2-370m`` served on the CPU
-             against the card: the same tokens, prefill logits within 5e-4;
+    moe path — the same for FULL ``granite-moe-3b-a800m`` (32 layers, 40
+             experts top-8, GQA 24/8, hd 64: 32 flash launches each, all on
+             the tensor-core kernel), with each MoE layer's capacity,
+             dropped fraction and expert loads of one prefill and one decode
+             step; the teacher-forced check runs on an engine at capacity
+             factor E / k (no slot drops: decode's B tokens and the forward's
+             B x S would drop different slots at the config's factor), on
+             the tokens that engine generates: the free forward within
+             0.05 relative difference at every position before its
+             sequence's first flipped route, each flip at a router margin
+             under 0.02 (bf16 rounding flips the near-ties of random
+             routers), then the forward routed as the serving path routed
+             each token within the bounds above; decode is printed beside
+             its weight-read floor (every weight but an untied embedding
+             table once a step, at 3.35 TB/s: the capacity dispatch runs
+             every expert);
+    moe interleaved path — ``llama4-maverick-400b-a17b`` at its published
+             widths, cut to one ``(attn, dense), (attn, moe)`` unit (2 of 48
+             layers: 800 GB of bf16 weights do not fit the card): 2 flash
+             launches each; the teacher-forced check at B 1 x 512 (no-drop
+             expert buffers of B 4 x 2048 do not fit beside the weights);
+    hybrid path — ``jamba-v0.1-52b`` at its published widths, cut to one
+             unit of 8 roles (8 of 32 layers): 1 flash and 7 SSD launches
+             each (N 16, 128 heads);
+14. lm kernels — flash attention (Qwen3-8B, SmolLM-360M, Granite-MoE and
+             Llama-4 Maverick prefill in bf16 on the tensor-core kernel, within 1.6e-2 and >=
+             99% of the bf16 entries bitwise equal to the plain version's; a
+             ragged S = 1000 in f32 on the CUDA-core kernel within 1e-4) and
+             the SSD intra-chunk term (Mamba2-370M and Jamba prefill and a
+             ragged chunk, within 1e-4 of the plain version run with TF32
+             off) against their plain versions, run-to-run bitwise, timed
+             beside the plain version, the bound and, for flash, one
+             ``scaled_dot_product_attention`` call (variant and ratios to
+             SDPA and to the bound printed; the SSD's bound counts its three
+             TF32 products at the TF32 peak, and the f32 CUDA-core bound is
+             printed beside it);
+15. lm cpu — REDUCED ``qwen3-8b``, ``mamba2-370m``, ``granite-moe-3b-a800m``,
+             ``llama4-maverick-400b-a17b`` and ``jamba-v0.1-52b`` served on
+             the CPU against the card: each kernel launched once per layer of
+             its mixer, the same tokens, prefill logits within 5e-4;
 16. h2d — the copy rate of one f32 and one int8 Yelp chunk from page-locked
              and from pageable host memory (CUDA events, 200 copies);
     outofcore gcn — the GCN path's engine (plans warm) serves the Yelp
@@ -151,7 +178,8 @@ Every phase that fails raises, so the script exits non-zero.
              the mixed tolerance of unsharded, peak under 20 GiB;
 18. summary — a JSON line of kernels (the AGE and the int8 matmul with their
              launches per GNN path, per streamed request and per sharded
-             request; the multi-head AGE per sharded GAT request), the
+             request; the multi-head AGE per sharded GAT request; flash
+             attention and the SSD per LM path), the
              card's name and power limit, and the result line.
 
 The int8 matmul is also held bitwise at GIN's and SAGE's K x N (300 x 300,
@@ -196,6 +224,13 @@ FLASH_BF16_ATOL = 1.6e-2  # both keep p in f32; the bf16 output: two ulps at mag
 FLASH_BF16_EQUAL = 0.99
 SSD_ATOL = SSD_RTOL = 1e-4  # tests/test_kernels_ssd.py:27
 TF_AGREE, TF_REL = 0.9, 0.05  # bf16-level bounds, tests/test_int8_kv.py:37-41
+# The widest router-probability margin (k-th - (k+1)-th expert) at which the
+# no-drop forward may route a token otherwise than the serving path: a near-tie
+# that the bf16 rounding differing between decode and the forward can flip,
+# also in the layers above an earlier flip of the same token. About twice the
+# widest flip on an H100 (0.011, Jamba) and under the median margin of
+# Jamba's 16-expert router (0.027).
+ROUTE_TIE = 0.02
 LM_CPU_ATOL, LM_CPU_RTOL = 5e-4, 1e-3  # f32 paths, tests/test_gnn_models.py:46
 
 
@@ -1359,12 +1394,94 @@ def phase_sharded_gat(cfg, params, g, want):
                 max_abs_err_vs_unsharded=err, launches_request=rows[-1][1])
 
 
-def phase_lm_path(arch, kernels, tag):
-    """Serve the FULL ``arch`` with ``ServeEngine.generate`` (B 4 x 2048-token
-    prompts, 32 new tokens, random weights from a CUDA generator of seed 0):
-    twice (each counter of ``kernels`` once per layer and call, the repeat
-    bitwise), once with one new token (the prefill alone), then the
-    teacher-forced check and a profiled ``generate``."""
+def _lm_launches(cfg):
+    """The kernel launches of one prefill of ``cfg``, from its layer roles:
+    flash attention once per attention layer (also counted as a tensor-core
+    launch where the variant is the tensor-core one), the SSD intra-chunk
+    kernel once per Mamba layer."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models.lm.transformer import mixer_counts
+
+    n = mixer_counts(cfg)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    tc = fa_ops.flash_variant(dt, cfg.resolved_head_dim) == "tensor_cores"
+    want = {fa_ops.KERNEL: n["attn"], fa_ops.TC_KERNEL: n["attn"] if tc else 0,
+            ssd_ops.KERNEL: n["mamba"]}
+    return {name: c for name, c in want.items() if c}
+
+
+@contextlib.contextmanager
+def _moe_calls(pinned=None):
+    """Record the stats of every MoE layer call the transformer makes while
+    the block runs (``return_stats=True``: loads, drops, capacity, the routes
+    ``gate_idx`` [T, k] and the router's ``probs`` [T, E]; the output is
+    unchanged). With ``pinned`` (one [T, k] id tensor per call, in call
+    order), each call routes its tokens to those experts instead, with its own
+    probabilities there as the gates."""
+    import torch
+
+    from repro_torch.models.lm import transformer
+
+    orig, topk = transformer.moe_apply, torch.topk
+    calls = []
+
+    def hooked(p, h, **kwargs):
+        if pinned is not None:
+            idx = pinned[len(calls)]
+            torch.topk = lambda x, k, dim=-1: (x.gather(-1, idx), idx)
+        try:
+            out, aux, stats = orig(p, h, return_stats=True, **kwargs)
+        finally:
+            torch.topk = topk
+        calls.append(stats)
+        return out, aux
+
+    transformer.moe_apply = hooked
+    try:
+        yield calls
+    finally:
+        transformer.moe_apply = orig
+
+
+def _stats_summary(calls, tokens):
+    """Per-layer MoE stats of ``_moe_calls`` records as host numbers:
+    capacity, dropped fraction (mean, min, max over the layers) and the
+    busiest expert's load over the mean."""
+    import numpy as np
+
+    rows = calls
+    drop = [float(r["dropped_fraction"]) for r in rows]
+    loads = np.stack([r["expert_load"].cpu().numpy() for r in rows])
+    return dict(layers=len(rows), tokens=tokens, capacity=rows[0]["capacity"],
+                dropped_fraction_mean=float(np.mean(drop)), dropped_fraction_min=min(drop),
+                dropped_fraction_max=max(drop),
+                load_max_over_mean=float((loads.max(1) / loads.mean(1)).max()),
+                expert_load_layer0=loads[0].tolist())
+
+
+def phase_lm_path(arch, tag, num_layers=None, cut_reason="", tf_shape=None, tf_reason=""):
+    """Serve ``arch`` at its published widths with ``ServeEngine.generate`` (B 4
+    x 2048-token prompts, 32 new tokens, random weights from a CUDA generator
+    of seed 0), at ``num_layers`` when its depth is cut (whole units): twice
+    (each kernel of the path launched as ``block_roles`` says, per call; the
+    repeat bitwise), once with one new token (the prefill alone); for a MoE
+    config the layers' routing stats of one prefill and one decode step;
+    then the teacher-forced check and a profiled ``generate``.
+
+    The teacher-forced check compares the serving path (prefill, then decode
+    steps) with one forward over the whole sequences. A MoE layer's capacity
+    depends on the tokens in the call, so decode (B tokens) and the forward
+    (B x S) drop different slots at the config's capacity factor; the check
+    runs on an engine at ``capacity_factor = E / k``, where nothing drops, on
+    the tokens that engine generates, at ``tf_shape`` (B, P) when given: the
+    free forward up to each sequence's first route that differs from the
+    served one (every such flip a near-tie), then the forward routed as
+    served."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -1374,16 +1491,34 @@ def phase_lm_path(arch, kernels, tag):
     from repro_torch.serve.engine import ServeEngine
 
     cfg = get_config(arch)
+    if num_layers is not None:
+        log(f"[{tag}] depth cut: {num_layers} of {cfg.num_layers} layers, widths as published "
+            f"({cut_reason})")
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     b, p, new, vocab = LM_BATCH, LM_PROMPT, LM_NEW, cfg.vocab_size
     eng, init_ms = _timed(lambda: ServeEngine(cfg, max_len=LM_MAX_LEN, device="cuda",
                                               generator=_cuda_gen(0)))
     leaves = _leaves(eng.params)
     n_params = sum(t.numel() for t in leaves)
     weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    log(f"[{tag}] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, {n_params:,} params, "
-        f"{weight_bytes / 1e9:.2f} GB of weights, made in {init_ms:.0f} ms")
+    # A decode step reads every weight once (the MoE layers run every expert
+    # on its [C, D] buffer) but gathers only B rows of an untied embedding
+    # table (a tied one is also the LM head, which every step reads).
+    embed = eng.params["embed"]
+    untied = 0 if cfg.tie_embeddings else 1
+    floor_ms = (weight_bytes - untied * embed.numel() * embed.element_size()) / HBM_BPS * 1e3
+    # The prefill's least work: two operations per active parameter and token
+    # (the routed experts only; attention's scores and the capacity padding
+    # left out), at the bf16 tensor-core peak. An untied embedding table is a
+    # lookup, no product; the LM head's V x d stays in.
+    flop_params = cfg.active_param_count() - untied * cfg.vocab_size * cfg.d_model
+    prefill_floor_ms = 2.0 * flop_params * LM_BATCH * LM_PROMPT / BF16_FLOPS * 1e3
+    log(f"[{tag}] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, {n_params:,} params "
+        f"(param_count {cfg.param_count():,}, {cfg.active_param_count():,} active a token), "
+        f"{weight_bytes / 1e9:.2f} GB of weights, made in {init_ms:.0f} ms; "
+        f"{flop_params:,} active params a token in products")
     prompts = np.random.default_rng(0).integers(0, vocab, (b, p))
-    want = {name: cfg.num_layers for name in kernels}
+    want = _lm_launches(cfg)
     torch.cuda.reset_peak_memory_stats()
     runs = []
     for i in range(2):
@@ -1406,33 +1541,120 @@ def phase_lm_path(arch, kernels, tag):
     decode_ms = (gen_ms - prefill_ms) / (new - 1)
     kv_bytes = sum(t.numel() * t.element_size() for c in _meta_cache(cfg, b) for t in c)
     logit_bytes = b * p * cfg.padded_vocab(1) * 4
-    log(f"[{tag}] prefill {prefill_ms:.1f} ms ({b * p / prefill_ms * 1e3:,.0f} tokens/s), "
-        f"decode {decode_ms:.2f} ms per token (batch {b}), peak device memory "
-        f"{peak / 2**30:.2f} GiB (weights {weight_bytes / 2**30:.2f} GiB, cache "
-        f"{kv_bytes / 2**30:.2f} GiB, prefill logits {logit_bytes / 2**30:.2f} GiB)")
+    log(f"[{tag}] prefill {prefill_ms:.1f} ms ({b * p / prefill_ms * 1e3:,.0f} tokens/s; "
+        f"2 x active product params x tokens at the bf16 peak: {prefill_floor_ms:.2f} ms), "
+        f"decode {decode_ms:.2f} ms per token (batch {b}; weight-read floor {floor_ms:.2f} ms, "
+        f"{decode_ms / floor_ms:.2f}x), peak device memory {peak / 2**30:.2f} GiB (weights "
+        f"{weight_bytes / 2**30:.2f} GiB, cache {kv_bytes / 2**30:.2f} GiB, prefill logits "
+        f"{logit_bytes / 2**30:.2f} GiB)")
+
+    routing = None
+    if cfg.is_moe:
+        tokens = torch.as_tensor(prompts, device="cuda")
+        with torch.inference_mode():
+            with _moe_calls() as rows:
+                logits, cache, n = model_prefill(eng.params, cfg, {"tokens": tokens},
+                                                 LM_MAX_LEN)
+            step = logits[:, -1, :vocab].argmax(-1)[:, None]
+            del logits
+            with _moe_calls() as drows:
+                model_decode_step(eng.params, cfg, {"tokens": step}, cache, n)
+            del cache
+        routing = dict(prefill=_stats_summary(rows, b * p), decode=_stats_summary(drows, b))
+        for when, r in routing.items():
+            log(f"[{tag}] moe {when} ({r['tokens']} tokens, {r['layers']} MoE layers, "
+                f"{cfg.num_experts} experts top-{cfg.experts_per_token}, cf "
+                f"{cfg.capacity_factor}): capacity {r['capacity']}, dropped fraction mean "
+                f"{r['dropped_fraction_mean']:.4f} (min {r['dropped_fraction_min']:.4f}, max "
+                f"{r['dropped_fraction_max']:.4f}), busiest expert {r['load_max_over_mean']:.2f}x "
+                f"the mean load; layer 0 loads {r['expert_load_layer0']}")
 
     # Teacher forcing: the serving path's logits, fed the generated tokens
     # (prefill + decode steps, which reproduce generate's argmax exactly),
     # against one forward over the whole sequences.
-    seqs = out.long()
-    with torch.inference_mode():
-        logits, cache, n = model_prefill(eng.params, cfg, {"tokens": seqs[:, :p]}, LM_MAX_LEN)
+    tf_cfg, tf_eng, tb, tp, seqs = cfg, eng, b, p, out.long()
+    if cfg.is_moe:
+        tb, tp = tf_shape or (b, p)
+        tf_cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+        tf_eng = ServeEngine(tf_cfg, eng.params, max_len=LM_MAX_LEN, device="cuda")
+        seqs = tf_eng.generate(prompts[:tb, :tp], max_new_tokens=new).long()
+        log(f"[{tag}] teacher-forced check on an engine at capacity factor "
+            f"{tf_cfg.capacity_factor:g} (no slot drops), B {tb} x {tp}"
+            + (f" ({tf_reason})" if tf_reason else ""))
+    with torch.inference_mode(), _moe_calls() as served_calls:
+        logits, cache, n = model_prefill(tf_eng.params, tf_cfg, {"tokens": seqs[:, :tp]},
+                                         LM_MAX_LEN)
         finite = bool(torch.isfinite(logits).all())
         steps = [logits[:, -1, :vocab].clone()]
         del logits  # [B, P, V] f32
         for i in range(new - 1):
-            lg, cache = model_decode_step(eng.params, cfg, {"tokens": seqs[:, p + i : p + i + 1]},
-                                          cache, n + i)
+            lg, cache = model_decode_step(tf_eng.params, tf_cfg,
+                                          {"tokens": seqs[:, tp + i : tp + i + 1]}, cache, n + i)
             steps.append(lg[:, :vocab])
         served = torch.stack(steps, dim=1)  # [B, new, V]
         del cache
-        fwd = model_forward(eng.params, cfg, {"tokens": seqs[:, :-1]})[0]
-        finite = finite and bool(torch.isfinite(fwd).all()) and bool(torch.isfinite(served).all())
-        tf = fwd[:, p - 1 :, :vocab]
-        reproduced = bool(torch.equal(served.argmax(-1), seqs[:, p:]))
-        agree = float((tf.argmax(-1) == seqs[:, p:]).float().mean())
-        rel = float((tf - served).abs().max() / served.abs().max())
-        del fwd, tf, served
+    finite = finite and bool(torch.isfinite(served).all())
+    reproduced = bool(torch.equal(served.argmax(-1), seqs[:, tp:]))
+
+    def compare(pinned=None):
+        """(argmax agreement, max relative difference, the relative difference
+        at each served position [B, new], the forward's MoE calls, finite) of
+        one forward over the sequences against the served logits."""
+        with torch.inference_mode(), _moe_calls(pinned) as calls:
+            fwd = model_forward(tf_eng.params, tf_cfg, {"tokens": seqs[:, :-1]})[0]
+            ok = bool(torch.isfinite(fwd).all())
+            tf = fwd[:, tp - 1 :, :vocab]
+            agree = float((tf.argmax(-1) == seqs[:, tp:]).float().mean())
+            err = (tf - served).abs().amax(-1) / served.abs().max()
+            del fwd, tf
+        return agree, float(err.max()), err, calls, ok
+
+    agree, rel, err, fwd_calls, ok = compare()
+    finite = finite and ok
+    routes = None
+    if cfg.is_moe:
+        # A MoE layer's top-k is a step function of its input: where two of a
+        # token's expert probabilities nearly tie, the bf16 rounding that
+        # differs between decode and the forward picks other experts (random
+        # routers are flat: their probabilities tie often), and the logits of
+        # that position and every later one part. So the free forward is held
+        # where no route has flipped yet: each sequence's positions before its
+        # first flip (any layer, prompt included) within TF_REL, and every
+        # flip at a near-tie (margin under ROUTE_TIE). The forward then runs
+        # once more with every token routed to the experts the serving path
+        # chose for it (the gates its own probabilities there), and the
+        # agreement and difference bounds below hold that run.
+        k, layers = cfg.experts_per_token, len(fwd_calls)
+        pinned = [torch.cat([served_calls[r]["gate_idx"].view(tb, tp, k)]
+                            + [served_calls[layers * (i + 1) + r]["gate_idx"].view(tb, 1, k)
+                               for i in range(new - 1)], dim=1).reshape(-1, k)
+                  for r in range(layers)]
+        differs = torch.stack([(c["gate_idx"].sort(-1).values != q.sort(-1).values).any(-1)
+                               .view(tb, -1) for c, q in zip(fwd_calls, pinned)])  # [L, B, S]
+        top = [c["probs"].topk(k + 1, dim=-1).values for c in fwd_calls]
+        margins = torch.stack([(t[:, k - 1] - t[:, k]).view(tb, -1) for t in top])
+        flipped = differs.any(0)  # [B, S]
+        first = torch.where(flipped.any(1), flipped.float().argmax(1), flipped.shape[1])
+        before = torch.arange(tp - 1, tp - 1 + new, device=first.device)[None] < first[:, None]
+        routes = dict(flips=int(differs.sum()), routes=differs.numel(),
+                      max_margin=float(margins[differs].max()) if bool(differs.any()) else 0.0,
+                      positions_before_first_flip=int(before.sum()),
+                      rel_diff_before_first_flip=float(torch.where(before, err, 0.0).max()),
+                      agreement=agree, rel_diff=rel)
+        del fwd_calls, top, margins, differs
+        log(f"[{tag}] free forward: argmax agreement {agree:.4f}, max relative difference "
+            f"{rel:.4g}; it routes {routes['flips']} of {routes['routes']} (layer, token) routes "
+            f"otherwise than the serving path, at probability margins (k-th - (k+1)-th) up to "
+            f"{routes['max_margin']:.3g} (< {ROUTE_TIE}); max relative difference over the "
+            f"{routes['positions_before_first_flip']} of {tb * new} served positions before "
+            f"their sequence's first flip {routes['rel_diff_before_first_flip']:.4g} "
+            f"(< {TF_REL}); the check below routes as served")
+        if not (routes["max_margin"] < ROUTE_TIE and routes["rel_diff_before_first_flip"] < TF_REL):
+            raise RuntimeError(f"{tag}: the free forward parts from the served path beyond "
+                               f"route near-ties: {routes}")
+        agree, rel, _, _, ok = compare(pinned)
+        finite = finite and ok
+    del served, tf_eng
     log(f"[{tag}] teacher-forced forward vs served logits: argmax agreement {agree:.4f} "
         f"(>= {TF_AGREE}), max relative difference {rel:.4g} (< {TF_REL}); served argmax "
         f"== generated tokens: {reproduced}; all logits finite: {finite}")
@@ -1449,11 +1671,14 @@ def phase_lm_path(arch, kernels, tag):
             log(f"[{tag} profile]   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
     else:
         log(f"[{tag} profile] generate wall_ms={wall_ms:.1f}; device time not measured")
-    detail = dict(arch=arch, params=n_params, weight_bytes=weight_bytes, init_ms=init_ms,
+    detail = dict(arch=arch, num_layers=cfg.num_layers, params=n_params,
+                  weight_bytes=weight_bytes, init_ms=init_ms,
                   generate_ms=[r[1] for r in runs], launches=runs[0][2], prefill_ms=prefill_ms,
-                  prefill_tokens_per_s=b * p / prefill_ms * 1e3, decode_ms_per_token=decode_ms,
-                  peak_bytes=peak, kv_cache_bytes=kv_bytes, teacher_forced_agreement=agree,
-                  teacher_forced_rel_diff=rel,
+                  prefill_tokens_per_s=b * p / prefill_ms * 1e3,
+                  prefill_flop_floor_ms=prefill_floor_ms, decode_ms_per_token=decode_ms,
+                  decode_weight_floor_ms=floor_ms, peak_bytes=peak, kv_cache_bytes=kv_bytes,
+                  moe=routing, teacher_forced_shape=[tb, tp], teacher_forced_routes=routes,
+                  teacher_forced_agreement=agree, teacher_forced_rel_diff=rel,
                   profile=dict(wall_ms=wall_ms, device_ms=busy if rows else None,
                                top=[dict(name=nm, ms=ms, count=c) for nm, ms, c in rows[:24]]))
     del eng
@@ -1523,12 +1748,15 @@ def phase_lm_kernels():
 
     gen = _cuda_gen(5)
     flash = []
-    # (label, B, S, H, KV, hd, dtype): Qwen3-8B and SmolLM-360M prefill, and a
-    # sequence ragged against the kernel's 64-row blocks, in f32.
+    # (label, B, S, H, KV, hd, dtype): Qwen3-8B, SmolLM-360M, Granite-MoE
+    # (GQA group 3) and Llama-4 Maverick (group 5) prefill, and a sequence
+    # ragged against the kernel's 64-row blocks, in f32.
     for label, b, s, h, kv, hd, dt in (
         ("qwen3-8b prefill bf16", 4, 2048, 32, 8, 128, torch.bfloat16),
         ("smollm-360m prefill bf16", 4, 2048, 15, 5, 64, torch.bfloat16),
         ("ragged S=1000 f32", 4, 1000, 32, 8, 128, torch.float32),
+        ("granite-moe-3b prefill bf16", 4, 2048, 24, 8, 64, torch.bfloat16),
+        ("llama4-maverick prefill bf16", 4, 2048, 40, 8, 128, torch.bfloat16),
     ):
         q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dt)
@@ -1568,8 +1796,11 @@ def phase_lm_kernels():
         torch.cuda.empty_cache()
 
     ssd = []
+    # Mamba2-370M prefill, a ragged chunk, and Jamba's prefill (N 16: half of
+    # one 32-column staging chunk; 128 heads).
     for label, b, nc, q_, n, h, p in (("mamba2-370m prefill", 4, 8, 256, 128, 32, 64),
-                                      ("ragged chunk Q=200", 4, 2, 200, 128, 32, 64)):
+                                      ("ragged chunk Q=200", 4, 2, 200, 128, 32, 64),
+                                      ("jamba prefill", 4, 8, 256, 16, 128, 64)):
         cc = torch.randn((b, nc, q_, n), generator=gen, device="cuda")
         bc = torch.randn((b, nc, q_, n), generator=gen, device="cuda")
         xdt = torch.randn((b, nc, h, q_, p), generator=gen, device="cuda")
@@ -1600,22 +1831,25 @@ def phase_lm_kernels():
     return flash, ssd
 
 
+LM_CPU_ARCHS = ("qwen3-8b", "mamba2-370m", "granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
+                "jamba-v0.1-52b")
+
+
 def phase_lm_cpu():
-    """REDUCED qwen3-8b and mamba2-370m served on the CPU (plain versions)
-    against the card: the same tokens, prefill logits within atol 5e-4,
+    """The REDUCED LMs (dense, ssm, MoE, interleaved MoE, hybrid) served on the
+    CPU (plain versions) against the card: each kernel launched as
+    ``block_roles`` says, the same tokens, prefill logits within atol 5e-4,
     rtol 1e-3."""
     import numpy as np
     import torch
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models.api import model_prefill, params_to
     from repro_torch.serve.engine import ServeEngine
 
     rows = []
-    for arch, kernel in (("qwen3-8b", fa_ops.KERNEL), ("mamba2-370m", ssd_ops.KERNEL)):
+    for arch in LM_CPU_ARCHS:
         cfg = get_config(arch, reduced=True)
         card = ServeEngine(cfg, max_len=64, device="cuda", generator=_cuda_gen(0))
         cpu = ServeEngine(cfg, params_to(card.params, "cpu"), max_len=64, device="cpu")
@@ -1632,7 +1866,7 @@ def phase_lm_cpu():
         close = bool((diff <= LM_CPU_ATOL + LM_CPU_RTOL * want.abs()).all())
         log(f"[lm cpu] {arch} REDUCED: card launches {counts}, tokens equal {same}, prefill "
             f"logits max abs diff {err:.3g} (atol {LM_CPU_ATOL}, rtol {LM_CPU_RTOL}: {close})")
-        if counts != {kernel: cfg.num_layers} or not same or not close:
+        if counts != _lm_launches(cfg) or not same or not close:
             raise RuntimeError(f"lm cpu {arch}: launches {counts}, tokens equal {same}, err {err}")
         rows.append(dict(arch=arch, launches=counts, tokens_equal=same, max_abs_diff=err))
     return rows
@@ -1801,9 +2035,24 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     with phase("lm path"):
-        lm_row = phase_lm_path("qwen3-8b", (fa_ops.KERNEL, fa_ops.TC_KERNEL), "lm path")
+        lm_row = phase_lm_path("qwen3-8b", "lm path")
     with phase("ssm path"):
-        ssm_row = phase_lm_path("mamba2-370m", (ssd_ops.KERNEL,), "ssm path")
+        ssm_row = phase_lm_path("mamba2-370m", "ssm path")
+    with phase("moe path"):
+        moe_row = phase_lm_path("granite-moe-3b-a800m", "moe path")
+    with phase("moe interleaved path"):
+        moe2_row = phase_lm_path(
+            "llama4-maverick-400b-a17b", "moe interleaved path", num_layers=2,
+            cut_reason="one (attn, dense) + (attn, moe) unit; the 48 layers hold ~400 B "
+                       "parameters, 800 GB in bf16, ten times the card",
+            tf_shape=(1, 512),
+            tf_reason="at no-drop capacity the expert buffers are [128, B·P, ·]: 10.7 GB of "
+                      "input and 17 GB per hidden at B 4 x 2048, beside 37 GB of weights")
+    with phase("hybrid path"):
+        hybrid_row = phase_lm_path(
+            "jamba-v0.1-52b", "hybrid path", num_layers=8,
+            cut_reason="one unit of 8 roles (attention at offset 4, MoE every 2nd); the 32 "
+                       "layers hold ~52 B parameters, 104 GB in bf16")
     with phase("lm kernels"):
         flash_rows, ssd_rows = phase_lm_kernels()
     with phase("lm cpu"):
@@ -1814,6 +2063,14 @@ def main() -> int:
                     launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"], library_ms=row["library_ms"], shape=shape)
+
+    lm_rows = {"qwen3-8b": lm_row, "mamba2-370m": ssm_row, "granite-moe-3b-a800m": moe_row,
+               "llama4-maverick-400b-a17b unit": moe2_row, "jamba-v0.1-52b unit": hybrid_row}
+
+    def lm_paths(kernel):
+        """A kernel's launches in one generate of each LM path that runs it."""
+        return {arch: r["launches"][kernel] for arch, r in lm_rows.items()
+                if kernel in r["launches"]}
 
     def by_path(kernel):
         """A kernel's launches over each GNN path's run (3 Yelp infers + 1 batch)."""
@@ -1867,19 +2124,22 @@ def main() -> int:
                         "src/repro/kernels/segment_agg/attn_kernel.py:239",
                         dec_row["launches"].get("segment_agg_mh", 0), mh, gat_shape.format(**mh)),
              launches_sharded_request=sgat_row["launches_request"].get("segment_agg_mh", 0)),
-        # Launches: one Qwen3-8B / Mamba2-370M generate (B 4 x 2048 + 32 tokens).
-        # Every launch of the path went through the tensor-core variant.
+        # Launches: one Qwen3-8B / Mamba2-370M generate (B 4 x 2048 + 32 tokens),
+        # and per LM path beside it. Every launch of the bf16 paths went through
+        # the tensor-core variant.
         dict(kernel_row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/flash_attention.py:95",
                         lm_row["launches"].get(fa_ops.KERNEL, 0), flash_rows[0],
                         "B={b} S={s} H={h} KV={kv} hd={hd} {dtype}".format(**flash_rows[0])),
              variant=flash_rows[0]["variant"],
-             tensor_core_launches=lm_row["launches"].get(fa_ops.TC_KERNEL, 0)),
+             tensor_core_launches=lm_row["launches"].get(fa_ops.TC_KERNEL, 0),
+             launches_by_lm_path=lm_paths(fa_ops.KERNEL)),
         dict(kernel_row("ssd_intra_chunk", "src/repro_torch/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan/ssd_scan.py:52",
                         ssm_row["launches"].get(ssd_ops.KERNEL, 0), ssd_rows[0],
                         "B={b} NC={nc} Q={q} N={n} H={h} P={p} f32".format(**ssd_rows[0])),
-             f32_bound_ms=ssd_rows[0]["f32_bound_ms"]),
+             f32_bound_ms=ssd_rows[0]["f32_bound_ms"],
+             launches_by_lm_path=lm_paths(ssd_ops.KERNEL)),
     ]
 
     def path_detail(outs, batch, counts, peak):
@@ -1902,7 +2162,8 @@ def main() -> int:
         baseline=baseline_row,
         gat_path=path_detail(*paths["gat"]), gat_profile=gprofile_row,
         gat_decomposed=dec_row, attention=attn_rows, segment_agg_mh=mh_rows, gat_cpu=gcpu_row,
-        lm_path=lm_row, ssm_path=ssm_row, flash_attention=flash_rows, ssd_intra_chunk=ssd_rows,
+        lm_path=lm_row, ssm_path=ssm_row, moe_path=moe_row, moe_interleaved_path=moe2_row,
+        hybrid_path=hybrid_row, flash_attention=flash_rows, ssd_intra_chunk=ssd_rows,
         lm_cpu=lm_cpu_rows, outofcore=ooc_rows, h2d_gbps=h2d_row, fronts=fronts_row,
         sharded_gcn=sharded_row, plan_store=store_row, sharded_overlap=overlap_row,
         sharded_mincut=mincut_row, sharded_gat=sgat_row,

@@ -1,17 +1,16 @@
 """Config system: every served model is a ``ModelConfig`` in a registry.
 
 The subset of the reference's ``repro/configs/base.py`` that the port serves:
-the GNN family and the ``dense`` and ``ssm`` token families. Each registered
-architecture has a FULL config (the published widths) and a REDUCED config
-(same family and topology, tiny widths) that tests run on the CPU.
-``get_config`` resolves a name through the registry.
+the GNN family and the ``dense``, ``moe``, ``hybrid`` and ``ssm`` token
+families. Each registered architecture has a FULL config (the published
+widths) and a REDUCED config (same family and topology, tiny widths) that
+tests run on the CPU. ``get_config`` resolves a name through the registry.
 
 Left out of the reference's fields: ``attention_impl`` (a CUDA tensor runs
 the flash kernel, a CPU tensor its plain version; there is no other switch),
-the MoE, hybrid, enc-dec, M-RoPE and embeds-input fields (their families are
-not ported yet), ``remat``/``scan_layers`` (training and XLA knobs) and the
-GNN knobs of modules not ported yet (``gnn_use_kernel``, which the port has no
-use for, and the sharding knobs).
+the enc-dec, M-RoPE and embeds-input fields (their families are not ported
+yet), ``remat``/``scan_layers`` (training and XLA knobs) and
+``gnn_use_kernel``, which the port has no use for.
 """
 from __future__ import annotations
 
@@ -29,7 +28,7 @@ def pad_to_multiple(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # gnn | dense | ssm (the families the port serves)
+    family: str  # gnn | dense | moe | hybrid | ssm (the families the port serves)
     num_layers: int
     d_model: int  # GNN: input feature width
     num_heads: int
@@ -38,11 +37,18 @@ class ModelConfig:
     vocab_size: int  # GNN: class count
     head_dim: int = 0  # 0 -> d_model // num_heads
 
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_layer_period: int = 1  # every k-th layer is MoE (llama4/jamba interleave)
+    moe_shared_expert: bool = False
+    capacity_factor: float = 1.25
+
     # --- attention flavour ---
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 1e4
-    pos_embed: str = "rope"  # rope | none (mamba)
+    pos_embed: str = "rope"  # rope | none (jamba/mamba)
 
     # --- MLP flavour ---
     mlp: str = "swiglu"  # swiglu | relu2 | gelu
@@ -54,6 +60,8 @@ class ModelConfig:
     ssm_headdim: int = 64
     ssm_conv: int = 4
     ssm_chunk: int = 256
+    attn_layer_period: int = 0  # hybrid: 1 attention layer every k (jamba k=8)
+    attn_layer_offset: int = 4
 
     # --- GNN (family="gnn"): drives models/gnn/api.py ---
     gnn_arch: str = "gcn"  # gcn | gin | sage | gat (registry key)
@@ -109,16 +117,22 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.num_heads)
 
     @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
     def gnn_layer_dims(self) -> Tuple[int, ...]:
         """[feature_dim, hidden..., num_classes] for the GNN family."""
         hidden = self.gnn_hidden or (self.d_ff,) * max(self.num_layers - 1, 0)
         return (self.d_model, *hidden, self.vocab_size)
 
     @property
+    def is_hybrid(self) -> bool:
+        return self.attn_layer_period > 0 and self.ssm_state > 0
+
+    @property
     def is_ssm_only(self) -> bool:
-        # The port has no hybrid fields (attn_layer_period): a config with an
-        # SSM state is a pure Mamba2 stack.
-        return self.ssm_state > 0
+        return self.ssm_state > 0 and self.attn_layer_period == 0
 
     @property
     def d_inner(self) -> int:
@@ -131,15 +145,67 @@ class ModelConfig:
     def padded_vocab(self, tp: int) -> int:
         return pad_to_multiple(self.vocab_size, tp)
 
+    def param_count(self) -> int:
+        """Approximate raw (unpadded) parameter count, the reference's formula."""
+        d, hd = self.d_model, self.resolved_head_dim
+        attn = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) + (
+            self.num_heads * hd
+        ) * d
+        mlp_dense = (3 if self.mlp == "swiglu" else 2) * d * self.d_ff
+        per_expert = mlp_dense
+        n_moe = self.num_layers // self.moe_layer_period if self.is_moe else 0
+        n_dense_mlp = self.num_layers - n_moe
+        n_attn = self.num_layers
+        ssm = 0
+        if self.ssm_state > 0:
+            di, ns, nh = self.d_inner, self.ssm_state, self.ssm_heads
+            per_ssm = (
+                d * (2 * di + 2 * ns + nh)  # in_proj (x, z, B, C, dt)
+                + di * d  # out_proj
+                + self.ssm_conv * (di + 2 * ns)
+                + 3 * nh
+            )
+            if self.is_ssm_only:
+                n_ssm = self.num_layers
+                n_attn = 0
+                n_dense_mlp = 0 if not self.is_moe else n_dense_mlp
+                if self.d_ff == 0:
+                    n_dense_mlp = 0
+            else:
+                n_attn = self.num_layers // self.attn_layer_period
+                n_ssm = self.num_layers - n_attn
+            ssm = n_ssm * per_ssm
+        total = (
+            n_attn * attn
+            + n_dense_mlp * mlp_dense
+            + n_moe * (self.num_experts * per_expert + d * self.num_experts)
+            + (per_expert if (self.is_moe and self.moe_shared_expert) else 0) * n_moe
+            + ssm
+            + self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        )
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        per_expert = (3 if self.mlp == "swiglu" else 2) * self.d_model * self.d_ff
+        n_moe = self.num_layers // self.moe_layer_period
+        inactive = n_moe * (self.num_experts - self.experts_per_token) * per_expert
+        return int(self.param_count() - inactive)
+
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _REDUCED: Dict[str, Callable[[], ModelConfig]] = {}
 
 _ARCH_MODULES = [
+    "llama4_maverick_400b_a17b",
+    "granite_moe_3b_a800m",
     "qwen3_8b",
     "qwen2_1_5b",
     "smollm_360m",
     "nemotron_4_15b",
+    "jamba_v0_1_52b",
     "mamba2_370m",
     "ample_gnn",
 ]

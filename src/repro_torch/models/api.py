@@ -2,15 +2,18 @@
 
 The reference's ``repro/models/api.py``, dispatched on ``cfg.family``:
 
-  * the token families the port serves (``dense``, ``ssm``) route to the LM
-    stack (``models/lm/transformer.py``); batches carry ``tokens`` [B, S];
+  * the token families the port serves (``dense``, ``moe``, ``hybrid``,
+    ``ssm``) route to the LM stack (``models/lm/transformer.py``); batches
+    carry ``tokens`` [B, S]; ``model_forward`` returns (logits, aux), aux
+    being the MoE layers' summed load-balancing loss;
   * ``family="gnn"`` routes to the arch registry in ``models/gnn/api.py``;
     batches carry ``graph`` + ``features``. GNN inference has no token
     cache, so prefill/decode reject GNN configs.
 
-MoE, hybrid, VLM and enc-dec configs raise ``NotImplementedError`` naming
-their ROADMAP item. ``params_from_numpy`` carries the reference's params
-(numpy leaves) into the port, for either family.
+VLM and enc-dec configs raise ``NotImplementedError`` naming their ROADMAP
+item. ``params_from_numpy`` carries the reference's params (numpy leaves)
+into the port, for either family, each leaf in its own dtype (a MoE
+router stays f32 in a bf16 model).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly for the ``dense`` and ``ssm`` families.
+"""Decoder-only LM assembly: dense / MoE / hybrid (Jamba) / SSM (Mamba2).
 
 The reference's ``repro/models/lm/transformer.py``. Layers are grouped into
 repeated **units** (the smallest repeating pattern of layer roles), and each
@@ -6,15 +6,18 @@ role's parameters are stacked with a leading unit axis ``[U, ...]``, as in
 the reference, so its parameter trees carry over leaf by leaf
 (``models/api.py::params_from_numpy``). Unit patterns:
 
-  dense LM   [(attn, dense)]   U = L
-  mamba2     [(mamba, none)]   U = L
+  dense LM            [(attn, dense)]                       U = L
+  granite-moe         [(attn, moe)]                         U = L
+  llama4 (interleave) [(attn, dense), (attn, moe)]          U = L/2
+  jamba (1:7, moe/2)  8 roles: attn at offset 4, moe odd    U = L/8
+  mamba2              [(mamba, none)]                       U = L
 
 The reference scans over the units; here a Python loop indexes unit ``u`` of
 every stacked leaf (a view). The decode cache keeps the reference's layout:
 one entry per role, stacked ``[U, B, L, KV, hd]`` K/V (int8 with f32 scales
 ``[U, B, L, KV]`` under ``kv_cache_dtype="int8"``) or the Mamba state tree.
-``decode_step`` writes it in place. MoE, hybrid, VLM and enc-dec configs are
-refused (see ``block_roles``).
+``decode_step`` writes it in place. VLM and enc-dec configs are refused (see
+``block_roles``).
 """
 from __future__ import annotations
 
@@ -38,12 +41,14 @@ from repro_torch.models.lm.mamba import (
     softplus_inverse_dt,
 )
 from repro_torch.models.lm.mlp import mlp_apply, mlp_init
+from repro_torch.models.lm.moe import moe_apply, moe_init
 from repro_torch.models.lm.norm import make_norm
 
 __all__ = [
     "TensorMaker",
     "ShapeMaker",
     "block_roles",
+    "mixer_counts",
     "make_statics",
     "init_lm",
     "param_shapes",
@@ -58,11 +63,9 @@ Role = Tuple[str, str]  # (mixer, ffn)
 # Families of the reference's registry that the port does not serve yet, and
 # the ROADMAP item (queue 1) that ports each.
 _NOT_PORTED = {
-    "moe": "queue 1 item 1 (MoE: granite, llama4)",
-    "hybrid": "queue 1 item 2 (hybrid: jamba)",
-    "vlm": "queue 1 item 3 (VLM: qwen2-vl, M-RoPE)",
-    "encdec": "queue 1 item 4 (enc-dec: seamless)",
-    "audio": "queue 1 item 4 (enc-dec: seamless)",
+    "vlm": "queue 1 item 9 (VLM: qwen2-vl, M-RoPE)",
+    "encdec": "queue 1 item 10 (enc-dec: seamless)",
+    "audio": "queue 1 item 10 (enc-dec: seamless)",
 }
 
 
@@ -72,11 +75,32 @@ def block_roles(cfg: ModelConfig) -> List[Role]:
             f"{cfg.name}: family {cfg.family!r} is not ported yet; "
             f"ROADMAP {_NOT_PORTED[cfg.family]}"
         )
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise ValueError(f"{cfg.name}: {cfg.family!r} is not a token family")
+    if cfg.is_hybrid:  # jamba: attn every `period`, MoE every `moe_period`
+        roles = []
+        for i in range(cfg.attn_layer_period):
+            mixer = "attn" if i == cfg.attn_layer_offset else "mamba"
+            ffn = ("moe" if cfg.is_moe and i % cfg.moe_layer_period == cfg.moe_layer_period - 1
+                   else "dense")
+            roles.append((mixer, ffn))
+        return roles
     if cfg.is_ssm_only:
         return [("mamba", "none" if cfg.d_ff == 0 else "dense")]
+    if cfg.is_moe and cfg.moe_layer_period > 1:
+        return [("attn", "dense")] * (cfg.moe_layer_period - 1) + [("attn", "moe")]
+    if cfg.is_moe:
+        return [("attn", "moe")]
     return [("attn", "dense")]
+
+
+def mixer_counts(cfg: ModelConfig) -> Dict[str, int]:
+    """Layers of each mixer (``attn``, ``mamba``) over the whole depth: a
+    prefill runs the flash kernel once per ``attn`` layer and the SSD kernel
+    once per ``mamba`` layer."""
+    roles = block_roles(cfg)
+    units = _units(cfg)
+    return {m: units * sum(r[0] == m for r in roles) for m in ("attn", "mamba")}
 
 
 def make_statics(cfg: ModelConfig) -> AttnStatics:
@@ -100,18 +124,23 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 # --------------------------------------------------------------------- init
 class TensorMaker:
     """Parameter maker for ``*_init``: random tensors from ``generator`` with
-    a leading ``lead`` shape (the unit axis), made on the generator's device
-    and moved to ``device``."""
+    a leading ``lead`` shape (the unit axis; the unit and expert axes for
+    stacked experts), made on the generator's device and moved to
+    ``device``."""
 
     def __init__(self, generator: torch.Generator, device, lead: Tuple[int, ...] = ()):
         self.gen, self.device, self.lead = generator, torch.device(device), tuple(lead)
+
+    def stacked(self, n: int) -> "TensorMaker":
+        """A maker of the same stream with one more leading axis of ``n``."""
+        return TensorMaker(self.gen, self.device, self.lead + (n,))
 
     def _put(self, t: torch.Tensor, dtype) -> torch.Tensor:
         return t.to(device=self.device, dtype=dtype)
 
     def normal(self, shape, std: float, dtype) -> torch.Tensor:
         t = torch.randn(self.lead + tuple(shape), generator=self.gen, device=self.gen.device)
-        return self._put(t * std, dtype)
+        return self._put(t.mul_(std), dtype)  # in place: one f32 draw at a time
 
     def zeros(self, shape, dtype) -> torch.Tensor:
         return torch.zeros(self.lead + tuple(shape), dtype=dtype, device=self.device)
@@ -130,6 +159,9 @@ class ShapeMaker:
 
     def __init__(self, lead: Tuple[int, ...] = ()):
         self.lead = tuple(lead)
+
+    def stacked(self, n: int) -> "ShapeMaker":
+        return ShapeMaker(self.lead + (n,))
 
     def normal(self, shape, std, dtype):
         return self.lead + tuple(shape)
@@ -158,7 +190,12 @@ def _init_role(cfg: ModelConfig, role: Role, make) -> Dict:
                                 conv=cfg.ssm_conv, dtype=dt)
     if ffn != "none":
         p["norm_ffn"] = norm_init(make, cfg.d_model)
-        p["mlp"] = mlp_init(make, cfg.d_model, cfg.d_ff, cfg.mlp, bias=cfg.mlp_bias, dtype=dt)
+        if ffn == "moe":
+            p["moe"] = moe_init(make, cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.mlp,
+                                shared_expert=cfg.moe_shared_expert, dtype=dt)
+        else:
+            p["mlp"] = mlp_init(make, cfg.d_model, cfg.d_ff, cfg.mlp, bias=cfg.mlp_bias,
+                                dtype=dt)
     return p
 
 
@@ -226,14 +263,24 @@ def _mamba_kw(cfg: ModelConfig) -> Dict:
                 headdim=cfg.ssm_headdim, norm_eps=cfg.norm_eps)
 
 
-def _ffn(cfg: ModelConfig, ffn: str, p: Dict, x: torch.Tensor, norm_apply) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, ffn: str, p: Dict, x: torch.Tensor, norm_apply, aux: List):
+    """The role's feed-forward with its residual; a MoE layer appends its aux
+    loss to ``aux``."""
     if ffn == "none":
         return x
-    return x + mlp_apply(p["mlp"], norm_apply(p["norm_ffn"], x, eps=cfg.norm_eps), cfg.mlp)
+    h = norm_apply(p["norm_ffn"], x, eps=cfg.norm_eps)
+    if ffn == "moe":
+        h, a = moe_apply(p["moe"], h, num_experts=cfg.num_experts,
+                         top_k=cfg.experts_per_token, kind=cfg.mlp,
+                         capacity_factor=cfg.capacity_factor)
+        aux.append(a)
+        return x + h
+    return x + mlp_apply(p["mlp"], h, cfg.mlp)
 
 
-def _run(params: Dict, cfg: ModelConfig, tokens, cache: Optional[List[Dict]]):
-    """Full-sequence pass; writes K/V and SSM states into ``cache`` when given."""
+def _run(params: Dict, cfg: ModelConfig, tokens, cache: Optional[List[Dict]], aux: List):
+    """Full-sequence pass; writes K/V and SSM states into ``cache`` when given
+    and each MoE layer's aux loss into ``aux``."""
     roles = block_roles(cfg)
     st = make_statics(cfg)
     _, norm_apply = make_norm(cfg.norm)
@@ -263,16 +310,18 @@ def _run(params: Dict, cfg: ModelConfig, tokens, cache: Optional[List[Dict]]):
                         cache[r][key][u] = val
                 else:
                     h = out
-            x = _ffn(cfg, ffn, p, x + h, norm_apply)
+            x = _ffn(cfg, ffn, p, x + h, norm_apply, aux)
     x = norm_apply(params["final_norm"], x, eps=cfg.norm_eps)
     return _lm_head(cfg, params, x)
 
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over ``batch["tokens"]`` [B, S]. Returns
-    (logits [B, S, Vp] f32, aux), aux being the reference's MoE loss (0)."""
-    logits = _run(params, cfg, batch["tokens"], None)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    (logits [B, S, Vp] f32, aux), aux being the MoE layers' summed
+    load-balancing loss (0 without MoE layers)."""
+    aux: List[torch.Tensor] = []
+    logits = _run(params, cfg, batch["tokens"], None, aux)
+    return logits, sum(aux, torch.zeros((), dtype=torch.float32, device=logits.device))
 
 
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict, max_len: int):
@@ -286,7 +335,7 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict, max_len: int):
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     cache = init_cache(cfg, b, max_len, device=params["embed"].device)
-    return _run(params, cfg, tokens, cache), cache, s
+    return _run(params, cfg, tokens, cache, []), cache, s
 
 
 # ------------------------------------------------------------------- decode
@@ -335,6 +384,6 @@ def decode_step(params: Dict, cfg: ModelConfig, batch: Dict, cache: List[Dict], 
                 h, new = mamba_decode(p["mamba"], h, c, **_mamba_kw(cfg))
                 for key, val in new.items():
                     c[key].copy_(val)
-            x = _ffn(cfg, ffn, p, x + h, norm_apply)
+            x = _ffn(cfg, ffn, p, x + h, norm_apply, [])
     x = norm_apply(params["final_norm"], x, eps=cfg.norm_eps)
     return _lm_head(cfg, params, x)[:, 0], cache

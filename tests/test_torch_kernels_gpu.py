@@ -42,6 +42,8 @@ from repro_torch.memory import prefetcher
 from repro_torch.memory.prefetcher import ChunkPrefetcher, StreamedFeatures
 from repro_torch.models.api import model_prefill, params_to
 from repro_torch.models.gnn import api as gnn_api
+from repro_torch.models.lm.moe import moe_apply
+from repro_torch.models.lm.transformer import mixer_counts
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.gnn_engine import GNNServeEngine
 
@@ -772,10 +774,14 @@ def _bf16_equal_share(out, want):
     return float((out.cpu() == want.cpu()).float().mean())
 
 
+# GQA groups 3 (Granite-MoE: 24/8 heads, hd 64) and 5 (Llama-4 Maverick:
+# 40/8, hd 128) at both head dims.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,s,t,h,kv", [
     (16, 16, 16, 2, 2), (20, 200, 200, 3, 1), (64, 300, 300, 15, 5), (128, 130, 130, 8, 2),
     (128, 1000, 1000, 12, 2), (64, 40, 100, 6, 1), (128, 1, 65, 4, 4),
+    (64, 256, 256, 24, 8), (128, 200, 200, 24, 8), (64, 300, 300, 40, 8),
+    (128, 256, 256, 40, 8),
 ])
 def test_flash_attention_matches_plain(cuda, dtype, hd, s, t, h, kv):
     gen = torch.Generator(device=cuda).manual_seed(hd + s + h)
@@ -824,12 +830,14 @@ def test_flash_attention_unaligned_bf16_takes_the_cuda_core_kernel(cuda):
 
 # The Mamba2-370M prefill shape; a ragged chunk of 200; P 16, 32, 64 and 128
 # (P 30 and N 37 take the 4-byte copies); N not a multiple of 8; H not a
-# multiple of the 8 heads of a block.
+# multiple of the 8 heads of a block; Jamba's N 16 (half of one 32-column
+# staging chunk) with its 128 heads of P 64.
 @pytest.mark.parametrize("b,nc,q,n,h,p", [
     (1, 2, 16, 8, 2, 8), (2, 3, 32, 16, 4, 16), (1, 1, 64, 32, 1, 32),
     (2, 2, 256, 128, 9, 64), (1, 3, 200, 20, 3, 24), (1, 1, 5, 4, 2, 128),
     (4, 8, 256, 128, 32, 64), (2, 2, 200, 128, 32, 64), (1, 2, 256, 44, 8, 16),
     (1, 2, 192, 37, 5, 32), (1, 1, 256, 130, 3, 128), (1, 2, 100, 16, 3, 30),
+    (2, 2, 256, 16, 128, 64), (1, 3, 200, 16, 128, 64),
 ])
 def test_ssd_intra_chunk_matches_plain(cuda, b, nc, q, n, h, p):
     rng = np.random.default_rng(q * h + p)
@@ -877,6 +885,57 @@ def test_lm_generate_on_card_matches_cpu(cuda, arch, kernel):
     build.reset_launch_counts()
     out = gpu.generate(prompts, max_new_tokens=8)
     assert build.launch_counts() == {kernel: cfg.num_layers}  # one prefill per layer
+    assert torch.equal(out, gpu.generate(prompts, max_new_tokens=8))
+    assert torch.equal(out.cpu(), cpu.generate(prompts, max_new_tokens=8))
+    toks = {"tokens": torch.as_tensor(prompts)}
+    want = model_prefill(cpu.params, cfg, toks, 80)[0]
+    got = model_prefill(gpu.params, cfg, {"tokens": toks["tokens"].to(cuda)}, 80)[0]
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("e,k,cf,shared", [(40, 8, 1.25, False), (128, 1, 1.25, True),
+                                           (16, 2, 0.25, False), (16, 2, 8.0, True)])
+def test_moe_apply_on_card_matches_cpu(cuda, e, k, cf, shared):
+    """The MoE layer (plain PyTorch on both devices) at the f32 tolerance,
+    and bitwise from call to call on the card: the combine sums each token's
+    k rows in a fixed order, with no float atomics."""
+    gen = torch.Generator().manual_seed(e + k)
+    d, f = 64, 96
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen) * shape[-2] ** -0.5
+
+    experts = {"w_gate": w(e, d, f), "w_up": w(e, d, f), "w_down": w(e, f, d)}
+    params = {"router": w(d, e), "experts": experts}
+    if shared:
+        params["shared"] = {"w_gate": w(d, f), "w_up": w(d, f), "w_down": w(f, d)}
+    x = torch.randn((4, 256, d), generator=gen)
+    kw = dict(num_experts=e, top_k=k, kind="swiglu", capacity_factor=cf, return_stats=True)
+    want, want_aux, want_stats = moe_apply(params, x, **kw)
+    card = params_to(params, cuda)
+    got, aux, stats = moe_apply(card, x.to(cuda), **kw)
+    again, aux2, _ = moe_apply(card, x.to(cuda), **kw)
+    assert torch.equal(got, again) and torch.equal(aux, aux2)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=5e-4, rtol=1e-3)
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
+    assert torch.equal(stats["expert_load"].cpu(), want_stats["expert_load"])
+    assert float(stats["dropped_fraction"]) == float(want_stats["dropped_fraction"])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
+                                  "jamba-v0.1-52b"])
+def test_moe_generate_on_card_matches_cpu(cuda, arch):
+    """REDUCED MoE and hybrid configs: the flash and SSD kernels once per
+    layer of their mixer, the repeat bitwise, tokens equal to the CPU's."""
+    cfg = get_config(arch, reduced=True)
+    gpu = ServeEngine(cfg, max_len=80, device=cuda, generator=torch.Generator().manual_seed(0))
+    cpu = ServeEngine(cfg, params_to(gpu.params, "cpu"), max_len=80, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 60))
+    build.reset_launch_counts()
+    out = gpu.generate(prompts, max_new_tokens=8)
+    layers = mixer_counts(cfg)
+    want = {fa_ops.KERNEL: layers["attn"], ssd_ops.KERNEL: layers["mamba"]}
+    assert build.launch_counts() == {name: n for name, n in want.items() if n}
     assert torch.equal(out, gpu.generate(prompts, max_new_tokens=8))
     assert torch.equal(out.cpu(), cpu.generate(prompts, max_new_tokens=8))
     toks = {"tokens": torch.as_tensor(prompts)}

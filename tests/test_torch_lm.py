@@ -1,6 +1,8 @@
-"""The port's dense and ssm LM stack against the reference, on the CPU:
-configs, parameters, and forward / prefill / decode of every REDUCED dense
-and ssm config (the layers alone are in ``test_torch_lm_modules.py``).
+"""The port's LM stack against the reference, on the CPU: configs and
+parameters of every LM config, and forward / prefill / decode of every
+REDUCED dense and ssm config (the layers alone are in
+``test_torch_lm_modules.py``, the MoE and hybrid stacks in
+``test_torch_moe.py``).
 
 Parameters come from the reference's own init (``jax.random``) and are
 carried into the port with ``models.api.params_from_numpy``; inputs are made
@@ -30,17 +32,17 @@ from repro_torch.models import api as port_api
 
 ATOL, RTOL = 5e-4, 1e-3
 DENSE = ["qwen3-8b", "qwen2-1.5b", "smollm-360m", "nemotron-4-15b"]
-LM_ARCHS = DENSE + ["mamba2-370m"]
+STACK_ARCHS = DENSE + ["mamba2-370m"]  # forward/prefill/decode here
+LM_ARCHS = STACK_ARCHS + ["granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
+                          "jamba-v0.1-52b"]
 
 # Fields of the reference's ModelConfig the port leaves out: the families it
-# does not serve yet (MoE, hybrid, enc-dec, M-RoPE, embeds input), the XLA and
-# training knobs, the attention switch (the device picks kernel or plain
-# version), and the GNN serving knobs of modules not ported yet.
+# does not serve yet (enc-dec, M-RoPE, embeds input), the XLA and training
+# knobs, the attention switch (the device picks kernel or plain version), and
+# the Pallas switch of the GNN engine.
 LEFT_OUT = {
-    "num_experts", "experts_per_token", "moe_layer_period", "moe_shared_expert",
-    "capacity_factor", "mrope_sections", "attention_impl", "attn_layer_period",
-    "attn_layer_offset", "encoder_layers", "embeds_input", "remat", "scan_layers",
-    "gnn_use_kernel",
+    "mrope_sections", "attention_impl", "encoder_layers", "embeds_input", "remat",
+    "scan_layers", "gnn_use_kernel",
 }
 
 
@@ -95,9 +97,12 @@ def test_lm_configs_match_reference_on_shared_fields(arch, reduced):
     ref, port = ref_config(arch, reduced=reduced), port_config(arch, reduced=reduced)
     for f in dataclasses.fields(ModelConfig):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
-    for prop in ("resolved_head_dim", "d_inner", "ssm_heads", "is_ssm_only"):
+    for prop in ("resolved_head_dim", "d_inner", "ssm_heads", "is_ssm_only", "is_moe",
+                 "is_hybrid"):
         assert getattr(port, prop) == getattr(ref, prop), prop
     assert port.padded_vocab(1) == ref.padded_vocab(1)
+    assert port.param_count() == ref.param_count()
+    assert port.active_param_count() == ref.active_param_count()
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -119,7 +124,7 @@ def test_param_shapes_match_reference_init(arch, reduced):
 
 
 def test_unported_families_are_refused():
-    for family in ("moe", "hybrid", "vlm", "encdec"):
+    for family in ("vlm", "encdec"):
         cfg = dataclasses.replace(port_config("qwen3-8b", reduced=True), family=family)
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             port_api.model_init(cfg, device="cpu")
@@ -149,7 +154,7 @@ def test_params_from_numpy_keeps_bf16_bitwise():
 
 
 # -------------------------------------------------------------- whole stack
-@pytest.fixture(scope="module", params=LM_ARCHS)
+@pytest.fixture(scope="module", params=STACK_ARCHS)
 def stack(request):
     rcfg, pcfg = _pair(request.param)
     rp, pp = _params(rcfg, pcfg, seed=1)
