@@ -135,7 +135,7 @@ Every phase that fails raises, so the script exits non-zero.
              request with ``feature_budget_bytes = features.nbytes // 8``
              (4,096-row chunks, 176 chunks, 21 f32 and 87 int8 slots): the
              features stay in page-locked host memory and stream through the
-             chunk prefetcher, three requests at prefetch depth 2 (the first
+             chunk prefetcher, two requests at prefetch depth 2 (the first
              builds the stream programs) and one at depth 0; each bitwise the
              in-memory output, with the AGE and the int8 GEMM launched and a
              peak device memory below the in-memory request's (measured
@@ -176,9 +176,27 @@ Every phase that fails raises, so the script exits non-zero.
              the multi-head AGE on every request (the denominators and the
              weighted aggregate), no fused attention, warm == cold, within
              the mixed tolerance of unsharded, peak under 20 GiB;
+    qat gcn — after sharded mincut, Degree-Quant training of FULL
+             ``ample-gcn`` on the Yelp graph with self-loops (planted labels
+             over 100 classes, half the nodes for training, weights from
+             seed 0, a numpy protection mask a step): the transposed plan's
+             compile seconds, 10 steps of ``examples/train_gcn_degreequant_torch``'s
+             loss and AdamW with forward, backward and optimiser ms (CUDA
+             events), 3 AGE launches each (two forward, one backward on the
+             transposed plan), peak memory, one profiled step; two runs of
+             3 steps bitwise equal; the float and deployed int8 test
+             accuracies (6 AGE and 2 GEMM launches); the backward AGE at
+             D 256 bitwise the CPU's plain version and run to run, timed
+             beside the plain version, ``torch.sparse.mm`` on the CSR of Aᵀ
+             and the bound; on pubmed (19,717 nodes, full width) the step-0
+             loss and gradients and the mixed-precision scale gradient on
+             the card against the CPU (atol 5e-4, rtol 1e-3); the example at
+             its defaults (800 nodes, 300 steps) on the card and the CPU,
+             each accuracy within 0.03;
 18. summary — a JSON line of kernels (the AGE and the int8 matmul with their
              launches per GNN path, per streamed request and per sharded
-             request; the multi-head AGE per sharded GAT request; flash
+             request, the AGE's per QAT step and its backward's times; the
+             multi-head AGE per sharded GAT request; flash
              attention and the SSD per LM path), the
              card's name and power limit, and the result line.
 
@@ -376,15 +394,22 @@ def phase_path(cfg, g, batch_graphs, want, tag="path"):
     return srv, outs, batch, counts, peak
 
 
-def _device_profile(fn):
+def _device_profile(fn, warmup: int = 0):
     """Run ``fn`` once under torch.profiler: (wall ms, result, rows of
     (device op, ms, count) sorted by device time). Rows are device-side events
     only (kernels, copies, memsets): an operator's own entry repeats the
-    device time of the kernels it launched."""
+    device time of the kernels it launched. ``warmup`` earlier calls of
+    ``fn`` run under the profiler unrecorded: a session whose device work
+    starts at once loses its first kernels otherwise."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    warm = dict(schedule=schedule(wait=0, warmup=warmup, active=1)) if warmup else {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **warm) as prof:
+        for _ in range(warmup):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
@@ -393,9 +418,11 @@ def _device_profile(fn):
     def device_us(e):
         return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
 
+    # A schedule's step span ("ProfilerStep*") covers the step's kernels.
     rows = sorted(
         ((e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
-         if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0),
+         if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0
+         and not e.key.startswith("ProfilerStep")),
         key=lambda r: -r[1],
     )
     return wall_ms, result, rows
@@ -1394,6 +1421,268 @@ def phase_sharded_gat(cfg, params, g, want):
                 max_abs_err_vs_unsharded=err, launches_request=rows[-1][1])
 
 
+# --------------------------------------------------------------- QAT (training)
+QAT_STEPS = 10  # Yelp QAT steps timed (cut steps, never width, past ~90 s)
+QAT_REPEAT_STEPS = 3  # steps of each of the two runs held bitwise
+QAT_ATOL, QAT_RTOL = 5e-4, 1e-3  # f32 paths, tests/test_gnn_models.py:46
+QAT_ACC_TOL = 0.03  # the example's accuracies, card against CPU
+EXAMPLE_STEPS, EXAMPLE_NODES, EXAMPLE_LR = 300, 800, 5e-3  # the example's defaults
+
+
+def _qat_example():
+    """``examples/train_gcn_degreequant_torch.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", "train_gcn_degreequant_torch.py")
+    spec = importlib.util.spec_from_file_location("train_gcn_degreequant_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _qat_inputs(ex, g, num_classes, dev):
+    """(x, labels, train mask) of a prepared graph on ``dev``."""
+    import torch
+
+    labels, train = ex.node_task(g, num_classes)
+    return (torch.from_numpy(g.features).to(dev), torch.from_numpy(labels).long().to(dev),
+            torch.from_numpy(train).to(dev))
+
+
+def _close_report(name, got, want):
+    """Max abs difference of two tensors; raise beyond the f32 tolerance."""
+    import numpy as np
+
+    got, want = got.detach().cpu().numpy(), want.detach().cpu().numpy()
+    err = float(np.abs(got - want).max())
+    np.testing.assert_allclose(got, want, atol=QAT_ATOL, rtol=QAT_RTOL, err_msg=name)
+    return err
+
+
+def phase_qat(g):
+    """Degree-Quant QAT of FULL ``ample-gcn`` on the Yelp graph (self-loops
+    added), through ``AmpleEngine.aggregate``'s backward on the card, then
+    the gates and the example. Returns the phase's row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.aggregation import aggregate_autograd
+    from repro_torch.core.message_passing import AmpleEngine, EngineConfig
+    from repro_torch.core.quantization import QuantParams, compute_scale_zp
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.kernels import build
+    from repro_torch.kernels.quant_matmul import ops as qm_ops
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    from repro_torch.kernels.segment_agg.ref import aggregate_tiles_ref
+    from repro_torch.models.api import params_to
+    from repro_torch.models.gnn import api as gnn_api
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+    ex = _qat_example()
+    cfg = get_config("ample-gcn")
+    dev = torch.device("cuda")
+    row = {}
+    t0 = time.perf_counter()
+    gs = gnn_api.prepare_graph(cfg, g)
+    x, labels, train = _qat_inputs(ex, gs, cfg.vocab_size, dev)
+    row["setup_s"] = time.perf_counter() - t0
+    eng = AmpleEngine(gs, EngineConfig(mixed_precision=False))
+    t0 = time.perf_counter()
+    eng._device_plans("gcn", eng.plans("gcn"), dev)
+    row["plan_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tdp = eng._transposed_plan("gcn", "float", dev)
+    row["transposed_plan_s"] = time.perf_counter() - t0
+    tplan = eng._tplans[("gcn", "float")]
+    log(f"[qat gcn] yelp + self-loops: {gs.num_nodes} nodes {gs.num_edges} edges, "
+        f"{int(train.sum())} training nodes, {cfg.vocab_size} classes; setup "
+        f"{row['setup_s']:.1f} s, float plan {row['plan_s']:.1f} s, transposed plan "
+        f"{row['transposed_plan_s']:.1f} s ({tplan.num_tiles} tiles, "
+        f"{tdp.split.num_slots} split slots)")
+
+    # S steps, each timed by CUDA events: forward, backward, optimiser.
+    params0 = gnn_api.gnn_init(cfg, torch.Generator().manual_seed(0), device=dev)
+    params = ex.trainable(params0)
+    opt_cfg = AdamWConfig(lr=EXAMPLE_LR, weight_decay=ex.WEIGHT_DECAY)
+    opt = adamw_init(params)
+    rng = np.random.default_rng(3)
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    for s in range(QAT_STEPS):
+        mask = torch.from_numpy(ex.sample_protection_mask(gs, ex.DQ, rng)).to(dev)
+        before = build.launch_counts().get(seg_ops.KERNEL, 0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = ex.qat_loss(params, eng, x, labels, train, mask)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, [lyr["w"] for lyr in params["layers"]])
+        ev[2].record()
+        params, opt, metrics = adamw_update({"layers": [{"w": gw} for gw in grads]}, opt,
+                                            params, opt_cfg)
+        ev[3].record()
+        torch.cuda.synchronize()
+        st = dict(loss=float(loss.detach()), forward_ms=ev[0].elapsed_time(ev[1]),
+                  backward_ms=ev[1].elapsed_time(ev[2]), optimizer_ms=ev[2].elapsed_time(ev[3]),
+                  age_launches=build.launch_counts().get(seg_ops.KERNEL, 0) - before,
+                  grad_norm=float(metrics["grad_norm"]))
+        steps.append(st)
+        log(f"[qat gcn] step {s}: loss {st['loss']:.5f} forward {st['forward_ms']:.3f} ms "
+            f"backward {st['backward_ms']:.3f} ms optimizer {st['optimizer_ms']:.3f} ms "
+            f"AGE launches {st['age_launches']} grad_norm {st['grad_norm']:.4g}")
+    row["peak_bytes"] = torch.cuda.max_memory_allocated()
+    row["steps"] = steps
+    row["launches"] = build.launch_counts()
+    log(f"[qat gcn] {QAT_STEPS} steps: peak device memory {row['peak_bytes'] / 2**30:.2f} GiB; "
+        f"launches {row['launches']}")
+    if any(st["age_launches"] != 3 for st in steps):  # (a)
+        raise RuntimeError(f"QAT steps launched the AGE {[st['age_launches'] for st in steps]} "
+                           "times, not 3 each")
+    if not all(np.isfinite(st["loss"]) for st in steps):
+        raise RuntimeError("a QAT loss is not finite")
+
+    # Where a step's time goes: a step under the profiler after one warm-up
+    # step (both discarded).
+    def profiled_step():
+        mask = torch.from_numpy(ex.sample_protection_mask(gs, ex.DQ, rng)).to(dev)
+        loss = ex.qat_loss(params, eng, x, labels, train, mask)
+        grads = torch.autograd.grad(loss, [lyr["w"] for lyr in params["layers"]])
+        return adamw_update({"layers": [{"w": gw} for gw in grads]}, opt, params, opt_cfg)
+
+    wall_ms, _, prof = _device_profile(profiled_step, warmup=1)
+    busy = sum(ms for _, ms, _ in prof)
+    row["profile"] = dict(wall_ms=wall_ms, device_ms=busy if prof else None,
+                          top=[dict(name=n, ms=ms, count=c) for n, ms, c in prof[:24]])
+    if prof:
+        log(f"[qat gcn] profiled step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+            f"(idle share {max(0.0, 1 - busy / wall_ms):.3f})")
+        for name, ms, count in prof[:12]:
+            log(f"[qat gcn]   {ms:9.3f} ms  x{count:<4d} {name[:90]}")
+    else:
+        log(f"[qat gcn] profiled step: wall {wall_ms:.3f} ms; device time not measured")
+
+    # (b) Two runs of the same steps from the same seed: bitwise the same.
+    runs = [ex.train(params0, eng, x, labels, train, steps=QAT_REPEAT_STEPS, lr=EXAMPLE_LR)[0]
+            for _ in range(2)]
+    row["repeat_bitwise"] = all(torch.equal(a["w"], b["w"]) for a, b in
+                                zip(runs[0]["layers"], runs[1]["layers"]))
+    log(f"[qat gcn] two runs of {QAT_REPEAT_STEPS} steps bitwise equal: {row['repeat_bitwise']}")
+    if not row["repeat_bitwise"]:
+        raise RuntimeError("two QAT runs from one seed gave different parameters")
+    del runs
+
+    # Deployment: the trained weights through the float engine and int8.
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    acc_float, acc_mixed = ex.evaluate(cfg, params, eng, x, labels, ~train)
+    row.update(deploy_s=time.perf_counter() - t0, acc_float=acc_float, acc_mixed=acc_mixed,
+               deploy_launches=build.launch_counts())
+    log(f"[qat gcn] after {QAT_STEPS} steps: test accuracy float {acc_float:.4f}, deployed int8 "
+        f"{acc_mixed:.4f}, difference {acc_float - acc_mixed:+.4f} (launches "
+        f"{row['deploy_launches']}: the float forward 2 AGE, the int8 one 4 AGE + 2 GEMM)")
+    if row["deploy_launches"] != {seg_ops.KERNEL: 6, qm_ops.KERNEL: 2}:
+        raise RuntimeError(f"deployment launched {row['deploy_launches']}")
+
+    # (c) The backward's launch at Yelp's size against its plain version:
+    # the CPU's, bitwise (both sum each segment in lane order), and the
+    # card's within AGE_ATOL (its index_add_ sums in another order).
+    n = gs.num_nodes
+    gr = torch.randn((n, cfg.d_ff), generator=_cuda_gen(5), device=dev)
+    args = (tdp.gather_idx, tdp.coeff, tdp.seg_ids, tdp.out_node, tdp.split)
+    out = seg_ops.aggregate_tiles(gr, *args, num_nodes=n)
+    again = seg_ops.aggregate_tiles(gr, *args, num_nodes=n)
+    plain = aggregate_tiles_ref(gr, *args, num_nodes=n)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    cpu_plan = eng._transposed_plan("gcn", "float", torch.device("cpu"))
+    t0 = time.perf_counter()
+    cpu_plain = aggregate_tiles_ref(
+        gr.cpu(), cpu_plan.gather_idx, cpu_plan.coeff, cpu_plan.seg_ids, cpu_plan.out_node,
+        cpu_plan.split, num_nodes=n)
+    cpu_s = time.perf_counter() - t0
+    bitwise = bool(torch.equal(out, again)) and bool(torch.equal(out.cpu(), cpu_plain))
+    del out, again, plain, cpu_plain, cpu_plan
+    ms = cuda_ms(lambda: seg_ops.aggregate_tiles(gr, *args, num_nodes=n), reps=10)
+    plain_ms = cuda_ms(lambda: aggregate_tiles_ref(gr, *args, num_nodes=n), reps=2)
+    lib_a = _group_csr(tplan, n)
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(lib_a, gr), reps=10)
+    del lib_a
+    live = tplan.edge_ids >= 0
+    lanes, uniq = int(live.sum()), np.unique(tplan.gather_idx[live]).size
+    plan_bytes = sum(t.numel() * t.element_size() for t in args[:4]) + sum(
+        t.numel() * t.element_size()
+        for t in (tdp.split.slot_of, tdp.split.split_ptr, tdp.split.split_node))
+    nbytes = uniq * cfg.d_ff * 4 + plan_bytes + n * cfg.d_ff * 4
+    b_ms, b_by = bound(nbytes, 2.0 * lanes * cfg.d_ff, FP32_FLOPS)
+    row["backward_kernel"] = dict(
+        tiles=tplan.num_tiles, lanes=tplan.edges_per_tile, edges=lanes, n=n, d=cfg.d_ff,
+        split_slots=tdp.split.num_slots, bitwise_plain=bitwise, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+        cpu_plain_s=cpu_s)
+    log(f"[qat gcn] backward AGE on the transposed plan T={tplan.num_tiles} D={cfg.d_ff}: "
+        f"bitwise the CPU's plain version and run to run {bitwise} (CPU {cpu_s:.1f} s), "
+        f"err vs the card's plain {err:.3g}; ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"library_ms={lib_ms:.3f} (torch.sparse.mm, CSR of Aᵀ) bound_ms={b_ms:.3f} ({b_by})")
+    if not bitwise or not err <= AGE_ATOL:
+        raise RuntimeError(f"the backward AGE: bitwise {bitwise}, err {err}")
+    del gr, eng, tdp, x, labels, train, params, opt, grads, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d), (e) At pubmed's size, full width: the card against CPU autograd.
+    pub = gnn_api.prepare_graph(cfg, make_dataset("pubmed", max_feature_dim=cfg.d_model, seed=0))
+    pparams = gnn_api.gnn_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    pmask = torch.from_numpy(ex.sample_protection_mask(pub, ex.DQ, np.random.default_rng(3)))
+    rr = np.random.default_rng(7).standard_normal((pub.num_nodes, cfg.d_model)).astype(np.float32)
+    got = {}
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        e = AmpleEngine(pub, EngineConfig(mixed_precision=False))
+        loss, grads = ex.qat_grads(ex.trainable(params_to(pparams, d)), e,
+                                   *_qat_inputs(ex, pub, cfg.vocab_size, d), pmask.to(d))
+        em = AmpleEngine(pub, EngineConfig(mixed_precision=True))
+        xp = torch.from_numpy(pub.features).to(d).requires_grad_()
+        (em.aggregate(xp, mode="gcn") * torch.from_numpy(rr).to(d)).sum().backward()
+        scale = compute_scale_zp(xp.detach()).scale.requires_grad_()
+        qp = QuantParams(scale, torch.zeros_like(scale.detach()))
+        dps = em._device_plans("gcn", em.plans("gcn"), d)
+        ys = aggregate_autograd(xp.detach(), dps, lambda: em._transposed_plan("gcn", "float", d),
+                                num_nodes=pub.num_nodes, qp=qp)
+        (ys * torch.from_numpy(rr).to(d)).sum().backward()
+        got[key] = dict(loss=loss, w0=grads["layers"][0]["w"], w1=grads["layers"][1]["w"],
+                           x=xp.grad, scale=scale.grad)
+    errs = {k: _close_report(k, got["card"][k], got["cpu"][k]) for k in got["cpu"]}
+    row["pubmed"] = dict(nodes=pub.num_nodes, edges=pub.num_edges, max_abs_err=errs,
+                         loss_card=float(got["card"]["loss"].detach()),
+                         loss_cpu=float(got["cpu"]["loss"].detach()),
+                         scale_grad_card=float(got["card"]["scale"]),
+                         scale_grad_cpu=float(got["cpu"]["scale"]))
+    log(f"[qat gcn] pubmed {pub.num_nodes} nodes, step 0 card vs CPU: loss "
+        f"{row['pubmed']['loss_card']:.6f} / {row['pubmed']['loss_cpu']:.6f}; max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; mixed scale gradient {row['pubmed']['scale_grad_card']:.6g} / "
+        f"{row['pubmed']['scale_grad_cpu']:.6g} (atol {QAT_ATOL}, rtol {QAT_RTOL})")
+    del got, pub
+
+    # The example at its defaults on the card and on the CPU.
+    ex_rows = {}
+    for key, d in (("card", "cuda"), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        ex_rows[key] = ex.run(steps=EXAMPLE_STEPS, nodes=EXAMPLE_NODES, lr=EXAMPLE_LR, device=d)
+        ex_rows[key]["seconds"] = time.perf_counter() - t0
+        log(f"[qat gcn] example ({EXAMPLE_NODES} nodes, {EXAMPLE_STEPS} steps) on the {key}: "
+            f"accuracy float {ex_rows[key]['acc_float']:.4f}, deployed int8 "
+            f"{ex_rows[key]['acc_mixed']:.4f}, loss {ex_rows[key]['first_loss']:.4f} -> "
+            f"{ex_rows[key]['last_loss']:.4f}, {ex_rows[key]['seconds']:.1f} s")
+    row["example"] = ex_rows
+    for k in ("acc_float", "acc_mixed"):
+        if abs(ex_rows["card"][k] - ex_rows["cpu"][k]) > QAT_ACC_TOL:
+            raise RuntimeError(f"example {k}: card {ex_rows['card'][k]} vs CPU "
+                               f"{ex_rows['cpu'][k]}, beyond {QAT_ACC_TOL}")
+    return row
+
+
 def _lm_launches(cfg):
     """The kernel launches of one prefill of ``cfg``, from its layer roles:
     flash attention once per attention layer (also counted as a tensor-core
@@ -1951,7 +2240,7 @@ def main() -> int:
     with phase("h2d"):
         h2d_row = phase_h2d()
     with phase("outofcore gcn"):
-        ooc_rows["gcn"] = phase_outofcore(srv, g, outs[0].outputs, "gcn", (2, 2, 2, 0))
+        ooc_rows["gcn"] = phase_outofcore(srv, g, outs[0].outputs, "gcn", (2, 2, 0))
     with phase("fronts"):
         fronts_row = phase_fronts(cfg)
     # Sharded serving and plan persistence, on the GCN path's params. The
@@ -1974,6 +2263,12 @@ def main() -> int:
     with phase("sharded mincut"):
         mincut_row = phase_sharded_mincut(cfg, srv.params)
     del srv, entry
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Degree-Quant QAT through the AGE's backward on the transposed plan.
+    with phase("qat gcn"):
+        qat_row = phase_qat(g)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2109,7 +2404,13 @@ def main() -> int:
                         f"D={age['d']}, {age['rows']} rows"),
              launches_by_path=by_path("segment_agg"),
              launches_streamed_request=streamed("segment_agg"),
-             launches_sharded_request=sharded_row["launches_request"].get("segment_agg", 0)),
+             launches_sharded_request=sharded_row["launches_request"].get("segment_agg", 0),
+             # a Yelp QAT step: 2 forward, 1 backward on the transposed plan
+             launches_qat_step=qat_row["steps"][0]["age_launches"],
+             launches_qat_deploy=qat_row["deploy_launches"].get("segment_agg", 0),
+             qat_backward={k: qat_row["backward_kernel"][k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "d",
+                 "tiles", "n")}),
         dict(kernel_row("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
                         "src/repro/kernels/quant_matmul/repack.py:108",
                         counts.get("quant_matmul", 0), gemm,
@@ -2166,7 +2467,7 @@ def main() -> int:
         hybrid_path=hybrid_row, flash_attention=flash_rows, ssd_intra_chunk=ssd_rows,
         lm_cpu=lm_cpu_rows, outofcore=ooc_rows, h2d_gbps=h2d_row, fronts=fronts_row,
         sharded_gcn=sharded_row, plan_store=store_row, sharded_overlap=overlap_row,
-        sharded_mincut=mincut_row, sharded_gat=sgat_row,
+        sharded_mincut=mincut_row, sharded_gat=sgat_row, qat_gcn=qat_row,
         phase_seconds=seconds,
         seconds=time.perf_counter() - t_start,
     )

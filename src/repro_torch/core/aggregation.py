@@ -19,6 +19,15 @@ and run the multi-head kernel (``kernels/segment_agg/attn_ops.py``), which
 reads them through the plan's ``edge_ids``: an ``[E, H]`` matrix with
 ``x [N, H, dh]``, a 1-D vector as one head ``[E, 1]``.
 
+``aggregate_autograd`` is the differentiable AGE of static-coefficient
+plans, the same function on both devices. Its forward is the AGE on the
+forward plans; its backward is the AGE on the transposed plan of the float
+group (``scheduler.transpose_plan_graph``): for ``out = A x`` the gradient
+is ``Aᵀ g``, a weighted segment sum over the reversed edges. The int8 group
+gathers codes, whose ``round`` has zero derivative, so it passes ``x`` no
+gradient and its scale ``Σ(g_I ⊙ out_I) / scale``, as the reference's jnp
+path does under ``jax.grad``.
+
 ``aggregate_bucket_plan`` and ``aggregate_padded_plan`` execute the baseline
 schedules (degree buckets, double-buffered batches) in plain PyTorch, for the
 comparison the paper makes; no kernel serves them, as none does in the
@@ -26,7 +35,7 @@ reference.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,6 +51,7 @@ __all__ = [
     "tile_edge_coeff",
     "aggregate_edge_tiles",
     "aggregate_mixed_precision",
+    "aggregate_autograd",
     "aggregate_bucket_plan",
     "aggregate_padded_plan",
     "segment_max_edge_tiles",
@@ -263,24 +273,93 @@ def aggregate_mixed_precision(
     ``edge_coeff`` is the runtime per-edge coefficient vector or ``[E, H]``
     matrix (graph edge space) both streams read through their ``edge_ids``.
     """
-    for tag in plans:
+    device_plans = device_plans or {}
+    dplans = {tag: device_plans.get(tag) or to_device_plan(p, x.device)
+              for tag, p in plans.items()}
+    if "int8" in plans and qp is None:
+        qp = compute_scale_zp(x, symmetric=True)
+    return _aggregate_groups(x, dplans, num_nodes=num_nodes, qp=qp, edge_coeff=edge_coeff)
+
+
+def _aggregate_groups(
+    x: torch.Tensor,
+    dplans: Dict[str, DeviceTilePlan],
+    *,
+    num_nodes: int,
+    qp: Optional[QuantParams],
+    edge_coeff: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Each precision group's rows into one zero-filled output: the float
+    group on ``x``, the int8 group on its codes under ``qp``."""
+    for tag in dplans:
         if tag not in ("float", "int8"):
             raise ValueError(f"unknown precision tag {tag!r}")
-    device_plans = device_plans or {}
-
-    def dplan(tag):
-        return device_plans.get(tag) or to_device_plan(plans[tag], x.device)
-
     out = torch.zeros((num_nodes,) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
-    if "float" in plans:
-        aggregate_edge_tiles(x, dplan("float"), num_nodes=num_nodes, edge_coeff=edge_coeff,
+    if "float" in dplans:
+        aggregate_edge_tiles(x, dplans["float"], num_nodes=num_nodes, edge_coeff=edge_coeff,
                              out=out)
-    if "int8" in plans:
-        if qp is None:
-            qp = compute_scale_zp(x, symmetric=True)
-        aggregate_edge_tiles(_int8_rows(x, qp), dplan("int8"), num_nodes=num_nodes,
+    if "int8" in dplans:
+        aggregate_edge_tiles(_int8_rows(x, qp), dplans["int8"], num_nodes=num_nodes,
                              edge_coeff=edge_coeff, qp=qp, out=out)
     return out
+
+
+class _AggregateTiles(torch.autograd.Function):
+    """``_aggregate_groups`` forward; the AGE on the transposed plan backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, dplans, transposed, num_nodes, qp):
+        out = _aggregate_groups(x, dplans, num_nodes=num_nodes, qp=qp)
+        ctx.dplans, ctx.transposed, ctx.num_nodes = dplans, transposed, num_nodes
+        ctx.x_shape = x.shape
+        if ctx.needs_input_grad[1]:
+            ctx.save_for_backward(out, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        gx = gscale = None
+        if ctx.needs_input_grad[0]:
+            if "float" in ctx.dplans:
+                gx = aggregate_edge_tiles(g.contiguous(), ctx.transposed(),
+                                          num_nodes=ctx.num_nodes)
+            else:  # codes only: round() passes no gradient
+                gx = torch.zeros(ctx.x_shape, dtype=torch.float32, device=g.device)
+        if ctx.needs_input_grad[1]:
+            # d out_I / d scale = out_I / scale: the int8 rows are (q - z) · scale.
+            out, scale = ctx.saved_tensors
+            on = ctx.dplans["int8"].out_node
+            rows = torch.unique(on[on < ctx.num_nodes]).long()
+            gscale = (g[rows] * out[rows]).sum_to_size(scale.shape) / scale
+        return gx, gscale, None, None, None, None
+
+
+def aggregate_autograd(
+    x: torch.Tensor,
+    device_plans: Dict[str, DeviceTilePlan],
+    transposed: Callable[[], DeviceTilePlan],
+    *,
+    num_nodes: int,
+    qp: Optional[QuantParams] = None,
+) -> torch.Tensor:
+    """The AGE over static-coefficient plans, with a backward.
+
+    The forward is ``aggregate_mixed_precision`` on the uploaded
+    ``device_plans`` (a float-only engine passes ``{"float": …}``), bitwise.
+    ``transposed()`` returns the device plan of the float group's reversed
+    edges (``scheduler.transpose_plan_graph``), called on the first backward;
+    the backward runs the AGE on it, so on the card the gradient is the
+    kernel again, with grad off. ``qp`` (needed with an int8 group) may carry a scale that
+    requires grad: it receives ``Σ(g_I ⊙ out_I) / scale`` and autograd
+    carries that on through its calibration. A zero point that requires grad
+    is refused (the engine's calibration is symmetric).
+    """
+    if "int8" in device_plans and qp is None:
+        raise ValueError("an int8 group needs its QuantParams")
+    if qp is not None and qp.zero_point.requires_grad:
+        raise ValueError("no gradient for the zero point: calibrate symmetrically")
+    return _AggregateTiles.apply(x, None if qp is None else qp.scale, device_plans,
+                                 transposed, num_nodes, qp)
 
 
 def _int8_rows(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:

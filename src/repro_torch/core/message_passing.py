@@ -36,6 +36,7 @@ import torch
 from repro_torch.core import scheduler as sched
 from repro_torch.core.aggregation import (
     DeviceTilePlan,
+    aggregate_autograd,
     aggregate_edge_tiles,
     aggregate_mixed_precision,
     edge_segment_sum_tiles,
@@ -614,7 +615,12 @@ class AmpleEngine:
         artifact and skips the planner entirely.
 
     It runs on the device of the embeddings it is given: device plans and
-    node groups are uploaded once per device and cached.
+    node groups are uploaded once per device and cached. ``aggregate`` is
+    differentiable for static-coefficient modes: its backward runs the AGE
+    on the float group's transposed plan, built on the first backward and kept
+    beside the device plans (engine state only: it is in neither the
+    ``ExecutionPlan``, its fingerprint nor a saved plan file). No cache of
+    the engine keeps an autograd graph.
     """
 
     def __init__(
@@ -656,6 +662,10 @@ class AmpleEngine:
         self._wq_cache: "OrderedDict[int, tuple]" = OrderedDict()
         # (mode, device) -> tag -> DeviceTilePlan; device -> tag -> node ids.
         self._dplan_cache: Dict[Tuple[str, str], Dict[str, DeviceTilePlan]] = {}
+        # (mode, tag) -> the group's transposed plan (the backward of
+        # aggregate); (mode, tag, device) -> its upload.
+        self._tplans: Dict[Tuple[str, str], sched.EdgeTilePlan] = {}
+        self._tplan_cache: Dict[Tuple[str, str, str], DeviceTilePlan] = {}
         self._group_cache: Dict[str, Dict[str, torch.Tensor]] = {}
         # device -> (src, dst) node id per edge; modes whose edge ids were checked.
         self._endpoint_cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -690,7 +700,8 @@ class AmpleEngine:
         cache hits skip ``compute_scale_zp`` entirely, and repeat requests
         with identical features are bitwise-identical to the cold request.
         Callers that never invoke this (direct engine use) keep per-call
-        dynamic calibration.
+        dynamic calibration. A calibration that is part of an autograd graph
+        (training) is not cached: the slot stays empty for eager serving.
         """
         self._forward_active = True
         self._agg_slot = 0
@@ -723,7 +734,10 @@ class AmpleEngine:
             slot = ("fte", self._fte_slot)
             self._fte_slot += 1
         if slot not in self._act_qp:
-            self._act_qp[slot] = calibrate()
+            qp = calibrate()
+            if qp.scale.requires_grad:
+                return qp
+            self._act_qp[slot] = qp
         return self._act_qp[slot]
 
     def _device_plans(
@@ -736,6 +750,20 @@ class AmpleEngine:
                 tag: to_device_plan(p, device) for tag, p in plans.items()
             }
         return self._dplan_cache[key]
+
+    def _transposed_plan(self, mode: str, tag: str, device: torch.device) -> DeviceTilePlan:
+        """The device plan of group ``tag``'s reversed edges (the backward of
+        ``aggregate``), planned once per (mode, tag) with the engine's tile
+        sizes and uploaded once per device."""
+        key = (mode, tag, str(device))
+        if key not in self._tplan_cache:
+            if (mode, tag) not in self._tplans:
+                g, coeff, tags = sched.transpose_plan_graph(self.plans(mode)[tag])
+                self._tplans[(mode, tag)] = sched.build_mixed_precision_plans(
+                    g, tags, edges_per_tile=self.cfg.edges_per_tile,
+                    segments_per_tile=self.cfg.segments_per_tile, coeff=coeff)["float"]
+            self._tplan_cache[key] = to_device_plan(self._tplans[(mode, tag)], device)
+        return self._tplan_cache[key]
 
     def _require_edge_ids(self, mode: str, plans: Mapping[str, sched.EdgeTilePlan]) -> None:
         """Refuse runtime coefficients on plans without live edge ids.
@@ -890,6 +918,11 @@ class AmpleEngine:
         plan stays structure-keyed, so serving caches are untouched by
         per-request coefficients. Multi-head: ``edge_coeff`` f32[E, H] with
         ``x`` f32[N, H, dh] aggregates all heads in one tile pass.
+
+        Under grad, static-coefficient modes run ``aggregate_autograd``: the
+        same forward, and a backward through the AGE on the transposed plan.
+        Runtime coefficients on the card have no backward yet (ROADMAP.md
+        queue 1 item 8): their kernel raises under grad.
         """
         if isinstance(x, StreamedFeatures):
             if edge_coeff is not None:
@@ -917,8 +950,15 @@ class AmpleEngine:
                 )
             self._require_edge_ids(mode, plans)
         dplans = self._device_plans(mode, plans, x.device)
+        qp = None
+        if self.cfg.mixed_precision and "int8" in plans:
+            qp = self._activation_qp(lambda: x, "agg")
+        if edge_coeff is None and torch.is_grad_enabled() and (
+                x.requires_grad or (qp is not None and qp.scale.requires_grad)):
+            return aggregate_autograd(
+                x, dplans, lambda: self._transposed_plan(mode, "float", x.device),
+                num_nodes=self.graph.num_nodes, qp=qp)
         if self.cfg.mixed_precision:
-            qp = self._activation_qp(lambda: x, "agg") if "int8" in plans else None
             return aggregate_mixed_precision(
                 x,
                 plans,
@@ -1041,6 +1081,9 @@ class AmpleEngine:
         once per weight, so every warm transform hands the kernel its layout
         with no per-call transpose.
         """
+        if w.requires_grad and torch.is_grad_enabled():  # keep no graph in the cache
+            w_q, w_qp = quantize_per_channel(w, axis=-1)
+            return w_q, w_qp, qm_ops.repack_weight(w_q)
         key = id(w)
         entry = self._wq_cache.get(key)
         if entry is None or entry[0] is not w:

@@ -1,8 +1,9 @@
-"""Affine int8 quantization utilities (Eq. 5 of the paper), in PyTorch.
+"""Affine int8 quantization utilities (Eq. 5 of the paper) + fake-quant STE, in PyTorch.
 
-The numerical foundation of the mixed-precision path: the GNN engine
-quantizes unprotected node embeddings and weights to int8 and runs them
-through the int8 FTE stream (kernels/quant_matmul).
+The numerical foundation of both halves of the mixed-precision workflow: the
+GNN engine quantizes unprotected node embeddings and weights to int8 and
+runs them through the int8 FTE stream (kernels/quant_matmul), and
+Degree-Quant training fake-quantizes them (``fake_quant``).
 
 Quantization follows Eq. 5:  x_q = clip(round(x/s + z), q_min, q_max)
 De-quantization:             x̂  = (x_q - z) * s
@@ -23,6 +24,7 @@ __all__ = [
     "compute_scale_zp",
     "quantize",
     "dequantize",
+    "fake_quant",
     "quantize_per_channel",
     "INT8_MIN",
     "INT8_MAX",
@@ -89,6 +91,41 @@ def dequantize(
     xq: torch.Tensor, qp: QuantParams, dtype=torch.float32
 ) -> torch.Tensor:
     return ((xq.to(torch.float32) - qp.zero_point) * qp.scale).to(dtype)
+
+
+class _FakeQuant(torch.autograd.Function):
+    """``dequantize(quantize(x))`` forward; the straight-through estimator
+    with range clipping backward, as the reference's ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, zero_point, qmin, qmax):
+        qp = QuantParams(scale, zero_point)
+        if ctx.needs_input_grad[0]:
+            t = x / scale + zero_point
+            ctx.save_for_backward((t >= qmin) & (t <= qmax))
+        return dequantize(quantize(x, qp, qmin=qmin, qmax=qmax, dtype=torch.int32), qp)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inside,) = ctx.saved_tensors
+        # The scale and zero point get no gradient (the reference's zero qp).
+        return torch.where(inside, g, 0.0), None, None, None, None
+
+
+def fake_quant(
+    x: torch.Tensor,
+    qp: QuantParams,
+    *,
+    qmin: int = INT8_MIN,
+    qmax: int = INT8_MAX,
+) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through estimator (QAT forward).
+
+    Gradients pass through unchanged inside the representable range
+    (``qmin <= x/s + z <= qmax``) and are zeroed outside it (the standard STE
+    with range clipping used by Degree-Quant); ``qp`` gets none.
+    """
+    return _FakeQuant.apply(x, qp.scale, qp.zero_point, qmin, qmax)
 
 
 def quantize_per_channel(

@@ -13,6 +13,9 @@ byte-identical tile arrays for the same graph (the parity tests check it).
   mechanism (§3.3 of the paper).
 * ``build_mixed_precision_plans`` partitions nodes by their Degree-Quant tag
   and emits one plan per precision group (§3.2).
+* ``transpose_plan_graph`` reverses one plan's edges, the graph of its
+  backward: the gradient of a weighted segment sum is the same sum over the
+  transposed edges (port only: the reference differentiates its jnp path).
 * ``BucketPlan`` / ``PaddedPlan`` — the baselines the paper argues against:
   power-of-two degree buckets, and the double-buffered (HyGCN-style) fixed
   batches padded to their largest degree (``AmpleEngine.occupancy_report``
@@ -57,6 +60,7 @@ __all__ = [
     "size_class",
     "split_plan_by_halo",
     "tile_runs",
+    "transpose_plan_graph",
     "union_bucket_fingerprint",
 ]
 
@@ -609,6 +613,35 @@ def build_mixed_precision_plans(
             node_ids=ids,
         )
     return plans
+
+
+def transpose_plan_graph(plan: EdgeTilePlan) -> Tuple[Graph, np.ndarray, np.ndarray]:
+    """The reversed edges of one plan: (graph, coeff, tags).
+
+    The plan's live lanes are the edges ``src → dst`` of its group (``dst``
+    in the group, ``src`` anywhere) with their coefficients. The result is
+    the in-edge CSR ``Graph`` of the edges ``dst → src`` over all
+    ``plan.num_nodes`` nodes (rows by ``src``, each row's sources by ``dst``,
+    lanes of equal edges in plan order), the forward coefficients permuted
+    onto it, and tags that put every node in one group (``"float"``).
+    ``build_mixed_precision_plans(graph, tags, coeff=coeff)`` then plans the
+    backward: its aggregate of ``g`` is Aᵀ g for the forward's A. The
+    coefficients are the forward edges' own, not ones recomputed on the
+    reversed graph (whose degrees differ). Lanes of coefficient 0 (padding,
+    or an edge that adds nothing) are left out: they move no gradient.
+    """
+    n = plan.num_nodes
+    dst = np.take_along_axis(plan.out_node, plan.seg_ids, axis=1)
+    live = (dst < n) & (plan.coeff != 0)
+    src = plan.gather_idx[live].astype(np.int64)
+    dst = dst[live].astype(np.int64)
+    coeff = plan.coeff[live]
+    order = np.lexsort((dst, src))  # stable: equal edges keep plan order
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(src, minlength=n), out=indptr[1:])
+    g = Graph(indptr=indptr, indices=dst[order].astype(np.int32), num_nodes=n,
+              name="transposed")
+    return g, np.ascontiguousarray(coeff[order], np.float32), np.full(n, "float")
 
 
 # ---------------------------------------------------------------------------

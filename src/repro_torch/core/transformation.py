@@ -23,6 +23,7 @@ from repro_torch.core.quantization import (
     quantize,
     quantize_per_channel,
 )
+from repro_torch.kernels import build
 from repro_torch.kernels.quant_matmul import ops as qm_ops
 
 __all__ = [
@@ -64,10 +65,13 @@ def transform_int8(
     y ≈ (s_a s_w) · (h_q @ W_q), since both quantizations are symmetric (z=0).
     ``w_packed`` is the load-time relayout of ``w_q``
     (``kernels.quant_matmul.repack_weight``); without it the weight is
-    relaid per call.
+    relaid per call. On the card the int8 GEMM has no backward, so ``h`` or
+    a scale that requires grad raises under grad.
     """
     if a_qp is None:
         a_qp = compute_scale_zp(h, symmetric=True)
+    if h.device.type == "cuda":
+        build.require_no_grad(qm_ops.KERNEL, h, a_qp.scale, w_qp.scale)
     h_q = quantize(h, a_qp)
     if w_packed is not None:
         acc = qm_ops.quant_matmul_repacked(h_q, w_packed)

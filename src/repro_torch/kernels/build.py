@@ -11,6 +11,12 @@ Each kernel wrapper calls ``count_launch`` exactly where it launches its
 kernel, so a run can show that it went through the kernels:
 ``reset_launch_counts()`` before the run, ``launch_counts()`` after it.
 
+A kernel's result carries no autograd graph. So each wrapper calls
+``require_no_grad`` before it launches: under grad, an input that requires
+grad raises instead of leaving a gradient silently cut. The AGE's backward
+is the AGE on the transposed plan (``core/aggregation.py``), which runs the
+wrapper with grad off.
+
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have neither ``nvcc`` nor a card.
 """
@@ -36,6 +42,7 @@ __all__ = [
     "count_launch",
     "launch_counts",
     "reset_launch_counts",
+    "require_no_grad",
 ]
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
@@ -113,6 +120,28 @@ _SIGNATURES = {
 
 _launches: Dict[str, int] = {}
 _lib: Optional[ctypes.CDLL] = None
+
+# Where each kernel gets a backward: the item of ROADMAP.md's queue 1.
+_BACKWARD = {
+    "segment_agg": "AmpleEngine.aggregate differentiates it for static coefficients; "
+                   "the sharded and streamed engines under grad are ROADMAP.md queue 1 "
+                   "item 10",
+    "attention": "ROADMAP.md queue 1 item 8 (GAT training on the card)",
+    "segment_agg_mh": "ROADMAP.md queue 1 item 8 (GAT training on the card)",
+    "quant_matmul": "ROADMAP.md queue 1 item 9 (QAT through the int8 FTE)",
+    "flash_attention": "ROADMAP.md queue 1 item 4 (LM training path)",
+    "ssd_intra_chunk": "ROADMAP.md queue 1 item 4 (LM training path)",
+}
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through kernel ``name``: grad
+    mode is on and one of ``tensors`` (None allowed) requires grad."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel has no backward "
+            f"({_BACKWARD.get(name, 'no ROADMAP.md item yet')}); run it under "
+            "torch.no_grad()")
 
 
 def count_launch(name: str) -> None:

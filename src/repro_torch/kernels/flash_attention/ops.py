@@ -4,6 +4,8 @@ the kernel reads it directly, so nothing is transposed).
 
 A CUDA tensor launches ``csrc/flash_attention.cu``; a CPU tensor takes the
 plain version (``ref.py``). q-head ``h`` reads kv-head ``h // (H // KV)``.
+The kernel has no backward: under grad, an input that requires grad raises
+(``build.require_no_grad``).
 
 The source holds two kernels of one function, and ``flash_variant`` picks
 one from the dtype, the head dim and the alignment: the tensor-core kernel
@@ -62,6 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         return flash_attention_ref(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
+    build.require_no_grad(KERNEL, q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be f32 or all bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

@@ -1,7 +1,10 @@
 """Wrappers of the int8 matmul kernel (the int8 FTE stream).
 
 A CUDA tensor launches ``csrc/quant_matmul.cu``; a CPU tensor takes the plain
-version (``ref.py``). Both give bitwise the same int32 result.
+version (``ref.py``). Both give bitwise the same int32 result. The kernel
+reads int8 codes, which carry no gradient; the float tensors they are made
+from are held to ``build.require_no_grad`` where the codes are made
+(``core/transformation.py::transform_int8``, ``memory/prefetcher.py``).
 """
 from __future__ import annotations
 

@@ -11,7 +11,8 @@ their ``QuantParams`` (dequantized inside the kernel). Both launch
 (``ref.py``) for CPU tensors, and both read the tiles with the plan's
 ``SplitMap``, and both write into a caller's ``out`` when given one. Heads
 stay packed ``[N, H·dh]`` as the FTE wrote them. The walk's geometry is
-``ops.walk_geometry``, re-exported here.
+``ops.walk_geometry``, re-exported here. Neither kernel has a backward:
+under grad, an input that requires grad raises (``build.require_no_grad``).
 """
 from __future__ import annotations
 
@@ -94,6 +95,7 @@ def attend_tiles(
     if z.device.type == "cpu":
         return attend_tiles_ref(z, gather_idx, edge_ids, scores, coeff, seg_ids, out_node, split,
                                 num_nodes=num_nodes, leaky_slope=leaky_slope, qp=qp, out=out)
+    build.require_no_grad(ATTENTION, z, scores, coeff, None if qp is None else qp.scale)
     h, dh, elem, scale, zero, ld, wk = _check_tiles(z, gather_idx, edge_ids, scores, coeff,
                                                     seg_ids, out_node, split, num_nodes, qp)
     t, e = gather_idx.shape
@@ -136,6 +138,8 @@ def aggregate_tiles_mh(
     if x.device.type == "cpu":
         return aggregate_tiles_mh_ref(x, gather_idx, edge_ids, edge_coeff, coeff, seg_ids,
                                       out_node, split, num_nodes=num_nodes, qp=qp, out=out)
+    build.require_no_grad(SEGMENT_AGG_MH, x, edge_coeff, coeff,
+                          None if qp is None else qp.scale)
     h, dh, elem, scale, zero, ld, wk = _check_tiles(x, gather_idx, edge_ids, edge_coeff, coeff,
                                                     seg_ids, out_node, split, num_nodes, qp)
     t, e = gather_idx.shape

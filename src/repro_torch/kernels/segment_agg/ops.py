@@ -8,6 +8,11 @@ in registers. Both read the tiles together with a ``SplitMap``: which
 segments belong to nodes split across tiles, computed once per plan on the
 host by ``split_segment_map``. ``walk_geometry`` gives the walk's launch
 geometry, here and for the GAT kernels (``attn_ops.py``).
+
+The launch itself has no backward, and under grad an input that requires
+grad raises (``build.require_no_grad``). The gradient of a weighted segment
+sum is the same sum over the transposed edges, so the backward is this
+kernel again, on the transposed plan (``core/aggregation.py::aggregate_autograd``).
 """
 from __future__ import annotations
 
@@ -302,6 +307,7 @@ def aggregate_tiles(
                                    num_nodes=num_nodes, qp=qp, out=out)
     if x.device.type != "cuda":
         raise ValueError(f"no AGE kernel for device {x.device}")
+    build.require_no_grad(KERNEL, x, coeff, None if qp is None else qp.scale)
     if x.dim() != 2:
         raise ValueError(f"x must be [N, D], got {tuple(x.shape)}")
     _, d, elem, _, _, ld = _rows(x.unsqueeze(1), qp, x.shape[0])

@@ -4,7 +4,8 @@ acum f32 [B,NC,H,Q] in, f32 [B,NC,H,Q,P] out.
 
 A CUDA tensor launches ``csrc/ssd_scan.cu`` (f32 kept on the TF32 tensor
 cores by splitting each operand in two TF32 terms); a CPU tensor takes the
-plain version (``ref.py``).
+plain version (``ref.py``). The kernel has no backward: under grad, an input
+that requires grad raises (``build.require_no_grad``).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ def ssd_intra_chunk(cc, bc, xdt, acum):
         return ssd_intra_chunk_ref(cc, bc, xdt, acum)
     if cc.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {cc.device}")
+    build.require_no_grad(KERNEL, cc, bc, xdt, acum)
     for name, t in (("cc", cc), ("bc", bc), ("xdt", xdt), ("acum", acum)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")

@@ -64,6 +64,7 @@ import torch
 from repro_torch.core import scheduler as sched
 from repro_torch.core.quantization import INT8_MAX, QuantParams
 from repro_torch.core.transformation import transform_dense
+from repro_torch.kernels import build
 from repro_torch.kernels.quant_matmul import ops as qm_ops
 from repro_torch.kernels.segment_agg import ops as seg_ops
 from repro_torch.memory.feature_store import FeatureStore
@@ -983,6 +984,8 @@ def transform_streamed(
         elif tag == "int8":
             if a_qp is None:
                 a_qp = _host_fte_qp(store.amax_rows(ids), dev)
+            if dev.type == "cuda":
+                build.require_no_grad(qm_ops.KERNEL, w_qp.scale)
             scale_np = np.float32(a_qp.scale.item())
             # Same expression as transform_int8's dequant coefficient.
             deq = a_qp.scale * w_qp.scale.reshape(1, -1)

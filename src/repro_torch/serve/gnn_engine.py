@@ -775,6 +775,7 @@ class GNNServeEngine:
             return 0.0
         return max(exec_start - admitted_at, 0.0) * 1e3
 
+    @torch.no_grad()
     def infer(
         self,
         graph: Graph,
@@ -790,6 +791,10 @@ class GNNServeEngine:
         its member plan piece then pre-warms every future batch containing
         this structure. With the trace recorder enabled, the request's spans
         carry ``trace_id`` (a new id when it is "").
+
+        Serving runs under ``torch.no_grad()``, so parameters that require
+        grad serve too. Not ``inference_mode``: a training call on the same
+        engine may save the cached plans and node groups for backward.
         """
         arch = self._arch(arch)
         # The store-cache identity is the caller's object: validation may
@@ -835,6 +840,7 @@ class GNNServeEngine:
             **self._halo_fields(),
         )
 
+    @torch.no_grad()
     def infer_batch(self, requests: Sequence[GNNRequest]) -> List[GNNResponse]:
         """Batch independent small-graph requests into one device call.
 

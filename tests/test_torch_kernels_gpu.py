@@ -18,7 +18,13 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.core.aggregation import to_device_plan
-from repro_torch.core.quantization import QuantParams, compute_scale_zp, quantize
+from repro_torch.core.quantization import (
+    QuantParams,
+    compute_scale_zp,
+    quantize,
+    quantize_per_channel,
+)
+from repro_torch.core.transformation import transform_int8
 from repro_torch.core.message_passing import AmpleEngine, EngineConfig, compile_plans
 from repro_torch.core.scheduler import build_edge_tile_plan, build_mixed_precision_plans
 from repro_torch.graphs.csr import Graph
@@ -1045,3 +1051,146 @@ def test_halo_overlap_on_card_launches_the_split(cuda):
     stats = eng.halo_stats
     assert stats["split_exchanges"] == stats["halo_exchanges"] == 16  # 4 shards, 2 layers, 2 requests
     assert got.halo_ms > 0.0 and 0.0 <= got.halo_overlap <= 1.0 and got.halo_bytes > 0
+
+
+# ----------------------------------------------------------- training (QAT)
+def _qat_example():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "examples",
+                        "train_gcn_degreequant_torch.py")
+    spec = importlib.util.spec_from_file_location("train_gcn_degreequant_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _directed_graph(n=600, seed=21):
+    from repro_torch.graphs.csr import add_self_loops
+
+    return add_self_loops(make_lognormal_graph(n, 8.0, seed=seed))
+
+
+@pytest.mark.parametrize("mode", ["gcn", "sum", "mean"])
+@pytest.mark.parametrize("d", [1, 100, 256, 300])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_age_backward_on_transposed_plan_is_bitwise_plain(cuda, mode, d, mixed):
+    """The backward's launch, the AGE on each group's transposed plan,
+    against its plain version on the card (within 1e-4: its index_add_
+    sums in another order) and on the CPU (bitwise), run-to-run bitwise."""
+    g = _directed_graph()
+    eng = AmpleEngine(g, EngineConfig(edges_per_tile=64, mixed_precision=mixed))
+    gr = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        (g.num_nodes, d)).astype(np.float32))
+    for tag in eng.plans(mode):
+        dp, dp_cpu = (eng._transposed_plan(mode, tag, dev) for dev in (cuda, torch.device("cpu")))
+        out = _agg(gr.to(cuda), dp, g.num_nodes, seg_ops.aggregate_tiles)
+        assert torch.equal(out, _agg(gr.to(cuda), dp, g.num_nodes, seg_ops.aggregate_tiles))
+        np.testing.assert_allclose(
+            out.cpu().numpy(),
+            _agg(gr.to(cuda), dp, g.num_nodes, aggregate_tiles_ref).cpu().numpy(), atol=1e-4)
+        assert torch.equal(out.cpu(), _agg(gr, dp_cpu, g.num_nodes, aggregate_tiles_ref))
+
+
+@pytest.mark.parametrize("mode", ["gcn", "sum", "mean"])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_aggregate_grad_on_card_matches_cpu(cuda, mode, mixed):
+    """x's gradient (and, mixed, the int8 scale's through its calibration)
+    on the card against the CPU, at the f32 tolerance; a float engine's
+    forward and backward each launch the AGE once."""
+    g = _directed_graph()
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((g.num_nodes, 64)).astype(np.float32)
+    r = rng.standard_normal((g.num_nodes, 64)).astype(np.float32)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = AmpleEngine(g, EngineConfig(edges_per_tile=64, mixed_precision=mixed))
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        build.reset_launch_counts()
+        (eng.aggregate(xt, mode=mode) * torch.from_numpy(r).to(dev)).sum().backward()
+        if dev.type == "cuda":
+            assert build.launch_counts() == {seg_ops.KERNEL: 3 if mixed else 2}
+        grads.append(xt.grad.cpu().numpy())
+    np.testing.assert_allclose(grads[0], grads[1], atol=5e-4, rtol=1e-3)
+
+
+def test_qat_step_on_card_matches_cpu(cuda):
+    """The example's loss and gradients at step 0 on the card against the
+    CPU (f32 tolerance), three AGE launches a step, and a short training run
+    that is bitwise the same twice."""
+    ex = _qat_example()
+    g = ex.example_graph(400)
+    labels, train = ex.node_task(g, ex.NUM_CLASSES)
+    mask = torch.from_numpy(ex.sample_protection_mask(g, ex.DQ, np.random.default_rng(3)))
+    cfg = ex.example_model(g)
+    params = gnn_api.gnn_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = AmpleEngine(g, EngineConfig(mixed_precision=False))
+        args = (torch.from_numpy(g.features).to(dev), torch.from_numpy(labels).long().to(dev),
+                torch.from_numpy(train).to(dev), mask.to(dev))
+        p = ex.trainable(params_to(params, dev))
+        build.reset_launch_counts()
+        loss, grads = ex.qat_grads(p, eng, *args)
+        if dev.type == "cuda":
+            assert build.launch_counts() == {seg_ops.KERNEL: 3}
+        got.append([loss.detach().cpu()] + [gl["w"].cpu() for gl in grads["layers"]])
+    for a, b in zip(*got):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-4, rtol=1e-3)
+    runs = []
+    for _ in range(2):
+        eng = AmpleEngine(g, EngineConfig(mixed_precision=False))
+        p, _ = ex.train(params_to(params, cuda), eng, torch.from_numpy(g.features).to(cuda),
+                        torch.from_numpy(labels).long().to(cuda),
+                        torch.from_numpy(train).to(cuda), steps=3, lr=5e-3)
+        runs.append([lyr["w"].detach() for lyr in p["layers"]])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_kernel_wrappers_raise_under_grad(cuda):
+    """Every wrapper whose kernel has no backward raises under grad when an
+    input requires grad, and launches under no_grad."""
+    g = make_lognormal_graph(60, 4.0, seed=1)
+    plan = build_edge_tile_plan(g, edges_per_tile=16)
+    dp = to_device_plan(plan, cuda)
+    x = torch.randn((60, 8), device=cuda, requires_grad=True)
+    edges = torch.rand((g.num_edges, 2), device=cuda, requires_grad=True)
+    z = torch.randn((60, 2, 4), device=cuda)
+    q = torch.randn((1, 8, 4, 16), device=cuda, requires_grad=True)
+    kv = torch.randn((1, 8, 2, 16), device=cuda)
+    cc = torch.randn((1, 1, 16, 8), device=cuda, requires_grad=True)
+    xdt = torch.randn((1, 1, 2, 16, 8), device=cuda)
+    acum = torch.randn((1, 1, 2, 16), device=cuda)
+    w = torch.randn((8, 5), device=cuda, requires_grad=True)
+    calls = {
+        "segment_agg": lambda: _agg(x, dp, 60, seg_ops.aggregate_tiles),
+        "attention": lambda: attn_ops.attend_tiles(
+            z, dp.gather_idx, dp.edge_ids, edges, dp.coeff, dp.seg_ids, dp.out_node, dp.split,
+            num_nodes=60, leaky_slope=0.2),
+        "segment_agg_mh": lambda: attn_ops.aggregate_tiles_mh(
+            z, dp.gather_idx, dp.edge_ids, edges, dp.coeff, dp.seg_ids, dp.out_node, dp.split,
+            num_nodes=60),
+        "flash_attention": lambda: fa_ops.flash_attention(q, kv, kv),
+        "ssd_intra_chunk": lambda: ssd_ops.ssd_intra_chunk(cc, cc.detach(), xdt, acum),
+        "quant_matmul": lambda: transform_int8(x.detach(), *quantize_per_channel(w)),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: an input requires grad"):
+            call()
+        with torch.no_grad():
+            assert torch.isfinite(call()).all()
+    eng = AmpleEngine(g, EngineConfig(edges_per_tile=16, mixed_precision=False))
+    with pytest.raises(RuntimeError, match="segment_agg_mh"):
+        eng.aggregate(x, mode="runtime", edge_coeff=edges[:, 0])
+
+
+def test_serving_with_params_that_require_grad_on_card(cuda):
+    cfg = dataclasses.replace(get_config("ample-gcn"), gnn_union_node_bucket=0,
+                              gnn_union_edge_bucket=0)
+    g = make_dataset("cora", max_nodes=400, max_feature_dim=300, seed=2)
+    plain = GNNServeEngine(cfg, device=cuda)
+    params = {"layers": [{"w": lyr["w"].clone().requires_grad_()}
+                         for lyr in plain.params["layers"]]}
+    srv = GNNServeEngine(cfg, params=params, device=cuda)
+    assert np.array_equal(srv.infer(g, g.features).outputs, plain.infer(g, g.features).outputs)
