@@ -113,10 +113,31 @@ Every phase that fails raises, so the script exits non-zero.
     hybrid path — ``jamba-v0.1-52b`` at its published widths, cut to one
              unit of 8 roles (8 of 32 layers): 1 flash and 7 SSD launches
              each (N 16, 128 heads);
-14. lm kernels — flash attention (Qwen3-8B, SmolLM-360M, Granite-MoE and
-             Llama-4 Maverick prefill in bf16 on the tensor-core kernel, within 1.6e-2 and >=
-             99% of the bf16 entries bitwise equal to the plain version's; a
-             ragged S = 1000 in f32 on the CUDA-core kernel within 1e-4) and
+    vlm path — FULL ``qwen2-vl-7b`` (28 layers, d 3584, GQA 28/4, hd 128)
+             on embeds: B 4 x 2,048 f32 embeds (numpy seed 0) over Qwen2-VL's
+             M-RoPE streams (64 text positions, one 32 x 32 image grid, 960
+             text positions), ``model_prefill`` then 31 greedy decode steps,
+             twice (28 flash launches each, the repeat bitwise); the served
+             logits against one teacher-forced ``model_forward`` over the
+             embeds and the generated tokens' embedding rows, positions
+             extended at ``cache_len`` on all three streams (the bounds of
+             ``lm path``); a profiled run; a text-only ``ServeEngine.generate``;
+    encdec path — FULL ``seamless-m4t-medium`` (12 + 12 layers, d 1024):
+             B 4 x 1,024 f32 source frames and a 4-token target prefix
+             through ``model_prefill`` and 31 ``model_decode_step``s, twice
+             (flash causal 12 and unmasked 24 a prefill, unmasked 12 a decode
+             step; the repeat bitwise); decoding the 36 target tokens from
+             ``model_init_cache`` against one teacher-forced ``model_forward``
+             (the bounds of ``lm path``); the served path's gap to it (the
+             reference's prefill leaves the self K/V empty) logged; prefill
+             and decode ms beside their floors; a profiled run;
+14. lm kernels — flash attention (Qwen3-8B, SmolLM-360M, Granite-MoE,
+             Llama-4 Maverick and Qwen2-VL-7B prefill in bf16 on the
+             tensor-core kernel, within 1.6e-2 and >= 99% of the bf16 entries
+             bitwise equal to the plain version's; a ragged S = 1000 in f32 on
+             the CUDA-core kernel within 1e-4; unmasked: the Seamless encoder
+             (S = T = 1,024), its cross-attention (S 36 and S 1 over T 1,024)
+             in bf16 and a ragged f32 case) and
              the SSD intra-chunk term (Mamba2-370M and Jamba prefill and a
              ragged chunk, within 1e-4 of the plain version run with TF32
              off) against their plain versions, run-to-run bitwise, timed
@@ -126,9 +147,11 @@ Every phase that fails raises, so the script exits non-zero.
              TF32 products at the TF32 peak, and the f32 CUDA-core bound is
              printed beside it);
 15. lm cpu — REDUCED ``qwen3-8b``, ``mamba2-370m``, ``granite-moe-3b-a800m``,
-             ``llama4-maverick-400b-a17b`` and ``jamba-v0.1-52b`` served on
-             the CPU against the card: each kernel launched once per layer of
-             its mixer, the same tokens, prefill logits within 5e-4;
+             ``llama4-maverick-400b-a17b``, ``jamba-v0.1-52b`` and
+             ``qwen2-vl-7b`` served on the CPU against the card: each kernel
+             launched once per layer of its mixer, the same tokens, prefill
+             logits within 5e-4; REDUCED ``seamless-m4t-medium`` through
+             ``model_prefill`` and two decode steps, logits and cache leaves;
 16. h2d — the copy rate of one f32 and one int8 Yelp chunk from page-locked
              and from pageable host memory (CUDA events, 200 copies);
     outofcore gcn — the GCN path's engine (plans warm) serves the Yelp
@@ -250,6 +273,14 @@ TF_AGREE, TF_REL = 0.9, 0.05  # bf16-level bounds, tests/test_int8_kv.py:37-41
 # Jamba's 16-expert router (0.027).
 ROUTE_TIE = 0.02
 LM_CPU_ATOL, LM_CPU_RTOL = 5e-4, 1e-3  # f32 paths, tests/test_gnn_models.py:46
+# VLM traffic (numpy seed 0): B 4 prompts of unit-normal f32 embeds over
+# Qwen2-VL's M-RoPE streams: 64 text positions, one 32 x 32 image grid (1,024
+# patches: t fixed, h and w advancing) and 960 text positions (2,048 in all).
+VLM_TEXT0, VLM_GRID, VLM_TEXT1 = 64, 32, 960
+VLM_TEXT_PROMPT = 256  # the text-only ServeEngine.generate: B 4 x 256 tokens, 8 new
+# Enc-dec traffic (numpy seed 0): B 4, 1,024 unit-normal f32 source frames,
+# a 4-token target prefix, 32 new tokens (36 target tokens in all).
+ENC_SRC, ENC_PREFIX = 1024, 4
 
 
 def log(*args) -> None:
@@ -1951,15 +1982,7 @@ def phase_lm_path(arch, tag, num_layers=None, cut_reason="", tf_shape=None, tf_r
         raise RuntimeError(f"{tag}: teacher-forced check failed")
 
     build.reset_launch_counts()
-    wall_ms, _, rows = _device_profile(lambda: eng.generate(prompts, max_new_tokens=new))
-    busy = sum(ms for _, ms, _ in rows)
-    if rows:
-        log(f"[{tag} profile] generate wall_ms={wall_ms:.1f}, device busy {busy:.1f} ms "
-            f"(idle share {max(0.0, 1 - busy / wall_ms):.3f})")
-        for name, ms, count in rows[:14]:
-            log(f"[{tag} profile]   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
-    else:
-        log(f"[{tag} profile] generate wall_ms={wall_ms:.1f}; device time not measured")
+    profile = _profiled(tag, lambda: eng.generate(prompts, max_new_tokens=new))
     detail = dict(arch=arch, num_layers=cfg.num_layers, params=n_params,
                   weight_bytes=weight_bytes, init_ms=init_ms,
                   generate_ms=[r[1] for r in runs], launches=runs[0][2], prefill_ms=prefill_ms,
@@ -1968,9 +1991,308 @@ def phase_lm_path(arch, tag, num_layers=None, cut_reason="", tf_shape=None, tf_r
                   decode_weight_floor_ms=floor_ms, peak_bytes=peak, kv_cache_bytes=kv_bytes,
                   moe=routing, teacher_forced_shape=[tb, tp], teacher_forced_routes=routes,
                   teacher_forced_agreement=agree, teacher_forced_rel_diff=rel,
-                  profile=dict(wall_ms=wall_ms, device_ms=busy if rows else None,
-                               top=[dict(name=nm, ms=ms, count=c) for nm, ms, c in rows[:24]]))
+                  profile=profile)
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return detail
+
+
+def _vlm_positions(batch, text0, grid, text1):
+    """int32[3, B, S] M-RoPE streams: ``text0`` text positions, one grid x
+    grid image (t fixed at ``text0``, h and w advancing over the grid), then
+    ``text1`` text positions from the largest position + 1."""
+    import numpy as np
+
+    t = np.arange(text0)
+    hh, ww = np.meshgrid(np.arange(grid), np.arange(grid), indexing="ij")
+    img = np.stack([np.full(grid * grid, text0), text0 + hh.ravel(), text0 + ww.ravel()])
+    t1 = np.arange(img.max() + 1, img.max() + 1 + text1)
+    pos = np.concatenate([np.stack([t, t, t]), img, np.stack([t1, t1, t1])], 1).astype(np.int32)
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, batch, pos.shape[1])))
+
+
+def _greedy(params, cfg, batch, new, max_len):
+    """``model_prefill`` of ``batch``, then ``new - 1`` greedy
+    ``model_decode_step``s on tokens (``generate``'s loop, on any batch the
+    prefill takes): (tokens [B, new], logits [B, new, V] f32 each token was
+    picked from, cache_len after the prefill)."""
+    import torch
+
+    from repro_torch.models.api import model_decode_step, model_prefill
+
+    vocab = cfg.vocab_size
+    with torch.inference_mode():
+        logits, cache, n = model_prefill(params, cfg, batch, max_len)
+        served = [logits[:, -1, :vocab].clone()]
+        del logits  # [B, P, V] f32
+        for i in range(new - 1):
+            tok = served[-1].argmax(-1)[:, None]
+            lg, cache = model_decode_step(params, cfg, {"tokens": tok}, cache, n + i)
+            served.append(lg[:, :vocab])
+        served = torch.stack(served, 1)
+        del cache
+    return served.argmax(-1), served, n
+
+
+def _repeat_twice(tag, params, cfg, batch, new, max_len, want):
+    """Two runs of ``_greedy`` (each kernel launched as ``want`` says, the
+    repeat bitwise, tokens and logits) and one of the prefill alone: (tokens,
+    served logits, cache_len, run ms, prefill ms, prefill launches, peak
+    bytes)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for i in range(2):
+        build.reset_launch_counts()
+        out, ms = _timed(lambda: _greedy(params, cfg, batch, new, max_len))
+        counts = build.launch_counts()
+        runs.append((out, ms))
+        log(f"[{tag}] run {i}: prefill + {new - 1} decode steps: {ms:.1f} ms, launches {counts}")
+        if counts != want:
+            raise RuntimeError(f"{tag}: run launched {counts}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    (toks, served, n), (toks2, served2, _) = runs[0][0], runs[1][0]
+    if not (torch.equal(toks, toks2) and torch.equal(served, served2)):
+        raise RuntimeError(f"{tag}: the repeated run differs")
+    build.reset_launch_counts()
+    _, prefill_ms = _timed(lambda: _greedy(params, cfg, batch, 1, max_len))
+    return toks, served, n, [r[1] for r in runs], prefill_ms, build.launch_counts(), peak
+
+
+def _profiled(tag, fn):
+    """Wall ms, device ms (None when the profiler saw no device time), the
+    idle share and the top device ops of one ``fn`` run under torch.profiler."""
+    wall_ms, _, rows = _device_profile(fn)
+    busy = sum(ms for _, ms, _ in rows)
+    if rows:
+        log(f"[{tag} profile] wall_ms={wall_ms:.1f}, device busy {busy:.1f} ms "
+            f"(idle share {max(0.0, 1 - busy / wall_ms):.3f})")
+        for name, ms, count in rows[:14]:
+            log(f"[{tag} profile]   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
+    else:
+        log(f"[{tag} profile] wall_ms={wall_ms:.1f}; device time not measured")
+    return dict(wall_ms=wall_ms, device_ms=busy if rows else None,
+                idle_share=max(0.0, 1 - busy / wall_ms) if rows else None,
+                top=[dict(name=nm, ms=ms, count=c) for nm, ms, c in rows[:24]])
+
+
+def phase_vlm_path(tag="vlm path"):
+    """FULL ``qwen2-vl-7b`` (28 layers, d 3584, GQA 28/4, hd 128, bf16, random
+    weights from a CUDA generator of seed 0) on embeds: B 4 prompts of 2,048
+    f32 embeds with the image-grid M-RoPE streams, ``model_prefill`` then 31
+    greedy decode steps on tokens (32 new tokens), twice (28 flash launches
+    each, all on the tensor-core kernel; the repeat bitwise), once the
+    prefill alone; then the served logits against one teacher-forced
+    ``model_forward`` over the prompt's embeds followed by the generated
+    tokens' embedding rows, their positions extended at ``cache_len`` on all
+    three streams (as decode gives them); a profiled run; and one short
+    text-only ``ServeEngine.generate`` (text M-RoPE)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.api import model_forward, model_init
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("qwen2-vl-7b")
+    b, new, vocab = LM_BATCH, LM_NEW, cfg.vocab_size
+    p = VLM_TEXT0 + VLM_GRID * VLM_GRID + VLM_TEXT1
+    params, init_ms = _timed(lambda: model_init(cfg, _cuda_gen(0), device="cuda"))
+    leaves = _leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    embed = params["embed"]
+    # Decode reads every weight but the untied embedding table (B rows of it).
+    floor_ms = (weight_bytes - embed.numel() * embed.element_size()) / HBM_BPS * 1e3
+    # The prefill's products: every parameter but the embedding table (the
+    # prompt arrives as embeds), twice a token, at the bf16 peak.
+    flop_params = cfg.param_count() - vocab * cfg.d_model
+    prefill_floor_ms = 2.0 * flop_params * b * p / BF16_FLOPS * 1e3
+    log(f"[{tag}] qwen2-vl-7b: {cfg.num_layers} layers, d {cfg.d_model}, GQA "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, hd {cfg.resolved_head_dim}, {n_params:,} params "
+        f"(param_count {cfg.param_count():,}), {weight_bytes / 1e9:.2f} GB of weights, made in "
+        f"{init_ms:.0f} ms")
+    rng = np.random.default_rng(0)
+    embeds = torch.from_numpy(rng.standard_normal((b, p, cfg.d_model)).astype(np.float32)).cuda()
+    positions = torch.from_numpy(_vlm_positions(b, VLM_TEXT0, VLM_GRID, VLM_TEXT1)).cuda()
+    batch = {"embeds": embeds, "positions": positions}
+    want = _lm_launches(cfg)
+    toks, served, n, run_ms, prefill_ms, prefill_counts, peak = _repeat_twice(
+        tag, params, cfg, batch, new, LM_MAX_LEN, want)
+    if prefill_counts != want or n != p or tuple(toks.shape) != (b, new):
+        raise RuntimeError(f"{tag}: prefill launched {prefill_counts} (expected {want}), "
+                           f"cache_len {n}, tokens {tuple(toks.shape)}")
+    decode_ms = (min(run_ms) - prefill_ms) / (new - 1)
+    log(f"[{tag}] prefill {prefill_ms:.1f} ms ({b * p / prefill_ms * 1e3:,.0f} positions/s; "
+        f"2 x params x positions at the bf16 peak: {prefill_floor_ms:.2f} ms), decode "
+        f"{decode_ms:.2f} ms per token (batch {b}; weight-read floor {floor_ms:.2f} ms, "
+        f"{decode_ms / floor_ms:.2f}x), peak device memory {peak / 2**30:.2f} GiB (weights "
+        f"{weight_bytes / 2**30:.2f} GiB); prefill launches {prefill_counts}")
+
+    # Teacher forcing: the generated tokens' embedding rows after the
+    # prompt's embeds; decode gave token j the position p + j on all three
+    # streams (the reference's M-RoPE decode).
+    with torch.inference_mode():
+        fed = toks[:, :-1]
+        x = torch.cat([embeds, params["embed"][fed].float()], 1)
+        ext = (p + torch.arange(new - 1, device=positions.device, dtype=torch.int32))[None, None]
+        pos = torch.cat([positions, ext.expand(3, b, new - 1)], -1)
+        fwd = model_forward(params, cfg, {"embeds": x, "positions": pos})[0]
+        finite = bool(torch.isfinite(fwd).all()) and bool(torch.isfinite(served).all())
+        tf = fwd[:, p - 1:, :vocab]
+        del fwd
+        agree = float((tf.argmax(-1) == toks).float().mean())
+        rel = float(((tf - served).abs().amax(-1) / served.abs().max()).max())
+        del tf, x
+    log(f"[{tag}] teacher-forced forward vs served logits: argmax agreement {agree:.4f} "
+        f"(>= {TF_AGREE}), max relative difference {rel:.4g} (< {TF_REL}); all finite: "
+        f"{finite}")
+    if not (finite and agree >= TF_AGREE and rel < TF_REL):
+        raise RuntimeError(f"{tag}: teacher-forced check failed")
+    profile = _profiled(tag, lambda: _greedy(params, cfg, batch, new, LM_MAX_LEN))
+
+    # The engine serves the VLM config on token prompts (text M-RoPE).
+    eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN, device="cuda")
+    tp = VLM_TEXT_PROMPT
+    prompts = rng.integers(0, vocab, (b, tp))
+    build.reset_launch_counts()
+    text, text_ms = _timed(lambda: eng.generate(prompts, max_new_tokens=8))
+    text_counts = build.launch_counts()
+    log(f"[{tag}] text-only ServeEngine.generate B={b} P={tp} new=8: {text_ms:.1f} ms, "
+        f"launches {text_counts}")
+    if (text_counts != want or tuple(text.shape) != (b, tp + 8)
+            or not torch.equal(text[:, :tp].cpu(), torch.as_tensor(prompts).int())):
+        raise RuntimeError(f"{tag}: text generate launched {text_counts}, shape "
+                           f"{tuple(text.shape)}")
+    detail = dict(arch="qwen2-vl-7b", num_layers=cfg.num_layers, params=n_params,
+                  weight_bytes=weight_bytes, init_ms=init_ms, run_ms=run_ms,
+                  launches=want, prefill_launches=prefill_counts, prefill_ms=prefill_ms,
+                  prefill_flop_floor_ms=prefill_floor_ms, decode_ms_per_token=decode_ms,
+                  decode_weight_floor_ms=floor_ms, peak_bytes=peak,
+                  teacher_forced_agreement=agree, teacher_forced_rel_diff=rel,
+                  profile=profile, text_generate_ms=text_ms, text_launches=text_counts)
+    del params, eng, embeds, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return detail
+
+
+def phase_encdec_path(tag="encdec path"):
+    """FULL ``seamless-m4t-medium`` (12 + 12 layers, d 1024, 16 heads of 64,
+    bf16, random weights from a CUDA generator of seed 0): B 4 x 1,024 f32
+    source frames and a 4-token target prefix through ``model_prefill``,
+    then 31 greedy ``model_decode_step``s (32 new tokens), twice (flash
+    causal 12 and unmasked 24 per prefill, unmasked 12 per decode step; the
+    repeat bitwise), once the prefill alone. The check: decoding the 36
+    target tokens from ``model_init_cache`` (cache_len 0) against one
+    teacher-forced ``model_forward``; the served path's gap to that forward
+    (its decode attends to the prefill cache's zero self-attention rows, the
+    reference's quirk) is logged, not gated."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.api import (
+        model_decode_step,
+        model_forward,
+        model_init,
+        model_init_cache,
+    )
+
+    cfg = get_config("seamless-m4t-medium")
+    b, new, vocab, d = LM_BATCH, LM_NEW, cfg.vocab_size, cfg.d_model
+    max_len = ENC_PREFIX + new
+    params, init_ms = _timed(lambda: model_init(cfg, _cuda_gen(0), device="cuda"))
+    leaves = _leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    dec = params["decoder"]
+    cross_w = dec["cross"]["wk"].numel() + dec["cross"]["wv"].numel()
+    enc_w = sum(t.numel() for t in _leaves(params["encoder"]) if t.dim() == 3)
+    dec_w = sum(t.numel() for t in _leaves(dec) if t.dim() == 3) - cross_w
+    head = params["lm_head"]
+    # The prefill's products, twice a token at the bf16 peak: the encoder and
+    # the cross K/V projections over the source frames, the rest of the
+    # decoder and the LM head over the target prefix (attention's scores
+    # left out).
+    prefill_floor_ms = 2.0 * ((enc_w + cross_w) * b * ENC_SRC
+                              + (dec_w + head.numel()) * b * ENC_PREFIX) / BF16_FLOPS * 1e3
+    kv_bytes = 2 * cfg.num_layers * b * ENC_SRC * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    dec_bytes = sum(t.numel() * t.element_size() for t in _leaves(dec))
+    # A decode step reads the decoder's weights, the LM head and the cross K/V.
+    floor_ms = (dec_bytes + head.numel() * head.element_size() + kv_bytes) / HBM_BPS * 1e3
+    log(f"[{tag}] seamless-m4t-medium: {cfg.encoder_layers} + {cfg.num_layers} layers, d {d}, "
+        f"{n_params:,} params (param_count {cfg.param_count():,}), {weight_bytes / 1e9:.2f} GB "
+        f"of weights, made in {init_ms:.0f} ms; cross K/V {kv_bytes / 1e6:.1f} MB")
+    rng = np.random.default_rng(0)
+    src = torch.from_numpy(rng.standard_normal((b, ENC_SRC, d)).astype(np.float32)).cuda()
+    prefix = torch.from_numpy(rng.integers(0, vocab, (b, ENC_PREFIX))).cuda()
+    batch = {"src_embeds": src, "tgt_tokens": prefix}
+    layers, enc_layers = cfg.num_layers, cfg.encoder_layers
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    tc = fa_ops.flash_variant(dt, cfg.resolved_head_dim) == "tensor_cores"
+    # causal: the decoder's self-attention; unmasked: the encoder and the
+    # cross-attention, and the cross-attention of each decode step
+    per_prefill = {fa_ops.KERNEL: 2 * layers + enc_layers,
+                   fa_ops.NONCAUSAL_KERNEL: layers + enc_layers}
+    per_step = {fa_ops.KERNEL: layers, fa_ops.NONCAUSAL_KERNEL: layers}
+    if tc:
+        per_prefill[fa_ops.TC_KERNEL], per_step[fa_ops.TC_KERNEL] = 2 * layers + enc_layers, layers
+    want = {k: c + (new - 1) * per_step[k] for k, c in per_prefill.items()}
+    toks, served, n, run_ms, prefill_ms, prefill_counts, peak = _repeat_twice(
+        tag, params, cfg, batch, new, max_len, want)
+    if prefill_counts != per_prefill or n != ENC_PREFIX:
+        raise RuntimeError(f"{tag}: prefill launched {prefill_counts} (expected {per_prefill}), "
+                           f"cache_len {n}")
+    decode_ms = (min(run_ms) - prefill_ms) / (new - 1)
+    log(f"[{tag}] prefill {prefill_ms:.1f} ms (its products at the bf16 peak: "
+        f"{prefill_floor_ms:.3f} ms), decode {decode_ms:.2f} ms per token (batch {b}; floor "
+        f"{floor_ms:.3f} ms: decoder weights, LM head and cross K/V at 3.35 TB/s, "
+        f"{decode_ms / floor_ms:.2f}x), peak device memory {peak / 2**30:.2f} GiB; prefill "
+        f"launches {prefill_counts}, {layers} unmasked a decode step")
+
+    # The check: the 36 target tokens decoded from an empty cache against one
+    # teacher-forced forward.
+    seq = torch.cat([prefix, toks], 1)
+    with torch.inference_mode():
+        fwd = model_forward(params, cfg, {"src_embeds": src, "tgt_tokens": seq})[0][..., :vocab]
+        cache = model_init_cache(cfg, params, batch, max_len)
+        steps = []
+        for i in range(seq.shape[1]):
+            lg, cache = model_decode_step(params, cfg, {"tokens": seq[:, i:i + 1]}, cache, i)
+            steps.append(lg[:, :vocab])
+        dec_logits = torch.stack(steps, 1)
+        del cache, steps
+    finite = bool(torch.isfinite(fwd).all()) and bool(torch.isfinite(dec_logits).all())
+    agree = float((fwd.argmax(-1) == dec_logits.argmax(-1)).float().mean())
+    rel = float(((fwd - dec_logits).abs().amax(-1) / dec_logits.abs().max()).max())
+    tf = fwd[:, ENC_PREFIX - 1:ENC_PREFIX - 1 + new]
+    quirk_agree = float((tf.argmax(-1) == toks).float().mean())
+    quirk_rel = float(((tf - served).abs().amax(-1) / served.abs().max()).max())
+    log(f"[{tag}] decode from model_init_cache over {seq.shape[1]} target tokens vs the "
+        f"teacher-forced forward: argmax agreement {agree:.4f} (>= {TF_AGREE}), max relative "
+        f"difference {rel:.4g} (< {TF_REL}); all finite: {finite}")
+    log(f"[{tag}] the reference's quirk (decode after prefill attends to zero self K/V rows): "
+        f"served vs forward argmax agreement {quirk_agree:.4f}, max relative difference "
+        f"{quirk_rel:.4g} (logged, not gated)")
+    if not (finite and agree >= TF_AGREE and rel < TF_REL):
+        raise RuntimeError(f"{tag}: decode from an empty cache parts from the forward")
+    profile = _profiled(tag, lambda: _greedy(params, cfg, batch, new, max_len))
+    detail = dict(arch="seamless-m4t-medium", layers=[enc_layers, layers], params=n_params,
+                  weight_bytes=weight_bytes, init_ms=init_ms, run_ms=run_ms, launches=want,
+                  prefill_launches=prefill_counts, decode_step_launches=per_step,
+                  prefill_ms=prefill_ms, prefill_flop_floor_ms=prefill_floor_ms,
+                  decode_ms_per_token=decode_ms, decode_floor_ms=floor_ms,
+                  cross_kv_bytes=kv_bytes, peak_bytes=peak, empty_cache_agreement=agree,
+                  empty_cache_rel_diff=rel, quirk_agreement=quirk_agree,
+                  quirk_rel_diff=quirk_rel, profile=profile)
+    del params, src, fwd, dec_logits, served
     gc.collect()
     torch.cuda.empty_cache()
     return detail
@@ -2037,40 +2359,49 @@ def phase_lm_kernels():
 
     gen = _cuda_gen(5)
     flash = []
-    # (label, B, S, H, KV, hd, dtype): Qwen3-8B, SmolLM-360M, Granite-MoE
-    # (GQA group 3) and Llama-4 Maverick (group 5) prefill, and a sequence
-    # ragged against the kernel's 64-row blocks, in f32.
-    for label, b, s, h, kv, hd, dt in (
-        ("qwen3-8b prefill bf16", 4, 2048, 32, 8, 128, torch.bfloat16),
-        ("smollm-360m prefill bf16", 4, 2048, 15, 5, 64, torch.bfloat16),
-        ("ragged S=1000 f32", 4, 1000, 32, 8, 128, torch.float32),
-        ("granite-moe-3b prefill bf16", 4, 2048, 24, 8, 64, torch.bfloat16),
-        ("llama4-maverick prefill bf16", 4, 2048, 40, 8, 128, torch.bfloat16),
+    # (label, B, S, T, H, KV, hd, dtype, causal): Qwen3-8B, SmolLM-360M,
+    # Granite-MoE (GQA group 3), Llama-4 Maverick (group 5) and Qwen2-VL-7B
+    # (group 7) prefill, and a sequence ragged against the kernel's 64-row
+    # blocks, in f32; unmasked: the SeamlessM4T-medium encoder (S = T =
+    # 1,024), its cross-attention in prefill (36 target rows over 1,024
+    # frames) and in a decode step (S = 1), and a ragged f32 case.
+    for label, b, s, t, h, kv, hd, dt, causal in (
+        ("qwen3-8b prefill bf16", 4, 2048, 2048, 32, 8, 128, torch.bfloat16, True),
+        ("smollm-360m prefill bf16", 4, 2048, 2048, 15, 5, 64, torch.bfloat16, True),
+        ("ragged S=1000 f32", 4, 1000, 1000, 32, 8, 128, torch.float32, True),
+        ("granite-moe-3b prefill bf16", 4, 2048, 2048, 24, 8, 64, torch.bfloat16, True),
+        ("llama4-maverick prefill bf16", 4, 2048, 2048, 40, 8, 128, torch.bfloat16, True),
+        ("qwen2-vl-7b prefill bf16", 4, 2048, 2048, 28, 4, 128, torch.bfloat16, True),
+        ("seamless encoder unmasked bf16", 4, 1024, 1024, 16, 16, 64, torch.bfloat16, False),
+        ("seamless cross unmasked bf16", 4, 36, 1024, 16, 16, 64, torch.bfloat16, False),
+        ("seamless cross decode unmasked bf16", 4, 1, 1024, 16, 16, 64, torch.bfloat16, False),
+        ("ragged unmasked f32", 4, 100, 1000, 16, 16, 64, torch.float32, False),
     ):
         q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
-        k = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dt)
-        v = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(dt)
+        k = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dt)
+        v = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dt)
         bf16 = dt == torch.bfloat16
         variant = fa_ops.flash_variant(dt, hd)
         before = build.launch_counts().get(fa_ops.TC_KERNEL, 0)
-        out = fa_ops.flash_attention(q, k, v)
+        out = fa_ops.flash_attention(q, k, v, causal=causal)
         tc_ran = build.launch_counts().get(fa_ops.TC_KERNEL, 0) - before
-        equal = float((out == flash_attention_ref(q, k, v)).float().mean())
+        equal = float((out == flash_attention_ref(q, k, v, causal=causal)).float().mean())
         del out
-        pairs = s * (s + 1) // 2  # (query, key) pairs the causal mask keeps, S == T
+        # (query, key) pairs the mask keeps: the causal triangle (S == T) or all
+        pairs = s * (s + 1) // 2 if causal else s * t
         row = _kernel_case(
-            f"flash_attention {label} B={b} S={s} H={h} KV={kv} hd={hd}",
-            lambda: fa_ops.flash_attention(q, k, v),
-            lambda: flash_attention_ref(q, k, v),
+            f"flash_attention {label} B={b} S={s} T={t} H={h} KV={kv} hd={hd}",
+            lambda: fa_ops.flash_attention(q, k, v, causal=causal),
+            lambda: flash_attention_ref(q, k, v, causal=causal),
             # top-left causal == end-aligned causal when S == T
             lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
                 enable_gqa=True).transpose(1, 2),
             FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL, 0.0 if bf16 else FLASH_F32_ATOL,
             nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
             ops=4.0 * b * h * hd * pairs, peak=BF16_FLOPS if bf16 else FP32_FLOPS)
-        row.update(b=b, s=s, h=h, kv=kv, hd=hd, dtype=str(dt), variant=variant,
-                   equal_share=equal, vs_library=row["ms"] / row["library_ms"],
+        row.update(b=b, s=s, t=t, h=h, kv=kv, hd=hd, dtype=str(dt), causal=causal,
+                   variant=variant, equal_share=equal, vs_library=row["ms"] / row["library_ms"],
                    vs_bound=row["ms"] / row["bound_ms"])
         log(f"[lm kernels]   variant {variant} (tensor-core launches {tc_ran}); bitwise equal "
             f"to the plain version: {equal:.5f} of entries; {row['vs_library']:.2f}x SDPA, "
@@ -2121,20 +2452,31 @@ def phase_lm_kernels():
 
 
 LM_CPU_ARCHS = ("qwen3-8b", "mamba2-370m", "granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
-                "jamba-v0.1-52b")
+                "jamba-v0.1-52b", "qwen2-vl-7b")
+
+
+def _close_to(got, want):
+    """(max abs difference, within atol 5e-4, rtol 1e-3) of a card tensor
+    against a CPU one."""
+    diff = (got.cpu() - want).abs()
+    return float(diff.max()), bool((diff <= LM_CPU_ATOL + LM_CPU_RTOL * want.abs()).all())
 
 
 def phase_lm_cpu():
-    """The REDUCED LMs (dense, ssm, MoE, interleaved MoE, hybrid) served on the
-    CPU (plain versions) against the card: each kernel launched as
-    ``block_roles`` says, the same tokens, prefill logits within atol 5e-4,
-    rtol 1e-3."""
+    """The REDUCED LMs (dense, ssm, MoE, interleaved MoE, hybrid, VLM on token
+    prompts) served on the CPU (plain versions) against the card: each kernel
+    launched as ``block_roles`` says, the same tokens, prefill logits within
+    atol 5e-4, rtol 1e-3; then REDUCED ``seamless-m4t-medium`` through
+    ``model_prefill`` (flash once per decoder layer causal, once per encoder
+    and cross layer unmasked) and two decode steps, logits and every cache
+    leaf at the same tolerance."""
     import numpy as np
     import torch
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
-    from repro_torch.models.api import model_prefill, params_to
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.api import model_decode_step, model_init, model_prefill, params_to
     from repro_torch.serve.engine import ServeEngine
 
     rows = []
@@ -2149,15 +2491,41 @@ def phase_lm_cpu():
         same = bool(torch.equal(got.cpu(), cpu.generate(prompts, max_new_tokens=8)))
         toks = torch.as_tensor(prompts)
         want = model_prefill(cpu.params, cfg, {"tokens": toks}, 64)[0]
-        lg = model_prefill(card.params, cfg, {"tokens": toks.cuda()}, 64)[0].cpu()
-        diff = (lg - want).abs()
-        err = float(diff.max())
-        close = bool((diff <= LM_CPU_ATOL + LM_CPU_RTOL * want.abs()).all())
+        err, close = _close_to(model_prefill(card.params, cfg, {"tokens": toks.cuda()}, 64)[0],
+                               want)
         log(f"[lm cpu] {arch} REDUCED: card launches {counts}, tokens equal {same}, prefill "
             f"logits max abs diff {err:.3g} (atol {LM_CPU_ATOL}, rtol {LM_CPU_RTOL}: {close})")
         if counts != _lm_launches(cfg) or not same or not close:
             raise RuntimeError(f"lm cpu {arch}: launches {counts}, tokens equal {same}, err {err}")
         rows.append(dict(arch=arch, launches=counts, tokens_equal=same, max_abs_diff=err))
+
+    cfg = get_config("seamless-m4t-medium", reduced=True)
+    card = model_init(cfg, _cuda_gen(0), device="cuda")
+    cpu = params_to(card, "cpu")
+    rng = np.random.default_rng(1)
+    src = torch.from_numpy(rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32))
+    tgt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 6)))
+    want, wcache, n = model_prefill(cpu, cfg, {"src_embeds": src, "tgt_tokens": tgt}, 16)
+    build.reset_launch_counts()
+    got, gcache, gn = model_prefill(card, cfg, {"src_embeds": src.cuda(),
+                                                "tgt_tokens": tgt.cuda()}, 16)
+    counts = build.launch_counts()
+    unmasked = cfg.encoder_layers + cfg.num_layers
+    expect = {fa_ops.KERNEL: cfg.num_layers + unmasked, fa_ops.NONCAUSAL_KERNEL: unmasked}
+    errs = [_close_to(got, want)] + [_close_to(gcache[k], wcache[k]) for k in sorted(wcache)]
+    for i in range(2):
+        tok = tgt[:, i:i + 1]
+        w, wcache = model_decode_step(cpu, cfg, {"tokens": tok}, wcache, n + i)
+        g, gcache = model_decode_step(card, cfg, {"tokens": tok.cuda()}, gcache, gn + i)
+        errs.append(_close_to(g, w))
+    err = max(e for e, _ in errs)
+    close = all(c for _, c in errs)
+    log(f"[lm cpu] seamless-m4t-medium REDUCED: prefill launches {counts}, prefill logits, "
+        f"cache leaves and two decode steps max abs diff {err:.3g} (atol {LM_CPU_ATOL}, rtol "
+        f"{LM_CPU_RTOL}: {close})")
+    if counts != expect or gn != n or not close:
+        raise RuntimeError(f"lm cpu seamless: launches {counts} (expected {expect}), err {err}")
+    rows.append(dict(arch="seamless-m4t-medium", launches=counts, max_abs_diff=err))
     return rows
 
 
@@ -2348,6 +2716,10 @@ def main() -> int:
             "jamba-v0.1-52b", "hybrid path", num_layers=8,
             cut_reason="one unit of 8 roles (attention at offset 4, MoE every 2nd); the 32 "
                        "layers hold ~52 B parameters, 104 GB in bf16")
+    with phase("vlm path"):
+        vlm_row = phase_vlm_path()
+    with phase("encdec path"):
+        encdec_row = phase_encdec_path()
     with phase("lm kernels"):
         flash_rows, ssd_rows = phase_lm_kernels()
     with phase("lm cpu"):
@@ -2360,7 +2732,8 @@ def main() -> int:
                     bound_by=row["bound_by"], library_ms=row["library_ms"], shape=shape)
 
     lm_rows = {"qwen3-8b": lm_row, "mamba2-370m": ssm_row, "granite-moe-3b-a800m": moe_row,
-               "llama4-maverick-400b-a17b unit": moe2_row, "jamba-v0.1-52b unit": hybrid_row}
+               "llama4-maverick-400b-a17b unit": moe2_row, "jamba-v0.1-52b unit": hybrid_row,
+               "qwen2-vl-7b": vlm_row, "seamless-m4t-medium": encdec_row}
 
     def lm_paths(kernel):
         """A kernel's launches in one generate of each LM path that runs it."""
@@ -2427,14 +2800,24 @@ def main() -> int:
              launches_sharded_request=sgat_row["launches_request"].get("segment_agg_mh", 0)),
         # Launches: one Qwen3-8B / Mamba2-370M generate (B 4 x 2048 + 32 tokens),
         # and per LM path beside it. Every launch of the bf16 paths went through
-        # the tensor-core variant.
+        # the tensor-core variant. The unmasked branch: its launches per LM
+        # path (the enc-dec run: 24 a prefill, 12 a decode step) and its
+        # times at the Seamless encoder's and cross-attention's shapes.
         dict(kernel_row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/flash_attention.py:95",
                         lm_row["launches"].get(fa_ops.KERNEL, 0), flash_rows[0],
                         "B={b} S={s} H={h} KV={kv} hd={hd} {dtype}".format(**flash_rows[0])),
              variant=flash_rows[0]["variant"],
              tensor_core_launches=lm_row["launches"].get(fa_ops.TC_KERNEL, 0),
-             launches_by_lm_path=lm_paths(fa_ops.KERNEL)),
+             launches_by_lm_path=lm_paths(fa_ops.KERNEL),
+             noncausal_launches_by_lm_path=lm_paths(fa_ops.NONCAUSAL_KERNEL),
+             noncausal_launches_per_prefill=encdec_row["prefill_launches"].get(
+                 fa_ops.NONCAUSAL_KERNEL, 0),
+             noncausal_launches_per_decode_step=encdec_row["decode_step_launches"][
+                 fa_ops.NONCAUSAL_KERNEL],
+             cases={r["case"]: {k: r[k] for k in (
+                 "causal", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")} for r in flash_rows[1:]}),
         dict(kernel_row("ssd_intra_chunk", "src/repro_torch/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan/ssd_scan.py:52",
                         ssm_row["launches"].get(ssd_ops.KERNEL, 0), ssd_rows[0],
@@ -2464,7 +2847,8 @@ def main() -> int:
         gat_path=path_detail(*paths["gat"]), gat_profile=gprofile_row,
         gat_decomposed=dec_row, attention=attn_rows, segment_agg_mh=mh_rows, gat_cpu=gcpu_row,
         lm_path=lm_row, ssm_path=ssm_row, moe_path=moe_row, moe_interleaved_path=moe2_row,
-        hybrid_path=hybrid_row, flash_attention=flash_rows, ssd_intra_chunk=ssd_rows,
+        hybrid_path=hybrid_row, vlm_path=vlm_row, encdec_path=encdec_row,
+        flash_attention=flash_rows, ssd_intra_chunk=ssd_rows,
         lm_cpu=lm_cpu_rows, outofcore=ooc_rows, h2d_gbps=h2d_row, fronts=fronts_row,
         sharded_gcn=sharded_row, plan_store=store_row, sharded_overlap=overlap_row,
         sharded_mincut=mincut_row, sharded_gat=sgat_row, qat_gcn=qat_row,

@@ -1,16 +1,15 @@
 """Config system: every served model is a ``ModelConfig`` in a registry.
 
 The subset of the reference's ``repro/configs/base.py`` that the port serves:
-the GNN family and the ``dense``, ``moe``, ``hybrid`` and ``ssm`` token
-families. Each registered architecture has a FULL config (the published
+the GNN family and the ``dense``, ``moe``, ``hybrid``, ``ssm``, ``vlm`` and
+``audio`` (enc-dec) token families. Each registered architecture has a FULL config (the published
 widths) and a REDUCED config (same family and topology, tiny widths) that
 tests run on the CPU. ``get_config`` resolves a name through the registry.
 
 Left out of the reference's fields: ``attention_impl`` (a CUDA tensor runs
 the flash kernel, a CPU tensor its plain version; there is no other switch),
-the enc-dec, M-RoPE and embeds-input fields (their families are not ported
-yet), ``remat``/``scan_layers`` (training and XLA knobs) and
-``gnn_use_kernel``, which the port has no use for.
+``remat``/``scan_layers`` (training and XLA knobs) and ``gnn_use_kernel``,
+which the port has no use for.
 """
 from __future__ import annotations
 
@@ -28,7 +27,7 @@ def pad_to_multiple(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # gnn | dense | moe | hybrid | ssm (the families the port serves)
+    family: str  # gnn | dense | moe | hybrid | ssm | vlm | audio (enc-dec)
     num_layers: int
     d_model: int  # GNN: input feature width
     num_heads: int
@@ -48,7 +47,8 @@ class ModelConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 1e4
-    pos_embed: str = "rope"  # rope | none (jamba/mamba)
+    pos_embed: str = "rope"  # rope | mrope (qwen2-vl 3D) | sin (enc-dec) | none (jamba/mamba)
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)  # t/h/w split of hd/2
 
     # --- MLP flavour ---
     mlp: str = "swiglu"  # swiglu | relu2 | gelu
@@ -62,6 +62,9 @@ class ModelConfig:
     ssm_chunk: int = 256
     attn_layer_period: int = 0  # hybrid: 1 attention layer every k (jamba k=8)
     attn_layer_offset: int = 4
+
+    # --- enc-dec ---
+    encoder_layers: int = 0  # >0 => encoder-decoder (seamless)
 
     # --- GNN (family="gnn"): drives models/gnn/api.py ---
     gnn_arch: str = "gcn"  # gcn | gin | sage | gat (registry key)
@@ -100,6 +103,9 @@ class ModelConfig:
     # reorder=False keeps plan order.
     gnn_stream_packing: bool = False  # pack tiles by source chunk
     gnn_stream_reorder: bool = True  # locality-reorder tile runs
+
+    # --- frontend stubs (vlm/audio): inputs arrive as embeddings ---
+    embeds_input: bool = False
 
     # --- numerics ---
     norm: str = "rmsnorm"  # rmsnorm | layernorm
@@ -183,6 +189,9 @@ class ModelConfig:
             + ssm
             + self.vocab_size * d * (1 if self.tie_embeddings else 2)
         )
+        if self.encoder_layers:
+            total += self.encoder_layers * (attn + mlp_dense)  # encoder stack
+            total += self.num_layers * attn  # decoder cross-attention
         return int(total)
 
     def active_param_count(self) -> int:
@@ -206,6 +215,8 @@ _ARCH_MODULES = [
     "smollm_360m",
     "nemotron_4_15b",
     "jamba_v0_1_52b",
+    "seamless_m4t_medium",
+    "qwen2_vl_7b",
     "mamba2_370m",
     "ample_gnn",
 ]

@@ -1,4 +1,6 @@
-// Causal GQA flash attention for Hopper (the prefill of every attention layer).
+// GQA flash attention for Hopper: causal (the prefill of every decoder
+// self-attention layer) or unmasked (an encoder's self-attention and
+// cross-attention over an encoder's output, in prefill and in decode).
 //
 // Replaces the Pallas TPU kernel
 //   repro/kernels/flash_attention/flash_attention.py::flash_attention_call
@@ -6,8 +8,10 @@
 //
 // Computes, for q [B, S, H, hd] and k, v [B, T, KV, hd] (f32 or bf16, the
 // layout the model projects them in, so no transposes):
-//   s = (q . k) / sqrt(hd) in f32, masked where kpos - (T - S) > qpos (causal,
-//   aligned to the ends of both sequences) or kpos >= T;
+//   s = (q . k) / sqrt(hd) in f32, masked where kpos >= T and, in the causal
+//   variant, where kpos - (T - S) > qpos (aligned to the ends of both
+//   sequences; the TPU kernel's causal=True branch; causal=False masks only
+//   the padding past T, as the TPU kernel does);
 //   out = softmax(s) . v, through an online softmax with f32 m, l and
 //   accumulator, written as acc / max(l, 1e-30) in q's dtype.
 // q-head h reads kv-head h / (H / KV) (q's heads are grouped kv-major, as the
@@ -16,10 +20,13 @@
 // widened to f32 when it is staged, so every product is exact and only the
 // order of the sums differs from the plain version.
 //
-// What bounds it on an H100: operations. At the Qwen3-8B prefill (B 4,
-// S = T = 2048, H 32, KV 8, hd 128) the causal half is 137 GFLOP against
-// 168 MB of q, k, v and out, ~800 flops per byte: the bf16 tensor cores (989
-// TFLOP/s) bound it, not the 3.35 TB/s of device memory.
+// What bounds it on an H100: operations at prefill lengths. At the Qwen3-8B
+// prefill (B 4, S = T = 2048, H 32, KV 8, hd 128) the causal half is 137
+// GFLOP against 168 MB of q, k, v and out, ~800 flops per byte: the bf16
+// tensor cores (989 TFLOP/s) bound it, not the 3.35 TB/s of device memory.
+// The unmasked calls of an enc-dec decode step (S = 1 against T = 1024
+// encoder keys) are the other way round: each key is read for one query row,
+// so bytes bound them.
 //
 // Two variants, one function. The wrapper (kernels/flash_attention/ops.py,
 // flash_variant) picks one from the dtype, head dim and alignment; it never
@@ -60,12 +67,16 @@
 //
 // Skipped KV blocks. The TPU kernel visits every KV block and masks with a
 // finite -1e30. Both kernels visit only the blocks that hold a key some row
-// of the query block can see; every other block is masked for every row, and
-// would add exp(-1e30 - m) = 0 to l and the accumulator without moving m, as
-// long as m is a real score. It is: the wrapper requires S <= T, so every
-// query row sees key 0, which lies in block 0, the first block visited, and
-// m is a real score from the first block on. Masked entries inside a visited
-// block are -inf here, so they give p = exp(-inf) = 0 exactly, as -1e30 does.
+// of the query block can see (all ceil(T / 64) blocks when unmasked); every
+// other block is masked for every row, and would add exp(-1e30 - m) = 0 to l
+// and the accumulator without moving m, as long as m is a real score. It is:
+// every query row sees key 0 (causal: the wrapper requires S <= T; unmasked:
+// T >= 1), which lies in block 0, the first block visited, so m is a real
+// score from the first block on. Masked entries inside a visited block (the
+// causal triangle, and the padding of a ragged last block past T in both
+// variants) are -inf here, so they give p = exp(-inf) = 0 exactly, as -1e30
+// does. CAUSAL is a template parameter, so the causal kernels are the code
+// they were before the unmasked branch existed.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -123,7 +134,7 @@ constexpr int smem_bytes() {
   return (kBQ * (HD + 1) + kBK * (HD + 1) + kBQ * kLDP) * 4;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, int S, int T_, int H, int KV, int hd, float scale) {
@@ -157,8 +168,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  // The last key any row of this block sees (>= 0 since S <= T).
-  const int last_key = min(T_ - 1, q0 + kBQ - 1 + shift);
+  // The last key any row of this block sees (causal: >= 0 since S <= T).
+  const int last_key = CAUSAL ? min(T_ - 1, q0 + kBQ - 1 + shift) : T_ - 1;
   const int nkb = last_key / kBK + 1;
   for (int kb = 0; kb < nkb; ++kb) {
     const int k0 = kb * kBK;
@@ -191,7 +202,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool seen = kpos < T_ && kpos - shift <= qpos;
+        const bool seen = kpos < T_ && (!CAUSAL || kpos - shift <= qpos);
         s[i][j] = seen ? s[i][j] * scale : neg_inf();
         mx = fmaxf(mx, s[i][j]);
       }
@@ -243,26 +254,33 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_,
            int H, int KV, int hd, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel<T, HD, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+  flash_kernel<T, HD, CAUSAL><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), S, T_, H, KV, hd, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool CAUSAL>
 int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int S, int T_,
                 int H, int KV, int hd, float scale, cudaStream_t stream) {
-  if (hd <= 32) return launch<T, 32>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
-  if (hd <= 64) return launch<T, 64>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
-  return launch<T, 128>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
+  if (hd <= 32) return launch<T, 32, CAUSAL>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
+  if (hd <= 64) return launch<T, 64, CAUSAL>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
+  return launch<T, 128, CAUSAL>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
+}
+
+template <typename T>
+int dispatch_mask(const void* q, const void* k, const void* v, void* o, int B, int S, int T_,
+                  int H, int KV, int hd, int causal, float scale, cudaStream_t stream) {
+  if (causal) return dispatch_hd<T, true>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
+  return dispatch_hd<T, false>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
 }
 
 
@@ -422,7 +440,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ x,
   }
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ o, int S, int T_, int H, int KV, float scale) {
@@ -447,8 +465,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
   const int wq = q0 + warp * 16;          // this warp's first query row
   const int qpos0 = wq + g, qpos1 = qpos0 + 8;
 
-  // The last key any row of this block sees (>= 0 since S <= T).
-  const int last_key = min(T_ - 1, q0 + kBQ - 1 + shift);
+  // The last key any row of this block sees (causal: >= 0 since S <= T).
+  const int last_key = CAUSAL ? min(T_ - 1, q0 + kBQ - 1 + shift) : T_ - 1;
   const int nkb = last_key / kBK + 1;
 
   load_tile<HD, kBQ>(qs, qh, q_row, q0, S);
@@ -489,7 +507,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
 
     // Scale, mask, online softmax.
     const int k0 = kb * kBK;
-    const bool masked = k0 + kBK - 1 - shift > wq || k0 + kBK > T_;
+    const bool masked = k0 + kBK > T_ || (CAUSAL && k0 + kBK - 1 - shift > wq);
     float mx0 = neg_inf(), mx1 = neg_inf();
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -497,7 +515,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
       if (masked) {
         const int kpos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
         const int qpos = (i & 2) ? qpos1 : qpos0;
-        if (kpos >= T_ || kpos - shift > qpos) x = neg_inf();
+        if (kpos >= T_ || (CAUSAL && kpos - shift > qpos)) x = neg_inf();
       }
       s[i] = x;
       if (i & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
@@ -571,15 +589,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
   }
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_, int H,
            int KV, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<HD>,
+  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<HD, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (S + kBQ - 1) / kBQ);  // q blocks slowest: longest first over the card
-  flash_tc_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+  flash_tc_kernel<HD, CAUSAL><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), S, T_, H, KV, scale);
   return static_cast<int>(cudaGetLastError());
@@ -589,19 +607,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 }  // namespace
 
 // q, o: [B, S, H, hd]; k, v: [B, T, KV, hd], contiguous, all of one dtype
-// (bf16 = 1, else f32); scale = 1 / sqrt(hd), rounded to f32 by the caller as
-// the plain version rounds it. The wrapper checks 1 <= S <= T, H % KV == 0
-// and hd <= 128.
+// (bf16 = 1, else f32); causal = 1 masks the causal triangle, 0 nothing;
+// scale = 1 / sqrt(hd), rounded to f32 by the caller as the plain version
+// rounds it. The wrapper checks S, T >= 1 (causal: S <= T), H % KV == 0 and
+// hd <= 128.
 extern "C" int ample_flash_attention(int device, const void* q, const void* k,
                                      const void* v, void* o, int bf16, int B, int S,
-                                     int T, int H, int KV, int hd, float scale,
+                                     int T, int H, int KV, int hd, int causal, float scale,
                                      void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (bf16) return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, T, H, KV, hd, scale, stream);
-  return dispatch_hd<float>(q, k, v, o, B, S, T, H, KV, hd, scale, stream);
+  if (bf16)
+    return dispatch_mask<__nv_bfloat16>(q, k, v, o, B, S, T, H, KV, hd, causal, scale, stream);
+  return dispatch_mask<float>(q, k, v, o, B, S, T, H, KV, hd, causal, scale, stream);
 }
 
 
@@ -609,12 +629,16 @@ extern "C" int ample_flash_attention(int device, const void* q, const void* k,
 // 16-byte aligned (the wrapper checks; cudaErrorInvalidValue otherwise).
 extern "C" int ample_flash_attention_tc(int device, const void* q, const void* k,
                                         const void* v, void* o, int B, int S, int T, int H,
-                                        int KV, int hd, float scale, void* stream_ptr) {
+                                        int KV, int hd, int causal, float scale,
+                                        void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (hd == 64) return tc::launch<64>(q, k, v, o, B, S, T, H, KV, scale, stream);
-  if (hd == 128) return tc::launch<128>(q, k, v, o, B, S, T, H, KV, scale, stream);
+  if (hd == 64 && causal) return tc::launch<64, true>(q, k, v, o, B, S, T, H, KV, scale, stream);
+  if (hd == 64) return tc::launch<64, false>(q, k, v, o, B, S, T, H, KV, scale, stream);
+  if (hd == 128 && causal)
+    return tc::launch<128, true>(q, k, v, o, B, S, T, H, KV, scale, stream);
+  if (hd == 128) return tc::launch<128, false>(q, k, v, o, B, S, T, H, KV, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

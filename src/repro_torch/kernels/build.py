@@ -98,6 +98,7 @@ _SIGNATURES = {
         _P, _P, _P, _P,  # q [B, S, H, hd], k, v [B, T, KV, hd], out [B, S, H, hd]
         _I,  # 1 = bf16, 0 = f32
         _I, _I, _I, _I, _I, _I,  # b, s, t, h, kv, hd
+        _I,  # 1 = causal, 0 = no mask
         _F,  # scale (1 / sqrt(hd))
         _P,  # stream
     ],
@@ -105,6 +106,7 @@ _SIGNATURES = {
         _I,  # device
         _P, _P, _P, _P,  # q [B, S, H, hd], k, v [B, T, KV, hd], out [B, S, H, hd], all bf16
         _I, _I, _I, _I, _I, _I,  # b, s, t, h, kv, hd (64 or 128)
+        _I,  # 1 = causal, 0 = no mask
         _F,  # scale (1 / sqrt(hd))
         _P,  # stream
     ],

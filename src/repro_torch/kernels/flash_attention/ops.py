@@ -1,6 +1,9 @@
 """Wrapper of the flash-attention kernel: q [B,S,H,hd], k/v [B,T,KV,hd] in,
-causal attention [B,S,H,hd] out (the layout of the reference's ``ops.py``;
-the kernel reads it directly, so nothing is transposed).
+attention [B,S,H,hd] out (the layout of the reference's ``ops.py``; the
+kernel reads it directly, so nothing is transposed). ``causal=True`` masks
+where ``kpos - (T - S) > qpos`` (self-attention of a decoder, S <= T);
+``causal=False`` masks nothing (an encoder, S = T, and cross-attention, any
+S and T), the TPU kernel's two branches.
 
 A CUDA tensor launches ``csrc/flash_attention.cu``; a CPU tensor takes the
 plain version (``ref.py``). q-head ``h`` reads kv-head ``h // (H // KV)``.
@@ -10,8 +13,10 @@ The kernel has no backward: under grad, an input that requires grad raises
 The source holds two kernels of one function, and ``flash_variant`` picks
 one from the dtype, the head dim and the alignment: the tensor-core kernel
 (bf16, hd 64 or 128, 16-byte aligned bases: every served LM) or the
-CUDA-core kernel (everything else, f32 above all). Every launch counts under
-``KERNEL``; a tensor-core launch also counts under ``TC_KERNEL``.
+CUDA-core kernel (everything else, f32 above all); each kernel has a causal
+and an unmasked instance. Every launch counts under ``KERNEL``; a
+tensor-core launch also counts under ``TC_KERNEL``, an unmasked one under
+``NONCAUSAL_KERNEL``.
 """
 from __future__ import annotations
 
@@ -22,11 +27,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-__all__ = ["KERNEL", "TC_KERNEL", "TC_HEAD_DIMS", "MAX_HEAD_DIM", "flash_attention",
-           "flash_variant"]
+__all__ = ["KERNEL", "TC_KERNEL", "NONCAUSAL_KERNEL", "TC_HEAD_DIMS", "MAX_HEAD_DIM",
+           "flash_attention", "flash_variant"]
 
 KERNEL = "flash_attention"
 TC_KERNEL = "flash_attention_tc"
+NONCAUSAL_KERNEL = "flash_attention_noncausal"
 TC_HEAD_DIMS = (64, 128)  # the tensor-core kernel's tiles
 MAX_HEAD_DIM = 128  # the kernel's widest tile
 
@@ -40,7 +46,7 @@ def flash_variant(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> st
     return "cuda_cores"
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"q must be [B,S,H,hd] and k, v [B,T,KV,hd], got {tuple(q.shape)}, "
@@ -50,18 +56,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     bk, t, kv, hdk = k.shape
     if bk != b or hdk != hd or kv == 0 or h % kv:
         raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
-    if not 1 <= s <= t:
+    if s < 1 or t < 1:
+        raise ValueError(f"attention needs S >= 1 and T >= 1, got S={s}, T={t}")
+    if causal and s > t:
         # With S > T the first S - T query rows would see no key at all.
         raise ValueError(f"causal attention needs 1 <= S <= T, got S={s}, T={t}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Causal GQA attention, masked where ``kpos - (T - S) > qpos``."""
-    _check(q, k, v)
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """GQA attention; causal masks where ``kpos - (T - S) > qpos``."""
+    _check(q, k, v, causal)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v)
+        return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     build.require_no_grad(KERNEL, q, k, v)
@@ -79,14 +88,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if flash_variant(q.dtype, hd, aligned) == "tensor_cores":
         build.call(
             "ample_flash_attention_tc", q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h, kv, hd, scale,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h, kv, hd,
+            int(causal), scale,
         )
         build.count_launch(TC_KERNEL)
     else:
         build.call(
             "ample_flash_attention", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, s, t, h, kv, hd, scale,
+            int(q.dtype == torch.bfloat16), b, s, t, h, kv, hd, int(causal), scale,
         )
     build.count_launch(KERNEL)
+    if not causal:
+        build.count_launch(NONCAUSAL_KERNEL)
     return out

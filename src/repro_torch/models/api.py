@@ -2,16 +2,19 @@
 
 The reference's ``repro/models/api.py``, dispatched on ``cfg.family``:
 
-  * the token families the port serves (``dense``, ``moe``, ``hybrid``,
-    ``ssm``) route to the LM stack (``models/lm/transformer.py``); batches
-    carry ``tokens`` [B, S]; ``model_forward`` returns (logits, aux), aux
+  * the decoder-only token families (``dense``, ``moe``, ``hybrid``,
+    ``ssm``, ``vlm``) route to the LM stack (``models/lm/transformer.py``);
+    batches carry ``tokens`` [B, S] or ``embeds`` [B, S, D] (and M-RoPE
+    ``positions`` [3, B, S]); ``model_forward`` returns (logits, aux), aux
     being the MoE layers' summed load-balancing loss;
+  * a config with ``encoder_layers > 0`` (``audio``: Seamless) routes to
+    ``models/lm/encdec.py``; batches carry ``src_embeds`` [B, S_src, D] and
+    ``tgt_tokens`` [B, T], decode steps ``tokens`` [B, 1];
   * ``family="gnn"`` routes to the arch registry in ``models/gnn/api.py``;
     batches carry ``graph`` + ``features``. GNN inference has no token
     cache, so prefill/decode reject GNN configs.
 
-VLM and enc-dec configs raise ``NotImplementedError`` naming their ROADMAP
-item. ``params_from_numpy`` carries the reference's params (numpy leaves)
+``params_from_numpy`` carries the reference's params (numpy leaves)
 into the port, for either family, each leaf in its own dtype (a MoE
 router stays f32 in a bf16 model).
 """
@@ -25,7 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import api as gnn_api
-from repro_torch.models.lm import transformer
+from repro_torch.models.lm import encdec, transformer
 
 __all__ = [
     "model_init",
@@ -41,6 +44,10 @@ __all__ = [
 
 def _is_gnn(cfg: ModelConfig) -> bool:
     return cfg.family == "gnn"
+
+
+def _is_encdec(cfg: ModelConfig) -> bool:
+    return cfg.encoder_layers > 0
 
 
 def _no_token_cache(cfg: ModelConfig, entry: str):
@@ -59,32 +66,47 @@ def model_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
     if _is_gnn(cfg):
         return gnn_api.gnn_init(cfg, generator, device=dev)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    if _is_encdec(cfg):
+        return encdec.init_encdec(cfg, gen, dev)
     return transformer.init_lm(cfg, gen, dev)
 
 
 def model_forward(params, cfg: ModelConfig, batch: Dict):
     if _is_gnn(cfg):
         return gnn_api.gnn_forward(params, cfg, batch)
+    if _is_encdec(cfg):
+        return encdec.forward_encdec(params, cfg, batch)
     return transformer.forward(params, cfg, batch)
 
 
 def model_prefill(params, cfg: ModelConfig, batch: Dict, max_len: int):
+    """(logits, cache, cache_len). Enc-dec, as the reference: the
+    teacher-forced logits, a cache with zero self-attention K/V and the
+    encoder's cross K/V, and the target length."""
     if _is_gnn(cfg):
         _no_token_cache(cfg, "model_prefill")
+    if _is_encdec(cfg):
+        return encdec.prefill(params, cfg, batch, max_len)
     return transformer.prefill(params, cfg, batch, max_len)
 
 
 def model_init_cache(cfg: ModelConfig, params, batch: Dict, max_len: int):
-    """Empty decode cache for ``batch["tokens"]``'s batch size."""
+    """Empty decode cache for the batch's size (``tokens`` or ``embeds``);
+    enc-dec runs the encoder over ``src_embeds`` for the cross K/V."""
     if _is_gnn(cfg):
         _no_token_cache(cfg, "model_init_cache")
-    b = batch["tokens"].shape[0]
+    if _is_encdec(cfg):
+        enc = encdec.encode(params, cfg, batch["src_embeds"])
+        return encdec.init_decoder_cache(params, cfg, enc, max_len)
+    b = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[0]
     return transformer.init_cache(cfg, b, max_len, device=params["embed"].device)
 
 
 def model_decode_step(params, cfg: ModelConfig, batch: Dict, cache, cache_len: int):
     if _is_gnn(cfg):
         _no_token_cache(cfg, "model_decode_step")
+    if _is_encdec(cfg):
+        return encdec.decode_step_encdec(params, cfg, batch["tokens"], cache, cache_len)
     return transformer.decode_step(params, cfg, batch, cache, cache_len)
 
 
@@ -92,6 +114,8 @@ def param_shapes(cfg: ModelConfig):
     """The params tree of ``cfg`` with a shape tuple per leaf."""
     if _is_gnn(cfg):
         return gnn_api.get_arch(cfg.gnn_arch).param_shapes(cfg)
+    if _is_encdec(cfg):
+        return encdec.param_shapes(cfg)
     return transformer.param_shapes(cfg)
 
 

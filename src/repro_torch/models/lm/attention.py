@@ -1,29 +1,33 @@
-"""Multi-head causal self-attention: GQA/MQA, qk-norm, QKV bias, RoPE.
+"""Multi-head attention: GQA/MQA, qk-norm, QKV bias, RoPE/M-RoPE, causal
+self-attention, unmasked self-attention (an encoder) and cross-attention.
 
-The reference's ``repro/models/lm/attention.py`` for decoder-only stacks.
-Prefill (``attention``) goes through the flash kernel's wrapper: on a CUDA
+The reference's ``repro/models/lm/attention.py``. Every full-sequence
+attention (``attention``) goes through the flash kernel's wrapper: on a CUDA
 tensor it launches ``csrc/flash_attention.cu``, on a CPU tensor it runs the
-kernel's plain version; the reference's ``chunked``/``xla``/``flash``
-implementations compute that one function. Decode (``decode_attention``)
-stays plain PyTorch on both devices, as the reference has no kernel there,
-and writes the new token's K/V into the preallocated cache in place.
+kernel's plain version. Causal self-attention calls it with ``causal=True``;
+an encoder (``st.causal`` False) and cross-attention (``kv`` given) with
+``causal=False``. The reference's ``chunked``/``xla``/``flash``
+implementations compute that one function in each case. Decode
+(``decode_attention``) stays plain PyTorch on both devices, as the reference
+has no kernel there, and writes the new token's K/V into the preallocated
+cache in place.
 
 GQA grouping reshapes q to [B, S, KV, G, hd], so q-head ``h = kv·G + g`` reads
-kv-head ``h // G``; K/V are never repeated in memory. Cross-attention and
-``project_kv`` wait for the enc-dec family.
+kv-head ``h // G``; K/V are never repeated in memory.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.lm.norm import rmsnorm, rmsnorm_init
-from repro_torch.models.lm.rope import apply_rope
+from repro_torch.models.lm.rope import apply_mrope, apply_rope
 
-__all__ = ["attn_init", "attention", "decode_attention", "quantize_kv", "AttnStatics"]
+__all__ = ["attn_init", "attention", "project_kv", "decode_attention", "quantize_kv",
+           "AttnStatics"]
 
 
 def attn_init(make, d_model: int, num_heads: int, num_kv_heads: int, head_dim: int, *,
@@ -51,13 +55,17 @@ class AttnStatics:
     """Static knobs threaded through the transformer."""
 
     def __init__(self, num_heads: int, num_kv_heads: int, head_dim: int, *,
-                 rope_theta: float = 1e4, qk_norm: bool = False, norm_eps: float = 1e-6,
-                 use_rope: bool = True):
+                 rope_theta: float = 1e4, mrope: bool = False,
+                 mrope_sections: Tuple[int, int, int] = (16, 24, 24), qk_norm: bool = False,
+                 causal: bool = True, norm_eps: float = 1e-6, use_rope: bool = True):
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
         self.rope_theta = rope_theta
+        self.mrope = mrope
+        self.mrope_sections = mrope_sections
         self.qk_norm = qk_norm
+        self.causal = causal
         self.norm_eps = norm_eps
         self.use_rope = use_rope
 
@@ -77,24 +85,55 @@ def _project_qkv(params: Dict, x: torch.Tensor, st: AttnStatics,
         q = rmsnorm(params["q_norm"], q, eps=st.norm_eps)
         k = rmsnorm(params["k_norm"], k, eps=st.norm_eps)
     if positions is not None:
-        q = apply_rope(q, positions, st.rope_theta)
-        k = apply_rope(k, positions, st.rope_theta)
+        if st.mrope:  # positions [3, B, S]
+            q = apply_mrope(q, positions, st.rope_theta, st.mrope_sections)
+            k = apply_mrope(k, positions, st.rope_theta, st.mrope_sections)
+        else:
+            q = apply_rope(q, positions, st.rope_theta)
+            k = apply_rope(k, positions, st.rope_theta)
     return q, k, v
 
 
 def attention(params: Dict, x: torch.Tensor, st: AttnStatics,
-              positions: Optional[torch.Tensor] = None, return_kv: bool = False):
-    """Causal self-attention over the whole sequence (prefill / forward).
+              positions: Optional[torch.Tensor] = None,
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, return_kv: bool = False):
+    """Full-sequence attention (prefill / forward / encoder / cross).
 
-    x [B, S, D]. ``return_kv=True`` also returns this layer's k, v
-    [B, S, KV, hd], so prefill fills the decode cache in the same pass."""
+    x [B, S, D]. Self-attention projects q, k, v from x, causal when
+    ``st.causal``. With ``kv`` = (k, v) [B, T, KV, hd] (``project_kv`` of an
+    encoder's output) it is cross-attention, unmasked: q is ``x @ wq``
+    without ``bq``, then q's qk-norm, as in the reference. ``return_kv=True``
+    also returns this layer's k, v, so prefill fills the decode cache in the
+    same pass."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, st, positions)
-    out = fa_ops.flash_attention(q, k, v)  # the kernel on CUDA, its plain version on the CPU
+    if kv is None:
+        q, k, v = _project_qkv(params, x, st, positions)
+    else:
+        q = (x @ params["wq"]).reshape(b, s, st.num_heads, st.head_dim)
+        if st.qk_norm:
+            q = rmsnorm(params["q_norm"], q, eps=st.norm_eps)
+        k, v = kv
+    causal = st.causal and kv is None
+    # the kernel on CUDA, its plain version on the CPU
+    out = fa_ops.flash_attention(q, k, v, causal=causal)
     out = out.reshape(b, s, st.num_heads * st.head_dim) @ params["wo"]
     if return_kv:
         return out, k, v
     return out
+
+
+def project_kv(params: Dict, x: torch.Tensor, st: AttnStatics):
+    """K/V projection alone (the cross-attention source, computed once from
+    an encoder's output x [B, T, D]): (k, v) [B, T, KV, hd], contiguous."""
+    b, t, _ = x.shape
+    k = (x @ params["wk"]).reshape(b, t, st.num_kv_heads, st.head_dim)
+    v = (x @ params["wv"]).reshape(b, t, st.num_kv_heads, st.head_dim)
+    if "bk" in params:
+        k = k + params["bk"].reshape(st.num_kv_heads, st.head_dim)
+        v = v + params["bv"].reshape(st.num_kv_heads, st.head_dim)
+    if st.qk_norm:
+        k = rmsnorm(params["k_norm"], k, eps=st.norm_eps)
+    return k, v
 
 
 def quantize_kv(k: torch.Tensor):
@@ -123,7 +162,9 @@ def decode_attention(params: Dict, x: torch.Tensor, st: AttnStatics,
     b = x.shape[0]
     g = st.num_heads // st.num_kv_heads
     scale = 1.0 / math.sqrt(st.head_dim)
-    pos = torch.full((b, 1), cache_len, dtype=torch.int64, device=x.device) if st.use_rope else None
+    # M-RoPE gives all three streams the position cache_len, as the reference does.
+    shape = (3, b, 1) if st.mrope else (b, 1)
+    pos = torch.full(shape, cache_len, dtype=torch.int64, device=x.device) if st.use_rope else None
     q, k, v = _project_qkv(params, x, st, pos)
     int8_cache = k_cache.dtype == torch.int8
     if int8_cache:

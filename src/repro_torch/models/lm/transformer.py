@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly: dense / MoE / hybrid (Jamba) / SSM (Mamba2).
+"""Decoder-only LM assembly: dense / VLM / MoE / hybrid (Jamba) / SSM (Mamba2).
 
 The reference's ``repro/models/lm/transformer.py``. Layers are grouped into
 repeated **units** (the smallest repeating pattern of layer roles), and each
@@ -6,7 +6,7 @@ role's parameters are stacked with a leading unit axis ``[U, ...]``, as in
 the reference, so its parameter trees carry over leaf by leaf
 (``models/api.py::params_from_numpy``). Unit patterns:
 
-  dense LM            [(attn, dense)]                       U = L
+  dense LM, VLM       [(attn, dense)]                       U = L
   granite-moe         [(attn, moe)]                         U = L
   llama4 (interleave) [(attn, dense), (attn, moe)]          U = L/2
   jamba (1:7, moe/2)  8 roles: attn at offset 4, moe odd    U = L/8
@@ -16,8 +16,12 @@ The reference scans over the units; here a Python loop indexes unit ``u`` of
 every stacked leaf (a view). The decode cache keeps the reference's layout:
 one entry per role, stacked ``[U, B, L, KV, hd]`` K/V (int8 with f32 scales
 ``[U, B, L, KV]`` under ``kv_cache_dtype="int8"``) or the Mamba state tree.
-``decode_step`` writes it in place. VLM and enc-dec configs are refused (see
-``block_roles``).
+``decode_step`` writes it in place.
+
+Batches carry ``tokens`` [B, S] or ``embeds`` [B, S, D] (a stubbed modality
+frontend's output, cast to the model dtype), and M-RoPE configs may carry
+``positions`` [3, B, S] (text positions otherwise). The enc-dec stack is
+``encdec.py``; it reuses ``make_statics`` and ``sin_positions`` from here.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch.models.lm.mamba import (
 from repro_torch.models.lm.mlp import mlp_apply, mlp_init
 from repro_torch.models.lm.moe import moe_apply, moe_init
 from repro_torch.models.lm.norm import make_norm
+from repro_torch.models.lm.rope import mrope_text_positions
 
 __all__ = [
     "TensorMaker",
@@ -50,6 +55,7 @@ __all__ = [
     "block_roles",
     "mixer_counts",
     "make_statics",
+    "sin_positions",
     "init_lm",
     "param_shapes",
     "forward",
@@ -60,22 +66,13 @@ __all__ = [
 
 Role = Tuple[str, str]  # (mixer, ffn)
 
-# Families of the reference's registry that the port does not serve yet, and
-# the ROADMAP item (queue 1) that ports each.
-_NOT_PORTED = {
-    "vlm": "queue 1 item 9 (VLM: qwen2-vl, M-RoPE)",
-    "encdec": "queue 1 item 10 (enc-dec: seamless)",
-    "audio": "queue 1 item 10 (enc-dec: seamless)",
-}
+# The token families of the reference's registry (``audio`` and ``encdec``
+# configs have encoder layers and run ``encdec.py``).
+TOKEN_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio", "encdec")
 
 
 def block_roles(cfg: ModelConfig) -> List[Role]:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; "
-            f"ROADMAP {_NOT_PORTED[cfg.family]}"
-        )
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
+    if cfg.family not in TOKEN_FAMILIES:
         raise ValueError(f"{cfg.name}: {cfg.family!r} is not a token family")
     if cfg.is_hybrid:  # jamba: attn every `period`, MoE every `moe_period`
         roles = []
@@ -103,16 +100,29 @@ def mixer_counts(cfg: ModelConfig) -> Dict[str, int]:
     return {m: units * sum(r[0] == m for r in roles) for m in ("attn", "mamba")}
 
 
-def make_statics(cfg: ModelConfig) -> AttnStatics:
+def make_statics(cfg: ModelConfig, *, causal: bool = True) -> AttnStatics:
     return AttnStatics(
         cfg.num_heads,
         cfg.num_kv_heads,
         cfg.resolved_head_dim,
         rope_theta=cfg.rope_theta,
+        mrope=cfg.pos_embed == "mrope",
+        mrope_sections=cfg.mrope_sections,
         qk_norm=cfg.qk_norm,
+        causal=causal,
         norm_eps=cfg.norm_eps,
-        use_rope=cfg.pos_embed == "rope",
+        use_rope=cfg.pos_embed in ("rope", "mrope"),
     )
+
+
+def sin_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The reference's sinusoidal table at f32 ``positions`` [S]: [S, D] f32,
+    sin of the first D/2 columns, cos of the rest (constant 9.21)."""
+    half = d_model // 2
+    freq = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device)
+                     / half * 9.21)
+    ang = positions[:, None] * freq[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -241,15 +251,34 @@ def _index(tree, u: int):
     return tree[u]
 
 
-def _embed_in(cfg: ModelConfig, params: Dict, tokens: torch.Tensor):
-    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
-    x = params["embed"][tokens]
-    b, s = tokens.shape
-    positions = None
-    if cfg.pos_embed == "rope":
+def _embed(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
+    """``batch["embeds"]`` [B, S, D] cast to the model dtype, else the
+    embedding rows of ``batch["tokens"]`` [B, S]."""
+    dev = params["embed"].device
+    if "embeds" in batch:
+        return torch.as_tensor(batch["embeds"], device=dev).to(_dtype(cfg))
+    return params["embed"][torch.as_tensor(batch["tokens"], device=dev).long()]
+
+
+def _embed_in(cfg: ModelConfig, params: Dict, batch: Dict):
+    """(x [B, S, D], positions): positions [B, S] for RoPE, [3, B, S] for
+    M-RoPE (``batch["positions"]`` when given, else text positions), None
+    otherwise; a ``sin`` config adds the sinusoidal table to x."""
+    x = _embed(cfg, params, batch)
+    b, s = x.shape[:2]
+    if cfg.pos_embed == "sin":
+        pos = torch.arange(s, dtype=torch.float32, device=x.device)
+        x = x + sin_positions(pos, cfg.d_model)[None].to(x.dtype)
+    if cfg.pos_embed in ("rope", "mrope") and "positions" in batch:
+        positions = torch.as_tensor(batch["positions"], device=x.device)
+    elif cfg.pos_embed == "rope":
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    elif cfg.pos_embed != "none":
-        raise NotImplementedError(f"pos_embed {cfg.pos_embed!r} is not ported yet")
+    elif cfg.pos_embed == "mrope":
+        positions = mrope_text_positions(b, s, device=x.device)
+    elif cfg.pos_embed in ("sin", "none"):
+        positions = None
+    else:
+        raise ValueError(f"unknown pos_embed {cfg.pos_embed!r}")
     return x, positions
 
 
@@ -278,13 +307,13 @@ def _ffn(cfg: ModelConfig, ffn: str, p: Dict, x: torch.Tensor, norm_apply, aux: 
     return x + mlp_apply(p["mlp"], h, cfg.mlp)
 
 
-def _run(params: Dict, cfg: ModelConfig, tokens, cache: Optional[List[Dict]], aux: List):
+def _run(params: Dict, cfg: ModelConfig, batch: Dict, cache: Optional[List[Dict]], aux: List):
     """Full-sequence pass; writes K/V and SSM states into ``cache`` when given
     and each MoE layer's aux loss into ``aux``."""
     roles = block_roles(cfg)
     st = make_statics(cfg)
     _, norm_apply = make_norm(cfg.norm)
-    x, positions = _embed_in(cfg, params, tokens)
+    x, positions = _embed_in(cfg, params, batch)
     s = x.shape[1]
     for u in range(_units(cfg)):
         for r, (role, stacked) in enumerate(zip(roles, params["units"])):
@@ -316,11 +345,12 @@ def _run(params: Dict, cfg: ModelConfig, tokens, cache: Optional[List[Dict]], au
 
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward over ``batch["tokens"]`` [B, S]. Returns
-    (logits [B, S, Vp] f32, aux), aux being the MoE layers' summed
+    """Full-sequence forward over ``batch["tokens"]`` [B, S] or
+    ``batch["embeds"]`` [B, S, D] (with optional M-RoPE ``positions``).
+    Returns (logits [B, S, Vp] f32, aux), aux being the MoE layers' summed
     load-balancing loss (0 without MoE layers)."""
     aux: List[torch.Tensor] = []
-    logits = _run(params, cfg, batch["tokens"], None, aux)
+    logits = _run(params, cfg, batch, None, aux)
     return logits, sum(aux, torch.zeros((), dtype=torch.float32, device=logits.device))
 
 
@@ -330,12 +360,11 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict, max_len: int):
     One forward pass that also writes every layer's K/V (and SSM final
     state) into a decode cache of capacity ``max_len``; ``cache_len`` is the
     prompt length, a host int."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    b, s = (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[:2]
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     cache = init_cache(cfg, b, max_len, device=params["embed"].device)
-    return _run(params, cfg, tokens, cache, []), cache, s
+    return _run(params, cfg, batch, cache, []), cache, s
 
 
 # ------------------------------------------------------------------- decode
@@ -364,13 +393,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device, dtype=None
 
 
 def decode_step(params: Dict, cfg: ModelConfig, batch: Dict, cache: List[Dict], cache_len: int):
-    """One serving step for ``batch["tokens"]`` [B, 1]: returns (logits
-    [B, Vp] f32, cache), the cache updated in place at ``cache_len``."""
+    """One serving step for ``batch["tokens"]`` [B, 1] or ``batch["embeds"]``
+    [B, 1, D]: returns (logits [B, Vp] f32, cache), the cache updated in
+    place at ``cache_len`` (also the position of every M-RoPE stream)."""
     roles = block_roles(cfg)
     st = make_statics(cfg)
     _, norm_apply = make_norm(cfg.norm)
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device).long()
-    x = params["embed"][tokens]
+    x = _embed(cfg, params, batch)
     for u in range(_units(cfg)):
         for r, (role, stacked) in enumerate(zip(roles, params["units"])):
             mixer, ffn = role

@@ -46,7 +46,14 @@ from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 from repro_torch.memory.feature_store import FeatureStore
 from repro_torch.memory import prefetcher
 from repro_torch.memory.prefetcher import ChunkPrefetcher, StreamedFeatures
-from repro_torch.models.api import model_prefill, params_to
+from repro_torch.models.api import (
+    model_decode_step,
+    model_forward,
+    model_init,
+    model_init_cache,
+    model_prefill,
+    params_to,
+)
 from repro_torch.models.gnn import api as gnn_api
 from repro_torch.models.lm.moe import moe_apply
 from repro_torch.models.lm.transformer import mixer_counts
@@ -781,13 +788,13 @@ def _bf16_equal_share(out, want):
 
 
 # GQA groups 3 (Granite-MoE: 24/8 heads, hd 64) and 5 (Llama-4 Maverick:
-# 40/8, hd 128) at both head dims.
+# 40/8, hd 128) at both head dims, and 7 (Qwen2-VL-7B: 28/4, hd 128).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,s,t,h,kv", [
     (16, 16, 16, 2, 2), (20, 200, 200, 3, 1), (64, 300, 300, 15, 5), (128, 130, 130, 8, 2),
     (128, 1000, 1000, 12, 2), (64, 40, 100, 6, 1), (128, 1, 65, 4, 4),
     (64, 256, 256, 24, 8), (128, 200, 200, 24, 8), (64, 300, 300, 40, 8),
-    (128, 256, 256, 40, 8),
+    (128, 256, 256, 40, 8), (128, 256, 256, 28, 4),
 ])
 def test_flash_attention_matches_plain(cuda, dtype, hd, s, t, h, kv):
     gen = torch.Generator(device=cuda).manual_seed(hd + s + h)
@@ -811,6 +818,45 @@ def test_flash_attention_matches_plain(cuda, dtype, hd, s, t, h, kv):
     _close(out, flash_attention_ref(q.cpu(), k.cpu(), v.cpu()), bf16)
     if bf16:
         assert _bf16_equal_share(out, plain) >= 0.99
+
+
+# Unmasked (an encoder's self-attention and cross-attention): S < T (a
+# target prefix over 1,024 source frames), S = T, S > T, S = 1 (a decode
+# step's cross-attention), T ragged against the 64-key blocks, at hd 64 and
+# 128 (bf16: the tensor-core kernel) and 16 and 20 (the CUDA-core kernel in
+# both dtypes), GQA groups 1, 2 and 7.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,s,t,h,kv", [
+    (64, 36, 1024, 16, 16), (64, 300, 300, 16, 16), (128, 200, 70, 28, 4), (64, 1, 1024, 16, 16),
+    (128, 1, 201, 28, 4), (64, 130, 1000, 8, 4), (16, 40, 100, 4, 2), (20, 65, 33, 3, 1),
+    (128, 70, 129, 7, 1),
+])
+def test_flash_attention_noncausal_matches_plain(cuda, dtype, hd, s, t, h, kv):
+    gen = torch.Generator(device=cuda).manual_seed(hd + s + t + h)
+    q = torch.randn((2, s, h, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((2, t, kv, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, t, kv, hd), generator=gen, device=cuda).to(dtype)
+    before = build.launch_counts().get(fa_ops.KERNEL, 0)
+    before_tc = build.launch_counts().get(fa_ops.TC_KERNEL, 0)
+    before_nc = build.launch_counts().get(fa_ops.NONCAUSAL_KERNEL, 0)
+    out = fa_ops.flash_attention(q, k, v, causal=False)
+    again = fa_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[fa_ops.KERNEL] == before + 2
+    assert build.launch_counts()[fa_ops.NONCAUSAL_KERNEL] == before_nc + 2
+    tc = dtype == torch.bfloat16 and hd in (64, 128)
+    assert build.launch_counts().get(fa_ops.TC_KERNEL, 0) == before_tc + (2 if tc else 0)
+    assert out.dtype == dtype and torch.equal(out, again)
+    assert torch.isfinite(out).all()
+    bf16 = dtype == torch.bfloat16
+    plain = flash_attention_ref(q, k, v, causal=False)
+    _close(out, plain, bf16)
+    _close(out, flash_attention_ref(q.cpu(), k.cpu(), v.cpu(), causal=False), bf16)
+    if bf16:
+        assert _bf16_equal_share(out, plain) >= 0.99
+    if 1 < s <= t:  # the causal kernel on the same inputs is another function
+        assert not torch.allclose(fa_ops.flash_attention(q, k, v).float(), out.float(),
+                                  atol=1.6e-2)
 
 
 def test_flash_attention_unaligned_bf16_takes_the_cuda_core_kernel(cuda):
@@ -897,6 +943,57 @@ def test_lm_generate_on_card_matches_cpu(cuda, arch, kernel):
     want = model_prefill(cpu.params, cfg, toks, 80)[0]
     got = model_prefill(gpu.params, cfg, {"tokens": toks["tokens"].to(cuda)}, 80)[0]
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=5e-4, rtol=1e-3)
+
+
+def test_vlm_and_encdec_on_card_match_cpu(cuda):
+    """REDUCED Qwen2-VL on embeds with image-grid M-RoPE positions, and
+    REDUCED Seamless through prefill and decode: flash once per attention
+    layer (the enc-dec: causal per decoder layer, unmasked per encoder and
+    cross layer, and unmasked per decode step and layer), logits within the
+    f32 tolerance of the CPU's, run-to-run bitwise."""
+    gen = torch.Generator().manual_seed(0)
+    vlm = get_config("qwen2-vl-7b", reduced=True)
+    params = params_to(model_init(vlm, gen, device="cpu"), cuda)
+    rng = np.random.default_rng(0)
+    emb = torch.from_numpy(rng.standard_normal((2, 40, vlm.d_model)).astype(np.float32))
+    pos = torch.arange(40, dtype=torch.int32)[None, None].repeat(3, 2, 1)
+    pos[1, :, 8:24] = 8 + torch.arange(16, dtype=torch.int32) // 4  # a 4 x 4 grid's h
+    pos[2, :, 8:24] = 8 + torch.arange(16, dtype=torch.int32) % 4  # and w
+    pos[0, :, 8:24] = 8
+    batch = {"embeds": emb, "positions": pos}
+    want = model_prefill(params_to(params, "cpu"), vlm, batch, 48)[0]
+    build.reset_launch_counts()
+    got = model_prefill(params, vlm, {k: t.to(cuda) for k, t in batch.items()}, 48)[0]
+    assert build.launch_counts() == {fa_ops.KERNEL: vlm.num_layers}
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=5e-4, rtol=1e-3)
+
+    sea = get_config("seamless-m4t-medium", reduced=True)
+    params = params_to(model_init(sea, gen, device="cpu"), cuda)
+    src = torch.from_numpy(rng.standard_normal((2, 70, sea.d_model)).astype(np.float32))
+    tgt = torch.from_numpy(rng.integers(0, sea.vocab_size, (2, 6)))
+    cpu_batch = {"src_embeds": src, "tgt_tokens": tgt}
+    card_batch = {k: t.to(cuda) for k, t in cpu_batch.items()}
+    cpu_params = params_to(params, "cpu")
+    want = model_forward(cpu_params, sea, cpu_batch)[0]
+    build.reset_launch_counts()
+    got = model_forward(params, sea, card_batch)[0]
+    unmasked = sea.encoder_layers + sea.num_layers  # encoder, cross-attention
+    assert build.launch_counts() == {fa_ops.KERNEL: sea.num_layers + unmasked,
+                                     fa_ops.NONCAUSAL_KERNEL: unmasked}
+    assert torch.equal(got, model_forward(params, sea, card_batch)[0])
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=5e-4, rtol=1e-3)
+    cache = model_init_cache(sea, params, card_batch, 16)
+    cpu_cache = model_init_cache(sea, cpu_params, cpu_batch, 16)
+    for i in range(tgt.shape[1]):
+        build.reset_launch_counts()
+        lg, cache = model_decode_step(params, sea, {"tokens": card_batch["tgt_tokens"][:, i:i + 1]},
+                                      cache, i)
+        assert build.launch_counts() == {fa_ops.KERNEL: sea.num_layers,
+                                         fa_ops.NONCAUSAL_KERNEL: sea.num_layers}
+        clg, cpu_cache = model_decode_step(cpu_params, sea, {"tokens": tgt[:, i:i + 1]},
+                                           cpu_cache, i)
+        np.testing.assert_allclose(lg.cpu().numpy(), clg.numpy(), atol=5e-4, rtol=1e-3)
+        np.testing.assert_allclose(lg.cpu().numpy(), want[:, i].numpy(), atol=5e-4, rtol=1e-3)
 
 
 @pytest.mark.parametrize("e,k,cf,shared", [(40, 8, 1.25, False), (128, 1, 1.25, True),

@@ -2,7 +2,8 @@
 parameters of every LM config, and forward / prefill / decode of every
 REDUCED dense and ssm config (the layers alone are in
 ``test_torch_lm_modules.py``, the MoE and hybrid stacks in
-``test_torch_moe.py``).
+``test_torch_moe.py``, the VLM in ``test_torch_vlm.py``, the enc-dec in
+``test_torch_encdec.py``).
 
 Parameters come from the reference's own init (``jax.random``) and are
 carried into the port with ``models.api.params_from_numpy``; inputs are made
@@ -27,6 +28,7 @@ from repro.configs.base import get_config as ref_config
 from repro.models import api as ref_api
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.base import get_config as port_config
+from repro_torch.configs.base import list_configs
 from repro_torch.kernels import build
 from repro_torch.models import api as port_api
 
@@ -34,16 +36,12 @@ ATOL, RTOL = 5e-4, 1e-3
 DENSE = ["qwen3-8b", "qwen2-1.5b", "smollm-360m", "nemotron-4-15b"]
 STACK_ARCHS = DENSE + ["mamba2-370m"]  # forward/prefill/decode here
 LM_ARCHS = STACK_ARCHS + ["granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
-                          "jamba-v0.1-52b"]
+                          "jamba-v0.1-52b", "qwen2-vl-7b", "seamless-m4t-medium"]
 
-# Fields of the reference's ModelConfig the port leaves out: the families it
-# does not serve yet (enc-dec, M-RoPE, embeds input), the XLA and training
-# knobs, the attention switch (the device picks kernel or plain version), and
-# the Pallas switch of the GNN engine.
-LEFT_OUT = {
-    "mrope_sections", "attention_impl", "encoder_layers", "embeds_input", "remat",
-    "scan_layers", "gnn_use_kernel",
-}
+# Fields of the reference's ModelConfig the port leaves out: the XLA and
+# training knobs, the attention switch (the device picks kernel or plain
+# version), and the Pallas switch of the GNN engine.
+LEFT_OUT = {"attention_impl", "remat", "scan_layers", "gnn_use_kernel"}
 
 
 def _np(tree):
@@ -124,9 +122,22 @@ def test_param_shapes_match_reference_init(arch, reduced):
 
 
 def test_unported_families_are_refused():
-    for family in ("vlm", "encdec"):
+    """Every token family of the registry initialises (REDUCED, on the CPU,
+    to the reference's tree); a family the registry does not have is
+    refused, and a GNN config has no token cache."""
+    families = set()
+    for arch in list_configs():
+        cfg = port_config(arch, reduced=True)
+        if cfg.family == "gnn":
+            continue
+        families.add(cfg.family)
+        params = port_api.model_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        assert jax.tree_util.tree_map(lambda t: tuple(t.shape), params) == \
+            port_api.param_shapes(cfg)
+    assert families == {"dense", "moe", "hybrid", "ssm", "vlm", "audio"}
+    for family in ("diffusion", "vision"):
         cfg = dataclasses.replace(port_config("qwen3-8b", reduced=True), family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        with pytest.raises(ValueError, match="not a token family"):
             port_api.model_init(cfg, device="cpu")
     gnn = port_config("ample-gcn", reduced=True)
     with pytest.raises(TypeError, match="no token cache"):

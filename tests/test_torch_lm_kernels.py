@@ -82,6 +82,57 @@ def test_flash_plain_keeps_probabilities_f32_like_the_tpu_kernel():
     np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_ATOL)
 
 
+# Non-causal (the TPU kernel's causal=False branch: an encoder, S = T, and
+# cross-attention, any S and T): (hd, S, T, H, KV) with S < T, S = T, S > T,
+# S = 1 (a decode step's cross-attention), T ragged against the 128 block of
+# the TPU kernel and the 64 block of the CUDA kernels, GQA groups 1 and 7
+# (Qwen2-VL's 28 heads over 4).
+NONCAUSAL = [
+    (16, 36, 100, 4, 4),
+    (16, 64, 64, 7, 1),
+    (20, 100, 37, 14, 2),
+    (16, 1, 100, 4, 4),
+    (64, 30, 201, 7, 1),
+    (16, 130, 130, 2, 2),
+]
+
+
+@pytest.mark.parametrize("hd,s,t,h,kv", NONCAUSAL)
+def test_flash_plain_noncausal_matches_reference_pallas_and_ref(hd, s, t, h, kv):
+    q, k, v = _qkv(2, s, t, h, kv, hd, seed=hd + s + t + h)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    want_pallas = np.asarray(ref_fa.flash_attention(jq, jk, jv, causal=False, interpret=True))
+    want_ref = np.asarray(attention_ref(jq, jk, jv, causal=False))
+    build.reset_launch_counts()
+    got = fa_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                 causal=False)
+    assert build.launch_counts() == {}
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, s, h, hd)
+    np.testing.assert_allclose(got.numpy(), want_pallas, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), want_ref, atol=ATOL, rtol=RTOL)
+    # every key is seen: not the causal function where that one masks a key
+    # (S = 1 sees every key under the end-aligned causal mask too)
+    if 1 < s <= t:
+        causal = fa_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                        torch.from_numpy(v))
+        assert not torch.allclose(causal, got, atol=ATOL)
+
+
+@pytest.mark.parametrize("hd,s,t,h,kv", [(64, 36, 130, 7, 1), (64, 130, 130, 4, 4),
+                                         (64, 1, 70, 4, 2)])
+def test_flash_plain_noncausal_bf16_matches_reference_pallas(hd, s, t, h, kv):
+    """bf16, unmasked: the plain version and the Pallas kernel both keep p in
+    f32 and round only the output (two bf16 ulps at magnitude 1)."""
+    q, k, v = _qkv(2, s, t, h, kv, hd, seed=s + t)
+    qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(ref_fa.flash_attention(qb, kb, vb, causal=False, interpret=True)
+                      .astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = fa_ops.flash_attention(tq, tk, tv, causal=False)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_ATOL)
+
+
 def test_flash_wrapper_checks_shapes_and_runs_plain_on_cpu():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 4, 2, 16, seed=0))
     build.reset_launch_counts()
@@ -90,6 +141,11 @@ def test_flash_wrapper_checks_shapes_and_runs_plain_on_cpu():
     assert torch.equal(out, flash_attention_ref(q, k, v))
     with pytest.raises(ValueError, match="S <= T"):
         fa_ops.flash_attention(q, k[:, :5], v[:, :5])
+    # unmasked, S > T is valid (cross-attention over a shorter source)
+    assert torch.equal(fa_ops.flash_attention(q, k[:, :5], v[:, :5], causal=False),
+                       flash_attention_ref(q, k[:, :5], v[:, :5], causal=False))
+    with pytest.raises(ValueError, match="T >= 1"):
+        fa_ops.flash_attention(q, k[:, :0], v[:, :0], causal=False)
     with pytest.raises(ValueError, match="does not match"):
         fa_ops.flash_attention(q[..., :3, :], k, v)  # 3 q-heads over 2 kv-heads
     with pytest.raises(ValueError):
