@@ -146,6 +146,34 @@ Every phase that fails raises, so the script exits non-zero.
              SDPA and to the bound printed; the SSD's bound counts its three
              TF32 products at the TF32 peak, and the f32 CUDA-core bound is
              printed beside it);
+    lm train — FULL ``qwen2-1.5b`` (28 layers, d 1,536, GQA 12/2, hd 128,
+             vocab 151,936, tied: 1,543,714,304 params, bf16, AdamW's f32
+             moments, no cut) trained through ``train.loop.Trainer`` (the
+             code under ``python -m repro_torch.launch.train``) on
+             ``synthetic_batch(seed=0)`` batches of B 4 x 2,048 tokens: two
+             2-step runs from seed 0 bitwise equal; 4 steps with loss, ce,
+             grad_norm, lr, forward / backward / optimiser ms (CUDA events),
+             tokens/s, peak memory and the flash launches of each (28 forward
+             on the tensor cores, 28 of each backward kernel); the model-flop
+             share (6 N tokens / step / 989 TFLOP/s, and with attention); one
+             profiled warm step; the card against the CPU at full width cut
+             to 2 layers, B 1 x 256 (loss and ce within 1e-2 relative, every
+             gradient leaf within 5e-2 of its largest CPU magnitude, the
+             CPU's bf16 against its f32 printed beside); crash after step 3
+             and resume to 6 at 2 layers, B 2 x 512, a checkpoint every 3
+             steps, bitwise the straight run, each checkpoint's bytes, a save
+             and a restore timed, under a temporary directory removed after;
+    flash bwd — the two backward kernels (``csrc/flash_attention_bwd.cu``)
+             against ``flash_attention_bwd_ref`` at Qwen2-1.5B's training
+             shape, SmolLM-360M's (hd 64, GQA 15/5), the REDUCED configs' hd
+             20 in f32, an unmasked cross shape (S 36 over T 1,024) and a
+             ragged T of 1,000: within 2^-7 (bf16) or 1e-4 (f32) of each
+             gradient's largest magnitude, run-to-run bitwise, each kernel
+             timed beside its bound, the whole backward beside the plain
+             version, its bound (2.5x the forward's operations) and one
+             ``torch.autograd.grad`` of ``scaled_dot_product_attention``; the
+             forward's lse against ``flash_attention_lse_ref`` (1e-4), its
+             output bitwise the output without lse;
 15. lm cpu — REDUCED ``qwen3-8b``, ``mamba2-370m``, ``granite-moe-3b-a800m``,
              ``llama4-maverick-400b-a17b``, ``jamba-v0.1-52b`` and
              ``qwen2-vl-7b`` served on the CPU against the card: each kernel
@@ -158,8 +186,10 @@ Every phase that fails raises, so the script exits non-zero.
              request with ``feature_budget_bytes = features.nbytes // 8``
              (4,096-row chunks, 176 chunks, 21 f32 and 87 int8 slots): the
              features stay in page-locked host memory and stream through the
-             chunk prefetcher, two requests at prefetch depth 2 (the first
-             builds the stream programs) and one at depth 0; each bitwise the
+             chunk prefetcher, one request at prefetch depth 2 and one at
+             depth 0 (each builds its stream programs; a second request
+             that replays them is a ``gpu`` test at cora size, since a
+             Yelp one costs 43-84 s across hosts); each bitwise the
              in-memory output, with the AGE and the int8 GEMM launched and a
              peak device memory below the in-memory request's (measured
              just before); per request the launches, bytes_streamed, hit
@@ -233,6 +263,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -323,9 +354,9 @@ def _yelp_engine(srv, g):
 
 # Kernels that must keep every value in registers (a spill would sit in the
 # inner loop): the tensor-core flash kernel, the int8 GEMM, the tile walk
-# (AGE and GAT) and the SSD's two kernels.
+# (AGE and GAT), the SSD's two kernels and flash's two backward kernels.
 NO_SPILL = ("flash_tc_kernel", "quant_matmul_kernel", "heads_walk_kernel", "ssd_cb_kernel",
-            "ssd_tc_kernel")
+            "ssd_tc_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 # The rows the GNN paths' int8 group hands the AGE at D 300 (phase_age's row
 # kinds): int8 codes at a row stride of 304 bytes (aggregation._int8_rows).
 AGE_PATH_ROWS = "int8 stride 304"
@@ -2451,6 +2482,429 @@ def phase_lm_kernels():
     return flash, ssd
 
 
+# LM training (queue 1 item 4): FULL Qwen2-1.5B through the Trainer.
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_PARAMS = 1_543_714_304  # embedding 233,373,696 + 28 x 46,797,824 + 1,536
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4  # the LM cells' shape; 4 steps
+TRAIN_REPEAT_STEPS = 2  # steps of each of the two runs held bitwise
+TRAIN_LR = 1e-3  # launch/train.py's default
+# The card against the CPU: full width cut to 2 layers, B 1 x 256, bf16 on
+# both. Each gradient leaf within GRAD_REL of its largest CPU magnitude: bf16
+# rounds activations and gradients at ~10 places a layer, which moves a leaf
+# from its f32 value by 1-2.5% of that magnitude (printed beside, from the
+# same params run in f32 on the CPU); two bf16 computations that round at
+# other places may each be that far.
+CPU_LAYERS, CPU_SHAPE, GRAD_REL, LOSS_REL = 2, (1, 256), 5e-2, 1e-2
+# Crash and resume: full width cut to 2 layers, B 2 x 512, a checkpoint every
+# 3 steps, 6 steps straight against a crash after step 3 and a resume.
+RESUME_LAYERS, RESUME_SHAPE, RESUME_EVERY, RESUME_STEPS = 2, (2, 512), 3, 6
+
+
+def _train_cfg(tcfg_kw):
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainerConfig
+
+    return TrainerConfig(opt=AdamWConfig(lr=TRAIN_LR), log_every=1, **tcfg_kw)
+
+
+def _tree_leaves(tree):
+    """Leaves of a params or train-state tree (dict keys sorted, lists,
+    tuples and AdamWState in order), as the port's optimiser orders them."""
+    from repro_torch.optim.adamw import _leaves as leaves
+
+    return leaves(tree)
+
+
+def _param_leaves(state):
+    return _tree_leaves(state["params"])
+
+
+def _timed_steps(trainer, records, snap_at):
+    """Wrap ``trainer.step_fn``: CUDA events around each step, the kernels'
+    launch counts and the peak allocated bytes of each step, and a host copy
+    of the params after step ``snap_at``. The Trainer calls the wrapper as it
+    calls its own step."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    step_fn, snap = trainer.step_fn, {}
+
+    def timed(state, batch):
+        before = dict(build.launch_counts())
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, metrics = step_fn(state, batch)
+        ev[1].record()
+        records.append(dict(events=ev, peak=torch.cuda.max_memory_allocated(), launches={
+            k: v - before.get(k, 0) for k, v in build.launch_counts().items()
+            if v - before.get(k, 0)}))
+        if len(records) == snap_at:
+            snap["params"] = [t.detach().cpu() for t in _param_leaves(state)]
+        return state, metrics
+
+    trainer.step_fn = timed
+    return snap
+
+
+def _phase_split(cfg, tcfg, state, batch):
+    """One more step in the train step's three phases, each timed by CUDA
+    events: ``loss_fn``, ``torch.autograd.grad`` and ``adamw_update`` at the
+    schedule's lr. Returns (the new state, forward, backward, optimizer ms)."""
+    import torch
+
+    from repro_torch.models.api import loss_fn
+    from repro_torch.optim.adamw import _rebuild, adamw_update
+    from repro_torch.optim.schedule import warmup_cosine
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    leaves = [p.detach().requires_grad_(p.is_floating_point()) for p in _param_leaves(state)]
+    loss, _ = loss_fn(_rebuild(state["params"], iter(leaves)), cfg, batch)
+    ev[1].record()
+    got = iter(torch.autograd.grad(loss, [p for p in leaves if p.requires_grad]))
+    ev[2].record()
+    grads = _rebuild(state["params"], iter(
+        [next(got) if p.requires_grad else torch.zeros_like(p) for p in leaves]))
+    lr = warmup_cosine(state["step"] + 1, peak_lr=tcfg.opt.lr, warmup=tcfg.warmup,
+                       total=tcfg.steps)
+    params, opt, _ = adamw_update(grads, state["opt"], state["params"], tcfg.opt, lr=lr)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return ({"params": params, "opt": opt, "step": state["step"] + 1},
+            *(a.elapsed_time(b) for a, b in zip(ev, ev[1:])))
+
+
+def phase_lm_train():
+    """FULL Qwen2-1.5B trained through ``Trainer`` (the code under
+    ``launch.train``) on B 4 x 2,048 tokens: two runs bitwise, 4 timed steps
+    with their launches, a profiled step; the card against the CPU at 2
+    layers; crash and resume at 2 layers, bitwise."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.api import param_shapes
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.train_step import _grads
+
+    cfg = get_config(TRAIN_ARCH)
+    n_params = sum(math.prod(s) for s in _leaves(param_shapes(cfg)))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    row = dict(arch=TRAIN_ARCH, params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    log(f"[lm train] FULL {TRAIN_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, GQA "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}: {n_params:,} params; B {TRAIN_BATCH} x {TRAIN_SEQ}; {card_line()}")
+    if n_params != TRAIN_PARAMS:
+        raise RuntimeError(f"{TRAIN_ARCH} has {n_params} params, not {TRAIN_PARAMS}")
+
+    # (a) The timed run: launch counts set to 0 just before, read just after;
+    # a host copy of its params after TRAIN_REPEAT_STEPS steps.
+    tcfg = _train_cfg(dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ))
+    trainer = Trainer(cfg, tcfg)
+    step_fn, timed = trainer.step_fn, []
+    snap = _timed_steps(trainer, timed, TRAIN_REPEAT_STEPS)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.run()
+    torch.cuda.synchronize()
+    row["run_s"] = time.perf_counter() - t0
+    row["launches"] = build.launch_counts()
+    state, records = out["state"], out["metrics"]
+    del out
+
+    # (b) The warm steps' phases: as many more steps, continuing the run, by
+    # this script's own calls of the train step's three parts.
+    split = []
+    for i in range(TRAIN_STEPS - 1):
+        state, *ms = _phase_split(cfg, tcfg, state, trainer.batch(TRAIN_STEPS + i))
+        split.append(ms)
+    want = {fa_ops.KERNEL: cfg.num_layers, fa_ops.TC_KERNEL: cfg.num_layers,
+            fa_ops.BWD_DQ_KERNEL: cfg.num_layers, fa_ops.BWD_DKDV_KERNEL: cfg.num_layers}
+    fwd_flops = 4.0 * TRAIN_BATCH * cfg.num_heads * cfg.resolved_head_dim * (
+        TRAIN_SEQ * (TRAIN_SEQ + 1) // 2) * cfg.num_layers
+    model_flops = 6.0 * n_params * tokens
+    steps = []
+    for i, (t, rec) in enumerate(zip(timed, records)):
+        cnt, peak = t["launches"], t["peak"]
+        st = dict(step=rec["step"], loss=rec["loss"], ce=rec["ce"], grad_norm=rec["grad_norm"],
+                  lr=rec["lr"], step_ms=t["events"][0].elapsed_time(t["events"][1]),
+                  peak_bytes=peak, launches=cnt)
+        if i:
+            st["forward_ms"], st["backward_ms"], st["optimizer_ms"] = split[i - 1]
+        st["tokens_per_s"] = tokens / st["step_ms"] * 1e3
+        st["model_flop_share"] = model_flops / (st["step_ms"] / 1e3) / BF16_FLOPS
+        st["with_attention_share"] = (model_flops + 3 * fwd_flops) / (st["step_ms"] / 1e3) / BF16_FLOPS
+        steps.append(st)
+        phases = (f"; step {TRAIN_STEPS + i}'s phases: forward {st['forward_ms']:.1f} ms "
+                  f"backward {st['backward_ms']:.1f} ms optimizer {st['optimizer_ms']:.1f} ms"
+                  if i else "")
+        log(f"[lm train] step {st['step']}{' (cold)' if i == 0 else ''}: loss {st['loss']:.4f} "
+            f"ce {st['ce']:.4f} grad_norm {st['grad_norm']:.4f} lr {st['lr']:.3g}; step "
+            f"{st['step_ms']:.1f} ms, {st['tokens_per_s']:,.0f} tokens/s; peak "
+            f"{peak / 2**30:.2f} GiB; launches {cnt}{phases}")
+        if any(cnt.get(k, 0) != v for k, v in want.items()):
+            raise RuntimeError(f"lm train step {st['step']}: launches {cnt}, expected {want}")
+        if not all(math.isfinite(st[k]) for k in ("loss", "ce", "grad_norm")):
+            raise RuntimeError(f"lm train step {st['step']}: not finite: {st}")
+
+    warm = steps[1:]
+    row["steps"] = steps
+    row["warm_step_ms"] = sum(s["step_ms"] for s in warm) / len(warm)
+    row["model_flop_share"] = model_flops / (row["warm_step_ms"] / 1e3) / BF16_FLOPS
+    row["with_attention_share"] = (model_flops + 3 * fwd_flops) / (row["warm_step_ms"] / 1e3) / BF16_FLOPS
+    log(f"[lm train] {TRAIN_STEPS} steps: launches {row['launches']}; warm step "
+        f"{row['warm_step_ms']:.1f} ms: model-flop share 6 x {n_params:,} x {tokens} / step / "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s = {row['model_flop_share']:.3f}, with attention "
+        f"(3 x {fwd_flops / 1e12:.2f} TFLOP causal) {row['with_attention_share']:.3f}; "
+        f"{card_line()}")
+    if any(row["launches"].get(k, 0) != v * TRAIN_STEPS for k, v in want.items()):
+        raise RuntimeError(f"lm train: launches {row['launches']}")
+
+    # (c) Where a warm step's time goes: one more step of the same run under
+    # the profiler.
+    row["profile"] = _profiled("lm train", lambda: step_fn(state, trainer.batch(2 * TRAIN_STEPS - 1)))
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) A second run from the same seed, TRAIN_REPEAT_STEPS steps: bitwise
+    # the timed run's params at that step (both inside the 10-step warmup,
+    # where the lr does not depend on the run's length).
+    params = _param_leaves(Trainer(cfg, _train_cfg(dict(
+        steps=TRAIN_REPEAT_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ))).run()["state"])
+    row["repeat_bitwise"] = all(torch.equal(a, b.cpu()) for a, b in zip(snap["params"], params))
+    del params, snap
+    log(f"[lm train] a second {TRAIN_REPEAT_STEPS}-step run from seed 0: params bitwise the "
+        f"timed run's at step {TRAIN_REPEAT_STEPS}: {row['repeat_bitwise']}")
+    if not row["repeat_bitwise"]:
+        raise RuntimeError("lm train: two runs from the same seed differ")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) The card against the CPU: loss, ce and every gradient leaf, 2 layers.
+    small = dataclasses.replace(cfg, num_layers=CPU_LAYERS)
+    tr = Trainer(small, _train_cfg(dict(steps=1, batch=CPU_SHAPE[0], seq=CPU_SHAPE[1])))
+    params = tr.init_state()["params"]
+    batch = tr.batch(0)
+    build.reset_launch_counts()
+    loss, metrics, grads = _grads(params, small, batch)
+    card_counts = build.launch_counts()
+    g_card = [g.cpu() for g in _tree_leaves(grads)]
+    cpu_params = _rebuild_like(params, "cpu", None)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    closs, cmetrics, cgrads = _grads(cpu_params, small, cpu_batch)
+    f32 = dataclasses.replace(small, dtype="float32")
+    floss, _, fgrads = _grads(_rebuild_like(params, "cpu", torch.float32), f32, cpu_batch)
+    rel = [float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+           for a, b in zip(g_card, _tree_leaves(cgrads))]
+    rel_f32 = [float((a.float() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(_tree_leaves(cgrads), _tree_leaves(fgrads))]
+    loss_rel = abs(float(loss) - float(closs)) / abs(float(closs))
+    ce_rel = abs(float(metrics["ce"]) - float(cmetrics["ce"])) / abs(float(cmetrics["ce"]))
+    row["cpu"] = dict(layers=CPU_LAYERS, shape=list(CPU_SHAPE), loss=float(loss),
+                      cpu_loss=float(closs), f32_loss=float(floss), loss_rel=loss_rel,
+                      ce_rel=ce_rel, grad_rel_max=max(rel), grad_rel=rel,
+                      cpu_bf16_vs_f32_rel_max=max(rel_f32), launches=card_counts)
+    log(f"[lm train] card vs CPU, {CPU_LAYERS} layers at full width, B {CPU_SHAPE[0]} x "
+        f"{CPU_SHAPE[1]}: loss {float(loss):.5f} vs {float(closs):.5f} (f32 {float(floss):.5f}), "
+        f"relative {loss_rel:.2e}, ce {ce_rel:.2e} (<= {LOSS_REL}); {len(rel)} gradient leaves, "
+        f"max |card - CPU| / max |CPU| = {max(rel):.4f} (<= {GRAD_REL}); the CPU's bf16 against "
+        f"its f32: {max(rel_f32):.4f}; card launches {card_counts}")
+    if not (loss_rel <= LOSS_REL and ce_rel <= LOSS_REL and max(rel) <= GRAD_REL):
+        raise RuntimeError(f"lm train: card vs CPU loss {loss_rel}, ce {ce_rel}, grads {rel}")
+    if card_counts.get(fa_ops.BWD_DKDV_KERNEL, 0) != CPU_LAYERS:
+        raise RuntimeError(f"lm train: the card's gradient launched {card_counts}")
+    del params, grads, g_card, cpu_params, cgrads, fgrads, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) Crash and resume, bitwise; each checkpoint's bytes, save and restore s.
+    small = dataclasses.replace(cfg, num_layers=RESUME_LAYERS)
+    kw = dict(steps=RESUME_STEPS, batch=RESUME_SHAPE[0], seq=RESUME_SHAPE[1],
+              ckpt_every=RESUME_EVERY)
+    tmp = tempfile.mkdtemp(prefix="lm_train_ckpt_")
+    try:
+        straight = [t.detach() for t in _param_leaves(Trainer(small, _train_cfg(kw)).run()["state"])]
+        d = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        try:
+            Trainer(small, _train_cfg(dict(kw, ckpt_dir=d))).run(crash_at=RESUME_EVERY)
+            raise RuntimeError("lm train: the injected fault did not fire")
+        except RuntimeError as e:
+            if "injected fault" not in str(e):
+                raise
+        crashed_s = time.perf_counter() - t0
+        saved = ckpt.latest_step(d)
+        t0 = time.perf_counter()
+        resumed = Trainer(small, _train_cfg(dict(kw, ckpt_dir=d))).run()
+        resumed_s = time.perf_counter() - t0
+        state = resumed["state"]
+        same = all(torch.equal(a, b) for a, b in zip(straight, _param_leaves(state)))
+        sizes = {}
+        for name in sorted(os.listdir(d)):
+            p = os.path.join(d, name)
+            sizes[name] = sum(os.path.getsize(os.path.join(p, f)) for f in os.listdir(p))
+        d2 = os.path.join(tmp, "timed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(state, d2, RESUME_STEPS)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ckpt.restore(d2, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored_equal = all(torch.equal(a, b) for a, b in zip(_tree_leaves(back),
+                                                               _tree_leaves(state)))
+        nbytes = sizes[f"step_{RESUME_STEPS:09d}"]
+        row["resume"] = dict(layers=RESUME_LAYERS, shape=list(RESUME_SHAPE), every=RESUME_EVERY,
+                             steps=RESUME_STEPS, saved_step=saved, bitwise=same,
+                             checkpoint_bytes=sizes, save_s=save_s, restore_s=restore_s,
+                             restored_equal=restored_equal, crashed_run_s=crashed_s,
+                             resumed_run_s=resumed_s)
+        log(f"[lm train] crash after step {RESUME_EVERY} (checkpoint at step {saved}) and resume "
+            f"to {RESUME_STEPS}, {RESUME_LAYERS} layers at full width, B {RESUME_SHAPE[0]} x "
+            f"{RESUME_SHAPE[1]}: params bitwise the straight run's {same}; checkpoints "
+            f"{ {k: f'{v / 1e9:.3f} GB' for k, v in sizes.items()} }; save {save_s:.2f} s "
+            f"({nbytes / save_s / 1e9:.2f} GB/s), restore {restore_s:.2f} s "
+            f"({nbytes / restore_s / 1e9:.2f} GB/s), restored bitwise {restored_equal}")
+        if not (same and restored_equal and saved == RESUME_EVERY):
+            raise RuntimeError(f"lm train: crash-resume {row['resume']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return row
+
+
+def _rebuild_like(params, device, dtype):
+    """A copy of ``params`` on ``device`` (in ``dtype`` when given)."""
+    from repro_torch.optim.adamw import _rebuild
+
+    return _rebuild(params, iter([t.detach().to(device=device, dtype=dtype or t.dtype)
+                                  for t in _tree_leaves(params)]))
+
+
+def phase_flash_bwd():
+    """The backward kernels against ``flash_attention_bwd_ref`` at the
+    training shapes, each kernel timed beside the plain version, the bound and
+    one ``torch.autograd.grad`` of ``scaled_dot_product_attention``; the
+    forward's lse against ``flash_attention_lse_ref``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_lse_ref,
+    )
+
+    gen = _cuda_gen(7)
+    rows = []
+    # (label, B, S, T, H, KV, hd, dtype, causal): Qwen2-1.5B's training shape,
+    # SmolLM-360M's, the REDUCED configs' hd 20 in f32, an unmasked cross
+    # shape (36 target rows over 1,024 frames), and a ragged T of 1,000 keys.
+    for label, b, s, t, h, kv, hd, dt, causal in (
+        ("qwen2-1.5b train bf16", 4, 2048, 2048, 12, 2, 128, torch.bfloat16, True),
+        ("smollm-360m train bf16", 4, 2048, 2048, 15, 5, 64, torch.bfloat16, True),
+        ("reduced hd 20 f32", 4, 2048, 2048, 3, 1, 20, torch.float32, True),
+        ("cross unmasked bf16", 4, 36, 1024, 16, 16, 64, torch.bfloat16, False),
+        ("ragged T=1000 bf16", 4, 1000, 1000, 12, 2, 128, torch.bfloat16, True),
+    ):
+        q, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt) for _ in range(2))
+        k, v = (torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dt) for _ in range(2))
+        bf16 = dt == torch.bfloat16
+        out, lse = fa_ops._forward(q, k, v, causal, with_lse=True)
+        want_out, want_lse = flash_attention_lse_ref(q, k, v, causal=causal)
+        lse_err = float((lse - want_lse).abs().max())
+        lse_out_equal = bool(torch.equal(out, fa_ops.flash_attention(q, k, v, causal=causal)))
+        out_err = float((out.float() - want_out.float()).abs().max())
+        del want_out, want_lse
+        got = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        again = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
+        tol = 2.0 ** -7 if bf16 else 1e-4  # share of the tensor's largest magnitude
+        errs = [float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)]
+        rels = [e / float(w.float().abs().max()) for e, w in zip(errs, want)]
+        del got, again, want
+        pairs = s * (s + 1) // 2 + s * (t - s) if causal else s * t  # (query, key) pairs seen
+        fwd_ops = 4.0 * b * h * hd * pairs
+        peak = BF16_FLOPS if bf16 else FP32_FLOPS
+        el = q.element_size()
+        qb, kb, lb = q.numel() * el, k.numel() * el, lse.numel() * 4
+        dvec = torch.empty_like(lse)
+        scale = 1.0 / math.sqrt(hd)
+        args = (b, s, t, h, kv, hd, int(causal), scale)
+        flag = int(bf16)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+        def dq_call():
+            build.call("ample_flash_attention_bwd_dq", q.device, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                       dvec.data_ptr(), dq.data_ptr(), flag, *args)
+
+        def dkdv_call():
+            build.call("ample_flash_attention_bwd_dkdv", q.device, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(), flag, *args)
+
+        dq_call()
+        dq_ms = cuda_ms(dq_call, reps=5)
+        dkdv_ms = cuda_ms(dkdv_call, reps=5)
+        bwd_ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal),
+                         reps=3)
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal),
+                           reps=2)
+        # The library: one torch.autograd.grad of SDPA (top-left causal is the
+        # end-aligned mask when S == T; every causal case here has S == T).
+        lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal, enable_gqa=True)
+        ldo = do.transpose(1, 2)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True),
+                         reps=5)
+        lib = torch.autograd.grad(lout, (lq, lk, lv), ldo)
+        lib_err = max(float((a.transpose(1, 2).float() - c.float()).abs().max())
+                      for a, c in zip(lib, (dq, dk, dv)))
+        del lout, lib, lq, lk, lv
+        # bounds: bytes each input read once and each output written once;
+        # operations: dQ's kernel S, dP and dS K (3 of the forward's 2 products'
+        # worth, 1.5x), dK/dV's S, dP, P^T dO and dS^T Q (2x), the pair 2.5x.
+        dq_bound = bound(4 * qb + 2 * kb + 2 * lb, 1.5 * fwd_ops, peak)
+        dkdv_bound = bound(2 * qb + 2 * kb + 2 * lb + 2 * kb, 2.0 * fwd_ops, peak)
+        pair_bound = bound(4 * qb + 4 * kb + lb, 2.5 * fwd_ops, peak)
+        row = dict(case=label, b=b, s=s, t=t, h=h, kv=kv, hd=hd, dtype=str(dt), causal=causal,
+                   max_abs_err=max(errs), err_dq=errs[0], err_dk=errs[1], err_dv=errs[2],
+                   rel_to_max=rels, tol=tol, bitwise=bitwise, lse_err=lse_err,
+                   lse_out_equal=lse_out_equal, out_err=out_err, dq_ms=dq_ms, dkdv_ms=dkdv_ms,
+                   ms=bwd_ms, plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
+                   dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1], dkdv_bound_ms=dkdv_bound[0],
+                   dkdv_bound_by=dkdv_bound[1], bound_ms=pair_bound[0], bound_by=pair_bound[1],
+                   fwd_gflop=fwd_ops / 1e9)
+        log(f"[flash bwd] {label} B={b} S={s} T={t} H={h} KV={kv} hd={hd}: err dq {errs[0]:.3g} "
+            f"dk {errs[1]:.3g} dv {errs[2]:.3g} (share of max {max(rels):.2e} <= {tol:.2e}), "
+            f"bitwise {bitwise}; lse err {lse_err:.2e}, out with lse bitwise without "
+            f"{lse_out_equal}; dq kernel {dq_ms:.3f} ms (bound {dq_bound[0]:.3f}, "
+            f"{dq_bound[1]}), dkdv kernel {dkdv_ms:.3f} ms (bound {dkdv_bound[0]:.3f}, "
+            f"{dkdv_bound[1]}); backward {bwd_ms:.3f} ms, bound {pair_bound[0]:.3f} ms "
+            f"({pair_bound[1]}: {2.5 * fwd_ops / 1e9:.1f} GFLOP), plain {plain_ms:.3f} ms, SDPA "
+            f"backward {lib_ms:.3f} ms (diff {lib_err:.3g}); {bwd_ms / lib_ms:.2f}x SDPA, "
+            f"{bwd_ms / pair_bound[0]:.1f}x the bound")
+        if not (bitwise and max(rels) <= tol and lse_err <= 1e-4 and lse_out_equal):
+            raise RuntimeError(f"flash bwd {label}: {row}")
+        rows.append(row)
+        del q, k, v, do, out, lse, dvec, dq, dk, dv
+        torch.cuda.empty_cache()
+    return rows
+
+
 LM_CPU_ARCHS = ("qwen3-8b", "mamba2-370m", "granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
                 "jamba-v0.1-52b", "qwen2-vl-7b")
 
@@ -2722,6 +3176,19 @@ def main() -> int:
         encdec_row = phase_encdec_path()
     with phase("lm kernels"):
         flash_rows, ssd_rows = phase_lm_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("lm train"):
+        train_row = phase_lm_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("flash bwd"):
+        bwd_rows = phase_flash_bwd()
+    # The forward's lse output is a null pointer on the serving path: its
+    # time at Qwen3-8B's shape beside the two times recorded before the lse
+    # output existed (PERF.md).
+    log(f"[flash bwd] the forward with lse=null at Qwen3-8B's shape: "
+        f"{flash_rows[0]['ms']:.3f} ms (before the lse output: 0.596, 0.616 ms); {card}")
     with phase("lm cpu"):
         lm_cpu_rows = phase_lm_cpu()
 
@@ -2810,6 +3277,7 @@ def main() -> int:
              variant=flash_rows[0]["variant"],
              tensor_core_launches=lm_row["launches"].get(fa_ops.TC_KERNEL, 0),
              launches_by_lm_path=lm_paths(fa_ops.KERNEL),
+             launches_lm_train_run=train_row["launches"].get(fa_ops.KERNEL, 0),
              noncausal_launches_by_lm_path=lm_paths(fa_ops.NONCAUSAL_KERNEL),
              noncausal_launches_per_prefill=encdec_row["prefill_launches"].get(
                  fa_ops.NONCAUSAL_KERNEL, 0),
@@ -2818,6 +3286,37 @@ def main() -> int:
              cases={r["case"]: {k: r[k] for k in (
                  "causal", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")} for r in flash_rows[1:]}),
+        # The backward's two kernels: launches in the FULL Qwen2-1.5B training
+        # run (TRAIN_STEPS steps, one of each a layer a step), times at its
+        # shape (B 4 x 2,048, GQA 12/2, hd 128, bf16, causal). The plain
+        # version and SDPA's backward compute all three gradients at once:
+        # their times are the whole backward's, in both rows.
+        dict(kernel_row("flash_attention_bwd_dq", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                        "src/repro/kernels/flash_attention/flash_attention.py:95",
+                        train_row["launches"].get(fa_ops.BWD_DQ_KERNEL, 0),
+                        dict(bwd_rows[0], max_abs_err=bwd_rows[0]["err_dq"],
+                             ms=bwd_rows[0]["dq_ms"], bound_ms=bwd_rows[0]["dq_bound_ms"],
+                             bound_by=bwd_rows[0]["dq_bound_by"]),
+                        "B={b} S={s} H={h} KV={kv} hd={hd} {dtype} causal".format(**bwd_rows[0])),
+             note="the gradient of the Pallas kernel at replaces, which has no VJP",
+             launches_per_step=train_row["steps"][-1]["launches"].get(fa_ops.BWD_DQ_KERNEL, 0),
+             backward_ms=bwd_rows[0]["ms"], backward_bound_ms=bwd_rows[0]["bound_ms"],
+             cases={r["case"]: {k: r[k] for k in (
+                 "causal", "err_dq", "dq_ms", "dq_bound_ms", "ms", "plain_ms", "bound_ms",
+                 "library_ms")} for r in bwd_rows[1:]}),
+        dict(kernel_row("flash_attention_bwd_dkdv", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                        "src/repro/kernels/flash_attention/flash_attention.py:95",
+                        train_row["launches"].get(fa_ops.BWD_DKDV_KERNEL, 0),
+                        dict(bwd_rows[0], max_abs_err=max(bwd_rows[0]["err_dk"],
+                                                          bwd_rows[0]["err_dv"]),
+                             ms=bwd_rows[0]["dkdv_ms"], bound_ms=bwd_rows[0]["dkdv_bound_ms"],
+                             bound_by=bwd_rows[0]["dkdv_bound_by"]),
+                        "B={b} S={s} H={h} KV={kv} hd={hd} {dtype} causal".format(**bwd_rows[0])),
+             note="the gradient of the Pallas kernel at replaces, which has no VJP",
+             launches_per_step=train_row["steps"][-1]["launches"].get(fa_ops.BWD_DKDV_KERNEL, 0),
+             cases={r["case"]: {k: r[k] for k in (
+                 "causal", "err_dk", "err_dv", "dkdv_ms", "dkdv_bound_ms", "ms", "plain_ms",
+                 "bound_ms", "library_ms")} for r in bwd_rows[1:]}),
         dict(kernel_row("ssd_intra_chunk", "src/repro_torch/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan/ssd_scan.py:52",
                         ssm_row["launches"].get(ssd_ops.KERNEL, 0), ssd_rows[0],
@@ -2848,7 +3347,8 @@ def main() -> int:
         gat_decomposed=dec_row, attention=attn_rows, segment_agg_mh=mh_rows, gat_cpu=gcpu_row,
         lm_path=lm_row, ssm_path=ssm_row, moe_path=moe_row, moe_interleaved_path=moe2_row,
         hybrid_path=hybrid_row, vlm_path=vlm_row, encdec_path=encdec_row,
-        flash_attention=flash_rows, ssd_intra_chunk=ssd_rows,
+        flash_attention=flash_rows, ssd_intra_chunk=ssd_rows, lm_train=train_row,
+        flash_attention_bwd=bwd_rows,
         lm_cpu=lm_cpu_rows, outofcore=ooc_rows, h2d_gbps=h2d_row, fronts=fronts_row,
         sharded_gcn=sharded_row, plan_store=store_row, sharded_overlap=overlap_row,
         sharded_mincut=mincut_row, sharded_gat=sgat_row, qat_gcn=qat_row,

@@ -61,6 +61,12 @@
 //    thread owns 4 query rows x 4 keys of the score tile and 4 rows x HD/16
 //    output columns; a row's max and sum are reduced over the 16 threads
 //    that share it with warp shuffles.
+// Training: both also write, where the wrapper passes a non-null lse [B, H, S]
+// f32, each row's natural-log log-sum-exp of its scaled, masked scores,
+// m + log(l) from the online softmax's own f32 max and sum (expf and logf,
+// natural logs throughout), for the backward (flash_attention_bwd.cu). The
+// serving paths pass null and write nothing more.
+//
 // Both run the longest query blocks first (the last rows see the most keys),
 // so the tail of the grid is short, and neither splits KV or uses atomics:
 // the output is bitwise the same from run to run.
@@ -137,7 +143,8 @@ constexpr int smem_bytes() {
 template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int S, int T_, int H, int KV, int hd, float scale) {
+    T* __restrict__ o, float* __restrict__ lse, int S, int T_, int H, int KV, int hd,
+    float scale) {
   constexpr int LD = HD + 1;  // odd stride: the 16 keys of a half warp hit 16 banks
   constexpr int NC = HD / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -240,6 +247,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     }
   }
 
+  if (lse != nullptr && tx == 0) {  // l and m are whole-row values in all 16 threads
+    float* lh = lse + (static_cast<long>(b) * H + h) * S;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty * 4 + i;
+      if (qpos < S) lh[qpos] = m[i] + logf(l[i]);
+    }
+  }
   T* oh = o + static_cast<long>(b) * S * q_row + static_cast<long>(h) * hd;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -255,8 +270,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
 }
 
 template <typename T, int HD, bool CAUSAL>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_,
-           int H, int KV, int hd, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int T_, int H, int KV, int hd, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, HD, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -264,23 +279,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_kernel<T, HD, CAUSAL><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, T_, H, KV, hd, scale);
+      static_cast<T*>(o), lse, S, T_, H, KV, hd, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool CAUSAL>
-int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int S, int T_,
-                int H, int KV, int hd, float scale, cudaStream_t stream) {
-  if (hd <= 32) return launch<T, 32, CAUSAL>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
-  if (hd <= 64) return launch<T, 64, CAUSAL>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
-  return launch<T, 128, CAUSAL>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
+int dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                int T_, int H, int KV, int hd, float scale, cudaStream_t stream) {
+  if (hd <= 32) return launch<T, 32, CAUSAL>(q, k, v, o, lse, B, S, T_, H, KV, hd, scale, stream);
+  if (hd <= 64) return launch<T, 64, CAUSAL>(q, k, v, o, lse, B, S, T_, H, KV, hd, scale, stream);
+  return launch<T, 128, CAUSAL>(q, k, v, o, lse, B, S, T_, H, KV, hd, scale, stream);
 }
 
 template <typename T>
-int dispatch_mask(const void* q, const void* k, const void* v, void* o, int B, int S, int T_,
-                  int H, int KV, int hd, int causal, float scale, cudaStream_t stream) {
-  if (causal) return dispatch_hd<T, true>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
-  return dispatch_hd<T, false>(q, k, v, o, B, S, T_, H, KV, hd, scale, stream);
+int dispatch_mask(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                  int S, int T_, int H, int KV, int hd, int causal, float scale,
+                  cudaStream_t stream) {
+  if (causal) return dispatch_hd<T, true>(q, k, v, o, lse, B, S, T_, H, KV, hd, scale, stream);
+  return dispatch_hd<T, false>(q, k, v, o, lse, B, S, T_, H, KV, hd, scale, stream);
 }
 
 
@@ -443,7 +459,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ x,
 template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int S, int T_, int H, int KV, float scale) {
+    bf16* __restrict__ o, float* __restrict__ lse, int S, int T_, int H, int KV, float scale) {
   constexpr int KS = HD / 16;  // 16-wide k steps of Q.K^T
   constexpr int NA = HD / 2;   // output accumulators per thread (64 rows x HD over 128 threads)
   extern __shared__ unsigned char smem_raw[];
@@ -576,6 +592,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
     l[0] += __shfl_xor_sync(0xffffffffu, l[0], off);
     l[1] += __shfl_xor_sync(0xffffffffu, l[1], off);
   }
+  if (lse != nullptr && t == 0) {  // m is the row's max in all four threads of the quad
+    float* lh = lse + (static_cast<long>(b) * H + h) * S;
+    if (qpos0 < S) lh[qpos0] = m[0] + logf(l[0]);
+    if (qpos1 < S) lh[qpos1] = m[1] + logf(l[1]);
+  }
   const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
   bf16* oh = o + static_cast<long>(b) * S * q_row + static_cast<long>(h) * HD + 2 * t;
 #pragma unroll
@@ -590,8 +611,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(
 }
 
 template <int HD, bool CAUSAL>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_, int H,
-           int KV, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int T_, int H, int KV, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<HD, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -599,7 +620,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   const dim3 grid(H, B, (S + kBQ - 1) / kBQ);  // q blocks slowest: longest first over the card
   flash_tc_kernel<HD, CAUSAL><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), S, T_, H, KV, scale);
+      static_cast<bf16*>(o), lse, S, T_, H, KV, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -609,36 +630,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 // q, o: [B, S, H, hd]; k, v: [B, T, KV, hd], contiguous, all of one dtype
 // (bf16 = 1, else f32); causal = 1 masks the causal triangle, 0 nothing;
 // scale = 1 / sqrt(hd), rounded to f32 by the caller as the plain version
-// rounds it. The wrapper checks S, T >= 1 (causal: S <= T), H % KV == 0 and
-// hd <= 128.
+// rounds it; lse: null, or f32 [B, H, S] for the rows' log-sum-exp (training).
+// The wrapper checks S, T >= 1 (causal: S <= T), H % KV == 0 and hd <= 128.
 extern "C" int ample_flash_attention(int device, const void* q, const void* k,
-                                     const void* v, void* o, int bf16, int B, int S,
-                                     int T, int H, int KV, int hd, int causal, float scale,
-                                     void* stream_ptr) {
+                                     const void* v, void* o, float* lse, int bf16, int B,
+                                     int S, int T, int H, int KV, int hd, int causal,
+                                     float scale, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B == 0 || S == 0 || H == 0) return 0;
   if (bf16)
-    return dispatch_mask<__nv_bfloat16>(q, k, v, o, B, S, T, H, KV, hd, causal, scale, stream);
-  return dispatch_mask<float>(q, k, v, o, B, S, T, H, KV, hd, causal, scale, stream);
+    return dispatch_mask<__nv_bfloat16>(q, k, v, o, lse, B, S, T, H, KV, hd, causal, scale,
+                                        stream);
+  return dispatch_mask<float>(q, k, v, o, lse, B, S, T, H, KV, hd, causal, scale, stream);
 }
 
 
 // The tensor-core variant: bf16 q, k, v, o as above, hd 64 or 128, every base
-// 16-byte aligned (the wrapper checks; cudaErrorInvalidValue otherwise).
+// 16-byte aligned (the wrapper checks; cudaErrorInvalidValue otherwise); lse
+// as above.
 extern "C" int ample_flash_attention_tc(int device, const void* q, const void* k,
-                                        const void* v, void* o, int B, int S, int T, int H,
-                                        int KV, int hd, int causal, float scale,
+                                        const void* v, void* o, float* lse, int B, int S,
+                                        int T, int H, int KV, int hd, int causal, float scale,
                                         void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (hd == 64 && causal) return tc::launch<64, true>(q, k, v, o, B, S, T, H, KV, scale, stream);
-  if (hd == 64) return tc::launch<64, false>(q, k, v, o, B, S, T, H, KV, scale, stream);
+  if (hd == 64 && causal)
+    return tc::launch<64, true>(q, k, v, o, lse, B, S, T, H, KV, scale, stream);
+  if (hd == 64) return tc::launch<64, false>(q, k, v, o, lse, B, S, T, H, KV, scale, stream);
   if (hd == 128 && causal)
-    return tc::launch<128, true>(q, k, v, o, B, S, T, H, KV, scale, stream);
-  if (hd == 128) return tc::launch<128, false>(q, k, v, o, B, S, T, H, KV, scale, stream);
+    return tc::launch<128, true>(q, k, v, o, lse, B, S, T, H, KV, scale, stream);
+  if (hd == 128) return tc::launch<128, false>(q, k, v, o, lse, B, S, T, H, KV, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,7 +15,8 @@ A kernel's result carries no autograd graph. So each wrapper calls
 ``require_no_grad`` before it launches: under grad, an input that requires
 grad raises instead of leaving a gradient silently cut. The AGE's backward
 is the AGE on the transposed plan (``core/aggregation.py``), which runs the
-wrapper with grad off.
+wrapper with grad off; flash attention's is its own pair of kernels
+(``csrc/flash_attention_bwd.cu``, an autograd Function in its ``ops.py``).
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have neither ``nvcc`` nor a card.
@@ -96,6 +97,7 @@ _SIGNATURES = {
     "ample_flash_attention": [
         _I,  # device
         _P, _P, _P, _P,  # q [B, S, H, hd], k, v [B, T, KV, hd], out [B, S, H, hd]
+        _P,  # lse f32 [B, H, S] or null
         _I,  # 1 = bf16, 0 = f32
         _I, _I, _I, _I, _I, _I,  # b, s, t, h, kv, hd
         _I,  # 1 = causal, 0 = no mask
@@ -105,7 +107,30 @@ _SIGNATURES = {
     "ample_flash_attention_tc": [
         _I,  # device
         _P, _P, _P, _P,  # q [B, S, H, hd], k, v [B, T, KV, hd], out [B, S, H, hd], all bf16
+        _P,  # lse f32 [B, H, S] or null
         _I, _I, _I, _I, _I, _I,  # b, s, t, h, kv, hd (64 or 128)
+        _I,  # 1 = causal, 0 = no mask
+        _F,  # scale (1 / sqrt(hd))
+        _P,  # stream
+    ],
+    "ample_flash_attention_bwd_dq": [
+        _I,  # device
+        _P, _P, _P, _P, _P,  # q [B, S, H, hd], k, v [B, T, KV, hd], out, dout [B, S, H, hd]
+        _P, _P,  # lse f32 [B, H, S] (in), D = rowsum(dout * out) f32 [B, H, S] (out)
+        _P,  # dq [B, S, H, hd]
+        _I,  # 1 = bf16, 0 = f32
+        _I, _I, _I, _I, _I, _I,  # b, s, t, h, kv, hd
+        _I,  # 1 = causal, 0 = no mask
+        _F,  # scale (1 / sqrt(hd))
+        _P,  # stream
+    ],
+    "ample_flash_attention_bwd_dkdv": [
+        _I,  # device
+        _P, _P, _P, _P,  # q [B, S, H, hd], k, v [B, T, KV, hd], dout [B, S, H, hd]
+        _P, _P,  # lse, D f32 [B, H, S] (the dq kernel's)
+        _P, _P,  # dk, dv [B, T, KV, hd]
+        _I,  # 1 = bf16, 0 = f32
+        _I, _I, _I, _I, _I, _I,  # b, s, t, h, kv, hd
         _I,  # 1 = causal, 0 = no mask
         _F,  # scale (1 / sqrt(hd))
         _P,  # stream
@@ -131,8 +156,8 @@ _BACKWARD = {
     "attention": "ROADMAP.md queue 1 item 8 (GAT training on the card)",
     "segment_agg_mh": "ROADMAP.md queue 1 item 8 (GAT training on the card)",
     "quant_matmul": "ROADMAP.md queue 1 item 9 (QAT through the int8 FTE)",
-    "flash_attention": "ROADMAP.md queue 1 item 4 (LM training path)",
-    "ssd_intra_chunk": "ROADMAP.md queue 1 item 4 (LM training path)",
+    "ssd_intra_chunk": "ROADMAP.md queue 1 item 11 (the SSD backward kernel: training the "
+                       "ssm and hybrid families on the card)",
 }
 
 

@@ -7,8 +7,14 @@ S and T), the TPU kernel's two branches.
 
 A CUDA tensor launches ``csrc/flash_attention.cu``; a CPU tensor takes the
 plain version (``ref.py``). q-head ``h`` reads kv-head ``h // (H // KV)``.
-The kernel has no backward: under grad, an input that requires grad raises
-(``build.require_no_grad``).
+
+Under grad (grad mode on and an input that requires grad) the call goes
+through ``FlashAttentionFunction``: its forward launches the forward kernel
+with the rows' log-sum-exp as a second output, and its backward launches the
+two kernels of ``csrc/flash_attention_bwd.cu`` (dQ with D = rowsum(dO ∘ O),
+then dK/dV), counted under ``BWD_DQ_KERNEL`` and ``BWD_DKDV_KERNEL``. On CPU
+tensors the same Function runs ``flash_attention_lse_ref`` and
+``flash_attention_bwd_ref``. A CUDA tensor never takes a plain version.
 
 The source holds two kernels of one function, and ``flash_variant`` picks
 one from the dtype, the head dim and the alignment: the tensor-core kernel
@@ -25,14 +31,21 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_lse_ref,
+    flash_attention_ref,
+)
 
-__all__ = ["KERNEL", "TC_KERNEL", "NONCAUSAL_KERNEL", "TC_HEAD_DIMS", "MAX_HEAD_DIM",
-           "flash_attention", "flash_variant"]
+__all__ = ["KERNEL", "TC_KERNEL", "NONCAUSAL_KERNEL", "BWD_DQ_KERNEL", "BWD_DKDV_KERNEL",
+           "TC_HEAD_DIMS", "MAX_HEAD_DIM", "FlashAttentionFunction", "flash_attention",
+           "flash_attention_bwd", "flash_variant"]
 
 KERNEL = "flash_attention"
 TC_KERNEL = "flash_attention_tc"
 NONCAUSAL_KERNEL = "flash_attention_noncausal"
+BWD_DQ_KERNEL = "flash_attention_bwd_dq"
+BWD_DKDV_KERNEL = "flash_attention_bwd_dkdv"
 TC_HEAD_DIMS = (64, 128)  # the tensor-core kernel's tiles
 MAX_HEAD_DIM = 128  # the kernel's widest tile
 
@@ -67,38 +80,114 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> N
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """GQA attention; causal masks where ``kpos - (T - S) > qpos``."""
+    """GQA attention; causal masks where ``kpos - (T - S) > qpos``. Under grad
+    the result carries the backward kernels' gradient."""
     _check(q, k, v, causal)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
-    build.require_no_grad(KERNEL, q, k, v)
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must all be f32 or all bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+    return _forward(q, k, v, causal, with_lse=False)[0]
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its backward: the kernels on CUDA tensors, their
+    plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_lse_ref(q, k, v, causal=causal)
+        else:
+            out, lse = _forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def _cuda_inputs(*xs: torch.Tensor) -> None:
+    if xs[0].device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {xs[0].device}")
+    dt = xs[0].dtype
+    if dt not in (torch.float32, torch.bfloat16) or any(x.dtype != dt for x in xs):
+        raise TypeError(f"q, k, v must all be f32 or all bf16, got {[x.dtype for x in xs]}")
+    if not all(x.is_contiguous() for x in xs):
         raise ValueError("q, k and v must be contiguous")
+    if xs[0].shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {xs[0].shape[-1]} exceeds the kernel's {MAX_HEAD_DIM}")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, *,
+             with_lse: bool):
+    """Launch the forward kernel: (out, lse f32 [B, H, S] or None)."""
+    _cuda_inputs(q, k, v)
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {hd} exceeds the kernel's {MAX_HEAD_DIM}")
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    lse_ptr = lse.data_ptr() if with_lse else None
     scale = 1.0 / math.sqrt(hd)
     aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v, out))
     if flash_variant(q.dtype, hd, aligned) == "tensor_cores":
         build.call(
             "ample_flash_attention_tc", q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h, kv, hd,
-            int(causal), scale,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, s, t, h, kv,
+            hd, int(causal), scale,
         )
         build.count_launch(TC_KERNEL)
     else:
         build.call(
             "ample_flash_attention", q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
             int(q.dtype == torch.bfloat16), b, s, t, h, kv, hd, int(causal), scale,
         )
     build.count_launch(KERNEL)
     if not causal:
         build.count_launch(NONCAUSAL_KERNEL)
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True):
+    """(dq, dk, dv) for the upstream gradient ``dout`` of ``out`` (the forward's
+    output, with its log-sum-exp ``lse`` f32 [B, H, S]): the two backward
+    kernels on CUDA tensors, ``flash_attention_bwd_ref`` on CPU tensors."""
+    _check(q, k, v, causal)
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    if out.shape != q.shape or dout.shape != q.shape or tuple(lse.shape) != (b, h, s):
+        raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} and lse "
+                         f"{tuple(lse.shape)} must match q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+    dout = dout.contiguous()
+    _cuda_inputs(q, k, v, out, dout)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError("lse must be contiguous f32")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dvec = torch.empty_like(lse)  # D = rowsum(dout * out), the dq kernel's, for dk/dv
+    scale = 1.0 / math.sqrt(hd)
+    bf16 = int(q.dtype == torch.bfloat16)
+    build.call(
+        "ample_flash_attention_bwd_dq", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), bf16, b, s, t, h, kv, hd, int(causal),
+        scale,
+    )
+    build.count_launch(BWD_DQ_KERNEL)
+    build.call(
+        "ample_flash_attention_bwd_dkdv", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), bf16, b, s, t, h, kv, hd, int(causal),
+        scale,
+    )
+    build.count_launch(BWD_DKDV_KERNEL)
+    return dq, dk, dv

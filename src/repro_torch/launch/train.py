@@ -1,0 +1,48 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
+
+The reference's ``repro/launch/train.py``: the Trainer on a REDUCED config
+by default (``--full`` for the published one), on the card unless
+``--device cpu``. Gradient compression is not ported (``--compress`` other
+than ``none`` raises; ROADMAP.md queue 1 item 7).
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs.base import get_config
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.loop import Trainer, TrainerConfig
+from repro_torch.train.train_step import COMPRESSION_ITEM
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--full", action="store_true", help="full (not reduced) config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--compress", choices=["none", "topk", "int8"], default="none")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.compress != "none":
+        raise NotImplementedError(
+            f"--compress {args.compress}: gradient compression is not ported: {COMPRESSION_ITEM}")
+    cfg = get_config(args.arch, reduced=not args.full)
+    tcfg = TrainerConfig(steps=args.steps, batch=args.batch, seq=args.seq,
+                         ckpt_dir=args.ckpt_dir, opt=AdamWConfig(lr=args.lr))
+    out = Trainer(cfg, tcfg, device=args.device).run()
+    for rec in out["metrics"]:
+        print(
+            f"step {rec['step']:5d}  loss {rec['loss']:.4f}  "
+            f"grad_norm {rec['grad_norm']:.3f}  lr {rec['lr']:.2e}  "
+            f"wall {rec['wall_s']:.1f}s"
+        )
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -35,7 +35,7 @@ from repro_torch.models.lm.transformer import (
     ShapeMaker,
     TensorMaker,
     _dtype,
-    _index,
+    _unbind,
     make_statics,
     sin_positions,
 )
@@ -114,8 +114,7 @@ def encode(params: Dict, cfg: ModelConfig, src_embeds) -> torch.Tensor:
     st = make_statics(cfg, causal=False)
     x = torch.as_tensor(src_embeds, device=params["embed"].device).to(_dtype(cfg))
     x = _sin_pos(x, cfg.d_model)
-    for u in range(cfg.encoder_layers):
-        p = _index(params["encoder"], u)
+    for p in _unbind(params["encoder"], cfg.encoder_layers):
         h = norm_apply(p["norm_attn"], x, eps=cfg.norm_eps)
         x = x + attention(p["attn"], h, st)
         h = norm_apply(p["norm_ffn"], x, eps=cfg.norm_eps)
@@ -132,8 +131,7 @@ def _decoder(params: Dict, cfg: ModelConfig, tgt_tokens,
     st_cross = make_statics(cfg, causal=False)
     tokens = torch.as_tensor(tgt_tokens, device=params["embed"].device).long()
     x = _sin_pos(params["embed"][tokens], cfg.d_model)
-    for u in range(cfg.num_layers):
-        p = _index(params["decoder"], u)
+    for u, p in enumerate(_unbind(params["decoder"], cfg.num_layers)):
         h = norm_apply(p["norm_attn"], x, eps=cfg.norm_eps)
         x = x + attention(p["attn"], h, st_self)
         h = norm_apply(p["norm_cross"], x, eps=cfg.norm_eps)
@@ -159,8 +157,8 @@ def init_decoder_cache(params: Dict, cfg: ModelConfig, enc: torch.Tensor, max_le
     ``[L, B, S_src, KV, hd]`` projected from the encoder's output."""
     b = enc.shape[0]
     st_cross = make_statics(cfg, causal=False)
-    kvs = [project_kv(_index(params["decoder"]["cross"], u), enc, st_cross)
-           for u in range(cfg.num_layers)]
+    kvs = [project_kv(p, enc, st_cross)
+           for p in _unbind(params["decoder"]["cross"], cfg.num_layers)]
     shape = (cfg.num_layers, b, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {
         "k": torch.zeros(shape, dtype=_dtype(cfg), device=enc.device),
@@ -194,8 +192,7 @@ def decode_step_encdec(params: Dict, cfg: ModelConfig, tokens, cache: Dict, cach
     st_cross = make_statics(cfg, causal=False)
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
     x = _sin_pos(params["embed"][tokens], cfg.d_model, start=cache_len)
-    for u in range(cfg.num_layers):
-        p = _index(params["decoder"], u)
+    for u, p in enumerate(_unbind(params["decoder"], cfg.num_layers)):
         h = norm_apply(p["norm_attn"], x, eps=cfg.norm_eps)
         x = x + decode_attention(p["attn"], h, st_self, cache["k"][u], cache["v"][u],
                                  cache_len)[0]

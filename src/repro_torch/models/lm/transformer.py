@@ -244,11 +244,15 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
 
 
 # ------------------------------------------------------------------ forward
-def _index(tree, u: int):
-    """Unit ``u`` of every stacked leaf (views)."""
+def _unbind(tree, units: int) -> List:
+    """Every unit of the stacked leaves: ``units`` trees of views. One
+    ``torch.unbind`` a leaf, so under grad each stacked leaf's gradient is
+    stacked once from the units' (indexing unit by unit would add a
+    zero-filled full-size gradient per unit)."""
     if isinstance(tree, dict):
-        return {k: _index(v, u) for k, v in tree.items()}
-    return tree[u]
+        per_key = {k: _unbind(v, units) for k, v in tree.items()}
+        return [{k: per_key[k][u] for k in tree} for u in range(units)]
+    return list(torch.unbind(tree, 0))
 
 
 def _embed(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
@@ -315,10 +319,12 @@ def _run(params: Dict, cfg: ModelConfig, batch: Dict, cache: Optional[List[Dict]
     _, norm_apply = make_norm(cfg.norm)
     x, positions = _embed_in(cfg, params, batch)
     s = x.shape[1]
-    for u in range(_units(cfg)):
-        for r, (role, stacked) in enumerate(zip(roles, params["units"])):
+    units = _units(cfg)
+    per_unit = [_unbind(stacked, units) for stacked in params["units"]]
+    for u in range(units):
+        for r, role in enumerate(roles):
             mixer, ffn = role
-            p = _index(stacked, u)
+            p = per_unit[r][u]
             h = norm_apply(p["norm_mixer"], x, eps=cfg.norm_eps)
             if mixer == "attn":
                 h, k, v = attention(p["attn"], h, st, positions, return_kv=True)
@@ -400,11 +406,13 @@ def decode_step(params: Dict, cfg: ModelConfig, batch: Dict, cache: List[Dict], 
     st = make_statics(cfg)
     _, norm_apply = make_norm(cfg.norm)
     x = _embed(cfg, params, batch)
-    for u in range(_units(cfg)):
-        for r, (role, stacked) in enumerate(zip(roles, params["units"])):
+    units = _units(cfg)
+    per_unit = [_unbind(stacked, units) for stacked in params["units"]]
+    per_cache = [_unbind(c, units) for c in cache]
+    for u in range(units):
+        for r, role in enumerate(roles):
             mixer, ffn = role
-            p = _index(stacked, u)
-            c = _index(cache[r], u)
+            p, c = per_unit[r][u], per_cache[r][u]
             h = norm_apply(p["norm_mixer"], x, eps=cfg.norm_eps)
             if mixer == "attn":
                 scales = {k: c[k] for k in ("k_scale", "v_scale") if k in c}

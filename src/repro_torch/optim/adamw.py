@@ -49,6 +49,8 @@ def _rebuild(tree, leaves: Iterator):
     """``tree``'s structure with its leaves taken in turn from ``leaves``."""
     if isinstance(tree, dict):
         return {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple (AdamWState)
+        return type(tree)(*(_rebuild(v, leaves) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_rebuild(v, leaves) for v in tree)
     return next(leaves)

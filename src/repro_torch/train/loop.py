@@ -1,0 +1,98 @@
+"""Trainer: the training loop with checkpoint/restart and fault injection, as
+the reference's ``repro/train/loop.py``.
+
+* data is a function of (seed, step) (``data/pipeline.py``), so a restart
+  replays the exact stream;
+* checkpoints every ``ckpt_every`` steps (``ckpt_async``: written on a worker
+  thread), atomic on disk, and a final one;
+* ``run()`` resumes from the newest checkpoint in ``ckpt_dir``;
+* ``run(crash_at=n)`` raises after step n (fault injection): a resumed run
+  gives bitwise the params of a straight one.
+
+The params come from ``model_init`` with an explicit ``torch.Generator``
+seeded with ``seed``, on ``device`` (``cuda`` unless the caller says
+``cpu``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.device import resolve_device
+from repro_torch.models.api import model_init
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.train_step import init_train_state, make_train_step
+
+__all__ = ["TrainerConfig", "Trainer"]
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 100
+    batch: int = 8
+    seq: int = 64
+    seed: int = 0
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 25
+    ckpt_async: bool = False
+    log_every: int = 10
+    opt: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
+    warmup: int = 10
+    compressor: Optional[object] = None
+
+
+class Trainer:
+    def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig, *, device="cuda"):
+        self.cfg = cfg
+        self.tcfg = tcfg
+        self.device = resolve_device(device)
+        self.step_fn = make_train_step(cfg, tcfg.opt, total_steps=tcfg.steps,
+                                       warmup=tcfg.warmup, compressor=tcfg.compressor)
+        self.metrics_log: List[Dict] = []
+
+    def init_state(self) -> Dict:
+        gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+        return init_train_state(self.cfg, model_init(self.cfg, gen, device=self.device))
+
+    def batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """The batch of ``step``: ``synthetic_batch(seed, step)`` on the device."""
+        b = synthetic_batch(seed=self.tcfg.seed, step=step, batch=self.tcfg.batch,
+                            seq=self.tcfg.seq, vocab=self.cfg.vocab_size,
+                            family=self.cfg.family, d_model=self.cfg.d_model)
+        return {k: torch.from_numpy(v).to(self.device) for k, v in b.items()}
+
+    def run(self, *, crash_at: Optional[int] = None) -> Dict:
+        """Train to ``tcfg.steps``; resume from the newest checkpoint if any.
+
+        ``crash_at``: raise after that step completes (fault-injection tests)."""
+        t = self.tcfg
+        state = self.init_state()
+        start = 0
+        if t.ckpt_dir and ckpt.latest_step(t.ckpt_dir) is not None:
+            start = ckpt.latest_step(t.ckpt_dir)
+            state = ckpt.restore(t.ckpt_dir, state)
+        t0 = time.time()
+        for step in range(start, t.steps):
+            state, metrics = self.step_fn(state, self.batch(step))
+            if (step + 1) % t.log_every == 0 or step + 1 == t.steps:
+                rec = {k: float(v) for k, v in metrics.items()}
+                rec["step"] = step + 1
+                rec["wall_s"] = time.time() - t0
+                self.metrics_log.append(rec)
+            if t.ckpt_dir and (step + 1) % t.ckpt_every == 0:
+                if t.ckpt_async:
+                    ckpt.save_async(state, t.ckpt_dir, step + 1)
+                else:
+                    ckpt.save(state, t.ckpt_dir, step + 1)
+            if crash_at is not None and step + 1 >= crash_at:
+                raise RuntimeError(f"injected fault after step {step + 1}")
+        ckpt.wait_pending()
+        if t.ckpt_dir:
+            ckpt.save(state, t.ckpt_dir, t.steps)
+        return {"state": state, "metrics": self.metrics_log}

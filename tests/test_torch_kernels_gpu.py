@@ -31,7 +31,11 @@ from repro_torch.graphs.csr import Graph
 from repro_torch.graphs.datasets import make_dataset, make_lognormal_graph
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_lse_ref,
+    flash_attention_ref,
+)
 from repro_torch.kernels.quant_matmul import ops as qm_ops
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 from repro_torch.kernels.segment_agg import attn_ops
@@ -713,7 +717,8 @@ def test_streamed_request_on_card_is_bitwise_its_in_memory_run(cuda, arch, monke
     """FULL widths on a cora-sized graph at a 1/8 budget: the streamed
     request is bitwise the in-memory card request, launches the AGE (GCN,
     GIN: the streamed layer's batches and the dense layer) and the int8 GEMM,
-    and the stream's tile step never calls ``index_add_``."""
+    and the stream's tile step never calls ``index_add_``; a second depth-2
+    request replays the stream programs the first built, bitwise."""
     cfg = dataclasses.replace(get_config(f"ample-{arch}"), gnn_union_node_bucket=0,
                               gnn_union_edge_bucket=0)
     g = make_dataset("cora", max_nodes=2000, max_feature_dim=300, seed=3)
@@ -726,7 +731,7 @@ def test_streamed_request_on_card_is_bitwise_its_in_memory_run(cuda, arch, monke
         raise AssertionError("index_add_ on the streamed path")
 
     monkeypatch.setattr(torch.Tensor, "index_add_", refuse)
-    for depth in (2, 0):
+    for depth in (2, 2, 0):
         srv.stream_prefetch_depth = depth
         build.reset_launch_counts()
         r = srv.infer(g, g.features)
@@ -907,6 +912,120 @@ def test_ssd_intra_chunk_matches_plain(cuda, b, nc, q, n, h, p):
     assert torch.equal(out, again)
     for want in (ssd_intra_chunk_ref(*args), ssd_intra_chunk_ref(cc, bc, xdt, acum)):
         np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-4)
+
+
+# The backward kernels (csrc/flash_attention_bwd.cu) against their plain
+# version: Qwen2-1.5B's GQA 12/2 at hd 128 and SmolLM's 15/5 at hd 64 (bf16:
+# the forward on the tensor cores), the REDUCED configs' hd 20, causal with
+# S < T (end-aligned), unmasked cross-attention (S 36 and S 1 over T 1,024,
+# S > T), T ragged against the 64-key blocks.
+BWD_SHAPES = [
+    (128, 256, 256, 12, 2, True), (64, 300, 300, 15, 5, True), (20, 200, 200, 3, 1, True),
+    (128, 130, 1000, 8, 2, True), (64, 36, 1024, 16, 16, False), (16, 1, 65, 4, 4, False),
+    (32, 100, 70, 4, 4, False), (128, 70, 129, 7, 1, False),
+]
+
+
+def _bwd_close(got, want, bf16):
+    """Within a share of the tensor's largest magnitude: f32 1e-4 (the sums run
+    in another order, and dS = P ∘ (dP - D) cancels); bf16 2^-7, two bf16 ulps
+    at that magnitude (both sides compute in f32 and round once)."""
+    tol = 2.0 ** -7 if bf16 else 1e-4
+    w = want.float().cpu()
+    err = float((got.float().cpu() - w).abs().max())
+    assert err <= tol * float(w.abs().max()), (err, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,s,t,h,kv,causal", BWD_SHAPES)
+def test_flash_attention_bwd_matches_plain(cuda, dtype, hd, s, t, h, kv, causal):
+    gen = torch.Generator(device=cuda).manual_seed(hd + s + t)
+    q, do = (torch.randn((2, s, h, hd), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn((2, t, kv, hd), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    bf16 = dtype == torch.bfloat16
+    out, lse = fa_ops._forward(q, k, v, causal, with_lse=True)
+    want_out, want_lse = flash_attention_lse_ref(q, k, v, causal=causal)
+    _close(out, want_out, bf16)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), atol=1e-4, rtol=1e-4)
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v, causal=causal))  # lse moves nothing
+    before = dict(build.launch_counts())
+    got = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    for name in (fa_ops.BWD_DQ_KERNEL, fa_ops.BWD_DKDV_KERNEL):
+        assert after[name] == before.get(name, 0) + 2
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)  # run-to-run bitwise: no atomics
+        assert torch.isfinite(g).all()
+        _bwd_close(g, w, bf16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_gradient_under_grad_launches_the_backward(cuda, causal):
+    """Under grad the wrapper's autograd Function launches the forward (with
+    lse) once and each backward kernel once; f32, its gradient against
+    autograd through the plain version on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn((2, 90, 6, 32), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 130 if not causal else 90, 2, 32), generator=gen, device=cuda)
+            for _ in range(2))
+    do = torch.randn(q.shape, generator=gen, device=cuda)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    build.reset_launch_counts()
+    out = fa_ops.flash_attention(*leaves, causal=causal)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    assert counts[fa_ops.KERNEL] == 1
+    assert counts[fa_ops.BWD_DQ_KERNEL] == counts[fa_ops.BWD_DKDV_KERNEL] == 1
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*plain, causal=causal), plain, do)
+    for g, w in zip(got, want):
+        _bwd_close(g, w, False)
+
+
+def test_lm_train_step_on_card_matches_cpu_and_repeats_bitwise(cuda):
+    """Two steps of REDUCED Qwen2-1.5B (f32) on the card: the flash kernels
+    forward and backward once per layer a step, params within atol 5e-4,
+    rtol 1e-3 of the CPU's (plain versions), and bitwise the same twice."""
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    t = TrainerConfig(steps=2, batch=2, seq=100, log_every=1)
+    build.reset_launch_counts()
+    runs = [Trainer(cfg, t, device=cuda).run() for _ in range(2)]
+    counts = build.launch_counts()
+    n = 2 * 2 * cfg.num_layers  # runs x steps x layers
+    assert counts[fa_ops.KERNEL] == counts[fa_ops.BWD_DQ_KERNEL] == n
+    assert counts[fa_ops.BWD_DKDV_KERNEL] == n
+    cpu = Trainer(cfg, t, device="cpu")
+    cpu.init_state = lambda: _cpu_init(cfg, cuda)
+    cpu_out = cpu.run()
+    for a, b in zip(_flat(runs[0]["state"]["params"]), _flat(runs[1]["state"]["params"])):
+        assert torch.equal(a, b)
+    for a, b in zip(_flat(runs[0]["state"]["params"]), _flat(cpu_out["state"]["params"])):
+        np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().numpy(), atol=5e-4,
+                                   rtol=1e-3)
+    for a, b in zip(runs[0]["metrics"], cpu_out["metrics"]):
+        np.testing.assert_allclose(a["loss"], b["loss"], atol=5e-4, rtol=1e-3)
+
+
+def _cpu_init(cfg, cuda):
+    """The card's initial train state (seed 0) on the CPU."""
+    from repro_torch.train.train_step import init_train_state
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = params_to(model_init(cfg, gen, device=cuda), "cpu")
+    return init_train_state(cfg, params)
+
+
+def _flat(tree):
+    from repro_torch.optim.adamw import _leaves
+
+    return _leaves(tree)
 
 
 def test_lm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -1247,15 +1366,14 @@ def test_qat_step_on_card_matches_cpu(cuda):
 
 def test_kernel_wrappers_raise_under_grad(cuda):
     """Every wrapper whose kernel has no backward raises under grad when an
-    input requires grad, and launches under no_grad."""
+    input requires grad, and launches under no_grad. (Flash attention has a
+    backward: ``test_flash_attention_gradient_under_grad_launches_the_backward``.)"""
     g = make_lognormal_graph(60, 4.0, seed=1)
     plan = build_edge_tile_plan(g, edges_per_tile=16)
     dp = to_device_plan(plan, cuda)
     x = torch.randn((60, 8), device=cuda, requires_grad=True)
     edges = torch.rand((g.num_edges, 2), device=cuda, requires_grad=True)
     z = torch.randn((60, 2, 4), device=cuda)
-    q = torch.randn((1, 8, 4, 16), device=cuda, requires_grad=True)
-    kv = torch.randn((1, 8, 2, 16), device=cuda)
     cc = torch.randn((1, 1, 16, 8), device=cuda, requires_grad=True)
     xdt = torch.randn((1, 1, 2, 16, 8), device=cuda)
     acum = torch.randn((1, 1, 2, 16), device=cuda)
@@ -1268,7 +1386,6 @@ def test_kernel_wrappers_raise_under_grad(cuda):
         "segment_agg_mh": lambda: attn_ops.aggregate_tiles_mh(
             z, dp.gather_idx, dp.edge_ids, edges, dp.coeff, dp.seg_ids, dp.out_node, dp.split,
             num_nodes=60),
-        "flash_attention": lambda: fa_ops.flash_attention(q, kv, kv),
         "ssd_intra_chunk": lambda: ssd_ops.ssd_intra_chunk(cc, cc.detach(), xdt, acum),
         "quant_matmul": lambda: transform_int8(x.detach(), *quantize_per_channel(w)),
     }

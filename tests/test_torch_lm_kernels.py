@@ -11,9 +11,19 @@ cores by splitting each operand in two TF32 terms; ``_split_tf32_ssd``
 emulates that arithmetic here. With bf16 inputs both sides keep scores and
 probabilities in f32 and round only the output to bf16, so they agree within
 1.6e-2: two bf16 ulps at magnitude 1.
+
+Flash's backward: the plain version ``flash_attention_bwd_ref`` (the
+explicit formulas from the forward's output and log-sum-exp) and the
+wrapper's autograd Function on CPU tensors against torch autograd through
+``flash_attention_ref`` and ``jax.grad`` of the reference's ``chunked`` and
+``xla`` attentions, and ``flash_attention_lse_ref`` against JAX's
+``logsumexp``, at the same f32 tolerance.
 """
 from __future__ import annotations
 
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,10 +32,15 @@ import torch
 from repro.kernels.flash_attention import ops as ref_fa
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.kernels.ssd_scan import ops as ref_ssd
+from repro.models.lm import attention as ref_attn
 from repro.kernels.ssd_scan.ref import ssd_intra_chunk_ref
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_lse_ref,
+    flash_attention_ref,
+)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
 ATOL = RTOL = 1e-4
@@ -160,6 +175,111 @@ def test_flash_variant_follows_dtype_and_head_dim(dtype, hd):
     want = "tensor_cores" if dtype == torch.bfloat16 and hd in (64, 128) else "cuda_cores"
     assert fa_ops.flash_variant(dtype, hd) == want
     assert fa_ops.flash_variant(dtype, hd, aligned=False) == "cuda_cores"
+
+
+# ---------------------------------------------------------- the backward
+# (hd, S, T, H, KV, causal): causal S = T and S < T (end-aligned), unmasked
+# S < T, S > T and S = 1 (cross-attention), GQA groups 1, 3 and 7, T ragged
+# against the kernels' 64-key blocks.
+BWD_CASES = [
+    (16, 40, 40, 4, 2, True),
+    (20, 70, 130, 3, 1, True),
+    (16, 36, 100, 4, 4, False),
+    (20, 100, 37, 14, 2, False),
+    (16, 1, 65, 4, 4, False),
+    (64, 65, 65, 7, 1, True),
+]
+
+
+def _qkvd(b, s, t, h, kv, hd, seed):
+    """q, k, v and an upstream gradient dO."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, hd)).astype(np.float32),
+            rng.standard_normal((b, t, kv, hd)).astype(np.float32),
+            rng.standard_normal((b, t, kv, hd)).astype(np.float32),
+            rng.standard_normal((b, s, h, hd)).astype(np.float32))
+
+
+def _jax_attn_grads(q, k, v, do, causal, impl):
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+
+    def f(q_, k_, v_):
+        qg = q_.reshape(b, s, kv, h // kv, hd)
+        if impl == "chunked":
+            out = ref_attn._sdpa_chunked(qg, k_, v_, causal=causal, scale=scale, chunk=32)
+        else:
+            out = ref_attn._sdpa_xla(qg, k_, v_, causal=causal, scale=scale)
+        return out.reshape(b, s, h, hd)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("hd,s,t,h,kv,causal", BWD_CASES)
+def test_flash_bwd_plain_matches_autograd_and_jax(hd, s, t, h, kv, causal):
+    q, k, v, do = _qkvd(2, s, t, h, kv, hd, seed=hd + s + t)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention_ref(tq, tk, tv, causal=causal)
+    want = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    o, lse = flash_attention_lse_ref(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    got = flash_attention_bwd_ref(*(torch.from_numpy(a) for a in (q, k, v)), o, lse,
+                                  torch.from_numpy(do), causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=ATOL, rtol=RTOL)
+    for impl in ("chunked", "xla"):
+        for g, w in zip(got, _jax_attn_grads(q, k, v, do, causal, impl)):
+            np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("hd,s,t,h,kv,causal", BWD_CASES[:4])
+def test_flash_lse_plain_matches_jax_logsumexp(hd, s, t, h, kv, causal):
+    q, k, v = _qkv(1, s, t, h, kv, hd, seed=s * t)
+    scores = jnp.einsum("bshd,bthd->bhst", jnp.asarray(q),
+                        jnp.repeat(jnp.asarray(k), h // kv, axis=2)) / math.sqrt(hd)
+    if causal:
+        mask = jnp.arange(t)[None, :] - (t - s) > jnp.arange(s)[:, None]
+        scores = jnp.where(mask, -1e30, scores)
+    want = np.asarray(jax.scipy.special.logsumexp(scores, axis=-1))
+    out, lse = flash_attention_lse_ref(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (1, h, s)
+    np.testing.assert_allclose(lse.numpy(), want, atol=ATOL, rtol=RTOL)
+    assert torch.equal(out, flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                                causal=causal))
+
+
+@pytest.mark.parametrize("hd,s,t,h,kv,causal", BWD_CASES[:3])
+def test_flash_wrapper_under_grad_runs_the_plain_backward_on_cpu(hd, s, t, h, kv, causal):
+    """On CPU tensors that require grad the wrapper's autograd Function runs
+    the plain forward and the plain backward, and launches nothing."""
+    q, k, v, do = (torch.from_numpy(a) for a in _qkvd(1, s, t, h, kv, hd, seed=7))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    build.reset_launch_counts()
+    out = fa_ops.flash_attention(*leaves, causal=causal)
+    assert out.grad_fn is not None and torch.equal(out.detach(), flash_attention_ref(
+        q, k, v, causal=causal))
+    got = torch.autograd.grad(out, leaves, do)
+    assert build.launch_counts() == {}
+    o, lse = flash_attention_lse_ref(q, k, v, causal=causal)
+    for g, w in zip(got, flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)):
+        assert torch.equal(g, w)
+    # only some inputs require grad (cross-attention's K/V from a frozen encoder)
+    qg = q.clone().requires_grad_()
+    (dq,) = torch.autograd.grad(fa_ops.flash_attention(qg, k, v, causal=causal), (qg,), do)
+    assert torch.equal(dq, got[0])
+    with torch.no_grad():  # no grad mode: the plain forward, no graph
+        assert fa_ops.flash_attention(*leaves, causal=causal).grad_fn is None
+
+
+def test_flash_bwd_wrapper_checks_shapes():
+    q, k, v, do = (torch.from_numpy(a) for a in _qkvd(1, 8, 8, 4, 2, 16, seed=0))
+    o, lse = flash_attention_lse_ref(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        fa_ops.flash_attention_bwd(q, k, v, o, lse[:, :2], do)
+    with pytest.raises(ValueError, match="S <= T"):
+        fa_ops.flash_attention_bwd(q, k[:, :5], v[:, :5], o, lse, do)
 
 
 def _split_p_flash(q, k, v, *, terms=2, block=64):
