@@ -13,8 +13,8 @@ Every phase that fails raises, so the script exits non-zero.
 1. build   — nvcc every ``src/repro_torch/csrc/*.cu`` for sm_90a, one process
              per source, and print each kernel's registers, shared memory and
              spills (the tensor-core flash kernel, the int8 GEMM, the tile
-             walk of the AGE and the GAT kernels, and the SSD kernel must not
-             spill);
+             walk of the AGE and the GAT kernels, the SSD kernels and both
+             pairs of flash backward kernels must not spill);
 2. path    — serve the FULL ``ample-gcn`` config on the Yelp-scale graph
              (716,847 nodes, 300 features, random weights from seed 0):
              ``infer`` three times (cold, warm, warm; warm must equal cold
@@ -154,7 +154,8 @@ Every phase that fails raises, so the script exits non-zero.
              2-step runs from seed 0 bitwise equal; 4 steps with loss, ce,
              grad_norm, lr, forward / backward / optimiser ms (CUDA events),
              tokens/s, peak memory and the flash launches of each (28 forward
-             on the tensor cores, 28 of each backward kernel); the model-flop
+             on the tensor cores, 28 of each backward kernel, all on the
+             tensor-core pair); the model-flop
              share (6 N tokens / step / 989 TFLOP/s, and with attention); one
              profiled warm step; the card against the CPU at full width cut
              to 2 layers, B 1 x 256 (loss and ce within 1e-2 relative, every
@@ -163,14 +164,19 @@ Every phase that fails raises, so the script exits non-zero.
              and resume to 6 at 2 layers, B 2 x 512, a checkpoint every 3
              steps, bitwise the straight run, each checkpoint's bytes, a save
              and a restore timed, under a temporary directory removed after;
-    flash bwd — the two backward kernels (``csrc/flash_attention_bwd.cu``)
-             against ``flash_attention_bwd_ref`` at Qwen2-1.5B's training
-             shape, SmolLM-360M's (hd 64, GQA 15/5), the REDUCED configs' hd
-             20 in f32, an unmasked cross shape (S 36 over T 1,024) and a
-             ragged T of 1,000: within 2^-7 (bf16) or 1e-4 (f32) of each
-             gradient's largest magnitude, run-to-run bitwise, each kernel
-             timed beside its bound, the whole backward beside the plain
-             version, its bound (2.5x the forward's operations) and one
+             the launcher's default (``launch.train.main``: REDUCED, f32)
+             for 3 steps, its backward on the CUDA-core pair;
+    flash bwd — the backward (``csrc/flash_attention_bwd.cu``) through its
+             wrapper against ``flash_attention_bwd_ref`` at Qwen2-1.5B's
+             training shape, SmolLM-360M's (hd 64, GQA 15/5), the REDUCED
+             configs' hd 20 in f32, an unmasked cross shape (S 36 over T
+             1,024) and a ragged T of 1,000: every bf16 case on the
+             tensor-core pair, the f32 one on the CUDA-core pair; within 2^-7
+             (bf16) or 1e-4 (f32) of each gradient's largest magnitude,
+             run-to-run bitwise; each kernel of each pair the case runs
+             timed beside its bound, the pairs in turns (CUDA-core,
+             tensor-core, tensor-core, CUDA-core), beside the plain version,
+             the bound (2.5x the forward's operations) and one
              ``torch.autograd.grad`` of ``scaled_dot_product_attention``; the
              forward's lse against ``flash_attention_lse_ref`` (1e-4), its
              output bitwise the output without lse;
@@ -354,9 +360,11 @@ def _yelp_engine(srv, g):
 
 # Kernels that must keep every value in registers (a spill would sit in the
 # inner loop): the tensor-core flash kernel, the int8 GEMM, the tile walk
-# (AGE and GAT), the SSD's two kernels and flash's two backward kernels.
+# (AGE and GAT), the SSD's two kernels and both pairs of flash's backward
+# kernels (CUDA cores, tensor cores).
 NO_SPILL = ("flash_tc_kernel", "quant_matmul_kernel", "heads_walk_kernel", "ssd_cb_kernel",
-            "ssd_tc_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+            "ssd_tc_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+            "flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkdv_kernel")
 # The rows the GNN paths' int8 group hands the AGE at D 300 (phase_age's row
 # kinds): int8 codes at a row stride of 304 bytes (aggregation._int8_rows).
 AGE_PATH_ROWS = "int8 stride 304"
@@ -477,17 +485,29 @@ def _device_profile(fn, warmup: int = 0):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+    return wall_ms, result, _device_rows(prof)
 
-    # A schedule's step span ("ProfilerStep*") covers the step's kernels.
-    rows = sorted(
-        ((e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
-         if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0
-         and not e.key.startswith("ProfilerStep")),
-        key=lambda r: -r[1],
-    )
-    return wall_ms, result, rows
+
+def _device_rows(prof):
+    """(device op, ms, count) of a finished torch.profiler session's
+    device-side events (kernels, copies, memsets), summed by name, longest
+    first. Read from the profiler's raw events: building its event tree
+    (``key_averages``) costs Python work for every event, and a profiled LM
+    generate records one for each operator and kernel of every decode step.
+    A schedule's step span ("ProfilerStep*") and user annotations on the
+    device only cover other events."""
+    from torch.autograd import DeviceType
+
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or name.startswith("ProfilerStep")):
+            continue
+        ms, count = totals.get(name, (0.0, 0))
+        totals[name] = (ms + (e.end_ns() - e.start_ns()) / 1e6, count + 1)
+    return sorted(((name, ms, count) for name, (ms, count) in totals.items() if ms > 0),
+                  key=lambda r: -r[1])
 
 
 def phase_profile(srv, g, tag="profile"):
@@ -2498,6 +2518,7 @@ CPU_LAYERS, CPU_SHAPE, GRAD_REL, LOSS_REL = 2, (1, 256), 5e-2, 1e-2
 # Crash and resume: full width cut to 2 layers, B 2 x 512, a checkpoint every
 # 3 steps, 6 steps straight against a crash after step 3 and a resume.
 RESUME_LAYERS, RESUME_SHAPE, RESUME_EVERY, RESUME_STEPS = 2, (2, 512), 3, 6
+LAUNCHER_STEPS = 3  # the launcher's default run (REDUCED, f32: the CUDA-core backward)
 
 
 def _train_cfg(tcfg_kw):
@@ -2590,6 +2611,7 @@ def phase_lm_train():
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as train_launcher
     from repro_torch.models.api import param_shapes
     from repro_torch.train.loop import Trainer
     from repro_torch.train.train_step import _grads
@@ -2627,7 +2649,8 @@ def phase_lm_train():
         state, *ms = _phase_split(cfg, tcfg, state, trainer.batch(TRAIN_STEPS + i))
         split.append(ms)
     want = {fa_ops.KERNEL: cfg.num_layers, fa_ops.TC_KERNEL: cfg.num_layers,
-            fa_ops.BWD_DQ_KERNEL: cfg.num_layers, fa_ops.BWD_DKDV_KERNEL: cfg.num_layers}
+            fa_ops.BWD_DQ_KERNEL: cfg.num_layers, fa_ops.BWD_DKDV_KERNEL: cfg.num_layers,
+            fa_ops.BWD_TC_KERNEL: cfg.num_layers}
     fwd_flops = 4.0 * TRAIN_BATCH * cfg.num_heads * cfg.resolved_head_dim * (
         TRAIN_SEQ * (TRAIN_SEQ + 1) // 2) * cfg.num_layers
     model_flops = 6.0 * n_params * tokens
@@ -2720,7 +2743,8 @@ def phase_lm_train():
         f"its f32: {max(rel_f32):.4f}; card launches {card_counts}")
     if not (loss_rel <= LOSS_REL and ce_rel <= LOSS_REL and max(rel) <= GRAD_REL):
         raise RuntimeError(f"lm train: card vs CPU loss {loss_rel}, ce {ce_rel}, grads {rel}")
-    if card_counts.get(fa_ops.BWD_DKDV_KERNEL, 0) != CPU_LAYERS:
+    if not (card_counts.get(fa_ops.BWD_DKDV_KERNEL, 0) == card_counts.get(fa_ops.BWD_TC_KERNEL, 0)
+            == CPU_LAYERS):
         raise RuntimeError(f"lm train: the card's gradient launched {card_counts}")
     del params, grads, g_card, cpu_params, cgrads, fgrads, tr
     gc.collect()
@@ -2779,6 +2803,27 @@ def phase_lm_train():
             raise RuntimeError(f"lm train: crash-resume {row['resume']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # (g) The launcher as a user calls it by default: REDUCED (f32, hd 20),
+    # so flash's backward runs on the CUDA-core pair; counts set to 0 just
+    # before, read just after.
+    reduced = get_config(TRAIN_ARCH, reduced=True)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_launcher.main(["--arch", TRAIN_ARCH, "--steps", str(LAUNCHER_STEPS)])
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    n = LAUNCHER_STEPS * reduced.num_layers
+    row["launcher"] = dict(arch=TRAIN_ARCH, reduced=True, dtype=reduced.dtype,
+                           steps=LAUNCHER_STEPS, s=time.perf_counter() - t0, launches=counts,
+                           loss=[r["loss"] for r in out["metrics"]])
+    log(f"[lm train] the launcher's default (REDUCED {TRAIN_ARCH}, {reduced.dtype}, hd "
+        f"{reduced.resolved_head_dim}), {LAUNCHER_STEPS} steps: losses "
+        f"{[round(x, 4) for x in row['launcher']['loss']]}, launches {counts}")
+    if not (counts.get(fa_ops.BWD_DQ_KERNEL, 0) == counts.get(fa_ops.BWD_DKDV_KERNEL, 0) == n
+            and not counts.get(fa_ops.BWD_TC_KERNEL, 0)
+            and all(math.isfinite(x) for x in row["launcher"]["loss"])):
+        raise RuntimeError(f"lm train: the launcher's default run launched {counts}")
     return row
 
 
@@ -2790,10 +2835,53 @@ def _rebuild_like(params, device, dtype):
                                   for t in _tree_leaves(params)]))
 
 
+def _bwd_entry_points(q, k, v, out, lse, do, causal, variant, splits=None):
+    """(dq kernel call, dk/dv kernel call, (dq, dk, dv)) of one variant's C
+    entry points on the case's inputs, with the scratch the wrapper would
+    allocate (the tensor-core pair with the wrapper's head splits, or
+    ``splits``)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dvec = torch.empty_like(lse)
+    scale = 1.0 / math.sqrt(hd)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    tail = (b, s, t, h, kv, hd, int(causal), scale)
+    if variant == "cuda_cores":
+        flag = int(q.dtype == torch.bfloat16)
+        return (lambda: build.call("ample_flash_attention_bwd_dq", q.device, *ptrs, out.data_ptr(),
+                                   do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+                                   flag, *tail),
+                lambda: build.call("ample_flash_attention_bwd_dkdv", q.device, *ptrs,
+                                   do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(),
+                                   dv.data_ptr(), flag, *tail),
+                (dq, dk, dv))
+    if splits is None:
+        splits = fa_ops.bwd_head_splits(
+            b, t, kv, h // kv, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    part = (torch.empty((2, splits, b, t, kv, hd), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    return (lambda: build.call("ample_flash_attention_bwd_tc_dq", q.device, *ptrs, out.data_ptr(),
+                               do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+                               *tail),
+            lambda: build.call("ample_flash_attention_bwd_tc_dkdv", q.device, *ptrs,
+                               do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(),
+                               dv.data_ptr(), None if part is None else part.data_ptr(), splits,
+                               *tail),
+            (dq, dk, dv))
+
+
 def phase_flash_bwd():
-    """The backward kernels against ``flash_attention_bwd_ref`` at the
-    training shapes, each kernel timed beside the plain version, the bound and
-    one ``torch.autograd.grad`` of ``scaled_dot_product_attention``; the
+    """The backward through its wrapper against ``flash_attention_bwd_ref``
+    at the training shapes (bf16 on the tensor-core pair, f32 on the
+    CUDA-core pair), each kernel of each pair the case runs timed, the pairs
+    in turns, beside the plain version, the bound and one
+    ``torch.autograd.grad`` of ``scaled_dot_product_attention``; the
     forward's lse against ``flash_attention_lse_ref``."""
     import torch
     import torch.nn.functional as F
@@ -2826,39 +2914,46 @@ def phase_flash_bwd():
         lse_out_equal = bool(torch.equal(out, fa_ops.flash_attention(q, k, v, causal=causal)))
         out_err = float((out.float() - want_out.float()).abs().max())
         del want_out, want_lse
+        variant = fa_ops.flash_variant(dt, hd)
+        before = build.launch_counts().get(fa_ops.BWD_TC_KERNEL, 0)
         got = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
         again = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        tc_launches = build.launch_counts().get(fa_ops.BWD_TC_KERNEL, 0) - before
         want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
         tol = 2.0 ** -7 if bf16 else 1e-4  # share of the tensor's largest magnitude
         errs = [float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)]
         rels = [e / float(w.float().abs().max()) for e, w in zip(errs, want)]
-        del got, again, want
+        del again, want
         pairs = s * (s + 1) // 2 + s * (t - s) if causal else s * t  # (query, key) pairs seen
         fwd_ops = 4.0 * b * h * hd * pairs
         peak = BF16_FLOPS if bf16 else FP32_FLOPS
         el = q.element_size()
         qb, kb, lb = q.numel() * el, k.numel() * el, lse.numel() * 4
-        dvec = torch.empty_like(lse)
-        scale = 1.0 / math.sqrt(hd)
-        args = (b, s, t, h, kv, hd, int(causal), scale)
-        flag = int(bf16)
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
-        def dq_call():
-            build.call("ample_flash_attention_bwd_dq", q.device, q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                       dvec.data_ptr(), dq.data_ptr(), flag, *args)
-
-        def dkdv_call():
-            build.call("ample_flash_attention_bwd_dkdv", q.device, q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
-                       dk.data_ptr(), dv.data_ptr(), flag, *args)
-
-        dq_call()
-        dq_ms = cuda_ms(dq_call, reps=5)
-        dkdv_ms = cuda_ms(dkdv_call, reps=5)
+        # Each pair the case can run, by its C entry points; the pairs in
+        # turns (CUDA-core, tensor-core, tensor-core, CUDA-core).
+        calls = {"cuda_cores": _bwd_entry_points(q, k, v, out, lse, do, causal, "cuda_cores")}
+        if variant == "tensor_cores":
+            calls["tensor_cores"] = _bwd_entry_points(q, k, v, out, lse, do, causal, variant)
+        for dq_call, dkdv_call, _ in calls.values():
+            dq_call()
+            dkdv_call()
+        torch.cuda.synchronize()
+        pair = {}
+        for name in ("cuda_cores", "tensor_cores", "tensor_cores", "cuda_cores"):
+            if name in calls:
+                dq_call, dkdv_call, _ = calls[name]
+                pair.setdefault(name, []).append(
+                    cuda_ms(lambda: (dq_call(), dkdv_call()), reps=5))
+        kernel_ms = {name: (cuda_ms(dq_call, reps=5), cuda_ms(dkdv_call, reps=5))
+                     for name, (dq_call, dkdv_call, _) in calls.items()}
+        # the pairs against each other, share of each gradient's largest magnitude
+        pair_diff = None
+        if len(calls) == 2:
+            pair_diff = max(float((a.float() - c.float()).abs().max() / c.float().abs().max())
+                            for a, c in zip(calls["tensor_cores"][2], calls["cuda_cores"][2]))
         bwd_ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal),
                          reps=3)
         plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal),
@@ -2872,35 +2967,53 @@ def phase_flash_bwd():
                          reps=5)
         lib = torch.autograd.grad(lout, (lq, lk, lv), ldo)
         lib_err = max(float((a.transpose(1, 2).float() - c.float()).abs().max())
-                      for a, c in zip(lib, (dq, dk, dv)))
-        del lout, lib, lq, lk, lv
+                      for a, c in zip(lib, got))
+        del lout, lib, lq, lk, lv, got, calls
         # bounds: bytes each input read once and each output written once;
         # operations: dQ's kernel S, dP and dS K (3 of the forward's 2 products'
         # worth, 1.5x), dK/dV's S, dP, P^T dO and dS^T Q (2x), the pair 2.5x.
+        # The tensor-core pair's own products: P and dS are two bf16 terms
+        # each, so dQ's kernel runs 4 products and dK/dV's 6 (5x the forward's).
         dq_bound = bound(4 * qb + 2 * kb + 2 * lb, 1.5 * fwd_ops, peak)
         dkdv_bound = bound(2 * qb + 2 * kb + 2 * lb + 2 * kb, 2.0 * fwd_ops, peak)
         pair_bound = bound(4 * qb + 4 * kb + lb, 2.5 * fwd_ops, peak)
+        cc, tc = pair["cuda_cores"], pair.get("tensor_cores")
+        ran = tc if variant == "tensor_cores" else cc
+        dq_ms, dkdv_ms = kernel_ms[variant]
         row = dict(case=label, b=b, s=s, t=t, h=h, kv=kv, hd=hd, dtype=str(dt), causal=causal,
+                   variant=variant, tc_launches=tc_launches,
+                   splits=fa_ops.bwd_head_splits(
+                       b, t, kv, h // kv, torch.cuda.get_device_properties(0).multi_processor_count)
+                   if variant == "tensor_cores" else None,
                    max_abs_err=max(errs), err_dq=errs[0], err_dk=errs[1], err_dv=errs[2],
                    rel_to_max=rels, tol=tol, bitwise=bitwise, lse_err=lse_err,
                    lse_out_equal=lse_out_equal, out_err=out_err, dq_ms=dq_ms, dkdv_ms=dkdv_ms,
-                   ms=bwd_ms, plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
-                   dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1], dkdv_bound_ms=dkdv_bound[0],
-                   dkdv_bound_by=dkdv_bound[1], bound_ms=pair_bound[0], bound_by=pair_bound[1],
-                   fwd_gflop=fwd_ops / 1e9)
-        log(f"[flash bwd] {label} B={b} S={s} T={t} H={h} KV={kv} hd={hd}: err dq {errs[0]:.3g} "
-            f"dk {errs[1]:.3g} dv {errs[2]:.3g} (share of max {max(rels):.2e} <= {tol:.2e}), "
+                   pair_ms=sum(ran) / len(ran), cc_pair_ms=cc, tc_pair_ms=tc,
+                   cc_dq_ms=kernel_ms["cuda_cores"][0], cc_dkdv_ms=kernel_ms["cuda_cores"][1],
+                   tc_vs_cc=pair_diff, ms=bwd_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library_err=lib_err, dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+                   dkdv_bound_ms=dkdv_bound[0], dkdv_bound_by=dkdv_bound[1],
+                   bound_ms=pair_bound[0], bound_by=pair_bound[1], fwd_gflop=fwd_ops / 1e9,
+                   tc_design_gflop=5 * fwd_ops / 1e9 if variant == "tensor_cores" else None)
+        turns = (f"pairs in turns: CUDA-core {cc[0]:.3f}, tensor-core {tc[0]:.3f}, {tc[1]:.3f}, "
+                 f"CUDA-core {cc[1]:.3f} ms; tensor-core vs CUDA-core {pair_diff:.2e} of max; "
+                 f"the tensor-core design's products {5 * fwd_ops / 1e9:.1f} GFLOP"
+                 if tc else f"CUDA-core pair {cc[0]:.3f}, {cc[1]:.3f} ms")
+        log(f"[flash bwd] {label} B={b} S={s} T={t} H={h} KV={kv} hd={hd}: {variant} "
+            f"({tc_launches // 2} tensor-core launch a call), err dq {errs[0]:.3g} dk "
+            f"{errs[1]:.3g} dv {errs[2]:.3g} (share of max {max(rels):.2e} <= {tol:.2e}), "
             f"bitwise {bitwise}; lse err {lse_err:.2e}, out with lse bitwise without "
             f"{lse_out_equal}; dq kernel {dq_ms:.3f} ms (bound {dq_bound[0]:.3f}, "
             f"{dq_bound[1]}), dkdv kernel {dkdv_ms:.3f} ms (bound {dkdv_bound[0]:.3f}, "
-            f"{dkdv_bound[1]}); backward {bwd_ms:.3f} ms, bound {pair_bound[0]:.3f} ms "
+            f"{dkdv_bound[1]}); {turns}; backward {bwd_ms:.3f} ms, bound {pair_bound[0]:.3f} ms "
             f"({pair_bound[1]}: {2.5 * fwd_ops / 1e9:.1f} GFLOP), plain {plain_ms:.3f} ms, SDPA "
             f"backward {lib_ms:.3f} ms (diff {lib_err:.3g}); {bwd_ms / lib_ms:.2f}x SDPA, "
-            f"{bwd_ms / pair_bound[0]:.1f}x the bound")
-        if not (bitwise and max(rels) <= tol and lse_err <= 1e-4 and lse_out_equal):
+            f"{bwd_ms / pair_bound[0]:.1f}x the bound; {card_line()}")
+        if not (bitwise and max(rels) <= tol and lse_err <= 1e-4 and lse_out_equal
+                and tc_launches == (2 if variant == "tensor_cores" else 0)):
             raise RuntimeError(f"flash bwd {label}: {row}")
         rows.append(row)
-        del q, k, v, do, out, lse, dvec, dq, dk, dv
+        del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     return rows
 
@@ -2981,6 +3094,82 @@ def phase_lm_cpu():
         raise RuntimeError(f"lm cpu seamless: launches {counts} (expected {expect}), err {err}")
     rows.append(dict(arch="seamless-m4t-medium", launches=counts, max_abs_diff=err))
     return rows
+
+
+def kernel_row(name, source, replaces, launches, row, shape):
+    """One entry of the ``kernels`` line."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"], shape=shape)
+
+
+def flash_bwd_kernel_rows(train_row, bwd_rows):
+    """The ``kernels`` line's entries of flash's backward: the tensor-core
+    pair and the CUDA-core pair, from ``phase_lm_train``'s and
+    ``phase_flash_bwd``'s rows."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    src = "src/repro_torch/csrc/flash_attention_bwd.cu"
+    site = "src/repro/kernels/flash_attention/flash_attention.py:95"
+    return [
+        # The backward's tensor-core pair: launches in the FULL Qwen2-1.5B
+        # training run (TRAIN_STEPS steps, one of each a layer a step), times
+        # at its shape (B 4 x 2,048, GQA 12/2, hd 128, bf16, causal). The
+        # plain version and SDPA's backward compute all three gradients at
+        # once: their times are the whole backward's, in both rows.
+        dict(kernel_row("flash_attention_bwd_tc_dq", src, site,
+                        train_row["launches"].get(fa_ops.BWD_TC_KERNEL, 0),
+                        dict(bwd_rows[0], max_abs_err=bwd_rows[0]["err_dq"],
+                             ms=bwd_rows[0]["dq_ms"], bound_ms=bwd_rows[0]["dq_bound_ms"],
+                             bound_by=bwd_rows[0]["dq_bound_by"]),
+                        "B={b} S={s} H={h} KV={kv} hd={hd} {dtype} causal".format(**bwd_rows[0])),
+             note="the gradient of the Pallas kernel at replaces, which has no VJP",
+             launches_per_step=train_row["steps"][-1]["launches"].get(fa_ops.BWD_TC_KERNEL, 0),
+             backward_ms=bwd_rows[0]["ms"], pair_ms=bwd_rows[0]["pair_ms"],
+             backward_bound_ms=bwd_rows[0]["bound_ms"],
+             design_gflop=bwd_rows[0]["tc_design_gflop"],
+             cases={r["case"]: {k: r[k] for k in (
+                 "causal", "err_dq", "dq_ms", "dq_bound_ms", "pair_ms", "ms", "plain_ms",
+                 "bound_ms", "library_ms")} for r in bwd_rows[1:]
+                 if r["variant"] == "tensor_cores"}),
+        dict(kernel_row("flash_attention_bwd_tc_dkdv", src, site,
+                        train_row["launches"].get(fa_ops.BWD_TC_KERNEL, 0),
+                        dict(bwd_rows[0], max_abs_err=max(bwd_rows[0]["err_dk"],
+                                                          bwd_rows[0]["err_dv"]),
+                             ms=bwd_rows[0]["dkdv_ms"], bound_ms=bwd_rows[0]["dkdv_bound_ms"],
+                             bound_by=bwd_rows[0]["dkdv_bound_by"]),
+                        "B={b} S={s} H={h} KV={kv} hd={hd} {dtype} causal".format(**bwd_rows[0])),
+             note="the gradient of the Pallas kernel at replaces, which has no VJP",
+             launches_per_step=train_row["steps"][-1]["launches"].get(fa_ops.BWD_TC_KERNEL, 0),
+             head_splits=bwd_rows[0]["splits"],
+             cases={r["case"]: {k: r[k] for k in (
+                 "causal", "err_dk", "err_dv", "dkdv_ms", "dkdv_bound_ms", "splits", "pair_ms",
+                 "ms", "plain_ms", "bound_ms", "library_ms")} for r in bwd_rows[1:]
+                 if r["variant"] == "tensor_cores"}),
+        # The CUDA-core pair: launches in the launcher's default run (REDUCED
+        # Qwen2-1.5B, f32, hd 20: the f32 and other-head-dim calls), times at
+        # the f32 hd 20 case (B 4 x 2,048, H 3, KV 1, causal); its times at
+        # Qwen2-1.5B's shape beside, timed in turns with the tensor-core pair.
+        dict(kernel_row("flash_attention_bwd_dq", src, site,
+                        train_row["launcher"]["launches"].get(fa_ops.BWD_DQ_KERNEL, 0),
+                        dict(bwd_rows[2], max_abs_err=bwd_rows[2]["err_dq"],
+                             ms=bwd_rows[2]["cc_dq_ms"], bound_ms=bwd_rows[2]["dq_bound_ms"],
+                             bound_by=bwd_rows[2]["dq_bound_by"]),
+                        "B={b} S={s} H={h} KV={kv} hd={hd} {dtype} causal".format(**bwd_rows[2])),
+             note="the gradient of the Pallas kernel at replaces, which has no VJP",
+             qwen2_shape_ms=bwd_rows[0]["cc_dq_ms"],
+             qwen2_shape_pair_ms=bwd_rows[0]["cc_pair_ms"]),
+        dict(kernel_row("flash_attention_bwd_dkdv", src, site,
+                        train_row["launcher"]["launches"].get(fa_ops.BWD_DKDV_KERNEL, 0),
+                        dict(bwd_rows[2], max_abs_err=max(bwd_rows[2]["err_dk"],
+                                                          bwd_rows[2]["err_dv"]),
+                             ms=bwd_rows[2]["cc_dkdv_ms"], bound_ms=bwd_rows[2]["dkdv_bound_ms"],
+                             bound_by=bwd_rows[2]["dkdv_bound_by"]),
+                        "B={b} S={s} H={h} KV={kv} hd={hd} {dtype} causal".format(**bwd_rows[2])),
+             note="the gradient of the Pallas kernel at replaces, which has no VJP",
+             qwen2_shape_ms=bwd_rows[0]["cc_dkdv_ms"]),
+    ]
 
 
 def main() -> int:
@@ -3192,12 +3381,6 @@ def main() -> int:
     with phase("lm cpu"):
         lm_cpu_rows = phase_lm_cpu()
 
-    def kernel_row(name, source, replaces, launches, row, shape):
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
-                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by=row["bound_by"], library_ms=row["library_ms"], shape=shape)
-
     lm_rows = {"qwen3-8b": lm_row, "mamba2-370m": ssm_row, "granite-moe-3b-a800m": moe_row,
                "llama4-maverick-400b-a17b unit": moe2_row, "jamba-v0.1-52b unit": hybrid_row,
                "qwen2-vl-7b": vlm_row, "seamless-m4t-medium": encdec_row}
@@ -3286,37 +3469,7 @@ def main() -> int:
              cases={r["case"]: {k: r[k] for k in (
                  "causal", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")} for r in flash_rows[1:]}),
-        # The backward's two kernels: launches in the FULL Qwen2-1.5B training
-        # run (TRAIN_STEPS steps, one of each a layer a step), times at its
-        # shape (B 4 x 2,048, GQA 12/2, hd 128, bf16, causal). The plain
-        # version and SDPA's backward compute all three gradients at once:
-        # their times are the whole backward's, in both rows.
-        dict(kernel_row("flash_attention_bwd_dq", "src/repro_torch/csrc/flash_attention_bwd.cu",
-                        "src/repro/kernels/flash_attention/flash_attention.py:95",
-                        train_row["launches"].get(fa_ops.BWD_DQ_KERNEL, 0),
-                        dict(bwd_rows[0], max_abs_err=bwd_rows[0]["err_dq"],
-                             ms=bwd_rows[0]["dq_ms"], bound_ms=bwd_rows[0]["dq_bound_ms"],
-                             bound_by=bwd_rows[0]["dq_bound_by"]),
-                        "B={b} S={s} H={h} KV={kv} hd={hd} {dtype} causal".format(**bwd_rows[0])),
-             note="the gradient of the Pallas kernel at replaces, which has no VJP",
-             launches_per_step=train_row["steps"][-1]["launches"].get(fa_ops.BWD_DQ_KERNEL, 0),
-             backward_ms=bwd_rows[0]["ms"], backward_bound_ms=bwd_rows[0]["bound_ms"],
-             cases={r["case"]: {k: r[k] for k in (
-                 "causal", "err_dq", "dq_ms", "dq_bound_ms", "ms", "plain_ms", "bound_ms",
-                 "library_ms")} for r in bwd_rows[1:]}),
-        dict(kernel_row("flash_attention_bwd_dkdv", "src/repro_torch/csrc/flash_attention_bwd.cu",
-                        "src/repro/kernels/flash_attention/flash_attention.py:95",
-                        train_row["launches"].get(fa_ops.BWD_DKDV_KERNEL, 0),
-                        dict(bwd_rows[0], max_abs_err=max(bwd_rows[0]["err_dk"],
-                                                          bwd_rows[0]["err_dv"]),
-                             ms=bwd_rows[0]["dkdv_ms"], bound_ms=bwd_rows[0]["dkdv_bound_ms"],
-                             bound_by=bwd_rows[0]["dkdv_bound_by"]),
-                        "B={b} S={s} H={h} KV={kv} hd={hd} {dtype} causal".format(**bwd_rows[0])),
-             note="the gradient of the Pallas kernel at replaces, which has no VJP",
-             launches_per_step=train_row["steps"][-1]["launches"].get(fa_ops.BWD_DKDV_KERNEL, 0),
-             cases={r["case"]: {k: r[k] for k in (
-                 "causal", "err_dk", "err_dv", "dkdv_ms", "dkdv_bound_ms", "ms", "plain_ms",
-                 "bound_ms", "library_ms")} for r in bwd_rows[1:]}),
+        *flash_bwd_kernel_rows(train_row, bwd_rows),
         dict(kernel_row("ssd_intra_chunk", "src/repro_torch/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan/ssd_scan.py:52",
                         ssm_row["launches"].get(ssd_ops.KERNEL, 0), ssd_rows[0],
@@ -3358,6 +3511,9 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)
+    idle = [r["name"] for r in kernels if not r["launches"]]
+    if idle:
+        raise RuntimeError(f"kernels launched no time on their paths: {idle}")
     log(f"[done] {details['seconds']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

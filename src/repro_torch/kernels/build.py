@@ -135,6 +135,27 @@ _SIGNATURES = {
         _F,  # scale (1 / sqrt(hd))
         _P,  # stream
     ],
+    "ample_flash_attention_bwd_tc_dq": [
+        _I,  # device
+        _P, _P, _P, _P, _P,  # q [B, S, H, hd], k, v [B, T, KV, hd], out, dout, all bf16
+        _P, _P,  # lse f32 [B, H, S] (in), D = rowsum(dout * out) f32 [B, H, S] (out)
+        _P,  # dq [B, S, H, hd]
+        _I, _I, _I, _I, _I, _I,  # b, s, t, h, kv, hd (64 or 128)
+        _I,  # 1 = causal, 0 = no mask
+        _F,  # scale (1 / sqrt(hd))
+        _P,  # stream
+    ],
+    "ample_flash_attention_bwd_tc_dkdv": [
+        _I,  # device
+        _P, _P, _P, _P,  # q [B, S, H, hd], k, v [B, T, KV, hd], dout [B, S, H, hd], all bf16
+        _P, _P,  # lse, D f32 [B, H, S] (the dq kernel's)
+        _P, _P,  # dk, dv [B, T, KV, hd]
+        _P, _I,  # f32 partial sums [2, splits, B, T, KV, hd] (null when splits is 1), splits
+        _I, _I, _I, _I, _I, _I,  # b, s, t, h, kv, hd (64 or 128)
+        _I,  # 1 = causal, 0 = no mask
+        _F,  # scale (1 / sqrt(hd))
+        _P,  # stream
+    ],
     "ample_ssd_intra_chunk": [
         _I,  # device
         _P, _P, _P, _P, _P,  # cc, bc [B, NC, Q, N], xdt [B, NC, H, Q, P], acum [B, NC, H, Q], out

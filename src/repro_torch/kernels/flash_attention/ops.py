@@ -12,7 +12,11 @@ Under grad (grad mode on and an input that requires grad) the call goes
 through ``FlashAttentionFunction``: its forward launches the forward kernel
 with the rows' log-sum-exp as a second output, and its backward launches the
 two kernels of ``csrc/flash_attention_bwd.cu`` (dQ with D = rowsum(dO ∘ O),
-then dK/dV), counted under ``BWD_DQ_KERNEL`` and ``BWD_DKDV_KERNEL``. On CPU
+then dK/dV), counted under ``BWD_DQ_KERNEL`` and ``BWD_DKDV_KERNEL``. The
+backward has the forward's two variants, picked by the same
+``flash_variant``: a call whose inputs, output and gradients would all feed
+the tensor-core forward runs the tensor-core pair (``wgmma``; also counted
+under ``BWD_TC_KERNEL``), every other call the CUDA-core pair. On CPU
 tensors the same Function runs ``flash_attention_lse_ref`` and
 ``flash_attention_bwd_ref``. A CUDA tensor never takes a plain version.
 
@@ -38,16 +42,23 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 __all__ = ["KERNEL", "TC_KERNEL", "NONCAUSAL_KERNEL", "BWD_DQ_KERNEL", "BWD_DKDV_KERNEL",
-           "TC_HEAD_DIMS", "MAX_HEAD_DIM", "FlashAttentionFunction", "flash_attention",
-           "flash_attention_bwd", "flash_variant"]
+           "BWD_TC_KERNEL", "TC_HEAD_DIMS", "MAX_HEAD_DIM", "FlashAttentionFunction",
+           "flash_attention", "flash_attention_bwd", "flash_variant", "bwd_variant",
+           "bwd_head_splits"]
 
 KERNEL = "flash_attention"
 TC_KERNEL = "flash_attention_tc"
 NONCAUSAL_KERNEL = "flash_attention_noncausal"
 BWD_DQ_KERNEL = "flash_attention_bwd_dq"
 BWD_DKDV_KERNEL = "flash_attention_bwd_dkdv"
+BWD_TC_KERNEL = "flash_attention_bwd_tc"
 TC_HEAD_DIMS = (64, 128)  # the tensor-core kernel's tiles
 MAX_HEAD_DIM = 128  # the kernel's widest tile
+# The tensor-core dK/dV grid is split over the q-heads until it has this
+# many blocks per SM: fewer leave the first key blocks of a causal call alone
+# on the card at the end, more add partial sums to write and read
+# (``python3 tools/flash_bwd_splits_sweep.py`` times every split on the card).
+BWD_MIN_WAVES = 3
 
 
 def flash_variant(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> str:
@@ -175,6 +186,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     dv = torch.empty_like(v)
     dvec = torch.empty_like(lse)  # D = rowsum(dout * out), the dq kernel's, for dk/dv
     scale = 1.0 / math.sqrt(hd)
+    if bwd_variant(q, k, v, out, dout, dq, dk, dv) == "tensor_cores":
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = bwd_head_splits(b, t, kv, h // kv, sms)
+        partial = (torch.empty((2, splits, b, t, kv, hd), dtype=torch.float32, device=q.device)
+                   if splits > 1 else None)
+        build.call(
+            "ample_flash_attention_bwd_tc_dq", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), b, s, t, h, kv, hd, int(causal),
+            scale,
+        )
+        build.count_launch(BWD_DQ_KERNEL)
+        build.call(
+            "ample_flash_attention_bwd_tc_dkdv", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if partial is None else partial.data_ptr(), splits, b, s, t, h, kv, hd,
+            int(causal), scale,
+        )
+        build.count_launch(BWD_DKDV_KERNEL)
+        build.count_launch(BWD_TC_KERNEL)
+        return dq, dk, dv
     bf16 = int(q.dtype == torch.bfloat16)
     build.call(
         "ample_flash_attention_bwd_dq", q.device,
@@ -191,3 +224,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     )
     build.count_launch(BWD_DKDV_KERNEL)
     return dq, dk, dv
+
+
+def bwd_variant(*tensors: torch.Tensor) -> str:
+    """The backward's variant for q, k, v, out, dout and the three gradients:
+    ``flash_variant`` of q's dtype and head dim, aligned only if every base
+    is."""
+    return flash_variant(tensors[0].dtype, tensors[0].shape[-1],
+                         all(x.data_ptr() % 16 == 0 for x in tensors))
+
+
+def bwd_head_splits(b: int, t: int, kv: int, g: int, sms: int) -> int:
+    """How many blocks share each (kv-head, batch, 64 keys) of the tensor-core
+    dK/dV kernel, each over its own run of the ``g`` q-heads: 1 where the
+    grid already fills the card, else the fewest of the divisors of ``g`` that
+    give ``BWD_MIN_WAVES`` blocks per SM (all ``g`` if none does). Under the
+    causal mask a key block's walk is as long as the query rows that see it,
+    so with few blocks the first key blocks alone set the kernel's time."""
+    blocks = kv * b * -(-t // 64)
+    for d in range(1, g + 1):
+        if g % d == 0 and blocks * d >= BWD_MIN_WAVES * sms:
+            return d
+    return g

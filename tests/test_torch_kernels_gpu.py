@@ -10,6 +10,7 @@ This file imports only the port (no JAX), so it runs where JAX is absent.
 from __future__ import annotations
 
 import dataclasses
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -955,12 +956,96 @@ def test_flash_attention_bwd_matches_plain(cuda, dtype, hd, s, t, h, kv, causal)
     after = build.launch_counts()
     for name in (fa_ops.BWD_DQ_KERNEL, fa_ops.BWD_DKDV_KERNEL):
         assert after[name] == before.get(name, 0) + 2
+    # bf16 with hd 64 and 128 runs the tensor-core pair, everything else the CUDA-core pair
+    tc = bf16 and hd in (64, 128)
+    assert after.get(fa_ops.BWD_TC_KERNEL, 0) == before.get(fa_ops.BWD_TC_KERNEL, 0) + 2 * tc
     want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
     for g, a, w in zip(got, again, want):
         assert g.dtype == dtype and g.shape == w.shape
         assert torch.equal(g, a)  # run-to-run bitwise: no atomics
         assert torch.isfinite(g).all()
         _bwd_close(g, w, bf16)
+
+
+def _bwd_pair(name, q, k, v, out, lse, do, causal, splits=1):
+    """(dq, dk, dv) from one pair's C entry points: ``"cuda_cores"`` or
+    ``"tensor_cores"`` with ``splits`` blocks over each kv-head's q-heads."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dvec = torch.empty_like(lse)
+    tail = (b, s, t, h, kv, hd, int(causal), 1.0 / math.sqrt(hd))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if name == "cuda_cores":
+        flag = int(q.dtype == torch.bfloat16)
+        build.call("ample_flash_attention_bwd_dq", q.device, *ptrs, out.data_ptr(), do.data_ptr(),
+                   lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), flag, *tail)
+        build.call("ample_flash_attention_bwd_dkdv", q.device, *ptrs, do.data_ptr(),
+                   lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), flag, *tail)
+        return dq, dk, dv
+    part = (torch.empty((2, splits, b, t, kv, hd), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    build.call("ample_flash_attention_bwd_tc_dq", q.device, *ptrs, out.data_ptr(), do.data_ptr(),
+               lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), *tail)
+    build.call("ample_flash_attention_bwd_tc_dkdv", q.device, *ptrs, do.data_ptr(),
+               lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               None if part is None else part.data_ptr(), splits, *tail)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("all_heads", [False, True])
+@pytest.mark.parametrize("hd,s,t,h,kv,causal", [c for c in BWD_SHAPES if c[0] in (64, 128)])
+def test_flash_attention_bwd_tensor_core_pair_matches_cuda_core_pair(cuda, hd, s, t, h, kv,
+                                                                      causal, all_heads):
+    """The tensor-core pair against the CUDA-core pair on the same bf16
+    inputs, both by their C entry points: within 2^-7 of each gradient's
+    largest magnitude (the two round f32 sums of another order once to
+    bf16), each run-to-run bitwise. The dK/dV kernel runs unsplit and with
+    every q-head its own block (f32 partial sums added in a fixed order)."""
+    gen = torch.Generator(device=cuda).manual_seed(hd * s + t)
+    q, do = (torch.randn((2, s, h, hd), generator=gen, device=cuda).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((2, t, kv, hd), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = fa_ops._forward(q, k, v, causal, with_lse=True)
+    splits = h // kv if all_heads else 1
+    got = _bwd_pair("tensor_cores", q, k, v, out, lse, do, causal, splits)
+    again = _bwd_pair("tensor_cores", q, k, v, out, lse, do, causal, splits)
+    cc = _bwd_pair("cuda_cores", q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, cc):
+        assert torch.equal(g, a) and torch.isfinite(g).all()
+        _bwd_close(g, w, True)
+    if splits > 1:  # the split sums are another order of the same f32 terms
+        for g, w in zip(got[1:], _bwd_pair("tensor_cores", q, k, v, out, lse, do, causal)[1:]):
+            _bwd_close(g, w, True)
+
+
+def test_flash_attention_bwd_unaligned_bf16_takes_the_cuda_core_pair(cuda):
+    """A bf16 base off a 16-byte boundary (here dout's) cannot feed the
+    tensor-core pair's 16-byte copies: the wrapper runs the CUDA-core pair,
+    same function."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    shape = (2, 130, 8, 128)
+    q = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((2, 130, 2, 128), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    flat = torch.randn(int(np.prod(shape)) + 1, generator=gen, device=cuda).to(torch.bfloat16)
+    do = flat[1:].view(shape)
+    assert do.is_contiguous() and do.data_ptr() % 16 != 0
+    out, lse = fa_ops._forward(q, k, v, True, with_lse=True)
+    before = dict(build.launch_counts())
+    got = fa_ops.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    assert after[fa_ops.BWD_DQ_KERNEL] == before.get(fa_ops.BWD_DQ_KERNEL, 0) + 1
+    assert after.get(fa_ops.BWD_TC_KERNEL, 0) == before.get(fa_ops.BWD_TC_KERNEL, 0)
+    for g, w in zip(got, flash_attention_bwd_ref(q, k, v, out, lse, do)):
+        _bwd_close(g, w, True)
+    aligned = fa_ops.flash_attention_bwd(q, k, v, out, lse, do.clone())
+    assert build.launch_counts()[fa_ops.BWD_TC_KERNEL] == after.get(fa_ops.BWD_TC_KERNEL, 0) + 1
+    for g, w in zip(aligned, got):
+        _bwd_close(g, w, True)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -1001,6 +1086,7 @@ def test_lm_train_step_on_card_matches_cpu_and_repeats_bitwise(cuda):
     n = 2 * 2 * cfg.num_layers  # runs x steps x layers
     assert counts[fa_ops.KERNEL] == counts[fa_ops.BWD_DQ_KERNEL] == n
     assert counts[fa_ops.BWD_DKDV_KERNEL] == n
+    assert counts.get(fa_ops.BWD_TC_KERNEL, 0) == 0  # f32, hd 20: the CUDA-core pair
     cpu = Trainer(cfg, t, device="cpu")
     cpu.init_state = lambda: _cpu_init(cfg, cuda)
     cpu_out = cpu.run()

@@ -282,6 +282,112 @@ def test_flash_bwd_wrapper_checks_shapes():
         fa_ops.flash_attention_bwd(q, k[:, :5], v[:, :5], o, lse, do)
 
 
+@pytest.mark.parametrize("dtype,hd,aligned,want", [
+    (torch.bfloat16, 128, True, "tensor_cores"), (torch.bfloat16, 64, True, "tensor_cores"),
+    (torch.bfloat16, 128, False, "cuda_cores"), (torch.bfloat16, 20, True, "cuda_cores"),
+    (torch.bfloat16, 32, True, "cuda_cores"), (torch.float32, 128, True, "cuda_cores"),
+    (torch.float32, 64, True, "cuda_cores"),
+])
+def test_flash_bwd_variant_follows_the_forwards_rule(dtype, hd, aligned, want):
+    """The backward takes the tensor-core pair exactly where the forward takes
+    its tensor-core kernel (bf16, hd 64 or 128) and every one of q, k, v,
+    out, dout and the three gradients starts on a 16-byte boundary; a single
+    base off it sends the call to the CUDA-core pair."""
+    shape = (1, 70, 4, hd)
+    tensors = [torch.zeros(shape, dtype=dtype) for _ in range(8)]
+    if not aligned:
+        flat = torch.zeros(math.prod(shape) + 1, dtype=dtype)
+        tensors[4] = flat[1:].view(shape)  # dout one element past a boundary
+        assert tensors[4].is_contiguous() and tensors[4].data_ptr() % 16 != 0
+    assert all(x.data_ptr() % 16 == 0 for i, x in enumerate(tensors) if aligned or i != 4)
+    assert fa_ops.bwd_variant(*tensors) == want
+    assert want == fa_ops.flash_variant(dtype, hd, aligned)
+
+
+@pytest.mark.parametrize("b,t,kv,g,sms,want", [
+    (4, 2048, 2, 6, 132, 2),  # Qwen2-1.5B: 256 key blocks, 512 blocks with 2 splits
+    (4, 2048, 5, 3, 132, 1),  # SmolLM-360M: 640 blocks fill the card unsplit
+    (2, 256, 2, 6, 132, 6),  # few key blocks: every q-head its own block
+    (4, 2048, 8, 1, 132, 1),  # no GQA: nothing to split
+    (1, 1024, 4, 7, 132, 7),  # Qwen2-VL's group of 7 (prime): all or nothing
+    (4, 2048, 2, 6, 16, 1),  # a small card
+])
+def test_flash_bwd_head_splits(b, t, kv, g, sms, want):
+    """The tensor-core dK/dV kernel's split of each kv-head's G q-heads:
+    the fewest divisors of G that give BWD_MIN_WAVES blocks per SM."""
+    splits = fa_ops.bwd_head_splits(b, t, kv, g, sms)
+    assert splits == want and g % splits == 0
+    blocks = kv * b * -(-t // 64)
+    assert splits == g or blocks * splits >= fa_ops.BWD_MIN_WAVES * sms
+
+
+def _bf16_terms(x, terms):
+    """x as the sum of ``terms`` bf16 terms (hi = bf16(x), lo = bf16(x - hi), ...)."""
+    out, rest = [], x
+    for _ in range(terms):
+        out.append(rest.to(torch.bfloat16).float())
+        rest = rest - out[-1]
+    return out
+
+
+def _split_bwd(q, k, v, out, lse, dout, *, causal, terms=2):
+    """The tensor-core backward's arithmetic, emulated on the CPU in f32 (not
+    rounded to bf16): bf16 q, k, v, out and dO; S = Q K^T and dP = dO V^T in
+    f32 (each bf16 product exact); P = exp(s * scale - lse), 0 where the
+    forward masked; D = rowsum(dO o O); dS = P o (dP - D); P and dS split
+    into ``terms`` bf16 terms, each a bf16 operand of its product, the
+    products summed in f32: dV = P^T dO, dQ = scale dS K, dK = scale dS^T Q,
+    dK and dV summed over the q-heads of each kv-head."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(b, s, kv, g, hd)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(b, s, kv, g, hd)
+    sc = torch.einsum("bskgh,btkh->bkgst", qf, kf) * scale
+    p = torch.exp(sc - lse.reshape(b, kv, g, s, 1))
+    if causal:
+        qpos = torch.arange(s)[:, None]
+        kpos = torch.arange(t)[None, :]
+        p = p.masked_fill((kpos - (t - s)) > qpos, 0.0)
+    d = (do * out.float().reshape(b, s, kv, g, hd)).sum(-1).permute(0, 2, 3, 1)
+    dp = torch.einsum("bskgh,btkh->bkgst", do, vf)
+    ds = p * (dp - d[..., None])
+    dv = sum(torch.einsum("bkgst,bskgh->btkh", x, do) for x in _bf16_terms(p, terms))
+    dq = sum(torch.einsum("bkgst,btkh->bskgh", x, kf) for x in _bf16_terms(ds, terms)) * scale
+    dk = sum(torch.einsum("bkgst,bskgh->btkh", x, qf) for x in _bf16_terms(ds, terms)) * scale
+    return dq.reshape(b, s, h, hd), dk, dv
+
+
+# BWD_CASES in bf16, and Qwen2-1.5B's GQA 12/2 at hd 128 (causal) and
+# Qwen2-VL's 28/4 (unmasked, S > T), cut in length.
+@pytest.mark.parametrize("hd,s,t,h,kv,causal", BWD_CASES + [(128, 130, 130, 12, 2, True),
+                                                             (128, 100, 70, 28, 4, False)])
+def test_split_operands_keep_the_backwards_f32_function(hd, s, t, h, kv, causal):
+    """P and dS as two bf16 terms each (the tensor-core backward's operands)
+    keep the f32 function: before the output's rounding within 2^-15 of each
+    gradient's largest magnitude (~2^-18 here; one bf16 term: ~2^-9),
+    and rounded to bf16 within the 2^-7 share that the card tests and
+    chip_smoke.py gate the kernels at, against ``flash_attention_bwd_ref``."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _qkvd(2, s, t, h, kv, hd, seed=hd + s + t))
+    out, lse = flash_attention_lse_ref(q, k, v, causal=causal)
+    want_f32 = flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), lse,
+                                       do.float(), causal=causal)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+    two = _split_bwd(q, k, v, out, lse, do, causal=causal)
+    one = _split_bwd(q, k, v, out, lse, do, causal=causal, terms=1)
+    for got, single, w32, w in zip(two, one, want_f32, want):
+        top = float(w32.abs().max())
+        err2 = float((got - w32).abs().max()) / top
+        err1 = float((single - w32).abs().max()) / top
+        assert err2 <= 2.0 ** -15, err2
+        assert err1 > 16 * err2, (err1, err2)
+        rounded = got.to(torch.bfloat16).float()
+        assert float((rounded - w.float()).abs().max()) <= 2.0 ** -7 * float(w.float().abs().max())
+
+
 def _split_p_flash(q, k, v, *, terms=2, block=64):
     """The tensor-core kernel's arithmetic, emulated on the CPU in f32: bf16
     q, k, v; S = Q.K^T in f32 (each bf16 product exact); an online softmax
