@@ -180,6 +180,27 @@ Every phase that fails raises, so the script exits non-zero.
              ``torch.autograd.grad`` of ``scaled_dot_product_attention``; the
              forward's lse against ``flash_attention_lse_ref`` (1e-4), its
              output bitwise the output without lse;
+    ssm train — the ``lm train`` phase for FULL ``mamba2-370m`` (48 layers,
+             d 1,024, state 128, 32 heads of 64: 368,338,432 params, bf16),
+             B 4 x 2,048: 48 SSD forward and 48 backward launches
+             (``csrc/ssd_scan_bwd.cu``) a step, the runs and crash-and-resume
+             bitwise, the card against the CPU, the launcher's REDUCED
+             default; both phases also give the model-flop share by
+             ``launch/analytic.step_flops`` (the SSD's quadratic terms in);
+    hybrid train — REDUCED ``jamba-v0.1-52b`` (f32, 8 layers: 7 SSD, flash
+             on the CUDA-core pair, MoE) through the Trainer, 3 steps of B 4
+             x 512 with their launches, one ``loss_fn`` gradient against the
+             CPU's at atol 5e-4, rtol 1e-3 (FULL Jamba's weights, grads and
+             moments do not fit one card);
+    ssd bwd — the SSD backward through its wrapper against
+             ``ssd_intra_chunk_bwd_ref`` at Mamba2-370M's and Jamba's training
+             shapes, a ragged chunk of 200 and the REDUCED launcher's P 16:
+             within 1e-4 of each gradient's largest magnitude, run-to-run
+             bitwise, timed beside the plain backward, ``torch.autograd.grad``
+             through the plain forward and the bound (f32 CUDA-core peak);
+    serve cli — ``launch.serve.main`` on the card: REDUCED ``ample-gcn``
+             (3 requests: one cold plan, then cache hits, bitwise) and FULL
+             ``mamba2-370m`` (8 new tokens, 48 SSD launches);
 15. lm cpu — REDUCED ``qwen3-8b``, ``mamba2-370m``, ``granite-moe-3b-a800m``,
              ``llama4-maverick-400b-a17b``, ``jamba-v0.1-52b`` and
              ``qwen2-vl-7b`` served on the CPU against the card: each kernel
@@ -256,8 +277,8 @@ Every phase that fails raises, so the script exits non-zero.
              launches per GNN path, per streamed request and per sharded
              request, the AGE's per QAT step and its backward's times; the
              multi-head AGE per sharded GAT request; flash
-             attention and the SSD per LM path), the
-             card's name and power limit, and the result line.
+             attention and the SSD per LM path, each backward per training
+             step), the card's name and power limit, and the result line.
 
 The int8 matmul is also held bitwise at GIN's and SAGE's K x N (300 x 300,
 256 x 256, 100 x 100). Each phase prints its seconds.
@@ -360,11 +381,12 @@ def _yelp_engine(srv, g):
 
 # Kernels that must keep every value in registers (a spill would sit in the
 # inner loop): the tensor-core flash kernel, the int8 GEMM, the tile walk
-# (AGE and GAT), the SSD's two kernels and both pairs of flash's backward
-# kernels (CUDA cores, tensor cores).
+# (AGE and GAT), the SSD's two kernels, its backward's three and both pairs
+# of flash's backward kernels (CUDA cores, tensor cores).
 NO_SPILL = ("flash_tc_kernel", "quant_matmul_kernel", "heads_walk_kernel", "ssd_cb_kernel",
             "ssd_tc_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
-            "flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkdv_kernel")
+            "flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkdv_kernel", "ssd_bwd_dcb_kernel",
+            "ssd_bwd_dxdt_kernel", "ssd_bwd_dcdb_kernel")
 # The rows the GNN paths' int8 group hands the AGE at D 300 (phase_age's row
 # kinds): int8 codes at a row stride of 304 bytes (aggregation._int8_rows).
 AGE_PATH_ROWS = "int8 stride 304"
@@ -2519,6 +2541,25 @@ CPU_LAYERS, CPU_SHAPE, GRAD_REL, LOSS_REL = 2, (1, 256), 5e-2, 1e-2
 # 3 steps, 6 steps straight against a crash after step 3 and a resume.
 RESUME_LAYERS, RESUME_SHAPE, RESUME_EVERY, RESUME_STEPS = 2, (2, 512), 3, 6
 LAUNCHER_STEPS = 3  # the launcher's default run (REDUCED, f32: the CUDA-core backward)
+# The ssm family's training through the same phase: FULL Mamba2-370M, no cut
+# (its saved activations, ~1.3 GB a layer at B 4 x 2,048, fit the card).
+SSM_TRAIN_ARCH = "mamba2-370m"
+SSM_TRAIN_PARAMS = 368_338_432  # embedding 51,486,720 + 48 x 6,601,056 + 1,024
+SSM_TRAIN_BATCH = 4
+# The hybrid family: REDUCED Jamba (f32, 8 layers: 7 SSD, 1 flash on the
+# CUDA-core pair, MoE every 2nd) through the Trainer, B 4 x 512 (two chunks
+# of 256), and its gradients against the CPU's at the f32 tolerance.
+HYBRID_TRAIN_ARCH = "jamba-v0.1-52b"
+HYBRID_STEPS, HYBRID_SHAPE = 3, (4, 512)
+F32_ATOL, F32_RTOL = 5e-4, 1e-3  # tests/test_gnn_models.py:46
+# The SSD backward against its plain version (1e-4 of each gradient's max,
+# as the forward's SSD_ATOL): (label, B, NC, Q, N, H, P).
+SSD_BWD_CASES = (
+    ("mamba2-370m training", 4, 8, 256, 128, 32, 64),
+    ("jamba training", 4, 8, 256, 16, 128, 64),
+    ("ragged chunk Q=200", 4, 2, 200, 128, 32, 64),
+    ("REDUCED launcher P=16", 8, 1, 64, 16, 8, 16),
+)
 
 
 def _train_cfg(tcfg_kw):
@@ -2597,38 +2638,63 @@ def _phase_split(cfg, tcfg, state, batch):
             *(a.elapsed_time(b) for a, b in zip(ev, ev[1:])))
 
 
-def phase_lm_train():
-    """FULL Qwen2-1.5B trained through ``Trainer`` (the code under
-    ``launch.train``) on B 4 x 2,048 tokens: two runs bitwise, 4 timed steps
-    with their launches, a profiled step; the card against the CPU at 2
-    layers; crash and resume at 2 layers, bitwise."""
+def _train_launches(cfg):
+    """Each kernel counter's launches in one train step of ``cfg``: the
+    forward's (``_lm_launches``) and its backward's, once per layer of their
+    mixer (a counter listed at 0 must not run: flash off the tensor cores)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    want = _lm_launches(cfg)
+    if fa_ops.KERNEL in want:
+        tc = want.setdefault(fa_ops.TC_KERNEL, 0)
+        want.update({fa_ops.BWD_DQ_KERNEL: want[fa_ops.KERNEL],
+                     fa_ops.BWD_DKDV_KERNEL: want[fa_ops.KERNEL], fa_ops.BWD_TC_KERNEL: tc})
+    if ssd_ops.KERNEL in want:
+        want[ssd_ops.KERNEL_BWD] = want[ssd_ops.KERNEL]
+    return want
+
+
+def phase_lm_train(arch=TRAIN_ARCH, n_expected=TRAIN_PARAMS, batch=TRAIN_BATCH,
+                   tag="lm train", batch_reason=""):
+    """FULL ``arch`` (Qwen2-1.5B; Mamba2-370M in ``ssm train``) trained
+    through ``Trainer`` (the code under ``launch.train``) on B ``batch`` x
+    2,048 tokens: two runs bitwise, 4 timed steps with their launches (the
+    forward and backward kernels once per layer of their mixer), a profiled
+    step; the card against the CPU at 2 layers; crash and resume at 2
+    layers, bitwise; the launcher's REDUCED default."""
     import dataclasses
     import tempfile
 
     import torch
 
     from repro_torch.checkpoint import checkpoint as ckpt
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import ShapeSpec, get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import analytic
     from repro_torch.launch import train as train_launcher
     from repro_torch.models.api import param_shapes
+    from repro_torch.models.lm.transformer import mixer_counts
     from repro_torch.train.loop import Trainer
     from repro_torch.train.train_step import _grads
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     n_params = sum(math.prod(s) for s in _leaves(param_shapes(cfg)))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    row = dict(arch=TRAIN_ARCH, params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
-    log(f"[lm train] FULL {TRAIN_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, GQA "
-        f"{cfg.num_heads}/{cfg.num_kv_heads}, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}: {n_params:,} params; B {TRAIN_BATCH} x {TRAIN_SEQ}; {card_line()}")
-    if n_params != TRAIN_PARAMS:
-        raise RuntimeError(f"{TRAIN_ARCH} has {n_params} params, not {TRAIN_PARAMS}")
+    tokens = batch * TRAIN_SEQ
+    row = dict(arch=arch, params=n_params, batch=batch, seq=TRAIN_SEQ, batch_reason=batch_reason)
+    mixer = (f"GQA {cfg.num_heads}/{cfg.num_kv_heads}, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}"
+             if cfg.family != "ssm" else
+             f"state {cfg.ssm_state}, {cfg.ssm_heads} heads of {cfg.ssm_headdim}, chunk "
+             f"{cfg.ssm_chunk}")
+    log(f"[{tag}] FULL {arch}: {cfg.num_layers} layers, d {cfg.d_model}, {mixer}, vocab "
+        f"{cfg.vocab_size}: {n_params:,} params; B {batch} x {TRAIN_SEQ}"
+        f"{f' ({batch_reason})' if batch_reason else ''}; {card_line()}")
+    if n_params != n_expected:
+        raise RuntimeError(f"{arch} has {n_params} params, not {n_expected}")
 
     # (a) The timed run: launch counts set to 0 just before, read just after;
     # a host copy of its params after TRAIN_REPEAT_STEPS steps.
-    tcfg = _train_cfg(dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ))
+    tcfg = _train_cfg(dict(steps=TRAIN_STEPS, batch=batch, seq=TRAIN_SEQ))
     trainer = Trainer(cfg, tcfg)
     step_fn, timed = trainer.step_fn, []
     snap = _timed_steps(trainer, timed, TRAIN_REPEAT_STEPS)
@@ -2648,12 +2714,12 @@ def phase_lm_train():
     for i in range(TRAIN_STEPS - 1):
         state, *ms = _phase_split(cfg, tcfg, state, trainer.batch(TRAIN_STEPS + i))
         split.append(ms)
-    want = {fa_ops.KERNEL: cfg.num_layers, fa_ops.TC_KERNEL: cfg.num_layers,
-            fa_ops.BWD_DQ_KERNEL: cfg.num_layers, fa_ops.BWD_DKDV_KERNEL: cfg.num_layers,
-            fa_ops.BWD_TC_KERNEL: cfg.num_layers}
-    fwd_flops = 4.0 * TRAIN_BATCH * cfg.num_heads * cfg.resolved_head_dim * (
-        TRAIN_SEQ * (TRAIN_SEQ + 1) // 2) * cfg.num_layers
+    want = _train_launches(cfg)
+    fwd_flops = 4.0 * batch * cfg.num_heads * cfg.resolved_head_dim * (
+        TRAIN_SEQ * (TRAIN_SEQ + 1) // 2) * mixer_counts(cfg)["attn"]
     model_flops = 6.0 * n_params * tokens
+    # The analytic model's step (3 x the forward, the SSD's quadratic terms in).
+    step_flops = analytic.step_flops(cfg, ShapeSpec(tag, TRAIN_SEQ, batch, "train"))
     steps = []
     for i, (t, rec) in enumerate(zip(timed, records)):
         cnt, peak = t["launches"], t["peak"]
@@ -2665,35 +2731,42 @@ def phase_lm_train():
         st["tokens_per_s"] = tokens / st["step_ms"] * 1e3
         st["model_flop_share"] = model_flops / (st["step_ms"] / 1e3) / BF16_FLOPS
         st["with_attention_share"] = (model_flops + 3 * fwd_flops) / (st["step_ms"] / 1e3) / BF16_FLOPS
+        st["analytic_share"] = step_flops / (st["step_ms"] / 1e3) / BF16_FLOPS
         steps.append(st)
         phases = (f"; step {TRAIN_STEPS + i}'s phases: forward {st['forward_ms']:.1f} ms "
                   f"backward {st['backward_ms']:.1f} ms optimizer {st['optimizer_ms']:.1f} ms"
                   if i else "")
-        log(f"[lm train] step {st['step']}{' (cold)' if i == 0 else ''}: loss {st['loss']:.4f} "
+        log(f"[{tag}] step {st['step']}{' (cold)' if i == 0 else ''}: loss {st['loss']:.4f} "
             f"ce {st['ce']:.4f} grad_norm {st['grad_norm']:.4f} lr {st['lr']:.3g}; step "
             f"{st['step_ms']:.1f} ms, {st['tokens_per_s']:,.0f} tokens/s; peak "
             f"{peak / 2**30:.2f} GiB; launches {cnt}{phases}")
         if any(cnt.get(k, 0) != v for k, v in want.items()):
-            raise RuntimeError(f"lm train step {st['step']}: launches {cnt}, expected {want}")
+            raise RuntimeError(f"{tag} step {st['step']}: launches {cnt}, expected {want}")
         if not all(math.isfinite(st[k]) for k in ("loss", "ce", "grad_norm")):
-            raise RuntimeError(f"lm train step {st['step']}: not finite: {st}")
+            raise RuntimeError(f"{tag} step {st['step']}: not finite: {st}")
 
     warm = steps[1:]
     row["steps"] = steps
     row["warm_step_ms"] = sum(s["step_ms"] for s in warm) / len(warm)
     row["model_flop_share"] = model_flops / (row["warm_step_ms"] / 1e3) / BF16_FLOPS
     row["with_attention_share"] = (model_flops + 3 * fwd_flops) / (row["warm_step_ms"] / 1e3) / BF16_FLOPS
-    log(f"[lm train] {TRAIN_STEPS} steps: launches {row['launches']}; warm step "
-        f"{row['warm_step_ms']:.1f} ms: model-flop share 6 x {n_params:,} x {tokens} / step / "
-        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s = {row['model_flop_share']:.3f}, with attention "
-        f"(3 x {fwd_flops / 1e12:.2f} TFLOP causal) {row['with_attention_share']:.3f}; "
-        f"{card_line()}")
+    row["analytic_step_flops"] = step_flops
+    row["analytic_share"] = step_flops / (row["warm_step_ms"] / 1e3) / BF16_FLOPS
+    row["tokens_per_s"] = tokens / row["warm_step_ms"] * 1e3
+    row["peak_bytes"] = max(s["peak_bytes"] for s in steps)
+    attention = (f", with attention (3 x {fwd_flops / 1e12:.2f} TFLOP causal) "
+                 f"{row['with_attention_share']:.3f}" if fwd_flops else "")
+    log(f"[{tag}] {TRAIN_STEPS} steps: launches {row['launches']}; warm step "
+        f"{row['warm_step_ms']:.1f} ms, {row['tokens_per_s']:,.0f} tokens/s: model-flop share "
+        f"6 x {n_params:,} x {tokens} / step / {BF16_FLOPS / 1e12:.0f} TFLOP/s = "
+        f"{row['model_flop_share']:.3f}{attention}; analytic.step_flops "
+        f"{step_flops / 1e12:.2f} TFLOP / step: {row['analytic_share']:.3f}; {card_line()}")
     if any(row["launches"].get(k, 0) != v * TRAIN_STEPS for k, v in want.items()):
-        raise RuntimeError(f"lm train: launches {row['launches']}")
+        raise RuntimeError(f"{tag}: launches {row['launches']}")
 
     # (c) Where a warm step's time goes: one more step of the same run under
     # the profiler.
-    row["profile"] = _profiled("lm train", lambda: step_fn(state, trainer.batch(2 * TRAIN_STEPS - 1)))
+    row["profile"] = _profiled(tag, lambda: step_fn(state, trainer.batch(2 * TRAIN_STEPS - 1)))
     del state, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -2702,13 +2775,13 @@ def phase_lm_train():
     # the timed run's params at that step (both inside the 10-step warmup,
     # where the lr does not depend on the run's length).
     params = _param_leaves(Trainer(cfg, _train_cfg(dict(
-        steps=TRAIN_REPEAT_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ))).run()["state"])
+        steps=TRAIN_REPEAT_STEPS, batch=batch, seq=TRAIN_SEQ))).run()["state"])
     row["repeat_bitwise"] = all(torch.equal(a, b.cpu()) for a, b in zip(snap["params"], params))
     del params, snap
-    log(f"[lm train] a second {TRAIN_REPEAT_STEPS}-step run from seed 0: params bitwise the "
+    log(f"[{tag}] a second {TRAIN_REPEAT_STEPS}-step run from seed 0: params bitwise the "
         f"timed run's at step {TRAIN_REPEAT_STEPS}: {row['repeat_bitwise']}")
     if not row["repeat_bitwise"]:
-        raise RuntimeError("lm train: two runs from the same seed differ")
+        raise RuntimeError(f"{tag}: two runs from the same seed differ")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2736,16 +2809,15 @@ def phase_lm_train():
                       cpu_loss=float(closs), f32_loss=float(floss), loss_rel=loss_rel,
                       ce_rel=ce_rel, grad_rel_max=max(rel), grad_rel=rel,
                       cpu_bf16_vs_f32_rel_max=max(rel_f32), launches=card_counts)
-    log(f"[lm train] card vs CPU, {CPU_LAYERS} layers at full width, B {CPU_SHAPE[0]} x "
+    log(f"[{tag}] card vs CPU, {CPU_LAYERS} layers at full width, B {CPU_SHAPE[0]} x "
         f"{CPU_SHAPE[1]}: loss {float(loss):.5f} vs {float(closs):.5f} (f32 {float(floss):.5f}), "
         f"relative {loss_rel:.2e}, ce {ce_rel:.2e} (<= {LOSS_REL}); {len(rel)} gradient leaves, "
         f"max |card - CPU| / max |CPU| = {max(rel):.4f} (<= {GRAD_REL}); the CPU's bf16 against "
         f"its f32: {max(rel_f32):.4f}; card launches {card_counts}")
     if not (loss_rel <= LOSS_REL and ce_rel <= LOSS_REL and max(rel) <= GRAD_REL):
-        raise RuntimeError(f"lm train: card vs CPU loss {loss_rel}, ce {ce_rel}, grads {rel}")
-    if not (card_counts.get(fa_ops.BWD_DKDV_KERNEL, 0) == card_counts.get(fa_ops.BWD_TC_KERNEL, 0)
-            == CPU_LAYERS):
-        raise RuntimeError(f"lm train: the card's gradient launched {card_counts}")
+        raise RuntimeError(f"{tag}: card vs CPU loss {loss_rel}, ce {ce_rel}, grads {rel}")
+    if any(card_counts.get(k, 0) != v for k, v in _train_launches(small).items()):
+        raise RuntimeError(f"{tag}: the card's gradient launched {card_counts}")
     del params, grads, g_card, cpu_params, cgrads, fgrads, tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -2761,7 +2833,7 @@ def phase_lm_train():
         t0 = time.perf_counter()
         try:
             Trainer(small, _train_cfg(dict(kw, ckpt_dir=d))).run(crash_at=RESUME_EVERY)
-            raise RuntimeError("lm train: the injected fault did not fire")
+            raise RuntimeError(f"{tag}: the injected fault did not fire")
         except RuntimeError as e:
             if "injected fault" not in str(e):
                 raise
@@ -2793,37 +2865,34 @@ def phase_lm_train():
                              checkpoint_bytes=sizes, save_s=save_s, restore_s=restore_s,
                              restored_equal=restored_equal, crashed_run_s=crashed_s,
                              resumed_run_s=resumed_s)
-        log(f"[lm train] crash after step {RESUME_EVERY} (checkpoint at step {saved}) and resume "
+        log(f"[{tag}] crash after step {RESUME_EVERY} (checkpoint at step {saved}) and resume "
             f"to {RESUME_STEPS}, {RESUME_LAYERS} layers at full width, B {RESUME_SHAPE[0]} x "
             f"{RESUME_SHAPE[1]}: params bitwise the straight run's {same}; checkpoints "
             f"{ {k: f'{v / 1e9:.3f} GB' for k, v in sizes.items()} }; save {save_s:.2f} s "
             f"({nbytes / save_s / 1e9:.2f} GB/s), restore {restore_s:.2f} s "
             f"({nbytes / restore_s / 1e9:.2f} GB/s), restored bitwise {restored_equal}")
         if not (same and restored_equal and saved == RESUME_EVERY):
-            raise RuntimeError(f"lm train: crash-resume {row['resume']}")
+            raise RuntimeError(f"{tag}: crash-resume {row['resume']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # (g) The launcher as a user calls it by default: REDUCED (f32, hd 20),
-    # so flash's backward runs on the CUDA-core pair; counts set to 0 just
-    # before, read just after.
-    reduced = get_config(TRAIN_ARCH, reduced=True)
+    # (g) The launcher as a user calls it by default: REDUCED (f32; Qwen2's
+    # hd 20 runs flash's backward on the CUDA-core pair); counts set to 0
+    # just before, read just after.
+    reduced = get_config(arch, reduced=True)
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    out = train_launcher.main(["--arch", TRAIN_ARCH, "--steps", str(LAUNCHER_STEPS)])
+    out = train_launcher.main(["--arch", arch, "--steps", str(LAUNCHER_STEPS)])
     torch.cuda.synchronize()
     counts = build.launch_counts()
-    n = LAUNCHER_STEPS * reduced.num_layers
-    row["launcher"] = dict(arch=TRAIN_ARCH, reduced=True, dtype=reduced.dtype,
+    row["launcher"] = dict(arch=arch, reduced=True, dtype=reduced.dtype,
                            steps=LAUNCHER_STEPS, s=time.perf_counter() - t0, launches=counts,
                            loss=[r["loss"] for r in out["metrics"]])
-    log(f"[lm train] the launcher's default (REDUCED {TRAIN_ARCH}, {reduced.dtype}, hd "
-        f"{reduced.resolved_head_dim}), {LAUNCHER_STEPS} steps: losses "
-        f"{[round(x, 4) for x in row['launcher']['loss']]}, launches {counts}")
-    if not (counts.get(fa_ops.BWD_DQ_KERNEL, 0) == counts.get(fa_ops.BWD_DKDV_KERNEL, 0) == n
-            and not counts.get(fa_ops.BWD_TC_KERNEL, 0)
-            and all(math.isfinite(x) for x in row["launcher"]["loss"])):
-        raise RuntimeError(f"lm train: the launcher's default run launched {counts}")
+    log(f"[{tag}] the launcher's default (REDUCED {arch}, {reduced.dtype}), {LAUNCHER_STEPS} "
+        f"steps: losses {[round(x, 4) for x in row['launcher']['loss']]}, launches {counts}")
+    if (any(counts.get(k, 0) != v * LAUNCHER_STEPS for k, v in _train_launches(reduced).items())
+            or not all(math.isfinite(x) for x in row["launcher"]["loss"])):
+        raise RuntimeError(f"{tag}: the launcher's default run launched {counts}")
     return row
 
 
@@ -3016,6 +3085,171 @@ def phase_flash_bwd():
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_hybrid_train():
+    """REDUCED Jamba (the hybrid family: SSD, flash and MoE layers) trained
+    through ``Trainer`` for HYBRID_STEPS steps on the card, its launches per
+    step, and one gradient of ``loss_fn`` on the card against the CPU's (the
+    plain versions) at the f32 tolerance, every leaf."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.train_step import _grads
+
+    full = get_config(HYBRID_TRAIN_ARCH)
+    cfg = get_config(HYBRID_TRAIN_ARCH, reduced=True)
+    log(f"[hybrid train] REDUCED {HYBRID_TRAIN_ARCH} ({cfg.dtype}, {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, state {cfg.ssm_state}, {cfg.num_experts} experts); FULL cannot train on "
+        f"one card: {full.param_count() / 1e9:.1f} B params are "
+        f"{full.param_count() * 2 / 1e9:.1f} GB of bf16 weights, with f32 AdamW moments and "
+        f"bf16 grads ~{full.param_count() * 12 / 1e9:.0f} GB; B {HYBRID_SHAPE[0]} x "
+        f"{HYBRID_SHAPE[1]}")
+    tr = Trainer(cfg, _train_cfg(dict(steps=HYBRID_STEPS, batch=HYBRID_SHAPE[0],
+                                      seq=HYBRID_SHAPE[1])))
+    records = []
+    _timed_steps(tr, records, 0)
+    build.reset_launch_counts()
+    out = tr.run()
+    torch.cuda.synchronize()
+    want = _train_launches(cfg)
+    steps = [dict(step=m["step"], loss=m["loss"], step_ms=r["events"][0].elapsed_time(
+        r["events"][1]), launches=r["launches"]) for m, r in zip(out["metrics"], records)]
+    for st in steps:
+        log(f"[hybrid train] step {st['step']}: loss {st['loss']:.4f}, {st['step_ms']:.1f} ms, "
+            f"launches {st['launches']}")
+        if any(st["launches"].get(k, 0) != v for k, v in want.items()) or not math.isfinite(
+                st["loss"]):
+            raise RuntimeError(f"hybrid train step {st['step']}: {st}, expected {want}")
+    params = tr.init_state()["params"]
+    batch = tr.batch(0)
+    loss, _, grads = _grads(params, cfg, batch)
+    g_card = [g.cpu() for g in _tree_leaves(grads)]
+    closs, _, cgrads = _grads(_rebuild_like(params, "cpu", None), cfg,
+                              {k: v.cpu() for k, v in batch.items()})
+    worst = max(float(((a - b).abs() - F32_RTOL * b.abs()).max())
+                for a, b in zip(g_card, _tree_leaves(cgrads)))
+    err = max(float((a - b).abs().max()) for a, b in zip(g_card, _tree_leaves(cgrads)))
+    row = dict(arch=HYBRID_TRAIN_ARCH, reduced=True, shape=list(HYBRID_SHAPE), steps=steps,
+               loss=float(loss), cpu_loss=float(closs), grad_max_abs_err=err,
+               grad_leaves=len(g_card), want=want)
+    log(f"[hybrid train] card vs CPU: loss {float(loss):.6f} vs {float(closs):.6f}; "
+        f"{len(g_card)} gradient leaves, max |card - CPU| {err:.3g}, worst excess over "
+        f"rtol {F32_RTOL}: {worst:.3g} (<= atol {F32_ATOL})")
+    if not (worst <= F32_ATOL and abs(float(loss) - float(closs)) <= F32_ATOL + F32_RTOL * abs(
+            float(closs))):
+        raise RuntimeError(f"hybrid train: card vs CPU {row}")
+    return row
+
+
+def phase_ssd_bwd():
+    """The SSD backward (``csrc/ssd_scan_bwd.cu``) through its wrapper against
+    ``ssd_intra_chunk_bwd_ref`` on the card at SSD_BWD_CASES: each gradient
+    within 1e-4 of its largest magnitude, run-to-run bitwise, timed beside
+    the plain backward, the bound and one ``torch.autograd.grad`` of the
+    plain forward; no one PyTorch call computes it, so no library time."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_bwd_ref, ssd_intra_chunk_ref
+
+    gen = _cuda_gen(7)
+    rows = []
+    for label, b, nc, q, n, h, p in SSD_BWD_CASES:
+        cc = torch.randn((b, nc, q, n), generator=gen, device="cuda")
+        bc = torch.randn((b, nc, q, n), generator=gen, device="cuda")
+        xdt = torch.randn((b, nc, h, q, p), generator=gen, device="cuda")
+        dy = torch.randn((b, nc, h, q, p), generator=gen, device="cuda")
+        # a realistic decreasing log-decay, as the lm kernels phase
+        acum = -torch.cumsum(torch.rand((b, nc, h, q), generator=gen, device="cuda") * 0.05, -1)
+        args = (cc, bc, xdt, acum, dy)
+        got = ssd_ops.ssd_intra_chunk_bwd(*args)
+        again = ssd_ops.ssd_intra_chunk_bwd(*args)
+        want = ssd_intra_chunk_bwd_ref(*args)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, g) for a, g in zip(got, again))
+        errs, rels = {}, {}
+        for name, g, w in zip(("dcc", "dbc", "dxdt", "dacum"), got, want):
+            errs[name] = float((g - w).abs().max())
+            rels[name] = errs[name] / max(float(w.abs().max()), 1e-30)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        del got, again, want
+        ms = cuda_ms(lambda: ssd_ops.ssd_intra_chunk_bwd(*args), reps=5)
+        plain_ms = cuda_ms(lambda: ssd_intra_chunk_bwd_ref(*args), reps=2)
+
+        def autograd_plain():
+            leaves = [t.detach().requires_grad_() for t in (cc, bc, xdt, acum)]
+            return torch.autograd.grad(ssd_intra_chunk_ref(*leaves), leaves, dy)
+
+        autograd_ms = cuda_ms(autograd_plain, reps=2)
+        pairs = q * (q + 1) // 2
+        # dXdt and dW per head, dC and dB, and the C Bᵀ rebuild, on the lower triangle
+        ops = 2.0 * b * nc * pairs * (2 * h * p + 3 * n)
+        nbytes = 4.0 * (2 * cc.numel() + 2 * bc.numel() + 3 * xdt.numel() + 2 * acum.numel())
+        b_ms, b_by = bound(nbytes, ops, FP32_FLOPS)
+        row = dict(case=label, b=b, nc=nc, q=q, n=n, h=h, p=p, max_abs_err=max(errs.values()),
+                   errors=errs, rel_errors=rels, run_to_run_bitwise=bitwise, ms=ms,
+                   plain_ms=plain_ms, autograd_plain_ms=autograd_ms, library_ms=None,
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
+                   tflops=ops / ms / 1e9)
+        log(f"[ssd bwd] {label} B={b} NC={nc} Q={q} N={n} H={h} P={p}: max |err| / max |g| "
+            f"{ {k: f'{v:.2e}' for k, v in rels.items()} } (<= {SSD_ATOL}); bitwise {bitwise}; "
+            f"ms={ms:.3f} plain_ms={plain_ms:.3f} (autograd through the plain forward "
+            f"{autograd_ms:.3f}) bound_ms={b_ms:.4f} ({b_by}: {ops / 1e9:.2f} GFLOP at "
+            f"{FP32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB); {row['tflops']:.1f} "
+            f"TFLOP/s, {ms / b_ms:.2f}x the bound; library: none, no one PyTorch call "
+            f"computes it")
+        if not (bitwise and finite and max(rels.values()) <= SSD_ATOL):
+            raise RuntimeError(f"ssd bwd {label}: {row}")
+        rows.append(row)
+        del cc, bc, xdt, dy, acum, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serve_cli():
+    """``python -m repro_torch.launch.serve`` as a user calls it, through
+    ``main(argv)`` on the card: REDUCED ``ample-gcn`` (3 requests on one
+    graph: one cold plan, then cache hits; a batch of 3) and FULL
+    ``mamba2-370m`` (4 prompts of 16, 8 new tokens: one SSD launch a layer)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import serve as serve_launcher
+
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    gnn = serve_launcher.main(["--arch", "ample-gcn", "--requests", "3"])
+    gnn_s = time.perf_counter() - t0
+    gnn_counts = build.launch_counts()
+    info = gnn["engine"].cache_info()
+    hits = [r.cache_hit for r in gnn["responses"]]
+    same = all(np.array_equal(r.outputs, gnn["responses"][0].outputs)
+               for r in gnn["responses"][1:])
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    lm = serve_launcher.main(["--arch", "mamba2-370m", "--full", "--tokens", "8"])
+    torch.cuda.synchronize()
+    lm_s = time.perf_counter() - t0
+    lm_counts = build.launch_counts()
+    layers = get_config("mamba2-370m").num_layers
+    row = dict(gnn_cache_hits=hits, gnn_planner_calls=info["planner_calls"],
+               gnn_launches=gnn_counts, gnn_warm_equal_cold=same, gnn_s=gnn_s,
+               lm_tokens=list(lm["tokens"].shape), lm_launches=lm_counts, lm_s=lm_s)
+    log(f"[serve cli] ample-gcn: cache hits {hits}, planner calls {info['planner_calls']}, warm "
+        f"== cold {same}, launches {gnn_counts}, {gnn_s:.1f} s; FULL mamba2-370m: tokens "
+        f"{row['lm_tokens']}, launches {lm_counts}, {lm_s:.1f} s")
+    if not (hits == [False, True, True] and info["planner_calls"] == 2 and same
+            and gnn_counts.get("segment_agg", 0)):
+        raise RuntimeError(f"serve cli: the GNN run {row}")
+    if not (lm_counts == {ssd_ops.KERNEL: layers} and row["lm_tokens"] == [4, 16 + 8]):
+        raise RuntimeError(f"serve cli: the LM run {row}")
+    return row
 
 
 LM_CPU_ARCHS = ("qwen3-8b", "mamba2-370m", "granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
@@ -3378,6 +3612,21 @@ def main() -> int:
     # output existed (PERF.md).
     log(f"[flash bwd] the forward with lse=null at Qwen3-8B's shape: "
         f"{flash_rows[0]['ms']:.3f} ms (before the lse output: 0.596, 0.616 ms); {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("ssm train"):
+        ssm_train_row = phase_lm_train(SSM_TRAIN_ARCH, SSM_TRAIN_PARAMS, SSM_TRAIN_BATCH,
+                                       tag="ssm train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("hybrid train"):
+        hybrid_train_row = phase_hybrid_train()
+    with phase("ssd bwd"):
+        ssd_bwd_rows = phase_ssd_bwd()
+    with phase("serve cli"):
+        serve_cli_row = phase_serve_cli()
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("lm cpu"):
         lm_cpu_rows = phase_lm_cpu()
 
@@ -3475,7 +3724,23 @@ def main() -> int:
                         ssm_row["launches"].get(ssd_ops.KERNEL, 0), ssd_rows[0],
                         "B={b} NC={nc} Q={q} N={n} H={h} P={p} f32".format(**ssd_rows[0])),
              f32_bound_ms=ssd_rows[0]["f32_bound_ms"],
-             launches_by_lm_path=lm_paths(ssd_ops.KERNEL)),
+             launches_by_lm_path=lm_paths(ssd_ops.KERNEL),
+             launches_ssm_train_run=ssm_train_row["launches"].get(ssd_ops.KERNEL, 0)),
+        # The SSD's backward: launches in the FULL Mamba2-370M training run
+        # (TRAIN_STEPS steps, one a layer a step), times at its shape.
+        dict(kernel_row("ssd_intra_chunk_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
+                        "src/repro/kernels/ssd_scan/ssd_scan.py:52",
+                        ssm_train_row["launches"].get(ssd_ops.KERNEL_BWD, 0), ssd_bwd_rows[0],
+                        "B={b} NC={nc} Q={q} N={n} H={h} P={p} f32".format(**ssd_bwd_rows[0])),
+             note="the gradient of the Pallas kernel at replaces, which has no VJP",
+             library="none: no one PyTorch call computes it",
+             launches_per_step=ssm_train_row["steps"][-1]["launches"].get(ssd_ops.KERNEL_BWD, 0),
+             launches_hybrid_train_run=sum(st["launches"].get(ssd_ops.KERNEL_BWD, 0)
+                                           for st in hybrid_train_row["steps"]),
+             autograd_plain_ms=ssd_bwd_rows[0]["autograd_plain_ms"],
+             cases={r["case"]: {k: r[k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "autograd_plain_ms", "bound_ms", "bound_by")}
+                 for r in ssd_bwd_rows[1:]}),
     ]
 
     def path_detail(outs, batch, counts, peak):
@@ -3501,7 +3766,8 @@ def main() -> int:
         lm_path=lm_row, ssm_path=ssm_row, moe_path=moe_row, moe_interleaved_path=moe2_row,
         hybrid_path=hybrid_row, vlm_path=vlm_row, encdec_path=encdec_row,
         flash_attention=flash_rows, ssd_intra_chunk=ssd_rows, lm_train=train_row,
-        flash_attention_bwd=bwd_rows,
+        flash_attention_bwd=bwd_rows, ssm_train=ssm_train_row, hybrid_train=hybrid_train_row,
+        ssd_intra_chunk_bwd=ssd_bwd_rows, serve_cli=serve_cli_row,
         lm_cpu=lm_cpu_rows, outofcore=ooc_rows, h2d_gbps=h2d_row, fronts=fronts_row,
         sharded_gcn=sharded_row, plan_store=store_row, sharded_overlap=overlap_row,
         sharded_mincut=mincut_row, sharded_gat=sgat_row, qat_gcn=qat_row,

@@ -17,7 +17,8 @@ import dataclasses
 import importlib
 from typing import Callable, Dict, Tuple
 
-__all__ = ["ModelConfig", "register", "get_config", "list_configs", "pad_to_multiple"]
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "register", "get_config", "list_configs",
+           "pad_to_multiple"]
 
 
 def pad_to_multiple(x: int, m: int) -> int:
@@ -202,6 +203,25 @@ class ModelConfig:
         n_moe = self.num_layers // self.moe_layer_period
         inactive = n_moe * (self.num_experts - self.experts_per_token) * per_expert
         return int(self.param_count() - inactive)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """An input-shape cell: a batch of sequences and what is run on it
+    (``launch/analytic.py`` counts its FLOPs and bytes)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

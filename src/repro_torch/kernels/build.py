@@ -15,8 +15,9 @@ A kernel's result carries no autograd graph. So each wrapper calls
 ``require_no_grad`` before it launches: under grad, an input that requires
 grad raises instead of leaving a gradient silently cut. The AGE's backward
 is the AGE on the transposed plan (``core/aggregation.py``), which runs the
-wrapper with grad off; flash attention's is its own pair of kernels
-(``csrc/flash_attention_bwd.cu``, an autograd Function in its ``ops.py``).
+wrapper with grad off; flash attention's and the SSD's are kernels of their
+own (``csrc/flash_attention_bwd.cu``, ``csrc/ssd_scan_bwd.cu``), each behind
+an autograd Function in its ``ops.py``.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have neither ``nvcc`` nor a card.
@@ -164,6 +165,15 @@ _SIGNATURES = {
         _I,  # heads per block
         _P,  # stream
     ],
+    "ample_ssd_intra_chunk_bwd": [
+        _I,  # device
+        _P, _P, _P, _P, _P,  # cc, bc [B, NC, Q, N], xdt [B, NC, H, Q, P], acum [B, NC, H, Q], dy
+        _P, _P, _P, _P,  # dcc, dbc, dxdt, dacum
+        _P, _P, _P, _P,  # scratch: C Bᵀ [B, NC, QP, QP], dCB [splits, B, NC, QP, QP]; G row, column partials [B, NC, H, T, QP]
+        _I, _I, _I, _I, _I, _I,  # b, nc, q, n, h, p
+        _I,  # head runs (splits) of the first kernel
+        _P,  # stream
+    ],
 }
 
 _launches: Dict[str, int] = {}
@@ -177,8 +187,6 @@ _BACKWARD = {
     "attention": "ROADMAP.md queue 1 item 8 (GAT training on the card)",
     "segment_agg_mh": "ROADMAP.md queue 1 item 8 (GAT training on the card)",
     "quant_matmul": "ROADMAP.md queue 1 item 9 (QAT through the int8 FTE)",
-    "ssd_intra_chunk": "ROADMAP.md queue 1 item 11 (the SSD backward kernel: training the "
-                       "ssm and hybrid families on the card)",
 }
 
 

@@ -7,8 +7,10 @@ per head (A), and the SSD chunked algorithm:
   * intra-chunk: the quadratic term ``((C Bᵀ) ∘ L) @ X·dt`` with
     ``L[i,j] = exp(Σ_{j<k≤i} a_k)``, through the SSD kernel's wrapper
     (``kernels/ssd_scan``): on a CUDA tensor it launches
-    ``csrc/ssd_scan.cu``, on a CPU tensor it runs the plain version. The
-    reference computes the same term with einsums in the layer;
+    ``csrc/ssd_scan.cu``, on a CPU tensor it runs the plain version. Under
+    grad its autograd Function's backward is ``csrc/ssd_scan_bwd.cu`` (the
+    plain backward on the CPU). The reference computes the same term with
+    einsums in the layer and differentiates them;
   * inter-chunk: a linear recurrence over per-chunk states, a loop over the
     chunks (the reference's ``lax.scan``).
 

@@ -47,7 +47,7 @@ from repro_torch.kernels.segment_agg.ref import (
     attend_tiles_ref,
 )
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_bwd_ref, ssd_intra_chunk_ref
 from repro_torch.memory.feature_store import FeatureStore
 from repro_torch.memory import prefetcher
 from repro_torch.memory.prefetcher import ChunkPrefetcher, StreamedFeatures
@@ -915,6 +915,104 @@ def test_ssd_intra_chunk_matches_plain(cuda, b, nc, q, n, h, p):
         np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-4)
 
 
+def _ssd_bwd_inputs(b, nc, q, n, h, p, seed, device):
+    """Unit-normal C, B, Xdt and dY and a realistic decreasing log-decay."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((b, nc, q, n)), rng.standard_normal((b, nc, q, n)),
+            rng.standard_normal((b, nc, h, q, p)),
+            -np.cumsum(rng.uniform(size=(b, nc, h, q)) * 0.05, axis=-1),
+            rng.standard_normal((b, nc, h, q, p))]
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrs]
+
+
+# The SSD backward (csrc/ssd_scan_bwd.cu) at the shapes of chip_smoke.py's
+# ``ssd bwd`` phase (the Mamba2-370M training shape, Jamba's N 16 H 128, a
+# ragged Q 200, the REDUCED configs' P 16) and small ragged ones: Q = 1, N
+# and P off the 32-column steps, H odd.
+SSD_BWD_SHAPES = [
+    (4, 8, 256, 128, 32, 64), (2, 2, 256, 16, 128, 64), (2, 2, 200, 128, 32, 64),
+    (1, 3, 256, 16, 8, 16), (1, 2, 1, 4, 2, 8), (1, 1, 70, 37, 3, 24), (2, 1, 130, 70, 5, 128),
+]
+
+
+@pytest.mark.parametrize("b,nc,q,n,h,p", SSD_BWD_SHAPES)
+def test_ssd_intra_chunk_bwd_matches_plain(cuda, b, nc, q, n, h, p):
+    """Each gradient within 1e-4 of its largest magnitude of the plain
+    backward's, one counted launch a call, bitwise on a second call."""
+    args = _ssd_bwd_inputs(b, nc, q, n, h, p, q * h + p, cuda)
+    before = build.launch_counts().get(ssd_ops.KERNEL_BWD, 0)
+    got = ssd_ops.ssd_intra_chunk_bwd(*args)
+    again = ssd_ops.ssd_intra_chunk_bwd(*args)
+    torch.cuda.synchronize()
+    assert build.launch_counts()[ssd_ops.KERNEL_BWD] == before + 2
+    for g, a, w in zip(got, again, ssd_intra_chunk_bwd_ref(*args)):
+        assert g.shape == w.shape and torch.equal(g, a)
+        scale = float(w.abs().max().clamp_min(1e-30))
+        assert float((g - w).abs().max()) <= 1e-4 * scale
+
+
+def test_ssd_intra_chunk_gradient_under_grad_launches_the_backward(cuda):
+    """Under grad the wrapper's autograd Function launches the forward once
+    and the backward once; its gradients against autograd through the plain
+    forward on the card, dy handed as a permuted view as the layer does."""
+    cc, bc, xdt, acum, dy = _ssd_bwd_inputs(2, 2, 96, 24, 3, 16, 5, cuda)
+    dyv = dy.permute(0, 1, 3, 2, 4).contiguous().permute(0, 1, 3, 2, 4)
+    leaves = [x.clone().requires_grad_() for x in (cc, bc, xdt, acum)]
+    build.reset_launch_counts()
+    out = ssd_ops.ssd_intra_chunk(*leaves)
+    got = torch.autograd.grad(out, leaves, dyv)
+    torch.cuda.synchronize()
+    assert build.launch_counts() == {ssd_ops.KERNEL: 1, ssd_ops.KERNEL_BWD: 1}
+    plain = [x.clone().requires_grad_() for x in (cc, bc, xdt, acum)]
+    want = torch.autograd.grad(ssd_intra_chunk_ref(*plain), plain, dy)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_ssd_intra_chunk_bwd_refuses_what_the_kernels_do_not_take(cuda):
+    args = _ssd_bwd_inputs(1, 1, 16, 8, 2, 8, 0, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_ops.ssd_intra_chunk_bwd(*args[:4], args[4].double())
+    with pytest.raises(TypeError, match="float32"):
+        ssd_ops.ssd_intra_chunk_bwd(args[0].double(), *args[1:])
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="no SSD kernel for device meta"):
+        ssd_ops.ssd_intra_chunk_bwd(*meta)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_ops.ssd_intra_chunk_bwd(*args[:4], args[4][..., :4])
+
+
+def test_mamba_loss_gradient_on_card_matches_cpu(cuda):
+    """REDUCED mamba2-370m: ``loss_fn``'s every gradient leaf on the card
+    (the SSD kernels forward and backward once per layer) within atol 5e-4,
+    rtol 1e-3 of the CPU's (the plain versions)."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.api import loss_fn
+
+    cfg = get_config("mamba2-370m", reduced=True)
+    params = model_init(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    batch = synthetic_batch(seed=0, step=0, batch=2, seq=300, vocab=cfg.vocab_size,
+                            family=cfg.family, d_model=cfg.d_model)
+    grads = []
+    for dev, p in ((cuda, params), ("cpu", params_to(params, "cpu"))):
+        leaves = [t.detach().clone().requires_grad_() for t in _flat(p)]
+        tree = _rebuild(p, leaves)
+        build.reset_launch_counts()
+        loss, _ = loss_fn(tree, cfg, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, leaves)])
+        if dev is cuda:
+            assert build.launch_counts() == {ssd_ops.KERNEL: cfg.num_layers,
+                                             ssd_ops.KERNEL_BWD: cfg.num_layers}
+    for g, w in zip(*grads):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=5e-4, rtol=1e-3)
+
+
+def _rebuild(tree, leaves):
+    from repro_torch.optim.adamw import _rebuild as rebuild
+
+    return rebuild(tree, iter(leaves))
+
+
 # The backward kernels (csrc/flash_attention_bwd.cu) against their plain
 # version: Qwen2-1.5B's GQA 12/2 at hd 128 and SmolLM's 15/5 at hd 64 (bf16:
 # the forward on the tensor cores), the REDUCED configs' hd 20, causal with
@@ -1452,17 +1550,15 @@ def test_qat_step_on_card_matches_cpu(cuda):
 
 def test_kernel_wrappers_raise_under_grad(cuda):
     """Every wrapper whose kernel has no backward raises under grad when an
-    input requires grad, and launches under no_grad. (Flash attention has a
-    backward: ``test_flash_attention_gradient_under_grad_launches_the_backward``.)"""
+    input requires grad, and launches under no_grad. (Flash attention and the
+    SSD have a backward: ``test_flash_attention_gradient_under_grad_launches_the_backward``,
+    ``test_ssd_intra_chunk_gradient_under_grad_launches_the_backward``.)"""
     g = make_lognormal_graph(60, 4.0, seed=1)
     plan = build_edge_tile_plan(g, edges_per_tile=16)
     dp = to_device_plan(plan, cuda)
     x = torch.randn((60, 8), device=cuda, requires_grad=True)
     edges = torch.rand((g.num_edges, 2), device=cuda, requires_grad=True)
     z = torch.randn((60, 2, 4), device=cuda)
-    cc = torch.randn((1, 1, 16, 8), device=cuda, requires_grad=True)
-    xdt = torch.randn((1, 1, 2, 16, 8), device=cuda)
-    acum = torch.randn((1, 1, 2, 16), device=cuda)
     w = torch.randn((8, 5), device=cuda, requires_grad=True)
     calls = {
         "segment_agg": lambda: _agg(x, dp, 60, seg_ops.aggregate_tiles),
@@ -1472,7 +1568,6 @@ def test_kernel_wrappers_raise_under_grad(cuda):
         "segment_agg_mh": lambda: attn_ops.aggregate_tiles_mh(
             z, dp.gather_idx, dp.edge_ids, edges, dp.coeff, dp.seg_ids, dp.out_node, dp.split,
             num_nodes=60),
-        "ssd_intra_chunk": lambda: ssd_ops.ssd_intra_chunk(cc, cc.detach(), xdt, acum),
         "quant_matmul": lambda: transform_int8(x.detach(), *quantize_per_channel(w)),
     }
     for name, call in calls.items():

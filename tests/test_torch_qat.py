@@ -339,8 +339,9 @@ def test_require_no_grad_raises_only_under_grad():
     t = torch.ones(3, requires_grad=True)
     with pytest.raises(RuntimeError, match="item 8"):
         build.require_no_grad("attention", torch.ones(2), t)
-    with pytest.raises(RuntimeError, match="item 11"):  # flash has a backward: the SSD
-        build.require_no_grad("ssd_intra_chunk", t)
+    with pytest.raises(RuntimeError, match="item 9"):  # flash and the SSD have a backward
+        build.require_no_grad("quant_matmul", t)
+    assert "ssd_intra_chunk" not in build._BACKWARD
     with torch.no_grad():
         build.require_no_grad("attention", t)
     build.require_no_grad("quant_matmul", torch.ones(2), None)

@@ -3,8 +3,9 @@
 ``data/pipeline.py`` bitwise; the attention layer's gradient (through
 flash's autograd Function) against ``jax.grad`` of the reference's
 ``attention``; ``models/api.py::loss_fn`` and every gradient leaf against
-``jax.value_and_grad`` of the reference's ``loss_fn``; three steps of
-``make_train_step`` against the reference's; the launcher.
+``jax.value_and_grad`` of the reference's ``loss_fn`` (the ssm and hybrid
+families through the SSD's autograd Function and its plain backward); three
+steps of ``make_train_step`` against the reference's; the launcher.
 
 Parameters come from the reference's init and are carried over with
 ``models.api.params_from_numpy``; inputs are made with numpy. Tolerances:
@@ -45,7 +46,7 @@ from repro_torch.train.loop import Trainer, TrainerConfig
 ATOL, RTOL = 5e-4, 1e-3
 LR_UNITS = 0.02  # a step's params, in units of the step's lr
 TRAIN_ARCHS = ["qwen2-1.5b", "smollm-360m", "granite-moe-3b-a800m", "qwen2-vl-7b",
-               "seamless-m4t-medium"]
+               "seamless-m4t-medium", "mamba2-370m", "jamba-v0.1-52b"]
 
 
 def _np(tree):
@@ -165,7 +166,7 @@ def test_loss_masks_the_padded_vocab_tail():
 
 
 # ------------------------------------------------------------ train step
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-moe-3b-a800m", "mamba2-370m"])
 def test_three_train_steps_match_reference(arch):
     rcfg, pcfg = _pair(arch)
     rp, pp = _params(rcfg, pcfg, seed=3)
@@ -242,4 +243,17 @@ def test_launcher_trains_two_steps_on_cpu(capsys):
     out = port_launch.main(["--arch", "qwen2-1.5b", "--device", "cpu", "--steps", "2",
                             "--batch", "2", "--seq", "16"])
     assert int(out["state"]["step"]) == 2
+    assert "step     2  loss" in capsys.readouterr().out
+
+
+def test_launcher_trains_the_ssm_family_on_cpu(capsys):
+    """``launch.train --arch mamba2-370m --device cpu``: the SSD's autograd
+    Function on CPU tensors (its plain backward), no kernel launched."""
+    from repro_torch.kernels import build
+
+    build.reset_launch_counts()
+    out = port_launch.main(["--arch", "mamba2-370m", "--device", "cpu", "--steps", "2",
+                            "--batch", "2", "--seq", "40"])
+    assert int(out["state"]["step"]) == 2 and build.launch_counts() == {}
+    assert all(math.isfinite(r["loss"]) for r in out["metrics"])
     assert "step     2  loss" in capsys.readouterr().out
