@@ -196,8 +196,12 @@ Every phase that fails raises, so the script exits non-zero.
              ``ssd_intra_chunk_bwd_ref`` at Mamba2-370M's and Jamba's training
              shapes, a ragged chunk of 200 and the REDUCED launcher's P 16:
              within 1e-4 of each gradient's largest magnitude, run-to-run
-             bitwise, timed beside the plain backward, ``torch.autograd.grad``
-             through the plain forward and the bound (f32 CUDA-core peak);
+             bitwise, all finite, bitwise the same on the layer's permuted dY
+             view; timed beside the plain backward, ``torch.autograd.grad``
+             through the plain forward and both bounds (bytes against the
+             three TF32 products, and the f32 CUDA-core peak), each of its
+             three kernels' ms a call from a profiled run, the permuted dY
+             read at its strides against a contiguous copy;
     serve cli — ``launch.serve.main`` on the card: REDUCED ``ample-gcn``
              (3 requests: one cold plan, then cache hits, bitwise) and FULL
              ``mamba2-370m`` (8 new tokens, 48 SSD launches);
@@ -381,12 +385,12 @@ def _yelp_engine(srv, g):
 
 # Kernels that must keep every value in registers (a spill would sit in the
 # inner loop): the tensor-core flash kernel, the int8 GEMM, the tile walk
-# (AGE and GAT), the SSD's two kernels, its backward's three and both pairs
+# (AGE and GAT), the SSD's two kernels, its backward's two and both pairs
 # of flash's backward kernels (CUDA cores, tensor cores).
 NO_SPILL = ("flash_tc_kernel", "quant_matmul_kernel", "heads_walk_kernel", "ssd_cb_kernel",
             "ssd_tc_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
-            "flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkdv_kernel", "ssd_bwd_dcb_kernel",
-            "ssd_bwd_dxdt_kernel", "ssd_bwd_dcdb_kernel")
+            "flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkdv_kernel", "ssd_bwd_dwdx_kernel",
+            "ssd_bwd_dcdb_kernel")
 # The rows the GNN paths' int8 group hands the AGE at D 300 (phase_age's row
 # kinds): int8 codes at a row stride of 304 bytes (aggregation._int8_rows).
 AGE_PATH_ROWS = "int8 stride 304"
@@ -2148,8 +2152,14 @@ def _profiled(tag, fn):
             log(f"[{tag} profile]   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
     else:
         log(f"[{tag} profile] wall_ms={wall_ms:.1f}; device time not measured")
+    # the SSD backward's kernels, wherever they rank (training the ssm and hybrid families)
+    ssd_bwd = [(ms, c) for nm, ms, c in rows if "ssd_bwd" in nm]
+    if ssd_bwd:
+        log(f"[{tag} profile] the SSD backward's kernels: {sum(ms for ms, _ in ssd_bwd):.3f} ms "
+            f"in {sum(c for _, c in ssd_bwd)} launches")
     return dict(wall_ms=wall_ms, device_ms=busy if rows else None,
                 idle_share=max(0.0, 1 - busy / wall_ms) if rows else None,
+                ssd_bwd_ms=sum(ms for ms, _ in ssd_bwd) if rows else None,
                 top=[dict(name=nm, ms=ms, count=c) for nm, ms, c in rows[:24]])
 
 
@@ -2554,6 +2564,10 @@ HYBRID_STEPS, HYBRID_SHAPE = 3, (4, 512)
 F32_ATOL, F32_RTOL = 5e-4, 1e-3  # tests/test_gnn_models.py:46
 # The SSD backward against its plain version (1e-4 of each gradient's max,
 # as the forward's SSD_ATOL): (label, B, NC, Q, N, H, P).
+# Calls of a profiled run that times a kernel a call: a profiling session
+# that starts with device work loses its first kernels, and a session of a
+# few calls recorded none in a whole run of this script.
+PROFILED_CALLS = 20
 SSD_BWD_CASES = (
     ("mamba2-370m training", 4, 8, 256, 128, 32, 64),
     ("jamba training", 4, 8, 256, 16, 128, 64),
@@ -3144,39 +3158,72 @@ def phase_hybrid_train():
     return row
 
 
+def ssd_bwd_inputs(b, nc, q, n, h, p, seed):
+    """(cc, bc, xdt, acum, dy) on the card from ``seed``: unit-normal C, B,
+    Xdt and dY and a realistic decreasing log-decay, as the lm kernels phase."""
+    import torch
+
+    gen = _cuda_gen(seed)
+    cc = torch.randn((b, nc, q, n), generator=gen, device="cuda")
+    bc = torch.randn((b, nc, q, n), generator=gen, device="cuda")
+    xdt = torch.randn((b, nc, h, q, p), generator=gen, device="cuda")
+    dy = torch.randn((b, nc, h, q, p), generator=gen, device="cuda")
+    acum = -torch.cumsum(torch.rand((b, nc, h, q), generator=gen, device="cuda") * 0.05, -1)
+    return cc, bc, xdt, acum, dy
+
+
+def ssd_bwd_work(b, nc, q, n, h, p):
+    """(operations, bytes) the SSD backward needs: dXdt and dW per head, dC
+    and dB, and C Bᵀ again, on the lower triangle; each input read once and
+    each gradient written once."""
+    pairs = q * (q + 1) // 2
+    ops = 2.0 * b * nc * pairs * (2 * h * p + 3 * n)
+    nbytes = 4.0 * b * nc * (4 * q * n + 3 * h * q * p + 2 * h * q)
+    return ops, nbytes
+
+
 def phase_ssd_bwd():
     """The SSD backward (``csrc/ssd_scan_bwd.cu``) through its wrapper against
     ``ssd_intra_chunk_bwd_ref`` on the card at SSD_BWD_CASES: each gradient
-    within 1e-4 of its largest magnitude, run-to-run bitwise, timed beside
-    the plain backward, the bound and one ``torch.autograd.grad`` of the
-    plain forward; no one PyTorch call computes it, so no library time."""
+    within 1e-4 of its largest magnitude, run-to-run bitwise, all finite,
+    and bitwise the same when dY comes as the layer's permuted view; timed
+    beside the plain backward, both bounds (bytes against the three TF32
+    products, ``bound_ms``; against f32 FMAs on the CUDA cores,
+    ``f32_bound_ms``) and one ``torch.autograd.grad`` of the plain forward,
+    each kernel's ms a call from a profiled run; no one PyTorch call
+    computes it, so no library time."""
+    import re
+
     import torch
 
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_bwd_ref, ssd_intra_chunk_ref
 
-    gen = _cuda_gen(7)
     rows = []
     for label, b, nc, q, n, h, p in SSD_BWD_CASES:
-        cc = torch.randn((b, nc, q, n), generator=gen, device="cuda")
-        bc = torch.randn((b, nc, q, n), generator=gen, device="cuda")
-        xdt = torch.randn((b, nc, h, q, p), generator=gen, device="cuda")
-        dy = torch.randn((b, nc, h, q, p), generator=gen, device="cuda")
-        # a realistic decreasing log-decay, as the lm kernels phase
-        acum = -torch.cumsum(torch.rand((b, nc, h, q), generator=gen, device="cuda") * 0.05, -1)
-        args = (cc, bc, xdt, acum, dy)
+        args = ssd_bwd_inputs(b, nc, q, n, h, p, seed=7)
+        cc, bc, xdt, acum, dy = args
         got = ssd_ops.ssd_intra_chunk_bwd(*args)
         again = ssd_ops.ssd_intra_chunk_bwd(*args)
+        # dY as the layer hands it: a permuted view of a [B, NC, Q, H, P] gradient
+        view = dy.permute(0, 1, 3, 2, 4).contiguous().permute(0, 1, 3, 2, 4)
+        strided = ssd_ops.ssd_intra_chunk_bwd(cc, bc, xdt, acum, view)
         want = ssd_intra_chunk_bwd_ref(*args)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, g) for a, g in zip(got, again))
+        strided_bitwise = all(torch.equal(a, g) for a, g in zip(got, strided))
         errs, rels = {}, {}
         for name, g, w in zip(("dcc", "dbc", "dxdt", "dacum"), got, want):
             errs[name] = float((g - w).abs().max())
             rels[name] = errs[name] / max(float(w.abs().max()), 1e-30)
         finite = all(bool(torch.isfinite(g).all()) for g in got)
-        del got, again, want
+        del got, again, strided, want
         ms = cuda_ms(lambda: ssd_ops.ssd_intra_chunk_bwd(*args), reps=5)
+        # the layer's dY read at its strides, against copying it contiguous first
+        strided_ms = cuda_ms(lambda: ssd_ops.ssd_intra_chunk_bwd(cc, bc, xdt, acum, view), reps=5)
+        copied_ms = cuda_ms(
+            lambda: ssd_ops.ssd_intra_chunk_bwd(cc, bc, xdt, acum, view.contiguous()), reps=5)
+        del view
         plain_ms = cuda_ms(lambda: ssd_intra_chunk_bwd_ref(*args), reps=2)
 
         def autograd_plain():
@@ -3184,24 +3231,33 @@ def phase_ssd_bwd():
             return torch.autograd.grad(ssd_intra_chunk_ref(*leaves), leaves, dy)
 
         autograd_ms = cuda_ms(autograd_plain, reps=2)
-        pairs = q * (q + 1) // 2
-        # dXdt and dW per head, dC and dB, and the C Bᵀ rebuild, on the lower triangle
-        ops = 2.0 * b * nc * pairs * (2 * h * p + 3 * n)
-        nbytes = 4.0 * (2 * cc.numel() + 2 * bc.numel() + 3 * xdt.numel() + 2 * acum.numel())
-        b_ms, b_by = bound(nbytes, ops, FP32_FLOPS)
+        # each kernel's ms a call, from a profiled run of PROFILED_CALLS calls
+        _, _, prof_rows = _device_profile(
+            lambda: [ssd_ops.ssd_intra_chunk_bwd(*args) for _ in range(PROFILED_CALLS)])
+        kernel_ms = {re.search(r"ssd_bwd_\w+", name).group(0): k_ms / count
+                     for name, k_ms, count in prof_rows if "ssd_bwd_" in name}
+        ops, nbytes = ssd_bwd_work(b, nc, q, n, h, p)
+        b_ms, b_by = bound(nbytes, 3 * ops, TF32_FLOPS)
+        f32_ms, f32_by = bound(nbytes, ops, FP32_FLOPS)
         row = dict(case=label, b=b, nc=nc, q=q, n=n, h=h, p=p, max_abs_err=max(errs.values()),
-                   errors=errs, rel_errors=rels, run_to_run_bitwise=bitwise, ms=ms,
-                   plain_ms=plain_ms, autograd_plain_ms=autograd_ms, library_ms=None,
-                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops,
-                   tflops=ops / ms / 1e9)
+                   errors=errs, rel_errors=rels, run_to_run_bitwise=bitwise,
+                   strided_dy_bitwise=strided_bitwise, finite=finite, ms=ms,
+                   strided_dy_ms=strided_ms, copied_dy_ms=copied_ms,
+                   kernel_ms=kernel_ms or "not measured", plain_ms=plain_ms,
+                   autograd_plain_ms=autograd_ms, library_ms=None, bound_ms=b_ms,
+                   bound_by=b_by, f32_bound_ms=f32_ms, f32_bound_by=f32_by, bytes=nbytes,
+                   ops=ops, tflops=ops / ms / 1e9)
         log(f"[ssd bwd] {label} B={b} NC={nc} Q={q} N={n} H={h} P={p}: max |err| / max |g| "
             f"{ {k: f'{v:.2e}' for k, v in rels.items()} } (<= {SSD_ATOL}); bitwise {bitwise}; "
-            f"ms={ms:.3f} plain_ms={plain_ms:.3f} (autograd through the plain forward "
-            f"{autograd_ms:.3f}) bound_ms={b_ms:.4f} ({b_by}: {ops / 1e9:.2f} GFLOP at "
-            f"{FP32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB); {row['tflops']:.1f} "
-            f"TFLOP/s, {ms / b_ms:.2f}x the bound; library: none, no one PyTorch call "
-            f"computes it")
-        if not (bitwise and finite and max(rels.values()) <= SSD_ATOL):
+            f"permuted dY bitwise {strided_bitwise} ({strided_ms:.4f} ms read at its strides, "
+            f"{copied_ms:.4f} copied first); finite {finite}; ms={ms:.4f} (a call of "
+            f"{PROFILED_CALLS} profiled: {', '.join(f'{k} {v:.4f}' for k, v in kernel_ms.items()) or 'not measured'}) "
+            f"plain_ms={plain_ms:.3f} (autograd through the plain forward {autograd_ms:.3f}) "
+            f"bound_ms={b_ms:.4f} ({b_by}: 3 x {ops / 1e9:.2f} GFLOP at "
+            f"{TF32_FLOPS / 1e12:.1f} TFLOP/s, {nbytes / 1e6:.1f} MB) f32_bound_ms={f32_ms:.4f} "
+            f"({f32_by}, {FP32_FLOPS / 1e12:.0f} TFLOP/s); {row['tflops']:.1f} TFLOP/s, "
+            f"{ms / b_ms:.2f}x the bound; library: none, no one PyTorch call computes it")
+        if not (bitwise and strided_bitwise and finite and max(rels.values()) <= SSD_ATOL):
             raise RuntimeError(f"ssd bwd {label}: {row}")
         rows.append(row)
         del cc, bc, xdt, dy, acum, args
@@ -3733,14 +3789,15 @@ def main() -> int:
                         ssm_train_row["launches"].get(ssd_ops.KERNEL_BWD, 0), ssd_bwd_rows[0],
                         "B={b} NC={nc} Q={q} N={n} H={h} P={p} f32".format(**ssd_bwd_rows[0])),
              note="the gradient of the Pallas kernel at replaces, which has no VJP",
+             f32_bound_ms=ssd_bwd_rows[0]["f32_bound_ms"], kernel_ms=ssd_bwd_rows[0]["kernel_ms"],
              library="none: no one PyTorch call computes it",
              launches_per_step=ssm_train_row["steps"][-1]["launches"].get(ssd_ops.KERNEL_BWD, 0),
              launches_hybrid_train_run=sum(st["launches"].get(ssd_ops.KERNEL_BWD, 0)
                                            for st in hybrid_train_row["steps"]),
              autograd_plain_ms=ssd_bwd_rows[0]["autograd_plain_ms"],
              cases={r["case"]: {k: r[k] for k in (
-                 "max_abs_err", "ms", "plain_ms", "autograd_plain_ms", "bound_ms", "bound_by")}
-                 for r in ssd_bwd_rows[1:]}),
+                 "max_abs_err", "ms", "kernel_ms", "plain_ms", "autograd_plain_ms", "bound_ms",
+                 "bound_by", "f32_bound_ms")} for r in ssd_bwd_rows[1:]}),
     ]
 
     def path_detail(outs, batch, counts, peak):

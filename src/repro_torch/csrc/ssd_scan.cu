@@ -49,11 +49,17 @@
 //      order (0, 2, 4, 6, 1, 3, 5, 7) in both operands: the weights come
 //      straight from the C B^T fragments, and the Xdt tiles are written in
 //      that order. Y stays in registers until the head's last key block.
+// The cp.async, TF32 split and mma.sync helpers live in tf32_tiles.cuh,
+// shared with the backward (ssd_scan_bwd.cu).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_tiles.cuh"
+
 namespace {
+
+using namespace tf32;  // cp.async, the TF32 split, mma.sync and its three-term step
 
 constexpr int kRows = 64;         // rows i per block, and keys j per key block
 constexpr int kWarps = 4;         // one warp per 16 rows
@@ -67,106 +73,6 @@ __host__ __device__ constexpr int x_stride(int pt) { return pt + 4; }
 // Floats of one key block of C B^T for a block's 64 rows: 4 warps x 8 key
 // tiles x 32 lanes x 4.
 constexpr int kCbBlock = kWarps * 8 * 32 * 4;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// cp.async of 16 or 4 bytes; src_bytes 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo in two TF32 terms (x - hi is exact in f32).
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One 8-deep step of acc[nt] += A B_nt for NG 8-column tiles, A (16 x 8)
-// given split, B_nt (8 x 8) fetched by load_b(nt, b0, b1) and split here.
-// Each tile's three products go into a fresh sum, the small terms first
-// (lo*hi' + hi*lo' + hi*hi'), issued across the tiles so that consecutive
-// mma are independent; the sum is then added to acc by a rounded f32 add.
-// The tensor cores truncate as they accumulate: a fresh sum keeps that error
-// relative to one step's products, not to the running sum.
-template <int NG, typename LoadB>
-__device__ __forceinline__ void step3(float (&acc)[NG][4], const uint32_t (&ah)[4],
-                                      const uint32_t (&al)[4], LoadB load_b) {
-  uint32_t bh[NG][2], bl[NG][2];
-#pragma unroll
-  for (int nt = 0; nt < NG; ++nt) {
-    float b0, b1;
-    load_b(nt, b0, b1);
-    split(b0, bh[nt][0], bl[nt][0]);
-    split(b1, bh[nt][1], bl[nt][1]);
-  }
-  float t[NG][4];
-#pragma unroll
-  for (int nt = 0; nt < NG; ++nt) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) t[nt][q] = 0.f;
-    mma_tf32(t[nt], al, bh[nt][0], bh[nt][1]);
-  }
-#pragma unroll
-  for (int nt = 0; nt < NG; ++nt) mma_tf32(t[nt], ah, bl[nt][0], bl[nt][1]);
-#pragma unroll
-  for (int nt = 0; nt < NG; ++nt) mma_tf32(t[nt], ah, bh[nt][0], bh[nt][1]);
-#pragma unroll
-  for (int nt = 0; nt < NG; ++nt)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[nt][q] = __fadd_rn(acc[nt][q], t[nt][q]);
-}
-
-// Rows [r0, r0 + 64) x columns [c0, c0 + cols) of a row-major [rows_total, width]
-// f32 array into dst (row stride ld floats), zeros past rows_total and width.
-// 16-byte copies when every row is 16-byte aligned.
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src, int r0,
-                                           int rows_total, int c0, int cols, int width) {
-  if ((width & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int per_row = cols / 4;
-    for (int q = threadIdx.x; q < kRows * per_row; q += kThreads) {
-      const int r = q / per_row, c = c0 + (q - r * per_row) * 4;
-      const bool ok = r0 + r < rows_total && c < width;
-      cp_async16(dst + r * ld + (c - c0), ok ? src + static_cast<int64_t>(r0 + r) * width + c : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int q = threadIdx.x; q < kRows * cols; q += kThreads) {
-      const int r = q / cols, c = c0 + (q - r * cols);
-      const bool ok = r0 + r < rows_total && c < width;
-      cp_async4(dst + r * ld + (c - c0), ok ? src + static_cast<int64_t>(r0 + r) * width + c : src,
-                ok ? 4 : 0);
-    }
-  }
-}
 
 // Block (pair, b * NC + c) of the pre-pass: C B^T for rows [i0, i0 + 64) and
 // keys [j0, j0 + 64) of chunk (b, c), one (row tile, key block) pair with
@@ -193,8 +99,9 @@ __global__ void __launch_bounds__(kThreads) ssd_cb_kernel(const float* __restric
   const int steps = (N + kNStep - 1) / kNStep;
   auto stage = [&](int s) {
     float* cs = smem + (s & 1) * 2 * kRows * kLDN;
-    stage_rows(cs, kLDN, cch, i0, Q, s * kNStep, kNStep, N);
-    stage_rows(cs + kRows * kLDN, kLDN, bch, jb * kRows, Q, s * kNStep, kNStep, N);
+    stage_rows<kRows, kThreads>(cs, kLDN, cch, N, i0, Q, s * kNStep, kNStep, N);
+    stage_rows<kRows, kThreads>(cs + kRows * kLDN, kLDN, bch, N, jb * kRows, Q, s * kNStep, kNStep,
+                                N);
   };
   stage(0);
   cp_async_commit();
@@ -367,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) ssd_tc_kernel(
   auto stage = [&](int s) {
     const int hh = s / nkb, jb = s - hh * nkb;
     const int64_t bch_h = bcidx * H + h0 + hh;
-    stage_rows(xs, LDX, xdt + bch_h * Q * P, jb * kRows, Q, 0, PT, P);
+    stage_rows<kRows, kThreads>(xs, LDX, xdt + bch_h * Q * P, P, jb * kRows, Q, 0, PT, P);
     for (int q = threadIdx.x; q < kCbBlock / 4; q += kThreads) {
       const int w = q / 256, rem = q - w * 256;  // 256 float4 per warp: 8 key tiles x 32 lanes
       cp_async16(cs + 4 * q, cbb + (w * (QP / 8) + jb * 8) * 128 + 4 * rem, 16);

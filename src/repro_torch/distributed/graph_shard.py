@@ -73,7 +73,7 @@ __all__ = ["HaloLedger", "ShardedAmpleEngine", "sharded_aggregate", "make_sharde
 
 NO_MESH = (
     "the mesh backend (one card per shard over torch.distributed) is not "
-    "ported (ROADMAP queue 1, item 13); shards run as a host loop on one "
+    "ported (ROADMAP queue 1, item 6); shards run as a host loop on one "
     "device: drop mesh"
 )
 _TAGS = ("float", "int8")

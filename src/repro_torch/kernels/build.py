@@ -57,6 +57,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 # C entry point -> argument types. Every entry point returns the
 # cudaError_t of its launches (0 = success).
@@ -169,9 +170,10 @@ _SIGNATURES = {
         _I,  # device
         _P, _P, _P, _P, _P,  # cc, bc [B, NC, Q, N], xdt [B, NC, H, Q, P], acum [B, NC, H, Q], dy
         _P, _P, _P, _P,  # dcc, dbc, dxdt, dacum
-        _P, _P, _P, _P,  # scratch: C Bᵀ [B, NC, QP, QP], dCB [splits, B, NC, QP, QP]; G row, column partials [B, NC, H, T, QP]
+        _P, _P, _P, _P,  # scratch: C Bᵀ tiles [B, NC, T (T + 1) / 2, 64, 64]; dCB [runs, B, NC, QP, QP]; G partials: rows [B, NC, H, T, QP], keys [B, NC, H, QP]
         _I, _I, _I, _I, _I, _I,  # b, nc, q, n, h, p
-        _I,  # head runs (splits) of the first kernel
+        _L, _L, _L,  # dy's strides (floats): chunk, head, row
+        _I, _I,  # heads per run of the first kernel; its ring's slots (0: the deepest that fits)
         _P,  # stream
     ],
 }

@@ -8,10 +8,12 @@ plain version (``ref.py``).
 
 Under grad (grad mode on and an input that requires grad) the call goes
 through ``SSDIntraChunkFunction``: its forward is the same kernel, and its
-backward launches the three kernels of ``csrc/ssd_scan_bwd.cu`` (f32 on the
-CUDA cores), counted once a call under ``KERNEL_BWD``. On CPU tensors the
-same Function runs ``ssd_intra_chunk_ref`` and ``ssd_intra_chunk_bwd_ref``.
-A CUDA tensor never takes a plain version.
+backward launches the three kernels of ``csrc/ssd_scan_bwd.cu`` (f32 kept on
+the TF32 tensor cores the same way: C Bᵀ once a chunk, one fused dW/dXdt
+kernel over runs of heads, then dC, dB and dacum), counted once a call
+under ``KERNEL_BWD``. On
+CPU tensors the same Function runs ``ssd_intra_chunk_ref`` and
+``ssd_intra_chunk_bwd_ref``. A CUDA tensor never takes a plain version.
 """
 from __future__ import annotations
 
@@ -22,18 +24,25 @@ from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_bwd_ref, ssd_intra_
 
 __all__ = ["KERNEL", "KERNEL_BWD", "MAX_CHUNK", "MAX_HEADDIM", "HEADS_PER_BLOCK",
            "SSDIntraChunkFunction", "ssd_intra_chunk", "ssd_intra_chunk_bwd",
-           "bwd_head_splits"]
+           "bwd_heads_per_run"]
 
 KERNEL = "ssd_intra_chunk"
 KERNEL_BWD = "ssd_intra_chunk_bwd"
 MAX_CHUNK = 256  # C Bᵀ rows of a block stay in shared memory: 64 x Q f32
 MAX_HEADDIM = 128
 HEADS_PER_BLOCK = 2  # heads of one block of the main kernel
-# The backward's first kernel (one block per chunk and 64 x 64 tile pair,
-# walking the heads) splits the heads into runs until its grid has this many
-# blocks per SM: two of its blocks fit an SM, and with fewer the last wave
-# runs a few blocks alone.
-BWD_MIN_BLOCKS_PER_SM = 8
+# The backward's fused kernel (one block per key tile, chunk and run of
+# heads, one block an SM for its shared memory) splits the heads into runs
+# until its grid has this many blocks per SM; each run adds a dCB partial
+# that the last kernel stages and sums: at most BWD_MAX_RUNS of them, and
+# no more than one per BWD_MIN_HEADS heads (a shorter run shares its C Bᵀ
+# tiles too little to pay for its partial). One wave (2 runs, 256 blocks)
+# was the fastest at the Mamba2-370M training shape and within 1% of the
+# fastest at Jamba's; runs of 4 heads were the fastest at the REDUCED
+# launcher's shape (tools/ssd_bwd_sweep.py; PERF.md).
+BWD_WAVES = 1
+BWD_MAX_RUNS = 8
+BWD_MIN_HEADS = 4
 
 
 def _check(cc, bc, xdt, acum):
@@ -112,51 +121,75 @@ class SSDIntraChunkFunction(torch.autograd.Function):
         return ssd_intra_chunk_bwd(*ctx.saved_tensors, dy)
 
 
-def ssd_intra_chunk_bwd(cc, bc, xdt, acum, dy):
+def ssd_intra_chunk_bwd(cc, bc, xdt, acum, dy, *, heads_per_run=None, stages=0):
     """(dcc, dbc, dxdt, dacum) for the upstream gradient ``dy`` [B,NC,H,Q,P]
     of the term: the kernels of ``csrc/ssd_scan_bwd.cu`` on CUDA tensors,
-    ``ssd_intra_chunk_bwd_ref`` on CPU tensors."""
+    ``ssd_intra_chunk_bwd_ref`` on CPU tensors. ``dy`` may be the layer's
+    permuted view (unit column stride): the kernel reads it at its strides.
+    ``heads_per_run`` (default ``bwd_heads_per_run``) and ``stages`` (the
+    fused kernel's cp.async ring, 1 or 2 slots; 0 = the deepest that fits)
+    are the kernel's design knobs, for ``tools/ssd_bwd_sweep.py``."""
     _check(cc, bc, xdt, acum)
     if tuple(dy.shape) != tuple(xdt.shape) or dy.device != cc.device:
         raise ValueError(f"dy must be {tuple(xdt.shape)} on {cc.device}, got "
                          f"{tuple(dy.shape)} on {dy.device}")
     if cc.device.type == "cpu":
         return ssd_intra_chunk_bwd_ref(cc, bc, xdt, acum, dy)
-    dy = dy.contiguous()  # the layer hands a permuted view
-    _cuda_inputs(cc=cc, bc=bc, xdt=xdt, acum=acum, dy=dy)
+    _cuda_inputs(cc=cc, bc=bc, xdt=xdt, acum=acum)
+    if dy.dtype != torch.float32:
+        raise TypeError(f"dy must be float32, got {dy.dtype}")
+    dy, dy_strides = _dy_rows(dy)
     b, nc, q, n = cc.shape
     h, p = xdt.shape[2], xdt.shape[4]
     tiles = -(-q // 64)
     qp = tiles * 64
     dcc, dbc = torch.empty_like(cc), torch.empty_like(bc)
     dxdt, dacum = torch.empty_like(xdt), torch.empty_like(acum)
-    sms = torch.cuda.get_device_properties(cc.device).multi_processor_count
-    splits = bwd_head_splits(b * nc, tiles, h, sms)
-    # C Bᵀ and each head run's dCB of every chunk ([B, NC, QP, QP],
-    # lower-triangle tiles used), and the per-head row and column partial
-    # sums of G ([B, NC, H, T, QP]).
-    square, part = b * nc * qp * qp, b * nc * h * tiles * qp
-    scratch = torch.empty(((1 + splits) * square + 2 * part,), dtype=torch.float32,
+    if heads_per_run is None:
+        sms = torch.cuda.get_device_properties(cc.device).multi_processor_count
+        heads_per_run = bwd_heads_per_run(b * nc, tiles, h, sms)
+    runs = -(-h // heads_per_run)
+    if not 1 <= runs <= BWD_MAX_RUNS:
+        raise ValueError(f"{runs} runs of {heads_per_run} heads: the backward takes 1 to "
+                         f"{BWD_MAX_RUNS}")
+    # C Bᵀ's tiles on and below the diagonal of every chunk (64 x 64 each),
+    # each run's dCB of every chunk ([B, NC, QP, QP], the same tiles written),
+    # the sums of G = dW ∘ W over each key tile per row ([B, NC, H, T, QP])
+    # and over all rows per key ([B, NC, H, QP]).
+    cbt = b * nc * tiles * (tiles + 1) // 2 * 64 * 64
+    square, part = b * nc * qp * qp, b * nc * h * qp
+    scratch = torch.empty((cbt + runs * square + (tiles + 1) * part,), dtype=torch.float32,
                           device=cc.device)
-    cb, dcb, rowp, colp = scratch.split([square, splits * square, part, part])
+    cb, dcb, rowp, colp = scratch.split([cbt, runs * square, tiles * part, part])
     build.call(
         "ample_ssd_intra_chunk_bwd", cc.device,
         cc.data_ptr(), bc.data_ptr(), xdt.data_ptr(), acum.data_ptr(), dy.data_ptr(),
         dcc.data_ptr(), dbc.data_ptr(), dxdt.data_ptr(), dacum.data_ptr(),
         cb.data_ptr(), dcb.data_ptr(), rowp.data_ptr(), colp.data_ptr(), b, nc, q, n, h, p,
-        splits,
+        *dy_strides,
+        heads_per_run, stages,
     )
     build.count_launch(KERNEL_BWD)
     return dcc, dbc, dxdt, dacum
 
 
-def bwd_head_splits(chunks: int, tiles: int, heads: int, sms: int) -> int:
-    """Into how many runs the backward's first kernel splits the heads: 1
-    where its grid (``chunks`` × the tile pairs of ``tiles`` row tiles)
-    already has ``BWD_MIN_BLOCKS_PER_SM`` blocks per SM, else the fewest
-    runs that give it that many, at most one per head, and no run empty.
-    Each run adds a [B, NC, QP, QP] partial of dCB, summed in run order."""
-    blocks = chunks * tiles * (tiles + 1) // 2
-    want = max(1, min(heads, -(-BWD_MIN_BLOCKS_PER_SM * sms // max(blocks, 1))))
-    per_run = -(-heads // want)
-    return -(-heads // per_run)
+def _dy_rows(dy):
+    """``dy`` as the kernel reads it, and its (chunk, head, row) strides in
+    floats: the layer's permuted view as it is (unit column stride, one
+    stride for the chunk index b·NC + c), anything else copied contiguous."""
+    b, nc, h, q, p = dy.shape
+    st = dy.stride()
+    if st[4] == 1 and (b == 1 or st[0] == nc * st[1]):
+        return dy, (st[1], st[2], st[3])
+    return dy.contiguous(), (h * q * p, q * p, p)
+
+
+def bwd_heads_per_run(chunks: int, tiles: int, heads: int, sms: int) -> int:
+    """Heads per run of the backward's fused kernel: all of them where its
+    grid (``chunks`` × ``tiles`` key tiles) already has ``BWD_WAVES`` blocks
+    per SM, else as few as give it that many, at most ``BWD_MAX_RUNS`` and
+    at most one per ``BWD_MIN_HEADS`` heads, and no run empty."""
+    blocks = chunks * tiles
+    want = max(1, min(heads // BWD_MIN_HEADS, BWD_MAX_RUNS,
+                      -(-BWD_WAVES * sms // max(blocks, 1))))
+    return -(-heads // want)

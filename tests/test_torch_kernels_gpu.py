@@ -982,6 +982,57 @@ def test_ssd_intra_chunk_bwd_refuses_what_the_kernels_do_not_take(cuda):
         ssd_ops.ssd_intra_chunk_bwd(*args[:4], args[4][..., :4])
 
 
+@pytest.mark.parametrize("b,nc,q,n,h,p", [(1, 2, 256, 16, 4, 64), (1, 1, 200, 8, 3, 16)])
+def test_ssd_intra_chunk_bwd_keeps_steep_decays_finite(cuda, b, nc, q, n, h, p):
+    """A steep decay (a_i − a_j above the diagonal up to ~+260 at Q 256,
+    past f32's exp range): every gradient stays finite, since the kernel
+    forms the decay only for i ≥ j, and within 1e-4 of each one's largest
+    magnitude of the plain version where the plain version is finite."""
+    rng = np.random.default_rng(3)
+    arrs = [rng.standard_normal((b, nc, q, n)), rng.standard_normal((b, nc, q, n)),
+            rng.standard_normal((b, nc, h, q, p)),
+            -np.cumsum(rng.uniform(size=(b, nc, h, q)) * 2.0, axis=-1),
+            rng.standard_normal((b, nc, h, q, p))]
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in arrs]
+    got = ssd_ops.ssd_intra_chunk_bwd(*args)
+    for g, w in zip(got, ssd_intra_chunk_bwd_ref(*args)):
+        assert bool(torch.isfinite(g).all())
+        ok = torch.isfinite(w)
+        scale = float(w[ok].abs().max().clamp_min(1e-30))
+        assert float((g[ok] - w[ok]).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("b,nc,q,n,h,p", [
+    (2, 3, 256, 16, 4, 64), (1, 2, 70, 37, 3, 24), (2, 1, 130, 8, 5, 128)])
+def test_ssd_intra_chunk_bwd_reads_the_layers_permuted_dy(cuda, b, nc, q, n, h, p):
+    """dY as the Mamba layer hands it, a permuted view of a [B, NC, Q, H, P]
+    gradient, is read at its strides: bitwise the contiguous dY's result."""
+    args = _ssd_bwd_inputs(b, nc, q, n, h, p, q + h, cuda)
+    view = args[4].permute(0, 1, 3, 2, 4).contiguous().permute(0, 1, 3, 2, 4)
+    assert not view.is_contiguous()
+    got = ssd_ops.ssd_intra_chunk_bwd(*args[:4], view)
+    for g, w in zip(got, ssd_ops.ssd_intra_chunk_bwd(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("heads_per_run,stages", [(1, 1), (1, 2), (3, 2), (8, 1), (8, 2)])
+def test_ssd_intra_chunk_bwd_design_knobs_agree(cuda, heads_per_run, stages):
+    """Every run length and ring depth of the fused kernel gives the plain
+    backward's gradients within 1e-4 of each one's largest magnitude; a ring
+    that does not fit the card's shared memory, and more runs than the
+    second kernel sums, are refused."""
+    args = _ssd_bwd_inputs(2, 2, 256, 32, 8, 64, 11, cuda)
+    got = ssd_ops.ssd_intra_chunk_bwd(*args, heads_per_run=heads_per_run, stages=stages)
+    for g, w in zip(got, ssd_intra_chunk_bwd_ref(*args)):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    wide = _ssd_bwd_inputs(1, 1, 256, 8, 2, 128, 0, cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssd_ops.ssd_intra_chunk_bwd(*wide, stages=2)  # P 128 at Q 256: one slot only
+    with pytest.raises(ValueError, match="runs"):
+        ssd_ops.ssd_intra_chunk_bwd(*_ssd_bwd_inputs(1, 1, 64, 8, 9, 8, 0, cuda),
+                                    heads_per_run=1)
+
+
 def test_mamba_loss_gradient_on_card_matches_cpu(cuda):
     """REDUCED mamba2-370m: ``loss_fn``'s every gradient leaf on the card
     (the SSD kernels forward and backward once per layer) within atol 5e-4,

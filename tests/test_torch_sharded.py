@@ -288,7 +288,7 @@ def test_mesh_is_refused_and_names_the_roadmap_item(graphs, models):
         lambda: ShardedAmpleEngine(pg, splan, mesh=object()),
         lambda: port_api.make_engine(pcfg, pg, num_shards=2, mesh=object()),
     ):
-        with pytest.raises(ValueError, match="ROADMAP queue 1, item 13"):
+        with pytest.raises(ValueError, match="ROADMAP queue 1, item 6"):
             make()
 
 

@@ -125,15 +125,20 @@ def test_backward_wrapper_checks_shapes_and_devices():
 
 
 @pytest.mark.parametrize("chunks,tiles,heads,want", [
-    (32, 4, 32, 4),     # Mamba2-370M training: 320 blocks -> 4 runs of 8 heads
-    (32, 4, 128, 4),    # Jamba's 128 heads
-    (8, 1, 8, 8),       # the REDUCED launcher: one run per head
-    (8, 4, 32, 11),     # 14 runs wanted: runs of 3 heads, none empty
-    (2048, 4, 32, 1),   # a large grid stays whole
+    (32, 4, 32, 16),    # Mamba2-370M training: 128 key tiles -> 2 runs of 16 heads, 256 blocks
+    (32, 4, 128, 64),   # Jamba's 128 heads: 2 runs of 64
+    (8, 1, 8, 4),       # the REDUCED launcher: 17 runs wanted, 2 of 4 heads (the fewest a run)
+    (8, 4, 32, 7),      # 5 runs wanted: runs of 7 heads, the last of 4
+    (20, 4, 32, 16),    # 2 runs wanted
+    (6, 4, 32, 6),      # 6 runs wanted: runs of 6 heads, the last of 2
+    (4, 1, 128, 16),    # 33 runs wanted, 8 at most
+    (132, 1, 32, 32),   # a grid of one block an SM stays whole
+    (1, 2, 3, 3),       # fewer heads than a run takes: one run
     (1, 1, 1, 1),
 ])
-def test_bwd_head_splits_fill_the_card_with_no_empty_run(chunks, tiles, heads, want):
-    splits = ssd_ops.bwd_head_splits(chunks, tiles, heads, sms=132)
-    assert splits == want
-    per_run = -(-heads // splits)
-    assert (splits - 1) * per_run < heads <= splits * per_run
+def test_bwd_heads_per_run_fill_the_card_with_no_empty_run(chunks, tiles, heads, want):
+    hpr = ssd_ops.bwd_heads_per_run(chunks, tiles, heads, sms=132)
+    assert hpr == want
+    runs = -(-heads // hpr)
+    assert 1 <= runs <= ssd_ops.BWD_MAX_RUNS
+    assert (runs - 1) * hpr < heads <= runs * hpr
