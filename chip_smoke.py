@@ -13,8 +13,9 @@ Every phase that fails raises, so the script exits non-zero.
 1. build   — nvcc every ``src/repro_torch/csrc/*.cu`` for sm_90a, one process
              per source, and print each kernel's registers, shared memory and
              spills (the tensor-core flash kernel, the int8 GEMM, the tile
-             walk of the AGE and the GAT kernels, the SSD kernels and both
-             pairs of flash backward kernels must not spill);
+             walk of the AGE and the GAT kernels, the GAT backward, the SSD
+             kernels and both pairs of flash backward kernels must not
+             spill);
 2. path    — serve the FULL ``ample-gcn`` config on the Yelp-scale graph
              (716,847 nodes, 300 features, random weights from seed 0):
              ``infer`` three times (cold, warm, warm; warm must equal cold
@@ -56,6 +57,26 @@ Every phase that fails raises, so the script exits non-zero.
              heads folded into the rows, on the f32 rows (no single PyTorch
              call computes the fused attention, so it has no library time);
 8. gat cpu — ``ample-gat`` served on the CPU against the card;
+   qat gat — Degree-Quant QAT of FULL ``ample-gat`` on Yelp with
+             self-loops and planted labels (100 classes) through ``gat.apply``
+             on a float engine, each layer's unprotected input rows
+             fake-quantized: QAT_GAT_STEPS AdamW steps with forward, backward
+             and optimiser ms (CUDA events) and per step 2 attention, 2
+             backward (``csrc/attn_agg_bwd.cu``) and 6 multi-head walk launches
+             (dz and the two score sums a layer), asserted; the loss finite
+             and falling; peak memory; a profiled step; two 2-step runs
+             bitwise; the float and deployed int8 test accuracies; at FULL
+             widths on cora, step 0's loss and gradients on the card within
+             atol 5e-4, rtol 1e-3 of the CPU's;
+   gat bwd — the backward kernel at layer 0's shape on that engine (H 4, dh
+             64, f32 rows and int8 codes) against its plain version on the
+             card: alpha and ds within 1e-5 of each value and of the
+             largest, run to run bitwise; given its alpha and ds, the dz walk
+             on the transposed runtime plan and the score sums bitwise the
+             CPU's plain versions; the kernel and the whole backward timed
+             beside the plain version, the bound and
+             ``torch.sparse.sampled_addmm`` (once a head) and
+             ``torch.sparse.mm`` on Aᵀ;
 9. gin path, sage path — the same for FULL ``ample-gin`` and ``ample-sage``
              (sum and mean coefficients on the raw graph): each request must
              launch the AGE 4 times and the int8 matmul 4 (GIN) or 6 (SAGE)
@@ -211,6 +232,9 @@ Every phase that fails raises, so the script exits non-zero.
              launched once per layer of its mixer, the same tokens, prefill
              logits within 5e-4; REDUCED ``seamless-m4t-medium`` through
              ``model_prefill`` and two decode steps, logits and cache leaves;
+    examples — ``examples/quickstart_torch.py`` (all of cora),
+             ``serve_lm_torch.py`` and ``ample_simulation_torch.py``
+             (20,000-node caps) once each on the card;
 16. h2d — the copy rate of one f32 and one int8 Yelp chunk from page-locked
              and from pageable host memory (CUDA events, 200 copies);
     outofcore gcn — the GCN path's engine (plans warm) serves the Yelp
@@ -274,13 +298,17 @@ Every phase that fails raises, so the script exits non-zero.
              beside the plain version, ``torch.sparse.mm`` on the CSR of Aᵀ
              and the bound; on pubmed (19,717 nodes, full width) the step-0
              loss and gradients and the mixed-precision scale gradient on
-             the card against the CPU (atol 5e-4, rtol 1e-3); the example at
+             the card against the CPU (atol 5e-4, rtol 1e-3), and one step
+             through ``gcn.apply`` on a mixed-precision engine (the int8 FTE
+             under grad: 5 AGE and 2 GEMM launches) within the mixed
+             tolerance of the CPU's; the example at
              its defaults (800 nodes, 300 steps) on the card and the CPU,
              each accuracy within 0.03;
 18. summary — a JSON line of kernels (the AGE and the int8 matmul with their
              launches per GNN path, per streamed request and per sharded
-             request, the AGE's per QAT step and its backward's times; the
-             multi-head AGE per sharded GAT request; flash
+             request, the AGE's per QAT step and its backward's times, both
+             per mixed QAT step; the multi-head AGE per sharded GAT request
+             and per GAT QAT step; the GAT backward per QAT step; flash
              attention and the SSD per LM path, each backward per training
              step), the card's name and power limit, and the result line.
 
@@ -313,6 +341,7 @@ BF16_FLOPS = 989e12  # tensor cores, dense
 TF32_FLOPS = 494.7e12  # tensor cores, dense
 
 AGE_ATOL = 1e-4  # unit-normal features, summation order differs
+GAT_LSE_TOL = 1e-5  # the attention's lse, relative to max(1, |lse|): exp-sums in another order
 ATTN_ATOL, ATTN_RTOL = 5e-5, 1e-4  # decomposed vs fused GAT layer (tests/test_gat.py:101)
 MIXED_ATOL, MIXED_RTOL, MIXED_FLIP = 6e-2, 2e-3, 2e-3  # int8 code flips
 
@@ -390,7 +419,7 @@ def _yelp_engine(srv, g):
 NO_SPILL = ("flash_tc_kernel", "quant_matmul_kernel", "heads_walk_kernel", "ssd_cb_kernel",
             "ssd_tc_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
             "flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkdv_kernel", "ssd_bwd_dwdx_kernel",
-            "ssd_bwd_dcdb_kernel")
+            "ssd_bwd_dcdb_kernel", "gat_bwd_kernel")
 # The rows the GNN paths' int8 group hands the AGE at D 300 (phase_age's row
 # kinds): int8 codes at a row stride of 304 bytes (aggregation._int8_rows).
 AGE_PATH_ROWS = "int8 stride 304"
@@ -840,7 +869,10 @@ def phase_gat_decomposed(entry):
 
 def phase_gat_kernels(entry):
     """Both GAT kernels against their plain versions at the Yelp shapes: f32
-    rows in both groups and int8 codes in the int8 group, H·dh 256 and 400."""
+    rows in both groups and int8 codes in the int8 group, H·dh 256 and 400.
+    The attention also with its lse buffer: the output bitwise the call
+    without it, and the lse of every node the plan writes (split nodes
+    included) within GAT_LSE_TOL of the plain version's."""
     import numpy as np
     import torch
 
@@ -863,6 +895,8 @@ def phase_gat_kernels(entry):
         uniq = np.unique(p.gather_idx[live]).size
         lib_a = _heads_csr(dp, alpha, n)
         plan_bytes = _plan_bytes(dp)
+        written = torch.from_numpy(np.unique(p.out_node[p.out_node < n])).to("cuda").long()
+        split_nodes = dp.split.split_node.long()
         for dh in (64, 100):
             d = 4 * dh
             z = torch.randn((n, 4, dh), generator=gen, device="cuda")
@@ -928,10 +962,50 @@ def phase_gat_kernels(entry):
                     if lib_err is not None and not lib_err <= AGE_ATOL:
                         raise RuntimeError(f"{name} {tag} dh={dh}: library yardstick differs "
                                            f"by {lib_err}")
+                    if name == "attention":
+                        rows[-1]["lse"] = _check_lse(x, a_args, n, qp, out, written, split_nodes,
+                                                     f"{tag} {rows_kind} rows dh={dh}")
                     del out, again, plain
             del z, x, xf, xff
         del lib_a
     return attn_rows, mh_rows
+
+
+def _check_lse(x, a_args, n, qp, out, written, split_nodes, label):
+    """The attention with an lse buffer: its output bitwise ``out`` (the
+    call without one), and the lse of the plan's nodes within GAT_LSE_TOL of
+    the plain version's (the buffers start as NaN, so a row left unwritten
+    fails)."""
+    import torch
+
+    from repro_torch.kernels.segment_agg import attn_ops
+    from repro_torch.kernels.segment_agg.ref import attend_tiles_ref
+    from repro_torch.models.gnn.gat import LEAKY_SLOPE
+
+    h = a_args[2].shape[1]
+    lse, lse_plain = (torch.full((n, h), float("nan"), device=x.device) for _ in range(2))
+    with_lse = attn_ops.attend_tiles(x, *a_args, num_nodes=n, leaky_slope=LEAKY_SLOPE, qp=qp,
+                                     lse=lse)
+    attend_tiles_ref(x, *a_args, num_nodes=n, leaky_slope=LEAKY_SLOPE, qp=qp, lse=lse_plain)
+    torch.cuda.synchronize()
+
+    def err(rows):
+        if rows.numel() == 0:
+            return 0.0
+        got, want = lse[rows], lse_plain[rows]
+        return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+
+    row = dict(out_bitwise=bool(torch.equal(with_lse, out)), nodes=int(written.numel()),
+               split_nodes=int(split_nodes.numel()), max_err=err(written),
+               split_max_err=err(split_nodes))
+    log(f"[kernels] attention {label} with lse: output bitwise the call without "
+        f"{row['out_bitwise']}; lse of {row['nodes']} nodes ({row['split_nodes']} split) max "
+        f"err {row['max_err']:.3g} (split nodes {row['split_max_err']:.3g}; tol "
+        f"{GAT_LSE_TOL} of max(1, |lse|))")
+    if not (row["out_bitwise"] and row["split_nodes"] > 0
+            and row["max_err"] <= GAT_LSE_TOL and row["split_max_err"] <= GAT_LSE_TOL):
+        raise RuntimeError(f"attention {label} with lse: {row}")
+    return row
 
 
 def phase_cpu(srv, cfg, g, tag="cpu"):
@@ -1537,12 +1611,12 @@ QAT_ACC_TOL = 0.03  # the example's accuracies, card against CPU
 EXAMPLE_STEPS, EXAMPLE_NODES, EXAMPLE_LR = 300, 800, 5e-3  # the example's defaults
 
 
-def _qat_example():
-    """``examples/train_gcn_degreequant_torch.py`` as a module."""
+def _example(name):
+    """``examples/<name>.py`` as a module."""
     import importlib.util
 
-    path = os.path.join(ROOT, "examples", "train_gcn_degreequant_torch.py")
-    spec = importlib.util.spec_from_file_location("train_gcn_degreequant_torch", path)
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "examples",
+                                                                     f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1585,9 +1659,10 @@ def phase_qat(g):
     from repro_torch.kernels.segment_agg.ref import aggregate_tiles_ref
     from repro_torch.models.api import params_to
     from repro_torch.models.gnn import api as gnn_api
+    from repro_torch.models.gnn import gcn
     from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
-    ex = _qat_example()
+    ex = _example("train_gcn_degreequant_torch")
     cfg = get_config("ample-gcn")
     dev = torch.device("cuda")
     row = {}
@@ -1761,6 +1836,30 @@ def phase_qat(g):
         got[key] = dict(loss=loss, w0=grads["layers"][0]["w"], w1=grads["layers"][1]["w"],
                            x=xp.grad, scale=scale.grad)
     errs = {k: _close_report(k, got["card"][k], got["cpu"][k]) for k in got["cpu"]}
+    # One step through gcn.apply on a mixed-precision engine: the int8 FTE
+    # (the GEMM) under grad, its backward on the GEMM's int32 output; the
+    # weights' gradients within the mixed tolerance of the CPU's.
+    mixed = {}
+    rm = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (pub.num_nodes, cfg.vocab_size)).astype(np.float32))
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        em = AmpleEngine(pub, EngineConfig(mixed_precision=True))
+        p = ex.trainable(params_to(pparams, d))
+        build.reset_launch_counts()
+        y = gcn.apply(cfg, p, em, torch.from_numpy(pub.features).to(d))
+        mixed[key] = torch.autograd.grad((y * rm.to(d)).sum(), [lyr["w"] for lyr in p["layers"]])
+        if key == "card":
+            torch.cuda.synchronize()
+            row["mixed_step_launches"] = build.launch_counts()
+    mixed_errs = {f"w{i}": _mixed_close(a.cpu().numpy(), b.numpy()) for i, (a, b) in
+                  enumerate(zip(mixed["card"], mixed["cpu"]))}
+    row["mixed_step"] = dict(max_abs_err=mixed_errs, launches=row["mixed_step_launches"])
+    log(f"[qat gcn] pubmed mixed-precision step through the int8 FTE: launches "
+        f"{row['mixed_step_launches']}, card vs CPU max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in mixed_errs.items())
+        + f" (mixed tolerance: atol {MIXED_ATOL}, rtol {MIXED_RTOL})")
+    if row["mixed_step_launches"] != {seg_ops.KERNEL: 5, qm_ops.KERNEL: 2}:
+        raise RuntimeError(f"the mixed QAT step launched {row['mixed_step_launches']}")
     row["pubmed"] = dict(nodes=pub.num_nodes, edges=pub.num_edges, max_abs_err=errs,
                          loss_card=float(got["card"]["loss"].detach()),
                          loss_cpu=float(got["cpu"]["loss"].detach()),
@@ -1789,6 +1888,418 @@ def phase_qat(g):
             raise RuntimeError(f"example {k}: card {ex_rows['card'][k]} vs CPU "
                                f"{ex_rows['cpu'][k]}, beyond {QAT_ACC_TOL}")
     return row
+
+# GAT training: FULL ample-gat's steps on Yelp (cut in steps, never width).
+QAT_GAT_STEPS = 6  # timed Degree-Quant QAT steps
+QAT_GAT_REPEAT_STEPS = 2  # steps of each of the two runs held bitwise
+QAT_GAT_LR = 5e-3
+GAT_BWD_TOL = 1e-5  # alpha and ds: relative to each value and to the largest
+GAT_BWD_SLICE_TILES = 1024  # tiles at each end of a plan held bitwise against the CPU
+
+
+def _gat_qat_loss(cfg, params, eng, x, labels, train, protect):
+    """Degree-Quant QAT of GAT through the model API: ``gat.apply`` with the
+    unprotected rows of each layer's input fake-quantized (the STE), the
+    training nodes' mean NLL (``examples/train_gcn_degreequant_torch.py``'s
+    recipe)."""
+    import torch
+
+    from repro_torch.core.quantization import compute_scale_zp, fake_quant
+    from repro_torch.models.gnn import gat
+
+    def fq(h):
+        return torch.where(protect[:, None], h, fake_quant(h, compute_scale_zp(h)))
+
+    logp = torch.log_softmax(gat.apply(cfg, params, eng, x, layer_input=fq), dim=-1)
+    nll = -torch.gather(logp, 1, labels[:, None])[:, 0]
+    return torch.where(train, nll, 0.0).sum() / train.sum()
+
+
+def _gat_leaves(params):
+    return [lyr[k] for lyr in params["layers"] for k in sorted(lyr)]
+
+
+def _gat_tree(params, flat):
+    it = iter(flat)
+    return {"layers": [{k: next(it) for k in sorted(lyr)} for lyr in params["layers"]]}
+
+
+def _tile_slice(plan, k):
+    """The first and last ``k`` tiles of an ``EdgeTilePlan`` (its largest
+    nodes, split hubs among them, and its smallest) as a plan that writes
+    only the nodes all of whose segments lie in those tiles: (sub-plan,
+    those nodes, how many of them are split across tiles)."""
+    import dataclasses
+
+    import numpy as np
+
+    n, t = plan.num_nodes, plan.num_tiles
+    tiles = np.unique(np.r_[0:min(k, t), max(t - k, 0):t])
+    on = plan.out_node
+    total = np.bincount(on[on < n], minlength=n + 1)
+    sub_on = on[tiles]
+    inside = np.bincount(sub_on[sub_on < n], minlength=n + 1)
+    whole = (inside == total) & (total > 0)
+    sub_on = np.where(whole[sub_on], sub_on, n).astype(np.int32)
+    nodes = np.unique(sub_on[sub_on < n])
+    sub = dataclasses.replace(plan, gather_idx=plan.gather_idx[tiles], coeff=plan.coeff[tiles],
+                              seg_ids=plan.seg_ids[tiles], out_node=sub_on,
+                              edge_ids=plan.edge_ids[tiles])
+    return sub, nodes, int((total[nodes] > 1).sum())
+
+
+def phase_gat_bwd(eng, z, qp):
+    """The GAT backward at FULL ample-gat's layer-0 shape on Yelp (H 4, dh
+    64): ``csrc/attn_agg_bwd.cu`` against its plain version on the card (f32
+    rows and int8 codes; alpha and ds within GAT_BWD_TOL), run to run
+    bitwise; then the walks that finish the backward (dz on the transposed
+    plan, the score sums on the transposed and forward plans) bitwise the
+    CPU's plain versions on a slice of each plan (``_tile_slice``); the kernel and the whole backward timed beside the
+    plain version, the bound and the library calls (``sampled_addmm`` per
+    head for the dots, ``sparse.mm`` on Aᵀ with the heads folded in for
+    dz)."""
+    import torch
+
+    from repro_torch.core.aggregation import edge_segment_sum_tiles, to_device_plan
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_agg import attn_ops
+    from repro_torch.kernels.segment_agg.ref import aggregate_tiles_mh_ref, attend_tiles_bwd_ref
+    from repro_torch.models.gnn.gat import LEAKY_SLOPE
+
+    dev = torch.device("cuda")
+    n, e = eng.graph.num_nodes, eng.graph.num_edges
+    h, dh = z.shape[1], z.shape[2]
+    d = h * dh
+    dp = eng._device_plans("runtime", eng.plans("runtime"), dev)["float"]
+    t0 = time.perf_counter()
+    tg = eng._tile_grad("runtime", "float", dev)
+    tp = tg.transposed()
+    tplan = eng._tplans[("runtime", "float")]
+    transposed_s = time.perf_counter() - t0
+    gen = _cuda_gen(11)
+    scores = torch.randn((e, h), generator=gen, device=dev)
+    gr = torch.randn((n, h, dh), generator=gen, device=dev)
+    lse = torch.zeros((n, h), device=dev)
+    out = attn_ops.attend_tiles(z, dp.gather_idx, dp.edge_ids, scores, dp.coeff, dp.seg_ids,
+                                dp.out_node, dp.split, num_nodes=n, leaky_slope=LEAKY_SLOPE,
+                                lse=lse)
+    csr = (tg.indices, tg.items)
+    rows = []
+    for kind, x, xqp in (("f32", z, None), ("int8", quantize(z, qp), qp)):
+        def kernel():
+            return attn_ops.attend_tiles_bwd(x, gr, out, lse, scores, *csr,
+                                             leaky_slope=LEAKY_SLOPE, qp=xqp)
+
+        def plain():
+            return attend_tiles_bwd_ref(x, gr, out, lse, scores, *csr,
+                                        leaky_slope=LEAKY_SLOPE, qp=xqp)
+
+        build.reset_launch_counts()
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        launches = build.launch_counts()
+        want = plain()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = {}
+        for name, a, w in zip(("alpha", "ds"), got, want):
+            scale = float(w.abs().max())
+            errs[name] = float(((a - w).abs() / (GAT_BWD_TOL * (w.abs() + scale))).max())
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        ms = cuda_ms(kernel, reps=5)
+        plain_ms = cuda_ms(plain, reps=1)
+        elem = x.element_size()
+        # each input once (every node is a source and a destination), the
+        # two [E, H] outputs once
+        nbytes = (n * d * elem + 2 * n * d * 4 + n * h * 4 + e * h * 4 + e * 4
+                  + int(csr[1].numel()) * 4 + 2 * e * h * 4)
+        ops = 2.0 * e * d + 2.0 * n * d + 8.0 * e * h
+        b_ms, b_by = bound(nbytes, ops, FP32_FLOPS)
+        row = dict(rows=kind, n=n, edges=e, heads=h, dh=dh, launches=launches,
+                   run_to_run_bitwise=bitwise, finite=finite, max_err_in_tol=errs,
+                   max_abs_err=max(float((a - w).abs().max()) for a, w in zip(got, want)),
+                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                   row_floor_ms=e * d * elem / HBM_BPS * 1e3)
+        rows.append(row)
+        log(f"[gat bwd] kernel {kind} rows N={n} E={e} H={h} dh={dh}: launches {launches}, "
+            f"err/tol alpha {errs['alpha']:.3g} ds {errs['ds']:.3g} (<= 1: within "
+            f"{GAT_BWD_TOL} of each value and of the largest), bitwise {bitwise}; ms={ms:.3f} "
+            f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.3f} ({b_by}) row_floor_ms="
+            f"{row['row_floor_ms']:.3f}")
+        if (launches != {attn_ops.ATTENTION_BWD: 2} or not bitwise or not finite
+                or max(errs.values()) > 1.0):
+            raise RuntimeError(f"gat bwd {kind}: {row}")
+        del got, again, want
+
+    # The walks that finish the backward, given the kernel's alpha and ds:
+    # bitwise the CPU's plain versions (each segment summed in lane order)
+    # on the nodes of GAT_BWD_SLICE_TILES tiles at each end of the
+    # transposed and the forward plan, split hubs included.
+    alpha, ds = attn_ops.attend_tiles_bwd(z, gr, out, lse, scores, *csr,
+                                          leaky_slope=LEAKY_SLOPE)
+    mh_args = (tp.gather_idx, tp.edge_ids, alpha, tp.coeff, tp.seg_ids, tp.out_node, tp.split)
+    dz = attn_ops.aggregate_tiles_mh(gr, *mh_args, num_nodes=n, aligned=True)
+    sums = [edge_segment_sum_tiles(ds, p, num_nodes=n, aligned=True) for p in (tp, dp)]
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    gr_cpu, alpha_cpu, ds_cpu = gr.cpu(), alpha.cpu(), ds.cpu()
+    checked = []
+    walks_bitwise = True
+    for label, plan, got in (("transposed", tplan, [dz, sums[0]]),
+                             ("forward", eng.plans("runtime")["float"], [sums[1]])):
+        sub, nodes, n_split = _tile_slice(plan, GAT_BWD_SLICE_TILES)
+        sp = to_device_plan(sub, cpu)
+        want = [edge_segment_sum_tiles(ds_cpu, sp, num_nodes=n)]
+        if label == "transposed":
+            want.insert(0, aggregate_tiles_mh_ref(
+                gr_cpu, sp.gather_idx, sp.edge_ids, alpha_cpu, sp.coeff, sp.seg_ids,
+                sp.out_node, sp.split, num_nodes=n))
+        idx = torch.from_numpy(nodes).long()
+        walks_bitwise &= all(torch.equal(a.cpu()[idx], b[idx]) for a, b in zip(got, want))
+        checked.append(dict(plan=label, tiles=sub.num_tiles, nodes=int(nodes.size),
+                            split_nodes=n_split))
+        if n_split == 0:
+            raise RuntimeError(f"gat bwd: the {label} plan's slice holds no split node")
+    cpu_s = time.perf_counter() - t0
+
+    def backward():
+        a, s_ = attn_ops.attend_tiles_bwd(z, gr, out, lse, scores, *csr, leaky_slope=LEAKY_SLOPE)
+        attn_ops.aggregate_tiles_mh(gr, tp.gather_idx, tp.edge_ids, a, tp.coeff, tp.seg_ids,
+                                    tp.out_node, tp.split, num_nodes=n, aligned=True)
+        for p in (tp, dp):
+            edge_segment_sum_tiles(s_, p, num_nodes=n, aligned=True)
+
+    build.reset_launch_counts()
+    backward()
+    bwd_launches = build.launch_counts()
+    bwd_ms = cuda_ms(backward, reps=3)
+    dz_ms = cuda_ms(lambda: attn_ops.aggregate_tiles_mh(gr, *mh_args, num_nodes=n,
+                                                        aligned=True), reps=3)
+
+    # Library yardsticks: the per-head dots at the CSR's pattern, and Aᵀ·g
+    # with the heads folded into the rows.
+    pattern = torch.sparse_csr_tensor(torch.from_numpy(eng.graph.indptr).to(dev),
+                                      tg.indices.long(), torch.zeros(e, device=dev), (n, n))
+    zt = [z[:, k, :].contiguous() for k in range(h)]
+    gk = [gr[:, k, :].contiguous() for k in range(h)]
+    zkt = [t.t() for t in zt]
+
+    def sampled():
+        return [torch.sparse.sampled_addmm(pattern, gk[k], zkt[k], beta=0.0) for k in range(h)]
+
+    lib_vals = torch.stack([m.values() for m in sampled()], dim=1)
+    dots = alpha.new_zeros((e, h))
+    attn_ops.edge_dot(z, gr, *csr, out=dots)
+    lib_err = float((lib_vals - dots).abs().max())
+    sampled_ms = cuda_ms(sampled, reps=3)
+    lib_at = _heads_csr(tp, alpha, n)
+    gflat = gr.view(n * h, dh)
+    spmm_ms = cuda_ms(lambda: torch.sparse.mm(lib_at, gflat), reps=3)
+    spmm_err = float((torch.sparse.mm(lib_at, gflat).view(n, h, dh) - dz).abs().max())
+    del lib_at, pattern, lib_vals, dots
+    live = tplan.edge_ids >= 0
+    summary = dict(kernel=rows, transposed_plan_s=transposed_s, transposed_tiles=tplan.num_tiles,
+                   transposed_edges=int(live.sum()), walks_bitwise_cpu=walks_bitwise,
+                   walks_checked=checked, cpu_walk_s=cpu_s, backward_launches=bwd_launches, backward_ms=bwd_ms,
+                   dz_walk_ms=dz_ms, library_sampled_addmm_ms=sampled_ms,
+                   library_sampled_addmm_err=lib_err, library_spmm_ms=spmm_ms,
+                   library_spmm_err=spmm_err, library_ms=sampled_ms,
+                   backward_library_ms=sampled_ms + spmm_ms)
+    log(f"[gat bwd] transposed runtime plan: {tplan.num_tiles} tiles, {int(live.sum())} edges "
+        f"({transposed_s:.1f} s); dz and the score sums bitwise the CPU's: {walks_bitwise} "
+        f"on {checked} (CPU {cpu_s:.1f} s); whole backward {bwd_ms:.3f} ms (launches {bwd_launches}), its "
+        f"dz walk {dz_ms:.3f} ms; library: sampled_addmm x{h} {sampled_ms:.3f} ms (err "
+        f"{lib_err:.3g}), sparse.mm on Aᵀ {spmm_ms:.3f} ms (err {spmm_err:.3g})")
+    if not walks_bitwise:
+        raise RuntimeError("the GAT backward's walks differ from the CPU's plain versions")
+    if bwd_launches != {attn_ops.ATTENTION_BWD: 1, attn_ops.SEGMENT_AGG_MH: 3}:
+        raise RuntimeError(f"the GAT backward launched {bwd_launches}")
+    if not (lib_err <= 1e-3 and spmm_err <= AGE_ATOL):
+        raise RuntimeError(f"library yardsticks differ: {lib_err}, {spmm_err}")
+    return summary
+
+
+def phase_qat_gat(g):
+    """Degree-Quant QAT of FULL ``ample-gat`` on Yelp with self-loops and
+    planted labels through ``gat.apply`` on a float engine: QAT_GAT_STEPS
+    AdamW steps timed by phase with their launches, a profiled step, two
+    runs bitwise, the deployed int8 accuracy beside the float one, the
+    gradients at FULL widths on cora against the CPU's. Returns (row, the
+    Yelp training engine, for ``phase_gat_bwd``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.message_passing import AmpleEngine, EngineConfig
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_agg import attn_ops
+    from repro_torch.models.api import params_to
+    from repro_torch.models.gnn import api as gnn_api
+    from repro_torch.models.gnn import gat
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+    ex = _example("train_gcn_degreequant_torch")
+    cfg = get_config("ample-gat")
+    dev = torch.device("cuda")
+    row = {}
+    t0 = time.perf_counter()
+    gs = gnn_api.prepare_graph(cfg, g)
+    x, labels, train = _qat_inputs(ex, gs, cfg.vocab_size, dev)
+    eng = AmpleEngine(gs, EngineConfig(mixed_precision=False))
+    eng._device_plans("runtime", eng.plans("runtime"), dev)
+    row["setup_s"] = time.perf_counter() - t0
+    log(f"[qat gat] yelp + self-loops: {gs.num_nodes} nodes {gs.num_edges} edges, heads "
+        f"{cfg.gnn_heads}, dims {cfg.gnn_layer_dims}, {int(train.sum())} training nodes; "
+        f"setup and plan {row['setup_s']:.1f} s")
+    params0 = gnn_api.gnn_init(cfg, torch.Generator().manual_seed(0), device=dev)
+    opt_cfg = AdamWConfig(lr=QAT_GAT_LR, weight_decay=ex.WEIGHT_DECAY)
+
+    def step(params, opt, rng, times=None):
+        mask = torch.from_numpy(ex.sample_protection_mask(gs, ex.DQ, rng)).to(dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = _gat_qat_loss(cfg, params, eng, x, labels, train, mask)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, _gat_leaves(params))
+        ev[2].record()
+        params, opt, metrics = adamw_update(_gat_tree(params, grads), opt, params, opt_cfg)
+        ev[3].record()
+        if times is not None:
+            torch.cuda.synchronize()
+            times.update(forward_ms=ev[0].elapsed_time(ev[1]),
+                         backward_ms=ev[1].elapsed_time(ev[2]),
+                         optimizer_ms=ev[2].elapsed_time(ev[3]),
+                         grad_norm=float(metrics["grad_norm"]))
+        return params, opt, loss
+
+    def trainable(p):
+        return {"layers": [{k: v.detach().requires_grad_() for k, v in lyr.items()}
+                           for lyr in p["layers"]]}
+
+    params = trainable(params0)
+    opt = adamw_init(params)
+    rng = np.random.default_rng(3)
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(QAT_GAT_STEPS):
+        build.reset_launch_counts()
+        st = {}
+        params, opt, loss = step(params, opt, rng, st)
+        st.update(loss=float(loss.detach()), launches=build.launch_counts())
+        steps.append(st)
+        log(f"[qat gat] step {s}: loss {st['loss']:.5f} forward {st['forward_ms']:.3f} ms "
+            f"backward {st['backward_ms']:.3f} ms optimizer {st['optimizer_ms']:.3f} ms "
+            f"launches {st['launches']} grad_norm {st['grad_norm']:.4g}")
+    row.update(steps=steps, peak_bytes=torch.cuda.max_memory_allocated())
+    want = {attn_ops.ATTENTION: 2, attn_ops.ATTENTION_BWD: 2, attn_ops.SEGMENT_AGG_MH: 6}
+    log(f"[qat gat] peak device memory {row['peak_bytes'] / 2**30:.2f} GiB; launches a step "
+        f"expected {want}")
+    losses = [st["loss"] for st in steps]
+    if any(st["launches"] != want for st in steps):
+        raise RuntimeError(f"QAT GAT steps launched {[st['launches'] for st in steps]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"QAT GAT losses {losses}: not finite, or not falling")
+
+    wall_ms, _, prof = _device_profile(lambda: step(params, opt, rng), warmup=1)
+    busy = sum(ms for _, ms, _ in prof)
+    row["profile"] = dict(wall_ms=wall_ms, device_ms=busy if prof else None,
+                          top=[dict(name=nm, ms=ms, count=c) for nm, ms, c in prof[:24]])
+    if prof:
+        log(f"[qat gat] profiled step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+            f"(idle share {max(0.0, 1 - busy / wall_ms):.3f})")
+        for nm, ms, count in prof[:14]:
+            log(f"[qat gat]   {ms:9.3f} ms  x{count:<4d} {nm[:90]}")
+
+    # Two runs of the same steps from the same seed: bitwise the same.
+    runs = []
+    for _ in range(2):
+        p, o, r = trainable(params0), None, np.random.default_rng(3)
+        o = adamw_init(p)
+        for _ in range(QAT_GAT_REPEAT_STEPS):
+            p, o, _ = step(p, o, r)
+        runs.append([t.detach() for t in _gat_leaves(p)])
+    row["repeat_bitwise"] = all(torch.equal(a, b) for a, b in zip(*runs))
+    log(f"[qat gat] two runs of {QAT_GAT_REPEAT_STEPS} steps bitwise equal: "
+        f"{row['repeat_bitwise']}")
+    if not row["repeat_bitwise"]:
+        raise RuntimeError("two QAT GAT runs from one seed gave different parameters")
+    del runs
+
+    # Deployment: the trained weights on the float engine and on int8.
+    with torch.no_grad():
+        test = ~train
+
+        def accuracy(e):
+            pred = torch.argmax(gat.apply(cfg, params, e, x), dim=-1)
+            return float((pred == labels)[test].to(torch.float32).mean())
+
+        build.reset_launch_counts()
+        acc_float = accuracy(eng)
+        t0 = time.perf_counter()
+        mixed = AmpleEngine(gs, EngineConfig(mixed_precision=True))
+        acc_mixed = accuracy(mixed)
+        row.update(acc_float=acc_float, acc_mixed=acc_mixed, deploy_s=time.perf_counter() - t0,
+                   deploy_launches=build.launch_counts())
+        del mixed
+    log(f"[qat gat] after {QAT_GAT_STEPS} steps: test accuracy float {acc_float:.4f}, deployed "
+        f"int8 {acc_mixed:.4f} (launches {row['deploy_launches']}: float 2 attention, mixed "
+        f"4 attention + 2 GEMM)")
+
+    del x, labels, train, params, opt, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # FULL widths on a cora-sized graph: the card's gradients within the
+    # CPU's f32 tolerance.
+    cg = gnn_api.prepare_graph(cfg, make_dataset("cora", max_feature_dim=cfg.d_model, seed=0))
+    cparams = gnn_api.gnn_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cmask = torch.from_numpy(ex.sample_protection_mask(cg, ex.DQ, np.random.default_rng(3)))
+    got = {}
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        e = AmpleEngine(cg, EngineConfig(mixed_precision=False))
+        p = trainable(params_to(cparams, d))
+        loss = _gat_qat_loss(cfg, p, e, *_qat_inputs(ex, cg, cfg.vocab_size, d), cmask.to(d))
+        got[key] = [loss] + list(torch.autograd.grad(loss, _gat_leaves(p)))
+    names = ["loss"] + [f"layer{i}.{k}" for i, lyr in enumerate(cparams["layers"])
+                        for k in sorted(lyr)]
+    errs = {nm: _close_report(nm, a, b) for nm, a, b in zip(names, got["card"], got["cpu"])}
+    row["cora"] = dict(nodes=cg.num_nodes, edges=cg.num_edges, max_abs_err=errs)
+    log(f"[qat gat] cora {cg.num_nodes} nodes at FULL widths, step 0 card vs CPU: max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (atol {QAT_ATOL}, rtol {QAT_RTOL})")
+    return row, eng
+
+
+def phase_examples():
+    """The three examples ported in full, once each on the card, briefly."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    rows = {}
+    for name, kwargs in (("quickstart_torch", dict(device="cuda")),
+                         ("serve_lm_torch", dict(device="cuda")),
+                         ("ample_simulation_torch", dict(device="cuda", max_nodes=20_000))):
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = _example(name).run(**kwargs)
+        torch.cuda.synchronize()
+        rows[name] = dict(seconds=time.perf_counter() - t0, launches=build.launch_counts())
+        if name == "quickstart_torch":
+            rows[name].update(res)
+            ok = (res["warm_equals_cold"] == 1.0 and res["outofcore_bitwise"] == 1.0
+                  and res["gat_warm_equals_cold"] == 1.0 and res["oracle_agreement"] >= 0.9)
+        elif name == "serve_lm_torch":
+            ok = tuple(res.shape) == (4, 40)
+        else:
+            ok = all(r["event_driven"]["latency_ms"] > 0 for r in res.values())
+        log(f"[examples] {name}: {rows[name]['seconds']:.1f} s, launches "
+            f"{rows[name]['launches']}, ok {ok}")
+        if not ok or (name != "ample_simulation_torch" and not rows[name]["launches"]):
+            raise RuntimeError(f"example {name} failed on the card: {rows[name]}")
+    return rows
 
 
 def _lm_launches(cfg):
@@ -3627,6 +4138,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # GAT training: Degree-Quant QAT through the fused attention's backward,
+    # then that backward's kernel at layer 0's shape on the same engine.
+    from repro_torch.core.quantization import compute_scale_zp
+
+    with phase("qat gat"):
+        qat_gat_row, qat_gat_engine = phase_qat_gat(g)
+    with phase("gat bwd"):
+        zq = torch.randn((qat_gat_engine.graph.num_nodes, gat_cfg.gnn_heads,
+                          gat_cfg.gnn_layer_dims[1] // gat_cfg.gnn_heads),
+                         generator=_cuda_gen(12), device="cuda")
+        gat_bwd_row = phase_gat_bwd(qat_gat_engine, zq, compute_scale_zp(zq))
+    del qat_gat_engine, zq
+    gc.collect()
+    torch.cuda.empty_cache()
+
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
@@ -3685,6 +4211,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("lm cpu"):
         lm_cpu_rows = phase_lm_cpu()
+    with phase("examples"):
+        example_rows = phase_examples()
 
     lm_rows = {"qwen3-8b": lm_row, "mamba2-370m": ssm_row, "granite-moe-3b-a800m": moe_row,
                "llama4-maverick-400b-a17b unit": moe2_row, "jamba-v0.1-52b unit": hybrid_row,
@@ -3736,6 +4264,7 @@ def main() -> int:
              # a Yelp QAT step: 2 forward, 1 backward on the transposed plan
              launches_qat_step=qat_row["steps"][0]["age_launches"],
              launches_qat_deploy=qat_row["deploy_launches"].get("segment_agg", 0),
+             launches_mixed_qat_step=qat_row["mixed_step_launches"].get("segment_agg", 0),
              qat_backward={k: qat_row["backward_kernel"][k] for k in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "d",
                  "tiles", "n")}),
@@ -3745,14 +4274,37 @@ def main() -> int:
                         f"M={gemm['m']} K={gemm['k']} N={gemm['n']}"),
              launches_by_path=by_path("quant_matmul"),
              launches_streamed_request=streamed("quant_matmul"),
-             launches_sharded_request=sharded_row["launches_request"].get("quant_matmul", 0)),
+             launches_sharded_request=sharded_row["launches_request"].get("quant_matmul", 0),
+             # one pubmed step through gcn.apply on a mixed engine (item 9)
+             launches_mixed_qat_step=qat_row["mixed_step_launches"].get("quant_matmul", 0)),
         kernel_row("attention", "src/repro_torch/csrc/attn_agg.cu",
                    "src/repro/kernels/segment_agg/attn_kernel.py:194",
                    gcounts.get("attention", 0), attn, gat_shape.format(**attn)),
         dict(kernel_row("segment_agg_mh", "src/repro_torch/csrc/attn_agg.cu",
                         "src/repro/kernels/segment_agg/attn_kernel.py:239",
                         dec_row["launches"].get("segment_agg_mh", 0), mh, gat_shape.format(**mh)),
-             launches_sharded_request=sgat_row["launches_request"].get("segment_agg_mh", 0)),
+             launches_sharded_request=sgat_row["launches_request"].get("segment_agg_mh", 0),
+             launches_qat_gat_step=qat_gat_row["steps"][0]["launches"].get("segment_agg_mh", 0),
+             qat_gat_dz_walk_ms=gat_bwd_row["dz_walk_ms"]),
+        # The GAT backward: launches in the FULL ample-gat QAT run on Yelp
+        # (QAT_GAT_STEPS steps, one a layer a step), times at layer 0's shape
+        # (f32 rows; the codes' row beside).
+        dict(kernel_row("attention_bwd", "src/repro_torch/csrc/attn_agg_bwd.cu",
+                        "src/repro/kernels/segment_agg/attn_kernel.py:194",
+                        sum(st["launches"].get("attention_bwd", 0)
+                            for st in qat_gat_row["steps"]),
+                        dict(gat_bwd_row["kernel"][0], library_ms=gat_bwd_row["library_ms"]),
+                        "N={n} E={edges} H={heads} dh={dh}, {rows} rows".format(
+                            **gat_bwd_row["kernel"][0])),
+             note="the gradient of the Pallas kernel at replaces, which the reference takes "
+                  "by jax.grad of its jnp path (src/repro/core/message_passing.py:1095-1098)",
+             library="torch.sparse.sampled_addmm, once per head (the dots at the CSR's "
+                     "pattern)",
+             launches_per_step=qat_gat_row["steps"][0]["launches"].get("attention_bwd", 0),
+             int8_codes={k: gat_bwd_row["kernel"][1][k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+             backward_ms=gat_bwd_row["backward_ms"],
+             backward_library_ms=gat_bwd_row["backward_library_ms"]),
         # Launches: one Qwen3-8B / Mamba2-370M generate (B 4 x 2048 + 32 tokens),
         # and per LM path beside it. Every launch of the bf16 paths went through
         # the tensor-core variant. The unmasked branch: its launches per LM
@@ -3828,6 +4380,7 @@ def main() -> int:
         lm_cpu=lm_cpu_rows, outofcore=ooc_rows, h2d_gbps=h2d_row, fronts=fronts_row,
         sharded_gcn=sharded_row, plan_store=store_row, sharded_overlap=overlap_row,
         sharded_mincut=mincut_row, sharded_gat=sgat_row, qat_gcn=qat_row,
+        qat_gat=qat_gat_row, gat_bwd=gat_bwd_row, examples=example_rows,
         phase_seconds=seconds,
         seconds=time.perf_counter() - t_start,
     )

@@ -26,7 +26,12 @@ group (``scheduler.transpose_plan_graph``): for ``out = A x`` the gradient
 is ``Aᵀ g``, a weighted segment sum over the reversed edges. The int8 group
 gathers codes, whose ``round`` has zero derivative, so it passes ``x`` no
 gradient and its scale ``Σ(g_I ⊙ out_I) / scale``, as the reference's jnp
-path does under ``jax.grad``.
+path does under ``jax.grad``. With runtime coefficients each precision group
+runs the multi-head kernel's autograd Function (``attn_ops``: the same
+rules per group, and the coefficients' gradient from ``csrc/attn_agg_bwd.cu``),
+given the group's ``attn_ops.TileGrad``; ``edge_scores`` gathers GAT's
+per-node score halves onto the edges with a backward that sums them per
+node on the forward and transposed plans, in a plan-static order.
 
 ``aggregate_bucket_plan`` and ``aggregate_padded_plan`` execute the baseline
 schedules (degree buckets, double-buffered batches) in plain PyTorch, for the
@@ -56,6 +61,7 @@ __all__ = [
     "aggregate_padded_plan",
     "segment_max_edge_tiles",
     "edge_segment_sum_tiles",
+    "edge_scores",
 ]
 
 
@@ -125,6 +131,7 @@ def aggregate_edge_tiles(
     edge_coeff: Optional[torch.Tensor] = None,
     qp: Optional[QuantParams] = None,
     out: Optional[torch.Tensor] = None,
+    grad: Optional[attn_ops.TileGrad] = None,
 ) -> torch.Tensor:
     """Event-driven aggregation over one plan's tiles: f32[num_nodes, …].
 
@@ -137,12 +144,14 @@ def aggregate_edge_tiles(
     coefficients on ``x [N, H, dh]`` treat the heads as feature columns).
     With ``out`` (f32, contiguous, ``(num_nodes,) + x.shape[1:]``) the rows
     of this plan's nodes are written into it and every other row is left as
-    it is; without, they go into zeros.
+    it is; without, they go into zeros. Under grad, runtime coefficients
+    need the plan's ``grad`` and take no ``out``.
     """
     if edge_coeff is not None and edge_coeff.dim() == 2:
         return attn_ops.aggregate_tiles_mh(
             x, dplan.gather_idx, dplan.edge_ids, edge_coeff.contiguous(), dplan.coeff,
-            dplan.seg_ids, dplan.out_node, dplan.split, num_nodes=num_nodes, qp=qp, out=out)
+            dplan.seg_ids, dplan.out_node, dplan.split, num_nodes=num_nodes, qp=qp, out=out,
+            grad=grad)
     rows = x.reshape(x.shape[0], -1)
     flat = None if out is None else out.view(num_nodes, -1)
     if edge_coeff is None:
@@ -154,7 +163,7 @@ def aggregate_edge_tiles(
             rows.unsqueeze(1), dplan.gather_idx, dplan.edge_ids,
             edge_coeff.reshape(-1, 1).contiguous(), dplan.coeff, dplan.seg_ids, dplan.out_node,
             dplan.split, num_nodes=num_nodes, qp=qp,
-            out=None if flat is None else flat.unsqueeze(1))
+            out=None if flat is None else flat.unsqueeze(1), grad=grad)
     return res.view((num_nodes,) + tuple(x.shape[1:]))
 
 
@@ -181,7 +190,8 @@ def segment_max_edge_tiles(
 
 
 def edge_segment_sum_tiles(
-    values: torch.Tensor, dplan: DeviceTilePlan, *, num_nodes: int
+    values: torch.Tensor, dplan: DeviceTilePlan, *, num_nodes: int,
+    grad: Optional[attn_ops.TileGrad] = None, aligned: bool = False,
 ) -> torch.Tensor:
     """Destination-segment sum of per-edge values over one plan's tiles:
     f32[N(, H)].
@@ -190,15 +200,71 @@ def edge_segment_sum_tiles(
     lane coefficients of the multi-head AGE over rows of ones (read through
     ``edge_ids``, padding lanes 0, static coeff one: ``1 · v`` is exact), so
     split nodes combine in tile order as in the aggregation, with no atomics.
+    Under grad (values that require grad) it needs the plan's ``grad``;
+    ``aligned`` sums each segment in lane order (``aggregate_tiles_mh``).
     """
     v = values if values.dim() == 2 else values.unsqueeze(-1)
     h = v.shape[-1]
     ones = torch.ones((num_nodes, h, 1), dtype=values.dtype, device=values.device)
     out = attn_ops.aggregate_tiles_mh(
         ones, dplan.gather_idx, dplan.edge_ids, v.contiguous(), None, dplan.seg_ids,
-        dplan.out_node, dplan.split, num_nodes=num_nodes,
+        dplan.out_node, dplan.split, num_nodes=num_nodes, grad=grad, aligned=aligned,
     )
     return out.view((num_nodes,) + tuple(values.shape[1:]))
+
+
+def _segment_sums(values: torch.Tensor, plans, num_nodes: int) -> torch.Tensor:
+    """``edge_segment_sum_tiles`` over plans with disjoint destinations, each
+    segment in lane order, added in the order given."""
+    total = None
+    for p in plans:
+        part = edge_segment_sum_tiles(values, p, num_nodes=num_nodes, aligned=True)
+        total = part if total is None else total + part
+    return total
+
+
+class _EdgeScores(torch.autograd.Function):
+    """``src_sc[src] + dst_sc[dst]`` forward; per-node sums of the edges'
+    gradient on the transposed plans (sources) and the forward plans
+    (destinations) backward."""
+
+    @staticmethod
+    def forward(ctx, src_sc, dst_sc, src, dst, plans, transposed, num_nodes):
+        ctx.plans, ctx.transposed, ctx.num_nodes = plans, transposed, num_nodes
+        return src_sc[src] + dst_sc[dst]
+
+    @staticmethod
+    def backward(ctx, ds):
+        ds = ds.contiguous()
+        d_src = d_dst = None
+        if ctx.needs_input_grad[0]:
+            d_src = _segment_sums(ds, [t() for t in ctx.transposed], ctx.num_nodes)
+        if ctx.needs_input_grad[1]:
+            d_dst = _segment_sums(ds, ctx.plans, ctx.num_nodes)
+        return d_src, d_dst, None, None, None, None, None
+
+
+def edge_scores(
+    src_sc: torch.Tensor,  # f32[N(, H)] the source half of each node's score
+    dst_sc: torch.Tensor,  # f32[N(, H)] the destination half
+    src: torch.Tensor,  # int64[E] source of each edge
+    dst: torch.Tensor,  # int64[E] destination of each edge
+    dplans,  # device plans of the precision groups (disjoint destinations)
+    transposed,  # one callable per group: its transposed device plan
+    *,
+    num_nodes: int,
+) -> torch.Tensor:
+    """GAT's raw per-edge scores ``src_sc[src] + dst_sc[dst]``: f32[E(, H)].
+
+    Under grad the backward does not scatter-add with atomics, as indexing's
+    would on the card: each node's gradient is its edges' sum by the
+    multi-head walk, over the forward plans for ``dst_sc`` and over the
+    transposed plans (lanes by source) for ``src_sc``, so two runs give the
+    same bits. The forward is bitwise the plain indexing."""
+    if attn_ops.wants_grad(src_sc, dst_sc):
+        return _EdgeScores.apply(src_sc, dst_sc, src, dst, list(dplans), list(transposed),
+                                 num_nodes)
+    return src_sc[src] + dst_sc[dst]
 
 
 def _device_buckets(buckets, device):
@@ -258,6 +324,7 @@ def aggregate_mixed_precision(
     qp: Optional[QuantParams] = None,
     device_plans: Optional[Dict[str, DeviceTilePlan]] = None,
     edge_coeff: Optional[torch.Tensor] = None,
+    grads: Optional[Dict[str, attn_ops.TileGrad]] = None,
 ) -> torch.Tensor:
     """Mixed-precision AGE: the float plan consumes fp32 embeddings; the int8
     plan consumes int8-quantized embeddings, passed to the kernels as codes
@@ -272,13 +339,15 @@ def aggregate_mixed_precision(
     already-uploaded ``DeviceTilePlan`` mirrors keyed like ``plans``.
     ``edge_coeff`` is the runtime per-edge coefficient vector or ``[E, H]``
     matrix (graph edge space) both streams read through their ``edge_ids``.
+    Under grad, runtime coefficients need each group's ``grads`` entry.
     """
     device_plans = device_plans or {}
     dplans = {tag: device_plans.get(tag) or to_device_plan(p, x.device)
               for tag, p in plans.items()}
     if "int8" in plans and qp is None:
         qp = compute_scale_zp(x, symmetric=True)
-    return _aggregate_groups(x, dplans, num_nodes=num_nodes, qp=qp, edge_coeff=edge_coeff)
+    return _aggregate_groups(x, dplans, num_nodes=num_nodes, qp=qp, edge_coeff=edge_coeff,
+                             grads=grads)
 
 
 def _aggregate_groups(
@@ -288,12 +357,25 @@ def _aggregate_groups(
     num_nodes: int,
     qp: Optional[QuantParams],
     edge_coeff: Optional[torch.Tensor] = None,
+    grads: Optional[Dict[str, attn_ops.TileGrad]] = None,
 ) -> torch.Tensor:
     """Each precision group's rows into one zero-filled output: the float
-    group on ``x``, the int8 group on its codes under ``qp``."""
+    group on ``x``, the int8 group on its codes under ``qp``. With
+    ``grads`` (runtime coefficients under grad) each group's autograd
+    Function returns its own output, and the groups' disjoint rows are
+    added."""
     for tag in dplans:
         if tag not in ("float", "int8"):
             raise ValueError(f"unknown precision tag {tag!r}")
+    if grads is not None:
+        out = None
+        for tag in ("float", "int8"):
+            if tag in dplans:
+                rows, rows_qp = (x, None) if tag == "float" else (_int8_rows(x, qp), qp)
+                part = aggregate_edge_tiles(rows, dplans[tag], num_nodes=num_nodes,
+                                            edge_coeff=edge_coeff, qp=rows_qp, grad=grads[tag])
+                out = part if out is None else out + part
+        return out
     out = torch.zeros((num_nodes,) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
     if "float" in dplans:
         aggregate_edge_tiles(x, dplans["float"], num_nodes=num_nodes, edge_coeff=edge_coeff,

@@ -39,6 +39,7 @@ from repro_torch.core.aggregation import (
     aggregate_autograd,
     aggregate_edge_tiles,
     aggregate_mixed_precision,
+    edge_scores,
     edge_segment_sum_tiles,
     segment_max_edge_tiles,
     to_device_plan,
@@ -615,12 +616,13 @@ class AmpleEngine:
         artifact and skips the planner entirely.
 
     It runs on the device of the embeddings it is given: device plans and
-    node groups are uploaded once per device and cached. ``aggregate`` is
-    differentiable for static-coefficient modes: its backward runs the AGE
-    on the float group's transposed plan, built on the first backward and kept
-    beside the device plans (engine state only: it is in neither the
-    ``ExecutionPlan``, its fingerprint nor a saved plan file). No cache of
-    the engine keeps an autograd graph.
+    node groups are uploaded once per device and cached. ``aggregate``,
+    ``edge_softmax``, ``attention_aggregate``, ``edge_scores`` and
+    ``transform`` are differentiable: the backward of an aggregation runs
+    the kernels on each group's transposed plan, built on the first backward
+    and kept beside the device plans (engine state only: it is in neither
+    the ``ExecutionPlan``, its fingerprint nor a saved plan file). No cache
+    of the engine keeps an autograd graph.
     """
 
     def __init__(
@@ -666,6 +668,10 @@ class AmpleEngine:
         # aggregate); (mode, tag, device) -> its upload.
         self._tplans: Dict[Tuple[str, str], sched.EdgeTilePlan] = {}
         self._tplan_cache: Dict[Tuple[str, str, str], DeviceTilePlan] = {}
+        # (mode, tag, device) -> what the GAT kernels' backward reads
+        # (attn_ops.TileGrad); device -> the CSR's sources as int32.
+        self._tgrad_cache: Dict[Tuple[str, str, str], attn_ops.TileGrad] = {}
+        self._indices_cache: Dict[str, torch.Tensor] = {}
         self._group_cache: Dict[str, Dict[str, torch.Tensor]] = {}
         # device -> (src, dst) node id per edge; modes whose edge ids were checked.
         self._endpoint_cache: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -753,17 +759,54 @@ class AmpleEngine:
 
     def _transposed_plan(self, mode: str, tag: str, device: torch.device) -> DeviceTilePlan:
         """The device plan of group ``tag``'s reversed edges (the backward of
-        ``aggregate``), planned once per (mode, tag) with the engine's tile
-        sizes and uploaded once per device."""
+        ``aggregate`` and the attention), planned once per (mode, tag) with
+        the engine's tile sizes and uploaded once per device. Its lanes carry
+        the forward's edge ids, so per-edge operands ``[E, …]`` of the
+        forward are read on it; a ``"runtime"`` plan keeps every real edge."""
         key = (mode, tag, str(device))
         if key not in self._tplan_cache:
             if (mode, tag) not in self._tplans:
-                g, coeff, tags = sched.transpose_plan_graph(self.plans(mode)[tag])
-                self._tplans[(mode, tag)] = sched.build_mixed_precision_plans(
+                g, coeff, tags, eids = sched.transpose_plan_graph(
+                    self.plans(mode)[tag], runtime=mode == "runtime")
+                tp = sched.build_mixed_precision_plans(
                     g, tags, edges_per_tile=self.cfg.edges_per_tile,
                     segments_per_tile=self.cfg.segments_per_tile, coeff=coeff)["float"]
+                lanes = tp.edge_ids
+                fwd = eids[np.maximum(lanes, 0)] if eids.size else np.zeros_like(lanes)
+                self._tplans[(mode, tag)] = dataclasses.replace(
+                    tp, edge_ids=np.where(lanes < 0, -1, fwd).astype(np.int32))
             self._tplan_cache[key] = to_device_plan(self._tplans[(mode, tag)], device)
         return self._tplan_cache[key]
+
+    def _tile_grad(self, mode: str, tag: str, device: torch.device) -> attn_ops.TileGrad:
+        """What the backward of the GAT kernels on group ``tag``'s plan reads:
+        the CSR's sources, the work items over the in-edges of the nodes the
+        plan writes, each edge's static coefficient (None when all are 1, as
+        in ``"runtime"`` plans) and the transposed plan, built on first
+        use."""
+        key = (mode, tag, str(device))
+        if key not in self._tgrad_cache:
+            plan = self.plans(mode)[tag]
+            on = plan.out_node
+            rows = np.unique(on[on < plan.num_nodes]).astype(np.int32)
+            live = plan.edge_ids >= 0
+            coeff = None
+            if not np.all(plan.coeff[live] == 1.0):
+                cf = np.zeros(self.graph.num_edges, np.float32)
+                cf[plan.edge_ids[live]] = plan.coeff[live]
+                coeff = torch.from_numpy(cf).to(device)
+            dev_key = str(device)
+            if dev_key not in self._indices_cache:
+                self._indices_cache[dev_key] = torch.as_tensor(
+                    self.graph.indices, dtype=torch.int32).to(device)
+            items = attn_ops.row_items(self.graph.indptr, rows)
+            self._tgrad_cache[key] = attn_ops.TileGrad(
+                self._indices_cache[dev_key], torch.from_numpy(items).to(device), coeff,
+                lambda: self._transposed_plan(mode, tag, device))
+        return self._tgrad_cache[key]
+
+    def _tile_grads(self, mode: str, device: torch.device) -> Dict[str, attn_ops.TileGrad]:
+        return {tag: self._tile_grad(mode, tag, device) for tag in self.plans(mode)}
 
     def _require_edge_ids(self, mode: str, plans: Mapping[str, sched.EdgeTilePlan]) -> None:
         """Refuse runtime coefficients on plans without live edge ids.
@@ -921,8 +964,12 @@ class AmpleEngine:
 
         Under grad, static-coefficient modes run ``aggregate_autograd``: the
         same forward, and a backward through the AGE on the transposed plan.
-        Runtime coefficients on the card have no backward yet (ROADMAP.md
-        queue 1 item 8): their kernel raises under grad.
+        Runtime coefficients run each precision group's multi-head kernel
+        as its autograd Function: the coefficients' gradient from
+        ``csrc/attn_agg_bwd.cu``, the rows' from the walk on the group's
+        transposed plan (the forward's values; the groups' disjoint rows are
+        added rather than written into one buffer). The sharded and streamed
+        engines under grad are ROADMAP.md queue 1 item 10.
         """
         if isinstance(x, StreamedFeatures):
             if edge_coeff is not None:
@@ -953,11 +1000,12 @@ class AmpleEngine:
         qp = None
         if self.cfg.mixed_precision and "int8" in plans:
             qp = self._activation_qp(lambda: x, "agg")
-        if edge_coeff is None and torch.is_grad_enabled() and (
-                x.requires_grad or (qp is not None and qp.scale.requires_grad)):
+        wants_grad = attn_ops.wants_grad(x, edge_coeff, None if qp is None else qp.scale)
+        if edge_coeff is None and wants_grad:
             return aggregate_autograd(
                 x, dplans, lambda: self._transposed_plan(mode, "float", x.device),
                 num_nodes=self.graph.num_nodes, qp=qp)
+        grads = self._tile_grads(mode, x.device) if wants_grad else None
         if self.cfg.mixed_precision:
             return aggregate_mixed_precision(
                 x,
@@ -966,10 +1014,11 @@ class AmpleEngine:
                 qp=qp,
                 device_plans=dplans,
                 edge_coeff=edge_coeff,
+                grads=grads,
             )
         return aggregate_edge_tiles(
-            x, dplans["float"], num_nodes=self.graph.num_nodes, edge_coeff=edge_coeff
-        )
+            x, dplans["float"], num_nodes=self.graph.num_nodes, edge_coeff=edge_coeff,
+            grad=None if grads is None else grads["float"])
 
     # ------------------------------------------------ runtime coefficients
     def edge_endpoints(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -995,6 +1044,11 @@ class AmpleEngine:
         accumulates the denominators. Nodes with no in-edges in the plan get
         max 0 and denominator 1, so the result is finite everywhere. Nothing
         here sums floats with atomics, so it is the same run to run.
+
+        Under grad the shift is held constant (softmax does not depend on
+        it, so its exact derivative is 0) and the denominators' pass is the
+        multi-head kernel's autograd Function; the gather of the
+        denominators onto the edges differentiates through indexing.
         """
         scores = torch.as_tensor(scores, dtype=torch.float32)
         e = self.graph.num_edges
@@ -1005,17 +1059,19 @@ class AmpleEngine:
         plans = self.plans(mode)
         self._require_edge_ids(mode, plans)
         dplans = self._device_plans(mode, plans, scores.device)
+        grads = self._tile_grads(mode, scores.device) if attn_ops.wants_grad(scores) else {}
         n = self.graph.num_nodes
         rest = tuple(scores.shape[1:])
         node_max = torch.full((n,) + rest, float("-inf"), device=scores.device)
         for dp in dplans.values():
-            node_max = torch.maximum(node_max, segment_max_edge_tiles(scores, dp, num_nodes=n))
+            node_max = torch.maximum(node_max,
+                                     segment_max_edge_tiles(scores.detach(), dp, num_nodes=n))
         node_max = torch.where(torch.isfinite(node_max), node_max, torch.zeros_like(node_max))
         _, dst = self.edge_endpoints(scores.device)
         ex = torch.exp(scores - node_max[dst])
         denom = torch.zeros((n,) + rest, device=scores.device)
-        for dp in dplans.values():
-            denom = denom + edge_segment_sum_tiles(ex, dp, num_nodes=n)
+        for tag, dp in dplans.items():
+            denom = denom + edge_segment_sum_tiles(ex, dp, num_nodes=n, grad=grads.get(tag))
         denom = torch.where(denom > 0, denom, torch.ones_like(denom))
         return ex / denom[dst]
 
@@ -1039,6 +1095,14 @@ class AmpleEngine:
         inside the kernel. Precision groups cover disjoint
         destination nodes, so per-group softmax is exact. ``edge_softmax``
         plus ``aggregate(edge_coeff=…)`` is the same layer in two passes.
+
+        Under grad each group's kernel is ``attn_ops.attend_tiles``'s
+        autograd Function: the forward also writes each node's log-sum-exp,
+        the backward runs ``csrc/attn_agg_bwd.cu`` (α and the scores'
+        gradient per edge) and, for the float group's rows, the multi-head
+        walk on its transposed plan; the int8 group's codes pass no gradient
+        and its scale receives ``Σ(g_I ⊙ out_I) / scale``. The groups' outputs
+        are then added (disjoint rows) rather than written into one buffer.
         """
         if isinstance(z, StreamedFeatures):
             raise ValueError(
@@ -1061,16 +1125,43 @@ class AmpleEngine:
         if self.cfg.mixed_precision and "int8" in plans:
             qp = self._activation_qp(lambda: z, "agg")
         scores = scores.contiguous()
-        out = torch.zeros_like(z)  # the groups write their disjoint node rows into it
+        grads = (self._tile_grads(mode, z.device)
+                 if attn_ops.wants_grad(z, scores, None if qp is None else qp.scale) else None)
+        # the groups write their disjoint node rows into one output (under
+        # grad: each its own, added)
+        out = None if grads is not None else torch.zeros_like(z)
+        total = out
         for tag, dp in dplans.items():
             x, x_qp = z, None
             if tag == "int8" and self.cfg.mixed_precision:
                 x, x_qp = quantize(z, qp), qp
-            attn_ops.attend_tiles(
+            part = attn_ops.attend_tiles(
                 x, dp.gather_idx, dp.edge_ids, scores, dp.coeff, dp.seg_ids, dp.out_node,
                 dp.split, num_nodes=n, leaky_slope=leaky_slope, qp=x_qp, out=out,
+                grad=None if grads is None else grads[tag],
             )
-        return out
+            if grads is not None:
+                total = part if total is None else total + part
+        return total
+
+    def edge_scores(
+        self, src_sc: torch.Tensor, dst_sc: torch.Tensor, *, mode: str = "runtime"
+    ) -> torch.Tensor:
+        """GAT's raw per-edge scores ``src_sc[src] + dst_sc[dst]``:
+        f32[E(, H)] from the per-node halves f32[N(, H)]. Under grad the
+        backward sums each node's edges on ``mode``'s forward plans
+        (``dst_sc``) and transposed plans (``src_sc``) by the multi-head
+        walk, with no atomics (``aggregation.edge_scores``)."""
+        dev = src_sc.device
+        src, dst = self.edge_endpoints(dev)
+        if not attn_ops.wants_grad(src_sc, dst_sc):  # serving, sharded engines included
+            return src_sc[src] + dst_sc[dst]
+        plans = self.plans(mode)
+        dplans = self._device_plans(mode, plans, dev)
+        return edge_scores(
+            src_sc, dst_sc, src, dst, [dplans[t] for t in plans],
+            [lambda t=t: self._transposed_plan(mode, t, dev) for t in plans],
+            num_nodes=self.graph.num_nodes)
 
     # ----------------------------------------------------------------- FTE
     def _weight_q(self, w: torch.Tensor):

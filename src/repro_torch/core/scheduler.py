@@ -4,7 +4,9 @@ A copy of the reference planner (``repro/core/scheduler.py``) restricted to
 what the mixed-precision serving path reads: the fingerprints that key the
 serving caches, the event-driven ``EdgeTilePlan`` and the functions that
 build it, and the per-precision split. It is numpy only, so the port and the reference emit
-byte-identical tile arrays for the same graph (the parity tests check it).
+byte-identical tile arrays for the same graph (the parity tests check it);
+``build_edge_tile_plan`` packs the reference's greedy loop's tiles with
+array operations over the edge stream, with no loop over nodes.
 
 * ``EdgeTilePlan`` — edges packed back-to-back into tiles of
   ``edges_per_tile`` lanes; a node whose degree exceeds the remaining lane
@@ -15,7 +17,8 @@ byte-identical tile arrays for the same graph (the parity tests check it).
   and emits one plan per precision group (§3.2).
 * ``transpose_plan_graph`` reverses one plan's edges, the graph of its
   backward: the gradient of a weighted segment sum is the same sum over the
-  transposed edges (port only: the reference differentiates its jnp path).
+  transposed edges, each carrying its forward edge id (port only: the
+  reference differentiates its jnp path).
 * ``BucketPlan`` / ``PaddedPlan`` — the baselines the paper argues against:
   power-of-two degree buckets, and the double-buffered (HyGCN-style) fixed
   batches padded to their largest degree (``AmpleEngine.occupancy_report``
@@ -275,75 +278,68 @@ def build_edge_tile_plan(
     if sort_by_degree:
         order = node_ids[np.argsort(-deg[node_ids], kind="stable")]
 
+    # The nodes with edges in visiting order, their edges back to back: one
+    # lane stream that the tiles cut (zero-degree nodes contribute nothing;
+    # their output rows stay 0).
     E, S = edges_per_tile, segments_per_tile
-    tiles_g: List[np.ndarray] = []  # per-tile gather idx
-    tiles_c: List[np.ndarray] = []
-    tiles_s: List[np.ndarray] = []
-    tiles_o: List[np.ndarray] = []
-    tiles_e: List[np.ndarray] = []  # per-tile edge ids (-1 padding)
+    nodes = order[deg[order] > 0]
+    d = deg[nodes].astype(np.int64)
+    ends = np.cumsum(d)
+    total = int(ends[-1]) if ends.size else 0
+    starts = _tile_starts(ends, total, E, S)
+    nt = starts.size
+    tile = np.repeat(np.arange(nt), np.diff(np.append(starts, total)))
+    pos = np.arange(total)
+    lane = pos - starts[tile]
+    owner = np.repeat(np.arange(nodes.size), d)
+    eid = np.asarray(g.indptr, np.int64)[nodes][owner] + (pos - (ends - d)[owner])
+    # A segment opens at each node's first lane and again at the first lane
+    # of each tile (a split node re-opens a fresh segment in the next tile).
+    opens = lane == 0
+    opens[1:] |= owner[1:] != owner[:-1]
+    seg = np.cumsum(opens) - 1
+    seg -= seg[starts[tile]]
+    flat = tile * E + lane
 
-    cur_g = np.zeros(E, np.int32)
-    cur_c = np.zeros(E, np.float32)
-    cur_s = np.full(E, S - 1, np.int32)
-    cur_o = np.full(S, g.num_nodes, np.int32)
-    cur_e = np.full(E, -1, np.int32)
-    lane = 0
-    seg = 0
-    total_edges = 0
-
-    def flush():
-        nonlocal cur_g, cur_c, cur_s, cur_o, cur_e, lane, seg
-        tiles_g.append(cur_g)
-        tiles_c.append(cur_c)
-        tiles_s.append(cur_s)
-        tiles_o.append(cur_o)
-        tiles_e.append(cur_e)
-        cur_g = np.zeros(E, np.int32)
-        cur_c = np.zeros(E, np.float32)
-        cur_s = np.full(E, S - 1, np.int32)
-        cur_o = np.full(S, g.num_nodes, np.int32)
-        cur_e = np.full(E, -1, np.int32)
-        lane = 0
-        seg = 0
-
-    for v in order:
-        lo, hi = int(g.indptr[v]), int(g.indptr[v + 1])
-        nbrs = g.indices[lo:hi]
-        cfs = coeff[lo:hi]
-        pos = 0
-        d = hi - lo
-        if d == 0:
-            continue  # zero-degree nodes contribute nothing; output row stays 0
-        total_edges += d
-        while pos < d:
-            if lane >= E or seg >= S:
-                flush()
-            take = min(d - pos, E - lane)
-            cur_g[lane : lane + take] = nbrs[pos : pos + take]
-            cur_c[lane : lane + take] = cfs[pos : pos + take]
-            cur_s[lane : lane + take] = seg
-            cur_e[lane : lane + take] = np.arange(lo + pos, lo + pos + take)
-            cur_o[seg] = v
-            lane += take
-            pos += take
-            seg += 1  # a split node re-opens a fresh segment in the next tile
-    if lane > 0 or seg > 0:
-        flush()
-    if not tiles_g:  # empty graph: one all-padding tile keeps shapes static
-        flush()
+    gather_idx = np.zeros(nt * E, np.int32)
+    gather_idx[flat] = g.indices[eid]
+    lane_coeff = np.zeros(nt * E, np.float32)
+    lane_coeff[flat] = coeff[eid]
+    seg_ids = np.full(nt * E, S - 1, np.int32)
+    seg_ids[flat] = seg
+    edge_ids = np.full(nt * E, -1, np.int32)
+    edge_ids[flat] = eid
+    out_node = np.full(nt * S, g.num_nodes, np.int32)
+    out_node[tile[opens] * S + seg[opens]] = nodes[owner[opens]]
 
     return EdgeTilePlan(
-        gather_idx=np.stack(tiles_g),
-        coeff=np.stack(tiles_c),
-        seg_ids=np.stack(tiles_s),
-        out_node=np.stack(tiles_o),
+        gather_idx=gather_idx.reshape(nt, E),
+        coeff=lane_coeff.reshape(nt, E),
+        seg_ids=seg_ids.reshape(nt, E),
+        out_node=out_node.reshape(nt, S),
         node_ids=node_ids.astype(np.int32),
-        edge_ids=np.stack(tiles_e),
+        edge_ids=edge_ids.reshape(nt, E),
         num_nodes=g.num_nodes,
         edges_per_tile=E,
         segments_per_tile=S,
-        total_edges=total_edges,
+        total_edges=total,
     )
+
+
+def _tile_starts(ends: np.ndarray, total: int, E: int, S: int) -> np.ndarray:
+    """First stream lane of each tile: a tile closes when its ``E`` lanes are
+    full or when an ``S + 1``-th segment would open in it (node ``k``'s run
+    of the stream ends at ``ends[k]``). One empty tile when there are no
+    edges, which keeps shapes static."""
+    if S >= E or total == 0:  # a segment holds a lane: only the lanes close a tile
+        return np.arange(0, max(total, 1), E, dtype=np.int64)
+    starts = []
+    p = 0
+    while p < total:
+        starts.append(p)
+        k = int(np.searchsorted(ends, p, side="right"))  # the node of lane p
+        p = min(p + E, int(ends[k + S - 1]) if k + S - 1 < ends.size else total)
+    return np.asarray(starts, np.int64)
 
 
 def concat_tile_plans(
@@ -615,33 +611,45 @@ def build_mixed_precision_plans(
     return plans
 
 
-def transpose_plan_graph(plan: EdgeTilePlan) -> Tuple[Graph, np.ndarray, np.ndarray]:
-    """The reversed edges of one plan: (graph, coeff, tags).
+def transpose_plan_graph(
+    plan: EdgeTilePlan, *, runtime: bool = False
+) -> Tuple[Graph, np.ndarray, np.ndarray, np.ndarray]:
+    """The reversed edges of one plan: (graph, coeff, tags, edge_ids).
 
     The plan's live lanes are the edges ``src → dst`` of its group (``dst``
     in the group, ``src`` anywhere) with their coefficients. The result is
     the in-edge CSR ``Graph`` of the edges ``dst → src`` over all
     ``plan.num_nodes`` nodes (rows by ``src``, each row's sources by ``dst``,
     lanes of equal edges in plan order), the forward coefficients permuted
-    onto it, and tags that put every node in one group (``"float"``).
-    ``build_mixed_precision_plans(graph, tags, coeff=coeff)`` then plans the
-    backward: its aggregate of ``g`` is Aᵀ g for the forward's A. The
-    coefficients are the forward edges' own, not ones recomputed on the
-    reversed graph (whose degrees differ). Lanes of coefficient 0 (padding,
-    or an edge that adds nothing) are left out: they move no gradient.
+    onto it, tags that put every node in one group (``"float"``), and each
+    reversed edge's forward graph edge id (the plan's ``edge_ids``), so that
+    per-edge operands of the forward ``[E, …]`` are read on the transposed
+    plan through them. ``build_mixed_precision_plans(graph, tags,
+    coeff=coeff)`` then plans the backward: its aggregate of ``g`` is Aᵀ g
+    for the forward's A. The coefficients are the forward edges' own, not
+    ones recomputed on the reversed graph (whose degrees differ).
+
+    Which lanes are live: for a static plan, lanes of coefficient 0 (padding,
+    or an edge that adds nothing) are left out, as they move no gradient;
+    for a ``runtime`` plan, whose coefficient is only a lane mask for values
+    that arrive per call, every real edge (edge id >= 0) stays and only the
+    padding goes.
     """
     n = plan.num_nodes
     dst = np.take_along_axis(plan.out_node, plan.seg_ids, axis=1)
-    live = (dst < n) & (plan.coeff != 0)
+    live = (dst < n) & ((plan.edge_ids >= 0) if runtime else (plan.coeff != 0))
     src = plan.gather_idx[live].astype(np.int64)
     dst = dst[live].astype(np.int64)
     coeff = plan.coeff[live]
-    order = np.lexsort((dst, src))  # stable: equal edges keep plan order
+    eids = plan.edge_ids[live]
+    # by src, then dst; stable: equal edges keep plan order
+    order = np.argsort(src * n + dst, kind="stable")
     indptr = np.zeros(n + 1, np.int64)
     np.cumsum(np.bincount(src, minlength=n), out=indptr[1:])
     g = Graph(indptr=indptr, indices=dst[order].astype(np.int32), num_nodes=n,
               name="transposed")
-    return g, np.ascontiguousarray(coeff[order], np.float32), np.full(n, "float")
+    return (g, np.ascontiguousarray(coeff[order], np.float32), np.full(n, "float"),
+            np.ascontiguousarray(eids[order], np.int32))
 
 
 # ---------------------------------------------------------------------------

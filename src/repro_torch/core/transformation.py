@@ -10,6 +10,12 @@ The FTE is a mixed-precision matmul stream:
 
 ``transform_mixed_precision`` routes disjoint node sets through the two
 streams — the isolated per-precision NoC sub-networks of §3.2.
+
+Both differentiate on either device. The int8 stream's codes carry no
+gradient (``round``), so its gradient reaches ``h`` and the weight through
+their scales only, as ``jax.grad`` of the reference's jnp path gives:
+autograd of the dequant ``acc · s_a · s_w`` reads the GEMM's int32 ``acc``
+and needs no kernel of its own.
 """
 from __future__ import annotations
 
@@ -23,7 +29,6 @@ from repro_torch.core.quantization import (
     quantize,
     quantize_per_channel,
 )
-from repro_torch.kernels import build
 from repro_torch.kernels.quant_matmul import ops as qm_ops
 
 __all__ = [
@@ -65,13 +70,12 @@ def transform_int8(
     y ≈ (s_a s_w) · (h_q @ W_q), since both quantizations are symmetric (z=0).
     ``w_packed`` is the load-time relayout of ``w_q``
     (``kernels.quant_matmul.repack_weight``); without it the weight is
-    relaid per call. On the card the int8 GEMM has no backward, so ``h`` or
-    a scale that requires grad raises under grad.
+    relaid per call. Under grad the scales receive ``Σ g ⊙ acc · s_w``
+    (activation) and ``Σ_rows g ⊙ acc · s_a`` (each weight column), the
+    codes nothing.
     """
     if a_qp is None:
         a_qp = compute_scale_zp(h, symmetric=True)
-    if h.device.type == "cuda":
-        build.require_no_grad(qm_ops.KERNEL, h, a_qp.scale, w_qp.scale)
     h_q = quantize(h, a_qp)
     if w_packed is not None:
         acc = qm_ops.quant_matmul_repacked(h_q, w_packed)

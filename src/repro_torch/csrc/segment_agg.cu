@@ -50,7 +50,8 @@ extern "C" int ample_segment_agg(int device, const void* x, int elem_bytes, cons
            lanes_per_stage, 0, 0.f};
     const int status = run_walk<kStatic>(device, x, elem_bytes, chunk_bytes, qscale, qzero,
                                          gather_idx, nullptr, nullptr, coeff, seg_ids,
-                                         out_node, slot_of, partial, nullptr, nullptr, out, w,
+                                         out_node, slot_of, partial, nullptr, nullptr, nullptr,
+                                         out, w,
                                          threads, smem_bytes, stream);
     if (status != 0) return status;
   }

@@ -21,7 +21,10 @@
 //     (coeff null: ones), the per-edge operand [E_graph, H] read through the
 //     edge ids (-1 on padding lanes, which are not copied);
 //   kAttn (the fused GAT layer): per segment and head, softmax over the
-//     segment's lanes of LeakyReLU(scores[edge_ids[t, e], h]) times coeff.
+//     segment's lanes of LeakyReLU(scores[edge_ids[t, e], h]) times coeff;
+//     given an lse buffer [num_nodes, H], it also writes each node's
+//     log-sum-exp m + log l there (a split node's in its combine), which the
+//     backward (attn_agg_bwd.cu) reads.
 //
 // What bounds it on an H100: device-memory bytes. Each live lane gathers one
 // row (4 bytes an element as f32, 1 as int8 codes) and does about 2 flops per
@@ -32,14 +35,14 @@
 //   (g, c) owns the c-th 16-byte chunk of the row (float4, or 16 int8 codes;
 //   4- or 1-byte chunks when the rows are not 16-byte aligned) for the lanes
 //   of group g, a contiguous run of the tile: lanes [g * per_group,
-//   +per_group), and in the AGE (kStatic) that run with both ends moved up
-//   to the start of a segment (see Sums). The host picks the group count
-//   (ops.walk_geometry): for the GAT kernels so that the block is a whole
-//   number of warps of at least 256 threads with >= 90% of them owning a
-//   chunk (d = 400 f32: 3 groups of 100 in 320 threads; d = 300: 4 of 75;
-//   d = 256: 4 of 64; int8 codes: 16 of 16 at d = 256); for the AGE blocks
-//   of 64 to 128 threads, many to an SM (f32 rows: one group; codes: 4 of
-//   16 at d = 256, 5 of 19 at d = 300). Codes whose row stride is a
+//   +per_group), and in the AGE (kStatic, kValuesAligned) that run with
+//   both ends moved up to the start of a segment (see Sums). The host picks
+//   the group count (ops.walk_geometry): for the GAT kernels so that the
+//   block is a whole number of warps of at least 256 threads with >= 90% of
+//   them owning a chunk (d = 400 f32: 3 groups of 100 in 320 threads; d =
+//   300: 4 of 75; d = 256: 4 of 64; int8 codes: 16 of 16 at d = 256); for
+//   the AGE blocks of 64 to 128 threads, many to an SM (f32 rows: one group;
+//   codes: 4 of 16 at d = 256, 5 of 19 at d = 300). Codes whose row stride is a
 //   multiple of 16 bytes may take 16-byte chunks even when d is not (d = 300
 //   at a stride of 304): the last chunk then reads the row's padding, and
 //   columns >= d are never written.
@@ -65,16 +68,18 @@
 //   registers by the group where it starts, which adds the later groups'
 //   partials (one shared row per group) in group order: the sum of a long
 //   segment is taken in group order, not lane order, and moves within 1e-4
-//   of the plain version. In the AGE no segment crosses groups: a group's
-//   run starts at the first segment that starts in its share of the lanes
-//   and ends where the next group's starts (found by bisection: a tile's
-//   seg ids do not decrease), so each segment is summed by one group in lane
-//   order, bitwise the plain version's (and the reference's jnp path). A
-//   group may take a long run (a hub's segment) while the others wait at the
-//   tile's barrier. GIN's and GraphSAGE's inputs need the order: their sums
-//   and means of int8 codes (of binary features, or requantized at the
-//   scale they were gathered at) sit on exact rounding ties of the next
-//   quantization, and a sum in another order flips those codes.
+//   of the plain version. In the AGE (kStatic, kValuesAligned)
+//   no segment crosses groups: a group's run starts at the first segment
+//   that starts in its share of the lanes and ends where the next group's
+//   starts (found by bisection: a tile's seg ids do not decrease), so each
+//   segment is summed by one group in lane order, bitwise the plain
+//   version's on the CPU (and the reference's jnp path). A group may take a
+//   long run (a hub's segment) while the others wait at the tile's barrier.
+//   GIN's and GraphSAGE's inputs need the order: their sums and means of
+//   int8 codes (of binary features, or requantized at the scale they were
+//   gathered at) sit on exact rounding ties of the next quantization, and a
+//   sum in another order flips those codes; the GAT backward's walks (dz,
+//   the score sums) take it to be bitwise the CPU's.
 // - Output. The walk writes the rows of its plan's nodes into the caller's
 //   out and leaves every other row as it is, so the two precision groups of
 //   one aggregation share one zero-filled out.
@@ -95,7 +100,9 @@ constexpr int kThreads = 128;     // threads of the split-node combines
 constexpr int kMaxThreads = 512;  // block size limit of the walk (the host checks)
 constexpr int kStages = 2;  // ring depth: step J + 1 is copied while step J is summed
 
-enum Mode { kStatic = 0, kValues = 1, kAttn = 2 };
+// kValuesAligned: kValues with the AGE's lane groups (Sums), for the GAT
+// backward's walks, whose sums must be bitwise the plain version's.
+enum Mode { kStatic = 0, kValues = 1, kAttn = 2, kValuesAligned = 3 };
 
 __device__ __forceinline__ bool finite(float v) { return fabsf(v) <= FLT_MAX; }
 
@@ -291,10 +298,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) heads_walk_kernel(
     const float* __restrict__ values, const float* __restrict__ coeff,
     const int* __restrict__ seg_ids, const int* __restrict__ out_node,
     const int* __restrict__ slot_of, float* __restrict__ part_a, float* __restrict__ part_m,
-    float* __restrict__ part_l, float* __restrict__ out, const Walk w) {
+    float* __restrict__ part_l, float* __restrict__ lse, float* __restrict__ out,
+    const Walk w) {
   constexpr int kVec = kChunk / static_cast<int>(sizeof(T));
   constexpr bool kStaticW = kMode == kStatic;
-  constexpr bool kAligned = kMode == kStatic;  // groups start at segments (Sums)
+  constexpr bool kAligned = kMode == kStatic || kMode == kValuesAligned;  // (Sums)
   extern __shared__ __align__(16) unsigned char walk_smem[];
   unsigned char* smem = walk_smem;
   const Layout lay = layout(w);
@@ -434,7 +442,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) heads_walk_kernel(
     if (i + 2 < ntiles) stage_meta(i + 2);
 
     // A run's max (pass 0), or its exp-sum and, for a split node's
-    // segment, the (m, l) of its partial row (pass 1).
+    // segment, the (m, l) of its partial row, else the node's log-sum-exp
+    // when asked for (pass 1).
     auto finish_run = [&](int pass, int s, int h, float v) {
       if (pass == 0) {
         s_m[s * H + h] = v;
@@ -445,6 +454,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) heads_walk_kernel(
       if (slot >= 0) {
         part_m[static_cast<int64_t>(slot) * H + h] = s_m[s * H + h];
         part_l[static_cast<int64_t>(slot) * H + h] = v;
+      } else if (lse != nullptr && M.node[s] < w.num_nodes) {
+        const float m = s_m[s * H + h];
+        lse[static_cast<int64_t>(M.node[s]) * H + h] = __fadd_rn(finite(m) ? m : 0.f, logf(v));
       }
     };
     // Lane weights.
@@ -493,7 +505,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) heads_walk_kernel(
           __syncwarp();
         }
       }
-    } else if constexpr (kMode == kValues) {
+    } else if constexpr (kMode == kValues || kMode == kValuesAligned) {
       if (has_coeff) {
         for (int q = threadIdx.x; q < E * H; q += blockDim.x)
           M.w[q] = __fmul_rn(M.cf[q / H], M.w[q]);
@@ -615,8 +627,8 @@ template <typename T, int kChunk, int kMode>
 int launch_walk(int device, const void* x, const float* qscale, const float* qzero,
                 const int* gather_idx, const int* edge_ids, const float* values,
                 const float* coeff, const int* seg_ids, const int* out_node,
-                const int* slot_of, float* part_a, float* part_m, float* part_l, float* out,
-                const Walk& w, int threads, int smem_bytes, cudaStream_t stream) {
+                const int* slot_of, float* part_a, float* part_m, float* part_l, float* lse,
+                float* out, const Walk& w, int threads, int smem_bytes, cudaStream_t stream) {
   auto kernel = heads_walk_kernel<T, kChunk, kMode>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -635,7 +647,7 @@ int launch_walk(int device, const void* x, const float* qscale, const float* qze
   const int blocks = static_cast<int>(w.num_tiles < fit ? w.num_tiles : fit);
   kernel<<<blocks, threads, smem_bytes, stream>>>(
       static_cast<const T*>(x), qscale, qzero, gather_idx, edge_ids, values, coeff, seg_ids,
-      out_node, slot_of, part_a, part_m, part_l, out, w);
+      out_node, slot_of, part_a, part_m, part_l, lse, out, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -647,8 +659,8 @@ template <int kMode>
 int run_walk(int device, const void* x, int elem_bytes, int chunk_bytes, const float* qscale,
              const float* qzero, const int* gather_idx, const int* edge_ids,
              const float* values, const float* coeff, const int* seg_ids, const int* out_node,
-             const int* slot_of, float* part_a, float* part_m, float* part_l, float* out,
-             Walk w, int threads, int smem_bytes, cudaStream_t stream) {
+             const int* slot_of, float* part_a, float* part_m, float* part_l, float* lse,
+             float* out, Walk w, int threads, int smem_bytes, cudaStream_t stream) {
   const int vec = chunk_bytes / elem_bytes;
   w.d = w.heads * w.dh;
   w.chunks = vec > 0 ? (w.d + vec - 1) / vec : 0;
@@ -662,12 +674,13 @@ int run_walk(int device, const void* x, int elem_bytes, int chunk_bytes, const f
                   threads % 32 == 0 && threads >= w.groups * w.chunks &&
                   threads <= kMaxThreads && layout(w).total == smem_bytes &&
                   (elem_bytes == 1 ? qscale != nullptr && qzero != nullptr : elem_bytes == 4) &&
-                  (kMode != kStatic || (w.heads == 1 && coeff != nullptr));
+                  (kMode != kStatic || (w.heads == 1 && coeff != nullptr)) &&
+                  (kMode == kAttn || lse == nullptr);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
 #define AMPLE_WALK(T, C)                                                                    \
   return launch_walk<T, C, kMode>(device, x, qscale, qzero, gather_idx, edge_ids, values,   \
                                   coeff, seg_ids, out_node, slot_of, part_a, part_m, part_l, \
-                                  out, w, threads, smem_bytes, stream)
+                                  lse, out, w, threads, smem_bytes, stream)
   if (elem_bytes == 4) {
     if (chunk_bytes == 16) AMPLE_WALK(float, 16);
     if (chunk_bytes == 4) AMPLE_WALK(float, 4);

@@ -11,13 +11,17 @@ Each kernel wrapper calls ``count_launch`` exactly where it launches its
 kernel, so a run can show that it went through the kernels:
 ``reset_launch_counts()`` before the run, ``launch_counts()`` after it.
 
-A kernel's result carries no autograd graph. So each wrapper calls
-``require_no_grad`` before it launches: under grad, an input that requires
-grad raises instead of leaving a gradient silently cut. The AGE's backward
-is the AGE on the transposed plan (``core/aggregation.py``), which runs the
-wrapper with grad off; flash attention's and the SSD's are kernels of their
-own (``csrc/flash_attention_bwd.cu``, ``csrc/ssd_scan_bwd.cu``), each behind
-an autograd Function in its ``ops.py``.
+A kernel's result carries no autograd graph. So a wrapper whose launch has
+no backward calls ``require_no_grad`` before it launches: under grad, an
+input that requires grad raises instead of leaving a gradient silently cut
+(``_BACKWARD`` names the ROADMAP.md item that gives it one). The AGE's
+backward is the AGE on the transposed plan (``core/aggregation.py``), which
+runs the wrapper with grad off; the GAT kernels' is ``csrc/attn_agg_bwd.cu``
+and the walk on the transposed plan (``kernels/segment_agg/attn_ops.py``);
+the int8 FTE's is elementwise on the GEMM's int32 output
+(``core/transformation.py``); flash attention's and the SSD's are kernels
+of their own (``csrc/flash_attention_bwd.cu``, ``csrc/ssd_scan_bwd.cu``),
+each behind an autograd Function in its ``ops.py``.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have neither ``nvcc`` nor a card.
@@ -75,9 +79,19 @@ _SIGNATURES = {
         _I,  # device
         _P, _I, _P, _P, _I,  # x, element bytes (4: f32, 1: int8 codes), qscale, qzero, row stride
         _P, _P, _P, _P, _P, _P, _P, _P, _P,  # gather_idx, edge_ids, scores, coeff, seg_ids, out_node, slot_of, split_ptr, split_node
-        _P, _P, _P, _P,  # part_a, part_m, part_l, out
+        _P, _P, _P, _P, _P,  # part_a, part_m, part_l, lse f32 [num_nodes, heads] (or null), out
         _I, _I, _I, _I, _I, _I, _I,  # num_tiles, lanes, segs, heads, dh, n_split, num_nodes
         _I, _I, _I, _I, _I, _I,  # chunk_bytes, groups, per_group, lanes_per_stage, threads, smem_bytes
+        _F,  # leaky slope
+        _P,  # stream
+    ],
+    "ample_attention_bwd": [
+        _I,  # device
+        _P, _I, _P, _P, _I,  # x, element bytes (4: f32, 1: int8 codes), qscale, qzero, row stride
+        _P, _P, _P, _P, _P,  # g, out, lse, scores (attention; else null), coeff (or null)
+        _P, _P, _I,  # indices (in-edge CSR sources), items [R, 3], R
+        _P, _P,  # res_a (alpha, or the coefficients' gradient), res_b (ds)
+        _I, _I, _I, _I,  # heads, dh, chunk_bytes, 1 = attention / 0 = coefficients
         _F,  # leaky slope
         _P,  # stream
     ],
@@ -88,6 +102,7 @@ _SIGNATURES = {
         _P, _P,  # part_a, out
         _I, _I, _I, _I, _I, _I, _I,  # num_tiles, lanes, segs, heads, dh, n_split, num_nodes
         _I, _I, _I, _I, _I, _I,  # chunk_bytes, groups, per_group, lanes_per_stage, threads, smem_bytes
+        _I,  # 1: lane groups start at segments (each segment summed in lane order)
         _P,  # stream
     ],
     "ample_quant_matmul": [
@@ -181,25 +196,26 @@ _SIGNATURES = {
 _launches: Dict[str, int] = {}
 _lib: Optional[ctypes.CDLL] = None
 
-# Where each kernel gets a backward: the item of ROADMAP.md's queue 1.
+# The launches that still have no backward, and where one comes: the item
+# of ROADMAP.md's queue 1.
 _BACKWARD = {
     "segment_agg": "AmpleEngine.aggregate differentiates it for static coefficients; "
                    "the sharded and streamed engines under grad are ROADMAP.md queue 1 "
                    "item 10",
-    "attention": "ROADMAP.md queue 1 item 8 (GAT training on the card)",
-    "segment_agg_mh": "ROADMAP.md queue 1 item 8 (GAT training on the card)",
-    "quant_matmul": "ROADMAP.md queue 1 item 9 (QAT through the int8 FTE)",
+    "streamed_fte": "the int8 FTE over streamed features; the streamed engine under grad "
+                    "is ROADMAP.md queue 1 item 10",
 }
 
 
 def require_no_grad(name: str, *tensors) -> None:
-    """Raise if autograd would need a gradient through kernel ``name``: grad
-    mode is on and one of ``tensors`` (None allowed) requires grad."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+    """Raise if autograd would need a gradient through launch ``name`` (one
+    of ``_BACKWARD``): grad mode is on and one of ``tensors`` (None allowed)
+    requires grad. A launch with a backward is not held."""
+    if name in _BACKWARD and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but the kernel has no backward "
-            f"({_BACKWARD.get(name, 'no ROADMAP.md item yet')}); run it under "
-            "torch.no_grad()")
+            f"({_BACKWARD[name]}); run it under torch.no_grad()")
 
 
 def count_launch(name: str) -> None:

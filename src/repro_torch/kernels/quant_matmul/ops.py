@@ -2,9 +2,10 @@
 
 A CUDA tensor launches ``csrc/quant_matmul.cu``; a CPU tensor takes the plain
 version (``ref.py``). Both give bitwise the same int32 result. The kernel
-reads int8 codes, which carry no gradient; the float tensors they are made
-from are held to ``build.require_no_grad`` where the codes are made
-(``core/transformation.py::transform_int8``, ``memory/prefetcher.py``).
+reads int8 codes, which carry no gradient; the gradient of the int8 FTE
+reaches the scales through its dequant (``core/transformation.py``), and the
+streamed FTE, which has none yet, is held to ``build.require_no_grad``
+(``memory/prefetcher.py``).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the AGE kernels (``csrc/segment_agg.cu``,
-``csrc/attn_agg.cu``).
+``csrc/attn_agg.cu``) and of the GAT backward (``csrc/attn_agg_bwd.cu``).
 
 The same functions as the kernels, by the same route: per-tile segment
 results, written straight to the output for nodes that live in one tile and
@@ -9,8 +9,15 @@ dequantized as ``core.quantization.dequantize`` does. Like the kernels, each
 writes the rows of its plan's nodes into a caller's ``out`` when given one
 and leaves every other row as it is. The CPU tests run them; on the card
 they are what the kernels are checked against.
+
+``attend_tiles_bwd_ref`` and ``edge_dot_ref`` are the backward's per-edge
+terms in explicit formulas (not autograd through the forward), over the
+work items the kernel walks: (destination, first edge, end edge) runs of
+the in-edge CSR of the destinations a plan writes.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -20,7 +27,9 @@ __all__ = [
     "aggregate_tiles_ref",
     "aggregate_tiles_mh_ref",
     "attend_tiles_ref",
+    "attend_tiles_bwd_ref",
     "combine_attention",
+    "edge_dot_ref",
 ]
 
 
@@ -160,12 +169,14 @@ def combine_attention(
     row_node: torch.Tensor,  # int[R] node of each row; num_nodes = none
     *,
     num_nodes: int,
+    lse: Optional[torch.Tensor] = None,  # f32[num_nodes, H], written when given
 ) -> torch.Tensor:
     """Cross-row log-sum-exp combine → f32[num_nodes, H, dh].
 
     ``M = max m`` per node (0 where no row is finite), ``L = Σ l·exp(m − M)``,
     ``A = Σ a·exp(m − M)``, ``out = A / L`` (``A`` where ``L`` is 0). Rows
-    are summed in row order.
+    are summed in row order. With ``lse``, each node's ``M + log L`` is
+    written into it.
     """
     r, h = m.shape
     node = row_node.long()
@@ -179,6 +190,8 @@ def combine_attention(
     big_a = torch.zeros((num_nodes + 1,) + a.shape[1:], dtype=a.dtype, device=a.device)
     big_a.index_add_(0, node, a * scale.unsqueeze(-1))
     denom = torch.where(big_l > 0, big_l, torch.ones_like(big_l))
+    if lse is not None:
+        lse.copy_((big_m + torch.log(big_l))[:num_nodes])
     return (big_a / denom.unsqueeze(-1))[:num_nodes]
 
 
@@ -196,6 +209,7 @@ def attend_tiles_ref(
     leaky_slope: float,
     qp=None,  # QuantParams of int8 codes
     out=None,  # f32[num_nodes, H, dh]
+    lse=None,  # f32[num_nodes, H]: each plan node's log-sum-exp, written when given
     tile_chunk: int = 512,
 ) -> torch.Tensor:
     """softmax(LeakyReLU(scores)) aggregate per destination: f32[N, H, dh].
@@ -204,7 +218,8 @@ def attend_tiles_ref(
     dequantized. Per tile and segment: ``m`` = segment max of the activated scores (0
     stands in for an empty segment's −inf before the ``exp``),
     ``l = Σ exp(sc − m)``, ``a = Σ coeff·exp(sc − m)·z[idx]``. A node in one
-    tile gets ``a / l``; a split node's rows go through ``combine_attention``.
+    tile gets ``a / l`` (and ``lse = m + log l``); a split node's rows go
+    through ``combine_attention`` (``lse = M + log L``).
     """
     n, h, dh = z.shape
     t = gather_idx.shape[0]
@@ -236,6 +251,8 @@ def attend_tiles_ref(
         slot = split.slot_of[t0:t1].reshape(-1).long()
         direct = (node < num_nodes) & (slot < 0)
         out[node[direct]] = final[direct]
+        if lse is not None:
+            lse[node[direct]] = (m_fin + torch.log(l))[direct]
         part = slot >= 0
         pm[slot[part]] = m[part]
         pl[slot[part]] = l[part]
@@ -243,6 +260,99 @@ def attend_tiles_ref(
     ptr = split.split_ptr.long()
     rows_of = torch.repeat_interleave(
         torch.arange(ptr.numel() - 1, device=dev), ptr[1:] - ptr[:-1])
+    split_lse = None if lse is None else torch.empty((ptr.numel() - 1, h), dtype=z.dtype,
+                                                     device=dev)
     out[split.split_node.long()] = combine_attention(
-        pm, pl, pa, rows_of, num_nodes=int(ptr.numel() - 1))
+        pm, pl, pa, rows_of, num_nodes=int(ptr.numel() - 1), lse=split_lse)
+    if lse is not None:
+        lse[split.split_node.long()] = split_lse
+    return out
+
+
+def _item_edges(items: torch.Tensor):
+    """The edges of work items [R, 3] (destination, first edge, end edge):
+    (edge ids, destination of each)."""
+    items = items.long()
+    lo = items[:, 1]
+    cnt = items[:, 2] - lo
+    dst = torch.repeat_interleave(items[:, 0], cnt)
+    start = torch.repeat_interleave(lo - (torch.cumsum(cnt, 0) - cnt), cnt)
+    return start + torch.arange(dst.numel(), device=items.device), dst
+
+
+def _edge_chunks(n_edges: int, width: int):
+    """Edge ranges whose gathered [chunk, width] rows stay near 2^26 floats."""
+    step = max(1, (1 << 26) // max(width, 1))
+    for e0 in range(0, n_edges, step):
+        yield e0, min(n_edges, e0 + step)
+
+
+def _edge_dots(z, qp, g, eid, dst, indices, e0, e1):
+    """g[dst] · z[src] per head for the edges ``eid[e0:e1]``: f32[c, H], the
+    codes dequantized as the kernel does."""
+    n, h, dh = g.shape
+    src = indices.long()[eid[e0:e1]]
+    zf = _rows(z[src], qp).reshape(-1, h, dh)
+    return (g[dst[e0:e1]] * zf).sum(-1)
+
+
+def attend_tiles_bwd_ref(
+    z: torch.Tensor,  # f32[N, H, dh], or int8 codes with qp
+    g: torch.Tensor,  # f32[N, H, dh] gradient of the attention output
+    out: torch.Tensor,  # f32[N, H, dh] the forward's output
+    lse: torch.Tensor,  # f32[N, H] the forward's log-sum-exp
+    scores: torch.Tensor,  # f32[E_graph, H] raw scores
+    indices: torch.Tensor,  # int32[E_graph] source of each edge (in-edge CSR order)
+    items: torch.Tensor,  # int32[R, 3] work items: destination, first edge, end edge
+    *,
+    leaky_slope: float,
+    coeff=None,  # f32[E_graph] static coefficient of each edge; None: ones
+    qp=None,  # QuantParams of int8 codes
+    alpha=None,  # f32[E_graph, H] written for the rows' edges; None: zeros
+    ds=None,  # f32[E_graph, H] likewise
+):
+    """The fused attention's backward per edge j → i of ``items`` and head h:
+    ``α = exp(leaky(s) − lse_i)``, ``D_i = g_i · out_i``, ``dot = g_i ·
+    z_j``, ``ds = α·(c·dot − D_i)·leaky′(s)`` (leaky′ = 1 at s >= 0, the
+    slope below, as ``jax.nn.leaky_relu``'s gradient). Returns (alpha, ds)."""
+    e_all, h = scores.shape
+    if alpha is None:
+        alpha = torch.zeros((e_all, h), dtype=torch.float32, device=g.device)
+    if ds is None:
+        ds = torch.zeros((e_all, h), dtype=torch.float32, device=g.device)
+    eid, dst = _item_edges(items)
+    big_d = (g * out).sum(-1)  # [N, H]
+    for e0, e1 in _edge_chunks(eid.numel(), g.shape[1] * g.shape[2]):
+        e, i = eid[e0:e1], dst[e0:e1]
+        dot = _edge_dots(z, qp, g, eid, dst, indices, e0, e1)
+        s = scores[e]
+        act = torch.where(s >= 0, s, leaky_slope * s)
+        p = torch.exp(act - lse[i])
+        c = 1.0 if coeff is None else coeff[e].unsqueeze(-1)
+        slope = torch.where(s >= 0, torch.ones_like(s), torch.full_like(s, leaky_slope))
+        alpha[e] = p
+        ds[e] = p * (c * dot - big_d[i]) * slope
+    return alpha, ds
+
+
+def edge_dot_ref(
+    x: torch.Tensor,  # f32[N, H, dh], or int8 codes with qp
+    g: torch.Tensor,  # f32[N, H, dh] gradient of the aggregate
+    indices: torch.Tensor,  # int32[E_graph]
+    items: torch.Tensor,  # int32[R, 3]
+    *,
+    coeff=None,  # f32[E_graph]; None: ones
+    qp=None,
+    out=None,  # f32[E_graph, H] written for the rows' edges; None: zeros
+) -> torch.Tensor:
+    """The gradient of ``aggregate_tiles_mh``'s per-edge coefficients: for
+    each edge j → i of ``items`` and head h, ``c · (g_i · x_j)``."""
+    h = g.shape[1]
+    if out is None:
+        out = torch.zeros((indices.shape[0], h), dtype=torch.float32, device=g.device)
+    eid, dst = _item_edges(items)
+    for e0, e1 in _edge_chunks(eid.numel(), g.shape[1] * g.shape[2]):
+        e = eid[e0:e1]
+        dot = _edge_dots(x, qp, g, eid, dst, indices, e0, e1)
+        out[e] = dot if coeff is None else coeff[e].unsqueeze(-1) * dot
     return out

@@ -985,7 +985,7 @@ def transform_streamed(
             if a_qp is None:
                 a_qp = _host_fte_qp(store.amax_rows(ids), dev)
             if dev.type == "cuda":
-                build.require_no_grad(qm_ops.KERNEL, w_qp.scale)
+                build.require_no_grad("streamed_fte", w_qp.scale)
             scale_np = np.float32(a_qp.scale.item())
             # Same expression as transform_int8's dequant coefficient.
             deq = a_qp.scale * w_qp.scale.reshape(1, -1)

@@ -17,10 +17,17 @@ scores and coefficients stay f32.
 
 Self-loops are explicit edges (∪{i} above), added by ``prepare_graph`` via the
 registry's ``needs_self_loops`` flag, as for GCN.
+
+Training: ``apply`` differentiates on both devices. The scores' gather onto
+the edges is ``AmpleEngine.edge_scores`` (per-node sums of the edges'
+gradient on the plans, no atomics), the attention's backward is
+``csrc/attn_agg_bwd.cu`` and the walk on the transposed plan. Degree-Quant
+QAT passes ``layer_input``, which fake-quantizes the unprotected rows of
+each layer's input before its FTE.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -78,22 +85,26 @@ def init(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
 
 
 def apply(
-    cfg: ModelConfig, params: Dict, engine: AmpleEngine, x: torch.Tensor
+    cfg: ModelConfig, params: Dict, engine: AmpleEngine, x: torch.Tensor,
+    layer_input: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
+    """The GAT forward; ``layer_input`` (None: none) maps each layer's input
+    before its FTE (Degree-Quant's fake quantization in QAT)."""
     mode = api.agg_mode(cfg)
-    src, dst = engine.edge_endpoints(x.device)
     n_layers = len(params["layers"])
     num_nodes = engine.graph.num_nodes
     h = _heads(cfg)
     for i, lyr in enumerate(params["layers"]):
         dh = _head_dim(cfg, i)
+        if layer_input is not None:
+            x = layer_input(x)
         # One FTE for all heads, [N, H·dh]; x may be StreamedFeatures on the
         # out-of-core first layer, and z is dense either way.
         z = engine.transform(x, lyr["w"])
         zh = z.reshape(num_nodes, h, dh)
         src_sc = torch.einsum("nhd,hd->nh", zh, lyr["a_src"])
         dst_sc = torch.einsum("nhd,hd->nh", zh, lyr["a_dst"])
-        scores = src_sc[src] + dst_sc[dst]  # raw [E, H]
+        scores = engine.edge_scores(src_sc, dst_sc, mode=mode)  # raw [E, H]
         out = engine.attention_aggregate(scores, zh, mode=mode, leaky_slope=LEAKY_SLOPE)
         if i < n_layers - 1:
             x = F.elu(out.reshape(num_nodes, h * dh))

@@ -10,6 +10,7 @@ This file imports only the port (no JAX), so it runs where JAX is absent.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from types import SimpleNamespace
 
@@ -44,7 +45,9 @@ from repro_torch.kernels.segment_agg import ops as seg_ops
 from repro_torch.kernels.segment_agg.ref import (
     aggregate_tiles_mh_ref,
     aggregate_tiles_ref,
+    attend_tiles_bwd_ref,
     attend_tiles_ref,
+    edge_dot_ref,
 )
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_bwd_ref, ssd_intra_chunk_ref
@@ -1600,35 +1603,288 @@ def test_qat_step_on_card_matches_cpu(cuda):
 
 
 def test_kernel_wrappers_raise_under_grad(cuda):
-    """Every wrapper whose kernel has no backward raises under grad when an
-    input requires grad, and launches under no_grad. (Flash attention and the
-    SSD have a backward: ``test_flash_attention_gradient_under_grad_launches_the_backward``,
-    ``test_ssd_intra_chunk_gradient_under_grad_launches_the_backward``.)"""
+    """The AGE's wrapper, whose launch has no backward outside the engine's
+    autograd, raises under grad when an input requires grad (ROADMAP.md
+    queue 1 item 10) and launches under no_grad. The GAT kernels' wrappers
+    and the int8 FTE launch their backward under grad, as flash's and the
+    SSD's do (``test_flash_attention_gradient_under_grad_launches_the_backward``,
+    ``test_ssd_intra_chunk_gradient_under_grad_launches_the_backward``)."""
     g = make_lognormal_graph(60, 4.0, seed=1)
-    plan = build_edge_tile_plan(g, edges_per_tile=16)
-    dp = to_device_plan(plan, cuda)
+    eng = AmpleEngine(g, EngineConfig(edges_per_tile=16, mixed_precision=False))
+    dp = eng._device_plans("runtime", eng.plans("runtime"), cuda)["float"]
+    tg = eng._tile_grad("runtime", "float", cuda)
     x = torch.randn((60, 8), device=cuda, requires_grad=True)
     edges = torch.rand((g.num_edges, 2), device=cuda, requires_grad=True)
-    z = torch.randn((60, 2, 4), device=cuda)
+    z = torch.randn((60, 2, 4), device=cuda, requires_grad=True)
     w = torch.randn((8, 5), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="segment_agg: an input requires grad.*item 10"):
+        _agg(x, dp, 60, seg_ops.aggregate_tiles)
+    with torch.no_grad():
+        assert torch.isfinite(_agg(x, dp, 60, seg_ops.aggregate_tiles)).all()
     calls = {
-        "segment_agg": lambda: _agg(x, dp, 60, seg_ops.aggregate_tiles),
-        "attention": lambda: attn_ops.attend_tiles(
+        "attention": (lambda: attn_ops.attend_tiles(
             z, dp.gather_idx, dp.edge_ids, edges, dp.coeff, dp.seg_ids, dp.out_node, dp.split,
-            num_nodes=60, leaky_slope=0.2),
-        "segment_agg_mh": lambda: attn_ops.aggregate_tiles_mh(
+            num_nodes=60, leaky_slope=0.2, grad=tg), (z, edges),
+            {attn_ops.ATTENTION: 1, attn_ops.ATTENTION_BWD: 1, attn_ops.SEGMENT_AGG_MH: 1}),
+        "segment_agg_mh": (lambda: attn_ops.aggregate_tiles_mh(
             z, dp.gather_idx, dp.edge_ids, edges, dp.coeff, dp.seg_ids, dp.out_node, dp.split,
-            num_nodes=60),
-        "quant_matmul": lambda: transform_int8(x.detach(), *quantize_per_channel(w)),
+            num_nodes=60, grad=tg), (z, edges),
+            {attn_ops.SEGMENT_AGG_MH: 2, attn_ops.ATTENTION_BWD: 1}),
+        "quant_matmul": (lambda: transform_int8(x, *quantize_per_channel(w)), (x, w),
+                         {qm_ops.KERNEL: 1}),
     }
-    for name, call in calls.items():
-        with pytest.raises(RuntimeError, match=f"{name}: an input requires grad"):
-            call()
-        with torch.no_grad():
-            assert torch.isfinite(call()).all()
-    eng = AmpleEngine(g, EngineConfig(edges_per_tile=16, mixed_precision=False))
-    with pytest.raises(RuntimeError, match="segment_agg_mh"):
-        eng.aggregate(x, mode="runtime", edge_coeff=edges[:, 0])
+    for name, (call, leaves, want) in calls.items():
+        build.reset_launch_counts()
+        grads = torch.autograd.grad(call().square().sum(), leaves)
+        torch.cuda.synchronize()
+        assert build.launch_counts() == want, name
+        assert all(torch.isfinite(t).all() and t.abs().max() > 0 for t in grads), name
+    y = eng.aggregate(x[:, :2].contiguous().view(60, 2, 1), mode="runtime", edge_coeff=edges)
+    assert torch.autograd.grad(y.sum(), edges)[0].abs().max() > 0
+
+
+# ------------------------------------------------------------ GAT backward
+def _bwd_rel_close(got, want, tol=1e-5):
+    """Within ``tol`` of each value and of the largest magnitude (ds is a
+    difference of two dot products, so its small entries carry their
+    operands' absolute error)."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * max(np.abs(want).max(), 1e-30))
+
+
+def _bwd_case(cuda, heads, dh, rows, seed=0, hub=True, mixed=False):
+    """A runtime-mode engine on a graph with a split hub, z (and in
+    ``rows``' form on the CPU and the card), raw scores with exact zeros and
+    a gradient g."""
+    g = _hub_graph(seed=seed) if hub else make_lognormal_graph(400, 10.0, seed=seed)
+    eng = AmpleEngine(g, EngineConfig(edges_per_tile=64, mixed_precision=mixed))
+    rng = np.random.default_rng(seed)
+    z = torch.from_numpy(rng.standard_normal((g.num_nodes, heads, dh)).astype(np.float32))
+    sc = torch.from_numpy(rng.standard_normal((g.num_edges, heads)).astype(np.float32) * 2)
+    sc[::11] = 0.0
+    gr = torch.from_numpy(rng.standard_normal((g.num_nodes, heads, dh)).astype(np.float32))
+    return eng, z, sc, gr, {"cpu": _rows(z, rows, "cpu"), "card": _rows(z, rows, cuda)}
+
+
+@pytest.mark.parametrize("rows", ROWS, ids=lambda r: f"{r[0]}+{r[1]}")
+@pytest.mark.parametrize("heads,dh", [(4, 64), (4, 100), (2, 12), (1, 8), (4, 5), (1, 300)])
+def test_attention_bwd_matches_plain(cuda, rows, heads, dh):
+    """csrc/attn_agg_bwd.cu in both modes against its plain version on the
+    CPU (alpha, ds and the coefficients' gradient within 1e-5 of the
+    largest), on f32 rows and int8 codes, aligned and not; run-to-run
+    bitwise; edges of other rows untouched."""
+    eng, z, sc, gr, xs = _bwd_case(cuda, heads, dh, rows, seed=heads + dh)
+    n = eng.graph.num_nodes
+    devs = {"cpu": torch.device("cpu"), "card": cuda}
+    for tag in eng.plans("runtime"):
+        dps = {d: eng._device_plans("runtime", eng.plans("runtime"), devs[d])[tag] for d in devs}
+        tgs = {d: eng._tile_grad("runtime", tag, devs[d]) for d in devs}
+        x, qp = xs["cpu"]
+        lse = torch.zeros((n, heads))
+        out = attn_ops.attend_tiles(x, dps["cpu"].gather_idx, dps["cpu"].edge_ids, sc,
+                                    dps["cpu"].coeff, dps["cpu"].seg_ids, dps["cpu"].out_node,
+                                    dps["cpu"].split, num_nodes=n, leaky_slope=0.2, qp=qp,
+                                    lse=lse)
+        cf = torch.from_numpy(np.random.default_rng(2).uniform(0.5, 1.5, eng.graph.num_edges)
+                              .astype(np.float32))
+
+        def run(dev, attn):
+            xd, qpd = xs[dev]
+            tg = tgs[dev]
+            args = [t.to(devs[dev]) for t in (gr, out, lse, sc)]
+            if attn:
+                return attn_ops.attend_tiles_bwd(
+                    xd, args[0], args[1], args[2], args[3], tg.indices, tg.items,
+                    leaky_slope=0.2, coeff=cf.to(devs[dev]), qp=qpd,
+                    alpha=torch.full(sc.shape, 7.0, device=devs[dev]))
+            return (attn_ops.edge_dot(xd, args[0], tg.indices, tg.items,
+                                      coeff=cf.to(devs[dev]), qp=qpd),)
+
+        for attn in (True, False):
+            build.reset_launch_counts()
+            got, again = run("card", attn), run("card", attn)
+            torch.cuda.synchronize()
+            assert build.launch_counts() == {attn_ops.ATTENTION_BWD: 2}
+            want = run("cpu", attn)
+            for a, b, w in zip(got, again, want):
+                assert torch.equal(a, b) and torch.isfinite(a).all()
+                _bwd_rel_close(a, w)
+            if attn:  # alpha of the edges of other groups' rows is left as it was
+                other = torch.ones(eng.graph.num_edges, dtype=torch.bool)
+                for _, lo, hi in tgs["cpu"].items.tolist():
+                    other[lo:hi] = False
+                assert (got[0].cpu()[other] == 7.0).all()
+
+
+@pytest.mark.parametrize("rows", [("f32", 0), ("int8", 0)], ids=lambda r: r[0])
+@pytest.mark.parametrize("heads,dh", [(4, 64), (4, 100), (1, 8)])
+def test_attention_lse_output_keeps_the_output_bitwise(cuda, rows, heads, dh):
+    """The forward with its lse buffer: the output bitwise the one without,
+    the lse within 1e-5 of the plain version's (split nodes combined)."""
+    eng, z, sc, _, xs = _bwd_case(cuda, heads, dh, rows, seed=3 * heads + dh)
+    n = eng.graph.num_nodes
+    for tag in eng.plans("runtime"):
+        outs = {}
+        for key, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+            dp = eng._device_plans("runtime", eng.plans("runtime"), dev)[tag]
+            x, qp = xs[key]
+            lse = torch.full((n, heads), float("nan"), device=dev)
+            with_lse = _attend_lse(x, sc.to(dev), dp, n, qp, lse)
+            outs[key] = (with_lse, lse, _attend(x, sc.to(dev), dp, n, attn_ops.attend_tiles,
+                                                qp=qp))
+        assert dp.split.num_slots > 0
+        got, lse, plain = outs["card"]
+        assert torch.equal(got, plain)
+        rows_w = eng._tile_grad("runtime", tag, cuda).items[:, 0].long()
+        _bwd_rel_close(lse[rows_w], outs["cpu"][1][rows_w.cpu()])
+        assert torch.isfinite(lse[rows_w]).all()
+
+
+def _attend_lse(x, sc, dp, n, qp, lse):
+    return attn_ops.attend_tiles(x, dp.gather_idx, dp.edge_ids, sc, dp.coeff, dp.seg_ids,
+                                 dp.out_node, dp.split, num_nodes=n, leaky_slope=0.2, qp=qp,
+                                 lse=lse)
+
+
+@pytest.mark.parametrize("heads,dh", [(4, 64), (4, 100)])
+def test_gat_backward_walks_are_bitwise_the_cpus(cuda, heads, dh):
+    """Given the kernel's alpha and ds, the walks on the transposed plan (dz)
+    and the score sums (forward and transposed plans) are bitwise the CPU's
+    plain versions: the backward's multi-head walks are aligned, summing
+    each segment in lane order."""
+    from repro_torch.core.aggregation import edge_segment_sum_tiles
+
+    eng, z, sc, gr, _ = _bwd_case(cuda, heads, dh, ("f32", 0), seed=heads * dh, mixed=True)
+    n = eng.graph.num_nodes
+    alpha = torch.rand((eng.graph.num_edges, heads)).to(cuda)
+    ds = torch.randn((eng.graph.num_edges, heads)).to(cuda)
+    for tag in eng.plans("runtime"):
+        tp, tp_cpu = (eng._transposed_plan("runtime", tag, d) for d in (cuda, torch.device("cpu")))
+        fp, fp_cpu = (eng._device_plans("runtime", eng.plans("runtime"), d)[tag]
+                      for d in (cuda, torch.device("cpu")))
+        walk = functools.partial(attn_ops.aggregate_tiles_mh, aligned=True)
+        dz = _mh(gr.to(cuda), alpha, tp, n, walk)
+        assert torch.equal(dz, _mh(gr.to(cuda), alpha, tp, n, walk))
+        assert torch.equal(dz.cpu(), _mh(gr, alpha.cpu(), tp_cpu, n, aggregate_tiles_mh_ref))
+        for p, p_cpu in ((tp, tp_cpu), (fp, fp_cpu)):
+            got = edge_segment_sum_tiles(ds, p, num_nodes=n, aligned=True)
+            assert torch.equal(got.cpu(), edge_segment_sum_tiles(ds.cpu(), p_cpu, num_nodes=n))
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_gat_attention_gradient_under_grad_launches_the_backward(cuda, mixed):
+    """``attention_aggregate`` and ``edge_scores`` under grad on the card:
+    per group the fused forward, the backward kernel, and the walks (dz on
+    the float group's transposed plan, the score sums per group on the
+    transposed and forward plans); gradients within the CPU's (f32
+    tolerance, mixed tolerance on a mixed engine), run-to-run bitwise."""
+    g = _hub_graph(seed=5)
+    rng = np.random.default_rng(5)
+    zh = rng.standard_normal((g.num_nodes, 4, 16)).astype(np.float32)
+    a_s, a_d = (rng.standard_normal((4, 16)).astype(np.float32) for _ in range(2))
+    r = rng.standard_normal(zh.shape).astype(np.float32)
+    got = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        eng = AmpleEngine(g, EngineConfig(edges_per_tile=64, mixed_precision=mixed))
+        z = torch.from_numpy(zh).to(dev).requires_grad_()
+        ps = [torch.from_numpy(a).to(dev).requires_grad_() for a in (a_s, a_d)]
+        build.reset_launch_counts()
+        src_sc = torch.einsum("nhd,hd->nh", z, ps[0])
+        dst_sc = torch.einsum("nhd,hd->nh", z, ps[1])
+        out = eng.attention_aggregate(eng.edge_scores(src_sc, dst_sc), z)
+        grads = torch.autograd.grad((out * torch.from_numpy(r).to(dev)).sum(), [z] + ps)
+        groups = len(eng.plans("runtime"))
+        if dev is cuda:
+            torch.cuda.synchronize()
+            assert build.launch_counts() == {
+                attn_ops.ATTENTION: groups, attn_ops.ATTENTION_BWD: groups,
+                attn_ops.SEGMENT_AGG_MH: 1 + 2 * groups}
+        got.append([t.cpu() for t in grads])
+    assert all(torch.equal(a, b) for a, b in zip(got[0], got[1]))
+    for a, b in zip(got[0], got[2]):
+        if mixed:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=6e-2, rtol=2e-3)
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-4, rtol=1e-3)
+
+
+def test_gat_train_steps_on_card_match_cpu_and_repeat_bitwise(cuda):
+    """gat.apply at FULL ample-gat widths (300 -> 256 -> 100, 4 heads) on a
+    400-node graph, float engine: the loss's gradients on the card within
+    the CPU's f32 tolerance, per step 2 attention, 2 backward kernel and 6
+    walk launches, and two 2-step AdamW runs bitwise."""
+    from repro_torch.models.gnn import gat
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+    cfg = dataclasses.replace(get_config("ample-gat"), gnn_precision="float")
+    g = gnn_api.prepare_graph(cfg, make_dataset("cora", max_nodes=400, max_feature_dim=300,
+                                                seed=4))
+    labels = torch.from_numpy(np.random.default_rng(1).integers(0, 100, g.num_nodes))
+    params = gnn_api.gnn_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def loss_fn(p, eng, dev):
+        y = gat.apply(cfg, p, eng, torch.from_numpy(g.features).to(dev))
+        return torch.nn.functional.cross_entropy(y, labels.to(dev))
+
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = AmpleEngine(g, gnn_api.engine_config(cfg))
+        p = {"layers": [{k: v.to(dev).requires_grad_() for k, v in lyr.items()}
+                        for lyr in params["layers"]]}
+        build.reset_launch_counts()
+        loss = loss_fn(p, eng, dev)
+        leaves = [lyr[k] for lyr in p["layers"] for k in sorted(lyr)]
+        grads.append([t.cpu() for t in torch.autograd.grad(loss, leaves)])
+        if dev is cuda:
+            torch.cuda.synchronize()
+            assert build.launch_counts() == {attn_ops.ATTENTION: 2, attn_ops.ATTENTION_BWD: 2,
+                                             attn_ops.SEGMENT_AGG_MH: 6}
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-4, rtol=1e-3)
+    runs = []
+    for _ in range(2):
+        eng = AmpleEngine(g, gnn_api.engine_config(cfg))
+        p = params_to(params, cuda)
+        p = {"layers": [{k: v.detach().requires_grad_() for k, v in lyr.items()}
+                        for lyr in p["layers"]]}
+        opt = adamw_init(p)
+        for _ in range(2):
+            leaves = [lyr[k] for lyr in p["layers"] for k in sorted(lyr)]
+            gl = torch.autograd.grad(loss_fn(p, eng, cuda), leaves)
+            it = iter(gl)
+            gtree = {"layers": [{k: next(it) for k in sorted(lyr)} for lyr in p["layers"]]}
+            p, opt, _ = adamw_update(gtree, opt, p, AdamWConfig(lr=1e-3))
+        runs.append([lyr[k].detach() for lyr in p["layers"] for k in sorted(lyr)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_mixed_qat_step_through_the_int8_fte_on_card_matches_cpu(cuda):
+    """gcn.apply on a mixed-precision engine under grad (ROADMAP.md queue 1
+    item 9): the int8 GEMM launches in the forward, its backward reads the
+    int32 output; the weights' gradients within the CPU's at the mixed
+    tolerance; 5 AGE launches (2 a layer, 1 backward) and 2 GEMMs."""
+    from repro_torch.models.gnn import gcn
+
+    cfg = get_config("ample-gcn")
+    g = gnn_api.prepare_graph(cfg, make_dataset("cora", max_nodes=500, max_feature_dim=300,
+                                                seed=6))
+    params = gnn_api.gnn_init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    r = torch.from_numpy(np.random.default_rng(2).standard_normal((g.num_nodes, 100))
+                         .astype(np.float32))
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = AmpleEngine(g, EngineConfig(mixed_precision=True))
+        p = {"layers": [{"w": lyr["w"].to(dev).requires_grad_()} for lyr in params["layers"]]}
+        build.reset_launch_counts()
+        y = gcn.apply(cfg, p, eng, torch.from_numpy(g.features).to(dev))
+        got.append([t.cpu() for t in torch.autograd.grad(
+            (y * r.to(dev)).sum(), [lyr["w"] for lyr in p["layers"]])])
+        if dev is cuda:
+            torch.cuda.synchronize()
+            assert build.launch_counts() == {seg_ops.KERNEL: 5, qm_ops.KERNEL: 2}
+    for a, b in zip(*got):
+        assert torch.isfinite(a).all() and a.abs().max() > 0
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=6e-2, rtol=2e-3)
 
 
 def test_serving_with_params_that_require_grad_on_card(cuda):

@@ -142,3 +142,53 @@ def test_serve_parses_tenants_and_refuses_bad_entries():
         serve._parse_tenants("a:1:2:3:4")
     with pytest.raises(SystemExit):
         serve._parse_tenants(" , ")
+
+
+# ---------------------------------------------------------------- examples
+def _example(name):
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_quickstart_example_on_cpu(capsys):
+    build.reset_launch_counts()
+    res = _example("quickstart_torch").run(device="cpu", nodes=300)
+    text = capsys.readouterr().out
+    assert "device cpu" in text and "metrics:" in text
+    assert res["oracle_agreement"] >= 0.9 and res["oracle_rel_err"] < 0.08
+    assert res["warm_equals_cold"] == 1.0 and res["gat_warm_equals_cold"] == 1.0
+    assert res["outofcore_bitwise"] == 1.0 and res["sharded_drift"] < 1e-4
+    assert res["tenant_completed"] == 7 and res["trace_spans"] > 0
+    assert build.launch_counts() == {}  # the plain versions: no kernel on the CPU
+
+
+def test_serve_lm_example_on_cpu(capsys):
+    ex = _example("serve_lm_torch")
+    out = ex.run(arch="smollm-360m", batch=2, prompt_len=8, tokens=6, device="cpu")
+    assert tuple(out.shape) == (2, 14) and "tok/s" in capsys.readouterr().out
+    cfg = get_config("smollm-360m", reduced=True)
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
+    # the same engine the example builds, twice: the same tokens
+    assert torch.equal(out, ex.run(arch="smollm-360m", batch=2, prompt_len=8, tokens=6,
+                                   device="cpu"))
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 8))
+    assert np.array_equal(out[:, :8].numpy(), prompts)
+
+
+def test_ample_simulation_example_matches_reference_simulator(capsys):
+    from repro.core import simulator as ref_sim
+
+    rows = _example("ample_simulation_torch").run(max_nodes=400, datasets=("cora", "pubmed"),
+                                                  device="cpu")
+    assert "cora" in capsys.readouterr().out
+    for name, row in rows.items():
+        ev = ref_sim.simulate_dataset(name, max_nodes=400)
+        db = ref_sim.simulate_dataset(name, max_nodes=400,
+                                      cfg=ref_sim.SimConfig(event_driven=False))
+        assert row["event_driven"] == ev and row["double_buffered"] == db

@@ -214,14 +214,21 @@ def test_transpose_plan_graph_is_the_reversed_group(directed_graph, mode, mixed)
     a = _dense(g, port_mp.aggregation_coefficients(g, mode))
     assert np.abs(a - a.T).max() > 0.1  # directed: A is not its own transpose
     for tag, plan in eng.plans(mode).items():
-        gt, coeff, tags = port_sched.transpose_plan_graph(plan)
+        gt, coeff, tags, eids = port_sched.transpose_plan_graph(plan)
         assert gt.num_nodes == g.num_nodes and (tags == "float").all()
         assert gt.num_edges == plan.total_edges
         group = np.zeros((g.num_nodes, 1))
         group[eng.node_groups[tag]] = 1.0  # the rows the group's plan writes
         np.testing.assert_array_equal(_dense(gt, coeff), (a * group).T)
-        again, _, _ = port_sched.transpose_plan_graph(plan)  # deterministic
+        again, _, _, again_eids = port_sched.transpose_plan_graph(plan)  # deterministic
         np.testing.assert_array_equal(again.indices, gt.indices)
+        np.testing.assert_array_equal(again_eids, eids)
+        # each reversed edge carries its forward edge: src of gt row j is the
+        # forward edge's source j, its destination the forward edge's
+        src = np.repeat(np.arange(g.num_nodes), gt.degrees)
+        fwd_dst = np.repeat(np.arange(g.num_nodes), g.degrees)
+        np.testing.assert_array_equal(g.indices[eids], src)
+        np.testing.assert_array_equal(fwd_dst[eids], gt.indices)
 
 
 def test_undirected_gcn_adjacency_is_symmetric():
@@ -232,7 +239,7 @@ def test_undirected_gcn_adjacency_is_symmetric():
     a = _dense(g, port_mp.aggregation_coefficients(g, "gcn"))
     sym = np.abs(a - a.T).max() == 0.0
     eng = port_mp.AmpleEngine(g, port_mp.EngineConfig(edges_per_tile=64, mixed_precision=False))
-    gt, coeff, _ = port_sched.transpose_plan_graph(eng.plans("gcn")["float"])
+    gt, coeff, _, _ = port_sched.transpose_plan_graph(eng.plans("gcn")["float"])
     np.testing.assert_array_equal(_dense(gt, coeff), a.T)
     assert sym == np.array_equal(_dense(gt, coeff), a)
 
@@ -336,15 +343,20 @@ def test_weight_quant_cache_keeps_no_graph():
 
 
 def test_require_no_grad_raises_only_under_grad():
+    """Only the launches without a backward (the AGE outside the engine's
+    autograd and the streamed FTE: item 10) raise, and only under grad; the
+    GAT kernels, the int8 GEMM, flash and the SSD have a backward."""
     t = torch.ones(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="item 8"):
-        build.require_no_grad("attention", torch.ones(2), t)
-    with pytest.raises(RuntimeError, match="item 9"):  # flash and the SSD have a backward
-        build.require_no_grad("quant_matmul", t)
-    assert "ssd_intra_chunk" not in build._BACKWARD
+    with pytest.raises(RuntimeError, match="item 10"):
+        build.require_no_grad("segment_agg", torch.ones(2), t)
+    with pytest.raises(RuntimeError, match="item 10"):
+        build.require_no_grad("streamed_fte", t)
+    for name in ("attention", "segment_agg_mh", "quant_matmul", "ssd_intra_chunk"):
+        assert name not in build._BACKWARD
+        build.require_no_grad(name, torch.ones(2), t)
     with torch.no_grad():
-        build.require_no_grad("attention", t)
-    build.require_no_grad("quant_matmul", torch.ones(2), None)
+        build.require_no_grad("segment_agg", t)
+    build.require_no_grad("segment_agg", torch.ones(2), None)
 
 
 def test_serving_with_params_that_require_grad():

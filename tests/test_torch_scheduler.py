@@ -11,6 +11,7 @@ import pytest
 
 from repro.core import message_passing as ref_mp
 from repro.core import scheduler as ref_sched
+from repro.graphs import csr as ref_csr
 from repro.graphs.csr import add_self_loops, disjoint_union
 from repro.graphs.datasets import make_dataset, make_lognormal_graph
 from repro_torch.core import message_passing as port_mp
@@ -42,6 +43,32 @@ def test_build_edge_tile_plan_bitwise(ept, spt):
     kw = dict(edges_per_tile=ept, segments_per_tile=spt, coeff=coeff)
     _same_plan(ref_sched.build_edge_tile_plan(g, **kw),
                port_sched.build_edge_tile_plan(_port_graph(g), **kw))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_build_edge_tile_plan_bitwise_on_odd_graphs(seed):
+    """Graphs with no edges, nodes of degree 0, hubs over many tiles, node
+    subsets, no degree sort, one-lane tiles and segment budgets below the
+    lane count: the vectorised port plans what the reference's loop does."""
+    rng = np.random.default_rng(seed)
+    for _ in range(12):
+        n = int(rng.integers(0, 50))
+        deg = rng.integers(0, 4, n) * (rng.random(n) < 0.7)
+        deg = deg + (rng.random(n) < 0.1) * rng.integers(0, 70, n)
+        if rng.random() < 0.1:
+            deg[:] = 0
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(deg, out=indptr[1:])
+        indices = rng.integers(0, max(n, 1), indptr[-1]).astype(np.int32)
+        ept = int(rng.choice([1, 2, 4, 8, 16, 32]))
+        kw = dict(edges_per_tile=ept, sort_by_degree=bool(rng.random() < 0.8),
+                  segments_per_tile=None if rng.random() < 0.4 else int(rng.integers(1, ept + 3)),
+                  coeff=None if rng.random() < 0.5 else rng.random(indptr[-1]),
+                  node_ids=None if rng.random() < 0.5 or n == 0 else np.sort(
+                      rng.choice(n, size=int(rng.integers(0, n + 1)), replace=False)))
+        g = ref_csr.Graph(indptr=indptr, indices=indices, num_nodes=n)
+        _same_plan(ref_sched.build_edge_tile_plan(g, **kw),
+                   port_sched.build_edge_tile_plan(_port_graph(g), **kw))
 
 
 def test_mixed_precision_and_concat_bitwise():
