@@ -68,15 +68,15 @@ Every phase that fails raises, so the script exits non-zero.
              bitwise; the float and deployed int8 test accuracies; at FULL
              widths on cora, step 0's loss and gradients on the card within
              atol 5e-4, rtol 1e-3 of the CPU's;
-   gat bwd — the backward kernel at layer 0's shape on that engine (H 4, dh
-             64, f32 rows and int8 codes) against its plain version on the
-             card: alpha and ds within 1e-5 of each value and of the
-             largest, run to run bitwise; given its alpha and ds, the dz walk
-             on the transposed runtime plan and the score sums bitwise the
-             CPU's plain versions; the kernel and the whole backward timed
-             beside the plain version, the bound and
-             ``torch.sparse.sampled_addmm`` (once a head) and
-             ``torch.sparse.mm`` on Aᵀ;
+   gat bwd — the backward kernel at both layers' shapes on that engine (H 4,
+             dh 64 and 100, f32 rows and int8 codes) against its plain
+             version on the card: alpha and ds within 1e-5 of each value and
+             of the largest, run to run bitwise; each timed beside the plain
+             version, the bound, the row floor and
+             ``torch.sparse.sampled_addmm`` (once a head); at layer 0, given
+             its alpha and ds, the dz walk on the transposed runtime plan and
+             the score sums bitwise the CPU's plain versions, and the whole
+             backward timed beside ``torch.sparse.mm`` on Aᵀ;
 9. gin path, sage path — the same for FULL ``ample-gin`` and ``ample-sage``
              (sum and mean coefficients on the raw graph): each request must
              launch the AGE 4 times and the int8 matmul 4 (GIN) or 6 (SAGE)
@@ -1948,20 +1948,37 @@ def _tile_slice(plan, k):
     return sub, nodes, int((total[nodes] > 1).sum())
 
 
-def phase_gat_bwd(eng, z, qp):
-    """The GAT backward at FULL ample-gat's layer-0 shape on Yelp (H 4, dh
-    64): ``csrc/attn_agg_bwd.cu`` against its plain version on the card (f32
-    rows and int8 codes; alpha and ds within GAT_BWD_TOL), run to run
-    bitwise; then the walks that finish the backward (dz on the transposed
+def _sampled_dots(pattern, gr, z):
+    """The per-head dots g_i,h . z_j,h at the CSR pattern's edges, one
+    ``torch.sparse.sampled_addmm`` a head (library yardstick): (a function
+    giving [E, H] values, for timing the calls alone)."""
+    import torch
+
+    h = z.shape[1]
+    gk = [gr[:, k, :].contiguous() for k in range(h)]
+    zkt = [z[:, k, :].contiguous().t() for k in range(h)]
+
+    def sampled():
+        return [torch.sparse.sampled_addmm(pattern, gk[k], zkt[k], beta=0.0) for k in range(h)]
+
+    return sampled
+
+
+def phase_gat_bwd(eng, zs):
+    """The GAT backward at both FULL ample-gat layer shapes on Yelp (``zs``:
+    layer 0's z [N, 4, 64] and layer 1's [N, 4, 100]): ``csrc/attn_agg_bwd.cu``
+    against its plain version on the card (f32 rows and int8 codes; alpha and
+    ds within GAT_BWD_TOL), run to run bitwise, timed beside the plain
+    version, the bound, the row floor and ``sampled_addmm`` per head; then,
+    at layer 0, the walks that finish the backward (dz on the transposed
     plan, the score sums on the transposed and forward plans) bitwise the
-    CPU's plain versions on a slice of each plan (``_tile_slice``); the kernel and the whole backward timed beside the
-    plain version, the bound and the library calls (``sampled_addmm`` per
-    head for the dots, ``sparse.mm`` on Aᵀ with the heads folded in for
-    dz)."""
+    CPU's plain versions on a slice of each plan (``_tile_slice``), and the
+    whole backward timed beside the library calls (``sparse.mm`` on Aᵀ with
+    the heads folded in for dz)."""
     import torch
 
     from repro_torch.core.aggregation import edge_segment_sum_tiles, to_device_plan
-    from repro_torch.core.quantization import quantize
+    from repro_torch.core.quantization import compute_scale_zp, quantize
     from repro_torch.kernels import build
     from repro_torch.kernels.segment_agg import attn_ops
     from repro_torch.kernels.segment_agg.ref import aggregate_tiles_mh_ref, attend_tiles_bwd_ref
@@ -1969,8 +1986,6 @@ def phase_gat_bwd(eng, z, qp):
 
     dev = torch.device("cuda")
     n, e = eng.graph.num_nodes, eng.graph.num_edges
-    h, dh = z.shape[1], z.shape[2]
-    d = h * dh
     dp = eng._device_plans("runtime", eng.plans("runtime"), dev)["float"]
     t0 = time.perf_counter()
     tg = eng._tile_grad("runtime", "float", dev)
@@ -1978,58 +1993,79 @@ def phase_gat_bwd(eng, z, qp):
     tplan = eng._tplans[("runtime", "float")]
     transposed_s = time.perf_counter() - t0
     gen = _cuda_gen(11)
-    scores = torch.randn((e, h), generator=gen, device=dev)
-    gr = torch.randn((n, h, dh), generator=gen, device=dev)
-    lse = torch.zeros((n, h), device=dev)
-    out = attn_ops.attend_tiles(z, dp.gather_idx, dp.edge_ids, scores, dp.coeff, dp.seg_ids,
-                                dp.out_node, dp.split, num_nodes=n, leaky_slope=LEAKY_SLOPE,
-                                lse=lse)
     csr = (tg.indices, tg.items)
+    pattern = torch.sparse_csr_tensor(torch.from_numpy(eng.graph.indptr).to(dev),
+                                      tg.indices.long(), torch.zeros(e, device=dev), (n, n))
     rows = []
-    for kind, x, xqp in (("f32", z, None), ("int8", quantize(z, qp), qp)):
-        def kernel():
-            return attn_ops.attend_tiles_bwd(x, gr, out, lse, scores, *csr,
-                                             leaky_slope=LEAKY_SLOPE, qp=xqp)
+    layers = []
+    for layer, z in enumerate(zs):
+        h, dh = z.shape[1], z.shape[2]
+        d = h * dh
+        scores = torch.randn((e, h), generator=gen, device=dev)
+        gr = torch.randn((n, h, dh), generator=gen, device=dev)
+        lse = torch.zeros((n, h), device=dev)
+        out = attn_ops.attend_tiles(z, dp.gather_idx, dp.edge_ids, scores, dp.coeff, dp.seg_ids,
+                                    dp.out_node, dp.split, num_nodes=n,
+                                    leaky_slope=LEAKY_SLOPE, lse=lse)
+        sampled = _sampled_dots(pattern, gr, z)
+        lib_vals = torch.stack([m.values() for m in sampled()], dim=1)
+        dots = lib_vals.new_zeros((e, h))
+        attn_ops.edge_dot(z, gr, *csr, out=dots)
+        lib_err = float((lib_vals - dots).abs().max())
+        sampled_ms = cuda_ms(sampled, reps=3)
+        del lib_vals, dots
+        qp = compute_scale_zp(z)
+        for kind, x, xqp in (("f32", z, None), ("int8", quantize(z, qp), qp)):
+            def kernel():
+                return attn_ops.attend_tiles_bwd(x, gr, out, lse, scores, *csr,
+                                                 leaky_slope=LEAKY_SLOPE, qp=xqp)
 
-        def plain():
-            return attend_tiles_bwd_ref(x, gr, out, lse, scores, *csr,
-                                        leaky_slope=LEAKY_SLOPE, qp=xqp)
+            def plain():
+                return attend_tiles_bwd_ref(x, gr, out, lse, scores, *csr,
+                                            leaky_slope=LEAKY_SLOPE, qp=xqp)
 
-        build.reset_launch_counts()
-        got, again = kernel(), kernel()
-        torch.cuda.synchronize()
-        launches = build.launch_counts()
-        want = plain()
-        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-        errs = {}
-        for name, a, w in zip(("alpha", "ds"), got, want):
-            scale = float(w.abs().max())
-            errs[name] = float(((a - w).abs() / (GAT_BWD_TOL * (w.abs() + scale))).max())
-        finite = all(bool(torch.isfinite(a).all()) for a in got)
-        ms = cuda_ms(kernel, reps=5)
-        plain_ms = cuda_ms(plain, reps=1)
-        elem = x.element_size()
-        # each input once (every node is a source and a destination), the
-        # two [E, H] outputs once
-        nbytes = (n * d * elem + 2 * n * d * 4 + n * h * 4 + e * h * 4 + e * 4
-                  + int(csr[1].numel()) * 4 + 2 * e * h * 4)
-        ops = 2.0 * e * d + 2.0 * n * d + 8.0 * e * h
-        b_ms, b_by = bound(nbytes, ops, FP32_FLOPS)
-        row = dict(rows=kind, n=n, edges=e, heads=h, dh=dh, launches=launches,
-                   run_to_run_bitwise=bitwise, finite=finite, max_err_in_tol=errs,
-                   max_abs_err=max(float((a - w).abs().max()) for a, w in zip(got, want)),
-                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                   row_floor_ms=e * d * elem / HBM_BPS * 1e3)
-        rows.append(row)
-        log(f"[gat bwd] kernel {kind} rows N={n} E={e} H={h} dh={dh}: launches {launches}, "
-            f"err/tol alpha {errs['alpha']:.3g} ds {errs['ds']:.3g} (<= 1: within "
-            f"{GAT_BWD_TOL} of each value and of the largest), bitwise {bitwise}; ms={ms:.3f} "
-            f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.3f} ({b_by}) row_floor_ms="
-            f"{row['row_floor_ms']:.3f}")
-        if (launches != {attn_ops.ATTENTION_BWD: 2} or not bitwise or not finite
-                or max(errs.values()) > 1.0):
-            raise RuntimeError(f"gat bwd {kind}: {row}")
-        del got, again, want
+            build.reset_launch_counts()
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            launches = build.launch_counts()
+            want = plain()
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            errs = {}
+            for name, a, w in zip(("alpha", "ds"), got, want):
+                scale = float(w.abs().max())
+                errs[name] = float(((a - w).abs() / (GAT_BWD_TOL * (w.abs() + scale))).max())
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            ms = cuda_ms(kernel, reps=5)
+            plain_ms = cuda_ms(plain, reps=1)
+            elem = x.element_size()
+            # each input once (every node is a source and a destination), the
+            # two [E, H] outputs once
+            nbytes = (n * d * elem + 2 * n * d * 4 + n * h * 4 + e * h * 4 + e * 4
+                      + int(csr[1].numel()) * 4 + 2 * e * h * 4)
+            ops = 2.0 * e * d + 2.0 * n * d + 8.0 * e * h
+            b_ms, b_by = bound(nbytes, ops, FP32_FLOPS)
+            row = dict(layer=layer, rows=kind, n=n, edges=e, heads=h, dh=dh, launches=launches,
+                       run_to_run_bitwise=bitwise, finite=finite, max_err_in_tol=errs,
+                       max_abs_err=max(float((a - w).abs().max()) for a, w in zip(got, want)),
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                       row_floor_ms=e * d * elem / HBM_BPS * 1e3, library_ms=sampled_ms,
+                       library_err=lib_err)
+            rows.append(row)
+            log(f"[gat bwd] kernel layer {layer} {kind} rows N={n} E={e} H={h} dh={dh}: "
+                f"launches {launches}, err/tol alpha {errs['alpha']:.3g} ds {errs['ds']:.3g} "
+                f"(<= 1: within {GAT_BWD_TOL} of each value and of the largest), bitwise "
+                f"{bitwise}; ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.3f} ({b_by}) "
+                f"row_floor_ms={row['row_floor_ms']:.3f} sampled_addmm x{h} "
+                f"{sampled_ms:.3f} ms (err {lib_err:.3g})")
+            if (launches != {attn_ops.ATTENTION_BWD: 2} or not bitwise or not finite
+                    or max(errs.values()) > 1.0 or lib_err > 1e-3):
+                raise RuntimeError(f"gat bwd {kind}: {row}")
+            del got, again, want
+        if layer == 0:
+            layers.append((z, gr, out, lse, scores))
+        del sampled, gr, out, lse, scores
+    z, gr, out, lse, scores = layers[0]
+    h, dh = z.shape[1], z.shape[2]
 
     # The walks that finish the backward, given the kernel's alpha and ds:
     # bitwise the CPU's plain versions (each segment summed in lane order)
@@ -2076,46 +2112,32 @@ def phase_gat_bwd(eng, z, qp):
     dz_ms = cuda_ms(lambda: attn_ops.aggregate_tiles_mh(gr, *mh_args, num_nodes=n,
                                                         aligned=True), reps=3)
 
-    # Library yardsticks: the per-head dots at the CSR's pattern, and Aᵀ·g
-    # with the heads folded into the rows.
-    pattern = torch.sparse_csr_tensor(torch.from_numpy(eng.graph.indptr).to(dev),
-                                      tg.indices.long(), torch.zeros(e, device=dev), (n, n))
-    zt = [z[:, k, :].contiguous() for k in range(h)]
-    gk = [gr[:, k, :].contiguous() for k in range(h)]
-    zkt = [t.t() for t in zt]
-
-    def sampled():
-        return [torch.sparse.sampled_addmm(pattern, gk[k], zkt[k], beta=0.0) for k in range(h)]
-
-    lib_vals = torch.stack([m.values() for m in sampled()], dim=1)
-    dots = alpha.new_zeros((e, h))
-    attn_ops.edge_dot(z, gr, *csr, out=dots)
-    lib_err = float((lib_vals - dots).abs().max())
-    sampled_ms = cuda_ms(sampled, reps=3)
+    # Library yardstick of dz: Aᵀ·g with the heads folded into the rows.
     lib_at = _heads_csr(tp, alpha, n)
     gflat = gr.view(n * h, dh)
     spmm_ms = cuda_ms(lambda: torch.sparse.mm(lib_at, gflat), reps=3)
     spmm_err = float((torch.sparse.mm(lib_at, gflat).view(n, h, dh) - dz).abs().max())
-    del lib_at, pattern, lib_vals, dots
+    del lib_at, pattern
+    sampled_ms = rows[0]["library_ms"]
     live = tplan.edge_ids >= 0
     summary = dict(kernel=rows, transposed_plan_s=transposed_s, transposed_tiles=tplan.num_tiles,
                    transposed_edges=int(live.sum()), walks_bitwise_cpu=walks_bitwise,
                    walks_checked=checked, cpu_walk_s=cpu_s, backward_launches=bwd_launches, backward_ms=bwd_ms,
                    dz_walk_ms=dz_ms, library_sampled_addmm_ms=sampled_ms,
-                   library_sampled_addmm_err=lib_err, library_spmm_ms=spmm_ms,
+                   library_spmm_ms=spmm_ms,
                    library_spmm_err=spmm_err, library_ms=sampled_ms,
                    backward_library_ms=sampled_ms + spmm_ms)
     log(f"[gat bwd] transposed runtime plan: {tplan.num_tiles} tiles, {int(live.sum())} edges "
         f"({transposed_s:.1f} s); dz and the score sums bitwise the CPU's: {walks_bitwise} "
         f"on {checked} (CPU {cpu_s:.1f} s); whole backward {bwd_ms:.3f} ms (launches {bwd_launches}), its "
-        f"dz walk {dz_ms:.3f} ms; library: sampled_addmm x{h} {sampled_ms:.3f} ms (err "
-        f"{lib_err:.3g}), sparse.mm on Aᵀ {spmm_ms:.3f} ms (err {spmm_err:.3g})")
+        f"dz walk {dz_ms:.3f} ms; library: sparse.mm on Aᵀ {spmm_ms:.3f} ms (err "
+        f"{spmm_err:.3g})")
     if not walks_bitwise:
         raise RuntimeError("the GAT backward's walks differ from the CPU's plain versions")
     if bwd_launches != {attn_ops.ATTENTION_BWD: 1, attn_ops.SEGMENT_AGG_MH: 3}:
         raise RuntimeError(f"the GAT backward launched {bwd_launches}")
-    if not (lib_err <= 1e-3 and spmm_err <= AGE_ATOL):
-        raise RuntimeError(f"library yardsticks differ: {lib_err}, {spmm_err}")
+    if not spmm_err <= AGE_ATOL:
+        raise RuntimeError(f"library yardstick differs: {spmm_err}")
     return summary
 
 
@@ -4139,17 +4161,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # GAT training: Degree-Quant QAT through the fused attention's backward,
-    # then that backward's kernel at layer 0's shape on the same engine.
-    from repro_torch.core.quantization import compute_scale_zp
-
+    # then that backward's kernel at both layers' shapes on the same engine.
     with phase("qat gat"):
         qat_gat_row, qat_gat_engine = phase_qat_gat(g)
     with phase("gat bwd"):
-        zq = torch.randn((qat_gat_engine.graph.num_nodes, gat_cfg.gnn_heads,
-                          gat_cfg.gnn_layer_dims[1] // gat_cfg.gnn_heads),
-                         generator=_cuda_gen(12), device="cuda")
-        gat_bwd_row = phase_gat_bwd(qat_gat_engine, zq, compute_scale_zp(zq))
-    del qat_gat_engine, zq
+        # z at both layers' shapes: H 4 of 64 (hidden, concatenated) and of
+        # 100 (the output layer, averaged).
+        zs = [torch.randn((qat_gat_engine.graph.num_nodes, gat_cfg.gnn_heads, dh),
+                          generator=_cuda_gen(12 + k), device="cuda")
+              for k, dh in enumerate((gat_cfg.gnn_layer_dims[1] // gat_cfg.gnn_heads,
+                                      gat_cfg.gnn_layer_dims[2]))]
+        gat_bwd_row = phase_gat_bwd(qat_gat_engine, zs)
+    del qat_gat_engine, zs
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4301,8 +4324,9 @@ def main() -> int:
              library="torch.sparse.sampled_addmm, once per head (the dots at the CSR's "
                      "pattern)",
              launches_per_step=qat_gat_row["steps"][0]["launches"].get("attention_bwd", 0),
-             int8_codes={k: gat_bwd_row["kernel"][1][k] for k in (
-                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+             cases={"layer {layer} {rows} rows dh {dh}".format(**r): {k: r[k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "row_floor_ms",
+                 "library_ms")} for r in gat_bwd_row["kernel"]},
              backward_ms=gat_bwd_row["backward_ms"],
              backward_library_ms=gat_bwd_row["backward_library_ms"]),
         # Launches: one Qwen3-8B / Mamba2-370M generate (B 4 x 2048 + 32 tokens),

@@ -145,8 +145,9 @@ def mamba_apply(params: Dict, x: torch.Tensor, *, d_inner: int, ssm_state: int, 
 
 
 def mamba_state_init(batch: int, *, d_inner: int, ssm_state: int, heads: int, headdim: int,
-                     conv: int = 4, dtype=torch.float32, device="cpu") -> Dict:
-    """Decode state: conv windows for (x, B, C) + the SSM state tensor."""
+                     device, conv: int = 4, dtype=torch.float32) -> Dict:
+    """Decode state on ``device``: conv windows for (x, B, C) + the SSM state
+    tensor."""
     n = ssm_state
 
     def zeros(*shape):

@@ -1716,6 +1716,46 @@ def test_attention_bwd_matches_plain(cuda, rows, heads, dh):
                 assert (got[0].cpu()[other] == 7.0).all()
 
 
+@pytest.mark.parametrize("rows", [("f32", 0), ("int8", 0), ("f32", 1), ("int8", 1)],
+                         ids=lambda r: f"{r[0]}+{r[1]}")
+@pytest.mark.parametrize("heads,dh", [(4, 64), (4, 100), (1, 300)])
+def test_attention_bwd_item_cuts_agree(cuda, rows, heads, dh):
+    """The design's one knob, how rows are cut into work items, moves no
+    bit: items of 1, 3, 7, 64 and 200 in-edges (a 600-edge hub over several
+    items, runs that are no multiple of the edges a warp keeps in flight,
+    items longer than the kernel's staged run of 64) give the same alpha, ds
+    and coefficients' gradient in both modes, within 1e-5 of the plain
+    version; (1, 300) unaligned takes several passes over a head."""
+    eng, _, sc, gr, xs = _bwd_case(cuda, heads, dh, rows, seed=5 * heads + dh)
+    g = eng.graph
+    n = g.num_nodes
+    rng = np.random.default_rng(dh)
+    out = torch.from_numpy(rng.standard_normal((n, heads, dh)).astype(np.float32))
+    lse = torch.from_numpy(rng.uniform(1.0, 3.0, (n, heads)).astype(np.float32))
+    cf = torch.from_numpy(rng.uniform(0.5, 1.5, g.num_edges).astype(np.float32))
+    indices = torch.as_tensor(g.indices, dtype=torch.int32)
+
+    def run(dev, items):
+        x, qp = xs["card" if dev is cuda else "cpu"]
+        args = [t.to(dev) for t in (gr, out, lse, sc, indices, items)]
+        alpha, ds = attn_ops.attend_tiles_bwd(x, *args, leaky_slope=0.2, coeff=cf.to(dev),
+                                              qp=qp)
+        return alpha, ds, attn_ops.edge_dot(x, args[0], args[4], args[5], coeff=cf.to(dev),
+                                            qp=qp)
+
+    cuts = {k: torch.from_numpy(attn_ops.row_items(g.indptr, np.arange(n), k))
+            for k in (1, 3, 7, attn_ops.ITEM_EDGES, 200)}
+    hub = cuts[attn_ops.ITEM_EDGES]
+    assert int((hub[:, 0] == 0).sum()) > 1  # node 0's in-edges span several items
+    assert (hub[:, 2] - hub[:, 1]).remainder(2).any()  # odd runs
+    got = {k: run(cuda, items) for k, items in cuts.items()}
+    for k, res in got.items():
+        for a, b in zip(res, got[1]):
+            assert torch.equal(a, b) and torch.isfinite(a).all(), k
+    for a, w in zip(got[1], run(torch.device("cpu"), cuts[attn_ops.ITEM_EDGES])):
+        _bwd_rel_close(a, w)
+
+
 @pytest.mark.parametrize("rows", [("f32", 0), ("int8", 0)], ids=lambda r: r[0])
 @pytest.mark.parametrize("heads,dh", [(4, 64), (4, 100), (1, 8)])
 def test_attention_lse_output_keeps_the_output_bitwise(cuda, rows, heads, dh):

@@ -193,3 +193,17 @@ def test_mamba_decode_matches_reference():
         _close(pout, rout)
         for key in rstate:
             _close(pstate[key], rstate[key])
+
+
+def test_mamba_state_init_builds_on_the_device_asked_for():
+    """The decode state on the device the caller names (no default: the port
+    runs on the card unless asked for the CPU), the reference's leaves."""
+    kw = dict(d_inner=64, ssm_state=8, heads=8, headdim=8, conv=4)
+    with pytest.raises(TypeError, match="device"):
+        port_mamba.mamba_state_init(2, **kw)
+    got = port_mamba.mamba_state_init(2, device="cpu", **kw)
+    want = ref_mamba.mamba_state_init(2, **kw)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].device.type == "cpu" and got[key].dtype == torch.float32
+        assert tuple(got[key].shape) == want[key].shape and not got[key].any()
