@@ -77,6 +77,15 @@ Every phase that fails raises, so the script exits non-zero.
              its alpha and ds, the dz walk on the transposed runtime plan and
              the score sums bitwise the CPU's plain versions, and the whole
              backward timed beside ``torch.sparse.mm`` on Aᵀ;
+   qat sharded gat — after gat bwd, on its engine: as qat sharded gcn
+             (below) for FULL ``ample-gat`` (``gat.apply`` with the QAT input
+             fake-quantization; the decomposed layer per shard: no fused
+             attention, the GAT backward and the multi-head walk a step);
+   qat streamed — FULL ``ample-gat`` on a mixed engine on Yelp, layer 0's FTE
+             streamed from page-locked host features at 1/QAT_STREAMED_FRAC
+             of the matrix: step-0 loss and gradients against the in-memory
+             features' (same engine), QAT_STREAMED_STEPS AdamW steps by phase
+             with bytes streamed and launches (the int8 GEMM once a chunk);
 9. gin path, sage path — the same for FULL ``ample-gin`` and ``ample-sage``
              (sum and mean coefficients on the raw graph): each request must
              launch the AGE 4 times and the int8 matmul 4 (GIN) or 6 (SAGE)
@@ -187,6 +196,11 @@ Every phase that fails raises, so the script exits non-zero.
              and a restore timed, under a temporary directory removed after;
              the launcher's default (``launch.train.main``: REDUCED, f32)
              for 3 steps, its backward on the CUDA-core pair;
+    remat — FULL-width ``qwen3-8b`` (its config sets ``remat="block"``) cut
+             to REMAT_LAYERS layers, B REMAT_BATCH x 2,048: a training
+             step's forward and backward with ``"none"`` and ``"block"``,
+             warm step ms, each step's peak above what it found, flash
+             launches (block: the forward twice), gradients bitwise;
     flash bwd — the backward (``csrc/flash_attention_bwd.cu``) through its
              wrapper against ``flash_attention_bwd_ref`` at Qwen2-1.5B's
              training shape, SmolLM-360M's (hd 64, GQA 15/5), the REDUCED
@@ -304,13 +318,24 @@ Every phase that fails raises, so the script exits non-zero.
              tolerance of the CPU's; the example at
              its defaults (800 nodes, 300 steps) on the card and the CPU,
              each accuracy within 0.03;
+    qat sharded gcn — the same training through ``ShardedAmpleEngine``
+             (QAT_SHARDS host-loop shards, float): step-0 loss and
+             gradients against the qat gcn engine's (atol 5e-4, rtol 1e-3);
+             the shards' transposed plans and the halo-transpose plan built
+             and timed; QAT_SHARDED_STEPS steps on each engine by phase with
+             launches (the AGE 2 x 3 + 1 a step); two runs bitwise; the
+             halo-transpose AGE against its plain version (AGE_ATOL,
+             bitwise twice), ``index_add_`` and the bound;
 18. summary — a JSON line of kernels (the AGE and the int8 matmul with their
              launches per GNN path, per streamed request and per sharded
              request, the AGE's per QAT step and its backward's times, both
              per mixed QAT step; the multi-head AGE per sharded GAT request
              and per GAT QAT step; the GAT backward per QAT step; flash
              attention and the SSD per LM path, each backward per training
-             step), the card's name and power limit, and the result line.
+             step; the AGE, the multi-head walk and the GAT backward per
+             sharded QAT step, the GEMM and the GAT backward per streamed
+             one, flash per remat step), the card's name and power limit,
+             and the result line.
 
 The int8 matmul is also held bitwise at GIN's and SAGE's K x N (300 x 300,
 256 x 256, 100 x 100). Each phase prints its seconds.
@@ -1644,7 +1669,8 @@ def _close_report(name, got, want):
 def phase_qat(g):
     """Degree-Quant QAT of FULL ``ample-gcn`` on the Yelp graph (self-loops
     added), through ``AmpleEngine.aggregate``'s backward on the card, then
-    the gates and the example. Returns the phase's row."""
+    the gates and the example. Returns (the phase's row, the Yelp training
+    engine, for ``phase_qat_sharded``)."""
     import numpy as np
     import torch
 
@@ -1810,7 +1836,7 @@ def phase_qat(g):
         f"library_ms={lib_ms:.3f} (torch.sparse.mm, CSR of Aᵀ) bound_ms={b_ms:.3f} ({b_by})")
     if not bitwise or not err <= AGE_ATOL:
         raise RuntimeError(f"the backward AGE: bitwise {bitwise}, err {err}")
-    del gr, eng, tdp, x, labels, train, params, opt, grads, params0
+    del gr, tdp, x, labels, train, params, opt, grads, params0
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1887,7 +1913,7 @@ def phase_qat(g):
         if abs(ex_rows["card"][k] - ex_rows["cpu"][k]) > QAT_ACC_TOL:
             raise RuntimeError(f"example {k}: card {ex_rows['card'][k]} vs CPU "
                                f"{ex_rows['cpu'][k]}, beyond {QAT_ACC_TOL}")
-    return row
+    return row, eng
 
 # GAT training: FULL ample-gat's steps on Yelp (cut in steps, never width).
 QAT_GAT_STEPS = 6  # timed Degree-Quant QAT steps
@@ -2292,6 +2318,414 @@ def phase_qat_gat(g):
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f" (atol {QAT_ATOL}, rtol {QAT_RTOL})")
     return row, eng
+
+
+# ------------------------------------- training through the sharded and streamed engines
+QAT_SHARDS = 2  # the training phases' host-loop shards
+QAT_SHARDED_STEPS = 3  # timed steps on each engine (the sharded and the unsharded one)
+QAT_SHARDED_REPEAT_STEPS = 2  # steps of each of the two runs held bitwise
+QAT_STREAMED_STEPS = 2  # timed streamed steps (each re-quantizes the features on the host)
+QAT_STREAMED_FRAC = 8  # the streamed phase's budget: features.nbytes // 8
+
+
+def _trainable(p):
+    return {"layers": [{k: v.detach().requires_grad_() for k, v in lyr.items()}
+                       for lyr in p["layers"]]}
+
+
+def _grad_report(tag, params, got, want):
+    """Max abs difference of each of (loss, gradient leaves) and whether all
+    are bitwise; raises beyond the f32 tolerance."""
+    import torch
+
+    names = ["loss"] + [f"layer{i}.{k}" for i, lyr in enumerate(params["layers"])
+                        for k in sorted(lyr)]
+    errs = {nm: _close_report(f"{tag} {nm}", a, b) for nm, a, b in zip(names, got, want)}
+    return errs, all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def phase_qat_sharded(arch, base):
+    """Degree-Quant QAT of FULL ``ample-<arch>`` on Yelp (self-loops) through
+    ``ShardedAmpleEngine``: QAT_SHARDS host-loop shards, float, the
+    unsharded QAT phase's recipe. Step-0 gradients against the unsharded
+    engine ``base`` (that phase's, plans warm) at the f32 tolerance; the
+    per-shard transposed plans and the halo-transpose plan built and timed;
+    QAT_SHARDED_STEPS steps on each engine by phase with their launches;
+    two runs bitwise; the halo-transpose AGE against its plain version and
+    ``index_add_``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.message_passing import EngineConfig, compile_sharded_plans
+    from repro_torch.distributed.graph_shard import ShardedAmpleEngine
+    from repro_torch.kernels import build
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    from repro_torch.kernels.segment_agg.ref import aggregate_tiles_ref
+    from repro_torch.models.gnn import api as gnn_api
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+    tag = f"qat sharded {arch}"
+    ex = _example("train_gcn_degreequant_torch")
+    cfg = get_config(f"ample-{arch}")
+    dev = torch.device("cuda", torch.cuda.current_device())  # the cache keys' device
+    gs, mode = base.graph, gnn_api.agg_mode(cfg)
+    x, labels, train = _qat_inputs(ex, gs, cfg.vocab_size, dev)
+    row = dict(arch=arch, shards=QAT_SHARDS, nodes=gs.num_nodes, edges=gs.num_edges)
+    t0 = time.perf_counter()
+    splan = compile_sharded_plans(gs, EngineConfig(mixed_precision=False),
+                                  num_shards=QAT_SHARDS, modes=(mode,))
+    eng = ShardedAmpleEngine(gs, splan)
+    row["plan_s"] = time.perf_counter() - t0
+    # What the backward reads, built before the first step: each shard's
+    # transposed plans (and TileGrads), then the halo-transpose plan.
+    t0 = time.perf_counter()
+    for sp in splan.shards:
+        for t in sp.plan.mode_plans[mode]:
+            eng._shard_transposed(sp, mode, t, dev)
+            if mode == "runtime":
+                eng._shard_tile_grad(sp, mode, t, dev)
+    torch.cuda.synchronize()
+    row["transposed_plans_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hplan = eng._halo_transpose(dev)
+    torch.cuda.synchronize()
+    row["halo_plan_s"] = time.perf_counter() - t0
+    stacked = sum(sp.shard.num_local for sp in splan.shards)
+    row.update(halo_total=splan.halo_total, stacked_rows=stacked,
+               halo_per_shard=[sp.halo_size for sp in splan.shards])
+    log(f"[{tag}] yelp + self-loops: {gs.num_nodes} nodes {gs.num_edges} edges, {QAT_SHARDS} "
+        f"shards, halo {row['halo_per_shard']} rows; sharded plan {row['plan_s']:.1f} s, the "
+        f"shards' transposed plans {row['transposed_plans_s']:.1f} s, the halo-transpose plan "
+        f"{row['halo_plan_s']:.1f} s ({stacked} stacked rows)")
+
+    lr = EXAMPLE_LR if arch == "gcn" else QAT_GAT_LR
+    opt_cfg = AdamWConfig(lr=lr, weight_decay=ex.WEIGHT_DECAY)
+    params0 = gnn_api.gnn_init(cfg, torch.Generator().manual_seed(0), device=dev)
+
+    def loss_fn(p, e, mask):
+        if arch == "gcn":
+            return ex.qat_loss(p, e, x, labels, train, mask)
+        return _gat_qat_loss(cfg, p, e, x, labels, train, mask)
+
+    def step(e, params, opt, rng, times=None):
+        mask = torch.from_numpy(ex.sample_protection_mask(gs, ex.DQ, rng)).to(dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = loss_fn(params, e, mask)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, _gat_leaves(params))
+        ev[2].record()
+        params, opt, _ = adamw_update(_gat_tree(params, grads), opt, params, opt_cfg)
+        ev[3].record()
+        if times is not None:
+            torch.cuda.synchronize()
+            times.update(forward_ms=ev[0].elapsed_time(ev[1]),
+                         backward_ms=ev[1].elapsed_time(ev[2]),
+                         optimizer_ms=ev[2].elapsed_time(ev[3]))
+        return params, opt, loss
+
+    # (a) Step 0's gradients: sharded against unsharded, the same mask.
+    got = {}
+    for key, e in (("unsharded", base), ("sharded", eng)):
+        p = _trainable(params0)
+        mask = torch.from_numpy(ex.sample_protection_mask(gs, ex.DQ,
+                                                          np.random.default_rng(3))).to(dev)
+        loss = loss_fn(p, e, mask)
+        got[key] = [loss.detach()] + list(torch.autograd.grad(loss, _gat_leaves(p)))
+    errs, bitwise = _grad_report(tag, params0, got["sharded"], got["unsharded"])
+    row.update(max_abs_err_vs_unsharded=errs, bitwise_vs_unsharded=bitwise)
+    log(f"[{tag}] step 0, sharded vs unsharded: max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (atol {QAT_ATOL}, rtol {QAT_RTOL}); bitwise {bitwise}")
+    del got
+
+    # (b) Timed steps on both engines from one seed, launches per step.
+    torch.cuda.synchronize()
+    for key, e in (("unsharded", base), ("sharded", eng)):
+        torch.cuda.reset_peak_memory_stats()
+        params, rng = _trainable(params0), np.random.default_rng(3)
+        opt, steps = adamw_init(params), []
+        for s in range(QAT_SHARDED_STEPS):
+            build.reset_launch_counts()
+            st = {}
+            params, opt, loss = step(e, params, opt, rng, st)
+            st.update(loss=float(loss.detach()), launches=build.launch_counts())
+            st["step_ms"] = st["forward_ms"] + st["backward_ms"] + st["optimizer_ms"]
+            steps.append(st)
+            log(f"[{tag}] {key} step {s}: loss {st['loss']:.5f} forward {st['forward_ms']:.3f} "
+                f"ms backward {st['backward_ms']:.3f} ms optimizer {st['optimizer_ms']:.3f} ms "
+                f"launches {st['launches']}")
+        row[key] = dict(steps=steps, peak_bytes=torch.cuda.max_memory_allocated(),
+                        warm_step_ms=sum(st["step_ms"] for st in steps[1:]) / (len(steps) - 1))
+        del params, opt
+    sh, un = row["sharded"], row["unsharded"]
+    counts = [st["launches"] for st in sh["steps"]]
+    log(f"[{tag}] warm step {sh['warm_step_ms']:.3f} ms sharded vs {un['warm_step_ms']:.3f} ms "
+        f"unsharded ({sh['warm_step_ms'] / un['warm_step_ms']:.2f}x); peak "
+        f"{sh['peak_bytes'] / 2**30:.2f} vs {un['peak_bytes'] / 2**30:.2f} GiB; {card_line()}")
+    if any(c != counts[0] for c in counts):
+        raise RuntimeError(f"{tag}: steps launched {counts}")
+    want = {}
+    if arch == "gcn":  # per shard the unsharded step's 3, and one halo-transpose AGE
+        want = {seg_ops.KERNEL: QAT_SHARDS * un["steps"][0]["launches"].get(seg_ops.KERNEL, 0) + 1}
+    else:  # decomposed: no fused attention; the backward and the halo sums ran
+        want = {"attention": 0}
+        for k in ("segment_agg_mh", "attention_bwd", seg_ops.KERNEL):
+            if not counts[0].get(k):
+                raise RuntimeError(f"{tag}: {k} was not launched in a step: {counts[0]}")
+    if any(counts[0].get(k, 0) != v for k, v in want.items()):
+        raise RuntimeError(f"{tag}: a step launched {counts[0]}, expected {want}")
+    if not all(np.isfinite(st["loss"]) for st in sh["steps"]):
+        raise RuntimeError(f"{tag}: a loss is not finite")
+    row["launches_per_step"] = counts[0]
+
+    # (c) Two runs of the same steps from one seed: bitwise.
+    runs = []
+    for _ in range(2):
+        p, r = _trainable(params0), np.random.default_rng(3)
+        o = adamw_init(p)
+        for _ in range(QAT_SHARDED_REPEAT_STEPS):
+            p, o, _ = step(eng, p, o, r)
+        runs.append([t.detach() for t in _gat_leaves(p)])
+    row["repeat_bitwise"] = all(torch.equal(a, b) for a, b in zip(*runs))
+    log(f"[{tag}] two runs of {QAT_SHARDED_REPEAT_STEPS} steps bitwise equal: "
+        f"{row['repeat_bitwise']}")
+    if not row["repeat_bitwise"]:
+        raise RuntimeError(f"{tag}: two runs from one seed gave different parameters")
+    del runs
+
+    # (d) The halo gradient's sum: the AGE on the halo-transpose plan at the
+    # widest row a backward hands it, against its plain version, bitwise
+    # twice, and index_add_ over the stacked ids (the library call).
+    d = cfg.gnn_layer_dims[1]
+    n = gs.num_nodes
+    gr = torch.randn((stacked, d), generator=_cuda_gen(21), device=dev)
+    args = (hplan.gather_idx, hplan.coeff, hplan.seg_ids, hplan.out_node, hplan.split)
+    out = seg_ops.aggregate_tiles(gr, *args, num_nodes=n)
+    again = seg_ops.aggregate_tiles(gr, *args, num_nodes=n)
+    plain = aggregate_tiles_ref(gr, *args, num_nodes=n)
+    ids = torch.cat(eng._shard_state[("local_ids", str(dev))])
+    lib = torch.zeros((n, d), device=dev).index_add_(0, ids, gr)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    if not torch.equal(out, again) or err > AGE_ATOL or float((out - lib).abs().max()) > AGE_ATOL:
+        raise RuntimeError(f"{tag}: the halo-transpose AGE: err {err}, bitwise twice "
+                           f"{torch.equal(out, again)}")
+    ms = cuda_ms(lambda: seg_ops.aggregate_tiles(gr, *args, num_nodes=n), 10)
+    plain_ms = cuda_ms(lambda: aggregate_tiles_ref(gr, *args, num_nodes=n), 5)
+    lib_ms = cuda_ms(lambda: torch.zeros((n, d), device=dev).index_add_(0, ids, gr), 10)
+    nbytes = stacked * d * 4 + n * d * 4 + 3 * hplan.gather_idx.numel() * 4
+    bms, by = bound(nbytes, stacked * d, FP32_FLOPS)
+    row["halo_sum"] = dict(rows=stacked, n=n, d=d, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bms, bound_by=by, max_abs_err=err)
+    log(f"[{tag}] halo-transpose AGE [{stacked} x {d}] -> [{n} x {d}]: {ms:.3f} ms (plain "
+        f"{plain_ms:.3f}, index_add_ {lib_ms:.3f}, bound {bms:.3f} by {by}); max abs err vs "
+        f"plain {err:.3g}, bitwise twice; {card_line()}")
+    del gr, out, again, plain, lib
+    return row, eng
+
+
+def phase_qat_streamed(g):
+    """FULL ``ample-gat`` on a mixed engine on Yelp (self-loops), layer 0's
+    FTE streamed from page-locked host features at 1/QAT_STREAMED_FRAC of the
+    matrix: the int8 GEMM once per chunk under grad. Step-0 gradients against
+    the in-memory features' on the same engine; QAT_STREAMED_STEPS AdamW
+    steps by phase with the bytes streamed and the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.message_passing import AmpleEngine, EngineConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels.quant_matmul import ops as qm_ops
+    from repro_torch.memory.feature_store import FeatureStore, default_chunk_rows
+    from repro_torch.memory.prefetcher import StreamedFeatures
+    from repro_torch.models.gnn import api as gnn_api
+    from repro_torch.models.gnn import gat
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+    tag = "qat streamed"
+    ex = _example("train_gcn_degreequant_torch")
+    cfg = get_config("ample-gat")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    gs = gnn_api.prepare_graph(cfg, g)
+    x, labels, train = _qat_inputs(ex, gs, cfg.vocab_size, dev)
+    eng = AmpleEngine(gs, EngineConfig(mixed_precision=True))
+    eng._device_plans("runtime", eng.plans("runtime"), dev)
+    budget = gs.features.nbytes // QAT_STREAMED_FRAC
+    rows = default_chunk_rows(gs.num_nodes, gs.features.shape[1], budget)
+    store = FeatureStore.from_array(gs.features, chunk_rows=rows, pin_memory=True)
+    row = dict(setup_s=time.perf_counter() - t0, budget_bytes=budget, chunk_rows=rows,
+               chunks=store.num_chunks, feature_bytes=gs.features.nbytes)
+    log(f"[{tag}] mixed engine, yelp + self-loops {gs.num_nodes} nodes; features "
+        f"{gs.features.nbytes / 2**20:.1f} MiB on the host, budget {budget / 2**20:.1f} MiB, "
+        f"{store.num_chunks} chunks of {rows} rows; setup and plans {row['setup_s']:.1f} s")
+    params0 = gnn_api.gnn_init(cfg, torch.Generator().manual_seed(0), device=dev)
+    opt_cfg = AdamWConfig(lr=QAT_GAT_LR, weight_decay=ex.WEIGHT_DECAY)
+
+    def loss_fn(p, feats):
+        logp = torch.log_softmax(gat.apply(cfg, p, eng, feats), dim=-1)
+        nll = -torch.gather(logp, 1, labels[:, None])[:, 0]
+        return torch.where(train, nll, 0.0).sum() / train.sum()
+
+    # (a) Step 0: streamed against in-memory features, the same engine.
+    got = {}
+    for key in ("in memory", "streamed"):
+        p = _trainable(params0)
+        feats = x if key == "in memory" else StreamedFeatures(store, budget, device=dev)
+        t0 = time.perf_counter()
+        loss = loss_fn(p, feats)
+        got[key] = [loss.detach()] + list(torch.autograd.grad(loss, _gat_leaves(p)))
+        torch.cuda.synchronize()
+        row[f"first_step_s_{key}"] = time.perf_counter() - t0
+    errs, bitwise = _grad_report(tag, params0, got["streamed"], got["in memory"])
+    row.update(max_abs_err_vs_in_memory=errs, bitwise_vs_in_memory=bitwise)
+    log(f"[{tag}] step 0, streamed vs in memory: max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; bitwise {bitwise} (first steps {row['first_step_s_in memory']:.1f} s in memory, "
+        f"{row['first_step_s_streamed']:.1f} s streamed)")
+    del got
+
+    # (b) Steps through the streamed features, by phase.
+    params = _trainable(params0)
+    opt, steps = adamw_init(params), []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(QAT_STREAMED_STEPS):
+        sf = StreamedFeatures(store, budget, device=dev)
+        build.reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss = loss_fn(params, sf)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, _gat_leaves(params))
+        ev[2].record()
+        params, opt, _ = adamw_update(_gat_tree(params, grads), opt, params, opt_cfg)
+        ev[3].record()
+        torch.cuda.synchronize()
+        st = dict(loss=float(loss.detach()), wall_ms=(time.perf_counter() - t0) * 1e3,
+                  forward_ms=ev[0].elapsed_time(ev[1]), backward_ms=ev[1].elapsed_time(ev[2]),
+                  optimizer_ms=ev[2].elapsed_time(ev[3]), launches=build.launch_counts(),
+                  bytes_streamed=sf.stats.bytes_streamed)
+        steps.append(st)
+        log(f"[{tag}] step {s}: loss {st['loss']:.5f} forward {st['forward_ms']:.3f} ms "
+            f"backward {st['backward_ms']:.3f} ms optimizer {st['optimizer_ms']:.3f} ms (wall "
+            f"{st['wall_ms']:.1f} ms); streamed {st['bytes_streamed'] / 2**20:.1f} MiB; "
+            f"launches {st['launches']}")
+    row.update(steps=steps, peak_bytes=torch.cuda.max_memory_allocated())
+    gemms = [st["launches"].get(qm_ops.KERNEL, 0) for st in steps]
+    if any(gm < store.num_chunks for gm in gemms):
+        raise RuntimeError(f"{tag}: the int8 GEMM ran {gemms} times a step, fewer than the "
+                           f"{store.num_chunks} chunks")
+    for k in ("attention", "attention_bwd", "segment_agg_mh"):
+        if not all(st["launches"].get(k) for st in steps):
+            raise RuntimeError(f"{tag}: {k} was not launched in every step")
+    if not all(st["bytes_streamed"] > 0 and np.isfinite(st["loss"]) for st in steps):
+        raise RuntimeError(f"{tag}: a step streamed nothing or its loss is not finite")
+    log(f"[{tag}] peak device memory {row['peak_bytes'] / 2**30:.2f} GiB; {card_line()}")
+    del params, opt, eng, store, x
+    return row
+
+
+REMAT_ARCH, REMAT_LAYERS = "qwen3-8b", 8  # of 36: two embeddings + 8 layers, ~2.8 B params
+REMAT_BATCH, REMAT_STEPS = 2, 3  # B 2 x TRAIN_SEQ; the first step of each policy warms up
+
+
+def phase_remat():
+    """FULL-width Qwen3-8B (its config sets ``remat="block"``) cut to
+    REMAT_LAYERS layers: a training step's forward and backward
+    (``loss_fn`` then ``torch.autograd.grad``) under ``"none"`` and
+    ``"block"``: warm step time, peak memory, launches (block runs each
+    unit's forward twice), gradients bitwise."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.api import loss_fn, model_init
+
+    tag = "remat"
+    full = get_config(REMAT_ARCH)
+    if full.remat != "block":
+        raise RuntimeError(f"{REMAT_ARCH} sets remat={full.remat!r}, not 'block'")
+    cfg = dataclasses.replace(full, num_layers=REMAT_LAYERS)
+    params = model_init(cfg, _cuda_gen(0), device="cuda")
+    leaves = [t.requires_grad_() for t in _tree_leaves(params)]
+    n_params = sum(t.numel() for t in leaves)
+    b = synthetic_batch(seed=0, step=0, batch=REMAT_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab_size,
+                        family=cfg.family)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+    row = dict(arch=REMAT_ARCH, layers=REMAT_LAYERS, params=n_params, batch=REMAT_BATCH,
+               seq=TRAIN_SEQ, cut=f"{REMAT_LAYERS} of {full.num_layers} layers: the 36 layers "
+               "hold 8.2 B params, 16.4 GB in bf16 with as much again of gradients; "
+               "widths are the published ones")
+    log(f"[{tag}] FULL-width {REMAT_ARCH} at {REMAT_LAYERS} of {full.num_layers} layers: "
+        f"{n_params:,} params; B {REMAT_BATCH} x {TRAIN_SEQ}; {card_line()}")
+    grads = {}
+    for policy in ("none", "block"):
+        c = dataclasses.replace(cfg, remat=policy)
+        steps = []
+        for s in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            build.reset_launch_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            loss, _ = loss_fn(params, c, batch)
+            ev[1].record()
+            g = torch.autograd.grad(loss, leaves)
+            ev[2].record()
+            torch.cuda.synchronize()
+            st = dict(loss=float(loss.detach()), forward_ms=ev[0].elapsed_time(ev[1]),
+                      backward_ms=ev[1].elapsed_time(ev[2]), launches=build.launch_counts(),
+                      peak_bytes=torch.cuda.max_memory_allocated(), base_bytes=base)
+            st["step_ms"] = st["forward_ms"] + st["backward_ms"]
+            # what the step itself held at its peak (the other policy's kept
+            # gradients sit in base)
+            st["step_peak_bytes"] = st["peak_bytes"] - base
+            steps.append(st)
+            log(f"[{tag}] {policy} step {s}: loss {st['loss']:.5f} forward "
+                f"{st['forward_ms']:.1f} ms backward {st['backward_ms']:.1f} ms; peak "
+                f"{st['peak_bytes'] / 2**30:.2f} GiB, {st['step_peak_bytes'] / 2**30:.2f} GiB "
+                f"above the {base / 2**30:.2f} GiB held before the step; launches "
+                f"{st['launches']}")
+            del loss
+            if s == REMAT_STEPS - 1:
+                grads[policy] = g
+            del g
+        warm = steps[1:]
+        row[policy] = dict(steps=steps, warm_step_ms=sum(st["step_ms"] for st in warm) / len(warm),
+                           peak_bytes=max(st["peak_bytes"] for st in warm),
+                           step_peak_bytes=max(st["step_peak_bytes"] for st in warm))
+        want_fwd = REMAT_LAYERS * (2 if policy == "block" else 1)
+        got_fwd = warm[-1]["launches"].get(fa_ops.KERNEL, 0)
+        got_bwd = warm[-1]["launches"].get(fa_ops.BWD_DQ_KERNEL, 0)
+        if got_fwd != want_fwd or got_bwd != REMAT_LAYERS:
+            raise RuntimeError(f"{tag} {policy}: flash forward {got_fwd} (expected {want_fwd}), "
+                               f"backward {got_bwd} (expected {REMAT_LAYERS}) launches a step")
+    errs = [float((a.float() - c.float()).abs().max()) for a, c in
+            zip(grads["none"], grads["block"])]
+    row["grads_bitwise"] = all(torch.equal(a, c) for a, c in zip(grads["none"], grads["block"]))
+    row["grads_max_abs_err"] = max(errs)
+    n, bl = row["none"], row["block"]
+    log(f"[{tag}] warm step {n['warm_step_ms']:.1f} ms none, {bl['warm_step_ms']:.1f} ms block "
+        f"({bl['warm_step_ms'] / n['warm_step_ms']:.3f}x); a step's peak above what it "
+        f"found {n['step_peak_bytes'] / 2**30:.2f} GiB none, {bl['step_peak_bytes'] / 2**30:.2f} "
+        f"GiB block; gradients bitwise "
+        f"{row['grads_bitwise']} (max abs diff {row['grads_max_abs_err']:.3g}); {card_line()}")
+    if not row["grads_bitwise"]:
+        raise RuntimeError(f"{tag}: the checkpointed step's gradients differ from the plain one's")
+    if not bl["step_peak_bytes"] < n["step_peak_bytes"]:
+        raise RuntimeError(f"{tag}: block remat did not lower the peak")
+    del grads, params, leaves
+    return row
 
 
 def phase_examples():
@@ -4102,7 +4536,12 @@ def main() -> int:
 
     # Degree-Quant QAT through the AGE's backward on the transposed plan.
     with phase("qat gcn"):
-        qat_row = phase_qat(g)
+        qat_row, qat_gcn_engine = phase_qat(g)
+    # The same training through the sharded engine, against that engine.
+    qat_sharded_rows = {}
+    with phase("qat sharded gcn"):
+        qat_sharded_rows["gcn"], _ = phase_qat_sharded("gcn", qat_gcn_engine)
+    del qat_gcn_engine
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4172,7 +4611,14 @@ def main() -> int:
               for k, dh in enumerate((gat_cfg.gnn_layer_dims[1] // gat_cfg.gnn_heads,
                                       gat_cfg.gnn_layer_dims[2]))]
         gat_bwd_row = phase_gat_bwd(qat_gat_engine, zs)
-    del qat_gat_engine, zs
+    del zs
+    with phase("qat sharded gat"):
+        qat_sharded_rows["gat"], _ = phase_qat_sharded("gat", qat_gat_engine)
+    del qat_gat_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("qat streamed"):
+        qat_streamed_row = phase_qat_streamed(g)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4208,6 +4654,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("lm train"):
         train_row = phase_lm_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("remat"):
+        remat_row = phase_remat()
     gc.collect()
     torch.cuda.empty_cache()
     with phase("flash bwd"):
@@ -4288,6 +4738,11 @@ def main() -> int:
              launches_qat_step=qat_row["steps"][0]["age_launches"],
              launches_qat_deploy=qat_row["deploy_launches"].get("segment_agg", 0),
              launches_mixed_qat_step=qat_row["mixed_step_launches"].get("segment_agg", 0),
+             # a sharded Yelp QAT step (2 host-loop shards): the forward's and the
+             # backward's per shard, and the halo-transpose sums
+             launches_qat_sharded_step={a: r["launches_per_step"].get("segment_agg", 0)
+                                        for a, r in qat_sharded_rows.items()},
+             halo_transpose={a: r["halo_sum"] for a, r in qat_sharded_rows.items()},
              qat_backward={k: qat_row["backward_kernel"][k] for k in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "d",
                  "tiles", "n")}),
@@ -4299,7 +4754,10 @@ def main() -> int:
              launches_streamed_request=streamed("quant_matmul"),
              launches_sharded_request=sharded_row["launches_request"].get("quant_matmul", 0),
              # one pubmed step through gcn.apply on a mixed engine (item 9)
-             launches_mixed_qat_step=qat_row["mixed_step_launches"].get("quant_matmul", 0)),
+             launches_mixed_qat_step=qat_row["mixed_step_launches"].get("quant_matmul", 0),
+             # a FULL ample-gat step with layer 0's FTE streamed (once a chunk)
+             launches_qat_streamed_step=qat_streamed_row["steps"][-1]["launches"].get(
+                 "quant_matmul", 0)),
         kernel_row("attention", "src/repro_torch/csrc/attn_agg.cu",
                    "src/repro/kernels/segment_agg/attn_kernel.py:194",
                    gcounts.get("attention", 0), attn, gat_shape.format(**attn)),
@@ -4308,6 +4766,8 @@ def main() -> int:
                         dec_row["launches"].get("segment_agg_mh", 0), mh, gat_shape.format(**mh)),
              launches_sharded_request=sgat_row["launches_request"].get("segment_agg_mh", 0),
              launches_qat_gat_step=qat_gat_row["steps"][0]["launches"].get("segment_agg_mh", 0),
+             launches_qat_sharded_gat_step=qat_sharded_rows["gat"]["launches_per_step"].get(
+                 "segment_agg_mh", 0),
              qat_gat_dz_walk_ms=gat_bwd_row["dz_walk_ms"]),
         # The GAT backward: launches in the FULL ample-gat QAT run on Yelp
         # (QAT_GAT_STEPS steps, one a layer a step), times at layer 0's shape
@@ -4324,6 +4784,10 @@ def main() -> int:
              library="torch.sparse.sampled_addmm, once per head (the dots at the CSR's "
                      "pattern)",
              launches_per_step=qat_gat_row["steps"][0]["launches"].get("attention_bwd", 0),
+             launches_qat_sharded_gat_step=qat_sharded_rows["gat"]["launches_per_step"].get(
+                 "attention_bwd", 0),
+             launches_qat_streamed_step=qat_streamed_row["steps"][-1]["launches"].get(
+                 "attention_bwd", 0),
              cases={"layer {layer} {rows} rows dh {dh}".format(**r): {k: r[k] for k in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "row_floor_ms",
                  "library_ms")} for r in gat_bwd_row["kernel"]},
@@ -4342,6 +4806,9 @@ def main() -> int:
              tensor_core_launches=lm_row["launches"].get(fa_ops.TC_KERNEL, 0),
              launches_by_lm_path=lm_paths(fa_ops.KERNEL),
              launches_lm_train_run=train_row["launches"].get(fa_ops.KERNEL, 0),
+             # a warm Qwen3-8B step at 8 layers, remat "none" and "block"
+             launches_remat_step={p: remat_row[p]["steps"][-1]["launches"].get(fa_ops.KERNEL, 0)
+                                  for p in ("none", "block")},
              noncausal_launches_by_lm_path=lm_paths(fa_ops.NONCAUSAL_KERNEL),
              noncausal_launches_per_prefill=encdec_row["prefill_launches"].get(
                  fa_ops.NONCAUSAL_KERNEL, 0),
@@ -4405,6 +4872,7 @@ def main() -> int:
         sharded_gcn=sharded_row, plan_store=store_row, sharded_overlap=overlap_row,
         sharded_mincut=mincut_row, sharded_gat=sgat_row, qat_gcn=qat_row,
         qat_gat=qat_gat_row, gat_bwd=gat_bwd_row, examples=example_rows,
+        qat_sharded=qat_sharded_rows, qat_streamed=qat_streamed_row, remat=remat_row,
         phase_seconds=seconds,
         seconds=time.perf_counter() - t_start,
     )

@@ -8,8 +8,10 @@ tests run on the CPU. ``get_config`` resolves a name through the registry.
 
 Left out of the reference's fields: ``attention_impl`` (a CUDA tensor runs
 the flash kernel, a CPU tensor its plain version; there is no other switch),
-``remat``/``scan_layers`` (training and XLA knobs) and ``gnn_use_kernel``,
-which the port has no use for.
+``scan_layers`` (an XLA knob) and ``gnn_use_kernel``, which the port has no
+use for. ``remat`` is the reference's activation-checkpointing policy:
+``"block"`` recomputes each unit's forward in the backward
+(``models/lm/transformer.py``).
 """
 from __future__ import annotations
 
@@ -114,6 +116,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"  # bfloat16 | float32
     kv_cache_dtype: str = "model"  # model (= dtype) | int8
+
+    # --- training ---
+    remat: str = "none"  # none | block  (activation checkpointing policy)
 
     # reduced smoke-config marker
     reduced: bool = False

@@ -3,8 +3,8 @@ every 2nd layer (16 experts top-2), no positional embedding. The Mamba mixer
 here is the SSD (Mamba2) form with Jamba's state size, as in the reference.
 [arXiv:2403.19887; hf]
 
-The registrations of the reference's ``repro/configs/jamba_v0_1_52b.py`` (its
-``remat`` knob aside). The FULL weights (~52 B parameters) do not fit one
+The registrations of the reference's ``repro/configs/jamba_v0_1_52b.py``
+(``remat="block"`` included). The FULL weights (~52 B parameters) do not fit one
 80 GB card; a caller cuts depth with ``dataclasses.replace(cfg,
 num_layers=8)``, one whole unit of eight roles at the published widths.
 """
@@ -19,7 +19,7 @@ def full() -> ModelConfig:
         num_experts=16, experts_per_token=2, moe_layer_period=2,
         ssm_state=16, ssm_expand=2, ssm_headdim=64,
         attn_layer_period=8, attn_layer_offset=4,
-        pos_embed="none", mlp="swiglu",
+        pos_embed="none", mlp="swiglu", remat="block",
     )
 
 

@@ -3,7 +3,7 @@ expert, GQA kv=8, early-fusion multimodal (frontend stubbed — text path only).
 [hf:meta-llama/Llama-4-Scout-17B-16E; unverified]
 
 The registrations of the reference's
-``repro/configs/llama4_maverick_400b_a17b.py`` (its ``remat`` knob aside).
+``repro/configs/llama4_maverick_400b_a17b.py`` (``remat="block"`` included).
 The FULL weights (~400 B parameters) do not fit one 80 GB card; a caller
 cuts depth with ``dataclasses.replace(cfg, num_layers=2)``, one whole
 ``(attn, dense), (attn, moe)`` unit at the published widths.
@@ -17,7 +17,7 @@ def full() -> ModelConfig:
         num_layers=48, d_model=5120, num_heads=40, num_kv_heads=8, head_dim=128,
         d_ff=8192, vocab_size=202048,
         num_experts=128, experts_per_token=1, moe_layer_period=2,
-        moe_shared_expert=True, mlp="swiglu", rope_theta=5e5,
+        moe_shared_expert=True, mlp="swiglu", rope_theta=5e5, remat="block",
     )
 
 

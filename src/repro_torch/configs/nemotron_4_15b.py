@@ -2,7 +2,7 @@
 [arXiv:2402.16819; unverified]
 
 The registrations of the reference's ``repro/configs/nemotron_4_15b.py``
-(its ``remat`` knob aside).
+(``remat="block"`` included).
 """
 from repro_torch.configs.base import ModelConfig, register
 
@@ -12,6 +12,7 @@ def full() -> ModelConfig:
         name="nemotron-4-15b", family="dense",
         num_layers=32, d_model=6144, num_heads=48, num_kv_heads=8, head_dim=128,
         d_ff=24576, vocab_size=256000, mlp="relu2", norm="layernorm",
+        remat="block",
     )
 
 

@@ -14,7 +14,7 @@ def full() -> ModelConfig:
         num_layers=28, d_model=3584, num_heads=28, num_kv_heads=4, head_dim=128,
         d_ff=18944, vocab_size=152064, qkv_bias=True, mlp="swiglu",
         pos_embed="mrope", mrope_sections=(16, 24, 24), rope_theta=1e6,
-        embeds_input=True,
+        embeds_input=True, remat="block",
     )
 
 

@@ -40,6 +40,7 @@ reference.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -57,6 +58,8 @@ __all__ = [
     "aggregate_edge_tiles",
     "aggregate_mixed_precision",
     "aggregate_autograd",
+    "transposed_tile_plan",
+    "plan_tile_grad",
     "aggregate_bucket_plan",
     "aggregate_padded_plan",
     "segment_max_edge_tiles",
@@ -81,12 +84,16 @@ class DeviceTilePlan(NamedTuple):
     edge_ids: torch.Tensor  # int32[T, E]; -1 on padding lanes
 
 
-def to_device_plan(plan: sched.EdgeTilePlan, device) -> DeviceTilePlan:
-    """Upload a tile plan; its split map is computed here, once per plan."""
+def to_device_plan(plan: sched.EdgeTilePlan, device, *, rows: Optional[int] = None
+                   ) -> DeviceTilePlan:
+    """Upload a tile plan; its split map is computed here, once per plan.
+    ``rows``: the row count of what the plan gathers from (default the
+    plan's ``num_nodes``)."""
+    rows = plan.num_nodes if rows is None else rows
     if plan.gather_idx.size and (
-        plan.gather_idx.min() < 0 or plan.gather_idx.max() >= max(plan.num_nodes, 1)
+        plan.gather_idx.min() < 0 or plan.gather_idx.max() >= max(rows, 1)
     ):
-        raise ValueError(f"gather_idx outside [0, {plan.num_nodes})")
+        raise ValueError(f"gather_idx outside [0, {rows})")
     split = seg_ops.split_segment_map(plan.out_node, plan.seg_ids, plan.num_nodes)
 
     def up(a, dtype):
@@ -102,6 +109,46 @@ def to_device_plan(plan: sched.EdgeTilePlan, device) -> DeviceTilePlan:
         split=split.to(device),
         edge_ids=up(plan.edge_ids, torch.int32),
     )
+
+
+def transposed_tile_plan(
+    plan: sched.EdgeTilePlan, *, edges_per_tile: int, segments_per_tile: Optional[int],
+    runtime: bool,
+) -> sched.EdgeTilePlan:
+    """The tile plan of ``plan``'s reversed edges (``scheduler.
+    transpose_plan_graph``), the backward of an aggregation over ``plan``.
+    Its lanes carry the forward's edge ids, so per-edge operands ``[E, …]``
+    of the forward are read on it; a ``runtime`` plan keeps every real
+    edge."""
+    g, coeff, tags, eids = sched.transpose_plan_graph(plan, runtime=runtime)
+    tp = sched.build_mixed_precision_plans(
+        g, tags, edges_per_tile=edges_per_tile, segments_per_tile=segments_per_tile,
+        coeff=coeff)["float"]
+    lanes = tp.edge_ids
+    fwd = eids[np.maximum(lanes, 0)] if eids.size else np.zeros_like(lanes)
+    return dataclasses.replace(tp, edge_ids=np.where(lanes < 0, -1, fwd).astype(np.int32))
+
+
+def plan_tile_grad(
+    plan: sched.EdgeTilePlan, graph, indices: torch.Tensor,
+    transposed: Callable[[], DeviceTilePlan],
+) -> attn_ops.TileGrad:
+    """What the backward of the GAT kernels on ``plan`` reads: ``graph``'s
+    CSR sources ``indices`` (int32, on the device), the work items over the
+    in-edges of the nodes the plan writes, each edge's static coefficient
+    (None when all are 1, as in ``"runtime"`` plans) and ``transposed``,
+    the reversed edges' device plan (called on first use)."""
+    on = plan.out_node
+    rows = np.unique(on[on < plan.num_nodes]).astype(np.int32)
+    live = plan.edge_ids >= 0
+    coeff = None
+    if not np.all(plan.coeff[live] == 1.0):
+        cf = np.zeros(graph.num_edges, np.float32)
+        cf[plan.edge_ids[live]] = plan.coeff[live]
+        coeff = torch.from_numpy(cf).to(indices.device)
+    items = attn_ops.row_items(graph.indptr, rows)
+    return attn_ops.TileGrad(indices, torch.from_numpy(items).to(indices.device), coeff,
+                             transposed)
 
 
 def tile_edge_coeff(

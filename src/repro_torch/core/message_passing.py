@@ -41,8 +41,10 @@ from repro_torch.core.aggregation import (
     aggregate_mixed_precision,
     edge_scores,
     edge_segment_sum_tiles,
+    plan_tile_grad,
     segment_max_edge_tiles,
     to_device_plan,
+    transposed_tile_plan,
 )
 from repro_torch.core.degree_quant import DegreeQuantConfig, inference_precision_tags
 from repro_torch.core.quantization import (
@@ -759,49 +761,29 @@ class AmpleEngine:
 
     def _transposed_plan(self, mode: str, tag: str, device: torch.device) -> DeviceTilePlan:
         """The device plan of group ``tag``'s reversed edges (the backward of
-        ``aggregate`` and the attention), planned once per (mode, tag) with
-        the engine's tile sizes and uploaded once per device. Its lanes carry
-        the forward's edge ids, so per-edge operands ``[E, …]`` of the
-        forward are read on it; a ``"runtime"`` plan keeps every real edge."""
+        ``aggregate`` and the attention, ``aggregation.transposed_tile_plan``),
+        planned once per (mode, tag) with the engine's tile sizes and
+        uploaded once per device."""
         key = (mode, tag, str(device))
         if key not in self._tplan_cache:
             if (mode, tag) not in self._tplans:
-                g, coeff, tags, eids = sched.transpose_plan_graph(
-                    self.plans(mode)[tag], runtime=mode == "runtime")
-                tp = sched.build_mixed_precision_plans(
-                    g, tags, edges_per_tile=self.cfg.edges_per_tile,
-                    segments_per_tile=self.cfg.segments_per_tile, coeff=coeff)["float"]
-                lanes = tp.edge_ids
-                fwd = eids[np.maximum(lanes, 0)] if eids.size else np.zeros_like(lanes)
-                self._tplans[(mode, tag)] = dataclasses.replace(
-                    tp, edge_ids=np.where(lanes < 0, -1, fwd).astype(np.int32))
+                self._tplans[(mode, tag)] = transposed_tile_plan(
+                    self.plans(mode)[tag], edges_per_tile=self.cfg.edges_per_tile,
+                    segments_per_tile=self.cfg.segments_per_tile, runtime=mode == "runtime")
             self._tplan_cache[key] = to_device_plan(self._tplans[(mode, tag)], device)
         return self._tplan_cache[key]
 
     def _tile_grad(self, mode: str, tag: str, device: torch.device) -> attn_ops.TileGrad:
-        """What the backward of the GAT kernels on group ``tag``'s plan reads:
-        the CSR's sources, the work items over the in-edges of the nodes the
-        plan writes, each edge's static coefficient (None when all are 1, as
-        in ``"runtime"`` plans) and the transposed plan, built on first
-        use."""
+        """What the backward of the GAT kernels on group ``tag``'s plan reads
+        (``aggregation.plan_tile_grad``), built on first use."""
         key = (mode, tag, str(device))
         if key not in self._tgrad_cache:
-            plan = self.plans(mode)[tag]
-            on = plan.out_node
-            rows = np.unique(on[on < plan.num_nodes]).astype(np.int32)
-            live = plan.edge_ids >= 0
-            coeff = None
-            if not np.all(plan.coeff[live] == 1.0):
-                cf = np.zeros(self.graph.num_edges, np.float32)
-                cf[plan.edge_ids[live]] = plan.coeff[live]
-                coeff = torch.from_numpy(cf).to(device)
             dev_key = str(device)
             if dev_key not in self._indices_cache:
                 self._indices_cache[dev_key] = torch.as_tensor(
                     self.graph.indices, dtype=torch.int32).to(device)
-            items = attn_ops.row_items(self.graph.indptr, rows)
-            self._tgrad_cache[key] = attn_ops.TileGrad(
-                self._indices_cache[dev_key], torch.from_numpy(items).to(device), coeff,
+            self._tgrad_cache[key] = plan_tile_grad(
+                self.plans(mode)[tag], self.graph, self._indices_cache[dev_key],
                 lambda: self._transposed_plan(mode, tag, device))
         return self._tgrad_cache[key]
 
@@ -968,8 +950,8 @@ class AmpleEngine:
         as its autograd Function: the coefficients' gradient from
         ``csrc/attn_agg_bwd.cu``, the rows' from the walk on the group's
         transposed plan (the forward's values; the groups' disjoint rows are
-        added rather than written into one buffer). The sharded and streamed
-        engines under grad are ROADMAP.md queue 1 item 10.
+        added rather than written into one buffer). ``ShardedAmpleEngine``
+        does the same per shard; streamed features carry no gradient.
         """
         if isinstance(x, StreamedFeatures):
             if edge_coeff is not None:

@@ -40,6 +40,18 @@ gathers run on a worker thread and both are wall-clock, as in the
 reference. Without overlap the halo rows are gathered on the main stream:
 the wait is the whole fetch.
 
+Training (grad on, an input that requires grad) takes another route through
+the same kernels: each shard's local rows are gathered differentiably
+(``_ShardRows``), its AGE runs through the engine's autograd on its own
+plans (``aggregation.aggregate_autograd`` with the shard's transposed plan;
+runtime coefficients through the multi-head Functions with the shard's
+``TileGrad``), and the backward of the gather sums each global row's
+gradient over the shards that hold a copy by the AGE on the halo-transpose
+plan (``halo_transpose_plan``), in a plan-static order and without float
+atomics, so two runs give the same bits on the card. The forward is the
+serving forward, bitwise; the split schedule and the halo ledger are
+serving's, and training runs the shards unsplit.
+
 There is no mesh backend (one card per shard over ``torch.distributed``):
 passing ``mesh`` raises.
 """
@@ -49,15 +61,22 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import scheduler as sched
 from repro_torch.core.aggregation import (
+    DeviceTilePlan,
+    _aggregate_groups,
     _int8_rows,
+    aggregate_autograd,
     aggregate_edge_tiles,
+    edge_scores,
     edge_segment_sum_tiles,
+    plan_tile_grad,
     segment_max_edge_tiles,
     to_device_plan,
+    transposed_tile_plan,
 )
 from repro_torch.core.message_passing import (
     AmpleEngine,
@@ -66,6 +85,7 @@ from repro_torch.core.message_passing import (
 )
 from repro_torch.core.quantization import QuantParams, compute_scale_zp
 from repro_torch.graphs.csr import Graph
+from repro_torch.kernels.segment_agg import attn_ops
 from repro_torch.memory.prefetcher import StreamedFeatures
 from repro_torch.observe import trace as otrace
 
@@ -339,6 +359,53 @@ class _ShardPass:
         return self.out[: self.sp.num_owned]
 
 
+# ---------------------------------------------------------------------------
+# Training: the local rows under autograd
+# ---------------------------------------------------------------------------
+
+
+def halo_transpose_plan(splan: ShardedExecutionPlan, *, edges_per_tile: int,
+                        segments_per_tile: Optional[int]) -> sched.EdgeTilePlan:
+    """The plan that sums the shards' local rows back into global rows.
+
+    Its sources are the *stacked* local rows, every shard's ``[owned |
+    halo]`` block in shard order (``sum(num_local)`` rows); node ``v``'s
+    segment holds the stacked positions of its copies, in stacked order:
+    shard by shard, a shard's owned rows before its halo rows. The AGE over
+    it (coefficient 1) is the gradient of the local-row gather: each global
+    row's contributions summed in that plan-static order, one lane group a
+    segment, with no atomics. Gather ids reach past ``num_nodes``: upload it
+    with ``to_device_plan(plan, device, rows=<stacked rows>)``.
+    """
+    n = splan.num_nodes
+    ids = np.concatenate([sp.shard.local_ids for sp in splan.shards]).astype(np.int64)
+    order = np.argsort(ids, kind="stable")
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(ids, minlength=n), out=indptr[1:])
+    g = Graph(indptr=indptr, indices=order.astype(np.int32), num_nodes=n,
+              name="halo-transpose")
+    return sched.build_edge_tile_plan(g, edges_per_tile=edges_per_tile,
+                                      segments_per_tile=segments_per_tile)
+
+
+class _ShardRows(torch.autograd.Function):
+    """Each shard's local rows ``x[local_ids]`` (one output a shard)
+    forward; backward, the shards' gradients stacked and summed into global
+    rows by the AGE on the halo-transpose plan (``halo_transpose_plan``)."""
+
+    @staticmethod
+    def forward(ctx, x, ids, plan):
+        ctx.plan, ctx.shape = plan, x.shape
+        ctx.sizes = [int(i.numel()) for i in ids]
+        return tuple(x.index_select(0, i) for i in ids)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        stacked = torch.cat([g.reshape(size, -1) for g, size in zip(grads, ctx.sizes)])
+        gx = aggregate_edge_tiles(stacked.contiguous(), ctx.plan(), num_nodes=ctx.shape[0])
+        return gx.view(ctx.shape), None, None
+
+
 def sharded_aggregate(
     x: torch.Tensor,
     splan: ShardedExecutionPlan,
@@ -405,7 +472,11 @@ class ShardedAmpleEngine(AmpleEngine):
         eng = ShardedAmpleEngine(g, splan, halo_overlap=True)
 
     Shards run as a host loop on the device of the embeddings. The halo
-    accounting accumulates in ``halo_stats`` (``HaloLedger``).
+    accounting accumulates in ``halo_stats`` (``HaloLedger``). Under grad
+    ``aggregate``, ``edge_softmax``, ``attention_aggregate`` and
+    ``edge_scores`` differentiate per shard (the module's "Training"); the
+    plans their backward reads are built on the first backward and kept in
+    ``_shard_state`` beside the serving uploads.
     """
 
     def __init__(
@@ -479,6 +550,8 @@ class ShardedAmpleEngine(AmpleEngine):
         has_int8 = self.cfg.mixed_precision and any(
             "int8" in s.plan.mode_plans.get(mode, {}) for s in splan.shards)
         qp = self._activation_qp(lambda: x, "agg") if has_int8 else None
+        if attn_ops.wants_grad(x, edge_coeff, None if qp is None else qp.scale):
+            return self._aggregate_grad(x, mode, qp, edge_coeff)
         return sharded_aggregate(
             x, splan, mode=mode, qp=qp, device_state=self._shard_state,
             edge_coeff=edge_coeff, overlap=self.halo_overlap, halo=self.halo,
@@ -493,7 +566,10 @@ class ShardedAmpleEngine(AmpleEngine):
         shard, so the segment-max and denominator passes run per shard over
         its local tiles (the denominators on the multi-head AGE) and the
         owned rows map back to global node order through the partition; the
-        exp-shift and the normalisation run in global edge space.
+        exp-shift and the normalisation run in global edge space. Under grad
+        the shift is held constant and the denominators' pass runs the
+        multi-head Function with each shard's ``TileGrad``, as in
+        ``AmpleEngine.edge_softmax``.
         """
         scores = torch.as_tensor(scores, dtype=torch.float32)
         e = self.graph.num_edges
@@ -502,24 +578,25 @@ class ShardedAmpleEngine(AmpleEngine):
         self._check_edge_ids(mode)
         splan, dev = self.sharded_plan, scores.device
 
-        def owned_pass(fn, vec, init):
+        def owned_pass(fn, vec, init, grad=False):
             parts = []
             for sp in splan.shards:
                 _, _, _, dplans = _shard_state_entry(self._shard_state, sp, mode, dev)
                 local = _local_edge_coeff(self._shard_state, sp, vec)
                 n_local = sp.shard.num_local
                 acc = torch.full((n_local,) + tuple(vec.shape[1:]), init, device=dev)
-                for dp in dplans.values():
-                    res = fn(local, dp, num_nodes=n_local)
+                for tag, dp in dplans.items():
+                    kw = {"grad": self._shard_tile_grad(sp, mode, tag, dev)} if grad else {}
+                    res = fn(local, dp, num_nodes=n_local, **kw)
                     acc = torch.maximum(acc, res) if init == float("-inf") else acc + res
                 parts.append(acc[: sp.num_owned])
             return _unshuffle(self._shard_state, splan, torch.cat(parts, dim=0))
 
-        node_max = owned_pass(segment_max_edge_tiles, scores, float("-inf"))
+        node_max = owned_pass(segment_max_edge_tiles, scores.detach(), float("-inf"))
         node_max = torch.where(torch.isfinite(node_max), node_max, torch.zeros_like(node_max))
         _, dst = self.edge_endpoints(dev)
         ex = torch.exp(scores - node_max[dst])
-        denom = owned_pass(edge_segment_sum_tiles, ex, 0.0)
+        denom = owned_pass(edge_segment_sum_tiles, ex, 0.0, attn_ops.wants_grad(ex))
         denom = torch.where(denom > 0, denom, torch.ones_like(denom))
         return ex / denom[dst]
 
@@ -548,6 +625,128 @@ class ShardedAmpleEngine(AmpleEngine):
         act = torch.where(scores >= 0, scores, leaky_slope * scores)
         alpha = self.edge_softmax(act, mode=mode)
         return self.aggregate(z, mode=mode, edge_coeff=alpha)
+
+    def edge_scores(
+        self, src_sc: torch.Tensor, dst_sc: torch.Tensor, *, mode: str = "runtime"
+    ) -> torch.Tensor:
+        """GAT's raw per-edge scores ``src_sc[src] + dst_sc[dst]``, sharded
+        under grad: each shard gathers its local rows of both halves and runs
+        ``aggregation.edge_scores`` on its own plans (every destination is an
+        owned row of one shard: its sums are the shard's pass; a source's
+        reach the halo rows of other shards too, which the halo-transpose
+        plan adds up). The shards' edges are put back in global edge order.
+        Bitwise the plain indexing forward."""
+        dev = src_sc.device
+        if not attn_ops.wants_grad(src_sc, dst_sc):  # serving
+            src, dst = self.edge_endpoints(dev)
+            return src_sc[src] + dst_sc[dst]
+        self._check_edge_ids(mode)
+        parts = []
+        for sp, s_loc, d_loc in zip(self.sharded_plan.shards, self._local_rows(src_sc),
+                                    self._local_rows(dst_sc)):
+            if not sp.shard.num_edges:
+                continue
+            _, _, plans, dplans = _shard_state_entry(self._shard_state, sp, mode, dev)
+            lsrc, ldst = self._shard_endpoints(sp, dev)
+            parts.append(edge_scores(
+                s_loc, d_loc, lsrc, ldst, [dplans[t] for t in plans],
+                [lambda t=t, sp=sp: self._shard_transposed(sp, mode, t, dev) for t in plans],
+                num_nodes=sp.shard.num_local))
+        return self._global_edges(torch.cat(parts, dim=0))
+
+    # ------------------------------------------------------------- training
+    def _aggregate_grad(self, x, mode, qp, edge_coeff) -> torch.Tensor:
+        """``aggregate`` under grad: per shard, the AGE's autograd over its
+        local rows (static coefficients: ``aggregate_autograd`` with the
+        shard's transposed plan; runtime: each group's multi-head Function
+        with the shard's ``TileGrad``), its owned rows kept. The local rows
+        come from ``_ShardRows``; an int8 group's scale gradient is summed
+        over the shards by autograd. The halo ledger (serving's accounting)
+        is not fed."""
+        splan, st, dev = self.sharded_plan, self._shard_state, x.device
+        parts = []
+        for sp, rows in zip(splan.shards, self._local_rows(x)):
+            if not sp.num_owned:
+                continue
+            _, _, _, dplans = _shard_state_entry(st, sp, mode, dev)
+            n_local = sp.shard.num_local
+            if edge_coeff is None:
+                out = aggregate_autograd(
+                    rows, dplans, lambda sp=sp: self._shard_transposed(sp, mode, "float", dev),
+                    num_nodes=n_local, qp=qp)
+            else:
+                out = _aggregate_groups(
+                    rows, dplans, num_nodes=n_local, qp=qp,
+                    edge_coeff=_local_edge_coeff(st, sp, edge_coeff),
+                    grads={t: self._shard_tile_grad(sp, mode, t, dev) for t in dplans})
+            parts.append(out[: sp.num_owned])
+        return _unshuffle(st, splan, torch.cat(parts, dim=0))
+
+    def _local_rows(self, x: torch.Tensor):
+        """Each shard's local rows ``[owned | halo]`` of ``x``, differentiable
+        (``_ShardRows``)."""
+        dev, st = x.device, self._shard_state
+        key = ("local_ids", str(dev))
+        if key not in st:
+            st[key] = [_ids(sp.shard.local_ids, dev) for sp in self.sharded_plan.shards]
+        return _ShardRows.apply(x, st[key], lambda: self._halo_transpose(dev))
+
+    def _halo_transpose(self, device) -> DeviceTilePlan:
+        """The halo-transpose device plan, built on the first backward."""
+        key, st = ("halo_transpose", str(device)), self._shard_state
+        if key not in st:
+            splan = self.sharded_plan
+            plan = halo_transpose_plan(splan, edges_per_tile=self.cfg.edges_per_tile,
+                                       segments_per_tile=self.cfg.segments_per_tile)
+            st[key] = to_device_plan(plan, device,
+                                     rows=sum(sp.shard.num_local for sp in splan.shards))
+        return st[key]
+
+    def _shard_transposed(self, sp, mode: str, tag: str, device):
+        """Shard ``sp``'s transposed device plan of group ``tag``
+        (``aggregation.transposed_tile_plan`` of its local plan), built on
+        first use and cached per (shard, mode, tag, device)."""
+        key, st = ("transposed", sp.fingerprint, mode, tag, str(device)), self._shard_state
+        if key not in st:
+            st[key] = to_device_plan(transposed_tile_plan(
+                sp.plan.mode_plans[mode][tag], edges_per_tile=self.cfg.edges_per_tile,
+                segments_per_tile=self.cfg.segments_per_tile, runtime=mode == "runtime"),
+                device)
+        return st[key]
+
+    def _shard_tile_grad(self, sp, mode: str, tag: str, device) -> attn_ops.TileGrad:
+        """Shard ``sp``'s ``TileGrad`` of group ``tag``: its local CSR's
+        sources, work items over its owned destinations, its transposed
+        plan."""
+        key, st = ("tile_grad", sp.fingerprint, mode, tag, str(device)), self._shard_state
+        if key not in st:
+            lg = sp.shard.graph
+            indices = torch.as_tensor(lg.indices, dtype=torch.int32).to(device)
+            st[key] = plan_tile_grad(sp.plan.mode_plans[mode][tag], lg, indices,
+                                     lambda: self._shard_transposed(sp, mode, tag, device))
+        return st[key]
+
+    def _shard_endpoints(self, sp, device):
+        """(local src, local dst) of each of shard ``sp``'s edges, int64."""
+        key, st = ("endpoints", sp.fingerprint, str(device)), self._shard_state
+        if key not in st:
+            lg = sp.shard.graph
+            dst = np.repeat(np.arange(lg.num_nodes, dtype=np.int64), lg.degrees)
+            st[key] = (_ids(lg.indices, device), _ids(dst, device))
+        return st[key]
+
+    def _global_edges(self, stacked: torch.Tensor) -> torch.Tensor:
+        """The shards' local edges, stacked in shard order, back in global
+        edge order (verbatim for a contiguous partition)."""
+        key, st = ("edge_order", str(stacked.device)), self._shard_state
+        if key not in st:
+            pos = np.concatenate([
+                np.arange(*sp.shard.edge_range) if sp.shard.edge_range is not None
+                else sp.shard.edge_idx for sp in self.sharded_plan.shards if sp.shard.num_edges])
+            st[key] = (None if np.array_equal(pos, np.arange(pos.size))
+                       else _ids(np.argsort(pos, kind="stable"), stacked.device))
+        inv = st[key]
+        return stacked if inv is None else stacked[inv]
 
     # ------------------------------------------------------------- metrics
     def shard_report(self) -> Dict[str, object]:

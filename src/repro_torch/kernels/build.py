@@ -196,14 +196,11 @@ _SIGNATURES = {
 _launches: Dict[str, int] = {}
 _lib: Optional[ctypes.CDLL] = None
 
-# The launches that still have no backward, and where one comes: the item
-# of ROADMAP.md's queue 1.
+# The launches whose bare wrappers have no backward, and what differentiates
+# them instead.
 _BACKWARD = {
-    "segment_agg": "AmpleEngine.aggregate differentiates it for static coefficients; "
-                   "the sharded and streamed engines under grad are ROADMAP.md queue 1 "
-                   "item 10",
-    "streamed_fte": "the int8 FTE over streamed features; the streamed engine under grad "
-                    "is ROADMAP.md queue 1 item 10",
+    "segment_agg": "AmpleEngine.aggregate and ShardedAmpleEngine.aggregate differentiate "
+                   "the AGE through core/aggregation.py::aggregate_autograd",
 }
 
 

@@ -3,9 +3,8 @@
 A CUDA tensor launches ``csrc/quant_matmul.cu``; a CPU tensor takes the plain
 version (``ref.py``). Both give bitwise the same int32 result. The kernel
 reads int8 codes, which carry no gradient; the gradient of the int8 FTE
-reaches the scales through its dequant (``core/transformation.py``), and the
-streamed FTE, which has none yet, is held to ``build.require_no_grad``
-(``memory/prefetcher.py``).
+reaches the scales through its dequant (``core/transformation.py``, and the
+streamed FTE's in ``memory/prefetcher.py``).
 """
 from __future__ import annotations
 

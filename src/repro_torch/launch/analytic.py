@@ -2,17 +2,14 @@
 ``repro/launch/analytic.py``: closed forms that follow the products of
 ``models/lm/*`` and read only the config and ``block_roles``.
 
-* ``step_flops``: global FLOPs of one step (train: forward + backward, ×3);
+* ``step_flops``: global FLOPs of one step (train: forward + backward, ×3,
+  and ×4 under ``remat="block"``, which recomputes the forward);
 * ``model_flops``: the 6·N·D (dense) / 6·N_active·D (MoE) reference;
 * ``step_hbm_bytes``: per-device device-memory traffic (weight streams,
   activations read and written, KV-cache reads and writes).
 
 The SSD's intra-chunk term is in ``_mamba_flops`` (``2·t·Q·(N + H·P)``: the
 quadratic C Bᵀ and the weighted Xdt product), which 6·N·D leaves out.
-
-The port's ``ModelConfig`` has no ``remat`` field (activation checkpointing
-is not ported), so a train step counts the reference's default ``"none"``:
-backward = 2× forward.
 """
 from __future__ import annotations
 
@@ -22,9 +19,6 @@ from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models.lm.transformer import block_roles
 
 __all__ = ["analytic_report", "step_flops", "model_flops", "step_hbm_bytes"]
-
-REMAT = "none"  # the reference's default policy; "block" would add one forward
-
 
 def _attn_flops(cfg, t_q: int, t_kv: int) -> float:
     d, hd = cfg.d_model, cfg.resolved_head_dim
@@ -104,7 +98,7 @@ def step_flops(cfg: ModelConfig, shape: ShapeSpec) -> float:
             fwd = stack_flops(t, s, causal_frac=0.5)
             fwd += 2 * t * cfg.d_model * cfg.vocab_size  # lm head
         if shape.kind == "train":
-            mult = 4.0 if REMAT == "block" else 3.0  # bwd = 2x, remat = +1x
+            mult = 4.0 if cfg.remat == "block" else 3.0  # bwd = 2x, remat = +1x
             return fwd * mult
         return fwd
     # decode: one token per sequence, cache length s

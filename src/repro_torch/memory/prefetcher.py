@@ -64,7 +64,6 @@ import torch
 from repro_torch.core import scheduler as sched
 from repro_torch.core.quantization import INT8_MAX, QuantParams
 from repro_torch.core.transformation import transform_dense
-from repro_torch.kernels import build
 from repro_torch.kernels.quant_matmul import ops as qm_ops
 from repro_torch.kernels.segment_agg import ops as seg_ops
 from repro_torch.memory.feature_store import FeatureStore
@@ -948,6 +947,14 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _dequant(acc, deq, b, activation) -> torch.Tensor:
+    """The int8 FTE's epilogue on the GEMM's int32 rows, transform_int8's."""
+    y = acc.to(torch.float32) * deq
+    if b is not None:
+        y = y + b
+    return y if activation is None else activation(y)
+
+
 def transform_streamed(
     sf: StreamedFeatures,
     node_group_ids: Mapping[str, np.ndarray],
@@ -968,6 +975,8 @@ def transform_streamed(
     each chunk's rows are quantized on the host under ``a_qp`` and move as
     1-byte elements, and the int8 GEMM kernel accumulates them exactly in
     int32, so per-chunk blocks equal the monolithic matmul row for row.
+    Under grad the weight (through its scale) and the bias receive the
+    in-memory path's gradient; the stored features receive none.
     """
     store, dev = sf.store, sf.device
     rec = otrace.get_recorder()
@@ -984,11 +993,16 @@ def transform_streamed(
         elif tag == "int8":
             if a_qp is None:
                 a_qp = _host_fte_qp(store.amax_rows(ids), dev)
-            if dev.type == "cuda":
-                build.require_no_grad("streamed_fte", w_qp.scale)
             scale_np = np.float32(a_qp.scale.item())
             # Same expression as transform_int8's dequant coefficient.
             deq = a_qp.scale * w_qp.scale.reshape(1, -1)
+            # Under grad the chunks' int32 rows are kept, in chunk order, and
+            # dequantized in one product, as transform_int8 dequantizes the
+            # group's: the same rows, values and gradient (the scales'
+            # through acc, summed by one reduction over the rows).
+            train = torch.is_grad_enabled() and (deq.requires_grad or (
+                b is not None and b.requires_grad))
+            accs, targets = [], []
             for c in np.unique(ids // store.chunk_rows).tolist():
                 _, local = store.chunk_row_selection(c, ids)
                 lo, hi = store.chunk_range(c)
@@ -997,13 +1011,15 @@ def transform_streamed(
                 hq = _to_device(FeatureStore._quantize_block(
                     store.chunk_f32(c)[: hi - lo], scale_np), dev)
                 sf.stats.bytes_streamed += int(hq.numel())
-                y = qm_ops.quant_matmul_repacked(hq, w_packed).to(torch.float32) * deq
-                if b is not None:
-                    y = y + b
-                if activation is not None:
-                    y = activation(y)
+                acc = qm_ops.quant_matmul_repacked(hq, w_packed)
                 sel = _to_device(local, dev)
-                out[sel + lo] = y[sel]
+                if train:
+                    accs.append(acc[sel])
+                    targets.append(sel + lo)
+                else:
+                    out[sel + lo] = _dequant(acc, deq, b, activation)[sel]
+            if train:
+                out[torch.cat(targets)] = _dequant(torch.cat(accs), deq, b, activation)
         else:
             raise ValueError(f"unknown precision tag {tag!r}")
     if rec.enabled:
@@ -1022,10 +1038,16 @@ def scale_add_streamed(sf: StreamedFeatures, alpha, m: torch.Tensor) -> torch.Te
     if m.shape[0] != store.num_rows:
         raise ValueError(f"residual rows {m.shape[0]} != store rows {store.num_rows}")
     rows = store.stream_tensor("f32")
+    train = torch.is_grad_enabled() and (m.requires_grad or (
+        torch.is_tensor(alpha) and alpha.requires_grad))
     out = torch.empty_like(m)
+    parts = []
     for c in range(store.num_chunks):
         lo, hi = store.chunk_range(c)
         blk = rows[lo:hi].to(m.device, non_blocking=store.pinned)
         sf.stats.bytes_streamed += int(blk.numel()) * 4
-        torch.add(alpha * blk, m[lo:hi], out=out[lo:hi])
-    return out
+        if train:  # the chunks' blocks joined, so autograd reaches alpha and m
+            parts.append(alpha * blk + m[lo:hi])
+        else:
+            torch.add(alpha * blk, m[lo:hi], out=out[lo:hi])
+    return torch.cat(parts) if train else out

@@ -28,6 +28,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm.attention import (
@@ -311,41 +312,71 @@ def _ffn(cfg: ModelConfig, ffn: str, p: Dict, x: torch.Tensor, norm_apply, aux: 
     return x + mlp_apply(p["mlp"], h, cfg.mlp)
 
 
+def _unit(cfg: ModelConfig, roles, st, norm_apply, unit_params: List[Dict], x: torch.Tensor,
+          positions, cache: Optional[List[Dict]], u: int, aux: List) -> torch.Tensor:
+    """One unit's roles over ``x``; writes K/V and SSM states into unit ``u``
+    of ``cache`` when given and each MoE layer's aux loss into ``aux``."""
+    s = x.shape[1]
+    for r, role in enumerate(roles):
+        mixer, ffn = role
+        p = unit_params[r]
+        h = norm_apply(p["norm_mixer"], x, eps=cfg.norm_eps)
+        if mixer == "attn":
+            h, k, v = attention(p["attn"], h, st, positions, return_kv=True)
+            if cache is not None:
+                c = cache[r]
+                if "k_scale" in c:
+                    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+                    c["k"][u, :, :s], c["v"][u, :, :s] = kq, vq
+                    c["k_scale"][u, :, :s], c["v_scale"][u, :, :s] = ks, vs
+                else:
+                    c["k"][u, :, :s], c["v"][u, :, :s] = k, v
+        else:
+            out = mamba_apply(p["mamba"], h, chunk=cfg.ssm_chunk,
+                              return_state=cache is not None, **_mamba_kw(cfg))
+            if cache is not None:
+                h, state = out
+                for key, val in state.items():
+                    cache[r][key][u] = val
+            else:
+                h = out
+        x = _ffn(cfg, ffn, p, x + h, norm_apply, aux)
+    return x
+
+
 def _run(params: Dict, cfg: ModelConfig, batch: Dict, cache: Optional[List[Dict]], aux: List):
     """Full-sequence pass; writes K/V and SSM states into ``cache`` when given
-    and each MoE layer's aux loss into ``aux``."""
+    and each MoE layer's aux loss into ``aux``.
+
+    Under ``cfg.remat == "block"`` a training forward (grad on, no cache)
+    runs each unit under ``torch.utils.checkpoint`` (non-reentrant), as the
+    reference wraps its unit in ``jax.checkpoint``: the unit keeps only its
+    input, and the backward runs its forward again. The recompute sees the
+    same inputs: no role draws random numbers (and the checkpoint restores
+    the RNG state regardless), positions come from the batch, and
+    ``cache_len`` is read only by decode, which never checkpoints; prefill
+    neither. The unit returns its MoE aux losses one by one, so they are
+    summed in the same order as without it (bitwise)."""
     roles = block_roles(cfg)
     st = make_statics(cfg)
     _, norm_apply = make_norm(cfg.norm)
     x, positions = _embed_in(cfg, params, batch)
-    s = x.shape[1]
     units = _units(cfg)
     per_unit = [_unbind(stacked, units) for stacked in params["units"]]
+    remat = cfg.remat == "block" and cache is None and torch.is_grad_enabled()
     for u in range(units):
-        for r, role in enumerate(roles):
-            mixer, ffn = role
-            p = per_unit[r][u]
-            h = norm_apply(p["norm_mixer"], x, eps=cfg.norm_eps)
-            if mixer == "attn":
-                h, k, v = attention(p["attn"], h, st, positions, return_kv=True)
-                if cache is not None:
-                    c = cache[r]
-                    if "k_scale" in c:
-                        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-                        c["k"][u, :, :s], c["v"][u, :, :s] = kq, vq
-                        c["k_scale"][u, :, :s], c["v_scale"][u, :, :s] = ks, vs
-                    else:
-                        c["k"][u, :, :s], c["v"][u, :, :s] = k, v
-            else:
-                out = mamba_apply(p["mamba"], h, chunk=cfg.ssm_chunk,
-                                  return_state=cache is not None, **_mamba_kw(cfg))
-                if cache is not None:
-                    h, state = out
-                    for key, val in state.items():
-                        cache[r][key][u] = val
-                else:
-                    h = out
-            x = _ffn(cfg, ffn, p, x + h, norm_apply, aux)
+        unit_params = [per_unit[r][u] for r in range(len(roles))]
+        if not remat:
+            x = _unit(cfg, roles, st, norm_apply, unit_params, x, positions, cache, u, aux)
+            continue
+
+        def body(x, unit_params=unit_params, u=u):
+            unit_aux: List[torch.Tensor] = []
+            y = _unit(cfg, roles, st, norm_apply, unit_params, x, positions, None, u, unit_aux)
+            return (y, *unit_aux)
+
+        x, *unit_aux = checkpoint(body, x, use_reentrant=False)
+        aux.extend(unit_aux)
     x = norm_apply(params["final_norm"], x, eps=cfg.norm_eps)
     return _lm_head(cfg, params, x)
 

@@ -1603,9 +1603,10 @@ def test_qat_step_on_card_matches_cpu(cuda):
 
 
 def test_kernel_wrappers_raise_under_grad(cuda):
-    """The AGE's wrapper, whose launch has no backward outside the engine's
-    autograd, raises under grad when an input requires grad (ROADMAP.md
-    queue 1 item 10) and launches under no_grad. The GAT kernels' wrappers
+    """The AGE's bare wrapper, whose launch has no backward of its own (the
+    engines, sharded too, differentiate it through ``aggregate_autograd``),
+    raises under grad when an input requires grad and launches under
+    no_grad. The GAT kernels' wrappers
     and the int8 FTE launch their backward under grad, as flash's and the
     SSD's do (``test_flash_attention_gradient_under_grad_launches_the_backward``,
     ``test_ssd_intra_chunk_gradient_under_grad_launches_the_backward``)."""
@@ -1617,7 +1618,7 @@ def test_kernel_wrappers_raise_under_grad(cuda):
     edges = torch.rand((g.num_edges, 2), device=cuda, requires_grad=True)
     z = torch.randn((60, 2, 4), device=cuda, requires_grad=True)
     w = torch.randn((8, 5), device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="segment_agg: an input requires grad.*item 10"):
+    with pytest.raises(RuntimeError, match="segment_agg: an input requires grad.*aggregate_autograd"):
         _agg(x, dp, 60, seg_ops.aggregate_tiles)
     with torch.no_grad():
         assert torch.isfinite(_agg(x, dp, 60, seg_ops.aggregate_tiles)).all()
@@ -1936,3 +1937,80 @@ def test_serving_with_params_that_require_grad_on_card(cuda):
                          for lyr in plain.params["layers"]]}
     srv = GNNServeEngine(cfg, params=params, device=cuda)
     assert np.array_equal(srv.infer(g, g.features).outputs, plain.infer(g, g.features).outputs)
+
+
+# ----------------------------------------- training through the sharded and streamed engines
+def _gnn_grads(cfg, params, eng, x, device):
+    """(output, gradient leaves) of Σ y · r through ``eng`` on ``device``."""
+    p = gnn_api.params_from_numpy(cfg, params, device=device)
+    leaves = [t.requires_grad_() for t in _tree_leaves(p)]
+    y = gnn_api.gnn_apply(cfg, p, eng, x.to(device) if torch.is_tensor(x) else x)
+    r = torch.linspace(-1.0, 1.0, y.numel(), device=device).reshape(y.shape)
+    return y.detach(), torch.autograd.grad((y * r).sum(), leaves)
+
+
+def _tree_leaves(node):
+    if isinstance(node, dict):
+        return [t for k in sorted(node) for t in _tree_leaves(node[k])]
+    if isinstance(node, (list, tuple)):
+        return [t for v in node for t in _tree_leaves(v)]
+    return [node]
+
+
+def _numpy_tree(node):
+    if isinstance(node, dict):
+        return {k: _numpy_tree(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_numpy_tree(v) for v in node]
+    return node.numpy()
+
+
+def _numpy_params(cfg, seed=0):
+    return _numpy_tree(gnn_api.gnn_init(cfg, torch.Generator().manual_seed(seed), device="cpu"))
+
+
+@pytest.mark.parametrize("arch", ["gcn", "gin", "sage", "gat"])
+def test_sharded_training_on_card_is_deterministic_and_matches_cpu(cuda, arch):
+    """Gradients through ``ShardedAmpleEngine`` (3 mincut shards, float) on
+    the card: bitwise twice, within the f32 tolerance of the CPU's, with the
+    AGE (halo-transpose sums) launched and nothing raised."""
+    cfg = dataclasses.replace(get_config(f"ample-{arch}", reduced=True), gnn_precision="float",
+                              gnn_edges_per_tile=64)
+    g = gnn_api.prepare_graph(cfg, make_dataset("cora", max_nodes=300,
+                                                max_feature_dim=cfg.d_model, seed=1))
+    params = _numpy_params(cfg)
+    x = torch.from_numpy(g.features)
+    outs = {}
+    for dev in ("cpu", cuda, cuda):
+        eng = gnn_api.make_engine(cfg, g, num_shards=3, partitioner="mincut")
+        build.reset_launch_counts()
+        outs.setdefault(str(dev), []).append(_gnn_grads(cfg, params, eng, x, dev))
+        if dev != "cpu":
+            assert build.launch_counts().get(seg_ops.KERNEL, 0) > 0
+    (y0, g0), (y1, g1) = outs[str(cuda)]
+    assert torch.equal(y0, y1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
+    yc, gc = outs["cpu"][0]
+    torch.testing.assert_close(y0.cpu(), yc, atol=5e-4, rtol=1e-3)
+    for a, b in zip(g0, gc):
+        torch.testing.assert_close(a.cpu(), b, atol=5e-4, rtol=1e-3)
+
+
+def test_streamed_int8_fte_gradient_on_card_is_the_in_memory_one(cuda):
+    """The int8 FTE over streamed features under grad launches the GEMM once
+    a chunk and gives the in-memory output and weight gradient, bitwise."""
+    cfg = get_config("ample-sage", reduced=True)
+    g = make_dataset("cora", max_nodes=700, max_feature_dim=cfg.d_model, seed=2)
+    eng = AmpleEngine(g, EngineConfig(edges_per_tile=64, mixed_precision=True))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn((cfg.d_model, 24), generator=gen, device=cuda, requires_grad=True)
+    gy = torch.randn((g.num_nodes, 24), generator=gen, device=cuda)
+    store = FeatureStore.from_array(g.features, chunk_rows=64)
+    outs = []
+    for x in (StreamedFeatures(store, g.features.nbytes // 8, device=cuda),
+              torch.from_numpy(g.features).to(cuda)):
+        build.reset_launch_counts()
+        y = eng.transform(x, w, None, torch.relu)
+        outs.append([y.detach(), *torch.autograd.grad((y * gy).sum(), [w])])
+        if not torch.is_tensor(x):
+            assert build.launch_counts().get(qm_ops.KERNEL, 0) >= store.num_chunks - 1
+    assert all(torch.equal(a, b) for a, b in zip(*outs))

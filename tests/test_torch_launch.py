@@ -3,10 +3,9 @@ reference's, and ``python -m repro_torch.launch.serve --device cpu``.
 
 The analytic models are pure arithmetic on the config, so they are held
 exactly equal to the reference's for every token-family config of the
-registry (FULL and REDUCED) and each shape of ``SHAPES``. The port has no
-activation checkpointing, so its train step is the reference's at
-``remat="none"`` (backward = 2× forward); five reference configs set
-``remat="block"``, and the reference is evaluated with that field replaced.
+registry (FULL and REDUCED) and each shape of ``SHAPES``, with each
+config's own ``remat`` (five FULL configs set ``"block"``: a train step
+counts the forward once more).
 GNN configs have no block roles: the port's model raises on them.
 """
 from __future__ import annotations
@@ -38,7 +37,8 @@ def test_shapes_are_the_references():
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_analytic_report_equals_the_references(arch, reduced):
     pcfg = get_config(arch, reduced=reduced)
-    rcfg = dataclasses.replace(ref_config(arch, reduced=reduced), remat="none")
+    rcfg = ref_config(arch, reduced=reduced)
+    assert pcfg.remat == rcfg.remat
     for name, shape in SHAPES.items():
         ref_shape = REF_SHAPES[name]
         for chips in (1, 4):

@@ -38,10 +38,10 @@ STACK_ARCHS = DENSE + ["mamba2-370m"]  # forward/prefill/decode here
 LM_ARCHS = STACK_ARCHS + ["granite-moe-3b-a800m", "llama4-maverick-400b-a17b",
                           "jamba-v0.1-52b", "qwen2-vl-7b", "seamless-m4t-medium"]
 
-# Fields of the reference's ModelConfig the port leaves out: the XLA and
-# training knobs, the attention switch (the device picks kernel or plain
-# version), and the Pallas switch of the GNN engine.
-LEFT_OUT = {"attention_impl", "remat", "scan_layers", "gnn_use_kernel"}
+# Fields of the reference's ModelConfig the port leaves out: the XLA knob,
+# the attention switch (the device picks kernel or plain version), and the
+# Pallas switch of the GNN engine.
+LEFT_OUT = {"attention_impl", "scan_layers", "gnn_use_kernel"}
 
 
 def _np(tree):

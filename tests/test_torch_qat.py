@@ -343,14 +343,15 @@ def test_weight_quant_cache_keeps_no_graph():
 
 
 def test_require_no_grad_raises_only_under_grad():
-    """Only the launches without a backward (the AGE outside the engine's
-    autograd and the streamed FTE: item 10) raise, and only under grad; the
-    GAT kernels, the int8 GEMM, flash and the SSD have a backward."""
+    """Only the AGE's bare wrapper, whose launch has no backward of its own
+    (the engines differentiate it through ``aggregate_autograd``), raises,
+    and only under grad; the streamed FTE, the GAT kernels, the int8 GEMM,
+    flash and the SSD have a backward."""
     t = torch.ones(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="item 10"):
+    with pytest.raises(RuntimeError, match="segment_agg: .*aggregate_autograd"):
         build.require_no_grad("segment_agg", torch.ones(2), t)
-    with pytest.raises(RuntimeError, match="item 10"):
-        build.require_no_grad("streamed_fte", t)
+    assert set(build._BACKWARD) == {"segment_agg"}
+    build.require_no_grad("streamed_fte", t)
     for name in ("attention", "segment_agg_mh", "quant_matmul", "ssd_intra_chunk"):
         assert name not in build._BACKWARD
         build.require_no_grad(name, torch.ones(2), t)
