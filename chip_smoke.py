@@ -195,7 +195,14 @@ Every phase that fails raises, so the script exits non-zero.
              steps, bitwise the straight run, each checkpoint's bytes, a save
              and a restore timed, under a temporary directory removed after;
              the launcher's default (``launch.train.main``: REDUCED, f32)
-             for 3 steps, its backward on the CUDA-core pair;
+             for 3 steps, its backward on the CUDA-core pair; after the
+             profiled step, two steps with each gradient compressor
+             (``--compress topk`` at 1% and ``int8``) from the phase's own
+             state: step and compress ms, the error-feedback state's bytes,
+             peak memory, the flash launches, and the embedding's and the
+             unit's smaller leaves as compressed on the card against the
+             CPU's ``compress_decompress`` of the card's own gradients and
+             error state (top-k bitwise; int8 bitwise on the card's draws);
     remat — FULL-width ``qwen3-8b`` (its config sets ``remat="block"``) cut
              to REMAT_LAYERS layers, B REMAT_BATCH x 2,048: a training
              step's forward and backward with ``"none"`` and ``"block"``,
@@ -297,7 +304,23 @@ Every phase that fails raises, so the script exits non-zero.
     sharded gat — after the GAT path, FULL ``ample-gat`` over 4 shards:
              the multi-head AGE on every request (the denominators and the
              weighted aggregate), no fused attention, warm == cold, within
-             the mixed tolerance of unsharded, peak under 20 GiB;
+             the mixed tolerance of unsharded, peak under 20 GiB; its plan
+             cache saved for the mesh phase;
+    mesh — the mesh backend: 4 ranks (``torch.multiprocessing``, a gloo
+             group through a ``file://`` store, the 1-D ``("shard",)``
+             ``DeviceMesh``) share the one card, each serving three Yelp
+             requests through ``GNNServeEngine(..., num_shards=4,
+             mesh=mesh)`` of FULL ``ample-gcn`` (edges, unsplit, its plans
+             loaded from the sharded gcn phase's files) and FULL
+             ``ample-gat`` (``halo_overlap``, the sharded gat phase's
+             plans): every rank's output bitwise the host loop's output of
+             the same phase run, warm == cold, the same bits on every rank,
+             each request a plan-cache hit with plan_ms 0.0, and per rank
+             and request the AGE once per group of its own shard and layer
+             and the GEMM twice (GCN), the multi-head walk once per group of
+             its own shard, layer and pass (GAT); each rank's run_ms, peak
+             memory and all-gathers (CUDA events), halo_bytes; a rank that
+             fails or passes the deadline fails the phase;
     qat gcn — after sharded mincut, Degree-Quant training of FULL
              ``ample-gcn`` on the Yelp graph with self-loops (planted labels
              over 100 classes, half the nodes for training, weights from
@@ -1597,11 +1620,13 @@ def phase_sharded_mincut(cfg, params):
     return out
 
 
-def phase_sharded_gat(cfg, params, g, want):
+def phase_sharded_gat(cfg, params, g, want, plan_dir):
     """FULL ample-gat on Yelp over 4 shards: the decomposed layer, its
     softmax denominators and weighted aggregate on the multi-head AGE per
     shard and group (launched on every request), warm == cold, within the
-    mixed tolerance of the unsharded output, peak under 20 GiB."""
+    mixed tolerance of the unsharded output, peak under 20 GiB. Its plan
+    cache goes to ``plan_dir`` (for the mesh phase). Returns (row, the cold
+    output)."""
     import torch
 
     from repro_torch.serve.gnn_engine import GNNServeEngine
@@ -1624,8 +1649,237 @@ def phase_sharded_gat(cfg, params, g, want):
         f"({groups} shard groups x 2 layers x (denominators + aggregate)); warm run_ms "
         f"{[round(r.run_ms, 3) for r, _, _ in rows[1:]]}; peak {peak / 2**30:.2f} GiB; vs "
         f"unsharded max |diff| {err:.3e} (mixed tolerance); warm == cold bitwise")
+    srv.save_plan_cache(plan_dir)
     return dict(requests=_request_rows(rows), shard_report=srv.shard_report(), peak_bytes=peak,
-                max_abs_err_vs_unsharded=err, launches_request=rows[-1][1])
+                max_abs_err_vs_unsharded=err, launches_request=rows[-1][1]), rows[0][0].outputs
+
+
+# ------------------------------------------------------------ the mesh backend
+MESH_DEADLINE_S = 600  # the whole mesh phase's ranks, start to end
+MESH_TIMEOUT_S = 300  # one collective of the gloo group
+
+
+def _mesh_launches(sp, mode, layers, split, passes=0):
+    """Launches of one rank a request, counted from its own shard's plans:
+    per group and layer one aggregate (one per non-empty half when ``split``
+    and the shard has halo rows) and ``passes`` more (GAT's denominators)."""
+    from repro_torch.core.scheduler import split_plan_by_halo
+
+    n = 0
+    for plan in sp.plan.mode_plans[mode].values():
+        halves = split_plan_by_halo(plan, sp.num_owned) if split and sp.halo_size else None
+        n += passes + (1 if halves is None else sum(h.num_tiles > 0 for h in halves))
+    return n * layers
+
+
+def _mesh_rank(rank, world, directory, queue):
+    """One rank of the mesh phase: join the gloo group, serve three Yelp
+    requests of each model on its shard, check them, report."""
+    import datetime
+    import hashlib
+    import traceback
+
+    try:
+        # four processes share the card: growable segments fragment it less
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from repro_torch.configs.base import get_config
+        from repro_torch.serve.gnn_engine import GNNServeEngine
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        t0 = time.perf_counter()
+        dist.init_process_group("gloo", init_method=f"file://{os.path.join(directory, 'store')}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("shard",))
+        backend = dist.get_backend(mesh.get_group("shard"))
+        g = torch.load(os.path.join(directory, "graph.pt"), weights_only=False)
+        with open(os.path.join(directory, "plans.json")) as f:
+            plan_dirs = json.load(f)
+        feats = np.load(os.path.join(directory, "features.npy"))
+        gathers = []  # (start event, end event, bytes gathered) of each all-gather
+        all_gather = dist.all_gather
+
+        def timed_all_gather(tensor_list, tensor, group=None, async_op=False):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            work = all_gather(tensor_list, tensor, group=group, async_op=async_op)
+            rec = [ev[0], ev[1], tensor.nbytes * len(tensor_list)]
+            gathers.append(rec)
+            if not async_op:
+                ev[1].record()
+                return work
+
+            class Timed:
+                def wait(self):
+                    out = work.wait()
+                    ev[1].record()
+                    return out
+
+            return Timed()
+
+        dist.all_gather = timed_all_gather
+        out = dict(rank=rank, backend=backend, start_s=time.perf_counter() - t0, models={})
+        for label, arch, overlap, mode, layers in (("gcn", "ample-gcn", False, "gcn", 2),
+                                                   ("gat", "ample-gat", True, "runtime", 2)):
+            cfg = get_config(arch)
+            params = torch.load(os.path.join(directory, f"params_{label}.pt"), weights_only=False)
+            want = np.load(os.path.join(directory, f"want_{label}.npy"), mmap_mode="r")
+            srv = GNNServeEngine(cfg, params, num_shards=world, partitioner="edges",
+                                 halo_overlap=overlap, mesh=mesh, device="cuda")
+            t1 = time.perf_counter()
+            loaded = srv.load_plan_cache(plan_dirs[label])
+            load_s = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reqs, hashes = [], []
+            for i in range(3):
+                del gathers[:]
+                resp, counts = _launches(lambda: srv.infer(g, feats))
+                torch.cuda.synchronize()
+                ag_ms = [a.elapsed_time(b) for a, b, _ in gathers]
+                reqs.append(dict(cache_hit=resp.cache_hit, plan_ms=resp.plan_ms,
+                                 run_ms=resp.run_ms, halo_bytes=resp.halo_bytes,
+                                 launches=counts, all_gather_ms=ag_ms,
+                                 all_gather_bytes=[n for _, _, n in gathers]))
+                hashes.append(hashlib.sha256(resp.outputs.tobytes()).hexdigest())
+                if not np.array_equal(resp.outputs, want):
+                    diff = np.abs(resp.outputs - want)
+                    raise RuntimeError(f"rank {rank} {label} request {i}: not bitwise the host "
+                                       f"loop (max |diff| {diff.max():.3e})")
+                if not resp.cache_hit or resp.plan_ms != 0.0:
+                    raise RuntimeError(f"rank {rank} {label} request {i}: cache_hit "
+                                       f"{resp.cache_hit} plan_ms {resp.plan_ms}")
+            splan, eng = _sharded_entry(srv)
+            sp = splan.shards[rank]
+            if label == "gcn":
+                want_launches = {"segment_agg": _mesh_launches(sp, mode, layers, False),
+                                 "quant_matmul": 2}
+            else:
+                want_launches = {"segment_agg_mh": _mesh_launches(sp, mode, layers, overlap,
+                                                                  passes=1),
+                                 "quant_matmul": 2}
+            for r in reqs:
+                if r["launches"] != want_launches:
+                    raise RuntimeError(f"rank {rank} {label}: launched {r['launches']}, "
+                                       f"expected {want_launches}")
+            out["models"][label] = dict(
+                loaded=loaded, load_s=load_s, requests=reqs, hashes=hashes,
+                peak_bytes=torch.cuda.max_memory_allocated(), launches=want_launches,
+                owned=sp.num_owned, halo=sp.halo_size, groups=len(sp.plan.mode_plans[mode]),
+                halo_stats=eng.halo_stats)
+            del srv, eng, splan, params
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.all_gather = all_gather
+        dist.barrier()
+        dist.destroy_process_group()
+        out["seconds"] = time.perf_counter() - t0
+        queue.put(out)
+    except BaseException:
+        queue.put(dict(rank=rank, error=traceback.format_exc()))
+
+
+def phase_mesh(inputs, plan_dirs):
+    """The mesh backend: 4 ranks on the one card over a gloo group, each
+    serving FULL ample-gcn and ample-gat on Yelp through its own shard.
+    ``inputs``: label -> (params, the host loop's cold output) and "graph"
+    -> the Yelp graph with its features; ``plan_dirs``: label -> the host
+    loop's saved plan cache. The parent writes them under
+    ``build/mesh_smoke`` and checks what each rank reports."""
+    import dataclasses
+    import queue as queue_mod
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.serve.gnn_engine import _to_device
+
+    tag = "mesh"
+    d = os.path.join(ROOT, "build", "mesh_smoke")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    with open(os.path.join(d, "plans.json"), "w") as f:
+        json.dump(plan_dirs, f)
+    g = inputs["graph"]
+    np.save(os.path.join(d, "features.npy"), g.features)
+    torch.save(dataclasses.replace(g, features=None), os.path.join(d, "graph.pt"))
+    for label in ("gcn", "gat"):
+        params, want = inputs[label]
+        torch.save(_to_device(params, torch.device("cpu")), os.path.join(d, f"params_{label}.pt"))
+        np.save(os.path.join(d, f"want_{label}.npy"), want)
+    write_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[{tag}] before the ranks: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+        f"GiB; the card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, SHARDS, d, q)) for r in range(SHARDS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < SHARDS:
+            left = MESH_DEADLINE_S - (time.perf_counter() - t0)
+            if left <= 0:
+                raise RuntimeError(f"{tag}: the ranks passed the {MESH_DEADLINE_S} s deadline "
+                                   f"({sorted(got)} reported)")
+            try:
+                r = q.get(timeout=min(left, 5.0))
+            except queue_mod.Empty:
+                dead = [i for i, p in enumerate(procs) if p.exitcode not in (None, 0)
+                        and i not in got]
+                if dead:
+                    raise RuntimeError(f"{tag}: rank {dead[0]} exited {procs[dead[0]].exitcode}")
+                continue
+            if "error" in r:
+                raise RuntimeError(f"{tag}: rank {r['rank']} failed:\n{r['error']}")
+            got[r["rank"]] = r
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        shutil.rmtree(d, ignore_errors=True)
+    ranks_s = time.perf_counter() - t0
+    row = dict(ranks=SHARDS, card=card_line(), write_s=write_s, ranks_s=ranks_s,
+               backend=got[0]["backend"], per_rank=[got[r] for r in range(SHARDS)])
+    for label in ("gcn", "gat"):
+        hashes = {h for r in got.values() for h in r["models"][label]["hashes"]}
+        if len(hashes) != 1:
+            raise RuntimeError(f"{tag}: {label}: the ranks' outputs differ ({len(hashes)} hashes)")
+        for r in range(SHARDS):
+            m = got[r]["models"][label]
+            reqs = m["requests"]
+            log(f"[{tag}] {label} rank {r}: shard owns {m['owned']} rows, {m['halo']} halo rows, "
+                f"{m['groups']} groups; plans loaded {m['loaded']} in {m['load_s']:.2f} s; "
+                f"run_ms {[round(x['run_ms'], 3) for x in reqs]}; all-gathers a request "
+                f"{len(reqs[-1]['all_gather_ms'])}: "
+                f"{[round(x, 3) for x in reqs[-1]['all_gather_ms']]} ms of "
+                f"{[round(n / 2**20, 1) for n in reqs[-1]['all_gather_bytes']]} MiB; "
+                f"launches {reqs[-1]['launches']}; peak {m['peak_bytes'] / 2**30:.2f} GiB")
+        log(f"[{tag}] {label}: halo_bytes {got[0]['models'][label]['requests'][0]['halo_bytes']} "
+            f"a request; every rank's three requests bitwise the host loop's output, the same "
+            f"on every rank, each a plan-cache hit with plan_ms 0.0")
+    log(f"[{tag}] {SHARDS} ranks share one H100 over a {row['backend']} group (NCCL refuses "
+        f"two ranks on one device; gloo stages the CUDA blocks through host memory, so the "
+        f"all-gathers are loopback through the host, not NVLink); inputs written in "
+        f"{write_s:.1f} s, ranks started to done in {ranks_s:.1f} s; {card_line()}")
+    return row
 
 
 # --------------------------------------------------------------- QAT (training)
@@ -3619,6 +3873,151 @@ def _phase_split(cfg, tcfg, state, batch):
             *(a.elapsed_time(b) for a, b in zip(ev, ev[1:])))
 
 
+COMPRESS_STEPS = 2  # steps with each compressor, from the lm train phase's own state
+# The leaves the CPU recomputes a compressed step: the embedding and the
+# unit's leaves of at most this many entries (its two 66 M-entry attention
+# projections and three 385 M-entry MLP leaves would take the host's top-k
+# a minute a step).
+COMPRESS_GATE_MAX = 16_000_000
+
+
+class _CompressProbe:
+    """A compressor as the train step calls it, with CUDA events around the
+    compression itself and device copies of the gated leaves' gradients and
+    error state, before and after."""
+
+    def __init__(self, comp, gated):
+        import torch
+
+        self.comp, self.gated = comp, gated
+        self.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def init_state(self, grads):
+        return self.comp.init_state(grads)
+
+    def compress_decompress(self, grads, state):
+        grad_leaves, err_leaves = _tree_leaves(grads), _tree_leaves(state)
+        self.inputs = {j: (grad_leaves[j].clone(), err_leaves[j].clone()) for j in self.gated}
+        self.events[0].record()
+        out, new = self.comp.compress_decompress(grads, state)
+        self.events[1].record()
+        out_leaves, new_leaves = _tree_leaves(out), _tree_leaves(new)
+        self.outputs = {j: (out_leaves[j].clone(), new_leaves[j].clone()) for j in self.gated}
+        return out, new
+
+
+def _bits(t):
+    """A tensor's bits, for a bitwise comparison."""
+    import torch
+
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _cpu_gate(name, comp, j, card_in, card_out, draws):
+    """Leaf ``j`` compressed on the CPU from the card's gradient and error
+    state (and, for int8, the card's draws): bitwise the card's output and
+    new error state?"""
+    import torch
+
+    from repro_torch.distributed.compression import int8_leaf, topk_leaf
+
+    g, e = card_in
+    cpu = topk_leaf(g, e, comp.ratio) if name == "topk" else int8_leaf(g, e, draws)
+    return all(torch.equal(_bits(a), _bits(b)) for a, b in zip(card_out, cpu))
+
+
+def _compressed_steps(cfg, tcfg, trainer, box, first_batch, tag):
+    """COMPRESS_STEPS train steps with each compressor (top-k at 1%, int8),
+    continuing the state in ``box`` (a one-item list, so that no caller
+    keeps the state alive past the first step): step and compress ms, the
+    error state's bytes, the peak, the flash launches. Each step's gated
+    leaves are copied to the host; after the last step (so that no host
+    work competes with the steps' launches) worker threads recompute them on
+    the CPU from the card's gradients and error state (int8 on the card's
+    draws), held bitwise. Returns (the state, the rows)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import _paths
+    from repro_torch.distributed.compression import Int8Compressor, TopKCompressor
+    from repro_torch.kernels import build
+    from repro_torch.train.train_step import make_train_step
+
+    state = box.pop()
+    pending = []  # (what, the _cpu_gate arguments) of each gated leaf and step
+    paths = _paths(state["params"])
+    sizes = [t.numel() for t in _param_leaves(state)]
+    gated = [j for j, (p, n) in enumerate(zip(paths, sizes))
+             if p == "embed" or (p.startswith("units/") and n <= COMPRESS_GATE_MAX)]
+    want = _train_launches(cfg)
+    rows, batch_i = {}, first_batch
+    for name, comp in (("topk", TopKCompressor(ratio=0.01)), ("int8", Int8Compressor())):
+        probe = _CompressProbe(comp, gated)
+        step_fn = make_train_step(cfg, tcfg.opt, total_steps=tcfg.steps, warmup=tcfg.warmup,
+                                  compressor=probe)
+        state["compress"] = comp.init_state(state["params"])
+        err_bytes = sum(e.nbytes for e in _tree_leaves(state["compress"]))
+        steps = []
+        for i in range(COMPRESS_STEPS):
+            batch = trainer.batch(batch_i)
+            batch_i += 1
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(build.launch_counts())
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, metrics = step_fn(state, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            counts = {k: v - before.get(k, 0) for k, v in build.launch_counts().items()
+                      if v - before.get(k, 0)}
+            st = dict(step=int(state["step"]), loss=float(metrics["loss"]),
+                      grad_norm=float(metrics["grad_norm"]),
+                      step_ms=ev[0].elapsed_time(ev[1]),
+                      compress_ms=probe.events[0].elapsed_time(probe.events[1]),
+                      peak_bytes=torch.cuda.max_memory_allocated(), launches=counts)
+            st["compress_share"] = st["compress_ms"] / st["step_ms"]
+            t0 = time.perf_counter()
+            for j in gated:
+                card_in = [t.cpu() for t in probe.inputs[j]]
+                draws = (None if name == "topk" else
+                         comp.draws(j, card_in[0].shape, probe.inputs[j][0].device).cpu())
+                pending.append(((name, st["step"], paths[j]), (
+                    name, comp, j, card_in, [t.cpu() for t in probe.outputs[j]], draws)))
+            st["copy_s"] = time.perf_counter() - t0
+            st["gated_entries"] = sum(sizes[j] for j in gated)
+            del probe.inputs, probe.outputs
+            steps.append(st)
+            log(f"[{tag}] --compress {name} step {st['step']}: loss {st['loss']:.4f} grad_norm "
+                f"{st['grad_norm']:.4f}; step {st['step_ms']:.1f} ms, compress "
+                f"{st['compress_ms']:.1f} ms ({st['compress_share']:.3f} of the step); error "
+                f"state {err_bytes / 1e9:.3f} GB; peak {st['peak_bytes'] / 2**30:.2f} GiB; "
+                f"launches {counts}; {len(gated)} leaves ({st['gated_entries']:,} entries) "
+                f"copied to the host for the CPU in {st['copy_s']:.1f} s")
+            if any(counts.get(k, 0) != v for k, v in want.items()):
+                raise RuntimeError(f"{tag} {name}: launches {counts}, expected {want}")
+            if not (math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])):
+                raise RuntimeError(f"{tag} {name}: not finite: {st}")
+        rows[name] = dict(steps=steps, error_state_bytes=err_bytes,
+                          gated=[paths[j] for j in gated])
+        del state["compress"], step_fn, probe
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        oks = list(pool.map(lambda p: _cpu_gate(*p[1]), pending))
+    gate_s = time.perf_counter() - t0
+    bad = [what for (what, _), ok in zip(pending, oks) if not ok]
+    if bad:
+        raise RuntimeError(f"{tag}: compressed on the card, not bitwise the CPU's: {bad}")
+    rows["cpu_gate_s"] = gate_s
+    log(f"[{tag}] every gated leaf of the {2 * COMPRESS_STEPS} compressed steps bitwise the "
+        f"CPU's compress_decompress ({len(pending)} leaves, {gate_s:.1f} s on "
+        f"{os.cpu_count()} host threads after the last step); {card_line()}")
+    return state, rows
+
+
 def _train_launches(cfg):
     """Each kernel counter's launches in one train step of ``cfg``: the
     forward's (``_lm_launches``) and its backward's, once per layer of their
@@ -3748,6 +4147,11 @@ def phase_lm_train(arch=TRAIN_ARCH, n_expected=TRAIN_PARAMS, batch=TRAIN_BATCH,
     # (c) Where a warm step's time goes: one more step of the same run under
     # the profiler.
     row["profile"] = _profiled(tag, lambda: step_fn(state, trainer.batch(2 * TRAIN_STEPS - 1)))
+    if arch == TRAIN_ARCH:  # gradient compression, from this state
+        box = [state]
+        del state
+        state, row["compressed"] = _compressed_steps(cfg, tcfg, trainer, box, 2 * TRAIN_STEPS,
+                                                     tag)
     del state, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -4512,7 +4916,8 @@ def main() -> int:
     with phase("fronts"):
         fronts_row = phase_fronts(cfg)
     # Sharded serving and plan persistence, on the GCN path's params. The
-    # plan files go under build/ (ignored by git) and are removed after.
+    # plan files go under build/ (ignored by git) and are removed after the
+    # mesh phase, which loads the sharded GCN's and GAT's.
     srv.feature_budget_bytes = 0
     plan_dir = os.path.join(ROOT, "build", "plan_cache_smoke")
     with phase("sharded gcn"):
@@ -4526,7 +4931,7 @@ def main() -> int:
     with phase("sharded overlap"):
         overlap_row = phase_sharded_overlap(cfg, srv.params, g, sharded_y,
                                             os.path.join(plan_dir, "sharded"))
-    shutil.rmtree(plan_dir, ignore_errors=True)
+    mesh_inputs = {"graph": g, "gcn": (srv.params, sharded_y)}
     del ssrv
     with phase("sharded mincut"):
         mincut_row = phase_sharded_mincut(cfg, srv.params)
@@ -4594,10 +4999,19 @@ def main() -> int:
         ooc_rows["gat"] = phase_outofcore(gsrv, g, gouts[0].outputs, "gat", (2, 0))
     gsrv.feature_budget_bytes = 0
     with phase("sharded gat"):
-        sgat_row = phase_sharded_gat(gat_cfg, gsrv.params, g, gouts[0].outputs)
+        sgat_row, sgat_y = phase_sharded_gat(gat_cfg, gsrv.params, g, gouts[0].outputs,
+                                             os.path.join(plan_dir, "sharded_gat"))
+    mesh_inputs["gat"] = (gsrv.params, sgat_y)
     del gsrv, gentry
     gc.collect()
     torch.cuda.empty_cache()
+    # The mesh backend: 4 ranks on the card, on the sharded phases' plan
+    # files and against their host-loop outputs.
+    with phase("mesh"):
+        mesh_row = phase_mesh(mesh_inputs, {"gcn": os.path.join(plan_dir, "sharded"),
+                                            "gat": os.path.join(plan_dir, "sharded_gat")})
+    shutil.rmtree(plan_dir, ignore_errors=True)
+    del mesh_inputs, sgat_y
 
     # GAT training: Degree-Quant QAT through the fused attention's backward,
     # then that backward's kernel at both layers' shapes on the same engine.
@@ -4734,6 +5148,9 @@ def main() -> int:
              launches_by_path=by_path("segment_agg"),
              launches_streamed_request=streamed("segment_agg"),
              launches_sharded_request=sharded_row["launches_request"].get("segment_agg", 0),
+             # one rank's request on the mesh (4 ranks, its own shard's groups)
+             launches_mesh_rank_request=[r["models"]["gcn"]["launches"]["segment_agg"]
+                                         for r in mesh_row["per_rank"]],
              # a Yelp QAT step: 2 forward, 1 backward on the transposed plan
              launches_qat_step=qat_row["steps"][0]["age_launches"],
              launches_qat_deploy=qat_row["deploy_launches"].get("segment_agg", 0),
@@ -4753,6 +5170,11 @@ def main() -> int:
              launches_by_path=by_path("quant_matmul"),
              launches_streamed_request=streamed("quant_matmul"),
              launches_sharded_request=sharded_row["launches_request"].get("quant_matmul", 0),
+             # every rank runs the FTE on the whole matrix, as the reference's
+             # global transform does
+             launches_mesh_rank_request={m: [r["models"][m]["launches"]["quant_matmul"]
+                                             for r in mesh_row["per_rank"]]
+                                         for m in ("gcn", "gat")},
              # one pubmed step through gcn.apply on a mixed engine (item 9)
              launches_mixed_qat_step=qat_row["mixed_step_launches"].get("quant_matmul", 0),
              # a FULL ample-gat step with layer 0's FTE streamed (once a chunk)
@@ -4765,6 +5187,8 @@ def main() -> int:
                         "src/repro/kernels/segment_agg/attn_kernel.py:239",
                         dec_row["launches"].get("segment_agg_mh", 0), mh, gat_shape.format(**mh)),
              launches_sharded_request=sgat_row["launches_request"].get("segment_agg_mh", 0),
+             launches_mesh_rank_request=[r["models"]["gat"]["launches"]["segment_agg_mh"]
+                                         for r in mesh_row["per_rank"]],
              launches_qat_gat_step=qat_gat_row["steps"][0]["launches"].get("segment_agg_mh", 0),
              launches_qat_sharded_gat_step=qat_sharded_rows["gat"]["launches_per_step"].get(
                  "segment_agg_mh", 0),
@@ -4870,7 +5294,7 @@ def main() -> int:
         ssd_intra_chunk_bwd=ssd_bwd_rows, serve_cli=serve_cli_row,
         lm_cpu=lm_cpu_rows, outofcore=ooc_rows, h2d_gbps=h2d_row, fronts=fronts_row,
         sharded_gcn=sharded_row, plan_store=store_row, sharded_overlap=overlap_row,
-        sharded_mincut=mincut_row, sharded_gat=sgat_row, qat_gcn=qat_row,
+        sharded_mincut=mincut_row, sharded_gat=sgat_row, mesh=mesh_row, qat_gcn=qat_row,
         qat_gat=qat_gat_row, gat_bwd=gat_bwd_row, examples=example_rows,
         qat_sharded=qat_sharded_rows, qat_streamed=qat_streamed_row, remat=remat_row,
         phase_seconds=seconds,

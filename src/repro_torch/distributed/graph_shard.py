@@ -1,6 +1,6 @@
-"""Sharded GNN layer execution on one device: the host-loop backend.
+"""Sharded GNN layer execution: the host loop on one device, or a mesh.
 
-The port of the reference's ``repro/distributed/graph_shard.py`` host loop.
+The port of the reference's ``repro/distributed/graph_shard.py``.
 ``ShardedAmpleEngine`` executes a ``ShardedExecutionPlan``: each shard owns a
 node block (contiguous and edge-balanced, or a min-cut assignment carried by
 ``Partition.order``); before aggregating, it fetches the rows of its remote
@@ -52,11 +52,24 @@ atomics, so two runs give the same bits on the card. The forward is the
 serving forward, bitwise; the split schedule and the halo ledger are
 serving's, and training runs the shards unsplit.
 
-There is no mesh backend (one card per shard over ``torch.distributed``):
-passing ``mesh`` raises.
+The mesh backend runs one process per shard over ``torch.distributed``, as
+the reference's ``shard_map`` program runs one device per shard. ``mesh`` is
+a 1-D ``DeviceMesh`` named ``("shard",)``; a rank serves shard
+``mesh.get_local_rank("shard")``. Each rank pads its owned rows to ``p_max``
+and one ``all_gather`` of those blocks over ``mesh.get_group("shard")`` is
+the halo exchange (``MeshState`` says where each halo row lies in it). The
+rank then runs its own shard's plans as the host loop runs them, on the same
+local rows (the int8 group quantized at the engine's global scale, so the
+codes are the host loop's), and its owned output rows are padded and
+all-gathered again: every rank returns the whole ``[N, ...]`` result, bitwise
+the host loop's. With ``halo_overlap`` the exchange runs asynchronously
+while the interior half aggregates. Collectives use only the mesh's group:
+the caller picks the backend and the device. Training over a mesh is not
+ported and raises (``MESH_TRAINING``).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
@@ -89,12 +102,14 @@ from repro_torch.kernels.segment_agg import attn_ops
 from repro_torch.memory.prefetcher import StreamedFeatures
 from repro_torch.observe import trace as otrace
 
-__all__ = ["HaloLedger", "ShardedAmpleEngine", "sharded_aggregate", "make_sharded_engine"]
+__all__ = [
+    "HaloLedger", "MeshState", "ShardedAmpleEngine", "build_mesh_state", "make_sharded_engine",
+    "mesh_aggregate", "sharded_aggregate", "MESH_TRAINING",
+]
 
-NO_MESH = (
-    "the mesh backend (one card per shard over torch.distributed) is not "
-    "ported (ROADMAP queue 1, item 6); shards run as a host loop on one "
-    "device: drop mesh"
+MESH_TRAINING = (
+    "training over a mesh is not ported (ROADMAP queue 1, item 13); train "
+    "through the host loop on one device: drop mesh"
 )
 _TAGS = ("float", "int8")
 
@@ -118,7 +133,9 @@ class HaloLedger:
     ``halo_exchanges`` (one per shard, layer and gather), plus
     ``split_exchanges`` (those that ran the split schedule). On the card the
     times are CUDA events, settled when the totals are read (after the
-    request's synchronize); on the CPU they are wall-clock.
+    request's synchronize); on the CPU they are wall-clock. On a mesh an
+    aggregate is one exchange of every shard's halo rows (f32), as the
+    reference counts it, and no time is kept.
     """
 
     KEYS = ("halo_ms", "halo_wait_ms", "halo_bytes", "halo_exchanges", "split_exchanges")
@@ -269,6 +286,17 @@ def _events(n: int):
     return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
 
 
+def _aggregate_into(local: Dict[str, torch.Tensor], dplans, *, num_nodes: int, qp,
+                    edge_coeff, out: torch.Tensor) -> None:
+    """Each precision group's tiles into ``out``, on its local rows: f32
+    rows for the float group, int8 codes under ``qp`` for the int8 group."""
+    for tag in _TAGS:
+        if tag in dplans:
+            aggregate_edge_tiles(local[tag], dplans[tag], num_nodes=num_nodes,
+                                 edge_coeff=edge_coeff, qp=qp if tag == "int8" else None,
+                                 out=out)
+
+
 class _ShardPass:
     """One shard's aggregation in one call: its local rows, its output and
     its halo fetch. ``start`` gathers the owned rows (on the calling stream
@@ -328,12 +356,9 @@ class _ShardPass:
             self.future = _halo_pool().submit(timed_fetch)
 
     def _aggregate(self, dplans) -> None:
-        n_local = self.sp.shard.num_local
-        for tag in _TAGS:
-            if tag in dplans:
-                aggregate_edge_tiles(self.local[tag].rows, dplans[tag], num_nodes=n_local,
-                                     edge_coeff=self.coeff,
-                                     qp=self.qp if tag == "int8" else None, out=self.out)
+        _aggregate_into({tag: r.rows for tag, r in self.local.items()}, dplans,
+                        num_nodes=self.sp.shard.num_local, qp=self.qp, edge_coeff=self.coeff,
+                        out=self.out)
 
     def run(self, halo: HaloLedger, trace_id: str) -> torch.Tensor:
         self._aggregate(self.d_int)
@@ -461,6 +486,153 @@ def sharded_aggregate(
     return _unshuffle(state, splan, torch.cat(parts, dim=0))
 
 
+# ---------------------------------------------------------------------------
+# Mesh backend: one rank per shard, all-gather halo exchange
+# ---------------------------------------------------------------------------
+
+
+def _check_mesh(mesh, num_shards: int) -> None:
+    """The reference's checks of a mesh: one ``("shard",)`` dimension, one
+    rank per shard."""
+    if tuple(mesh.mesh_dim_names or ()) != ("shard",):
+        raise ValueError(f"mesh axes must be ('shard',), got {mesh.mesh_dim_names}")
+    if mesh.size() != num_shards:
+        raise ValueError(
+            f"mesh has {mesh.size()} devices but the plan has {num_shards} shards")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshState:
+    """Where each rank's rows lie in the all-gathered owned blocks.
+
+    Rank ``k`` pads its owned rows to ``p_max`` (``pad_gather[k]``: the
+    global row of each padded row, 0 on padding) and the all-gather stacks
+    the blocks ``[K, p_max, ...]``. Shard ``k``'s ``i``-th halo row is row
+    ``halo_idx[k, i]`` of rank ``halo_owner[k, i]``'s block, and global node
+    ``v`` is row ``out_idx[v]`` of the stacked blocks viewed ``[K * p_max,
+    ...]``. No tiles are padded: each rank runs its own shard's plans.
+    """
+
+    p_max: int  # padded owned rows per shard
+    h_max: int  # most halo rows of a shard
+    pad_gather: np.ndarray  # int64[K, p_max]
+    halo_owner: np.ndarray  # int64[K, h_max]
+    halo_idx: np.ndarray  # int64[K, h_max]
+    out_idx: np.ndarray  # int64[N]
+
+    def halo_rows(self, k: int, n: int) -> np.ndarray:
+        """Shard ``k``'s ``n`` halo rows as rows of the stacked blocks."""
+        return self.halo_owner[k, :n] * self.p_max + self.halo_idx[k, :n]
+
+
+def build_mesh_state(splan: ShardedExecutionPlan) -> MeshState:
+    """The reference's ``build_mesh_state`` (``repro/distributed/
+    graph_shard.py:396``) without its stacked tiles."""
+    part, k_all = splan.partition, splan.num_shards
+    p_max = max((s.num_owned for s in splan.shards), default=1) or 1
+    h_max = max((s.halo_size for s in splan.shards), default=0)
+    pad_gather = np.zeros((k_all, p_max), np.int64)
+    halo_owner = np.zeros((k_all, h_max), np.int64)
+    halo_idx = np.zeros((k_all, h_max), np.int64)
+    for k, sp in enumerate(splan.shards):
+        pad_gather[k, : sp.num_owned] = sp.shard.owned
+        if sp.halo_size:
+            halo_owner[k, : sp.halo_size] = part.owner_of(sp.shard.halo)
+            halo_idx[k, : sp.halo_size] = part.rank_of(sp.shard.halo)
+    nodes = np.arange(splan.num_nodes, dtype=np.int64)
+    out_idx = part.owner_of(nodes).astype(np.int64) * p_max + part.rank_of(nodes)
+    return MeshState(p_max=p_max, h_max=h_max, pad_gather=pad_gather, halo_owner=halo_owner,
+                     halo_idx=halo_idx, out_idx=out_idx)
+
+
+class _MeshRank:
+    """One rank's part of the mesh: its shard, its group and the device
+    mirrors of ``MeshState`` it reads (its padded rows, its halo rows' place
+    in the stacked blocks, every node's place)."""
+
+    def __init__(self, mesh, splan: ShardedExecutionPlan, device):
+        self.group = mesh.get_group("shard")
+        self.rank = mesh.get_local_rank("shard")
+        self.size = splan.num_shards
+        self.sp = splan.shards[self.rank]
+        ms = build_mesh_state(splan)
+        self.p_max = ms.p_max
+        self.pad_ids = _ids(ms.pad_gather[self.rank], device)
+        self.halo_ids = _ids(ms.halo_rows(self.rank, self.sp.halo_size), device)
+        self.out_ids = _ids(ms.out_idx, device)
+        #: every shard's halo rows: what one exchange moves, as the reference counts it
+        self.halo_total = sum(s.halo_size for s in splan.shards)
+
+    def all_gather(self, block: torch.Tensor, async_op: bool = False):
+        """(the ranks' ``[p_max, ...]`` blocks stacked ``[K * p_max, ...]``,
+        the work handle when ``async_op``)."""
+        out = torch.empty((self.size,) + tuple(block.shape), dtype=block.dtype,
+                          device=block.device)
+        work = torch.distributed.all_gather(list(out.unbind(0)), block.contiguous(),
+                                            group=self.group, async_op=async_op)
+        return out.view((-1,) + tuple(block.shape[1:])), work
+
+    def gather_owned(self, owned: torch.Tensor) -> torch.Tensor:
+        """Every shard's owned rows, all-gathered, in global node order."""
+        block = owned.new_zeros((self.p_max,) + tuple(owned.shape[1:]))
+        block[: owned.shape[0]] = owned
+        stacked, _ = self.all_gather(block)
+        return stacked.index_select(0, self.out_ids)
+
+
+def _groups_into(rows: torch.Tensor, dplans, qp, **kw) -> None:
+    """``_aggregate_into`` on ``rows`` and, for the int8 group, their codes."""
+    _aggregate_into({tag: rows if tag == "float" else _int8_rows(rows, qp) for tag in dplans},
+                    dplans, qp=qp, **kw)
+
+
+def mesh_aggregate(
+    x: torch.Tensor,
+    splan: ShardedExecutionPlan,
+    rank: _MeshRank,
+    *,
+    mode: str,
+    qp: Optional[QuantParams],
+    device_state: Dict,
+    edge_coeff: Optional[torch.Tensor] = None,
+    overlap: bool = False,
+    halo: Optional[HaloLedger] = None,
+) -> torch.Tensor:
+    """This rank's shard of ``sharded_aggregate``; returns the whole ``[N,
+    ...]`` result, bitwise the host loop's, on every rank.
+
+    The owned block padded to ``p_max`` is all-gathered (the halo exchange);
+    the local rows ``[owned | halo]`` come from it in the host loop's order.
+    With ``overlap`` and halo rows, the gather runs asynchronously while the
+    interior half aggregates on the owned rows (halo rows zero), then the
+    boundary half runs into the same output."""
+    sp, dev = rank.sp, x.device
+    _, _, _, dplans = _shard_state_entry(device_state, sp, mode, dev)
+    n_own, n_local, tail = sp.num_owned, sp.shard.num_local, tuple(x.shape[1:])
+    split = overlap and sp.halo_size > 0
+    block = x.index_select(0, rank.pad_ids)
+    stacked, work = rank.all_gather(block, async_op=split)
+    coeff = None if edge_coeff is None else _local_edge_coeff(device_state, sp, edge_coeff)
+    out = torch.zeros((n_local,) + tail, dtype=torch.float32, device=dev)
+    kw = dict(qp=qp, num_nodes=n_local, edge_coeff=coeff, out=out)
+    if split:
+        d_int, d_bnd = _shard_split_entry(device_state, sp, mode, dev)
+        rows = torch.zeros((n_local,) + tail, dtype=x.dtype, device=dev)
+        rows[:n_own] = block[:n_own]
+        _groups_into(rows, d_int, **kw)
+        work.wait()
+        rows[n_own:] = stacked.index_select(0, rank.halo_ids)
+        del block, stacked
+        _groups_into(rows, d_bnd, **kw)
+    else:
+        rows = torch.cat([block[:n_own], stacked.index_select(0, rank.halo_ids)])
+        del block, stacked
+        _groups_into(rows, dplans, **kw)
+    if halo is not None:
+        halo.note(0.0, 0.0, rank.halo_total * x.element_size() * int(np.prod(tail)), split)
+    return rank.gather_owned(out[:n_own])
+
+
 class ShardedAmpleEngine(AmpleEngine):
     """AmpleEngine over a partitioned graph: sharded AGE, row-parallel FTE.
 
@@ -469,9 +641,14 @@ class ShardedAmpleEngine(AmpleEngine):
     ``attention_aggregate``), so gcn/gin/sage/gat run sharded unchanged:
 
         splan = compile_sharded_plans(g, cfg, num_shards=4, modes=("gcn",))
-        eng = ShardedAmpleEngine(g, splan, halo_overlap=True)
+        eng = ShardedAmpleEngine(g, splan, halo_overlap=True)      # host loop
+        eng = ShardedAmpleEngine(g, splan, mesh=mesh)              # one rank a shard
 
-    Shards run as a host loop on the device of the embeddings. The halo
+    Without ``mesh``, shards run as a host loop on the device of the
+    embeddings. ``mesh`` is a 1-D ``("shard",)`` ``DeviceMesh`` with one rank
+    per shard, on the device type of the embeddings; every rank builds the
+    engine and calls it with the same inputs (the module's "mesh backend").
+    The halo
     accounting accumulates in ``halo_stats`` (``HaloLedger``). Under grad
     ``aggregate``, ``edge_softmax``, ``attention_aggregate`` and
     ``edge_scores`` differentiate per shard (the module's "Training"); the
@@ -487,18 +664,19 @@ class ShardedAmpleEngine(AmpleEngine):
         mesh=None,
         halo_overlap: bool = False,
     ):
-        if mesh is not None:
-            raise ValueError(NO_MESH)
         if plan.graph_fp != sched.graph_fingerprint(g):
             raise ValueError(
                 f"sharded plan was compiled for a different graph structure "
                 f"({plan.num_nodes} nodes, {plan.num_edges} edges vs "
                 f"{g.num_nodes}, {g.num_edges}; fingerprints differ)"
             )
+        if mesh is not None:
+            _check_mesh(mesh, plan.num_shards)
         self.graph = g
         self.cfg = plan.cfg
         self.plan = plan
         self.sharded_plan = plan
+        self.mesh = mesh
         self.halo_overlap = bool(halo_overlap)
         self.precision_tags = plan.precision_tags
         self.node_groups = dict(plan.node_groups)
@@ -523,6 +701,21 @@ class ShardedAmpleEngine(AmpleEngine):
     def _check_edge_ids(self, mode: str) -> None:
         for sp in self.sharded_plan.shards:
             self._require_edge_ids((mode, sp.shard.index), sp.plan.mode_plans.get(mode, {}))
+
+    def _mesh_rank(self, device, *grad_inputs) -> Optional[_MeshRank]:
+        """This rank's ``_MeshRank`` on ``device`` (None without a mesh);
+        raises under grad and on a device the mesh does not hold."""
+        if self.mesh is None:
+            return None
+        if attn_ops.wants_grad(*grad_inputs):
+            raise NotImplementedError(MESH_TRAINING)
+        if self.mesh.device_type != device.type:
+            raise ValueError(
+                f"the mesh holds {self.mesh.device_type!r} devices but the rows lie on {device}")
+        key = ("mesh", str(device))
+        if key not in self._shard_state:
+            self._shard_state[key] = _MeshRank(self.mesh, self.sharded_plan, device)
+        return self._shard_state[key]
 
     # ----------------------------------------------------------------- AGE
     def aggregate(
@@ -550,7 +743,13 @@ class ShardedAmpleEngine(AmpleEngine):
         has_int8 = self.cfg.mixed_precision and any(
             "int8" in s.plan.mode_plans.get(mode, {}) for s in splan.shards)
         qp = self._activation_qp(lambda: x, "agg") if has_int8 else None
-        if attn_ops.wants_grad(x, edge_coeff, None if qp is None else qp.scale):
+        scale = None if qp is None else qp.scale
+        rank = self._mesh_rank(x.device, x, edge_coeff, scale)
+        if rank is not None:
+            return mesh_aggregate(x, splan, rank, mode=mode, qp=qp,
+                                  device_state=self._shard_state, edge_coeff=edge_coeff,
+                                  overlap=self.halo_overlap, halo=self.halo)
+        if attn_ops.wants_grad(x, edge_coeff, scale):
             return self._aggregate_grad(x, mode, qp, edge_coeff)
         return sharded_aggregate(
             x, splan, mode=mode, qp=qp, device_state=self._shard_state,
@@ -569,7 +768,9 @@ class ShardedAmpleEngine(AmpleEngine):
         exp-shift and the normalisation run in global edge space. Under grad
         the shift is held constant and the denominators' pass runs the
         multi-head Function with each shard's ``TileGrad``, as in
-        ``AmpleEngine.edge_softmax``.
+        ``AmpleEngine.edge_softmax``. On a mesh each rank runs its own
+        shard's passes and the per-node vectors are all-gathered as the
+        owned rows of ``aggregate`` are.
         """
         scores = torch.as_tensor(scores, dtype=torch.float32)
         e = self.graph.num_edges
@@ -577,19 +778,23 @@ class ShardedAmpleEngine(AmpleEngine):
             raise ValueError(f"scores must be [{e}] or [{e}, H], got {tuple(scores.shape)}")
         self._check_edge_ids(mode)
         splan, dev = self.sharded_plan, scores.device
+        rank = self._mesh_rank(dev, scores)
+
+        def shard_pass(sp, fn, vec, init, grad):
+            _, _, _, dplans = _shard_state_entry(self._shard_state, sp, mode, dev)
+            local = _local_edge_coeff(self._shard_state, sp, vec)
+            n_local = sp.shard.num_local
+            acc = torch.full((n_local,) + tuple(vec.shape[1:]), init, device=dev)
+            for tag, dp in dplans.items():
+                kw = {"grad": self._shard_tile_grad(sp, mode, tag, dev)} if grad else {}
+                res = fn(local, dp, num_nodes=n_local, **kw)
+                acc = torch.maximum(acc, res) if init == float("-inf") else acc + res
+            return acc[: sp.num_owned]
 
         def owned_pass(fn, vec, init, grad=False):
-            parts = []
-            for sp in splan.shards:
-                _, _, _, dplans = _shard_state_entry(self._shard_state, sp, mode, dev)
-                local = _local_edge_coeff(self._shard_state, sp, vec)
-                n_local = sp.shard.num_local
-                acc = torch.full((n_local,) + tuple(vec.shape[1:]), init, device=dev)
-                for tag, dp in dplans.items():
-                    kw = {"grad": self._shard_tile_grad(sp, mode, tag, dev)} if grad else {}
-                    res = fn(local, dp, num_nodes=n_local, **kw)
-                    acc = torch.maximum(acc, res) if init == float("-inf") else acc + res
-                parts.append(acc[: sp.num_owned])
+            if rank is not None:  # this rank's shard, the owned rows all-gathered
+                return rank.gather_owned(shard_pass(rank.sp, fn, vec, init, grad))
+            parts = [shard_pass(sp, fn, vec, init, grad) for sp in splan.shards]
             return _unshuffle(self._shard_state, splan, torch.cat(parts, dim=0))
 
         node_max = owned_pass(segment_max_edge_tiles, scores.detach(), float("-inf"))
@@ -637,6 +842,7 @@ class ShardedAmpleEngine(AmpleEngine):
         plan adds up). The shards' edges are put back in global edge order.
         Bitwise the plain indexing forward."""
         dev = src_sc.device
+        self._mesh_rank(dev, src_sc, dst_sc)  # a mesh refuses grad
         if not attn_ops.wants_grad(src_sc, dst_sc):  # serving
             src, dst = self.edge_endpoints(dev)
             return src_sc[src] + dst_sc[dst]
@@ -775,10 +981,8 @@ def make_sharded_engine(
     halo_overlap: bool = False,
 ) -> ShardedAmpleEngine:
     """Compile + wrap in one call (the non-serving convenience path)."""
-    if mesh is not None:
-        raise ValueError(NO_MESH)
     splan = compile_sharded_plans(
         g, cfg, num_shards=num_shards, partition=partition, partitioner=partitioner,
         modes=modes,
     )
-    return ShardedAmpleEngine(g, splan, halo_overlap=halo_overlap)
+    return ShardedAmpleEngine(g, splan, mesh=mesh, halo_overlap=halo_overlap)

@@ -2,17 +2,17 @@
 
 The reference's ``repro/launch/train.py``: the Trainer on a REDUCED config
 by default (``--full`` for the published one), on the card unless
-``--device cpu``. Gradient compression is not ported (``--compress`` other
-than ``none`` raises; ROADMAP.md queue 1 item 7).
+``--device cpu``. ``--compress topk`` (1% of each leaf) or ``int8`` passes the
+gradients through ``distributed/compression.py`` before AdamW.
 """
 from __future__ import annotations
 
 import argparse
 
 from repro_torch.configs.base import get_config
+from repro_torch.distributed.compression import Int8Compressor, TopKCompressor
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.loop import Trainer, TrainerConfig
-from repro_torch.train.train_step import COMPRESSION_ITEM
 
 
 def main(argv=None):
@@ -28,12 +28,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.compress != "none":
-        raise NotImplementedError(
-            f"--compress {args.compress}: gradient compression is not ported: {COMPRESSION_ITEM}")
     cfg = get_config(args.arch, reduced=not args.full)
+    comp = {"none": None, "topk": TopKCompressor(ratio=0.01), "int8": Int8Compressor()}[
+        args.compress]
     tcfg = TrainerConfig(steps=args.steps, batch=args.batch, seq=args.seq,
-                         ckpt_dir=args.ckpt_dir, opt=AdamWConfig(lr=args.lr))
+                         ckpt_dir=args.ckpt_dir, opt=AdamWConfig(lr=args.lr),
+                         compressor=comp)
     out = Trainer(cfg, tcfg, device=args.device).run()
     for rec in out["metrics"]:
         print(

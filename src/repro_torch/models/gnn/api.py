@@ -144,7 +144,9 @@ def make_engine(
     either. ``gnn_partitioner`` picks the splitting algorithm ("edges"
     contiguous / "mincut" halo-minimizing) and ``gnn_halo_overlap`` the
     overlapped halo exchange; the keyword arguments override the config
-    fields. ``mesh`` raises: shards run as a host loop on one device.
+    fields. ``mesh`` (a 1-D ``("shard",)`` ``DeviceMesh``, one rank per
+    shard) runs each rank's shard and returns the whole output on every
+    rank; without it the shards run as a host loop on one device.
     """
     shards = cfg.gnn_num_shards if num_shards is None else num_shards
     if partition is None and shards <= 1 and mesh is None:

@@ -53,7 +53,13 @@ from repro_torch.serve.gnn_engine import (
     request_stamp,
 )
 
-__all__ = ["GNNTicket", "AsyncGNNEngine"]
+__all__ = ["GNNTicket", "AsyncGNNEngine", "MESH_FRONTS"]
+
+MESH_FRONTS = (
+    "the fronts over a mesh are not ported (ROADMAP queue 1, item 14): every rank "
+    "must admit the same windows, and a window that closes on the wall clock does "
+    "not guarantee that; call the engine's infer/infer_batch on every rank"
+)
 
 
 @dataclasses.dataclass
@@ -165,6 +171,9 @@ class AsyncGNNEngine:
         the error propagates to the loop driver); failure N completes the
         tickets exceptionally so a poisoned window can never wedge the
         queue forever. Defaults to ``cfg.gnn_window_retries``.
+
+    An engine with a ``mesh`` is refused (``MESH_FRONTS``), and so by the
+    tenancy router, which serves through this front.
     """
 
     def __init__(
@@ -192,6 +201,8 @@ class AsyncGNNEngine:
                 f"engine must be a GNNServeEngine or a ModelConfig, got "
                 f"{type(engine).__name__}"
             )
+        if self.engine.mesh is not None:
+            raise ValueError(MESH_FRONTS)
         w = self.engine.cfg.gnn_batch_window if window is None else window
         if w < 1:
             raise ValueError("window must be >= 1")

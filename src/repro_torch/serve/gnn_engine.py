@@ -23,7 +23,8 @@ artifact:
     partitioned ("edges" or "mincut") and runs through
     ``ShardedAmpleEngine``: one plan per shard, cached in a per-shard LRU
     below the assembled entry, halo rows exchanged per layer (overlapped
-    with the interior tiles under ``halo_overlap``);
+    with the interior tiles under ``halo_overlap``): as a host loop on one
+    device, or over a ``mesh`` with one ``torch.distributed`` rank per shard;
   * ``save_plan_cache``/``load_plan_cache`` persist the cached plans
     (``checkpoint/plan_store.py``), so a restarted server serves its first
     request on a persisted structure as a cache hit;
@@ -71,7 +72,7 @@ from repro_torch.core.scheduler import (
     union_bucket_fingerprint,
 )
 from repro_torch.device import resolve_device
-from repro_torch.distributed.graph_shard import NO_MESH, ShardedAmpleEngine
+from repro_torch.distributed.graph_shard import ShardedAmpleEngine
 from repro_torch.graphs.csr import Graph, disjoint_union
 from repro_torch.graphs.partition import Partition, make_partition, validate_partition
 from repro_torch.memory.feature_store import FeatureStore, default_chunk_rows
@@ -195,7 +196,13 @@ class GNNServeEngine:
         (halo-minimizing multilevel; params inline, e.g. "mincut(seed=1)")
         when no ``partition`` is given. Default ``cfg.gnn_partitioner``. Part
         of the plan-cache key.
-    mesh: not supported (shards run as a host loop on one device); raises.
+    mesh: a 1-D ``("shard",)`` ``torch.distributed`` ``DeviceMesh`` with one
+        rank per shard (``mesh.size() == num_shards``): each rank runs its own
+        shard (``distributed/graph_shard.py``'s mesh backend) and every rank
+        returns the whole output. Every rank builds this engine and serves
+        the same requests in the same order; the caller sets up the process
+        group, its backend and each rank's device. None runs the shards as a
+        host loop on one device.
     halo_overlap: overlap each shard's halo exchange with its interior
         tiles (outputs bitwise the unsplit schedule's). Default
         ``cfg.gnn_halo_overlap``.
@@ -254,8 +261,6 @@ class GNNServeEngine:
         num_shards = cfg.gnn_num_shards if num_shards is None else num_shards
         if num_shards < 1:
             raise ValueError("num_shards must be >= 1")
-        if mesh is not None:
-            raise ValueError(NO_MESH)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.engine_cfg = engine_cfg if engine_cfg is not None else gnn_api.engine_config(cfg)
@@ -265,6 +270,11 @@ class GNNServeEngine:
         self.plan_cache_size = plan_cache_size
         self.partition = partition
         self.num_shards = partition.num_shards if partition is not None else num_shards
+        if mesh is not None and mesh.size() != self.num_shards:
+            raise ValueError(
+                f"mesh has {mesh.size()} devices but num_shards={self.num_shards}; pass "
+                f"--num-shards {mesh.size()} (or a mesh with one device per shard)")
+        self.mesh = mesh
         self.partitioner = (cfg.gnn_partitioner if partitioner is None else partitioner) or "edges"
         self.halo_overlap = cfg.gnn_halo_overlap if halo_overlap is None else halo_overlap
         self.union_node_bucket = (
@@ -547,7 +557,8 @@ class GNNServeEngine:
                 self._shard_plan_ms.pop(self._shard_plans.popitem(last=False)[0], None)
         splan = compile_sharded_plans(prepared, self.engine_cfg, partition=part, modes=modes,
                                       precision_tags=tags, shard_plans=warm)
-        engine = ShardedAmpleEngine(prepared, splan, halo_overlap=self.halo_overlap)
+        engine = ShardedAmpleEngine(prepared, splan, mesh=self.mesh,
+                                    halo_overlap=self.halo_overlap)
         hit = not missing
         self.stats["cache_hits" if hit else "cache_misses"] += 1
         self._cache[key] = (prepared, splan, engine)
@@ -946,7 +957,9 @@ class GNNServeEngine:
         the first request on a persisted structure reports ``cache_hit=True``
         with ``plan_ms == 0.0``, exactly like in-memory repeat traffic.
         Entries whose file lacks a serve (or member) key or graph are
-        skipped; the count is of serve entries.
+        skipped; the count is of serve entries. On a mesh each rank loads the
+        whole file (the host loop's format) and uploads only its own shard's
+        device plans, at its first request.
         """
         from repro_torch.checkpoint.plan_store import load_plan
 
@@ -967,7 +980,7 @@ class GNNServeEngine:
                 continue
             if isinstance(rec.plan, ShardedExecutionPlan):
                 engine: AmpleEngine = ShardedAmpleEngine(
-                    rec.graph, rec.plan, halo_overlap=self.halo_overlap)
+                    rec.graph, rec.plan, mesh=self.mesh, halo_overlap=self.halo_overlap)
                 for sp in rec.plan.shards:
                     self._shard_plans[sp.fingerprint] = sp
             else:

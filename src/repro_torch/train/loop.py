@@ -57,8 +57,14 @@ class Trainer:
         self.metrics_log: List[Dict] = []
 
     def init_state(self) -> Dict:
+        """The seeded params' train state, with the compressor's error-feedback
+        state under ``"compress"`` when one is set."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        return init_train_state(self.cfg, model_init(self.cfg, gen, device=self.device))
+        params = model_init(self.cfg, gen, device=self.device)
+        state = init_train_state(self.cfg, params)
+        if self.tcfg.compressor is not None:
+            state["compress"] = self.tcfg.compressor.init_state(params)
+        return state
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         """The batch of ``step``: ``synthetic_batch(seed, step)`` on the device."""

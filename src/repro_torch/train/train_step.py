@@ -1,15 +1,15 @@
 """train_step / serve_step factories, as the reference's ``repro/train/train_step.py``.
 
 ``make_train_step(cfg)`` builds the full optimisation step: loss (CE + MoE
-aux) → gradients by autograd → AdamW update at the schedule's lr for
-``step + 1``. On the card the gradient of every full-sequence attention is
+aux) → gradients by autograd → optional gradient compression → AdamW update
+at the schedule's lr for ``step + 1``. On the card the gradient of every full-sequence attention is
 the flash kernel's backward (``kernels/flash_attention/ops.py``). The step
 is functional: it returns a new state (params, AdamW moments, step) and
 leaves the old one as it was.
 
-Gradient compression (the reference's ``compressor``) is not ported: it is
-ROADMAP.md queue 1 item 7 (distributed LM), and anything but ``None``
-raises.
+With a ``compressor`` (``distributed/compression.py``) the gradients pass
+through its ``compress_decompress`` before AdamW, and its error-feedback
+state rides in ``state["compress"]`` (``Trainer.init_state`` makes it).
 """
 from __future__ import annotations
 
@@ -23,9 +23,7 @@ from repro_torch.models.api import loss_fn, model_decode_step
 from repro_torch.optim.adamw import AdamWConfig, _leaves, _rebuild, adamw_init, adamw_update
 from repro_torch.optim.schedule import warmup_cosine
 
-__all__ = ["init_train_state", "make_train_step", "make_serve_step", "COMPRESSION_ITEM"]
-
-COMPRESSION_ITEM = "ROADMAP.md queue 1 item 7 (distributed LM: gradient compression)"
+__all__ = ["init_train_state", "make_train_step", "make_serve_step"]
 
 
 def init_train_state(cfg: ModelConfig, params, opt_cfg: AdamWConfig = AdamWConfig()) -> Dict:
@@ -60,19 +58,22 @@ def make_train_step(
     compressor=None,
 ) -> Callable:
     """``train_step(state, batch) -> (new_state, metrics)``; metrics: loss,
-    ce, aux, tokens, grad_norm, lr (0-d tensors)."""
-    if compressor is not None:
-        raise NotImplementedError(f"gradient compression is not ported: {COMPRESSION_ITEM}")
+    ce, aux, tokens, grad_norm, lr (0-d tensors). ``compressor``: a
+    ``distributed.compression`` compressor or None."""
     sched = schedule or functools.partial(
         warmup_cosine, peak_lr=opt_cfg.lr, warmup=warmup, total=total_steps)
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         loss, metrics, grads = _grads(state["params"], cfg, batch)
+        if compressor is not None:
+            grads, state_c = compressor.compress_decompress(grads, state.get("compress"))
         # 1-indexed: warmup starts at lr > 0; on the step's device (no sync)
         lr = sched(state["step"] + 1)
         params, opt, opt_metrics = adamw_update(grads, state["opt"], state["params"], opt_cfg,
                                                 lr=lr)
         new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
+        if compressor is not None:
+            new_state["compress"] = state_c
         return new_state, dict(metrics, loss=loss, **opt_metrics)
 
     return train_step

@@ -123,6 +123,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.configs.base as cb\n"
         "cb.list_configs()\n"
         "assert 'repro_torch.kernels.ssd_scan.ops' in sys.modules\n"
+        "assert 'repro_torch.distributed.compression' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

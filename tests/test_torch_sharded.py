@@ -278,18 +278,35 @@ def test_partitioner_cache_keys_distinct(graphs, models):
     assert_mixed_close(ra.outputs, rb.outputs)
 
 
-def test_mesh_is_refused_and_names_the_roadmap_item(graphs, models):
+class _Mesh:
+    """What the engines read of a ``DeviceMesh`` when they are built."""
+
+    def __init__(self, names=("shard",), size=2):
+        self.mesh_dim_names, self._size, self.device_type = names, size, "cpu"
+
+    def size(self):
+        return self._size
+
+
+@pytest.mark.parametrize("where,mesh,match", [
+    ("serve", _Mesh(size=4), "mesh has 4 devices but num_shards=2"),
+    ("engine", _Mesh(names=("data",)), r"mesh axes must be \('shard',\)"),
+    ("engine", _Mesh(size=3), "mesh has 3 devices but the plan has 2 shards"),
+    ("make_engine", _Mesh(names=("shard", "x")), r"mesh axes must be \('shard',\)"),
+], ids=["serve-size", "engine-names", "engine-size", "make_engine-names"])
+def test_mesh_is_validated_where_it_is_passed(graphs, models, where, mesh, match):
+    """Each entry point that takes ``mesh`` checks it as the reference does
+    (one ``shard`` dimension, one rank per shard); the mesh backend itself
+    runs in ``tests/test_torch_mesh.py``."""
     _, pg = graphs
     _, pcfg, _, pp = models["gcn"]
     splan = port_mp.compile_sharded_plans(pg, port_mp.EngineConfig(edges_per_tile=64),
                                           num_shards=2, modes=("sum",))
-    for make in (
-        lambda: GNNServeEngine(pcfg, pp, num_shards=2, mesh=object(), device="cpu"),
-        lambda: ShardedAmpleEngine(pg, splan, mesh=object()),
-        lambda: port_api.make_engine(pcfg, pg, num_shards=2, mesh=object()),
-    ):
-        with pytest.raises(ValueError, match="ROADMAP queue 1, item 6"):
-            make()
+    make = {"serve": lambda: GNNServeEngine(pcfg, pp, num_shards=2, mesh=mesh, device="cpu"),
+            "engine": lambda: ShardedAmpleEngine(pg, splan, mesh=mesh),
+            "make_engine": lambda: port_api.make_engine(pcfg, pg, num_shards=2, mesh=mesh)}
+    with pytest.raises(ValueError, match=match):
+        make[where]()
 
 
 def test_sharded_engine_rejects_what_it_cannot_serve(graphs):

@@ -192,14 +192,6 @@ def test_three_train_steps_match_reference(arch):
                                        rtol=0)
 
 
-def test_train_step_refuses_compression_and_launcher_names_the_item():
-    cfg = port_config("smollm-360m", reduced=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_train_step.make_train_step(cfg, compressor=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_launch.main(["--arch", "smollm-360m", "--device", "cpu", "--compress", "topk"])
-
-
 def test_serve_step_is_a_greedy_decode_step():
     rcfg, pcfg = _pair("smollm-360m")
     _, pp = _params(rcfg, pcfg)
