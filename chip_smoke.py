@@ -306,6 +306,11 @@ Every phase that fails raises, so the script exits non-zero.
              weighted aggregate), no fused attention, warm == cold, within
              the mixed tolerance of unsharded, peak under 20 GiB; its plan
              cache saved for the mesh phase;
+    mesh reference gcn, mesh reference gat — the host loop's QAT step 0
+             for the mesh phase: GCN on the sharded gcn phase's engine (all
+             of Yelp); GAT on the subgraph induced by Yelp's first
+             ``MESH_GAT_TRAIN_NODES`` nodes, served once by a 4-shard
+             engine whose plans are saved for the ranks;
     mesh — the mesh backend: 4 ranks (``torch.multiprocessing``, a gloo
              group through a ``file://`` store, the 1-D ``("shard",)``
              ``DeviceMesh``) share the one card, each serving three Yelp
@@ -319,8 +324,23 @@ Every phase that fails raises, so the script exits non-zero.
              and request the AGE once per group of its own shard and layer
              and the GEMM twice (GCN), the multi-head walk once per group of
              its own shard, layer and pass (GAT); each rank's run_ms, peak
-             memory and all-gathers (CUDA events), halo_bytes; a rank that
-             fails or passes the deadline fails the phase;
+             memory and all-gathers (CUDA events), halo_bytes. Then one
+             Degree-Quant QAT step (loss, backward, AdamW; the example's GCN
+             recipe on the same engine, ``_gat_qat_loss`` for GAT on the
+             subgraph of ``MESH_GAT_TRAIN_NODES``; the planted labels and
+             step 0's protection mask): the loss and every gradient bitwise
+             the host loop's step 0 (computed by the parent in ``mesh
+             reference gcn`` and ``mesh reference gat`` on the same plans)
+             and the same on all ranks; the AGE (the halo-transpose
+             sums included), the walk and the GAT backward launches a rank
+             counted from its own shard's plans; forward, backward and
+             optimiser ms, the backward's all-gathers (ms, bytes), the
+             step's peak. Last, three GCN requests through
+             ``AsyncGNNEngine`` and three through a two-tenant
+             ``TenantRouter`` (window 1: each window a plan-cache hit),
+             bitwise the host loop's output, rank 0's window log the same
+             on every rank. A rank that fails or passes the deadline fails
+             the phase;
     qat gcn — after sharded mincut, Degree-Quant training of FULL
              ``ample-gcn`` on the Yelp graph with self-loops (planted labels
              over 100 classes, half the nodes for training, weights from
@@ -1657,6 +1677,214 @@ def phase_sharded_gat(cfg, params, g, want, plan_dir):
 # ------------------------------------------------------------ the mesh backend
 MESH_DEADLINE_S = 600  # the whole mesh phase's ranks, start to end
 MESH_TIMEOUT_S = 300  # one collective of the gloo group
+MESH_TENANTS = (("gold", 2.0, 1), ("batch", 1.0, 0))  # the router's: name, weight, priority
+# The GAT QAT step runs on the subgraph induced by Yelp's first three quarters
+# of nodes: on all of Yelp a FULL GAT rank peaked at 17.20 GiB (four of them
+# and the parent left the card 0.7 GiB short in one run, PERF.md).
+MESH_GAT_TRAIN_NODES = 537_635
+
+
+def induced_subgraph(g, n: int):
+    """The subgraph of ``g`` induced by its first ``n`` nodes, features
+    kept."""
+    import dataclasses
+
+    import numpy as np
+
+    end = int(g.indptr[n])
+    keep = g.indices[:end] < n
+    kept = np.concatenate([[0], np.cumsum(keep, dtype=np.int64)])
+    return dataclasses.replace(
+        g, indptr=kept[g.indptr[: n + 1]], indices=g.indices[:end][keep], num_nodes=n,
+        features=None if g.features is None else g.features[:n],
+        edge_weights=None if g.edge_weights is None else g.edge_weights[:end][keep],
+        name=f"{g.name}[:{n}]")
+
+
+def _mesh_x(srv, eng, feats):
+    """The request's features on the card, padded to the engine's graph."""
+    import torch
+
+    return torch.from_numpy(srv._pad_features(feats, eng.graph.num_nodes)).to(srv.device)
+
+
+def _mesh_qat_loss(label, cfg, params, eng, x, inputs):
+    """Degree-Quant QAT loss of ``params`` on ``eng``: the example's GCN
+    recipe, or ``_gat_qat_loss``; ``inputs`` holds the planted labels, the
+    training mask and step 0's protection mask as numpy."""
+    import torch
+
+    ex = _example("train_gcn_degreequant_torch")
+    labels, train, mask = (torch.from_numpy(inputs[k]).to(x.device)
+                           for k in ("labels", "train", "mask"))
+    labels = labels.long()
+    if label == "gcn":
+        return ex.qat_loss(params, eng, x, labels, train, mask)
+    return _gat_qat_loss(cfg, params, eng, x, labels, train, mask)
+
+
+def mesh_train_reference(label, cfg, srv, g):
+    """The host loop's QAT step 0 on the sharded engine that ``srv`` served
+    Yelp with (its plans and params): the mesh phase's reference. Returns the
+    inputs (planted labels, half the nodes for training, a protection mask
+    from numpy seed 3), the loss and every gradient, as numpy."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    ex = _example("train_gcn_degreequant_torch")
+    _, eng = _sharded_entry(srv)
+    gs = eng.graph
+    if gs.num_nodes != g.num_nodes:
+        raise RuntimeError(f"mesh {label}: the engine's graph has {gs.num_nodes} nodes, Yelp "
+                           f"{g.num_nodes}")
+    labels, train = ex.node_task(dataclasses.replace(gs, features=g.features), cfg.vocab_size)
+    inputs = dict(labels=labels, train=train,
+                  mask=ex.sample_protection_mask(gs, ex.DQ, np.random.default_rng(3)))
+    p = _trainable(srv.params)
+    loss = _mesh_qat_loss(label, cfg, p, eng, _mesh_x(srv, eng, g.features), inputs)
+    grads = torch.autograd.grad(loss, _gat_leaves(p))
+    out = dict(inputs, loss=loss.detach().cpu().numpy())
+    out.update((f"grad{i}", t.cpu().numpy()) for i, t in enumerate(grads))
+    log(f"[mesh] {label}: the host loop's QAT step 0 (4 shards, {cfg.gnn_precision}): loss "
+        f"{float(loss.detach()):.6f}, {len(grads)} gradients")
+    return out
+
+
+def mesh_gat_train_reference(cfg, params, g, plan_dir):
+    """The GAT step's reference on its subgraph (``MESH_GAT_TRAIN_NODES``):
+    a sharded engine serves it once (its shard plans, saved to ``plan_dir``
+    for the ranks), then ``mesh_train_reference`` on that engine."""
+    from repro_torch.serve.gnn_engine import GNNServeEngine
+
+    sub = induced_subgraph(g, MESH_GAT_TRAIN_NODES)
+    srv = GNNServeEngine(cfg, params, num_shards=SHARDS, partitioner="edges", device="cuda")
+    resp = srv.infer(sub, sub.features)
+    srv.save_plan_cache(plan_dir)
+    log(f"[mesh] gat: the QAT step's subgraph, Yelp's first {sub.num_nodes} of {g.num_nodes} "
+        f"nodes: {sub.num_edges} of {g.num_edges} edges; planned in {resp.plan_ms:.1f} ms")
+    return mesh_train_reference("gat", cfg, srv, sub)
+
+
+def _mesh_train_launches(sp, label, mode):
+    """The AGE, walk and GAT-backward launches of one rank's QAT step,
+    counted from its own shard's plans (G groups, F = 1 with a float group).
+    GCN: layer 0 serves (its input needs no grad: G), layer 1 G forward, the
+    transposed float plan and the halo-transpose sum backward. GAT, a layer:
+    the denominators and the aggregate forward (G walks each); backward the
+    score sums on the transposed and the forward plans (2G walks), the dz
+    walk (F), ``edge_dot`` for the denominators and the aggregate (2G), and
+    3 halo-transpose sums (the two score halves and z)."""
+    groups = sp.plan.mode_plans[mode]
+    n, f = len(groups), int("float" in groups)
+    if label == "gcn":
+        return {"segment_agg": 2 * n + f + 1}
+    return {"segment_agg": 2 * 3, "segment_agg_mh": 2 * (4 * n + f),
+            "attention_bwd": 2 * 2 * n, "attention": 0}
+
+
+def _mesh_train(label, cfg, srv, eng, feats, ref, gathers, rank):
+    """One rank's QAT step (loss, backward, AdamW) on the mesh engine
+    ``eng``: every gradient bitwise the host loop's ``ref``; forward,
+    backward and optimiser ms (CUDA events), the backward's all-gathers
+    (ms, bytes), its launches against its own shard's plans, the peak."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+    ex = _example("train_gcn_degreequant_torch")
+    x = _mesh_x(srv, eng, feats)
+    params = _trainable(srv.params)
+    opt = adamw_init(params)
+    opt_cfg = AdamWConfig(lr=EXAMPLE_LR if label == "gcn" else QAT_GAT_LR,
+                          weight_decay=ex.WEIGHT_DECAY)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    del gathers[:]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    loss = _mesh_qat_loss(label, cfg, params, eng, x, ref)
+    ev[1].record()
+    n_fwd = len(gathers)
+    grads = torch.autograd.grad(loss, _gat_leaves(params))
+    ev[2].record()
+    adamw_update(_gat_tree(params, grads), opt, params, opt_cfg)
+    ev[3].record()
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    bwd = gathers[n_fwd:]
+    got = [loss.detach()] + list(grads)
+    want = [ref["loss"]] + [ref[f"grad{i}"] for i in range(len(grads))]
+    for name, a, b in zip(["loss"] + [f"grad{i}" for i in range(len(grads))], got, want):
+        a = a.cpu().numpy()
+        if a.shape != b.shape or not np.array_equal(a, b):
+            diff = np.abs(a - b).max() if a.shape == b.shape else float("nan")
+            raise RuntimeError(f"rank {rank} {label} QAT step: {name} is not bitwise the host "
+                               f"loop's (max |diff| {diff:.3e})")
+    expect = _mesh_train_launches(eng.sharded_plan.shards[rank], label,
+                                  "gcn" if label == "gcn" else "runtime")
+    if any(counts.get(k, 0) != v for k, v in expect.items()):
+        raise RuntimeError(f"rank {rank} {label} QAT step: launched {counts}, expected {expect}")
+    return dict(nodes=eng.graph.num_nodes, edges=eng.graph.num_edges,
+                forward_ms=ev[0].elapsed_time(ev[1]), backward_ms=ev[1].elapsed_time(ev[2]),
+                optimizer_ms=ev[2].elapsed_time(ev[3]), step_ms=ev[0].elapsed_time(ev[3]),
+                loss=float(loss.detach()), launches=counts, expected_launches=expect,
+                backward_all_gather_ms=[a.elapsed_time(b) for a, b, _ in bwd],
+                backward_all_gather_bytes=[n for _, _, n in bwd],
+                forward_all_gathers=n_fwd, peak_bytes=torch.cuda.max_memory_allocated(),
+                grad_hash=hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                                  for t in got)).hexdigest())
+
+
+def _mesh_fronts(srv, g, feats, want, rank):
+    """Three Yelp GCN requests through ``AsyncGNNEngine``, then through a
+    two-tenant ``TenantRouter``, window 1 (each window a plan-cache hit of
+    the loaded plans): every output bitwise the host loop's; the router's
+    window log (rank 0's decisions) returned for the parent to compare."""
+    import numpy as np
+
+    from repro_torch.serve.async_gnn import AsyncGNNEngine
+    from repro_torch.serve.tenancy.router import TenantRouter
+
+    front = AsyncGNNEngine(srv, window=1)
+    t0 = time.perf_counter()
+    tickets = [front.submit(g, feats) for _ in range(3)]
+    front.drain()
+    async_s = time.perf_counter() - t0
+    router = TenantRouter(AsyncGNNEngine(srv, window=1))
+    for name, weight, prio in MESH_TENANTS:
+        router.add_tenant(name, weight=weight, priority=prio)
+    t0 = time.perf_counter()
+    routed = [router.submit(t, g, feats) for t in ("gold", "batch", "gold")]
+    router.drain()
+    router_s = time.perf_counter() - t0
+    for kind, ts in (("async", tickets), ("router", routed)):
+        for i, t in enumerate(ts):
+            r = t.response
+            if t.error is not None or not r.cache_hit or r.batch_size != 1 or \
+                    not np.array_equal(r.outputs, want):
+                raise RuntimeError(f"rank {rank} fronts: {kind} request {i} failed, missed the "
+                                   f"plan cache or is not bitwise the host loop "
+                                   f"({t.error!r})")
+    if front.stats["steps"] != 3 or router.stats["windows"] != 3:
+        raise RuntimeError(f"rank {rank} fronts: {front.stats['steps']} async windows, "
+                           f"{router.stats['windows']} routed")
+    return dict(async_s=async_s, router_s=router_s,
+                async_run_ms=[t.response.run_ms for t in tickets],
+                router_run_ms=[t.response.run_ms for t in routed],
+                window_log=[list(w) for w in router.window_log])
+
+
+def _mesh_step_launches(row, kernel):
+    """A kernel's launches in each rank's QAT step of each model."""
+    return {m: [r["models"][m]["train"]["launches"].get(kernel, 0) for r in row["per_rank"]]
+            for m in ("gcn", "gat")}
 
 
 def _mesh_launches(sp, mode, layers, split, passes=0):
@@ -1673,8 +1901,10 @@ def _mesh_launches(sp, mode, layers, split, passes=0):
 
 
 def _mesh_rank(rank, world, directory, queue):
-    """One rank of the mesh phase: join the gloo group, serve three Yelp
-    requests of each model on its shard, check them, report."""
+    """One rank of the mesh phase: join the gloo group; for each model serve
+    three Yelp requests on its shard, then take one QAT step on the same
+    engine; then three GCN requests through each front; check them all,
+    report."""
     import datetime
     import hashlib
     import traceback
@@ -1732,6 +1962,7 @@ def _mesh_rank(rank, world, directory, queue):
             cfg = get_config(arch)
             params = torch.load(os.path.join(directory, f"params_{label}.pt"), weights_only=False)
             want = np.load(os.path.join(directory, f"want_{label}.npy"), mmap_mode="r")
+            ref = dict(np.load(os.path.join(directory, f"train_{label}.npz")))
             srv = GNNServeEngine(cfg, params, num_shards=world, partitioner="edges",
                                  halo_overlap=overlap, mesh=mesh, device="cuda")
             t1 = time.perf_counter()
@@ -1775,7 +2006,21 @@ def _mesh_rank(rank, world, directory, queue):
                 peak_bytes=torch.cuda.max_memory_allocated(), launches=want_launches,
                 owned=sp.num_owned, halo=sp.halo_size, groups=len(sp.plan.mode_plans[mode]),
                 halo_stats=eng.halo_stats)
-            del srv, eng, splan, params
+            train_feats = feats
+            if label == "gat":  # the step runs on its subgraph's plans
+                del srv, eng, splan
+                gc.collect()
+                torch.cuda.empty_cache()
+                srv = GNNServeEngine(cfg, params, num_shards=world, partitioner="edges",
+                                     halo_overlap=overlap, mesh=mesh, device="cuda")
+                srv.load_plan_cache(plan_dirs["gat_train"])
+                splan, eng = _sharded_entry(srv)
+                train_feats = feats[:MESH_GAT_TRAIN_NODES]
+            out["models"][label]["train"] = _mesh_train(label, cfg, srv, eng, train_feats, ref,
+                                                        gathers, rank)
+            if label == "gcn":
+                out["fronts"] = _mesh_fronts(srv, g, feats, want, rank)
+            del srv, eng, splan, params, ref
             gc.collect()
             torch.cuda.empty_cache()
         dist.all_gather = all_gather
@@ -1814,9 +2059,10 @@ def phase_mesh(inputs, plan_dirs):
     np.save(os.path.join(d, "features.npy"), g.features)
     torch.save(dataclasses.replace(g, features=None), os.path.join(d, "graph.pt"))
     for label in ("gcn", "gat"):
-        params, want = inputs[label]
+        params, want, ref = inputs[label]
         torch.save(_to_device(params, torch.device("cpu")), os.path.join(d, f"params_{label}.pt"))
         np.save(os.path.join(d, f"want_{label}.npy"), want)
+        np.savez(os.path.join(d, f"train_{label}.npz"), **ref)
     write_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -1875,6 +2121,32 @@ def phase_mesh(inputs, plan_dirs):
         log(f"[{tag}] {label}: halo_bytes {got[0]['models'][label]['requests'][0]['halo_bytes']} "
             f"a request; every rank's three requests bitwise the host loop's output, the same "
             f"on every rank, each a plan-cache hit with plan_ms 0.0")
+        trains = [got[r]["models"][label]["train"] for r in range(SHARDS)]
+        if len({t["grad_hash"] for t in trains}) != 1:
+            raise RuntimeError(f"{tag}: {label}: the ranks' QAT gradients differ")
+        for r, t in enumerate(trains):
+            log(f"[{tag}] {label} rank {r} QAT step ({t['nodes']} nodes, {t['edges']} edges): "
+                f"forward {t['forward_ms']:.1f} ms, backward "
+                f"{t['backward_ms']:.1f} ms, optimizer {t['optimizer_ms']:.3f} ms (step "
+                f"{t['step_ms']:.1f}); backward all-gathers {len(t['backward_all_gather_ms'])}: "
+                f"{[round(x, 1) for x in t['backward_all_gather_ms']]} ms of "
+                f"{[round(n / 2**20, 1) for n in t['backward_all_gather_bytes']]} MiB "
+                f"({sum(t['backward_all_gather_bytes']) / 2**20:.1f} MiB, "
+                f"{sum(t['backward_all_gather_ms']):.1f} ms); launches {t['launches']}; peak "
+                f"{t['peak_bytes'] / 2**30:.2f} GiB")
+        log(f"[{tag}] {label}: one QAT step (loss {trains[0]['loss']:.6f}) on every rank, its "
+            f"loss and every gradient bitwise the host loop's step 0 and the same on all "
+            f"{SHARDS} ranks; {card_line()}")
+    logs = {json.dumps(got[r]["fronts"]["window_log"]) for r in range(SHARDS)}
+    if len(logs) != 1:
+        raise RuntimeError(f"{tag}: fronts: the ranks' window logs differ: {logs}")
+    for r in range(SHARDS):
+        fr = got[r]["fronts"]
+        log(f"[{tag}] fronts rank {r}: 3 async windows in {fr['async_s']:.2f} s (run_ms "
+            f"{[round(x, 1) for x in fr['async_run_ms']]}), 3 routed in {fr['router_s']:.2f} s "
+            f"(run_ms {[round(x, 1) for x in fr['router_run_ms']]})")
+    log(f"[{tag}] fronts: window 1, every window a plan-cache hit, every output bitwise the "
+        f"host loop's; rank 0's window log on every rank: {got[0]['fronts']['window_log']}")
     log(f"[{tag}] {SHARDS} ranks share one H100 over a {row['backend']} group (NCCL refuses "
         f"two ranks on one device; gloo stages the CUDA blocks through host memory, so the "
         f"all-gathers are loopback through the host, not NVLink); inputs written in "
@@ -4931,7 +5203,9 @@ def main() -> int:
     with phase("sharded overlap"):
         overlap_row = phase_sharded_overlap(cfg, srv.params, g, sharded_y,
                                             os.path.join(plan_dir, "sharded"))
-    mesh_inputs = {"graph": g, "gcn": (srv.params, sharded_y)}
+    with phase("mesh reference gcn"):  # the host loop's QAT step 0, for the mesh phase
+        mesh_inputs = {"graph": g, "gcn": (srv.params, sharded_y,
+                                           mesh_train_reference("gcn", cfg, ssrv, g))}
     del ssrv
     with phase("sharded mincut"):
         mincut_row = phase_sharded_mincut(cfg, srv.params)
@@ -5001,7 +5275,9 @@ def main() -> int:
     with phase("sharded gat"):
         sgat_row, sgat_y = phase_sharded_gat(gat_cfg, gsrv.params, g, gouts[0].outputs,
                                              os.path.join(plan_dir, "sharded_gat"))
-    mesh_inputs["gat"] = (gsrv.params, sgat_y)
+    with phase("mesh reference gat"):
+        mesh_inputs["gat"] = (gsrv.params, sgat_y, mesh_gat_train_reference(
+            gat_cfg, gsrv.params, g, os.path.join(plan_dir, "mesh_gat_train")))
     del gsrv, gentry
     gc.collect()
     torch.cuda.empty_cache()
@@ -5009,6 +5285,7 @@ def main() -> int:
     # files and against their host-loop outputs.
     with phase("mesh"):
         mesh_row = phase_mesh(mesh_inputs, {"gcn": os.path.join(plan_dir, "sharded"),
+                                            "gat_train": os.path.join(plan_dir, "mesh_gat_train"),
                                             "gat": os.path.join(plan_dir, "sharded_gat")})
     shutil.rmtree(plan_dir, ignore_errors=True)
     del mesh_inputs, sgat_y
@@ -5151,6 +5428,9 @@ def main() -> int:
              # one rank's request on the mesh (4 ranks, its own shard's groups)
              launches_mesh_rank_request=[r["models"]["gcn"]["launches"]["segment_agg"]
                                          for r in mesh_row["per_rank"]],
+             # one rank's QAT step on the mesh: its own shard's forward and backward
+             # AGE and the halo-transpose sums
+             launches_mesh_rank_train_step=_mesh_step_launches(mesh_row, "segment_agg"),
              # a Yelp QAT step: 2 forward, 1 backward on the transposed plan
              launches_qat_step=qat_row["steps"][0]["age_launches"],
              launches_qat_deploy=qat_row["deploy_launches"].get("segment_agg", 0),
@@ -5175,6 +5455,7 @@ def main() -> int:
              launches_mesh_rank_request={m: [r["models"][m]["launches"]["quant_matmul"]
                                              for r in mesh_row["per_rank"]]
                                          for m in ("gcn", "gat")},
+             launches_mesh_rank_train_step=_mesh_step_launches(mesh_row, "quant_matmul"),
              # one pubmed step through gcn.apply on a mixed engine (item 9)
              launches_mixed_qat_step=qat_row["mixed_step_launches"].get("quant_matmul", 0),
              # a FULL ample-gat step with layer 0's FTE streamed (once a chunk)
@@ -5189,6 +5470,7 @@ def main() -> int:
              launches_sharded_request=sgat_row["launches_request"].get("segment_agg_mh", 0),
              launches_mesh_rank_request=[r["models"]["gat"]["launches"]["segment_agg_mh"]
                                          for r in mesh_row["per_rank"]],
+             launches_mesh_rank_train_step=_mesh_step_launches(mesh_row, "segment_agg_mh"),
              launches_qat_gat_step=qat_gat_row["steps"][0]["launches"].get("segment_agg_mh", 0),
              launches_qat_sharded_gat_step=qat_sharded_rows["gat"]["launches_per_step"].get(
                  "segment_agg_mh", 0),
@@ -5210,6 +5492,7 @@ def main() -> int:
              launches_per_step=qat_gat_row["steps"][0]["launches"].get("attention_bwd", 0),
              launches_qat_sharded_gat_step=qat_sharded_rows["gat"]["launches_per_step"].get(
                  "attention_bwd", 0),
+             launches_mesh_rank_train_step=_mesh_step_launches(mesh_row, "attention_bwd"),
              launches_qat_streamed_step=qat_streamed_row["steps"][-1]["launches"].get(
                  "attention_bwd", 0),
              cases={"layer {layer} {rows} rows dh {dh}".format(**r): {k: r[k] for k in (

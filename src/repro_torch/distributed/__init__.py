@@ -2,7 +2,6 @@
 mesh backend), and gradient compression for LM training."""
 from repro_torch.distributed.compression import Int8Compressor, TopKCompressor, wire_bytes_ratio
 from repro_torch.distributed.graph_shard import (
-    MESH_TRAINING,
     HaloLedger,
     MeshState,
     ShardedAmpleEngine,

@@ -64,8 +64,26 @@ codes are the host loop's), and its owned output rows are padded and
 all-gathered again: every rank returns the whole ``[N, ...]`` result, bitwise
 the host loop's. With ``halo_overlap`` the exchange runs asynchronously
 while the interior half aggregates. Collectives use only the mesh's group:
-the caller picks the backend and the device. Training over a mesh is not
-ported and raises (``MESH_TRAINING``).
+the caller picks the backend and the device.
+
+A mesh trains too. Every rank holds the whole replicated input and computes
+the loss from replicated tensors, so every rank has the same upstream
+gradient; each collective of the forward has its adjoint in the backward
+(``_MeshRows``, ``_MeshGather``, ``_MeshScatter``, ``_MeshScale``). The local
+rows' backward all-gathers the ranks' halo-row gradients (padded to
+``h_max``); each rank runs the AGE on the halo-transpose plan over its own
+owned rows' gradient and their halo copies (the plan's lanes re-pointed into
+a compact buffer, every other lane at a zero row: a segment holds only its
+own row's copies, so its sum is the host loop's) and all-gathers its owned
+rows, so every rank gets the whole gradient. An owned-rows all-gather's
+backward takes the rank's own rows of the gradient; a per-edge slice's
+all-gathers the shards' edge gradients back into global edge order (an edge
+lies in exactly one shard: nothing is summed). The int8 group's scale
+gradient is summed over the shards in shard order in both backends
+(``_ShardScale``, ``_MeshScale``). Training runs the shards unsplit on a mesh
+as in the host loop, with or without ``halo_overlap``: every gradient is
+bitwise the host loop's on every rank. A dead or stuck rank fails the step at
+the group's timeout, as it fails a request.
 """
 from __future__ import annotations
 
@@ -104,14 +122,12 @@ from repro_torch.observe import trace as otrace
 
 __all__ = [
     "HaloLedger", "MeshState", "ShardedAmpleEngine", "build_mesh_state", "make_sharded_engine",
-    "mesh_aggregate", "sharded_aggregate", "MESH_TRAINING",
+    "mesh_aggregate", "sharded_aggregate",
 ]
 
-MESH_TRAINING = (
-    "training over a mesh is not ported (ROADMAP queue 1, item 13); train "
-    "through the host loop on one device: drop mesh"
-)
 _TAGS = ("float", "int8")
+#: columns of the halo rows' gradient a mesh all-gathers at a time
+_GRAD_COLUMNS = 128
 
 # One worker is enough on the CPU: the host loop is serialized per shard.
 _HALO_POOL: Optional[ThreadPoolExecutor] = None
@@ -431,6 +447,29 @@ class _ShardRows(torch.autograd.Function):
         return gx.view(ctx.shape), None, None
 
 
+def _shard_order_sum(parts) -> torch.Tensor:
+    """The shards' contributions to one gradient, added in shard order: the
+    host loop and the mesh sum the int8 scale's gradient with this."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+class _ShardScale(torch.autograd.Function):
+    """The int8 group's scale handed to each of ``k`` shards (one output a
+    shard); backward, the shards' gradients summed in shard order (a shard
+    that has no int8 rows gives zeros)."""
+
+    @staticmethod
+    def forward(ctx, scale, k):
+        return tuple(scale.clone() for _ in range(k))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return _shard_order_sum(grads), None
+
+
 def sharded_aggregate(
     x: torch.Tensor,
     splan: ShardedExecutionPlan,
@@ -555,13 +594,16 @@ class _MeshRank:
         self.rank = mesh.get_local_rank("shard")
         self.size = splan.num_shards
         self.sp = splan.shards[self.rank]
-        ms = build_mesh_state(splan)
+        self.splan, self.device = splan, device
+        self.state = ms = build_mesh_state(splan)
         self.p_max = ms.p_max
         self.pad_ids = _ids(ms.pad_gather[self.rank], device)
         self.halo_ids = _ids(ms.halo_rows(self.rank, self.sp.halo_size), device)
         self.out_ids = _ids(ms.out_idx, device)
         #: every shard's halo rows: what one exchange moves, as the reference counts it
         self.halo_total = sum(s.halo_size for s in splan.shards)
+        self._layouts: Dict[str, tuple] = {"rows": (self.p_max, self.out_ids,
+                                                    _ids(self.sp.shard.owned, device))}
 
     def all_gather(self, block: torch.Tensor, async_op: bool = False):
         """(the ranks' ``[p_max, ...]`` blocks stacked ``[K * p_max, ...]``,
@@ -574,10 +616,160 @@ class _MeshRank:
 
     def gather_owned(self, owned: torch.Tensor) -> torch.Tensor:
         """Every shard's owned rows, all-gathered, in global node order."""
-        block = owned.new_zeros((self.p_max,) + tuple(owned.shape[1:]))
-        block[: owned.shape[0]] = owned
+        return self.to_whole(owned, "rows")
+
+    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This shard's local rows ``[owned | halo]`` of the replicated
+        ``x``: the owned block padded to ``p_max`` and all-gathered (the halo
+        exchange), the halo rows taken from it."""
+        block = x.index_select(0, self.pad_ids)
         stacked, _ = self.all_gather(block)
-        return stacked.index_select(0, self.out_ids)
+        return torch.cat([block[: self.sp.num_owned], stacked.index_select(0, self.halo_ids)])
+
+    # ------------------------------------------------------------- training
+    def _layout(self, what: str):
+        """(pad, the whole tensor's rows in the stacked blocks, this rank's
+        rows of the whole tensor) of ``what``: "rows" (owned nodes) or
+        "edges" (the shard's edges, in global edge order)."""
+        if what not in self._layouts:  # "edges", built on first use
+            pos = [np.arange(*s.shard.edge_range) if s.shard.edge_range is not None
+                   else np.asarray(s.shard.edge_idx, np.int64) for s in self.splan.shards]
+            e_max = max(p.size for p in pos) or 1
+            where = np.full(self.splan.num_edges, -1, np.int64)
+            for k, p in enumerate(pos):
+                where[p] = k * e_max + np.arange(p.size)
+            if (where < 0).any():
+                raise ValueError("an edge lies in no shard: the mesh cannot train on this plan")
+            self._layouts[what] = (e_max, _ids(where, self.device), _ids(pos[self.rank],
+                                                                         self.device))
+        return self._layouts[what]
+
+    def to_whole(self, part: torch.Tensor, what: str) -> torch.Tensor:
+        """Every rank's ``part`` (its owned rows, or its shard's edges),
+        padded and all-gathered, in global order."""
+        pad, where, _ = self._layout(what)
+        block = part.new_zeros((pad,) + tuple(part.shape[1:]))
+        block[: part.shape[0]] = part
+        stacked, _ = self.all_gather(block)
+        return stacked.index_select(0, where)
+
+    def mine(self, whole: torch.Tensor, what: str) -> torch.Tensor:
+        """This rank's part of a whole (replicated) tensor."""
+        return whole.index_select(0, self._layout(what)[2])
+
+    def _copies(self, plan: DeviceTilePlan):
+        """(rows of the all-gathered halo blocks holding a copy of one of this
+        rank's owned rows, the halo-transpose ``plan`` with its lanes
+        re-pointed into the compact buffer ``[owned | those copies | one zero
+        row]``, that buffer's row count). The tiles stay the plan's, so each
+        of this rank's segments is summed as the host loop sums it; every
+        other lane reads the zero row. Built on the first backward."""
+        if "copies" not in self._layouts:
+            ms, src, dst, off, first = self.state, [], [], 0, 0
+            for k, s in enumerate(self.splan.shards):
+                if k == self.rank:
+                    first = off
+                i = np.flatnonzero(ms.halo_owner[k, : s.halo_size] == self.rank)
+                src.append(k * ms.h_max + i)
+                dst.append(off + s.num_owned + i)
+                off += s.shard.num_local
+            dst = np.concatenate(dst)
+            n_own, n_rows = self.sp.num_owned, self.sp.num_owned + dst.size + 1
+            remap = np.full(off, n_rows - 1, np.int64)
+            remap[first: first + n_own] = np.arange(n_own)
+            remap[dst] = n_own + np.arange(dst.size)
+            lanes = _ids(remap, plan.gather_idx.device)[plan.gather_idx.long()]
+            self._layouts["copies"] = (_ids(np.concatenate(src), self.device),
+                                       plan._replace(gather_idx=lanes.to(torch.int32)), n_rows)
+        return self._layouts["copies"]
+
+    def rows_grad(self, g: torch.Tensor, plan: DeviceTilePlan) -> torch.Tensor:
+        """The whole gradient of the replicated rows from this rank's local
+        rows' gradient ``g`` (``_MeshRows``' backward), bitwise the host
+        loop's ``_ShardRows``: the ranks' halo-row gradients all-gathered
+        (padded to ``h_max``, ``_GRAD_COLUMNS`` columns at a time, which
+        bounds the gathered block: 1.1 GB at Yelp's 4 shards against 3.5 GB
+        for a layer of 400); this rank's owned rows' gradient and the
+        halo copies of them put in a compact buffer (``_copies``); the AGE
+        on the halo-transpose ``plan`` re-pointed there; this rank's owned
+        rows all-gathered."""
+        n_own, h = self.sp.num_owned, self.sp.halo_size
+        flat = g.reshape(g.shape[0], -1)
+        src, lanes, n_rows = self._copies(plan)
+        rows = flat.new_zeros((n_rows, flat.shape[1]))
+        rows[:n_own] = flat[:n_own]
+        for c0 in range(0, flat.shape[1], _GRAD_COLUMNS):  # bounds the gathered blocks
+            cols = slice(c0, c0 + _GRAD_COLUMNS)
+            block = flat.new_zeros((self.state.h_max, flat[:, cols].shape[1]))
+            block[:h] = flat[n_own:, cols]
+            halos, _ = self.all_gather(block)
+            rows[n_own: n_rows - 1, cols] = halos.index_select(0, src)
+            del halos, block
+        gx = aggregate_edge_tiles(rows, lanes, num_nodes=self.splan.num_nodes)
+        del rows
+        whole = self.to_whole(self.mine(gx, "rows"), "rows")
+        return whole.view((whole.shape[0],) + tuple(g.shape[1:]))
+
+
+class _MeshRows(torch.autograd.Function):
+    """This rank's local rows of the replicated ``x`` (``_MeshRank.
+    local_rows``); backward, the whole gradient on every rank
+    (``_MeshRank.rows_grad`` on the halo-transpose plan ``plan()``)."""
+
+    @staticmethod
+    def forward(ctx, x, rank, plan):
+        ctx.rank, ctx.plan = rank, plan
+        return rank.local_rows(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.rank.rows_grad(g.contiguous(), ctx.plan()), None, None
+
+
+class _MeshGather(torch.autograd.Function):
+    """This rank's part (``what``: its owned rows, or its shard's edges),
+    all-gathered into the whole in global order; backward, the rank's part of
+    the replicated gradient, with no communication."""
+
+    @staticmethod
+    def forward(ctx, part, rank, what):
+        ctx.rank, ctx.what = rank, what
+        return rank.to_whole(part, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.rank.mine(g, ctx.what), None, None
+
+
+class _MeshScatter(torch.autograd.Function):
+    """This rank's part of a replicated tensor (``what`` as in
+    ``_MeshGather``); backward, the ranks' parts of the gradient
+    all-gathered into the whole."""
+
+    @staticmethod
+    def forward(ctx, whole, rank, what):
+        ctx.rank, ctx.what = rank, what
+        return rank.mine(whole, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.rank.to_whole(g.contiguous(), ctx.what), None, None
+
+
+class _MeshScale(torch.autograd.Function):
+    """The int8 group's scale on this rank's shard; backward, the ranks'
+    gradients all-gathered and summed in shard order (``_ShardScale``'s
+    sum)."""
+
+    @staticmethod
+    def forward(ctx, scale, rank):
+        ctx.rank = rank
+        return scale.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        stacked, _ = ctx.rank.all_gather(g.reshape(1))
+        return _shard_order_sum(stacked.unbind(0)).view(g.shape), None
 
 
 def _groups_into(rows: torch.Tensor, dplans, qp, **kw) -> None:
@@ -610,12 +802,12 @@ def mesh_aggregate(
     _, _, _, dplans = _shard_state_entry(device_state, sp, mode, dev)
     n_own, n_local, tail = sp.num_owned, sp.shard.num_local, tuple(x.shape[1:])
     split = overlap and sp.halo_size > 0
-    block = x.index_select(0, rank.pad_ids)
-    stacked, work = rank.all_gather(block, async_op=split)
     coeff = None if edge_coeff is None else _local_edge_coeff(device_state, sp, edge_coeff)
     out = torch.zeros((n_local,) + tail, dtype=torch.float32, device=dev)
     kw = dict(qp=qp, num_nodes=n_local, edge_coeff=coeff, out=out)
     if split:
+        block = x.index_select(0, rank.pad_ids)
+        stacked, work = rank.all_gather(block, async_op=True)
         d_int, d_bnd = _shard_split_entry(device_state, sp, mode, dev)
         rows = torch.zeros((n_local,) + tail, dtype=x.dtype, device=dev)
         rows[:n_own] = block[:n_own]
@@ -625,9 +817,7 @@ def mesh_aggregate(
         del block, stacked
         _groups_into(rows, d_bnd, **kw)
     else:
-        rows = torch.cat([block[:n_own], stacked.index_select(0, rank.halo_ids)])
-        del block, stacked
-        _groups_into(rows, dplans, **kw)
+        _groups_into(rank.local_rows(x), dplans, **kw)
     if halo is not None:
         halo.note(0.0, 0.0, rank.halo_total * x.element_size() * int(np.prod(tail)), split)
     return rank.gather_owned(out[:n_own])
@@ -651,9 +841,10 @@ class ShardedAmpleEngine(AmpleEngine):
     The halo
     accounting accumulates in ``halo_stats`` (``HaloLedger``). Under grad
     ``aggregate``, ``edge_softmax``, ``attention_aggregate`` and
-    ``edge_scores`` differentiate per shard (the module's "Training"); the
-    plans their backward reads are built on the first backward and kept in
-    ``_shard_state`` beside the serving uploads.
+    ``edge_scores`` differentiate per shard (the module's "Training"), in
+    the host loop and on a mesh alike; the plans their backward reads are
+    built on the first backward and kept in ``_shard_state`` beside the
+    serving uploads.
     """
 
     def __init__(
@@ -702,13 +893,16 @@ class ShardedAmpleEngine(AmpleEngine):
         for sp in self.sharded_plan.shards:
             self._require_edge_ids((mode, sp.shard.index), sp.plan.mode_plans.get(mode, {}))
 
-    def _mesh_rank(self, device, *grad_inputs) -> Optional[_MeshRank]:
+    def _mesh_rank(self, device, training: bool = False) -> Optional[_MeshRank]:
         """This rank's ``_MeshRank`` on ``device`` (None without a mesh);
-        raises under grad and on a device the mesh does not hold."""
+        raises on a device the mesh does not hold, and under grad
+        (``training``) when a shard holds no rows or no edges (its rank
+        would run other collectives than the others)."""
         if self.mesh is None:
             return None
-        if attn_ops.wants_grad(*grad_inputs):
-            raise NotImplementedError(MESH_TRAINING)
+        if training and any(not sp.num_owned or not sp.shard.num_edges
+                            for sp in self.sharded_plan.shards):
+            raise ValueError("a mesh trains only when every shard owns rows and edges")
         if self.mesh.device_type != device.type:
             raise ValueError(
                 f"the mesh holds {self.mesh.device_type!r} devices but the rows lie on {device}")
@@ -743,14 +937,14 @@ class ShardedAmpleEngine(AmpleEngine):
         has_int8 = self.cfg.mixed_precision and any(
             "int8" in s.plan.mode_plans.get(mode, {}) for s in splan.shards)
         qp = self._activation_qp(lambda: x, "agg") if has_int8 else None
-        scale = None if qp is None else qp.scale
-        rank = self._mesh_rank(x.device, x, edge_coeff, scale)
+        grad = attn_ops.wants_grad(x, edge_coeff, None if qp is None else qp.scale)
+        rank = self._mesh_rank(x.device, grad)
+        if grad:
+            return self._aggregate_grad(x, mode, qp, edge_coeff, rank)
         if rank is not None:
             return mesh_aggregate(x, splan, rank, mode=mode, qp=qp,
                                   device_state=self._shard_state, edge_coeff=edge_coeff,
                                   overlap=self.halo_overlap, halo=self.halo)
-        if attn_ops.wants_grad(x, edge_coeff, scale):
-            return self._aggregate_grad(x, mode, qp, edge_coeff)
         return sharded_aggregate(
             x, splan, mode=mode, qp=qp, device_state=self._shard_state,
             edge_coeff=edge_coeff, overlap=self.halo_overlap, halo=self.halo,
@@ -770,7 +964,8 @@ class ShardedAmpleEngine(AmpleEngine):
         multi-head Function with each shard's ``TileGrad``, as in
         ``AmpleEngine.edge_softmax``. On a mesh each rank runs its own
         shard's passes and the per-node vectors are all-gathered as the
-        owned rows of ``aggregate`` are.
+        owned rows of ``aggregate`` are; under grad through ``_MeshScatter``
+        (the shard's edges) and ``_MeshGather`` (its owned rows).
         """
         scores = torch.as_tensor(scores, dtype=torch.float32)
         e = self.graph.num_edges
@@ -778,13 +973,12 @@ class ShardedAmpleEngine(AmpleEngine):
             raise ValueError(f"scores must be [{e}] or [{e}, H], got {tuple(scores.shape)}")
         self._check_edge_ids(mode)
         splan, dev = self.sharded_plan, scores.device
-        rank = self._mesh_rank(dev, scores)
+        rank = self._mesh_rank(dev, attn_ops.wants_grad(scores))
 
-        def shard_pass(sp, fn, vec, init, grad):
+        def shard_pass(sp, fn, local, init, grad):
             _, _, _, dplans = _shard_state_entry(self._shard_state, sp, mode, dev)
-            local = _local_edge_coeff(self._shard_state, sp, vec)
             n_local = sp.shard.num_local
-            acc = torch.full((n_local,) + tuple(vec.shape[1:]), init, device=dev)
+            acc = torch.full((n_local,) + tuple(local.shape[1:]), init, device=dev)
             for tag, dp in dplans.items():
                 kw = {"grad": self._shard_tile_grad(sp, mode, tag, dev)} if grad else {}
                 res = fn(local, dp, num_nodes=n_local, **kw)
@@ -792,9 +986,14 @@ class ShardedAmpleEngine(AmpleEngine):
             return acc[: sp.num_owned]
 
         def owned_pass(fn, vec, init, grad=False):
+            if rank is not None and grad:
+                local = _MeshScatter.apply(vec, rank, "edges")
+                return _MeshGather.apply(shard_pass(rank.sp, fn, local, init, grad), rank, "rows")
             if rank is not None:  # this rank's shard, the owned rows all-gathered
-                return rank.gather_owned(shard_pass(rank.sp, fn, vec, init, grad))
-            parts = [shard_pass(sp, fn, vec, init, grad) for sp in splan.shards]
+                local = _local_edge_coeff(self._shard_state, rank.sp, vec)
+                return rank.gather_owned(shard_pass(rank.sp, fn, local, init, grad))
+            parts = [shard_pass(sp, fn, _local_edge_coeff(self._shard_state, sp, vec), init, grad)
+                     for sp in splan.shards]
             return _unshuffle(self._shard_state, splan, torch.cat(parts, dim=0))
 
         node_max = owned_pass(segment_max_edge_tiles, scores.detach(), float("-inf"))
@@ -839,54 +1038,82 @@ class ShardedAmpleEngine(AmpleEngine):
         ``aggregation.edge_scores`` on its own plans (every destination is an
         owned row of one shard: its sums are the shard's pass; a source's
         reach the halo rows of other shards too, which the halo-transpose
-        plan adds up). The shards' edges are put back in global edge order.
-        Bitwise the plain indexing forward."""
+        plan adds up). The shards' edges are put back in global edge order;
+        on a mesh each rank scores its own shard's edges and they are
+        all-gathered (``_MeshRows``, ``_MeshGather``). Bitwise the plain
+        indexing forward."""
         dev = src_sc.device
-        self._mesh_rank(dev, src_sc, dst_sc)  # a mesh refuses grad
-        if not attn_ops.wants_grad(src_sc, dst_sc):  # serving
+        grad = attn_ops.wants_grad(src_sc, dst_sc)
+        rank = self._mesh_rank(dev, grad)
+        if not grad:  # serving
             src, dst = self.edge_endpoints(dev)
             return src_sc[src] + dst_sc[dst]
         self._check_edge_ids(mode)
-        parts = []
-        for sp, s_loc, d_loc in zip(self.sharded_plan.shards, self._local_rows(src_sc),
-                                    self._local_rows(dst_sc)):
-            if not sp.shard.num_edges:
-                continue
+
+        def shard_scores(sp, s_loc, d_loc):
             _, _, plans, dplans = _shard_state_entry(self._shard_state, sp, mode, dev)
             lsrc, ldst = self._shard_endpoints(sp, dev)
-            parts.append(edge_scores(
+            return edge_scores(
                 s_loc, d_loc, lsrc, ldst, [dplans[t] for t in plans],
-                [lambda t=t, sp=sp: self._shard_transposed(sp, mode, t, dev) for t in plans],
-                num_nodes=sp.shard.num_local))
+                [lambda t=t: self._shard_transposed(sp, mode, t, dev) for t in plans],
+                num_nodes=sp.shard.num_local)
+
+        if rank is not None:
+            halves = [_MeshRows.apply(h, rank, lambda: self._halo_transpose(dev))
+                      for h in (src_sc, dst_sc)]
+            return _MeshGather.apply(shard_scores(rank.sp, *halves), rank, "edges")
+        parts = [shard_scores(sp, s_loc, d_loc)
+                 for sp, s_loc, d_loc in zip(self.sharded_plan.shards, self._local_rows(src_sc),
+                                             self._local_rows(dst_sc))
+                 if sp.shard.num_edges]
         return self._global_edges(torch.cat(parts, dim=0))
 
     # ------------------------------------------------------------- training
-    def _aggregate_grad(self, x, mode, qp, edge_coeff) -> torch.Tensor:
+    def _aggregate_grad(self, x, mode, qp, edge_coeff, rank) -> torch.Tensor:
         """``aggregate`` under grad: per shard, the AGE's autograd over its
-        local rows (static coefficients: ``aggregate_autograd`` with the
-        shard's transposed plan; runtime: each group's multi-head Function
-        with the shard's ``TileGrad``), its owned rows kept. The local rows
-        come from ``_ShardRows``; an int8 group's scale gradient is summed
-        over the shards by autograd. The halo ledger (serving's accounting)
-        is not fed."""
+        local rows (``_shard_grad``), its owned rows kept. In the host loop
+        the local rows come from ``_ShardRows``, on a mesh from ``_MeshRows``
+        and the owned rows are all-gathered (``_MeshGather``). The int8
+        group's scale gradient is summed over the shards in shard order
+        (``_ShardScale``, ``_MeshScale``). The halo ledger (serving's
+        accounting) is not fed."""
         splan, st, dev = self.sharded_plan, self._shard_state, x.device
+        scale = None if qp is None or not qp.scale.requires_grad else qp.scale
+        if rank is not None:
+            sqp = qp if scale is None else QuantParams(_MeshScale.apply(scale, rank),
+                                                       qp.zero_point)
+            rows = _MeshRows.apply(x, rank, lambda: self._halo_transpose(dev))
+            coeff = edge_coeff
+            if edge_coeff is not None:
+                coeff = (_MeshScatter.apply(edge_coeff, rank, "edges") if edge_coeff.requires_grad
+                         else _local_edge_coeff(st, rank.sp, edge_coeff))
+            out = self._shard_grad(rank.sp, rows, mode, sqp, coeff)
+            return _MeshGather.apply(out[: rank.sp.num_owned], rank, "rows")
+        sqps = ([qp] * splan.num_shards if scale is None else
+                [QuantParams(s, qp.zero_point) for s in _ShardScale.apply(scale, splan.num_shards)])
         parts = []
-        for sp, rows in zip(splan.shards, self._local_rows(x)):
+        for sp, sqp, rows in zip(splan.shards, sqps, self._local_rows(x)):
             if not sp.num_owned:
                 continue
-            _, _, _, dplans = _shard_state_entry(st, sp, mode, dev)
-            n_local = sp.shard.num_local
-            if edge_coeff is None:
-                out = aggregate_autograd(
-                    rows, dplans, lambda sp=sp: self._shard_transposed(sp, mode, "float", dev),
-                    num_nodes=n_local, qp=qp)
-            else:
-                out = _aggregate_groups(
-                    rows, dplans, num_nodes=n_local, qp=qp,
-                    edge_coeff=_local_edge_coeff(st, sp, edge_coeff),
-                    grads={t: self._shard_tile_grad(sp, mode, t, dev) for t in dplans})
-            parts.append(out[: sp.num_owned])
+            coeff = None if edge_coeff is None else _local_edge_coeff(st, sp, edge_coeff)
+            parts.append(self._shard_grad(sp, rows, mode, sqp, coeff)[: sp.num_owned])
         return _unshuffle(st, splan, torch.cat(parts, dim=0))
+
+    def _shard_grad(self, sp, rows, mode, qp, coeff) -> torch.Tensor:
+        """Shard ``sp``'s aggregate under grad on its local rows: static
+        coefficients through ``aggregate_autograd`` with its transposed
+        plan, runtime ones (its slice ``coeff``) through each group's
+        multi-head Function with its ``TileGrad``."""
+        dev = rows.device
+        _, _, _, dplans = _shard_state_entry(self._shard_state, sp, mode, dev)
+        n_local = sp.shard.num_local
+        if coeff is None:
+            return aggregate_autograd(
+                rows, dplans, lambda: self._shard_transposed(sp, mode, "float", dev),
+                num_nodes=n_local, qp=qp)
+        return _aggregate_groups(
+            rows, dplans, num_nodes=n_local, qp=qp, edge_coeff=coeff,
+            grads={t: self._shard_tile_grad(sp, mode, t, dev) for t in dplans})
 
     def _local_rows(self, x: torch.Tensor):
         """Each shard's local rows ``[owned | halo]`` of ``x``, differentiable

@@ -306,7 +306,8 @@ class _AggregateTilesMH(torch.autograd.Function):
         gather_idx, edge_ids, coeff, seg_ids, out_node, split = tiles
         out = _aggregate_mh(x, gather_idx, edge_ids, edge_coeff, coeff, seg_ids, out_node,
                             split, num_nodes, qp, None, aligned)
-        ctx.save_for_backward(x, edge_coeff, out)
+        # the output only for the scale's gradient: a float group's is not kept
+        ctx.save_for_backward(x, edge_coeff, out if ctx.needs_input_grad[2] else None)
         ctx.grad, ctx.num_nodes, ctx.qp = grad, num_nodes, qp
         ctx.static = coeff is not None  # None: ones, in both directions
         return out

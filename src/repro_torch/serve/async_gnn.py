@@ -33,6 +33,19 @@ same admitted composition.
 
 The port of the reference's ``repro/serve/async_gnn.py``, bound to the port's
 ``GNNServeEngine``; the window runs on the engine's device.
+
+Over a mesh (an engine with ``mesh``: one process a shard, every rank
+submitting the same requests in the same order) **rank 0 decides** every
+window: its ``_admit`` picks the requests, their order, and flush or hold,
+and it broadcasts the window's request ids over the mesh's group before any
+rank runs it (``_MeshWindows``). The other ranks follow: they never close a
+window on their own clock. A follower that has not yet seen a request rank 0
+admitted waits for it up to the window timeout (``FOLLOWER_WAIT_MS`` when
+windows close at once); past that the window fails
+on every rank (its tickets complete with the error, and a request that
+arrives later completes with it at once). Whether a window ran and whether a
+failed one is requeued or failed is agreed by an all-reduce, so every rank
+takes the same decision and their collectives pair the same windows.
 """
 from __future__ import annotations
 
@@ -40,7 +53,9 @@ import dataclasses
 import threading
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Sequence
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.graphs.csr import Graph
@@ -53,13 +68,61 @@ from repro_torch.serve.gnn_engine import (
     request_stamp,
 )
 
-__all__ = ["GNNTicket", "AsyncGNNEngine", "MESH_FRONTS"]
+__all__ = ["GNNTicket", "AsyncGNNEngine", "FOLLOWER_WAIT_MS", "failed_ticket"]
 
-MESH_FRONTS = (
-    "the fronts over a mesh are not ported (ROADMAP queue 1, item 14): every rank "
-    "must admit the same windows, and a window that closes on the wall clock does "
-    "not guarantee that; call the engine's infer/infer_batch on every rank"
-)
+#: how long a follower waits for a request of rank 0's window when windows
+#: close at once (``window_timeout_ms`` 0); otherwise it waits the timeout
+FOLLOWER_WAIT_MS = 1000.0
+
+
+class _MeshWindows:
+    """Rank 0's window decisions over a mesh's ``("shard",)`` group.
+
+    ``share`` broadcasts rank 0's message (the window's request ids in
+    order, and what the front adds) to every rank; ``collect`` waits on a
+    follower for the requests it has not seen yet, up to ``wait_s``;
+    ``agree`` is true on every rank only when it is true on all of them.
+    Requests arrive under ``arrived`` (a condition: submit notifies it)."""
+
+    def __init__(self, mesh, wait_ms: float):
+        self.group = mesh.get_group("shard")
+        self.leader = mesh.get_local_rank("shard") == 0
+        self.src = torch.distributed.get_global_rank(self.group, 0)
+        self.wait_s = wait_ms / 1e3
+        self.arrived = threading.Condition()
+
+    def share(self, msg):
+        box = [msg]
+        torch.distributed.broadcast_object_list(box, src=self.src, group=self.group)
+        return box[0]
+
+    def agree(self, ok: bool) -> bool:
+        flag = torch.tensor([int(ok)], dtype=torch.int32)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MIN, group=self.group)
+        return bool(flag.item())
+
+    def collect(self, ids: Sequence[int], pending: Callable[[], Dict[int, object]]
+                ) -> Tuple[List[object], List[int]]:
+        """(the requests of ``ids`` this rank holds, in order; the ids it
+        still lacks after ``wait_s``). ``pending()`` maps id -> request and
+        is read under ``arrived``; the caller removes what it takes."""
+        deadline = time.monotonic() + self.wait_s
+        with self.arrived:
+            while True:
+                have = pending()
+                missing = [i for i in ids if i not in have]
+                left = deadline - time.monotonic()
+                if not missing or left <= 0:
+                    return [have[i] for i in ids if i in have], missing
+                self.arrived.wait(left)
+
+    def missing_error(self, ids, missing) -> BaseException:
+        """The error of a window some rank lacked requests of."""
+        if missing:
+            return TimeoutError(
+                f"requests {missing} of rank 0's window {list(ids)} did not reach this rank "
+                f"within {self.wait_s * 1e3:.0f} ms")
+        return RuntimeError(f"another rank lacked requests of rank 0's window {list(ids)}")
 
 
 @dataclasses.dataclass
@@ -142,6 +205,13 @@ class GNNTicket:
         return self.response
 
 
+def failed_ticket(error: BaseException) -> GNNTicket:
+    """A ticket that completed with ``error`` and ran nothing."""
+    ticket = GNNTicket(seq=-1, request=None)
+    ticket._complete(error=error)
+    return ticket
+
+
 class AsyncGNNEngine:
     """Continuous-batching front end over a ``GNNServeEngine``.
 
@@ -172,8 +242,12 @@ class AsyncGNNEngine:
         tickets exceptionally so a poisoned window can never wedge the
         queue forever. Defaults to ``cfg.gnn_window_retries``.
 
-    An engine with a ``mesh`` is refused (``MESH_FRONTS``), and so by the
-    tenancy router, which serves through this front.
+    On a mesh engine every rank builds this front and submits the same
+    requests in the same order; rank 0 decides the windows (the module's
+    last paragraph). A follower waits ``window_timeout_ms`` (or
+    ``FOLLOWER_WAIT_MS`` when windows close at once) for a request of rank
+    0's window before the window fails. ``drain`` runs until rank 0's queue
+    is empty, on every rank.
     """
 
     def __init__(
@@ -201,8 +275,6 @@ class AsyncGNNEngine:
                 f"engine must be a GNNServeEngine or a ModelConfig, got "
                 f"{type(engine).__name__}"
             )
-        if self.engine.mesh is not None:
-            raise ValueError(MESH_FRONTS)
         w = self.engine.cfg.gnn_batch_window if window is None else window
         if w < 1:
             raise ValueError("window must be >= 1")
@@ -224,6 +296,10 @@ class AsyncGNNEngine:
         if wr < 1:
             raise ValueError("window_retries must be >= 1")
         self.window_retries = int(wr)
+        self._mesh = (None if self.engine.mesh is None else _MeshWindows(
+            self.engine.mesh, self.window_timeout_ms or FOLLOWER_WAIT_MS))
+        self._mesh_more = False  # rank 0's queue held more after the last window
+        self._mesh_failed: Dict[int, BaseException] = {}  # seq -> error, not yet arrived
         self._queue: Deque[GNNTicket] = deque()
         self._seq = 0
         self._held_head: Optional[int] = None  # seq of the last held window head
@@ -288,8 +364,19 @@ class AsyncGNNEngine:
                 "submit", cat="serve", trace_id=trace_id,
                 args={"seq": ticket.seq, "nodes": graph.num_nodes},
             )
-        self._seq += 1
-        self._queue.append(ticket)
+        if self._mesh is None:
+            self._seq += 1
+            self._queue.append(ticket)
+        else:
+            with self._mesh.arrived:  # followers read the queue in another thread
+                ticket.seq = self._seq
+                self._seq += 1
+                error = self._mesh_failed.pop(ticket.seq, None)
+                if error is None:
+                    self._queue.append(ticket)
+                    self._mesh.arrived.notify_all()
+            if error is not None:  # its window failed before it arrived
+                ticket._complete(error=error)
         self.stats["submitted"] += 1
         self.stats["max_queue_depth"] = max(
             self.stats["max_queue_depth"], len(self._queue)
@@ -306,7 +393,10 @@ class AsyncGNNEngine:
     # ------------------------------------------------------------ event loop
     def _deadline_wait(self) -> Optional[float]:
         """Seconds until the oldest queued request's deadline; None when no
-        timeout applies (idle queue, or no timeout configured)."""
+        timeout applies (idle queue, or no timeout configured). On a mesh a
+        follower steps again at once: its step waits for rank 0's."""
+        if self._mesh is not None and not self._mesh.leader:
+            return 0.0
         if self.window_timeout_ms <= 0 or not self._queue:
             return None
         age = request_stamp() - self._queue[0].arrival
@@ -396,12 +486,22 @@ class AsyncGNNEngine:
         re-raising to the loop driver forever.
         """
         with self._drive_lock:
-            batch = self._admit(flush=flush)
+            if self._mesh is None:
+                batch = self._admit(flush=flush)
+            else:
+                batch, failed = self._mesh_admit(flush)
+                if failed:
+                    return batch
             if not batch:
                 return []
+            exc = None
             try:
                 responses = self.engine.infer_batch([t.request for t in batch])
-            except Exception as exc:
+            except Exception as e:
+                exc = e
+            if self._mesh is not None and not self._mesh.agree(exc is None) and exc is None:
+                exc = RuntimeError(f"window {[t.seq for t in batch]} failed on another rank")
+            if exc is not None:
                 self.stats["window_failures"] += 1
                 for t in batch:
                     t.failures += 1
@@ -418,12 +518,40 @@ class AsyncGNNEngine:
                 # is driving the loop while every request stays observable
                 # and retryable.
                 self._queue.extendleft(reversed(batch))
-                raise
+                raise exc
             self.stats["steps"] += 1
             for ticket, resp in zip(batch, responses):
                 ticket._complete(response=resp)
             self.stats["completed"] += len(batch)
             return batch
+
+    def _mesh_admit(self, flush: bool) -> Tuple[List[GNNTicket], bool]:
+        """(the window rank 0 admitted, failed): rank 0 runs ``_admit`` and
+        broadcasts the window's seqs; a follower takes them from its queue,
+        waiting for late ones. A window some rank lacks requests of fails on
+        every rank (its tickets complete with the error)."""
+        m = self._mesh
+        if m.leader:
+            batch = self._admit(flush=flush)
+            seqs, self._mesh_more = m.share(([t.seq for t in batch], bool(self._queue)))
+            missing = []
+        else:
+            seqs, self._mesh_more = m.share(None)
+            batch, missing = m.collect(seqs, lambda: {t.seq: t for t in self._queue})
+            with m.arrived:
+                for t in batch:
+                    self._queue.remove(t)
+        if not seqs or m.agree(not missing):
+            return batch, False
+        error = m.missing_error(seqs, missing)
+        with m.arrived:
+            self._mesh_failed.update((s, error) for s in missing)
+        self.stats["window_failures"] += 1
+        for t in batch:
+            t.failures += 1
+            t._complete(error=error)
+        self.stats["failed_tickets"] += len(seqs)
+        return batch, True
 
     def drain(self) -> List[GNNResponse]:
         """Run the loop until the queue is empty; responses in admission
@@ -433,8 +561,13 @@ class AsyncGNNEngine:
         the ticket itself); transient failures below the retry bound
         propagate as exceptions exactly like ``step``."""
         done: List[GNNTicket] = []
-        while self._queue:
+        if self._mesh is None:
+            while self._queue:
+                done.extend(self.step(flush=True))
+        else:  # every rank steps until rank 0's queue is empty
             done.extend(self.step(flush=True))
+            while self._mesh_more:
+                done.extend(self.step(flush=True))
         return [t.response for t in sorted(done, key=lambda t: t.seq)]
 
     def serve(self, requests: Sequence[GNNRequest]) -> List[GNNResponse]:

@@ -35,6 +35,17 @@ directly with the same window compositions (``window_log`` records them).
 
 The port of the reference's ``repro/serve/tenancy/router.py`` over the port's
 ``AsyncGNNEngine``.
+
+Over a mesh (an engine with ``mesh``, every rank submitting the same requests
+in the same order) the tenant scheduling runs on rank 0 alone: its token
+buckets, preemption, DWRR fill and hold decide each window, and rank 0
+broadcasts the window (each request's submission index and router seq, in
+order) and the submissions it rejected since the last window before any rank
+runs it. A follower admits every submission into one pending map, takes the
+window's requests from it (waiting for late ones as the engine's followers
+do; past that the window fails on every rank), and learns
+of a rejection at the next window: that ticket completes with
+``RateLimitExceeded``. Every rank's ``window_log`` is rank 0's.
 """
 from __future__ import annotations
 
@@ -47,7 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.graphs.csr import Graph
 from repro_torch.observe import metrics as ometrics
 from repro_torch.observe import trace as otrace
-from repro_torch.serve.async_gnn import AsyncGNNEngine, GNNTicket
+from repro_torch.serve.async_gnn import AsyncGNNEngine, GNNTicket, failed_ticket
 from repro_torch.serve.gnn_engine import GNNResponse, GNNServeEngine, request_stamp
 from repro_torch.serve.telemetry import TenantTelemetry
 from repro_torch.serve.tenancy.registry import TenantRegistry, TenantSpec, TokenBucket
@@ -78,6 +89,7 @@ class RoutedTicket:
     arrival: float  # request_stamp() at router admission
     preemptions: int = 0  # times bumped out of a staged window by a higher class
     trace_id: str = ""  # per-request correlation id (observe.trace)
+    key: int = -1  # on a mesh: the index of its submit call on this rank
     _router: Optional["TenantRouter"] = dataclasses.field(
         default=None, repr=False, compare=False
     )
@@ -162,6 +174,11 @@ class TenantRouter:
     window_log_size: how many executed window compositions to keep in
         ``window_log`` (each entry is a tuple of (tenant, seq) pairs) — the
         replay record for bitwise parity checks against direct serving.
+
+    On a mesh engine rank 0 schedules and the other ranks follow (the
+    module's last paragraph); a follower's ``submit`` never raises
+    ``RateLimitExceeded`` and its ticket's ``seq`` is rank 0's once the
+    request is in a window.
     """
 
     def __init__(
@@ -219,6 +236,12 @@ class TenantRouter:
         self._inflight: List[RoutedTicket] = []  # handed to the engine
         self._held_head: Optional[int] = None
         self._seq = 0
+        self._mesh = self.engine._mesh  # rank 0's decisions, on the engine's group
+        self._keys = 0  # submit calls on a mesh, rejected ones too
+        self._rejected: List[Tuple[int, str]] = []  # rank 0: (key, tenant) since the last window
+        self._follow: Dict[int, RoutedTicket] = {}  # a follower's submissions by key
+        self._mesh_failed: Dict[int, BaseException] = {}  # key -> error, not yet arrived
+        self._mesh_more = False
         self.window_log: Deque[Tuple[Tuple[str, int], ...]] = deque(
             maxlen=window_log_size
         )
@@ -272,7 +295,14 @@ class TenantRouter:
         """
         spec = self.registry.get(tenant)
         rec = otrace.get_recorder()
+        key = self._keys
+        if self._mesh is not None:
+            self._keys += 1
+            if not self._mesh.leader:
+                return self._follower_submit(key, tenant, graph, features, arch)
         if not self._bucket(spec).try_acquire():
+            if self._mesh is not None:
+                self._rejected.append((key, tenant))
             self.stats["rejected"] += 1
             self.telemetry.record_rejected(tenant)
             if rec.enabled:
@@ -291,6 +321,7 @@ class TenantRouter:
             arch=arch,
             arrival=request_stamp(),
             trace_id=trace_id,
+            key=key,
             _router=self,
         )
         if rec.enabled:
@@ -306,9 +337,44 @@ class TenantRouter:
         self._maybe_preempt(spec)
         return ticket
 
+    def _follower_submit(self, key, tenant, graph, features, arch) -> RoutedTicket:
+        """A follower's submit: validated and held by ``key`` until rank 0
+        names it in a window (or fails it)."""
+        serve_engine = self.engine.engine
+        ticket = RoutedTicket(
+            seq=-1, tenant=tenant, graph=graph, arch=serve_engine._arch(arch),
+            features=serve_engine._validate_request(graph, features),
+            arrival=request_stamp(), key=key, _router=self,
+        )
+        with self._mesh.arrived:
+            error = self._mesh_failed.pop(key, None)
+            if error is None:
+                self._follow[key] = ticket
+                self._mesh.arrived.notify_all()
+        if error is not None:
+            self._fail(ticket, error)
+        return ticket
+
+    def _admitted(self, rt: RoutedTicket) -> None:
+        """A follower counts a submission once rank 0 admitted it, so its
+        counters are rank 0's."""
+        self.stats["submitted"] += 1
+        self.telemetry.record_submitted(rt.tenant, now=rt.arrival)
+
+    def _fail(self, rt: RoutedTicket, error: BaseException) -> None:
+        """Complete a follower's ``rt`` with ``error``: rejected by rank 0,
+        or in a window some rank lacked requests of."""
+        rt._ticket = failed_ticket(error)
+        if isinstance(error, RateLimitExceeded):
+            self.stats["rejected"] += 1
+            self.telemetry.record_rejected(rt.tenant)
+        else:
+            self._admitted(rt)
+            self._on_complete(rt)
+
     @property
     def pending(self) -> int:
-        queued = sum(len(q) for q in self._queues.values())
+        queued = sum(len(q) for q in self._queues.values()) + len(self._follow)
         return queued + len(self._staged) + len(self._inflight)
 
     def queue_depths(self) -> Dict[str, int]:
@@ -485,7 +551,10 @@ class TenantRouter:
 
     def _hold_wait(self) -> Optional[float]:
         """Seconds until the staged window's hold deadline; None when no
-        hold applies (no hold configured, nothing staged or queued)."""
+        hold applies (no hold configured, nothing staged or queued). On a
+        mesh a follower steps again at once: its step waits for rank 0's."""
+        if self._mesh is not None and not self._mesh.leader:
+            return 0.0
         if self.hold_ms <= 0:
             return None
         oldest = None
@@ -508,9 +577,29 @@ class TenantRouter:
         engine's retry bound stays in flight — the error propagates, and the
         next step retries it before composing anything new.
         """
-        rec = otrace.get_recorder()
         if self._inflight:
             return self._run_engine()  # retry the failed window first
+        if self._mesh is None:
+            staged = self._compose(flush)
+        else:
+            staged, failed = self._mesh_compose(flush)
+            if failed:
+                return staged
+        if not staged:
+            return []
+        self.window_log.append(tuple((rt.tenant, rt.seq) for rt in staged))
+        for rt in staged:
+            rt._ticket = self.engine.submit(
+                rt.graph, rt.features, arch=rt.arch, arrival=rt.arrival,
+                trace_id=rt.trace_id,
+            )
+        self._inflight = staged
+        return self._run_engine()
+
+    def _compose(self, flush: bool) -> List[RoutedTicket]:
+        """The next window by DWRR (emptied from ``_staged``), or nothing
+        when idle or when a partial window is held."""
+        rec = otrace.get_recorder()
         fill_t0 = time.perf_counter()
         self._fill_staged()
         if rec.enabled and self._staged:
@@ -551,14 +640,50 @@ class TenantRouter:
                           "deadline_close": True},
                 )
         staged, self._staged, self._staged_nodes = self._staged, [], 0
-        self.window_log.append(tuple((rt.tenant, rt.seq) for rt in staged))
+        return staged
+
+    def _mesh_compose(self, flush: bool) -> Tuple[List[RoutedTicket], bool]:
+        """(the window rank 0 composed, failed): rank 0 composes and
+        broadcasts the window's (key, seq) pairs with the submissions it
+        rejected; a follower fails those, takes the window's requests from
+        its pending map (waiting for late ones) and gives them rank 0's
+        seqs. A window some rank lacks requests of fails on every rank."""
+        m = self._mesh
+        if m.leader:
+            staged = self._compose(flush)
+            msg = m.share(dict(window=[(rt.key, rt.seq) for rt in staged],
+                               rejected=self._rejected,
+                               more=bool(self._staged or self._backlogged())))
+            self._rejected, missing = [], []
+        else:
+            msg = m.share(None)
+            for key, tenant in msg["rejected"]:
+                with m.arrived:
+                    rt = self._follow.pop(key, None)
+                    if rt is None:
+                        self._mesh_failed[key] = RateLimitExceeded(tenant)
+                if rt is not None:
+                    self._fail(rt, RateLimitExceeded(tenant))
+            keys = [k for k, _ in msg["window"]]
+            staged, missing = m.collect(keys, lambda: self._follow)
+            with m.arrived:
+                for rt in staged:
+                    del self._follow[rt.key]
+            seqs = dict(msg["window"])
+            for rt in staged:
+                rt.seq = seqs[rt.key]
+                self._admitted(rt)
+        self._mesh_more = msg["more"]
+        if not msg["window"] or m.agree(not missing):
+            return staged, False
+        keys = [k for k, _ in msg["window"]]
+        error = m.missing_error(keys, missing)
+        with m.arrived:
+            self._mesh_failed.update((k, error) for k in missing)
         for rt in staged:
-            rt._ticket = self.engine.submit(
-                rt.graph, rt.features, arch=rt.arch, arrival=rt.arrival,
-                trace_id=rt.trace_id,
-            )
-        self._inflight = staged
-        return self._run_engine()
+            rt._ticket = failed_ticket(error)
+            self._on_complete(rt)
+        return staged, True
 
     def _run_engine(self) -> List[RoutedTicket]:
         """Drive the engine through the in-flight window; complete tickets.
@@ -601,8 +726,13 @@ class TenantRouter:
         """Run the loop until nothing is queued, staged or in flight;
         tickets back in router admission order. Flushes held windows."""
         done: List[RoutedTicket] = []
-        while self.pending:
+        if self._mesh is None:
+            while self.pending:
+                done.extend(self.step(flush=True))
+        else:  # every rank steps until rank 0 has nothing left
             done.extend(self.step(flush=True))
+            while self._inflight or self._mesh_more:
+                done.extend(self.step(flush=True))
         return sorted(done, key=lambda rt: rt.seq)
 
     def serve(

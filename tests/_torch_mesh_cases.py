@@ -57,6 +57,34 @@ def run_case(case, mesh):
         y = eng.aggregate(torch.from_numpy(case["x"]), mode="runtime",
                           edge_coeff=torch.from_numpy(case["coeff"]))
         return dict(y=y.numpy(), **eng.halo_stats)
+    if kind == "train":  # the arch's loss under grad: the output, every gradient
+        cfg = case["cfg"]
+        eng = ShardedAmpleEngine(case["graph"], _splan(case, (gnn_api.agg_mode(cfg),)),
+                                 mesh=mesh, halo_overlap=overlap)
+        params = _tree_map(lambda t: t.detach().clone().requires_grad_(), case["params"])
+        x = torch.from_numpy(case["x"]).requires_grad_()
+        y = gnn_api.gnn_apply(cfg, params, eng, x)
+        return _grads(y, [x] + _leaves(params), case["r"], case.get("die_before_backward"))
+    if kind == "train-coeff":  # a raw f32[E] runtime coefficient and the rows under grad
+        eng = ShardedAmpleEngine(case["graph"], _splan(case, ("runtime",)), mesh=mesh,
+                                 halo_overlap=overlap)
+        x = torch.from_numpy(case["x"]).requires_grad_()
+        coeff = torch.from_numpy(case["coeff"]).requires_grad_()
+        y = eng.aggregate(x, mode="runtime", edge_coeff=coeff)
+        return _grads(y, [x, coeff], case["r"])
+    if kind == "train-scale":  # the int8 group's scale as a leaf: its gradient, and the rows'
+        eng = ShardedAmpleEngine(case["graph"], _splan(case, ("sum",)), mesh=mesh,
+                                 halo_overlap=overlap)
+        from repro_torch.core.quantization import compute_scale_zp
+
+        x = torch.from_numpy(case["x"]).requires_grad_()
+        qp = compute_scale_zp(x.detach(), symmetric=True)
+        scale = qp.scale.clone().requires_grad_()
+        eng._activation_qp = lambda *a, **kw: type(qp)(scale, qp.zero_point)
+        y = eng.aggregate(x, mode="sum")
+        return _grads(y, [x, scale], case["r"])
+    if kind == "front":
+        return _front(case, mesh)
     if kind == "serve":  # GNNServeEngine: cold, warm (after a plan cache load)
         from repro_torch.serve.gnn_engine import GNNServeEngine
 
@@ -70,6 +98,100 @@ def run_case(case, mesh):
                     num_shards=[r.num_shards for r in rs], loaded=loaded,
                     planner_calls=srv.stats["planner_calls"])
     raise ValueError(f"unknown case kind {kind!r}")
+
+
+def _front(case, mesh):
+    """A request stream through ``AsyncGNNEngine`` or a two-tenant
+    ``TenantRouter`` (``case["front"]``) over a sharded GNNServeEngine, on a
+    mesh or (``mesh`` None) the host loop: ``case["runs"]`` drains of the
+    same stream (cold, then warm). On the mesh, rank ``case["late"]``
+    submits from a thread, ``delay_s`` apart, while it drains; with
+    ``case["stop"]`` it submits only the first ``stop`` requests (a stuck
+    follower), and the rest after the drain. Each run: the windows served
+    (node counts of their members), each request's output or error, the
+    router's ``window_log``."""
+    import threading
+
+    from repro_torch.serve.async_gnn import AsyncGNNEngine
+    from repro_torch.serve.gnn_engine import GNNServeEngine
+    from repro_torch.serve.tenancy.router import TenantRouter
+
+    srv = GNNServeEngine(case["cfg"], case["params"], num_shards=WORLD, partitioner="edges",
+                         mesh=mesh, device="cpu")
+    windows, infer_batch = [], srv.infer_batch
+
+    def logged(requests):
+        windows.append([r.graph.num_nodes for r in requests])
+        return infer_batch(requests)
+
+    srv.infer_batch = logged
+    front = AsyncGNNEngine(srv, window=case["window"])
+    if case["front"] == "router":
+        front = TenantRouter(front)
+        front.add_tenant("gold", weight=2.0, priority=1)
+        front.add_tenant("batch", weight=1.0)
+    rank = 0 if mesh is None else mesh.get_local_rank("shard")
+    late = mesh is not None and rank == case.get("late")
+    stop = case.get("stop") if late else None
+    requests = case["requests"]
+
+    def submit(items, tickets, delay=0.0):
+        for i, (tenant, g, x) in items:
+            time.sleep(delay)
+            tickets[i] = (front.submit(tenant, g, x) if case["front"] == "router"
+                          else front.submit(g, x))
+
+    def outcome(t):
+        return type(t.error).__name__ if t.error is not None else t.response.outputs
+
+    runs = []
+    for _ in range(case["runs"]):
+        del windows[:]
+        tickets = {}
+        items = list(enumerate(requests))[:stop]
+        if late:
+            th = threading.Thread(target=submit, args=(items, tickets, case["delay_s"]))
+            th.start()
+        else:
+            submit(items, tickets)
+        if case.get("fault") == rank:
+            time.sleep(3600)
+        front.drain()
+        if late:
+            th.join()
+        submit(list(enumerate(requests))[len(items):], tickets)  # a stuck rank's rest
+        runs.append(dict(windows=list(windows),
+                         results=[outcome(tickets[i]) for i in range(len(requests))],
+                         done=[tickets[i].done for i in range(len(requests))],
+                         window_log=list(getattr(front, "window_log", []))))
+    return dict(runs=runs, stats=dict(front.stats))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree):
+    """The tensors of a params tree, keys sorted."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _grads(y, inputs, r, die=False):
+    """The output and the gradients of ``sum(y * r)`` (None: unused);
+    ``die``: the process exits before the backward."""
+    loss = (y * torch.from_numpy(r)).sum()
+    if die:
+        os._exit(3)
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    return dict(y=y.detach().numpy(), grads=[None if g is None else g.numpy() for g in grads])
 
 
 # ------------------------------------------------------------- the parent
@@ -119,6 +241,11 @@ def rank_main(rank: int, world: int, directory: str) -> None:
         raise SystemExit(3)
     if fault.get(rank) == "hang":
         time.sleep(3600)
+    for c in spec["cases"]:  # a fault inside a case: rank k dies in backward, or hangs in a window
+        if fault.get(rank) == "die-backward":
+            c["die_before_backward"] = True
+        if fault.get(rank) == "hang-window":
+            c["fault"] = rank
     out = {c["name"]: run_case(c, mesh) for c in spec["cases"]}
     out["_rank"] = mesh.get_local_rank("shard")
     out["_backend"] = dist.get_backend(mesh.get_group("shard"))

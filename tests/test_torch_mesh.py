@@ -10,11 +10,17 @@ sage (mixed) under ``edges`` and ``mincut``, with and without
 mesh output must be bitwise the port's host loop on every rank; the host
 loop is held against the reference's at ``tests/test_torch_sharded.py``'s
 tolerances. The serving engine on a mesh: warm == cold, and a plan cache a
-host-loop engine saved loads as a hit. The refusals need no process group.
+host-loop engine saved loads as a hit. Training on a mesh: every gradient
+(the params, the input, a runtime coefficient, the int8 scale) bitwise the
+host loop's (which ``tests/test_torch_train_sharded.py`` holds against the
+reference's ``jax.grad``) and the same on every rank. The fronts on a mesh:
+rank 0's windows on every rank, one rank's submissions late, bitwise the
+same fronts over the host loop, each tenant's order kept, warm == cold, and
+a stuck follower failing its windows on every rank. The refusals need no
+process group.
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 import time
 
@@ -31,17 +37,11 @@ from repro.graphs import datasets as ref_ds
 from repro.graphs import partition as ref_part
 from repro.models.gnn import api as ref_api
 from repro_torch.core import message_passing as port_mp
-from repro_torch.distributed.graph_shard import (
-    MESH_TRAINING,
-    ShardedAmpleEngine,
-    build_mesh_state,
-)
+from repro_torch.distributed.graph_shard import ShardedAmpleEngine, build_mesh_state
 from repro_torch.graphs import datasets as port_ds
 from repro_torch.graphs import partition as port_part
 from repro_torch.models.gnn import api as port_api
-from repro_torch.serve.async_gnn import MESH_FRONTS, AsyncGNNEngine
 from repro_torch.serve.gnn_engine import GNNServeEngine
-from repro_torch.serve.tenancy.router import TenantRouter
 
 KINDS = ["edges", "mincut"]
 ARCHS = ["gcn", "gin", "sage"]
@@ -75,21 +75,50 @@ def _case_list(models, plan_dir):
             part = port_part.make_partition(prepared, cases.WORLD, kind)
             base = dict(graph=prepared, engine_cfg=port_api.engine_config(pcfg), partition=part,
                         x=pg.features)
+            r = np.random.default_rng(5).standard_normal(
+                (prepared.num_nodes, pcfg.gnn_layer_dims[-1])).astype(np.float32)
+            rx = np.random.default_rng(6).standard_normal(pg.features.shape).astype(np.float32)
             for overlap in (False, True):
                 out.append(dict(base, name=f"gnn-{arch}-{kind}-{overlap}", kind="gnn", cfg=pcfg,
                                 params=pp, overlap=overlap))
+                # training runs unsplit: the host loop's overlap=False gradients hold both
+                out.append(dict(base, name=f"train-{arch}-{kind}-{overlap}", kind="train",
+                                cfg=pcfg, params=pp, overlap=overlap, r=r, host=not overlap))
             if arch == "gat":
                 coeff = np.random.default_rng(0).standard_normal(prepared.num_edges).astype(
                     np.float32)
                 for overlap in (False, True):
                     out.append(dict(base, name=f"coeff-{kind}-{overlap}", kind="coeff",
                                     coeff=coeff, overlap=overlap))
+                out.append(dict(base, name=f"train-coeff-{kind}", kind="train-coeff",
+                                coeff=coeff, r=rx))
+            if arch == "gcn":
+                out.append(dict(base, name=f"train-scale-{kind}", kind="train-scale", r=rx))
     for arch, overlap, warm in (("gcn", False, False), ("gcn", True, True),
                                 ("gat", True, False)):
         _, pcfg, _, pp, (_, pg) = models[arch]
         out.append(dict(name=f"serve-{arch}-{overlap}-{warm}", kind="serve", cfg=pcfg, params=pp,
                         graph=pg, x=pg.features, partitioner="edges", overlap=overlap,
                         plan_dir=plan_dir if warm else None))
+    _, pcfg, _, pp, _ = models["gcn"]
+    front = dict(kind="front", cfg=pcfg, params=pp, requests=_front_requests(), window=2,
+                 delay_s=0.05, late=LATE)
+    out += [dict(front, name="front-async", front="async", runs=2),
+            dict(front, name="front-router", front="router", runs=2),
+            dict(front, name="front-stuck", front="async", stop=STOP, runs=1, host=False)]
+    return out
+
+
+LATE, STOP = 3, 3  # the rank whose submissions come late; a stuck rank submits this many
+
+
+def _front_requests():
+    """Six small graphs of distinct sizes, two tenants (gold every third)."""
+    out = []
+    for i, n in enumerate((40, 46, 52, 58, 64, 70)):
+        g = port_ds.make_dataset("citeseer", max_nodes=n, max_feature_dim=GNN_KW["d_model"],
+                                 seed=10 + i)
+        out.append(("gold" if i % 3 == 0 else "batch", g, g.features))
     return out
 
 
@@ -107,7 +136,7 @@ def mesh_run(tmp_path_factory):
     case_list = _case_list(models, plan_dir)
     torch.save({"cases": case_list, "timeout_s": 60}, os.path.join(d, "inputs.pt"))
     ranks = cases.run_ranks(d, deadline_s=150.0)
-    host = {c["name"]: cases.run_case(c, None) for c in case_list}
+    host = {c["name"]: cases.run_case(c, None) for c in case_list if c.get("host", True)}
     return {c["name"]: c for c in case_list}, ranks, host, models, host_serve
 
 
@@ -192,6 +221,102 @@ def test_mesh_serving_loads_a_host_loop_plan_cache_as_a_hit(mesh_run):
         assert all(np.array_equal(y, host_serve) for y in got["y"])
 
 
+# ------------------------------------------------------------- training
+def _same_grads(ranks, name, want):
+    """Every rank's output and gradients bitwise ``want``'s (None where
+    an input got none)."""
+    for r in ranks:
+        got = r[name]
+        assert np.array_equal(got["y"], want["y"])
+        assert len(got["grads"]) == len(want["grads"])
+        for g, w in zip(got["grads"], want["grads"]):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert g.dtype == w.dtype and np.isfinite(g).all() and np.array_equal(g, w)
+    assert any(w is not None and np.abs(w).max() > 0 for w in want["grads"])
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ARCHS + ["gat"])
+def test_mesh_training_is_bitwise_the_host_loop(mesh_run, arch, kind, overlap):
+    """The arch's loss under grad on a mesh: the input's and every
+    parameter's gradient bitwise the host loop's on every rank (a mixed
+    engine: the int8 group's scale gradient rides in the input's)."""
+    _, ranks, host, _, _ = mesh_run
+    _same_grads(ranks, f"train-{arch}-{kind}-{overlap}", host[f"train-{arch}-{kind}-False"])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_mesh_runtime_coefficient_gradient_is_bitwise_the_host_loop(mesh_run, kind):
+    """A raw f32[E] runtime coefficient that requires grad: its gradient
+    (each shard's edges all-gathered into global edge order) and the
+    rows'."""
+    _, ranks, host, _, _ = mesh_run
+    _same_grads(ranks, f"train-coeff-{kind}", host[f"train-coeff-{kind}"])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_mesh_int8_scale_gradient_is_bitwise_the_host_loop(mesh_run, kind):
+    """The int8 group's scale as a leaf: the shards' contributions
+    all-gathered and summed in shard order, as the host loop sums them."""
+    _, ranks, host, _, _ = mesh_run
+    name = f"train-scale-{kind}"
+    _same_grads(ranks, name, host[name])
+    assert host[name]["grads"][1].shape == () and host[name]["grads"][1] != 0
+
+
+# ------------------------------------------------------------- the fronts
+def _same_runs(ranks, name, want):
+    for r in ranks:
+        for got, w in zip(r[name]["runs"], want["runs"]):
+            assert got["windows"] == w["windows"] and got["window_log"] == w["window_log"]
+            assert all(got["done"]) and len(got["results"]) == len(w["results"])
+            for a, b in zip(got["results"], w["results"]):
+                assert isinstance(a, np.ndarray) and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("front", ["async", "router"])
+def test_mesh_fronts_run_rank_0s_windows_bitwise_the_host_loop(mesh_run, front):
+    """Rank 3's submissions arrive late, from a thread: every rank runs rank
+    0's windows, bitwise the same front over the host loop (async is sync:
+    the host loop's infer_batch of each window); a second drain of the stream
+    (warm) is bitwise the first (cold)."""
+    _, ranks, host, _, _ = mesh_run
+    name = f"front-{front}"
+    _same_runs(ranks, name, host[name])
+    for r in ranks:
+        cold, warm = r[name]["runs"]
+        assert all(np.array_equal(a, b) for a, b in zip(cold["results"], warm["results"]))
+    assert all(r[name]["stats"] == ranks[0][name]["stats"] for r in ranks[1:]
+               if front == "router")
+
+
+def test_mesh_router_keeps_each_tenants_order(mesh_run):
+    _, ranks, _, _, _ = mesh_run
+    log = ranks[0]["front-router"]["runs"][0]["window_log"]
+    assert sum(len(w) for w in log) == 6 and log[0][0] == ("gold", 0)
+    for tenant in ("gold", "batch"):
+        seqs = [seq for w in log for t, seq in w if t == tenant]
+        assert seqs == sorted(seqs)
+
+
+def test_a_stuck_follower_fails_its_windows_on_every_rank(mesh_run):
+    """Rank 3 submits only the first 3 requests before it drains: the
+    windows holding the others fail on every rank after the follower's wait
+    (a timeout there, another rank's failure elsewhere); the windows before
+    them run. The missing requests, submitted after the drain, complete at
+    once with the window's error."""
+    _, ranks, _, _, _ = mesh_run
+    for r in ranks:
+        run = r["front-stuck"]["runs"][0]
+        failed = "TimeoutError" if r["_rank"] == LATE else "RuntimeError"
+        assert run["windows"] == [[40, 46]] and all(run["done"])
+        assert all(isinstance(x, np.ndarray) for x in run["results"][:2])
+        assert run["results"][2:] == [failed] * 4
+        assert r["front-stuck"]["stats"]["window_failures"] == 2
+
+
 def test_ranks_are_one_per_shard_over_gloo_and_import_only_the_port(mesh_run):
     _, ranks, _, _, _ = mesh_run
     assert [r["_rank"] for r in ranks] == list(range(cases.WORLD))
@@ -199,16 +324,25 @@ def test_ranks_are_one_per_shard_over_gloo_and_import_only_the_port(mesh_run):
 
 
 # ------------------------------------------------------------ no hang
-@pytest.mark.parametrize("fault", ["die", "hang"])
+@pytest.mark.parametrize("fault", ["die", "hang", "die-backward", "hang-window"])
 def test_a_dead_or_stuck_rank_fails_within_the_deadline(tmp_path, fault):
-    """Rank 2 exits, or sleeps past every collective; the others wait in
-    their first all-gather. ``run_ranks`` kills them all and raises."""
-    _, pcfg = cfg_pair("gcn", **GNN_KW)
+    """Rank 2 exits, or sleeps past every collective, before a request,
+    between a training step's forward and backward ("die-backward": the
+    others wait in the backward's all-gathers), or before it follows rank
+    0's window ("hang-window": the others wait in the window's broadcast).
+    ``run_ranks`` kills them all and raises."""
+    pcfg, pp = (cfg_pair("gcn", **GNN_KW)[1],
+                params_pair(*cfg_pair("gcn", **GNN_KW), seed=0)[1])
     _, pg = _graphs(60, 1, 20)
     prepared = port_api.prepare_graph(pcfg, pg)
-    case = dict(name="gnn", kind="coeff", graph=prepared, engine_cfg=port_api.engine_config(pcfg),
-                partition=port_part.make_partition(prepared, cases.WORLD, "edges"),
-                x=pg.features, coeff=np.ones(prepared.num_edges, np.float32))
+    base = dict(graph=prepared, engine_cfg=port_api.engine_config(pcfg),
+                partition=port_part.make_partition(prepared, cases.WORLD, "edges"), x=pg.features)
+    case = {
+        "die-backward": dict(base, name="train", kind="train", cfg=pcfg, params=pp,
+                             r=np.ones((prepared.num_nodes, pcfg.gnn_layer_dims[-1]), np.float32)),
+        "hang-window": dict(name="front", kind="front", cfg=pcfg, params=pp, front="async",
+                            requests=[("gold", pg, pg.features)] * 2, window=2, runs=1),
+    }.get(fault, dict(base, name="gnn", kind="coeff", coeff=np.ones(prepared.num_edges, np.float32)))
     torch.save({"cases": [case], "timeout_s": 2, "fault": {2: fault}},
                os.path.join(tmp_path, "inputs.pt"))
     t0 = time.monotonic()
@@ -271,19 +405,6 @@ def test_mesh_needs_one_rank_per_shard(gcn_small):
         GNNServeEngine(pcfg, num_shards=4, mesh=_Mesh(size=3), device="cpu")
 
 
-@pytest.mark.parametrize("call", ["aggregate", "edge_softmax", "edge_scores"])
-def test_mesh_refuses_training_and_names_the_roadmap_item(gcn_small, call):
-    _, pg, splan = gcn_small
-    eng = ShardedAmpleEngine(pg, splan, mesh=_Mesh())
-    x = torch.randn(pg.num_nodes, 3, requires_grad=True)
-    e = torch.randn(pg.num_edges, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13") as info:
-        {"aggregate": lambda: eng.aggregate(x, mode="sum"),
-         "edge_softmax": lambda: eng.edge_softmax(e),
-         "edge_scores": lambda: eng.edge_scores(x[:, 0], x[:, 1])}[call]()
-    assert str(info.value) == MESH_TRAINING
-
-
 def test_mesh_refuses_rows_on_another_device(gcn_small):
     _, pg, splan = gcn_small
     eng = ShardedAmpleEngine(pg, splan, mesh=_Mesh(device_type="cuda"))
@@ -291,13 +412,3 @@ def test_mesh_refuses_rows_on_another_device(gcn_small):
         eng.aggregate(torch.randn(pg.num_nodes, 3), mode="sum")
 
 
-@pytest.mark.parametrize("front", ["async", "router"])
-def test_the_fronts_refuse_a_mesh_and_name_the_roadmap_item(gcn_small, front):
-    pcfg = gcn_small[0]
-    srv = GNNServeEngine(pcfg, num_shards=4, mesh=_Mesh(), device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 14") as info:
-        AsyncGNNEngine(srv) if front == "async" else TenantRouter(srv)
-    assert str(info.value) == MESH_FRONTS
-    with pytest.raises(ValueError, match="item 14"):  # built from a config with a mesh
-        (AsyncGNNEngine if front == "async" else TenantRouter)(
-            dataclasses.replace(pcfg), num_shards=4, mesh=_Mesh(), device="cpu")
