@@ -167,7 +167,9 @@ Every phase that fails raises, so the script exits non-zero.
              bitwise equal to the plain version's; a ragged S = 1000 in f32 on
              the CUDA-core kernel within 1e-4; unmasked: the Seamless encoder
              (S = T = 1,024), its cross-attention (S 36 and S 1 over T 1,024)
-             in bf16 and a ragged f32 case) and
+             in bf16 and a ragged f32 case; a mesh rank's context-parallel
+             call: B 2, S 1,024 over T 2,048, H 32/8, hd 128, bf16 causal,
+             timed beside SDPA with the end-aligned mask) and
              the SSD intra-chunk term (Mamba2-370M and Jamba prefill and a
              ragged chunk, within 1e-4 of the plain version run with TF32
              off) against their plain versions, run-to-run bitwise, timed
@@ -212,7 +214,8 @@ Every phase that fails raises, so the script exits non-zero.
              wrapper against ``flash_attention_bwd_ref`` at Qwen2-1.5B's
              training shape, SmolLM-360M's (hd 64, GQA 15/5), the REDUCED
              configs' hd 20 in f32, an unmasked cross shape (S 36 over T
-             1,024) and a ragged T of 1,000: every bf16 case on the
+             1,024), a ragged T of 1,000 and the context-parallel rank's
+             shape (B 2, S 1,024 over T 2,048, H 32/8): every bf16 case on the
              tensor-core pair, the f32 one on the CUDA-core pair; within 2^-7
              (bf16) or 1e-4 (f32) of each gradient's largest magnitude,
              run-to-run bitwise; each kernel of each pair the case runs
@@ -311,6 +314,13 @@ Every phase that fails raises, so the script exits non-zero.
              of Yelp); GAT on the subgraph induced by Yelp's first
              ``MESH_GAT_TRAIN_NODES`` nodes, served once by a 4-shard
              engine whose plans are saved for the ranks;
+    mesh reference lm — the unsharded port on the card at the mesh's LM
+             shapes (FULL widths cut to MESH_LM_LAYERS layers, weights from
+             a CUDA generator of seed 0): Qwen3-8B's prefill of B 4 x 2,048
+             (numpy seed 0) and MESH_LM_NEW greedy tokens, one Qwen2-1.5B
+             train step (``synthetic_batch(seed=0)``, lr TRAIN_LR) with its
+             gradients, Granite's prefill (capacity factor E / k) with its
+             routes;
     mesh — the mesh backend: 4 ranks (``torch.multiprocessing``, a gloo
              group through a ``file://`` store, the 1-D ``("shard",)``
              ``DeviceMesh``) share the one card, each serving three Yelp
@@ -339,8 +349,38 @@ Every phase that fails raises, so the script exits non-zero.
              ``AsyncGNNEngine`` and three through a two-tenant
              ``TenantRouter`` (window 1: each window a plan-cache hit),
              bitwise the host loop's output, rank 0's window log the same
-             on every rank. A rank that fails or passes the deadline fails
-             the phase;
+             on every rank. Then the LM, in the same ranks, on a second
+             ``DeviceMesh`` (data, model) = (2, 2) over the same group
+             (``distributed/sharding.py``): FULL-width Qwen3-8B (2 layers)
+             in ``tp`` with ``param_shardings(fsdp=False)`` through
+             ``model_prefill`` and MESH_LM_NEW - 1 greedy
+             ``model_decode_step``s over the sharded cache, twice (2 flash
+             launches a prefill a rank, on the tensor cores; the repeat
+             bitwise, the same bits on every rank), against the parent's run:
+             argmax agreement >= TF_AGREE and relative difference < TF_REL
+             (the ``lm path`` bounds), the greedy tokens equal to the
+             parent's or parting first at a near-tie (the parent's top-2
+             margin within twice the logits' difference there); one
+             Qwen2-1.5B (2 layers) ``make_train_step(cfg, policy=)`` step in
+             ``tp`` and in ``fsdp`` (FSDP on): loss and grad norm within
+             1e-2 relative, every gradient leaf within GRAD_REL of its
+             largest magnitude, every leaf's update (new - old) within
+             MESH_UPDATE_TOL lr of the parent's past one rounding of the
+             param dtype, where the parent's gradient is beyond the leaf's
+             gradient difference (``_update_mismatch``), flash 2 forward +
+             2 of each backward kernel, step ms, the collectives' ms and
+             bytes by op, the peak; Granite (2 layers, capacity E / k)
+             prefill through ``moe_apply_sharded``'s EP variant, free (routes
+             flipped only at near-ties, < ROUTE_TIE, and the logits within
+             TF_REL before each sequence's first flip) and again with every
+             token routed to the experts the parent's run chose for it: the
+             logits within TF_REL at every held position and argmax
+             agreement >= TF_AGREE over every position;
+             the collective matmuls at Qwen3-8B's MLP shape (x [8,192,
+             4,096], w [4,096, 12,288], bf16) on the model axis within
+             1.6e-2 of the largest magnitude of ``torch.matmul`` of the
+             gathered operands, each timed beside gather-then-matmul. A
+             rank that fails or passes the deadline fails the phase;
     qat gcn — after sharded mincut, Degree-Quant training of FULL
              ``ample-gcn`` on the Yelp graph with self-loops (planted labels
              over 100 classes, half the nodes for training, weights from
@@ -377,8 +417,9 @@ Every phase that fails raises, so the script exits non-zero.
              attention and the SSD per LM path, each backward per training
              step; the AGE, the multi-head walk and the GAT backward per
              sharded QAT step, the GEMM and the GAT backward per streamed
-             one, flash per remat step), the card's name and power limit,
-             and the result line.
+             one, flash per remat step; flash and its backward per mesh
+             rank's LM prefill and training step, ``launches_mesh_lm``), the
+             card's name and power limit, and the result line.
 
 The int8 matmul is also held bitwise at GIN's and SAGE's K x N (300 x 300,
 256 x 256, 100 x 100). Each phase prints its seconds.
@@ -1682,6 +1723,21 @@ MESH_TENANTS = (("gold", 2.0, 1), ("batch", 1.0, 0))  # the router's: name, weig
 # of nodes: on all of Yelp a FULL GAT rank peaked at 17.20 GiB (four of them
 # and the parent left the card 0.7 GiB short in one run, PERF.md).
 MESH_GAT_TRAIN_NODES = 537_635
+# The LM on the ranks' (data, model) = (2, 2) mesh: FULL widths cut to 2 layers
+# (gloo moves ~0.5 GB/s through host memory on one H100); the prefill logits held
+# whole at every MESH_LM_STRIDE-th position and the last.
+MESH_LM_LAYERS, MESH_LM_NEW, MESH_LM_STRIDE = 2, 8, 128
+MESH_LM_SERVE, MESH_LM_TRAIN, MESH_LM_MOE = "qwen3-8b", "qwen2-1.5b", "granite-moe-3b-a800m"
+# Loss and grad norm relative (the lm train phase's card-vs-CPU bound). A
+# param's update in units of lr past one rounding of its dtype: Adam's first
+# step moves an element by lr·sign(g) + lr·wd·p, so a missing update reads
+# ~1 and a flipped sign ~2; both sides round the same f32 value but for the
+# grad norm's clip scale, so an element whose gradient sign is sure differs
+# by at most that one rounding.
+MESH_TRAIN_TOL, MESH_UPDATE_TOL = 1e-2, 0.5
+MESH_CMM_SHAPE = (8192, 4096, 12288)  # x [M, K], w [K, N]: Qwen3-8B's MLP, B 4 x 2,048
+MESH_CMM_TOL = 1.6e-2  # of the largest magnitude, bf16 (the flash bound)
+MESH_CP_LABEL = "context-parallel rank bf16"  # flash at a mesh rank's local shape
 
 
 def induced_subgraph(g, n: int):
@@ -2024,12 +2080,631 @@ def _mesh_rank(rank, world, directory, queue):
             gc.collect()
             torch.cuda.empty_cache()
         dist.all_gather = all_gather
+        out["lm"] = _mesh_lm(rank, world, directory)
         dist.barrier()
         dist.destroy_process_group()
         out["seconds"] = time.perf_counter() - t0
         queue.put(out)
     except BaseException:
         queue.put(dict(rank=rank, error=traceback.format_exc()))
+
+
+# ------------------------------------------------------- the LM on the mesh
+def _mesh_lm_cfg(arch):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=MESH_LM_LAYERS)
+    if cfg.is_moe:  # no slot drops: the sharded pools and the whole one keep every slot
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    return cfg
+
+
+def _mesh_lm_positions():
+    return list(range(0, LM_PROMPT, MESH_LM_STRIDE)) + [LM_PROMPT - 1]
+
+
+def _mesh_train_step(cfg, policy=None):
+    """The train step both sides take: lr TRAIN_LR from the first step."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    kw = {} if policy is None else {"policy": policy}
+    return make_train_step(cfg, AdamWConfig(lr=TRAIN_LR), warmup=1, total_steps=10, **kw)
+
+
+@contextlib.contextmanager
+def _step_grads():
+    """Record the gradients each train step hands AdamW (on a mesh: this
+    rank's, after their sums over the token axes)."""
+    from repro_torch.train import train_step as ts
+
+    orig, box = ts.adamw_update, []
+
+    def hooked(grads, *args, **kwargs):
+        box.append(grads)
+        return orig(grads, *args, **kwargs)
+
+    ts.adamw_update = hooked
+    try:
+        yield box
+    finally:
+        ts.adamw_update = orig
+
+
+def _routes_of(calls, k):
+    """Each MoE call's top-k expert ids [T, k] (in the router's order) and
+    the margin of its k-th over its (k+1)-th router probability [T]."""
+    import torch
+
+    ids, margins = [], []
+    for probs in calls:
+        top = probs.topk(k + 1, dim=-1)
+        ids.append(top.indices[:, :k])
+        margins.append(top.values[:, k - 1] - top.values[:, k])
+    return torch.stack(ids), torch.stack(margins)
+
+
+@contextlib.contextmanager
+def _router_probs():
+    """Record the router probabilities [T, E] of every MoE layer the
+    transformer runs (the layer's own routing math on its input, before the
+    layer runs, so its output is unchanged)."""
+    import torch
+
+    from repro_torch.models.lm import transformer
+
+    orig, calls = transformer.moe_apply, []
+
+    def hooked(p, h, **kwargs):
+        calls.append(torch.softmax(h.reshape(-1, h.shape[-1]).float() @ p["router"], -1))
+        return orig(p, h, **kwargs)
+
+    transformer.moe_apply = hooked
+    try:
+        yield calls
+    finally:
+        transformer.moe_apply = orig
+
+
+def mesh_lm_reference():
+    """The unsharded port on the card at the mesh's LM shapes, for the ranks:
+    FULL-width Qwen3-8B (2 layers) prefill logits (every MESH_LM_STRIDE-th
+    position and the last, whole; every position's argmax) and MESH_LM_NEW
+    greedy tokens with the logits each was picked from; one Qwen2-1.5B train
+    step's loss, grad norm and updated params; Granite's prefill logits and
+    routes. Returns numpy arrays (and the params, on the host)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.api import model_decode_step, model_init, model_prefill
+    from repro_torch.train.train_step import init_train_state
+
+    out, pos = {}, _mesh_lm_positions()
+    cfg = _mesh_lm_cfg(MESH_LM_SERVE)
+    vocab = cfg.vocab_size
+    prompts = np.random.default_rng(0).integers(0, vocab, (LM_BATCH, LM_PROMPT)).astype(np.int64)
+    out["prompts"] = prompts
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = model_init(cfg, _cuda_gen(0), device="cuda")
+        logits, cache, n = model_prefill(params, cfg, {"tokens": torch.from_numpy(prompts).cuda()},
+                                         LM_PROMPT + MESH_LM_NEW)
+        out["serve_sub"] = logits[:, pos, :vocab].cpu().numpy()
+        out["serve_argmax"] = logits[..., :vocab].argmax(-1).cpu().numpy()
+        steps = [logits[:, -1, :vocab].clone()]
+        del logits
+        for i in range(MESH_LM_NEW - 1):
+            lg, cache = model_decode_step(params, cfg, {"tokens": steps[-1].argmax(-1)[:, None]},
+                                          cache, n + i)
+            steps.append(lg[:, :vocab])
+        steps = torch.stack(steps)  # [new, B, V]
+        out["serve_steps"] = steps.cpu().numpy()
+        out["serve_tokens"] = steps.argmax(-1).T.cpu().numpy()  # [B, new]
+        del params, cache, steps
+    serve_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = _mesh_lm_cfg(MESH_LM_TRAIN)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        seed=0, step=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab_size).items()}
+    params = model_init(cfg, _cuda_gen(0), device="cuda")
+    with _step_grads() as grads:
+        new, m = _mesh_train_step(cfg)(init_train_state(cfg, params), batch)
+    out["train_loss"], out["train_grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+    train_params = dict(params=_to_host(new["params"]), grads=_to_host(grads[0]))
+    del params, new, batch, grads
+    train_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = _mesh_lm_cfg(MESH_LM_MOE)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    out["moe_prompts"] = prompts.astype(np.int64)
+    with torch.inference_mode(), _router_probs() as calls:
+        params = model_init(cfg, _cuda_gen(0), device="cuda")
+        logits = model_prefill(params, cfg, {"tokens": torch.from_numpy(out["moe_prompts"]).cuda()},
+                               LM_PROMPT)[0]
+        out["moe_sub"] = logits[:, pos, :cfg.vocab_size].cpu().numpy()
+        out["moe_argmax"] = logits[..., :cfg.vocab_size].argmax(-1).cpu().numpy()
+        ids, margins = _routes_of(calls, cfg.experts_per_token)
+        out["moe_routes"], out["moe_margins"] = ids.cpu().numpy(), margins.cpu().numpy()
+        del params, logits, calls
+    moe_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mesh reference lm] unsharded on the card: {MESH_LM_SERVE} 2 layers prefill B "
+        f"{LM_BATCH} x {LM_PROMPT} + {MESH_LM_NEW - 1} greedy steps {serve_s:.1f} s (tokens "
+        f"{out['serve_tokens'].tolist()}), {MESH_LM_TRAIN} step {train_s:.1f} s (loss "
+        f"{out['train_loss']:.6f}, grad norm {out['train_grad_norm']:.6f}), {MESH_LM_MOE} "
+        f"prefill {moe_s:.1f} s")
+    return out, train_params
+
+
+def _to_host(tree):
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_host(v) for v in tree]
+    return tree.detach().cpu()
+
+
+def _whole_rows(x, pol, b, vocab_split):
+    """A rank's logits [B', ..., V'] made whole: the vocab over "model" when
+    split, then the batch over its axes."""
+    import torch
+
+    from repro_torch.distributed.sharding import all_gather
+
+    if vocab_split:
+        x = torch.cat(all_gather(x.contiguous(), pol.group("model")), -1)
+    for a in reversed(pol.bind(b, 1).compute_spec()[0]):
+        x = torch.cat(all_gather(x.contiguous(), pol.group(a)), 0)
+    return x
+
+
+def _argmax_rows(x, pol, b, vocab_split, vocab):
+    """Every row's argmax over the valid vocab, whole ([B, ...]): local
+    maxima, the (value, index) pairs gathered over "model"."""
+    import torch
+
+    from repro_torch.distributed.sharding import all_gather
+
+    v_loc = x.shape[-1]
+    off = pol._coord("model") * v_loc if vocab_split else 0
+    valid = torch.arange(v_loc, device=x.device) + off < vocab
+    val, idx = torch.where(valid, x, float("-inf")).max(-1)
+    idx = idx + off
+    if vocab_split:
+        vals = torch.stack(all_gather(val, pol.group("model")))
+        idxs = torch.stack(all_gather(idx, pol.group("model")))
+        idx = torch.gather(idxs, 0, vals.argmax(0)[None])[0]
+    return _whole_rows(idx, pol, b, False)
+
+
+def _rel(got, want):
+    """max over rows of max |got - want| over the largest |want| (the lm path's)."""
+    return float((got - want).abs().amax(-1).max() / want.abs().max())
+
+
+def _mesh_lm_serve(mesh, ref, rank):
+    """Qwen3-8B (2 layers) on the (2, 2) mesh, tp with ``param_shardings(fsdp=
+    False)``: ``model_prefill`` of B 4 x 2,048, then MESH_LM_NEW - 1 greedy
+    ``model_decode_step``s over the sharded cache, twice."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.api import model_decode_step, model_init, model_prefill
+
+    cfg = _mesh_lm_cfg(MESH_LM_SERVE)
+    vocab, vp = cfg.vocab_size, cfg.padded_vocab(1)
+    full = model_init(cfg, _cuda_gen(0), device="cuda")
+    pl = sh.param_shardings(cfg, full, mesh, fsdp=False)
+    pol = sh.make_policy(mesh).with_placements(pl)
+    params = sh.shard_tree(full, pl, mesh)
+    del full
+    torch.cuda.empty_cache()
+    prompts = torch.from_numpy(ref["prompts"]).cuda()
+    b = prompts.shape[0]
+    pos = _mesh_lm_positions()
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        with torch.inference_mode(), sh.record_collectives() as coll:
+            t0 = time.perf_counter()
+            logits, cache, n = model_prefill(params, cfg, {"tokens": prompts},
+                                             LM_PROMPT + MESH_LM_NEW, policy=pol)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            prefill_coll = list(coll)
+            counts = build.launch_counts()
+            split = logits.shape[-1] != vp
+            sub = _whole_rows(logits[:, pos], pol, b, split)[..., :vocab]
+            am = _argmax_rows(logits, pol, b, split, vocab)
+            steps = [_whole_rows(logits[:, -1], pol, b, split)[..., :vocab]]
+            toks = [pol.bind(b, 1).greedy(logits[:, -1], vocab, vp)]
+            del logits
+            t0 = time.perf_counter()
+            for i in range(MESH_LM_NEW - 1):
+                lg, cache = model_decode_step(params, cfg, {"tokens": toks[-1][:, None]}, cache,
+                                              n + i, policy=pol)
+                steps.append(_whole_rows(lg, pol, b, split)[..., :vocab])
+                toks.append(pol.bind(b, 1).greedy(lg, vocab, vp))
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t0) * 1e3 / (MESH_LM_NEW - 1)
+        runs.append(dict(sub=sub, argmax=am, steps=torch.stack(steps), tokens=torch.stack(toks, 1),
+                         prefill_ms=prefill_ms, decode_ms=decode_ms, counts=counts,
+                         peak=torch.cuda.max_memory_allocated(), cache=tuple(cache[0]["k"].shape),
+                         coll=prefill_coll))
+        del cache
+    a, c = runs
+    same = all(torch.equal(a[k], c[k]) for k in ("sub", "argmax", "steps", "tokens"))
+    want_counts = {fa_ops.KERNEL: MESH_LM_LAYERS, fa_ops.TC_KERNEL: MESH_LM_LAYERS}
+    agree = float((a["argmax"].cpu().numpy() == ref["serve_argmax"]).mean())
+    rel = _rel(a["sub"], torch.from_numpy(ref["serve_sub"]).cuda())
+    # greedy tokens: equal to the unsharded run's, or each sequence's first
+    # difference at a near-tie of the unsharded logits (its top-2 margin
+    # within twice the logits' difference at that step, both runs having fed
+    # the same tokens so far); the steps' logits within TF_REL up to it
+    want_tok = torch.from_numpy(ref["serve_tokens"]).cuda()
+    want_steps = torch.from_numpy(ref["serve_steps"]).cuda()
+    differ = a["tokens"] != want_tok  # [B, new]
+    first = torch.where(differ.any(1), differ.float().argmax(1), differ.shape[1])
+    ties, step_rel = [], 0.0
+    for s_ in range(MESH_LM_NEW):
+        live = first >= s_  # sequences fed the same tokens up to this step
+        if not bool(live.any()):
+            break
+        d = (a["steps"][s_] - want_steps[s_]).abs().amax(-1)  # [B]
+        step_rel = max(step_rel, float((d[live] / want_steps[s_].abs().max()).max()))
+        top2 = want_steps[s_].topk(2, -1).values
+        for i in torch.nonzero(first == s_).flatten().tolist():
+            ties.append(dict(seq=i, step=s_, margin=float(top2[i, 0] - top2[i, 1]),
+                             diff=float(d[i])))
+    tied = all(t["margin"] <= 2 * t["diff"] for t in ties)
+    row = dict(prefill_ms=[r["prefill_ms"] for r in runs], decode_ms=[r["decode_ms"] for r in runs],
+               launches=a["counts"], peak_bytes=max(r["peak"] for r in runs),
+               cache_shape=a["cache"],
+               agree=agree, rel=rel, step_rel=step_rel, tokens_equal=int((~differ).sum()),
+               tokens=int(differ.numel()), first_differences=ties, repeat_bitwise=same,
+               collectives=_coll_summary(a["coll"]),
+               hash=hashlib.sha256(b"".join(np.ascontiguousarray(t.cpu().numpy()).tobytes()
+                                            for t in (a["sub"], a["steps"], a["tokens"]))
+                                   ).hexdigest())
+    if not (same and a["counts"] == want_counts and agree >= TF_AGREE and rel < TF_REL
+            and step_rel < TF_REL and tied):
+        raise RuntimeError(f"rank {rank} mesh serve {MESH_LM_SERVE}: {row} (launches expected "
+                           f"{want_counts})")
+    return row
+
+
+def _coll_summary(records):
+    """The collectives of a run by op: calls, MiB, host ms."""
+    out = {}
+    for r in records:
+        o = out.setdefault(r["op"], dict(calls=0, mib=0.0, ms=0.0))
+        o["calls"] += 1
+        o["mib"] += r["bytes"] / 2**20
+        o["ms"] += r["ms"]
+    return out
+
+
+def _update_mismatch(new, ref_new, grad, ref_grad, lr):
+    """(largest mismatch in units of ``lr``, elements held, elements) of one
+    leaf's update against the reference's, both from the same old params:
+    each element's ``|new - ref_new|`` less one rounding of the param dtype
+    at the larger new magnitude, over the elements whose reference gradient
+    is beyond the leaf's largest gradient difference (elsewhere the
+    gradients' rounding may decide Adam's sign, as for a bias whose gradient
+    is 0 analytically)."""
+    import torch
+
+    eps = torch.finfo(new.dtype).eps
+    new, ref_new = new.detach().cuda().float(), ref_new.cuda().float()
+    grad, ref_grad = grad.detach().cuda().float(), ref_grad.cuda().float()
+    held = ref_grad.abs() > (grad - ref_grad).abs().max()
+    _, e = torch.frexp(torch.maximum(new.abs(), ref_new.abs()))
+    ulp = torch.ldexp(torch.full_like(new, eps), e - 1)
+    miss = ((new - ref_new).abs() - ulp).clamp(min=0) / lr
+    return float(torch.where(held, miss, 0.0).max()), int(held.sum()), held.numel()
+
+
+def _mesh_lm_train(mesh, ref, ref_params, rank, mode):
+    """One Qwen2-1.5B (2 layers) ``make_train_step(cfg, policy=)`` step on the
+    (2, 2) mesh in ``mode`` (FSDP on): loss and grad norm within
+    MESH_TRAIN_TOL relative, every gradient leaf within GRAD_REL of its
+    largest magnitude and every leaf's update within MESH_UPDATE_TOL lr
+    (``_update_mismatch``), against the unsharded step; flash launches, ms,
+    the collectives' ms and bytes, the peak."""
+    import torch
+
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.api import model_init
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.train.train_step import init_train_state
+
+    cfg = _mesh_lm_cfg(MESH_LM_TRAIN)
+    full = model_init(cfg, _cuda_gen(0), device="cuda")
+    pl = sh.param_shardings(cfg, full, mesh, mode=mode)
+    pol = sh.make_policy(mesh, mode=mode).with_placements(pl)
+    params = sh.shard_tree(full, pl, mesh)
+    del full
+    torch.cuda.empty_cache()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        seed=0, step=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab_size).items()}
+    step = _mesh_train_step(cfg, pol)
+    state = init_train_state(cfg, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    with sh.record_collectives() as coll, _step_grads() as grads:
+        t0 = time.perf_counter()
+        new, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # every gradient leaf within GRAD_REL of its largest unsharded magnitude
+    # (the lm train phase's card-vs-CPU bound), every leaf's update within
+    # MESH_UPDATE_TOL lr of the unsharded step's
+    ref_grads = _leaves(sh.shard_tree(ref_params["grads"], pl, mesh))
+    grad_rels = [float((a.float().cpu() - w.float()).abs().max() / w.float().abs().max())
+                 for a, w in zip(_leaves(grads[0]), ref_grads)]
+    lr = float(m["lr"])
+    updates = [_update_mismatch(a, w, g, rg, lr) for a, w, g, rg in zip(
+        _leaves(new["params"]), _leaves(sh.shard_tree(ref_params["params"], pl, mesh)),
+        _leaves(grads[0]), ref_grads)]
+    loss_rel = abs(float(m["loss"]) - ref["train_loss"]) / abs(ref["train_loss"])
+    gn_rel = abs(float(m["grad_norm"]) - ref["train_grad_norm"]) / abs(ref["train_grad_norm"])
+    want_counts = {fa_ops.KERNEL: MESH_LM_LAYERS, fa_ops.TC_KERNEL: MESH_LM_LAYERS,
+                   fa_ops.BWD_DQ_KERNEL: MESH_LM_LAYERS, fa_ops.BWD_DKDV_KERNEL: MESH_LM_LAYERS,
+                   fa_ops.BWD_TC_KERNEL: MESH_LM_LAYERS}
+    row = dict(mode=mode, step_ms=step_ms, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               loss_rel=loss_rel, grad_norm_rel=gn_rel, grad_rel_max=max(grad_rels),
+               update_lr_max=max(u[0] for u in updates),
+               update_held=sum(u[1] for u in updates) / sum(u[2] for u in updates),
+               launches=counts, peak_bytes=peak, collectives=_coll_summary(coll),
+               collective_ms=sum(r["ms"] for r in coll),
+               collective_mib=sum(r["bytes"] for r in coll) / 2**20)
+    if not (loss_rel < MESH_TRAIN_TOL and gn_rel < MESH_TRAIN_TOL and max(grad_rels) < GRAD_REL
+            and row["update_lr_max"] < MESH_UPDATE_TOL
+            and all(counts.get(k, 0) == v for k, v in want_counts.items())):
+        raise RuntimeError(f"rank {rank} mesh train {MESH_LM_TRAIN} {mode}: {row} (launches "
+                           f"expected {want_counts})")
+    return row
+
+
+def _mesh_lm_moe(mesh, ref, rank):
+    """Granite (2 layers, capacity factor E / k) prefill on the (2, 2) mesh,
+    tp: every MoE layer through ``moe_apply_sharded``'s EP variant; the logits
+    against the unsharded run's with the moe path's route-flip allowance, then
+    with every token routed as the unsharded run routed it, at every held
+    position."""
+    import torch
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.api import model_init, model_prefill
+    from repro_torch.models.lm import moe_sharded
+
+    cfg = _mesh_lm_cfg(MESH_LM_MOE)
+    k, vocab = cfg.experts_per_token, cfg.vocab_size
+    full = model_init(cfg, _cuda_gen(0), device="cuda")
+    pl = sh.param_shardings(cfg, full, mesh, fsdp=False)
+    pol = sh.make_policy(mesh).with_placements(pl)
+    params = sh.shard_tree(full, pl, mesh)
+    del full
+    torch.cuda.empty_cache()
+    prompts = torch.from_numpy(ref["moe_prompts"]).cuda()
+    b = prompts.shape[0]
+    orig, sharded = moe_sharded.moe_apply_sharded, []
+
+    def counted(*a, **kw):
+        sharded.append(kw["num_experts"] % pol.tp == 0)
+        return orig(*a, **kw)
+
+    moe_sharded.moe_apply_sharded = counted
+    want_ids = torch.from_numpy(ref["moe_routes"]).cuda().view(MESH_LM_LAYERS, b, LM_PROMPT, k)
+    bound = pol.bind(b, LM_PROMPT)
+    pinned = [t.reshape(-1, k) for t in bound.take(want_ids, (bound.compute_spec()[0],),
+                                                    first=1)]
+    build.reset_launch_counts()
+    try:
+        with torch.inference_mode(), _router_probs() as calls:
+            t0 = time.perf_counter()
+            logits = model_prefill(params, cfg, {"tokens": prompts}, LM_PROMPT, policy=pol)[0]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = build.launch_counts()
+            split = logits.shape[-1] != cfg.padded_vocab(1)
+            sub = _whole_rows(logits[:, _mesh_lm_positions()], pol, b, split)[..., :vocab]
+            am = _argmax_rows(logits, pol, b, split, vocab)
+            del logits
+            ids = _whole_rows(_routes_of(calls, k)[0].view(MESH_LM_LAYERS, -1, LM_PROMPT, k)
+                              .transpose(0, 1).contiguous(), pol, b, False).transpose(0, 1)
+        # again, every token routed to the experts the unsharded run chose for it
+        with torch.inference_mode(), _moe_calls(pinned, stats=False) as pinned_calls:
+            logits = model_prefill(params, cfg, {"tokens": prompts}, LM_PROMPT, policy=pol)[0]
+            pinned_sub = _whole_rows(logits[:, _mesh_lm_positions()], pol, b, split)[..., :vocab]
+            pinned_am = _argmax_rows(logits, pol, b, split, vocab)
+            del logits
+    finally:
+        moe_sharded.moe_apply_sharded = orig
+    margins = torch.from_numpy(ref["moe_margins"]).cuda().view(MESH_LM_LAYERS, b, LM_PROMPT)
+    differs = (ids.sort(-1).values != want_ids.sort(-1).values).any(-1)  # [L, B, S]
+    flipped = differs.any(0)
+    first = torch.where(flipped.any(1), flipped.float().argmax(1), LM_PROMPT)
+    pos = torch.tensor(_mesh_lm_positions(), device=first.device)
+    before = pos[None] < first[:, None]  # [B, positions]
+    want_sub = torch.from_numpy(ref["moe_sub"]).cuda()
+    err = (sub - want_sub).abs().amax(-1) / want_sub.abs().max()
+    want_am = torch.from_numpy(ref["moe_argmax"]).cuda()
+    whole_before = torch.arange(LM_PROMPT, device=first.device)[None] < first[:, None]
+    row = dict(ms=ms, launches=counts, sharded_calls=len(sharded), ep=all(sharded),
+               flips=int(differs.sum()), routes=differs.numel(),
+               max_margin=float(margins[differs].max()) if bool(differs.any()) else 0.0,
+               positions_before_first_flip=int(before.sum()),
+               rel_before_first_flip=float(torch.where(before, err, 0.0).max()),
+               agree=float((am == want_am).float().mean()),
+               agree_before_first_flip=float((am == want_am)[whole_before].float().mean())
+               if bool(whole_before.any()) else 1.0, rel=float(err.max()),
+               pinned_calls=len(pinned_calls), pinned_positions=int(pos.numel() * b),
+               pinned_rel=float(((pinned_sub - want_sub).abs().amax(-1)
+                                 / want_sub.abs().max()).max()),
+               pinned_agree=float((pinned_am == want_am).float().mean()))
+    want_counts = {fa_ops.KERNEL: MESH_LM_LAYERS, fa_ops.TC_KERNEL: MESH_LM_LAYERS}
+    if not (counts == want_counts and row["ep"] and len(sharded) == 2 * MESH_LM_LAYERS
+            and row["max_margin"] < ROUTE_TIE and row["rel_before_first_flip"] < TF_REL
+            and row["agree_before_first_flip"] >= TF_AGREE
+            and row["pinned_calls"] == MESH_LM_LAYERS and row["pinned_rel"] < TF_REL
+            and row["pinned_agree"] >= TF_AGREE):
+        raise RuntimeError(f"rank {rank} mesh moe {MESH_LM_MOE}: {row} (launches expected "
+                           f"{want_counts})")
+    return row
+
+
+def _mesh_cmm(mesh, rank):
+    """The collective matmuls at Qwen3-8B's MLP shape on the model axis, bf16,
+    against ``torch.matmul`` of the gathered operands, each timed beside the
+    plain gather-then-matmul (host ms: a gloo call returns when its data has
+    arrived)."""
+    import torch
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.collective_matmul import allgather_matmul, reduce_scatter_matmul
+
+    m, k, n = MESH_CMM_SHAPE
+    gen = _cuda_gen(31)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+    pol = sh.make_policy(mesh)
+    grp, tp, c = pol.group("model"), pol.tp, pol._coord("model")
+    rows, cols, inner = (slice(c * d // tp, (c + 1) * d // tp) for d in (m, n, k))
+    xr, wc = x[rows].contiguous(), w[:, cols].contiguous()
+    xc, wr = x[:, inner].contiguous(), w[inner].contiguous()
+    want_ag = x @ wc
+    want_rs = (x @ w)[rows]
+    del x, w
+
+    def timed(fn, reps=3):
+        out, best = None, float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return out, best
+
+    ag, ag_ms = timed(lambda: allgather_matmul(xr, wc, mesh))
+    ag_plain, ag_plain_ms = timed(lambda: torch.cat(sh.all_gather(xr, grp), 0) @ wc)
+    rs, rs_ms = timed(lambda: reduce_scatter_matmul(xc, wr, mesh))
+    rs_plain, rs_plain_ms = timed(lambda: sh.reduce_scatter(xc @ wr, grp))
+    errs = {name: _rel(got.float(), want.float()) for name, got, want in (
+        ("ag", ag, want_ag), ("ag_plain", ag_plain, want_ag), ("rs", rs, want_rs),
+        ("rs_plain", rs_plain, want_rs))}
+    row = dict(shape=MESH_CMM_SHAPE, ag_ms=ag_ms, ag_plain_ms=ag_plain_ms, rs_ms=rs_ms,
+               rs_plain_ms=rs_plain_ms, **{f"err_{k_}": v for k_, v in errs.items()},
+               ag_local=tuple(ag.shape), rs_local=tuple(rs.shape))
+    if not (errs["ag"] <= MESH_CMM_TOL and errs["rs"] <= MESH_CMM_TOL
+            and row["ag_local"] == (m, n // tp) and row["rs_local"] == (m // tp, n)):
+        raise RuntimeError(f"rank {rank} collective matmuls: {row}")
+    return row
+
+
+def _mesh_lm(rank, world, directory):
+    """The LM cases on a (data, model) = (2, 2) mesh over the ranks' gloo
+    group."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t0 = time.perf_counter()
+    mesh = init_device_mesh("cuda", (2, world // 2), mesh_dim_names=("data", "model"))
+    ref = dict(np.load(os.path.join(directory, "lm.npz")))
+    ref["train_loss"], ref["train_grad_norm"] = (float(ref["train_loss"]),
+                                                 float(ref["train_grad_norm"]))
+    out = dict(coordinate=[mesh.get_local_rank(a) for a in ("data", "model")])
+    for name, fn in (("serve", lambda: _mesh_lm_serve(mesh, ref, rank)),
+                     ("moe", lambda: _mesh_lm_moe(mesh, ref, rank)),
+                     ("cmm", lambda: _mesh_cmm(mesh, rank))):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.empty_cache()
+    train_params = torch.load(os.path.join(directory, "lm_train_params.pt"), weights_only=False)
+    out["train"] = {}
+    for mode in ("tp", "fsdp"):
+        t1 = time.perf_counter()
+        out["train"][mode] = _mesh_lm_train(mesh, ref, train_params, rank, mode)
+        out["train"][mode]["seconds"] = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_lm_report(tag, got):
+    """Log the ranks' LM rows; the serving output must be the same bits on
+    every rank."""
+    from repro_torch.distributed.sharding import STAGED_ON_GLOO
+
+    lm = [got[r]["lm"] for r in range(SHARDS)]
+    if len({x["serve"]["hash"] for x in lm}) != 1:
+        raise RuntimeError(f"{tag}: the ranks' served logits and tokens differ")
+    for r, x in enumerate(lm):
+        sv, mo, cm = x["serve"], x["moe"], x["cmm"]
+        log(f"[{tag}] lm rank {r} (data, model) {tuple(x['coordinate'])}: {MESH_LM_SERVE} "
+            f"{MESH_LM_LAYERS} layers tp: prefill {[round(v, 1) for v in sv['prefill_ms']]} ms, "
+            f"decode {[round(v, 1) for v in sv['decode_ms']]} ms a token, cache shard "
+            f"{sv['cache_shape']}, launches {sv['launches']}, peak {sv['peak_bytes'] / 2**30:.2f} "
+            f"GiB; argmax agreement {sv['agree']:.4f}, max relative difference {sv['rel']:.4g}, "
+            f"greedy steps {sv['step_rel']:.4g}; tokens equal {sv['tokens_equal']} of "
+            f"{sv['tokens']} (first differences at near-ties: {sv['first_differences']}); "
+            f"repeat bitwise {sv['repeat_bitwise']}; prefill collectives {sv['collectives']}")
+        for mode, t in x["train"].items():
+            log(f"[{tag}] lm rank {r} {MESH_LM_TRAIN} {MESH_LM_LAYERS} layers {mode} step: "
+                f"{t['step_ms']:.1f} ms, collectives {t['collective_ms']:.1f} ms of "
+                f"{t['collective_mib']:.1f} MiB {t['collectives']}; loss {t['loss']:.6f} (rel "
+                f"{t['loss_rel']:.2e}), grad norm rel {t['grad_norm_rel']:.2e}, gradients "
+                f"{t['grad_rel_max']:.2e} of max (< {GRAD_REL}), updates {t['update_lr_max']:.3g} "
+                f"lr past one rounding (< {MESH_UPDATE_TOL}) over the {t['update_held']:.4f} of "
+                f"elements whose gradient sign is sure; launches {t['launches']}; peak "
+                f"{t['peak_bytes'] / 2**30:.2f} GiB")
+        log(f"[{tag}] lm rank {r} {MESH_LM_MOE} {MESH_LM_LAYERS} layers tp prefill: "
+            f"{mo['ms']:.1f} ms, moe_apply_sharded {mo['sharded_calls']} calls (EP {mo['ep']}), "
+            f"routes flipped {mo['flips']} of {mo['routes']} at margins <= "
+            f"{mo['max_margin']:.3g} (< {ROUTE_TIE}); before each sequence's first flip "
+            f"({mo['positions_before_first_flip']} compared positions) max relative difference "
+            f"{mo['rel_before_first_flip']:.4g}, argmax agreement "
+            f"{mo['agree_before_first_flip']:.4f}; all positions {mo['agree']:.4f}, "
+            f"{mo['rel']:.4g}; routed as the unsharded run ({mo['pinned_calls']} layers): max "
+            f"relative difference {mo['pinned_rel']:.4g} (< {TF_REL}) over "
+            f"{mo['pinned_positions']} positions, argmax agreement {mo['pinned_agree']:.4f} "
+            f"(>= {TF_AGREE}) over all; launches {mo['launches']}")
+        log(f"[{tag}] lm rank {r} collective matmuls {cm['shape']} bf16: allgather "
+            f"{cm['ag_ms']:.1f} ms (gather then matmul {cm['ag_plain_ms']:.1f}), err "
+            f"{cm['err_ag']:.2e}; reduce-scatter {cm['rs_ms']:.1f} ms (matmul then "
+            f"reduce-scatter {cm['rs_plain_ms']:.1f}), err {cm['err_rs']:.2e} of max")
+        log(f"[{tag}] lm rank {r}: {x['seconds']:.1f} s (serve {sv['seconds']:.1f}, moe "
+            f"{mo['seconds']:.1f}, cmm {cm['seconds']:.1f}, train "
+            f"{sum(t['seconds'] for t in x['train'].values()):.1f})")
+    log(f"[{tag}] lm: staged through page-locked host memory on gloo: {list(STAGED_ON_GLOO)}; "
+        f"direct: all_gather, all_reduce; {card_line()}")
+    return lm
 
 
 def phase_mesh(inputs, plan_dirs):
@@ -2063,6 +2738,9 @@ def phase_mesh(inputs, plan_dirs):
         torch.save(_to_device(params, torch.device("cpu")), os.path.join(d, f"params_{label}.pt"))
         np.save(os.path.join(d, f"want_{label}.npy"), want)
         np.savez(os.path.join(d, f"train_{label}.npz"), **ref)
+    lm_ref, lm_params = inputs["lm"]
+    np.savez(os.path.join(d, "lm.npz"), **lm_ref)
+    torch.save(lm_params, os.path.join(d, "lm_train_params.pt"))
     write_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -2147,6 +2825,7 @@ def phase_mesh(inputs, plan_dirs):
             f"(run_ms {[round(x, 1) for x in fr['router_run_ms']]})")
     log(f"[{tag}] fronts: window 1, every window a plan-cache hit, every output bitwise the "
         f"host loop's; rank 0's window log on every rank: {got[0]['fronts']['window_log']}")
+    row["lm"] = _mesh_lm_report(tag, got)
     log(f"[{tag}] {SHARDS} ranks share one H100 over a {row['backend']} group (NCCL refuses "
         f"two ranks on one device; gloo stages the CUDA blocks through host memory, so the "
         f"all-gathers are loopback through the host, not NVLink); inputs written in "
@@ -3304,13 +3983,14 @@ def _lm_launches(cfg):
 
 
 @contextlib.contextmanager
-def _moe_calls(pinned=None):
+def _moe_calls(pinned=None, stats=True):
     """Record the stats of every MoE layer call the transformer makes while
     the block runs (``return_stats=True``: loads, drops, capacity, the routes
     ``gate_idx`` [T, k] and the router's ``probs`` [T, E]; the output is
     unchanged). With ``pinned`` (one [T, k] id tensor per call, in call
     order), each call routes its tokens to those experts instead, with its own
-    probabilities there as the gates."""
+    probabilities there as the gates. ``stats=False`` records only that a
+    call ran (a mesh policy's sharded layer returns no stats)."""
     import torch
 
     from repro_torch.models.lm import transformer
@@ -3323,10 +4003,13 @@ def _moe_calls(pinned=None):
             idx = pinned[len(calls)]
             torch.topk = lambda x, k, dim=-1: (x.gather(-1, idx), idx)
         try:
-            out, aux, stats = orig(p, h, return_stats=True, **kwargs)
+            if not stats:
+                calls.append(None)
+                return orig(p, h, **kwargs)
+            out, aux, st = orig(p, h, return_stats=True, **kwargs)
         finally:
             torch.topk = topk
-        calls.append(stats)
+        calls.append(st)
         return out, aux
 
     transformer.moe_apply = hooked
@@ -3890,6 +4573,28 @@ def _leaves(tree):
     return [tree]
 
 
+def _sdpa_heads(q, k, v, causal):
+    """``scaled_dot_product_attention`` on [B, H, S, hd] (GQA), causal
+    aligned to the ends of both sequences as flash's mask: ``is_causal``
+    (top-left) where S == T, else ``causal_lower_right`` (the same mask,
+    which SDPA runs on its fused kernels, where a boolean mask would take it
+    off them)."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    s, t = q.shape[2], k.shape[2]
+    if not causal or s == t:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=causal_lower_right(s, t),
+                                          enable_gqa=True)
+
+
+def _sdpa(q, k, v, causal):
+    """``_sdpa_heads`` on flash's layout [B, S, H, hd]."""
+    return _sdpa_heads(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                       causal).transpose(1, 2)
+
+
 def _kernel_case(name, kernel, plain, library, atol, rtol, nbytes, ops, peak):
     """One kernel call against its plain version: error, run-to-run bitwise,
     times and bound."""
@@ -3925,7 +4630,6 @@ def _kernel_case(name, kernel, plain, library, atol, rtol, nbytes, ops, peak):
 def phase_lm_kernels():
     """Both LM kernels against their plain versions at the served shapes."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -3952,6 +4656,8 @@ def phase_lm_kernels():
         ("seamless cross unmasked bf16", 4, 36, 1024, 16, 16, 64, torch.bfloat16, False),
         ("seamless cross decode unmasked bf16", 4, 1, 1024, 16, 16, 64, torch.bfloat16, False),
         ("ragged unmasked f32", 4, 100, 1000, 16, 16, 64, torch.float32, False),
+        # the mesh's context-parallel rank: Qwen3-8B's rows [1024, 2048) of B 2
+        (MESH_CP_LABEL, 2, 1024, 2048, 32, 8, 128, torch.bfloat16, True),
     ):
         q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dt)
@@ -3963,16 +4669,13 @@ def phase_lm_kernels():
         tc_ran = build.launch_counts().get(fa_ops.TC_KERNEL, 0) - before
         equal = float((out == flash_attention_ref(q, k, v, causal=causal)).float().mean())
         del out
-        # (query, key) pairs the mask keeps: the causal triangle (S == T) or all
-        pairs = s * (s + 1) // 2 if causal else s * t
+        # (query, key) pairs the mask keeps: the end-aligned causal rows, or all
+        pairs = s * (t - s) + s * (s + 1) // 2 if causal else s * t
         row = _kernel_case(
             f"flash_attention {label} B={b} S={s} T={t} H={h} KV={kv} hd={hd}",
             lambda: fa_ops.flash_attention(q, k, v, causal=causal),
             lambda: flash_attention_ref(q, k, v, causal=causal),
-            # top-left causal == end-aligned causal when S == T
-            lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
-                enable_gqa=True).transpose(1, 2),
+            lambda: _sdpa(q, k, v, causal),
             FLASH_BF16_ATOL if bf16 else FLASH_F32_ATOL, 0.0 if bf16 else FLASH_F32_ATOL,
             nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
             ops=4.0 * b * h * hd * pairs, peak=BF16_FLOPS if bf16 else FP32_FLOPS)
@@ -4610,7 +5313,6 @@ def phase_flash_bwd():
     ``torch.autograd.grad`` of ``scaled_dot_product_attention``; the
     forward's lse against ``flash_attention_lse_ref``."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4630,6 +5332,7 @@ def phase_flash_bwd():
         ("reduced hd 20 f32", 4, 2048, 2048, 3, 1, 20, torch.float32, True),
         ("cross unmasked bf16", 4, 36, 1024, 16, 16, 64, torch.bfloat16, False),
         ("ragged T=1000 bf16", 4, 1000, 1000, 12, 2, 128, torch.bfloat16, True),
+        (MESH_CP_LABEL, 2, 1024, 2048, 32, 8, 128, torch.bfloat16, True),
     ):
         q, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt) for _ in range(2))
         k, v = (torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dt) for _ in range(2))
@@ -4684,10 +5387,10 @@ def phase_flash_bwd():
                          reps=3)
         plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal),
                            reps=2)
-        # The library: one torch.autograd.grad of SDPA (top-left causal is the
-        # end-aligned mask when S == T; every causal case here has S == T).
+        # The library: one torch.autograd.grad of SDPA (the end-aligned causal
+        # mask: ``is_causal`` where S == T, else ``causal_lower_right``).
         lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal, enable_gqa=True)
+        lout = _sdpa_heads(lq, lk, lv, causal)
         ldo = do.transpose(1, 2)
         lib_ms = cuda_ms(lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True),
                          reps=5)
@@ -5037,10 +5740,21 @@ def kernel_row(name, source, replaces, launches, row, shape):
                 bound_by=row["bound_by"], library_ms=row["library_ms"], shape=shape)
 
 
-def flash_bwd_kernel_rows(train_row, bwd_rows):
+def _mesh_lm_launches(mesh_row, kernel):
+    """A kernel's launches on each mesh rank: a prefill of the served and the
+    MoE model, a training step in each mode (those that launch it)."""
+    lm = mesh_row["lm"]
+    out = {"serve_prefill": [x["serve"]["launches"].get(kernel, 0) for x in lm],
+           "moe_prefill": [x["moe"]["launches"].get(kernel, 0) for x in lm]}
+    out.update({f"train_step_{m}": [x["train"][m]["launches"].get(kernel, 0) for x in lm]
+                for m in ("tp", "fsdp")})
+    return {k: v for k, v in out.items() if any(v)}
+
+
+def flash_bwd_kernel_rows(train_row, bwd_rows, mesh_row):
     """The ``kernels`` line's entries of flash's backward: the tensor-core
     pair and the CUDA-core pair, from ``phase_lm_train``'s and
-    ``phase_flash_bwd``'s rows."""
+    ``phase_flash_bwd``'s rows (and the mesh ranks' training steps)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     src = "src/repro_torch/csrc/flash_attention_bwd.cu"
@@ -5059,6 +5773,7 @@ def flash_bwd_kernel_rows(train_row, bwd_rows):
                         "B={b} S={s} H={h} KV={kv} hd={hd} {dtype} causal".format(**bwd_rows[0])),
              note="the gradient of the Pallas kernel at replaces, which has no VJP",
              launches_per_step=train_row["steps"][-1]["launches"].get(fa_ops.BWD_TC_KERNEL, 0),
+             launches_mesh_lm=_mesh_lm_launches(mesh_row, fa_ops.BWD_DQ_KERNEL),
              backward_ms=bwd_rows[0]["ms"], pair_ms=bwd_rows[0]["pair_ms"],
              backward_bound_ms=bwd_rows[0]["bound_ms"],
              design_gflop=bwd_rows[0]["tc_design_gflop"],
@@ -5075,6 +5790,7 @@ def flash_bwd_kernel_rows(train_row, bwd_rows):
                         "B={b} S={s} H={h} KV={kv} hd={hd} {dtype} causal".format(**bwd_rows[0])),
              note="the gradient of the Pallas kernel at replaces, which has no VJP",
              launches_per_step=train_row["steps"][-1]["launches"].get(fa_ops.BWD_TC_KERNEL, 0),
+             launches_mesh_lm=_mesh_lm_launches(mesh_row, fa_ops.BWD_DKDV_KERNEL),
              head_splits=bwd_rows[0]["splits"],
              cases={r["case"]: {k: r[k] for k in (
                  "causal", "err_dk", "err_dv", "dkdv_ms", "dkdv_bound_ms", "splits", "pair_ms",
@@ -5184,7 +5900,7 @@ def main() -> int:
     with phase("h2d"):
         h2d_row = phase_h2d()
     with phase("outofcore gcn"):
-        ooc_rows["gcn"] = phase_outofcore(srv, g, outs[0].outputs, "gcn", (2, 2, 0))
+        ooc_rows["gcn"] = phase_outofcore(srv, g, outs[0].outputs, "gcn", (2, 0))
     with phase("fronts"):
         fronts_row = phase_fronts(cfg)
     # Sharded serving and plan persistence, on the GCN path's params. The
@@ -5281,8 +5997,11 @@ def main() -> int:
     del gsrv, gentry
     gc.collect()
     torch.cuda.empty_cache()
+    # The LM's unsharded runs on the card, for the mesh's LM cases.
+    with phase("mesh reference lm"):
+        mesh_inputs["lm"] = mesh_lm_reference()
     # The mesh backend: 4 ranks on the card, on the sharded phases' plan
-    # files and against their host-loop outputs.
+    # files and against their host-loop outputs; then the LM on a (2, 2) mesh.
     with phase("mesh"):
         mesh_row = phase_mesh(mesh_inputs, {"gcn": os.path.join(plan_dir, "sharded"),
                                             "gat_train": os.path.join(plan_dir, "mesh_gat_train"),
@@ -5516,6 +6235,9 @@ def main() -> int:
              # a warm Qwen3-8B step at 8 layers, remat "none" and "block"
              launches_remat_step={p: remat_row[p]["steps"][-1]["launches"].get(fa_ops.KERNEL, 0)
                                   for p in ("none", "block")},
+             # a mesh rank's (4 on the card, (data, model) = (2, 2)): one prefill
+             # of the served and the MoE model, one training step in each mode
+             launches_mesh_lm=_mesh_lm_launches(mesh_row, fa_ops.KERNEL),
              noncausal_launches_by_lm_path=lm_paths(fa_ops.NONCAUSAL_KERNEL),
              noncausal_launches_per_prefill=encdec_row["prefill_launches"].get(
                  fa_ops.NONCAUSAL_KERNEL, 0),
@@ -5524,7 +6246,7 @@ def main() -> int:
              cases={r["case"]: {k: r[k] for k in (
                  "causal", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")} for r in flash_rows[1:]}),
-        *flash_bwd_kernel_rows(train_row, bwd_rows),
+        *flash_bwd_kernel_rows(train_row, bwd_rows, mesh_row),
         dict(kernel_row("ssd_intra_chunk", "src/repro_torch/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan/ssd_scan.py:52",
                         ssm_row["launches"].get(ssd_ops.KERNEL, 0), ssd_rows[0],

@@ -30,6 +30,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (ITEM_16, NO_POLICY, VocabParallelNLL, all_reduce,
+                                              on_mesh)
 from repro_torch.models.gnn import api as gnn_api
 from repro_torch.models.lm import encdec, transformer
 
@@ -75,43 +77,55 @@ def model_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
     return transformer.init_lm(cfg, gen, dev)
 
 
-def model_forward(params, cfg: ModelConfig, batch: Dict):
+def _mesh_encdec(cfg: ModelConfig, policy) -> bool:
+    """An enc-dec config under a mesh policy: refused (item 16)."""
+    if _is_encdec(cfg) and on_mesh(policy):
+        raise NotImplementedError(f"the enc-dec family ({cfg.name}) under a sharding policy: "
+                                  f"{ITEM_16}")
+    return _is_encdec(cfg)
+
+
+def model_forward(params, cfg: ModelConfig, batch: Dict, *, policy=NO_POLICY):
+    """(logits, aux). Under a mesh ``policy`` (``distributed/sharding.py``):
+    the global batch and this rank's params in, this rank's logits out."""
     if _is_gnn(cfg):
         return gnn_api.gnn_forward(params, cfg, batch)
-    if _is_encdec(cfg):
+    if _mesh_encdec(cfg, policy):
         return encdec.forward_encdec(params, cfg, batch)
-    return transformer.forward(params, cfg, batch)
+    return transformer.forward(params, cfg, batch, policy=policy)
 
 
-def model_prefill(params, cfg: ModelConfig, batch: Dict, max_len: int):
+def model_prefill(params, cfg: ModelConfig, batch: Dict, max_len: int, *, policy=NO_POLICY):
     """(logits, cache, cache_len). Enc-dec, as the reference: the
     teacher-forced logits, a cache with zero self-attention K/V and the
     encoder's cross K/V, and the target length."""
     if _is_gnn(cfg):
         _no_token_cache(cfg, "model_prefill")
-    if _is_encdec(cfg):
+    if _mesh_encdec(cfg, policy):
         return encdec.prefill(params, cfg, batch, max_len)
-    return transformer.prefill(params, cfg, batch, max_len)
+    return transformer.prefill(params, cfg, batch, max_len, policy=policy)
 
 
-def model_init_cache(cfg: ModelConfig, params, batch: Dict, max_len: int):
+def model_init_cache(cfg: ModelConfig, params, batch: Dict, max_len: int, *, policy=NO_POLICY):
     """Empty decode cache for the batch's size (``tokens`` or ``embeds``);
-    enc-dec runs the encoder over ``src_embeds`` for the cross K/V."""
+    enc-dec runs the encoder over ``src_embeds`` for the cross K/V. Under a
+    mesh ``policy``: this rank's shard."""
     if _is_gnn(cfg):
         _no_token_cache(cfg, "model_init_cache")
-    if _is_encdec(cfg):
+    if _mesh_encdec(cfg, policy):
         enc = encdec.encode(params, cfg, batch["src_embeds"])
         return encdec.init_decoder_cache(params, cfg, enc, max_len)
     b = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[0]
-    return transformer.init_cache(cfg, b, max_len, device=params["embed"].device)
+    return transformer.init_cache(cfg, b, max_len, device=params["embed"].device, policy=policy)
 
 
-def model_decode_step(params, cfg: ModelConfig, batch: Dict, cache, cache_len: int):
+def model_decode_step(params, cfg: ModelConfig, batch: Dict, cache, cache_len: int, *,
+                      policy=NO_POLICY):
     if _is_gnn(cfg):
         _no_token_cache(cfg, "model_decode_step")
-    if _is_encdec(cfg):
+    if _mesh_encdec(cfg, policy):
         return encdec.decode_step_encdec(params, cfg, batch["tokens"], cache, cache_len)
-    return transformer.decode_step(params, cfg, batch, cache, cache_len)
+    return transformer.decode_step(params, cfg, batch, cache, cache_len, policy=policy)
 
 
 def param_shapes(cfg: ModelConfig):
@@ -184,22 +198,45 @@ class _TokenNLL(torch.autograd.Function):
         return grad, None
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
+def loss_fn(params, cfg: ModelConfig, batch: Dict, *, policy=NO_POLICY,
             aux_coef: float = 0.01) -> Tuple[torch.Tensor, Dict]:
     """Token cross-entropy (padded-vocab columns masked out) + ``aux_coef`` ·
     the MoE aux loss, the reference's algorithm: f32 logsumexp, the target
     logit at ``max(labels, 0)``, positions with label < 0 ignored.
 
-    batch["labels"] int[B, S]. Returns (loss, {"ce", "aux", "tokens"})."""
-    logits, aux = model_forward(params, cfg, batch)
+    batch["labels"] int[B, S]. Returns (loss, {"ce", "aux", "tokens"}).
+    Under a mesh ``policy`` (global batch, this rank's params): over
+    vocab-sharded logits the log-sum-exp and the target logit are reduced
+    over "model" inside the one autograd Function; each rank sums its own
+    tokens' terms, and the sums and the count are summed over the token
+    axes, so every rank returns the global loss and backpropagates its own
+    tokens' part."""
+    logits, aux = model_forward(params, cfg, batch, policy=policy)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     vp = logits.shape[-1]
-    if vp > cfg.vocab_size:  # mask the padded vocab tail
-        vmask = torch.arange(vp, device=logits.device) < cfg.vocab_size
+    off, pol = 0, None
+    if on_mesh(policy):
+        pol = policy.bind(*labels.shape)
+        labels = pol.take(labels, pol.compute_spec()[:2])
+        if vp != cfg.padded_vocab(1):
+            off = pol._coord("model") * vp
+    if off + vp > cfg.vocab_size:  # mask the padded vocab tail
+        vmask = torch.arange(off, off + vp, device=logits.device) < cfg.vocab_size
         logits = torch.where(vmask, logits, torch.full((), -1e30, device=logits.device))
     mask = (labels >= 0).to(torch.float32)
-    nll = _TokenNLL.apply(logits, torch.clamp(labels, min=0)) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
-    ce = nll.sum() / denom
+    if pol is not None and vp != cfg.padded_vocab(1):
+        nll = VocabParallelNLL.apply(logits, torch.clamp(labels, min=0), pol.group("model"),
+                                     off) * mask
+    else:
+        nll = _TokenNLL.apply(logits, torch.clamp(labels, min=0)) * mask
+    if pol is None:
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = nll.sum() / denom
+    else:
+        count = mask.sum()
+        for a in pol.token_axes():
+            count = all_reduce(count, pol.group(a))
+        denom = torch.clamp(count, min=1.0)
+        ce = pol.sum_tokens(nll.sum()) / denom
     loss = ce + aux_coef * aux
     return loss, {"ce": ce, "aux": aux, "tokens": denom}

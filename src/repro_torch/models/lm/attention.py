@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import ITEM_16, all_reduce, on_mesh
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.lm.norm import rmsnorm, rmsnorm_init
 from repro_torch.models.lm.rope import apply_mrope, apply_rope
@@ -96,7 +97,8 @@ def _project_qkv(params: Dict, x: torch.Tensor, st: AttnStatics,
 
 def attention(params: Dict, x: torch.Tensor, st: AttnStatics,
               positions: Optional[torch.Tensor] = None,
-              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, return_kv: bool = False):
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, return_kv: bool = False,
+              policy=None):
     """Full-sequence attention (prefill / forward / encoder / cross).
 
     x [B, S, D]. Self-attention projects q, k, v from x, causal when
@@ -104,7 +106,13 @@ def attention(params: Dict, x: torch.Tensor, st: AttnStatics,
     encoder's output) it is cross-attention, unmasked: q is ``x @ wq``
     without ``bq``, then q's qk-norm, as in the reference. ``return_kv=True``
     also returns this layer's k, v, so prefill fills the decode cache in the
-    same pass."""
+    same pass. Under a mesh ``policy`` (causal self-attention only) see
+    ``_attention_sharded``."""
+    if on_mesh(policy):
+        if kv is not None or not st.causal:
+            raise NotImplementedError(f"encoder and cross-attention under a sharding policy: "
+                                      f"{ITEM_16}")
+        return _attention_sharded(params, x, st, positions, return_kv, policy)
     b, s, _ = x.shape
     if kv is None:
         q, k, v = _project_qkv(params, x, st, positions)
@@ -149,7 +157,7 @@ def quantize_kv(k: torch.Tensor):
 def decode_attention(params: Dict, x: torch.Tensor, st: AttnStatics,
                      k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: int,
                      k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None):
+                     v_scale: Optional[torch.Tensor] = None, policy=None):
     """One decode step for x [B, 1, D]: write this token's K/V into the caches
     [B, L, KV, hd] at ``cache_len`` (in place), attend over the first
     ``cache_len + 1`` positions. Returns (out, k_cache, v_cache[, k_scale,
@@ -158,7 +166,10 @@ def decode_attention(params: Dict, x: torch.Tensor, st: AttnStatics,
     With an int8 cache (f32 scales [B, L, KV]) dequantization folds into the
     einsums, as in the reference: the scores pick up the K scale, the f32
     probabilities the V scale. Positions past ``cache_len`` hold no token and
-    are left out, where the reference masks them to -1e30 (weight exactly 0)."""
+    are left out, where the reference masks them to -1e30 (weight exactly 0).
+    Under a mesh ``policy`` see ``_decode_attention_sharded``."""
+    if on_mesh(policy):
+        return _decode_attention_sharded(params, x, st, k_cache, v_cache, cache_len, policy)
     b = x.shape[0]
     g = st.num_heads // st.num_kv_heads
     scale = 1.0 / math.sqrt(st.head_dim)
@@ -191,4 +202,115 @@ def decode_attention(params: Dict, x: torch.Tensor, st: AttnStatics,
     out = out.reshape(b, 1, st.num_heads * st.head_dim) @ params["wo"]
     if int8_cache:
         return out, k_cache, v_cache, k_scale, v_scale
+    return out, k_cache, v_cache
+
+
+# ------------------------------------------------------------- on a mesh
+def _local_heads(params: Dict, st: AttnStatics, policy):
+    """(params, statics, head-parallel): in ``tp`` with the heads split over
+    "model" (H and KV divisible, the projections column-sharded) each rank
+    projects its own heads; otherwise every model-sharded leaf is gathered
+    and the heads stay whole (fsdp shards no leaf over "model" after its
+    FSDP gather)."""
+    tp = policy.tp
+    hq, hk = st.num_heads * st.head_dim, st.num_kv_heads * st.head_dim
+    split = params["wq"].shape[-1] != hq
+    if (policy.mode == "tp" and split and st.num_heads % tp == 0 and st.num_kv_heads % tp == 0
+            and params["wk"].shape[-1] * tp == hk):
+        p = dict(params)
+        for name in ("q_norm", "k_norm"):  # applied to this rank's heads only
+            if name in p:
+                p[name] = {k: policy.colpar(v) for k, v in p[name].items()}
+        local = AttnStatics(st.num_heads // tp, st.num_kv_heads // tp, st.head_dim,
+                            rope_theta=st.rope_theta, mrope=st.mrope,
+                            mrope_sections=st.mrope_sections, qk_norm=st.qk_norm,
+                            causal=st.causal, norm_eps=st.norm_eps, use_rope=st.use_rope)
+        return p, local, True
+    full = {"wq": (-1, hq), "wk": (-1, hk), "wv": (-1, hk), "wo": (0, hq), "bq": (0, hq),
+            "bk": (0, hk), "bv": (0, hk)}
+    p = dict(params)
+    for name, (dim, n) in full.items():
+        if name in p and p[name].shape[dim] != n:
+            p[name] = policy.gather_model(p[name], dim % p[name].dim())
+    return p, st, False
+
+
+def _attention_sharded(params: Dict, x: torch.Tensor, st: AttnStatics,
+                       positions: Optional[torch.Tensor], return_kv: bool, policy):
+    """Causal self-attention on a mesh. x [B', S', D] in the block's compute
+    layout (``policy.compute_spec()``), positions in the same. Head-parallel
+    (``tp``): q/k/v of this rank's heads, then the ``qkv`` hook moves q to
+    its sequence rows ``[a, a + S/tp)`` with every head (one all-to-all) and
+    gathers K/V, cut to the first ``a + S/tp`` positions; flash runs on that
+    local problem unchanged (its causal mask ``kpos - (T - S) > qpos`` is the
+    global one); the output moves back to this rank's heads and ``wo``
+    reduces over "model". Returns the output in the compute layout and, with
+    ``return_kv`` (prefill), k and v of every position and head [B'', S, KV,
+    hd], batch over the data axes: what the cache's shards are cut from."""
+    b, s, _ = x.shape
+    p, lst, hp = _local_heads(params, st, policy)
+    compute = policy.compute_spec()
+    src = (compute[0], compute[1], ("model",) if hp else (), ())
+    q, k, v = _project_qkv(p, policy.colpar(x) if hp else x, lst, positions)
+    qd, kd, vd = policy.qkv(q, k, v, src, causal=True)
+    out = fa_ops.flash_attention(qd, kd, vd, causal=True)
+    out = policy.redistribute(out, policy.q_spec(), src).reshape(b, s, -1) @ p["wo"]
+    if hp:
+        out = policy.rowpar(out)
+    if return_kv:
+        whole = (tuple(a for a in compute[0] if a != "model"), (), (), ())
+        with torch.no_grad():
+            k, v = (policy.redistribute(t, src, whole) for t in (k, v))
+        return out, k, v
+    return out
+
+
+@torch.no_grad()
+def _decode_attention_sharded(params: Dict, x: torch.Tensor, st: AttnStatics,
+                              k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: int,
+                              policy):
+    """One decode step on a mesh. The local caches [B', L/tp, KV, hd] hold
+    this rank's positions ``[m·L/tp, (m+1)·L/tp)`` of its batch rows, every
+    head (``cache_shardings``). q and the new k, v are gathered to every
+    head; the new token's K/V go to the rank that holds ``cache_len``; each
+    rank scores its own valid positions, and the softmax is combined by a
+    max and a sum all-reduce over "model", then the probability-weighted V
+    by a sum. Returns (out in the compute layout, k_cache, v_cache)."""
+    if k_cache.dtype == torch.int8:
+        raise NotImplementedError(f"an int8 KV cache under a sharding policy: {ITEM_16}")
+    b = x.shape[0]
+    p, lst, hp = _local_heads(params, st, policy)
+    compute = policy.compute_spec()
+    src = (compute[0], (), ("model",) if hp else (), ())
+    dst = ((tuple(a for a in compute[0] if a != "model")), (), (), ())
+    shape = (3, b, 1) if st.mrope else (b, 1)
+    pos = (torch.full(shape, cache_len, dtype=torch.int64, device=x.device)
+           if st.use_rope else None)
+    q, k, v = _project_qkv(p, x, lst, pos)
+    q, k, v = (policy.redistribute(t, src, dst) for t in (q, k, v))
+    model = policy.group("model")
+    l_loc = k_cache.shape[1]
+    lo = policy._coord("model") * l_loc
+    if lo <= cache_len < lo + l_loc:
+        k_cache[:, cache_len - lo] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, cache_len - lo] = v[:, 0].to(v_cache.dtype)
+    n = max(0, min(l_loc, cache_len + 1 - lo))
+    bq = q.shape[0]
+    g = st.num_heads // st.num_kv_heads
+    qg = q.reshape(bq, st.num_kv_heads, g, st.head_dim)
+    kc, vc = k_cache[:, :n], v_cache[:, :n]
+    scores = torch.einsum("bkgh,btkh->bkgt", qg, kc).float() * (1.0 / math.sqrt(st.head_dim))
+    m_loc = (scores.amax(-1) if n else
+             torch.full(scores.shape[:-1], float("-inf"), device=x.device))
+    m = all_reduce(m_loc, model, op="max")
+    e = torch.exp(scores - m[..., None])
+    probs = e / all_reduce(e.sum(-1), model)[..., None]
+    out = all_reduce(torch.einsum("bkgt,btkh->bkgh", probs.to(vc.dtype), vc), model)
+    out = out.reshape(bq, 1, st.num_heads, st.head_dim)
+    if hp:  # this rank's heads into its rows of wo, then the row-parallel sum
+        out = policy.take(out, ((), (), ("model",)))
+        out = policy.rowpar(out.reshape(bq, 1, -1) @ p["wo"])
+    else:
+        out = out.reshape(bq, 1, -1) @ p["wo"]
+    out = policy.redistribute(out, (dst[0], (), ()), compute)
     return out, k_cache, v_cache

@@ -58,3 +58,17 @@ def mlp_apply(params: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:
         raise ValueError(f"unknown mlp kind {kind!r}")
     return _bias(params, "b_down", h @ params["w_out"])
+
+
+def mlp_apply_sharded(params: Dict, x: torch.Tensor, kind: str, policy, *,
+                      tensor_parallel: bool) -> torch.Tensor:
+    """The MLP under a policy. ``tensor_parallel``: the hidden dim is split over
+    "model" (the up-projections column-parallel, the down-projection's
+    partial sums reduced over "model", its bias added once after); else the
+    weights are whole and the MLP runs on the rank's rows as on one
+    device."""
+    if not tensor_parallel:
+        return mlp_apply(params, x, kind)
+    local = {k: v for k, v in params.items() if k != "b_down"}
+    y = policy.rowpar(mlp_apply(local, policy.colpar(x), kind))
+    return _bias(params, "b_down", y)

@@ -31,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import ITEM_16, NO_POLICY, on_mesh
 from repro_torch.models.lm.attention import (
     AttnStatics,
     attention,
@@ -45,12 +46,13 @@ from repro_torch.models.lm.mamba import (
     mamba_state_init,
     softplus_inverse_dt,
 )
-from repro_torch.models.lm.mlp import mlp_apply, mlp_init
+from repro_torch.models.lm.mlp import mlp_apply_sharded, mlp_init
 from repro_torch.models.lm.moe import moe_apply, moe_init
 from repro_torch.models.lm.norm import make_norm
 from repro_torch.models.lm.rope import mrope_text_positions
 
 __all__ = [
+    "NO_POLICY",
     "TensorMaker",
     "ShapeMaker",
     "block_roles",
@@ -256,24 +258,42 @@ def _unbind(tree, units: int) -> List:
     return list(torch.unbind(tree, 0))
 
 
-def _embed(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
+def _batch_shape(batch: Dict) -> Tuple[int, int]:
+    """The global (B, S) of ``batch["tokens"]`` or ``batch["embeds"]``."""
+    x = batch["embeds"] if "embeds" in batch else batch["tokens"]
+    b, s = (x.shape if hasattr(x, "shape") else torch.as_tensor(x).shape)[:2]
+    return int(b), int(s)
+
+
+def _embed(cfg: ModelConfig, emb: torch.Tensor, batch: Dict, pol) -> torch.Tensor:
     """``batch["embeds"]`` [B, S, D] cast to the model dtype, else the
-    embedding rows of ``batch["tokens"]`` [B, S]."""
-    dev = params["embed"].device
+    embedding rows of ``batch["tokens"]`` [B, S]; on a mesh this rank's rows
+    in the compute layout, by a vocab-parallel lookup (each rank its own
+    rows, zero elsewhere, summed over "model") where the table ``emb`` is
+    split."""
     if "embeds" in batch:
-        return torch.as_tensor(batch["embeds"], device=dev).to(_dtype(cfg))
-    return params["embed"][torch.as_tensor(batch["tokens"], device=dev).long()]
+        return torch.as_tensor(batch["embeds"], device=emb.device).to(_dtype(cfg))
+    tok = torch.as_tensor(batch["tokens"], device=emb.device).long()
+    tok = pol.take(tok, pol.compute_spec()[:2])
+    n = emb.shape[0]
+    if not on_mesh(pol) or n == cfg.padded_vocab(1):
+        return emb[tok]
+    local = tok - pol._coord("model") * n
+    mine = (local >= 0) & (local < n)
+    return pol.rowpar(emb[local.clamp(0, n - 1)] * mine[..., None].to(emb.dtype))
 
 
-def _embed_in(cfg: ModelConfig, params: Dict, batch: Dict):
-    """(x [B, S, D], positions): positions [B, S] for RoPE, [3, B, S] for
-    M-RoPE (``batch["positions"]`` when given, else text positions), None
+def _embed_in(cfg: ModelConfig, emb: torch.Tensor, batch: Dict, pol):
+    """(x [B, S, D] in the residual layout, positions in the compute
+    layout): positions [B, S] for RoPE, [3, B, S] for M-RoPE
+    (``batch["positions"]`` when given, else text positions), None
     otherwise; a ``sin`` config adds the sinusoidal table to x."""
-    x = _embed(cfg, params, batch)
-    b, s = x.shape[:2]
+    x = _embed(cfg, emb, batch, pol)
+    b, s = _batch_shape(batch)
+    cs = pol.compute_spec()
     if cfg.pos_embed == "sin":
-        pos = torch.arange(s, dtype=torch.float32, device=x.device)
-        x = x + sin_positions(pos, cfg.d_model)[None].to(x.dtype)
+        pe = sin_positions(torch.arange(s, dtype=torch.float32, device=x.device), cfg.d_model)
+        x = x + pol.take(pe, cs[1:2])[None].to(x.dtype)
     if cfg.pos_embed in ("rope", "mrope") and "positions" in batch:
         positions = torch.as_tensor(batch["positions"], device=x.device)
     elif cfg.pos_embed == "rope":
@@ -284,12 +304,20 @@ def _embed_in(cfg: ModelConfig, params: Dict, batch: Dict):
         positions = None
     else:
         raise ValueError(f"unknown pos_embed {cfg.pos_embed!r}")
-    return x, positions
+    if positions is not None:
+        positions = pol.take(positions, cs[:2], first=positions.dim() - 2)
+    return pol.res(x), positions
 
 
-def _lm_head(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ w).float()
+def _lm_head(cfg: ModelConfig, params: Dict, emb: torch.Tensor, x: torch.Tensor, pol):
+    """Logits f32 of this rank's rows: column-parallel over the vocab where
+    the head is split over "model"."""
+    if cfg.tie_embeddings:
+        w = emb.T
+    else:
+        w = pol.gather_params(params["lm_head"], "lm_head")
+    split = on_mesh(pol) and w.shape[1] != cfg.padded_vocab(1)
+    return pol.logits((pol.colpar(x) @ w if split else x @ w).float())
 
 
 def _mamba_kw(cfg: ModelConfig) -> Dict:
@@ -297,40 +325,51 @@ def _mamba_kw(cfg: ModelConfig) -> Dict:
                 headdim=cfg.ssm_headdim, norm_eps=cfg.norm_eps)
 
 
-def _ffn(cfg: ModelConfig, ffn: str, p: Dict, x: torch.Tensor, norm_apply, aux: List):
+def _ffn(cfg: ModelConfig, ffn: str, p: Dict, x: torch.Tensor, norm_apply, aux: List, pol,
+         res: bool = True) -> torch.Tensor:
     """The role's feed-forward with its residual; a MoE layer appends its aux
-    loss to ``aux``."""
+    loss to ``aux``. ``res``: ``x`` is in the residual layout (else, in
+    decode, the compute layout)."""
     if ffn == "none":
         return x
-    h = norm_apply(p["norm_ffn"], x, eps=cfg.norm_eps)
+    xin = pol.block_in(x) if res else x
+    h = norm_apply(p["norm_ffn"], xin, eps=cfg.norm_eps)
     if ffn == "moe":
-        h, a = moe_apply(p["moe"], h, num_experts=cfg.num_experts,
-                         top_k=cfg.experts_per_token, kind=cfg.mlp,
-                         capacity_factor=cfg.capacity_factor)
+        h, a = moe_apply(p["moe"], h, num_experts=cfg.num_experts, top_k=cfg.experts_per_token,
+                         kind=cfg.mlp, capacity_factor=cfg.capacity_factor, policy=pol)
         aux.append(a)
-        return x + h
-    return x + mlp_apply(p["mlp"], h, cfg.mlp)
+    else:
+        h = mlp_apply_sharded(p["mlp"], h, cfg.mlp, pol, tensor_parallel=on_mesh(pol)
+                              and pol.mode == "tp" and cfg.d_ff % pol.tp == 0)
+    return pol.res(xin + h) if res else xin + h
+
+
+def _write_kv(c: Dict, u: int, k: torch.Tensor, v: torch.Tensor, pol) -> None:
+    """This rank's positions of the prompt's K/V [B', S, KV, hd] into unit
+    ``u`` of its cache (int8 with scales under ``kv_cache_dtype="int8"``)."""
+    l_loc = c["k"].shape[2]
+    lo = pol._coord("model") * l_loc
+    n = max(0, min(l_loc, k.shape[1] - lo))
+    k, v = k[:, lo:lo + n], v[:, lo:lo + n]
+    if "k_scale" in c:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        c["k_scale"][u, :, :n], c["v_scale"][u, :, :n] = ks, vs
+    c["k"][u, :, :n], c["v"][u, :, :n] = k, v
 
 
 def _unit(cfg: ModelConfig, roles, st, norm_apply, unit_params: List[Dict], x: torch.Tensor,
-          positions, cache: Optional[List[Dict]], u: int, aux: List) -> torch.Tensor:
+          positions, cache: Optional[List[Dict]], u: int, aux: List, pol) -> torch.Tensor:
     """One unit's roles over ``x``; writes K/V and SSM states into unit ``u``
     of ``cache`` when given and each MoE layer's aux loss into ``aux``."""
-    s = x.shape[1]
     for r, role in enumerate(roles):
         mixer, ffn = role
         p = unit_params[r]
-        h = norm_apply(p["norm_mixer"], x, eps=cfg.norm_eps)
+        xin = pol.block_in(x)
+        h = norm_apply(p["norm_mixer"], xin, eps=cfg.norm_eps)
         if mixer == "attn":
-            h, k, v = attention(p["attn"], h, st, positions, return_kv=True)
+            h, k, v = attention(p["attn"], h, st, positions, return_kv=True, policy=pol)
             if cache is not None:
-                c = cache[r]
-                if "k_scale" in c:
-                    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-                    c["k"][u, :, :s], c["v"][u, :, :s] = kq, vq
-                    c["k_scale"][u, :, :s], c["v_scale"][u, :, :s] = ks, vs
-                else:
-                    c["k"][u, :, :s], c["v"][u, :, :s] = k, v
+                _write_kv(cache[r], u, k, v, pol)
         else:
             out = mamba_apply(p["mamba"], h, chunk=cfg.ssm_chunk,
                               return_state=cache is not None, **_mamba_kw(cfg))
@@ -340,73 +379,91 @@ def _unit(cfg: ModelConfig, roles, st, norm_apply, unit_params: List[Dict], x: t
                     cache[r][key][u] = val
             else:
                 h = out
-        x = _ffn(cfg, ffn, p, x + h, norm_apply, aux)
+        x = _ffn(cfg, ffn, p, pol.res(xin + h), norm_apply, aux, pol)
     return x
 
 
-def _run(params: Dict, cfg: ModelConfig, batch: Dict, cache: Optional[List[Dict]], aux: List):
+def _run(params: Dict, cfg: ModelConfig, batch: Dict, cache: Optional[List[Dict]], aux: List,
+         policy):
     """Full-sequence pass; writes K/V and SSM states into ``cache`` when given
-    and each MoE layer's aux loss into ``aux``.
+    and each MoE layer's aux loss into ``aux``. On a mesh each unit's FSDP
+    leaves are gathered inside the unit.
 
     Under ``cfg.remat == "block"`` a training forward (grad on, no cache)
     runs each unit under ``torch.utils.checkpoint`` (non-reentrant), as the
     reference wraps its unit in ``jax.checkpoint``: the unit keeps only its
-    input, and the backward runs its forward again. The recompute sees the
-    same inputs: no role draws random numbers (and the checkpoint restores
-    the RNG state regardless), positions come from the batch, and
-    ``cache_len`` is read only by decode, which never checkpoints; prefill
-    neither. The unit returns its MoE aux losses one by one, so they are
-    summed in the same order as without it (bitwise)."""
+    input, and the backward runs its forward again (gathering its FSDP
+    leaves again instead of keeping them). The recompute sees the same
+    inputs: no role draws random numbers (and the checkpoint restores the
+    RNG state regardless), positions come from the batch, and ``cache_len``
+    is read only by decode, which never checkpoints; prefill neither. The
+    unit returns its MoE aux losses one by one, so they are summed in the
+    same order as without it (bitwise)."""
+    _check_mesh(cfg, batch, policy)
+    pol = policy.bind(*_batch_shape(batch))
     roles = block_roles(cfg)
     st = make_statics(cfg)
     _, norm_apply = make_norm(cfg.norm)
-    x, positions = _embed_in(cfg, params, batch)
+    emb = pol.gather_params(params["embed"], "embed")
+    x, positions = _embed_in(cfg, emb, batch, pol)
     units = _units(cfg)
     per_unit = [_unbind(stacked, units) for stacked in params["units"]]
     remat = cfg.remat == "block" and cache is None and torch.is_grad_enabled()
     for u in range(units):
-        unit_params = [per_unit[r][u] for r in range(len(roles))]
-        if not remat:
-            x = _unit(cfg, roles, st, norm_apply, unit_params, x, positions, cache, u, aux)
-            continue
-
-        def body(x, unit_params=unit_params, u=u):
+        def body(x, u=u):
             unit_aux: List[torch.Tensor] = []
-            y = _unit(cfg, roles, st, norm_apply, unit_params, x, positions, None, u, unit_aux)
+            up = [pol.gather_params(per_unit[r][u], "units", r, lead=1)
+                  for r in range(len(roles))]
+            y = _unit(cfg, roles, st, norm_apply, up, x, positions, cache, u, unit_aux, pol)
             return (y, *unit_aux)
 
-        x, *unit_aux = checkpoint(body, x, use_reentrant=False)
+        x, *unit_aux = checkpoint(body, x, use_reentrant=False) if remat else body(x)
         aux.extend(unit_aux)
-    x = norm_apply(params["final_norm"], x, eps=cfg.norm_eps)
-    return _lm_head(cfg, params, x)
+    x = pol.block_in(x)
+    x = norm_apply(pol.gather_params(params["final_norm"], "final_norm"), x, eps=cfg.norm_eps)
+    return _lm_head(cfg, params, emb, x, pol)
 
 
-def forward(params: Dict, cfg: ModelConfig, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
+            policy=NO_POLICY) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over ``batch["tokens"]`` [B, S] or
     ``batch["embeds"]`` [B, S, D] (with optional M-RoPE ``positions``).
     Returns (logits [B, S, Vp] f32, aux), aux being the MoE layers' summed
-    load-balancing loss (0 without MoE layers)."""
+    load-balancing loss (0 without MoE layers). Under a mesh ``policy``:
+    the global batch, this rank's params; this rank's logits (the vocab over
+    "model" in tp when the head is column-parallel)."""
     aux: List[torch.Tensor] = []
-    logits = _run(params, cfg, batch, None, aux)
+    logits = _run(params, cfg, batch, None, aux, policy)
     return logits, sum(aux, torch.zeros((), dtype=torch.float32, device=logits.device))
 
 
-def prefill(params: Dict, cfg: ModelConfig, batch: Dict, max_len: int):
+def prefill(params: Dict, cfg: ModelConfig, batch: Dict, max_len: int, *, policy=NO_POLICY):
     """Process the prompt once: (logits [B, S, Vp] f32, cache, cache_len).
 
     One forward pass that also writes every layer's K/V (and SSM final
     state) into a decode cache of capacity ``max_len``; ``cache_len`` is the
-    prompt length, a host int."""
-    b, s = (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[:2]
+    prompt length, a host int. Under a mesh ``policy`` the cache is this
+    rank's shard (``cache_shardings``: its batch rows, its positions of a
+    capacity rounded up to a multiple of the model axis)."""
+    b, s = _batch_shape(batch)
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
-    cache = init_cache(cfg, b, max_len, device=params["embed"].device)
-    return _run(params, cfg, batch, cache, []), cache, s
+    cache = init_cache(cfg, b, max_len, device=params["embed"].device, policy=policy)
+    return _run(params, cfg, batch, cache, [], policy), cache, s
 
 
 # ------------------------------------------------------------------- decode
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device, dtype=None) -> List[Dict]:
-    """Per-role stacked cache ([U, ...] leading axis), zeros."""
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device, dtype=None,
+               policy=NO_POLICY) -> List[Dict]:
+    """Per-role stacked cache ([U, ...] leading axis), zeros. Under a mesh
+    ``policy``: this rank's shard of a cache for the global ``batch``, its
+    capacity rounded up to a multiple of the model axis (so every rank holds
+    L/tp positions)."""
+    if on_mesh(policy):
+        _check_mesh(cfg, {}, policy)
+        dp = policy._dp_size()
+        b_loc = batch // dp if batch % dp == 0 else batch  # cache_shardings' batch rule
+        return init_cache(cfg, b_loc, -(-max_len // policy.tp), device=device, dtype=dtype)
     units = _units(cfg)
     dt = dtype or _dtype(cfg)
     int8kv = cfg.kv_cache_dtype == "int8"
@@ -429,29 +486,51 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device, dtype=None
     return cache
 
 
-def decode_step(params: Dict, cfg: ModelConfig, batch: Dict, cache: List[Dict], cache_len: int):
+def decode_step(params: Dict, cfg: ModelConfig, batch: Dict, cache: List[Dict], cache_len: int,
+                *, policy=NO_POLICY):
     """One serving step for ``batch["tokens"]`` [B, 1] or ``batch["embeds"]``
     [B, 1, D]: returns (logits [B, Vp] f32, cache), the cache updated in
-    place at ``cache_len`` (also the position of every M-RoPE stream)."""
+    place at ``cache_len`` (also the position of every M-RoPE stream). Under
+    a mesh ``policy``: the global tokens, this rank's params and cache (from
+    ``prefill`` or ``init_cache`` under the policy), this rank's logits."""
+    _check_mesh(cfg, batch, policy)
+    pol = policy.bind(_batch_shape(batch)[0], 1)
     roles = block_roles(cfg)
     st = make_statics(cfg)
     _, norm_apply = make_norm(cfg.norm)
-    x = _embed(cfg, params, batch)
+    emb = pol.gather_params(params["embed"], "embed")
+    x = _embed(cfg, emb, batch, pol)
     units = _units(cfg)
     per_unit = [_unbind(stacked, units) for stacked in params["units"]]
     per_cache = [_unbind(c, units) for c in cache]
     for u in range(units):
         for r, role in enumerate(roles):
             mixer, ffn = role
-            p, c = per_unit[r][u], per_cache[r][u]
+            p = pol.gather_params(per_unit[r][u], "units", r, lead=1)
+            c = per_cache[r][u]
             h = norm_apply(p["norm_mixer"], x, eps=cfg.norm_eps)
             if mixer == "attn":
                 scales = {k: c[k] for k in ("k_scale", "v_scale") if k in c}
-                h = decode_attention(p["attn"], h, st, c["k"], c["v"], cache_len, **scales)[0]
+                h = decode_attention(p["attn"], h, st, c["k"], c["v"], cache_len, policy=pol,
+                                     **scales)[0]
             else:
                 h, new = mamba_decode(p["mamba"], h, c, **_mamba_kw(cfg))
                 for key, val in new.items():
                     c[key].copy_(val)
-            x = _ffn(cfg, ffn, p, x + h, norm_apply, [])
-    x = norm_apply(params["final_norm"], x, eps=cfg.norm_eps)
-    return _lm_head(cfg, params, x)[:, 0], cache
+            # the residual stream stays in the compute layout: no sequence to split
+            x = _ffn(cfg, ffn, p, x + h, norm_apply, [], pol, res=False)
+    x = norm_apply(pol.gather_params(params["final_norm"], "final_norm"), x, eps=cfg.norm_eps)
+    return _lm_head(cfg, params, emb, x, pol)[:, 0], cache
+
+
+def _check_mesh(cfg: ModelConfig, batch: Dict, policy) -> None:
+    """What a mesh policy does not run yet (ROADMAP queue 1 item 16)."""
+    if not on_mesh(policy):
+        return
+    if any(m == "mamba" for m, _ in block_roles(cfg)):
+        raise NotImplementedError(f"the mamba mixers ({cfg.family} family) under a sharding "
+                                  f"policy: {ITEM_16}")
+    if "embeds" in batch:
+        raise NotImplementedError(f"an embeds input under a sharding policy: {ITEM_16}")
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(f"an int8 KV cache under a sharding policy: {ITEM_16}")

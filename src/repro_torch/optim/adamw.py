@@ -67,8 +67,31 @@ def adamw_init(params) -> AdamWState:
     return AdamWState(step=step, m=zeros(), v=zeros())
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in _leaves(tree)))
+def global_norm(tree, *, policy=None) -> torch.Tensor:
+    """The f32 2-norm of every leaf. Under a mesh ``policy``, ``tree`` holds
+    this rank's shards, cut as the policy's params (``policy.placements``):
+    each rank squares and sums its shards, a leaf replicated over an
+    axis counted only on that axis's rank 0, and one all-reduce over the
+    whole mesh sums them, so every rank gets the same norm."""
+    import torch.distributed as dist
+
+    # here, not at the top: ``repro_torch.distributed`` imports this module
+    from repro_torch.distributed.sharding import _map, all_reduce, on_mesh
+
+    if not on_mesh(policy):
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in _leaves(tree)))
+    parts = []
+    _map(lambda _, x, pl: parts.append(torch.sum(torch.square(x.to(torch.float32)))
+                                       if policy.counted_once(pl) else None), tree,
+         policy.param_placements())
+    first = _leaves(tree)[0]
+    sq = sum((p for p in parts if p is not None),
+             torch.zeros((), dtype=torch.float32, device=first.device))
+    if dist.get_world_size() != policy.mesh.size():
+        raise ValueError(f"the mesh ({policy.mesh.size()} ranks) must span the world "
+                         f"({dist.get_world_size()})")
+    return torch.sqrt(all_reduce(sq, dist.group.WORLD))
 
 
 @torch.no_grad()
@@ -78,12 +101,17 @@ def adamw_update(
     params,
     cfg: AdamWConfig,
     lr: Optional[Union[float, torch.Tensor]] = None,
+    *,
+    gnorm: Optional[torch.Tensor] = None,
 ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """Returns (new_params, new_state, metrics). ``lr`` overrides cfg.lr
-    (schedule value); weight decay is decoupled (AdamW)."""
+    (schedule value); weight decay is decoupled (AdamW). ``gnorm``: the
+    gradients' global norm when the caller has it (a mesh's, from
+    ``global_norm(..., policy=)``); the update is elementwise, so on a mesh
+    each rank updates its own shards."""
     lr = cfg.lr if lr is None else lr
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     bc1 = 1 - cfg.b1 ** step.to(torch.float32)
     bc2 = 1 - cfg.b2 ** step.to(torch.float32)

@@ -25,7 +25,9 @@ from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.device import resolve_device
-from repro_torch.models.api import model_init
+from repro_torch.distributed.sharding import (ITEM_16, NO_POLICY, on_mesh, param_shardings,
+                                              shard_tree)
+from repro_torch.models.api import model_init, param_shapes
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.train_step import init_train_state, make_train_step
 
@@ -48,19 +50,33 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig, *, device="cuda", policy=None):
+        """``policy``: a ``ShardingPolicy`` to train over its mesh (every rank
+        runs the same Trainer: the same seeded params, cut to its shards by
+        the policy's ``placements``, or by ``param_shardings`` with FSDP on
+        when it carries none, and the same global batches)."""
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
+        self.policy = NO_POLICY if policy is None else policy
+        if on_mesh(self.policy) and tcfg.ckpt_dir:
+            raise NotImplementedError(f"checkpoints of a sharded state: {ITEM_16}")
+        if on_mesh(self.policy) and self.policy.placements is None:
+            self.policy = self.policy.with_placements(param_shardings(
+                cfg, param_shapes(cfg), self.policy.mesh, mode=self.policy.mode))
         self.step_fn = make_train_step(cfg, tcfg.opt, total_steps=tcfg.steps,
-                                       warmup=tcfg.warmup, compressor=tcfg.compressor)
+                                       warmup=tcfg.warmup, compressor=tcfg.compressor,
+                                       policy=self.policy)
         self.metrics_log: List[Dict] = []
 
     def init_state(self) -> Dict:
         """The seeded params' train state, with the compressor's error-feedback
-        state under ``"compress"`` when one is set."""
+        state under ``"compress"`` when one is set; under a policy, this
+        rank's shards."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         params = model_init(self.cfg, gen, device=self.device)
+        if on_mesh(self.policy):
+            params = shard_tree(params, self.policy.placements, self.policy.mesh)
         state = init_train_state(self.cfg, params)
         if self.tcfg.compressor is not None:
             state["compress"] = self.tcfg.compressor.init_state(params)

@@ -19,8 +19,10 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import ITEM_16, NO_POLICY, on_mesh
 from repro_torch.models.api import loss_fn, model_decode_step
-from repro_torch.optim.adamw import AdamWConfig, _leaves, _rebuild, adamw_init, adamw_update
+from repro_torch.optim.adamw import (AdamWConfig, _leaves, _rebuild, adamw_init, adamw_update,
+                                     global_norm)
 from repro_torch.optim.schedule import warmup_cosine
 
 __all__ = ["init_train_state", "make_train_step", "make_serve_step"]
@@ -32,12 +34,12 @@ def init_train_state(cfg: ModelConfig, params, opt_cfg: AdamWConfig = AdamWConfi
     return {"params": params, "opt": adamw_init(params), "step": step}
 
 
-def _grads(params, cfg: ModelConfig, batch: Dict):
+def _grads(params, cfg: ModelConfig, batch: Dict, policy=NO_POLICY):
     """(loss, metrics, grads): autograd through ``loss_fn`` from leaves that
     require grad (float leaves only)."""
     leaves = [p.detach().requires_grad_(p.is_floating_point()) for p in _leaves(params)]
     live = _rebuild(params, iter(leaves))
-    loss, metrics = loss_fn(live, cfg, batch)
+    loss, metrics = loss_fn(live, cfg, batch, policy=policy)
     wanted = [p for p in leaves if p.requires_grad]
     got = iter(torch.autograd.grad(loss, wanted, allow_unused=True))
     grads = []
@@ -56,21 +58,36 @@ def make_train_step(
     total_steps: int = 10_000,
     warmup: int = 100,
     compressor=None,
+    policy=NO_POLICY,
 ) -> Callable:
     """``train_step(state, batch) -> (new_state, metrics)``; metrics: loss,
     ce, aux, tokens, grad_norm, lr (0-d tensors). ``compressor``: a
-    ``distributed.compression`` compressor or None."""
+    ``distributed.compression`` compressor or None.
+
+    Under a mesh ``policy`` the state holds this rank's shards
+    (``shard_tree`` by ``state_shardings``; the policy carries the params'
+    placements, ``with_placements``) and the batch is global: the
+    gradients of leaves replicated over a token axis are summed there (an
+    FSDP leaf's were reduce-scattered by its gather), the norm is the
+    mesh's, and AdamW updates each rank's own shards."""
     sched = schedule or functools.partial(
         warmup_cosine, peak_lr=opt_cfg.lr, warmup=warmup, total=total_steps)
+    mesh = on_mesh(policy)
+    if mesh and compressor is not None:
+        raise NotImplementedError(f"gradient compression under a sharding policy: {ITEM_16}")
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
-        loss, metrics, grads = _grads(state["params"], cfg, batch)
+        loss, metrics, grads = _grads(state["params"], cfg, batch, policy)
+        gnorm = None
+        if mesh:
+            grads = policy.reduce_grads(grads)
+            gnorm = global_norm(grads, policy=policy)
         if compressor is not None:
             grads, state_c = compressor.compress_decompress(grads, state.get("compress"))
         # 1-indexed: warmup starts at lr > 0; on the step's device (no sync)
         lr = sched(state["step"] + 1)
         params, opt, opt_metrics = adamw_update(grads, state["opt"], state["params"], opt_cfg,
-                                                lr=lr)
+                                                lr=lr, gnorm=gnorm)
         new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
         if compressor is not None:
             new_state["compress"] = state_c
@@ -79,12 +96,18 @@ def make_train_step(
     return train_step
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable:
-    """One batched greedy decode step: (next tokens, logits, cache)."""
+def make_serve_step(cfg: ModelConfig, *, policy=NO_POLICY) -> Callable:
+    """One batched greedy decode step: (next tokens, logits, cache); on a
+    mesh the tokens of the whole batch, this rank's logits and cache."""
 
     def serve_step(params, batch: Dict, cache, cache_len: int):
         with torch.no_grad():
-            logits, cache = model_decode_step(params, cfg, batch, cache, cache_len)
+            logits, cache = model_decode_step(params, cfg, batch, cache, cache_len,
+                                              policy=policy)
+        if on_mesh(policy):  # argmax over the padded vocab, as here
+            vp = cfg.padded_vocab(1)
+            next_tok = policy.bind(len(batch["tokens"]), 1).greedy(logits, vp, vp)
+            return next_tok.to(torch.int32), logits, cache
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_tok, logits, cache
 

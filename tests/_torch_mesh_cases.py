@@ -85,6 +85,8 @@ def run_case(case, mesh):
         return _grads(y, [x, scale], case["r"])
     if kind == "front":
         return _front(case, mesh)
+    if kind.startswith("lm-"):
+        return _lm_case(case, mesh)
     if kind == "serve":  # GNNServeEngine: cold, warm (after a plan cache load)
         from repro_torch.serve.gnn_engine import GNNServeEngine
 
@@ -167,6 +169,232 @@ def _front(case, mesh):
     return dict(runs=runs, stats=dict(front.stats))
 
 
+# ------------------------------------------------------ the LM on a 2x2 mesh
+def _lm_case(case, mesh):
+    """An LM case on the ("data", "model") = (2, 2) mesh, or (``mesh`` None)
+    through the unsharded port: each case twice, its outputs made whole
+    (numpy) so the parent compares them with either side."""
+    from repro_torch.distributed import sharding as sh
+
+    pol = sh.NO_POLICY if mesh is None else sh.make_policy(mesh, mode=case.get("mode", "tp"))
+    fsdp_min = sh.FSDP_MIN_ELEMENTS
+    if case.get("fsdp_min") is not None:
+        sh.FSDP_MIN_ELEMENTS = case["fsdp_min"]
+    try:
+        run = {"lm-train": _lm_train, "lm-decode": _lm_decode, "lm-moe": _lm_moe,
+               "lm-cmm": _lm_cmm, "lm-cp": _lm_cp, "lm-engines": _lm_engines}[case["kind"]]
+        return dict(runs=[run(case, mesh, pol) for _ in range(2)])
+    finally:
+        sh.FSDP_MIN_ELEMENTS = fsdp_min
+
+
+def _whole(x, pol, batch_axes, vocab_dim=None):
+    """A rank's block made whole: the vocab over "model" (when ``vocab_dim``
+    is given), then the batch over its axes, inner first."""
+    from repro_torch.distributed.sharding import all_gather
+
+    if vocab_dim is not None:
+        x = torch.cat(all_gather(x, pol.group("model")), vocab_dim)
+    for a in reversed(batch_axes):
+        x = torch.cat(all_gather(x, pol.group(a)), 0)
+    return x
+
+
+def _lm_train(case, mesh, pol):
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg, params = case["cfg"], case["params"]
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    if mesh is not None:
+        pl = sh.param_shardings(cfg, params, mesh, mode=pol.mode)
+        params = sh.shard_tree(params, pl, mesh)
+        pol = pol.with_placements(pl)
+    new, m = make_train_step(cfg, policy=pol)(init_train_state(cfg, params), batch)
+    out = new["params"] if mesh is None else sh.gather_tree(new["params"], pl, mesh)
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                params=[t.detach().numpy() for t in _leaves(out)])
+
+
+def _lm_engines(case, mesh, pol):
+    """``ServeEngine.generate`` (every rank's tokens of the whole batch) and
+    two ``Trainer`` steps (the params made whole) under the policy."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    cfg, params = case["cfg"], case["params"]
+    kw = {} if mesh is None else {"policy": pol}
+    serve_kw = dict(kw)
+    if mesh is not None:
+        pl = sh.param_shardings(cfg, params, mesh, fsdp=False, mode=pol.mode)
+        params = sh.shard_tree(params, pl, mesh)
+        serve_kw["policy"] = pol.with_placements(pl)
+    toks = ServeEngine(cfg, params, max_len=case["max_len"], device="cpu", **serve_kw).generate(
+        torch.from_numpy(case["prompt"]), max_new_tokens=case["new"])
+    trainer = Trainer(cfg, TrainerConfig(steps=2, batch=8, seq=16, log_every=1), device="cpu",
+                      **kw)
+    out = trainer.run()
+    p = out["state"]["params"]
+    if mesh is not None:
+        p = sh.gather_tree(p, trainer.policy.placements, mesh)
+    return dict(tokens=toks.numpy(), loss=[m["loss"] for m in out["metrics"]],
+                params=[t.detach().numpy() for t in _leaves(p)])
+
+
+def _lm_decode(case, mesh, pol):
+    """Decode at 0 from an empty cache (the reference's test), then prefill
+    and two greedy steps: every step's logits, whole."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import api
+
+    cfg, params = case["cfg"], case["params"]
+    if mesh is not None:
+        pl = sh.param_shardings(cfg, params, mesh, fsdp=False, mode=pol.mode)
+        params = sh.shard_tree(params, pl, mesh)
+        pol = pol.with_placements(pl)
+    vp = cfg.padded_vocab(1)
+
+    def whole(lg, b):
+        if mesh is None:
+            return lg.numpy()
+        return _whole(lg, pol, pol.bind(b, 1).compute_spec()[0],
+                      -1 if lg.shape[-1] != vp else None).numpy()
+
+    ones = {"tokens": torch.ones((case["batch"], 1), dtype=torch.int64)}
+    with torch.no_grad():
+        cache = api.model_init_cache(cfg, params, ones, case["max_len"], policy=pol)
+        at0 = whole(api.model_decode_step(params, cfg, ones, cache, 0, policy=pol)[0],
+                    case["batch"])
+        prompt = torch.from_numpy(case["prompt"])
+        b = prompt.shape[0]
+        lg, cache, n = api.model_prefill(params, cfg, {"tokens": prompt}, case["max_len"],
+                                         policy=pol)
+        steps = []
+        tok = (torch.argmax(lg[:, -1], -1) if mesh is None
+               else pol.bind(b, 1).greedy(lg[:, -1], vp, vp))
+        for i in range(2):
+            lg, cache = api.model_decode_step(params, cfg, {"tokens": tok[:, None]}, cache,
+                                              n + i, policy=pol)
+            steps.append(whole(lg, b))
+            tok = (torch.argmax(lg, -1) if mesh is None else pol.bind(b, 1).greedy(lg, vp, vp))
+    return dict(at0=at0, steps=steps, cache_shape=tuple(cache[0]["k"].shape))
+
+
+def _lm_moe(case, mesh, pol):
+    """``moe_apply_sharded`` (or the port's plain layer) of a swiglu MoE:
+    the output and the gradients of sum(out * r), whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.lm.moe import moe_apply
+    from repro_torch.models.lm.moe_sharded import moe_apply_sharded
+
+    params, e = case["params"], case["e"]
+    x, r = torch.from_numpy(case["x"]), torch.from_numpy(case["r"])
+    kw = dict(num_experts=e, top_k=case["k"], kind="swiglu",
+              capacity_factor=case["capacity_factor"])
+    if mesh is not None:
+        ep = e % pol.tp == 0
+        rep, col, row = (Replicate(), Replicate()), (Replicate(), Shard(1)), (Replicate(), Shard(0))
+        pl = {"router": rep,
+              "experts": {k: row if ep else rep for k in params["experts"]}}
+        if "shared" in params:
+            pl["shared"] = {k: row if k == "w_down" else col for k in params["shared"]}
+        params = sh.shard_tree(params, pl, mesh)
+        bound = pol.bind(x.shape[0], x.shape[1])
+        x, r = bound.take(x, (("data",),)), bound.take(r, (("data",),))
+    flat = _leaves(params)
+    x = x.clone().requires_grad_()
+    live = [t.clone().requires_grad_() for t in flat]
+    it = iter(live)
+    tree = _rebuild_like(params, it)
+    if mesh is None:
+        out, aux = moe_apply(tree, x, **kw)
+    else:
+        out, aux = moe_apply_sharded(tree, x, policy=pol, **kw)
+    grads = torch.autograd.grad((out * r).sum(), [x] + live)
+    if mesh is None:
+        return dict(out=out.detach().numpy(), aux=float(aux.detach()),
+                    grads=[g.numpy() for g in grads])
+    from repro_torch.distributed.sharding import all_reduce
+
+    gx = _whole(grads[0], pol, ("data",))
+    gp = _rebuild_like(params, iter(all_reduce(g, pol.group("data")) for g in grads[1:]))
+    whole = sh._map(lambda _, g, place: _unshard(g, place, pol), gp, pl)
+    return dict(out=_whole(out.detach(), pol, ("data",)).numpy(), aux=float(aux.detach()),
+                grads=[gx.numpy()] + [g.numpy() for g in _leaves(whole)])
+
+
+def _unshard(g, place, pol):
+    from repro_torch.distributed.sharding import all_gather
+
+    d = place[1]
+    return g if not hasattr(d, "dim") else torch.cat(all_gather(g, pol.group("model")), d.dim)
+
+
+def _rebuild_like(tree, it):
+    if isinstance(tree, dict):
+        return {k: _rebuild_like(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
+def _lm_cmm(case, mesh, pol):
+    """The collective matmuls on the model axis, made whole; the unsharded
+    side is x @ w."""
+    from repro_torch.distributed.collective_matmul import allgather_matmul, reduce_scatter_matmul
+
+    x, w = torch.from_numpy(case["x"]), torch.from_numpy(case["w"])
+    if mesh is None:
+        y = (x @ w).numpy()
+        return dict(ag=y, rs=y)
+    n, c = pol.tp, pol._coord("model")
+    m, k, nn = x.shape[0], x.shape[1], w.shape[1]
+    ag = allgather_matmul(x[c * m // n:(c + 1) * m // n], w[:, c * nn // n:(c + 1) * nn // n],
+                          mesh)
+    rs = reduce_scatter_matmul(x[:, c * k // n:(c + 1) * k // n],
+                               w[c * k // n:(c + 1) * k // n], mesh)
+    from repro_torch.distributed.sharding import all_gather
+
+    return dict(ag=torch.cat(all_gather(ag, pol.group("model")), 1).numpy(),
+                rs=torch.cat(all_gather(rs, pol.group("model")), 0).numpy(),
+                ag_local=tuple(ag.shape), rs_local=tuple(rs.shape))
+
+
+def _lm_cp(case, mesh, pol):
+    """Context-parallel causal attention through the ``qkv`` hook: this
+    rank's heads in, its sequence rows of every head out, K/V cut; the
+    output and the q/k/v gradients of sum(out * r), whole."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v, r = (torch.from_numpy(case[n]) for n in ("q", "k", "v", "r"))
+    if mesh is None:
+        q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fa_ops.flash_attention(q, k, v, causal=True)
+        g = torch.autograd.grad((out * r).sum(), [q, k, v])
+        return dict(out=out.detach().numpy(), grads=[t.numpy() for t in g])
+    b, s = q.shape[:2]
+    bound = pol.bind(b, s)
+    src = (("data",), (), ("model",), ())
+    q, k, v = (bound.take(t, src).contiguous().requires_grad_() for t in (q, k, v))
+    qd, kd, vd = bound.qkv(q, k, v, src, causal=True)
+    out = fa_ops.flash_attention(qd, kd, vd, causal=True)
+    g = torch.autograd.grad((out * bound.take(r, bound.q_spec())).sum(), [q, k, v])
+    whole_out = _whole(torch.cat(_gather_model(out.detach(), pol), 1), pol, ("data",))
+    grads = [_whole(torch.cat(_gather_model(t, pol), 2), pol, ("data",)) for t in g]
+    return dict(out=whole_out.numpy(), grads=[t.numpy() for t in grads],
+                kv_shape=tuple(kd.shape), kv_contiguous=kd.is_contiguous() and vd.is_contiguous(),
+                q_shape=tuple(qd.shape))
+
+
+def _gather_model(t, pol):
+    from repro_torch.distributed.sharding import all_gather
+
+    return all_gather(t.contiguous(), pol.group("model"))
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -237,6 +465,8 @@ def rank_main(rank: int, world: int, directory: str) -> None:
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=spec.get("timeout_s", 60)))
     mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("shard",))
+    # the LM cases' (data, model) mesh over the same group
+    lm_mesh = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
     if fault.get(rank) == "die":
         raise SystemExit(3)
     if fault.get(rank) == "hang":
@@ -246,7 +476,8 @@ def rank_main(rank: int, world: int, directory: str) -> None:
             c["die_before_backward"] = True
         if fault.get(rank) == "hang-window":
             c["fault"] = rank
-    out = {c["name"]: run_case(c, mesh) for c in spec["cases"]}
+    out = {c["name"]: run_case(c, lm_mesh if c["kind"].startswith("lm-") else mesh)
+           for c in spec["cases"]}
     out["_rank"] = mesh.get_local_rank("shard")
     out["_backend"] = dist.get_backend(mesh.get_group("shard"))
     out["_foreign"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))

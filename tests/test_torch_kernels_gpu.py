@@ -2014,3 +2014,51 @@ def test_streamed_int8_fte_gradient_on_card_is_the_in_memory_one(cuda):
         if not torch.is_tensor(x):
             assert build.launch_counts().get(qm_ops.KERNEL, 0) >= store.num_chunks - 1
     assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+# A context-parallel mesh rank's flash call (distributed/sharding.py: the qkv
+# hook): Qwen3-8B's rows [1,024, 2,048) of B 2, every head (32/8, hd 128,
+# bf16), K/V cut to the 2,048 positions those rows read, end-aligned causal.
+# K/V come as the hook builds them (one cat of the ranks' head blocks, each
+# narrowed to the cut: contiguous, no copy for the kernel), and the call must
+# reach the tensor-core variant forward and backward.
+def _cp_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    b, s, t, h, kv, hd = 2, 1024, 2048, 32, 8, 128
+    q, do = (torch.randn((b, s, h, hd), generator=gen, device=cuda).to(torch.bfloat16)
+             for _ in range(2))
+    blocks = [torch.randn((b, t + 8, kv // 2, hd), generator=gen, device=cuda).to(torch.bfloat16)
+              for _ in range(4)]
+    k = torch.cat([x.narrow(1, 0, t) for x in blocks[:2]], 2)
+    v = torch.cat([x.narrow(1, 0, t) for x in blocks[2:]], 2)
+    return q, k, v, do
+
+
+def test_flash_attention_at_the_context_parallel_rank_shape(cuda):
+    q, k, v, _ = _cp_inputs(cuda)
+    assert k.is_contiguous() and v.is_contiguous()
+    before = dict(build.launch_counts())
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    again = fa_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    assert after.get(fa_ops.TC_KERNEL, 0) == before.get(fa_ops.TC_KERNEL, 0) + 2
+    assert torch.equal(out, again) and torch.isfinite(out).all()
+    plain = flash_attention_ref(q, k, v, causal=True)
+    _close(out, plain, True)
+    assert _bf16_equal_share(out, plain) >= 0.99
+
+
+def test_flash_attention_bwd_at_the_context_parallel_rank_shape(cuda):
+    q, k, v, do = _cp_inputs(cuda)
+    out, lse = fa_ops._forward(q, k, v, True, with_lse=True)
+    before = dict(build.launch_counts())
+    got = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    assert after.get(fa_ops.BWD_TC_KERNEL, 0) == before.get(fa_ops.BWD_TC_KERNEL, 0) + 2
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and torch.equal(g, a) and torch.isfinite(g).all()
+        _bwd_close(g, w, True)

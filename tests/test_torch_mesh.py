@@ -18,12 +18,26 @@ rank 0's windows on every rank, one rank's submissions late, bitwise the
 same fronts over the host loop, each tenant's order kept, warm == cold, and
 a stuck follower failing its windows on every rank. The refusals need no
 process group.
+
+The same ranks run the LM on a second mesh, (data, model) = (2, 2), over the
+same group: REDUCED qwen3-8b train steps (``tp``, ``fsdp``, FSDP on every
+leaf, ``remat="block"``) against the reference's single-device step and the
+unsharded port; REDUCED qwen2-1.5b decoding over a sharded cache;
+``ServeEngine`` and ``Trainer`` under the policy; ``moe_apply_sharded`` (EP
+and replicated experts) with its gradients; the ring collective matmuls
+against the reference's on a faked 2x2 mesh (a JAX subprocess run while the
+ranks do); context-parallel attention through the ``qkv`` hook. Each case
+runs twice in every rank: the same bits on every rank and in both runs.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
+import subprocess
+import sys
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,6 +56,10 @@ from repro_torch.graphs import datasets as port_ds
 from repro_torch.graphs import partition as port_part
 from repro_torch.models.gnn import api as port_api
 from repro_torch.serve.gnn_engine import GNNServeEngine
+from repro_torch.configs.base import get_config as port_config
+from repro_torch.models import api as port_models
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 KINDS = ["edges", "mincut"]
 ARCHS = ["gcn", "gin", "sage"]
@@ -111,6 +129,99 @@ def _case_list(models, plan_dir):
 
 LATE, STOP = 3, 3  # the rank whose submissions come late; a stuck rank submits this many
 
+# ------------------------------------------------------------- the LM cases
+TRAIN_ARCH, DECODE_ARCH = "qwen3-8b", "qwen2-1.5b"
+TRAIN_CASES = [("tp", None, "none"), ("fsdp", None, "none"), ("tp", 0, "block"),
+               ("fsdp", 0, "none")]  # mode, FSDP_MIN_ELEMENTS (0: every leaf FSDP), remat
+MOE_CASES = {"ep": (8, True), "replicated": (7, False)}  # experts, shared expert
+MOE_D, MOE_F, MOE_K, MOE_CF = 32, 64, 2, 16.0
+
+
+def _lm_pair(arch, **kw):
+    """(reference cfg, port cfg, reference params, port params) of a REDUCED LM."""
+    from repro.configs.base import get_config as ref_config
+    from repro.models import api as ref_models
+
+    rcfg = dataclasses.replace(ref_config(arch, reduced=True), **kw)
+    pcfg = dataclasses.replace(port_config(arch, reduced=True), **kw)
+    rp = ref_models.model_init(rcfg, jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(np.asarray, rp)
+    return rcfg, pcfg, rp, port_models.params_from_numpy(pcfg, tree, device="cpu")
+
+
+def _lm_cases():
+    """The LM cases the ranks run on their 2x2 mesh (and the parent runs
+    through the unsharded port), with what the reference side needs."""
+    from repro.data.pipeline import synthetic_batch
+    from repro.models.lm.moe import moe_init as ref_moe_init
+
+    out, ref = [], {}
+    rcfg, pcfg, rp, pp = _lm_pair(TRAIN_ARCH, vocab_size=512)
+    batch = synthetic_batch(seed=0, step=0, batch=8, seq=16, vocab=512)
+    ref["train"] = (rcfg, rp, batch)
+    for mode, fsdp_min, remat in TRAIN_CASES:
+        out.append(dict(name=f"lm-train-{mode}-{fsdp_min}-{remat}", kind="lm-train", mode=mode,
+                        fsdp_min=fsdp_min, cfg=dataclasses.replace(pcfg, remat=remat),
+                        params=pp, batch=batch))
+    rcfg, pcfg, rp, pp = _lm_pair(DECODE_ARCH)
+    ref["decode"] = (rcfg, rp)
+    prompt = np.random.default_rng(1).integers(0, pcfg.vocab_size, (8, 8)).astype(np.int64)
+    for mode in ("tp", "fsdp"):
+        out.append(dict(name=f"lm-decode-{mode}", kind="lm-decode", mode=mode, cfg=pcfg,
+                        params=pp, batch=8, max_len=32, prompt=prompt))
+    for mode, b in (("tp", 4), ("fsdp", 8)):
+        out.append(dict(name=f"lm-engines-{mode}", kind="lm-engines", mode=mode, cfg=pcfg,
+                        params=pp, max_len=16, new=4, prompt=prompt[:b]))
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 8, MOE_D)).astype(np.float32)
+    r = rng.standard_normal((4, 8, MOE_D)).astype(np.float32)
+    for name, (e, shared) in MOE_CASES.items():
+        rpm = ref_moe_init(jax.random.PRNGKey(2), MOE_D, MOE_F, e, "swiglu", shared_expert=shared,
+                           dtype=jnp.float32)
+        ppm = jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a)), rpm)
+        ref[f"moe-{name}"] = (rpm, x, e)
+        out.append(dict(name=f"lm-moe-{name}", kind="lm-moe", params=ppm, e=e, k=MOE_K,
+                        capacity_factor=MOE_CF, x=x, r=r))
+    rng = np.random.default_rng(0)
+    cmm = dict(x=rng.standard_normal((32, 64)).astype(np.float32),
+               w=rng.standard_normal((64, 48)).astype(np.float32))
+    ref["cmm"] = cmm
+    out.append(dict(cmm, name="lm-cmm", kind="lm-cmm"))
+    rng = np.random.default_rng(4)
+    cp = {n: rng.standard_normal(shape).astype(np.float32) for n, shape in (
+        ("q", (4, 16, 4, 16)), ("k", (4, 16, 2, 16)), ("v", (4, 16, 2, 16)),
+        ("r", (4, 16, 4, 16)))}
+    out.append(dict(cp, name="lm-cp", kind="lm-cp"))
+    return out, ref
+
+
+_REF_CMM = r"""
+import json, sys
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.distributed.collective_matmul import allgather_matmul, reduce_scatter_matmul
+x, w = (np.load(sys.argv[i]) for i in (1, 2))
+mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+y1 = allgather_matmul(jax.device_put(x, NamedSharding(mesh, P("model", None))),
+                      jax.device_put(w, NamedSharding(mesh, P(None, "model"))), mesh)
+y2 = reduce_scatter_matmul(jax.device_put(x, NamedSharding(mesh, P(None, "model"))),
+                           jax.device_put(w, NamedSharding(mesh, P("model", None))), mesh)
+np.save(sys.argv[3], np.asarray(y1)); np.save(sys.argv[4], np.asarray(y2))
+"""
+
+
+def _start_reference_cmm(d, cmm):
+    """The reference's collective matmuls on a faked 2x2 CPU mesh, in a
+    subprocess that runs while the ranks do."""
+    paths = [os.path.join(d, f"cmm_{n}.npy") for n in ("x", "w", "ag", "rs")]
+    np.save(paths[0], cmm["x"])
+    np.save(paths[1], cmm["w"])
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen([sys.executable, "-c", _REF_CMM, *paths], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, paths[2:]
+
 
 def _front_requests():
     """Six small graphs of distinct sizes, two tenants (gold every third)."""
@@ -134,9 +245,20 @@ def mesh_run(tmp_path_factory):
     host_serve = host_srv.infer(pg, pg.features).outputs
     host_srv.save_plan_cache(plan_dir)
     case_list = _case_list(models, plan_dir)
+    lm_list, lm_ref = _lm_cases()
+    case_list += lm_list
     torch.save({"cases": case_list, "timeout_s": 60}, os.path.join(d, "inputs.pt"))
-    ranks = cases.run_ranks(d, deadline_s=150.0)
-    host = {c["name"]: cases.run_case(c, None) for c in case_list if c.get("host", True)}
+    cmm_proc, cmm_paths = _start_reference_cmm(d, lm_ref["cmm"])
+    try:
+        ranks = cases.run_ranks(d, deadline_s=180.0)
+        host = {c["name"]: cases.run_case(c, None) for c in case_list if c.get("host", True)}
+        _, err = cmm_proc.communicate(timeout=300)
+    finally:
+        if cmm_proc.poll() is None:
+            cmm_proc.kill()
+    assert cmm_proc.returncode == 0, err[-3000:]
+    lm_ref["cmm_out"] = [np.load(p) for p in cmm_paths]
+    models["lm_ref"] = lm_ref
     return {c["name"]: c for c in case_list}, ranks, host, models, host_serve
 
 
@@ -412,3 +534,174 @@ def test_mesh_refuses_rows_on_another_device(gcn_small):
         eng.aggregate(torch.randn(pg.num_nodes, 3), mode="sum")
 
 
+
+
+# ------------------------------------------------------- the LM on a mesh
+def _lm_runs(ranks, name, per_rank=()):
+    """Each rank's two runs of an LM case, after checking that the second is
+    bitwise the first and that every rank returned the same bits (but for
+    the ``per_rank`` keys)."""
+    first = ranks[0][name]["runs"][0]
+    for r in ranks:
+        a, b = r[name]["runs"]
+        _same_bits(a, b, name)
+        _same_bits({k: v for k, v in a.items() if k not in per_rank},
+                   {k: v for k, v in first.items() if k not in per_rank}, name)
+    return first
+
+
+def _same_bits(a, b, where):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _same_bits(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_bits(x, y, f"{where}/{i}")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and np.array_equal(a, b), where
+    else:
+        assert a == b, where
+
+
+def _close(got, want, tol):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    err = float(np.abs(got - want).max())
+    assert err <= tol, err
+
+
+@pytest.fixture(scope="module")
+def lm_reference_step(mesh_run):
+    """The reference's single-device train step (jitted, as
+    ``tests/test_distributed.py:45-86`` runs it)."""
+    from repro.train.train_step import init_train_state, make_train_step
+
+    rcfg, rp, batch = mesh_run[3]["lm_ref"]["train"]
+    state = init_train_state(rcfg, rp)
+    s1, m1 = jax.jit(make_train_step(rcfg))(state, {k: jnp.asarray(v) for k, v in batch.items()})
+    return float(m1["loss"]), [np.asarray(a, np.float32)
+                               for a in jax.tree_util.tree_leaves(s1["params"])]
+
+
+@pytest.mark.parametrize("mode,fsdp_min,remat", TRAIN_CASES)
+def test_mesh_lm_train_step_matches_the_reference_and_the_unsharded_port(
+        mesh_run, lm_reference_step, mode, fsdp_min, remat):
+    """One ``make_train_step(cfg, policy=)`` step of REDUCED qwen3-8b on the
+    (2, 2) mesh (gathered back with ``gather_tree``): within the reference's
+    bounds of its single-device step (loss 5e-3, params 5e-2,
+    ``tests/test_distributed.py:86-91``) and within 1e-5 of the unsharded
+    port's step; the same bits on every rank and in a second run. FSDP on
+    every leaf (``FSDP_MIN_ELEMENTS`` 0) and ``remat="block"`` run the
+    gathers and the recompute."""
+    _, ranks, host, _, _ = mesh_run
+    name = f"lm-train-{mode}-{fsdp_min}-{remat}"
+    got = _lm_runs(ranks, name)
+    want = host[name]["runs"][0]
+    assert abs(got["loss"] - want["loss"]) <= 1e-5
+    assert abs(got["grad_norm"] - want["grad_norm"]) <= 1e-5 * max(1.0, want["grad_norm"])
+    for g, w in zip(got["params"], want["params"]):
+        _close(g, w, 1e-5)
+    ref_loss, ref_params = lm_reference_step
+    assert abs(got["loss"] - ref_loss) < 5e-3
+    assert max(float(np.abs(g - w).max()) for g, w in zip(got["params"], ref_params)) < 5e-2
+
+
+@pytest.mark.parametrize("mode", ["tp", "fsdp"])
+def test_mesh_lm_decode_over_a_sharded_cache(mesh_run, mode):
+    """REDUCED qwen2-1.5b (3 heads, 1 KV head: the heads stay whole over the
+    2-way model axis) decoding over a cache whose positions are split over
+    "model": the first step from an empty cache within 5e-3 of the
+    reference's single-device ``model_decode_step``
+    (``tests/test_distributed.py:99-119``); that step and a prefill's two
+    greedy steps within 1e-5 of the unsharded port; the same bits on every
+    rank and in a second run."""
+    from repro.models import api as ref_models
+
+    _, ranks, host, models, _ = mesh_run
+    name = f"lm-decode-{mode}"
+    got = _lm_runs(ranks, name)
+    want = host[name]["runs"][0]
+    _close(got["at0"], want["at0"], 1e-5)
+    for g, w in zip(got["steps"], want["steps"]):
+        _close(g, w, 1e-5)
+    assert ranks[0][name]["runs"][0]["cache_shape"][2] == 16  # 32 positions over 2 ranks
+    rcfg, rp = models["lm_ref"]["decode"]
+    batch = {"tokens": jnp.ones((8, 1), jnp.int32)}
+    cache = ref_models.model_init_cache(rcfg, rp, batch, max_len=32)
+    lg, _ = ref_models.model_decode_step(rp, rcfg, batch, cache, jnp.int32(0))
+    _close(got["at0"], np.asarray(lg), 5e-3)
+
+
+@pytest.mark.parametrize("variant", list(MOE_CASES))
+def test_mesh_moe_apply_sharded_matches_the_plain_layer(mesh_run, variant):
+    """``moe_apply_sharded`` (EP: 8 experts with a shared one, 4 a model
+    rank; replicated experts: 7 on the 2-way axis, tokens split over both
+    axes) at capacity 16 (no drops): within 1e-5 of the reference's plain
+    ``moe_apply``, its output and every gradient within 1e-5 of the
+    unsharded port's; the same bits on every rank and in a second run."""
+    from repro.models.lm.moe import moe_apply as ref_moe_apply
+
+    _, ranks, host, models, _ = mesh_run
+    name = f"lm-moe-{variant}"
+    got = _lm_runs(ranks, name)
+    want = host[name]["runs"][0]
+    _close(got["out"], want["out"], 1e-5)
+    assert len(got["grads"]) == len(want["grads"])
+    for g, w in zip(got["grads"], want["grads"]):
+        _close(g, w, 1e-5)
+    rpm, x, e = models["lm_ref"][f"moe-{variant}"]
+    ref, _ = ref_moe_apply(rpm, jnp.asarray(x), num_experts=e, top_k=MOE_K, kind="swiglu",
+                           capacity_factor=MOE_CF)
+    _close(got["out"], np.asarray(ref), 1e-5)
+
+
+def test_mesh_collective_matmuls_match_the_reference(mesh_run):
+    """``allgather_matmul`` and ``reduce_scatter_matmul`` on the model axis
+    (rings of ``batch_isend_irecv``) against the reference's own results for
+    the same inputs on a faked 2x2 mesh (1e-4, ``tests/test_distributed.py:33-52``)."""
+    _, ranks, _, models, _ = mesh_run
+    got = _lm_runs(ranks, "lm-cmm")
+    ag, rs = models["lm_ref"]["cmm_out"]
+    _close(got["ag"], ag, 1e-4)
+    _close(got["rs"], rs, 1e-4)
+    assert got["ag_local"] == (32, 24) and got["rs_local"] == (16, 48)
+
+
+def test_mesh_context_parallel_attention_cuts_kv_to_the_rows_it_serves(mesh_run):
+    """The ``qkv`` hook on head-sharded q/k/v (B 4, S 16, H 4, KV 2): q moves
+    to this rank's 8 rows of every head, K/V are gathered and cut to the
+    first 8 or 16 positions, contiguous (no copy for the kernel); the causal
+    rows and the q/k/v gradients within 1e-6 of the unsharded plain
+    attention (the plain version reduces over the cut length, so the rows
+    are not bitwise at every shape)."""
+    _, ranks, host, _, _ = mesh_run
+    got = _lm_runs(ranks, "lm-cp", per_rank=("kv_shape",))
+    want = host["lm-cp"]["runs"][0]
+    _close(got["out"], want["out"], 1e-6)
+    for g, w in zip(got["grads"], want["grads"]):
+        _close(g, w, 1e-6)
+    for r in ranks:
+        run = r["lm-cp"]["runs"][0]
+        c = r["_rank"] % 2  # the model coordinate
+        assert run["q_shape"] == (2, 8, 4, 16)
+        assert run["kv_shape"] == (2, 8 * (c + 1), 2, 16) and run["kv_contiguous"]
+
+
+@pytest.mark.parametrize("mode", ["tp", "fsdp"])
+def test_mesh_serve_engine_and_trainer_take_the_policy(mesh_run, mode):
+    """``ServeEngine(..., policy=)`` and ``Trainer(..., policy=)`` on the (2, 2)
+    mesh (REDUCED qwen2-1.5b): every rank returns the whole batch's greedy
+    tokens, equal to the unsharded engine's; two Trainer steps (the
+    synthetic batches of seed 0, each rank cutting the same seeded params)
+    within 1e-5 of the unsharded Trainer's loss and params."""
+    _, ranks, host, _, _ = mesh_run
+    name = f"lm-engines-{mode}"
+    got = _lm_runs(ranks, name)
+    want = host[name]["runs"][0]
+    assert np.array_equal(got["tokens"], want["tokens"])
+    assert got["tokens"].shape == (want["tokens"].shape[0], 8 + 4)
+    assert max(abs(a - b) for a, b in zip(got["loss"], want["loss"])) <= 1e-5
+    for g, w in zip(got["params"], want["params"]):
+        _close(g, w, 1e-5)
