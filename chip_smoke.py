@@ -1735,6 +1735,18 @@ MESH_LM_SERVE, MESH_LM_TRAIN, MESH_LM_MOE = "qwen3-8b", "qwen2-1.5b", "granite-m
 # grad norm's clip scale, so an element whose gradient sign is sure differs
 # by at most that one rounding.
 MESH_TRAIN_TOL, MESH_UPDATE_TOL = 1e-2, 0.5
+# The rest of the zoo on the mesh (ROADMAP queue 1 item 16), FULL widths, tp
+# prefill then MESH_LM_NEW - 1 greedy steps: name -> (arch, layers, batch).
+# Jamba runs one unit of 8 roles (its attention layer and MoE), tp with
+# param_shardings(fsdp=False): ~13.3 GB of its 26.54 GB a rank; FSDP's per-unit
+# gather would add ~13.3 GB transient to each rank's ~6.6 GB.
+MESH_ZOO = {"ssm": ("mamba2-370m", MESH_LM_LAYERS, 4), "hybrid": ("jamba-v0.1-52b", 8, 2),
+            "vlm": ("qwen2-vl-7b", MESH_LM_LAYERS, 4),
+            "encdec": ("seamless-m4t-medium", MESH_LM_LAYERS, 4),
+            "int8": ("qwen3-8b", MESH_LM_LAYERS, 4)}
+MESH_ZOO_TRAIN = "mamba2-370m"  # a train step in tp and in fsdp beside Qwen2-1.5B's
+MESH_ENC_FRAMES, MESH_ENC_PREFIX = 1024, 4  # the enc-dec's source frames, target prefix
+MESH_COMPRESS = {"topk": 0.01, "int8": 0}  # one Qwen2-1.5B tp step each: ratio, seed
 MESH_CMM_SHAPE = (8192, 4096, 12288)  # x [M, K], w [K, N]: Qwen3-8B's MLP, B 4 x 2,048
 MESH_CMM_TOL = 1.6e-2  # of the largest magnitude, bf16 (the flash bound)
 MESH_CP_LABEL = "context-parallel rank bf16"  # flash at a mesh rank's local shape
@@ -2080,6 +2092,18 @@ def _mesh_rank(rank, world, directory, queue):
             gc.collect()
             torch.cuda.empty_cache()
         dist.all_gather = all_gather
+        # four ranks of ~20 GiB each after the GNN cases, beside the LM's, met
+        # the machine's 96 GiB: their data and cached staging go first
+        host = [_host_memory()]
+        del g, feats, want, train_feats
+        gc.collect()
+        host.append(_host_memory())
+        _release_pinned()
+        host.append(_host_memory())
+        out["host_after_gnn"] = host
+        if rank == 0:
+            log(f"[mesh] rank 0 host GiB after the GNN cases {host[0]}, their data freed "
+                f"{host[1]}, the cached page-locked blocks released {host[2]}")
         out["lm"] = _mesh_lm(rank, world, directory)
         dist.barrier()
         dist.destroy_process_group()
@@ -2087,6 +2111,35 @@ def _mesh_rank(rank, world, directory, queue):
         queue.put(out)
     except BaseException:
         queue.put(dict(rank=rank, error=traceback.format_exc()))
+
+
+def _host_memory():
+    """GiB of host memory: this process's resident set (``VmRSS`` of
+    ``/proc/self/status``) and the machine's use (``MemTotal - MemAvailable``
+    of ``/proc/meminfo``), each where the file has it."""
+    out = {}
+    for path, keys in (("/proc/self/status", ("VmRSS",)),
+                       ("/proc/meminfo", ("MemTotal", "MemAvailable"))):
+        with open(path) as f:
+            got = {k: int(v.split()[0]) / 2**20 for k, _, v in (ln.partition(":") for ln in f)
+                   if k in keys}  # kB
+        if "VmRSS" in got:
+            out["rss"] = got["VmRSS"]
+        if len(got) == 2 and "MemTotal" in got:
+            out["machine_used"] = got["MemTotal"] - got["MemAvailable"]
+    return out
+
+
+def _release_pinned():
+    """Hand the page-locked blocks PyTorch's host allocator keeps cached
+    back to the system: each of the four ranks keeps its own, sized by the
+    largest gloo staging it has made."""
+    import torch
+
+    fn = (getattr(getattr(torch, "accelerator", None), "empty_host_cache", None)
+          or getattr(torch._C, "_host_emptyCache", None))
+    if fn is not None:
+        fn()
 
 
 # ------------------------------------------------------- the LM on the mesh
@@ -2101,8 +2154,76 @@ def _mesh_lm_cfg(arch):
     return cfg
 
 
-def _mesh_lm_positions():
-    return list(range(0, LM_PROMPT, MESH_LM_STRIDE)) + [LM_PROMPT - 1]
+def _mesh_zoo_cfg(name):
+    """The config of a served mesh case: "serve" is Qwen3-8B's; the zoo's
+    (MESH_ZOO) at FULL widths cut in depth (the enc-dec's encoder too), the
+    hybrid at capacity E/k, the int8 case Qwen3-8B with an int8 KV cache."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    if name == "serve":
+        return _mesh_lm_cfg(MESH_LM_SERVE)
+    arch, layers, _ = MESH_ZOO[name]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if cfg.encoder_layers:
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    if name == "int8":
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    return cfg
+
+
+def _mesh_zoo_batch(name, cfg, ref):
+    """(the prefill batch on the card, max_len, the prompt's length) of a
+    served mesh case: Qwen3-8B's prompts ("serve", and "int8" decodes from
+    them); else rows from a CUDA generator of seed 0: tokens, f32 embeds
+    over the VLM path's image-grid M-RoPE streams, or the enc-dec's f32
+    source frames and a target prefix."""
+    import torch
+
+    if name in ("serve", "int8"):
+        return ({"tokens": torch.from_numpy(ref["prompts"]).cuda()}, LM_PROMPT + MESH_LM_NEW,
+                LM_PROMPT)
+    b, gen = MESH_ZOO[name][2], _cuda_gen(0)
+    if name == "vlm":
+        pos = _vlm_positions(b, VLM_TEXT0, VLM_GRID, VLM_TEXT1)
+        emb = torch.randn((b, pos.shape[-1], cfg.d_model), generator=gen, device=gen.device)
+        return ({"embeds": emb, "positions": torch.from_numpy(pos).cuda()},
+                pos.shape[-1] + MESH_LM_NEW, pos.shape[-1])
+    if name == "encdec":
+        src = torch.randn((b, MESH_ENC_FRAMES, cfg.d_model), generator=gen, device=gen.device)
+        tgt = torch.randint(0, cfg.vocab_size, (b, MESH_ENC_PREFIX), generator=gen,
+                            device=gen.device)
+        return ({"src_embeds": src, "tgt_tokens": tgt}, MESH_ENC_PREFIX + MESH_LM_NEW,
+                MESH_ENC_PREFIX)
+    tok = torch.randint(0, cfg.vocab_size, (b, LM_PROMPT), generator=gen, device=gen.device)
+    return {"tokens": tok}, LM_PROMPT + MESH_LM_NEW, LM_PROMPT
+
+
+def _mesh_zoo_launches(name, cfg):
+    """The kernels a served case's prefill launches on a rank: flash once an
+    attention layer (the enc-dec: the decoder's causal, the encoder's and the
+    cross-attention's unmasked), the SSD once a mamba layer (at H/tp heads),
+    all bf16 hd 64/128 flash on the tensor cores."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models.lm.transformer import mixer_counts
+
+    if cfg.encoder_layers:
+        unmasked = cfg.encoder_layers + cfg.num_layers
+        n = cfg.num_layers + unmasked
+        return {fa_ops.KERNEL: n, fa_ops.TC_KERNEL: n, fa_ops.NONCAUSAL_KERNEL: unmasked}
+    mix = mixer_counts(cfg)
+    out = {fa_ops.KERNEL: mix["attn"], fa_ops.TC_KERNEL: mix["attn"],
+           ssd_ops.KERNEL: mix["mamba"]}
+    return {k: v for k, v in out.items() if v}
+
+
+def _mesh_lm_positions(s=None):
+    s = LM_PROMPT if s is None else s
+    return list(range(0, s, MESH_LM_STRIDE)) + [s - 1]
 
 
 def _mesh_train_step(cfg, policy=None):
@@ -2168,32 +2289,23 @@ def _router_probs():
         transformer.moe_apply = orig
 
 
-def mesh_lm_reference():
-    """The unsharded port on the card at the mesh's LM shapes, for the ranks:
-    FULL-width Qwen3-8B (2 layers) prefill logits (every MESH_LM_STRIDE-th
-    position and the last, whole; every position's argmax) and MESH_LM_NEW
-    greedy tokens with the logits each was picked from; one Qwen2-1.5B train
-    step's loss, grad norm and updated params; Granite's prefill logits and
-    routes. Returns numpy arrays (and the params, on the host)."""
-    import numpy as np
+def _unsharded_serve(out, name, cfg, batch, max_len, s):
+    """The unsharded port's prefill of ``batch`` (logits at every
+    MESH_LM_STRIDE-th position and the last, whole; every position's argmax),
+    then MESH_LM_NEW - 1 greedy decode steps (the logits each token was
+    picked from), into ``out`` under ``name``."""
     import torch
 
-    from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.models.api import model_decode_step, model_init, model_prefill
-    from repro_torch.train.train_step import init_train_state
 
-    out, pos = {}, _mesh_lm_positions()
-    cfg = _mesh_lm_cfg(MESH_LM_SERVE)
-    vocab = cfg.vocab_size
-    prompts = np.random.default_rng(0).integers(0, vocab, (LM_BATCH, LM_PROMPT)).astype(np.int64)
-    out["prompts"] = prompts
-    t0 = time.perf_counter()
-    with torch.inference_mode():
+    vocab, pos = cfg.vocab_size, _mesh_lm_positions(s)
+    routed = _router_probs() if cfg.is_moe else contextlib.nullcontext([])
+    with torch.inference_mode(), routed as calls:
         params = model_init(cfg, _cuda_gen(0), device="cuda")
-        logits, cache, n = model_prefill(params, cfg, {"tokens": torch.from_numpy(prompts).cuda()},
-                                         LM_PROMPT + MESH_LM_NEW)
-        out["serve_sub"] = logits[:, pos, :vocab].cpu().numpy()
-        out["serve_argmax"] = logits[..., :vocab].argmax(-1).cpu().numpy()
+        logits, cache, n = model_prefill(params, cfg, batch, max_len)
+        layers = len(calls)
+        out[f"{name}_sub"] = logits[:, pos, :vocab].cpu().numpy()
+        out[f"{name}_argmax"] = logits[..., :vocab].argmax(-1).cpu().numpy()
         steps = [logits[:, -1, :vocab].clone()]
         del logits
         for i in range(MESH_LM_NEW - 1):
@@ -2201,22 +2313,77 @@ def mesh_lm_reference():
                                           cache, n + i)
             steps.append(lg[:, :vocab])
         steps = torch.stack(steps)  # [new, B, V]
-        out["serve_steps"] = steps.cpu().numpy()
-        out["serve_tokens"] = steps.argmax(-1).T.cpu().numpy()  # [B, new]
-        del params, cache, steps
-    serve_s = time.perf_counter() - t0
+        out[f"{name}_steps"] = steps.cpu().numpy()
+        out[f"{name}_tokens"] = steps.argmax(-1).T.cpu().numpy()  # [B, new]
+        b, k = steps.shape[1], cfg.experts_per_token
+        if layers:  # the routes of the prefill [L, B, S, k] and of each decode step [L, B, k]
+            ids, margins = _routes_of(calls[:layers], k)
+            out[f"{name}_routes"] = ids.view(layers, b, s, k).cpu().numpy()
+            out[f"{name}_margins"] = margins.view(layers, b, s).cpu().numpy()
+            out[f"{name}_step_routes"] = _routes_of(calls[layers:], k)[0].view(
+                MESH_LM_NEW - 1, layers, b, k).cpu().numpy()
+        del params, cache, steps, calls
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    cfg = _mesh_lm_cfg(MESH_LM_TRAIN)
+
+def _unsharded_step(cfg):
+    """The unsharded port's train step of ``cfg`` on the synthetic batch of
+    seed 0 (B TRAIN_BATCH x TRAIN_SEQ): (loss, grad norm, the updated params
+    and the gradients AdamW took, on the host)."""
+    import torch
+
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.api import model_init
+    from repro_torch.train.train_step import init_train_state
+
     batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
         seed=0, step=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab_size).items()}
     params = model_init(cfg, _cuda_gen(0), device="cuda")
     with _step_grads() as grads:
         new, m = _mesh_train_step(cfg)(init_train_state(cfg, params), batch)
-    out["train_loss"], out["train_grad_norm"] = float(m["loss"]), float(m["grad_norm"])
-    train_params = dict(params=_to_host(new["params"]), grads=_to_host(grads[0]))
+    host = dict(params=_to_host(new["params"]), grads=_to_host(grads[0]))
     del params, new, batch, grads
-    train_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return float(m["loss"]), float(m["grad_norm"]), host
+
+
+def mesh_lm_reference():
+    """The unsharded port on the card at the mesh's LM shapes, for the ranks:
+    FULL-width Qwen3-8B (2 layers) prefill logits (every MESH_LM_STRIDE-th
+    position and the last, whole; every position's argmax) and MESH_LM_NEW
+    greedy tokens with the logits each was picked from; the same for each
+    served case of the rest of the zoo (MESH_ZOO); one Qwen2-1.5B and one
+    Mamba2-370M train step's loss, grad norm, gradients and updated params;
+    Granite's prefill logits and routes. Returns numpy arrays (and the train
+    steps' params, on the host, by case)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.api import model_init, model_prefill
+
+    out, pos, seconds = {}, _mesh_lm_positions(), {}
+    cfg = _mesh_lm_cfg(MESH_LM_SERVE)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (LM_BATCH, LM_PROMPT)).astype(np.int64)
+    out["prompts"] = prompts
+    t0 = time.perf_counter()
+    _unsharded_serve(out, "serve", cfg, {"tokens": torch.from_numpy(prompts).cuda()},
+                     LM_PROMPT + MESH_LM_NEW, LM_PROMPT)
+    seconds["serve"] = time.perf_counter() - t0
+    for name in MESH_ZOO:
+        t0 = time.perf_counter()
+        zcfg = _mesh_zoo_cfg(name)
+        _unsharded_serve(out, name, zcfg, *_mesh_zoo_batch(name, zcfg, out))
+        seconds[name] = time.perf_counter() - t0
+
+    train_params = {}
+    for key, arch in (("train", MESH_LM_TRAIN), ("ssm_train", MESH_ZOO_TRAIN)):
+        t0 = time.perf_counter()
+        out[f"{key}_loss"], out[f"{key}_grad_norm"], train_params[key] = _unsharded_step(
+            _mesh_lm_cfg(arch))
+        seconds[key] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     cfg = _mesh_lm_cfg(MESH_LM_MOE)
@@ -2231,14 +2398,19 @@ def mesh_lm_reference():
         ids, margins = _routes_of(calls, cfg.experts_per_token)
         out["moe_routes"], out["moe_margins"] = ids.cpu().numpy(), margins.cpu().numpy()
         del params, logits, calls
-    moe_s = time.perf_counter() - t0
+    seconds["moe"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[mesh reference lm] unsharded on the card: {MESH_LM_SERVE} 2 layers prefill B "
-        f"{LM_BATCH} x {LM_PROMPT} + {MESH_LM_NEW - 1} greedy steps {serve_s:.1f} s (tokens "
-        f"{out['serve_tokens'].tolist()}), {MESH_LM_TRAIN} step {train_s:.1f} s (loss "
-        f"{out['train_loss']:.6f}, grad norm {out['train_grad_norm']:.6f}), {MESH_LM_MOE} "
-        f"prefill {moe_s:.1f} s")
+        f"{LM_BATCH} x {LM_PROMPT} + {MESH_LM_NEW - 1} greedy steps {seconds['serve']:.1f} s "
+        f"(tokens {out['serve_tokens'].tolist()}), {MESH_LM_TRAIN} step {seconds['train']:.1f} s "
+        f"(loss {out['train_loss']:.6f}, grad norm {out['train_grad_norm']:.6f}), {MESH_LM_MOE} "
+        f"prefill {seconds['moe']:.1f} s")
+    log(f"[mesh reference lm] the zoo: " + "; ".join(
+        f"{name} ({MESH_ZOO[name][0]}) prefill + {MESH_LM_NEW - 1} greedy steps "
+        f"{seconds[name]:.1f} s, tokens {out[f'{name}_tokens'].tolist()}" for name in MESH_ZOO)
+        + f"; {MESH_ZOO_TRAIN} step {seconds['ssm_train']:.1f} s (loss "
+          f"{out['ssm_train_loss']:.6f}, grad norm {out['ssm_train_grad_norm']:.6f})")
     return out, train_params
 
 
@@ -2288,10 +2460,78 @@ def _rel(got, want):
     return float((got - want).abs().amax(-1).max() / want.abs().max())
 
 
-def _mesh_lm_serve(mesh, ref, rank):
-    """Qwen3-8B (2 layers) on the (2, 2) mesh, tp with ``param_shardings(fsdp=
-    False)``: ``model_prefill`` of B 4 x 2,048, then MESH_LM_NEW - 1 greedy
-    ``model_decode_step``s over the sharded cache, twice."""
+def _cut_init(cfg, mesh, placements, gen=None):
+    """``model_init(cfg, _cuda_gen(0))``'s weights, each leaf cut to this
+    rank's block (``placements``) as it is made: the whole f32 draw, then the
+    block, then the scale and the cast (elementwise, so the block is bitwise
+    the whole leaf's), so a rank never holds more than one whole leaf. The
+    makers' calls come in the params tree's insertion order."""
+    import torch
+
+    from repro_torch.distributed.sharding import _coordinate, _local_slice, local_shape
+    from repro_torch.models.lm import encdec, transformer
+    from repro_torch.models.lm.mamba import softplus_inverse_dt
+
+    queue = []
+
+    def order(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                order(v)
+        elif isinstance(node, list):
+            for v in node:
+                order(v)
+        else:
+            queue.append(node)
+
+    order(placements)
+    coord = _coordinate(mesh)
+
+    class Cut(transformer.TensorMaker):
+        def stacked(self, n):
+            return Cut(self.gen, self.device, self.lead + (n,))
+
+        def _block(self, t):
+            return _local_slice(t, queue.pop(0), mesh, coord)
+
+        def _local(self, shape):
+            return local_shape(self.lead + tuple(shape), queue.pop(0), mesh)
+
+        def normal(self, shape, std, dtype):
+            t = torch.randn(self.lead + tuple(shape), generator=self.gen, device=self.gen.device)
+            # scaled in place on the whole draw's block, then copied out of it
+            return self._block(t).mul_(std).to(device=self.device, dtype=dtype,
+                                                copy=True).contiguous()
+
+        def zeros(self, shape, dtype):
+            return torch.zeros(self._local(shape), dtype=dtype, device=self.device)
+
+        def ones(self, shape, dtype):
+            return torch.ones(self._local(shape), dtype=dtype, device=self.device)
+
+        def dt_bias(self, shape):
+            u = torch.rand(self.lead + tuple(shape), generator=self.gen, device=self.gen.device)
+            return softplus_inverse_dt(self._block(u)).to(self.device, torch.float32).contiguous()
+
+    gen = gen or _cuda_gen(0)
+    dev = gen.device
+    if cfg.encoder_layers > 0:
+        params = encdec._build(cfg, Cut(gen, dev), Cut(gen, dev, (cfg.encoder_layers,)),
+                               Cut(gen, dev, (cfg.num_layers,)))
+    else:
+        params = transformer._build(cfg, Cut(gen, dev), Cut(gen, dev, (transformer._units(cfg),)))
+    if queue:
+        raise RuntimeError(f"{cfg.name}: {len(queue)} placements left after the init")
+    return params
+
+
+def _mesh_lm_serve(mesh, ref, rank, name="serve"):
+    """A served case on the (2, 2) mesh, tp with ``param_shardings(fsdp=
+    False)`` (the weights made cut, ``_cut_init``): ``model_prefill`` of the
+    case's batch (``_mesh_zoo_batch``; "serve": Qwen3-8B, 2 layers, B 4 x
+    2,048 tokens), then MESH_LM_NEW - 1 greedy ``model_decode_step``s over
+    the sharded cache, twice; against the unsharded run's logits and
+    tokens (``_unsharded_serve``)."""
     import hashlib
 
     import numpy as np
@@ -2299,29 +2539,30 @@ def _mesh_lm_serve(mesh, ref, rank):
 
     from repro_torch.distributed import sharding as sh
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.models.api import model_decode_step, model_init, model_prefill
+    from repro_torch.models.api import model_decode_step, model_prefill, param_shapes
 
-    cfg = _mesh_lm_cfg(MESH_LM_SERVE)
+    cfg = _mesh_zoo_cfg(name)
     vocab, vp = cfg.vocab_size, cfg.padded_vocab(1)
-    full = model_init(cfg, _cuda_gen(0), device="cuda")
-    pl = sh.param_shardings(cfg, full, mesh, fsdp=False)
+    pl = sh.param_shardings(cfg, param_shapes(cfg), mesh, fsdp=False)
+    t0 = time.perf_counter()
+    params = _cut_init(cfg, mesh, pl)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     pol = sh.make_policy(mesh).with_placements(pl)
-    params = sh.shard_tree(full, pl, mesh)
-    del full
     torch.cuda.empty_cache()
-    prompts = torch.from_numpy(ref["prompts"]).cuda()
-    b = prompts.shape[0]
-    pos = _mesh_lm_positions()
+    batch, max_len, s = _mesh_zoo_batch(name, cfg, ref)
+    b = next(iter(batch.values())).shape[0]
+    pos = _mesh_lm_positions(s)
+    pinned = _pinned_routes(ref, name, pol, b, s, cfg.experts_per_token)
     runs = []
     for _ in range(2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launch_counts()
-        with torch.inference_mode(), sh.record_collectives() as coll:
+        routed = _moe_calls(pinned, stats=False) if pinned else contextlib.nullcontext()
+        with torch.inference_mode(), sh.record_collectives() as coll, routed:
             t0 = time.perf_counter()
-            logits, cache, n = model_prefill(params, cfg, {"tokens": prompts},
-                                             LM_PROMPT + MESH_LM_NEW, policy=pol)
+            logits, cache, n = model_prefill(params, cfg, batch, max_len, policy=pol)
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
             prefill_coll = list(coll)
@@ -2340,22 +2581,23 @@ def _mesh_lm_serve(mesh, ref, rank):
                 toks.append(pol.bind(b, 1).greedy(lg, vocab, vp))
             torch.cuda.synchronize()
             decode_ms = (time.perf_counter() - t0) * 1e3 / (MESH_LM_NEW - 1)
+        leaves = cache.values() if isinstance(cache, dict) else cache[0].values()
         runs.append(dict(sub=sub, argmax=am, steps=torch.stack(steps), tokens=torch.stack(toks, 1),
                          prefill_ms=prefill_ms, decode_ms=decode_ms, counts=counts,
-                         peak=torch.cuda.max_memory_allocated(), cache=tuple(cache[0]["k"].shape),
-                         coll=prefill_coll))
+                         peak=torch.cuda.max_memory_allocated(),
+                         cache=[tuple(t.shape) for t in leaves], coll=prefill_coll))
         del cache
     a, c = runs
     same = all(torch.equal(a[k], c[k]) for k in ("sub", "argmax", "steps", "tokens"))
-    want_counts = {fa_ops.KERNEL: MESH_LM_LAYERS, fa_ops.TC_KERNEL: MESH_LM_LAYERS}
-    agree = float((a["argmax"].cpu().numpy() == ref["serve_argmax"]).mean())
-    rel = _rel(a["sub"], torch.from_numpy(ref["serve_sub"]).cuda())
+    want_counts = _mesh_zoo_launches(name, cfg)
+    agree = float((a["argmax"].cpu().numpy() == ref[f"{name}_argmax"]).mean())
+    rel = _rel(a["sub"], torch.from_numpy(ref[f"{name}_sub"]).cuda())
     # greedy tokens: equal to the unsharded run's, or each sequence's first
     # difference at a near-tie of the unsharded logits (its top-2 margin
     # within twice the logits' difference at that step, both runs having fed
     # the same tokens so far); the steps' logits within TF_REL up to it
-    want_tok = torch.from_numpy(ref["serve_tokens"]).cuda()
-    want_steps = torch.from_numpy(ref["serve_steps"]).cuda()
+    want_tok = torch.from_numpy(ref[f"{name}_tokens"]).cuda()
+    want_steps = torch.from_numpy(ref[f"{name}_steps"]).cuda()
     differ = a["tokens"] != want_tok  # [B, new]
     first = torch.where(differ.any(1), differ.float().argmax(1), differ.shape[1])
     ties, step_rel = [], 0.0
@@ -2370,9 +2612,11 @@ def _mesh_lm_serve(mesh, ref, rank):
             ties.append(dict(seq=i, step=s_, margin=float(top2[i, 0] - top2[i, 1]),
                              diff=float(d[i])))
     tied = all(t["margin"] <= 2 * t["diff"] for t in ties)
-    row = dict(prefill_ms=[r["prefill_ms"] for r in runs], decode_ms=[r["decode_ms"] for r in runs],
+    flips = _route_flips(params, cfg, batch, max_len, pol, ref, name, b, s) if pinned else {}
+    row = dict(arch=cfg.name, layers=cfg.num_layers, batch=b, seq=s, init_s=init_s, **flips,
+               prefill_ms=[r["prefill_ms"] for r in runs], decode_ms=[r["decode_ms"] for r in runs],
                launches=a["counts"], peak_bytes=max(r["peak"] for r in runs),
-               cache_shape=a["cache"],
+               cache_shape=a["cache"][0], cache_shapes=a["cache"],
                agree=agree, rel=rel, step_rel=step_rel, tokens_equal=int((~differ).sum()),
                tokens=int(differ.numel()), first_differences=ties, repeat_bitwise=same,
                collectives=_coll_summary(a["coll"]),
@@ -2380,10 +2624,60 @@ def _mesh_lm_serve(mesh, ref, rank):
                                             for t in (a["sub"], a["steps"], a["tokens"]))
                                    ).hexdigest())
     if not (same and a["counts"] == want_counts and agree >= TF_AGREE and rel < TF_REL
-            and step_rel < TF_REL and tied):
-        raise RuntimeError(f"rank {rank} mesh serve {MESH_LM_SERVE}: {row} (launches expected "
+            and step_rel < TF_REL and tied and flips.get("max_margin", 0.0) < ROUTE_TIE):
+        raise RuntimeError(f"rank {rank} mesh {name} {cfg.name}: {row} (launches expected "
                            f"{want_counts})")
     return row
+
+
+def _pinned_routes(ref, name, pol, b, s, k):
+    """A MoE case's routes as the unsharded run chose them, this rank's
+    tokens, in the order the transformer calls its MoE layers (the prefill's,
+    then each decode step's), for ``_moe_calls``; None for a case without
+    MoE layers. A route that flips at a near-tie of the router changes a
+    token's output wholesale (as Granite's do), so the served run is
+    held against the unsharded one on its routes and the flips are counted
+    apart (``_route_flips``)."""
+    import torch
+
+    if f"{name}_routes" not in ref:
+        return None
+    bound, step = pol.bind(b, s), pol.bind(b, 1)
+    want = torch.from_numpy(ref[f"{name}_routes"]).cuda()  # [L, B, S, k]
+    out = [t.reshape(-1, k) for t in bound.take(want, (bound.compute_spec()[0],), first=1)]
+    for st in torch.from_numpy(ref[f"{name}_step_routes"]).cuda():  # [L, B, k] a step
+        out += [t.reshape(-1, k) for t in step.take(st, (step.compute_spec()[0],), first=1)]
+    return out
+
+
+def _route_flips(params, cfg, batch, max_len, pol, ref, name, b, s):
+    """One prefill on its own routes: the routes that differ from the
+    unsharded run's, and the largest router margin at a first flip (<
+    ROUTE_TIE). A flip changes its token's output wholesale, and the mixers
+    carry that change to the later positions of its sequence, so a flip in
+    a later layer at or after an earlier flip's position may sit at any
+    margin; the first flips, those with no flip before them in an earlier
+    layer of their sequence, are rounding and must sit at near-ties."""
+    import torch
+
+    from repro_torch.models.api import model_prefill
+
+    k = cfg.experts_per_token
+    with torch.inference_mode(), _router_probs() as calls:
+        model_prefill(params, cfg, batch, max_len, policy=pol)
+        ids = _whole_rows(_routes_of(calls, k)[0].view(len(calls), -1, s, k)
+                          .transpose(0, 1).contiguous(), pol, b, False).transpose(0, 1)
+    want = torch.from_numpy(ref[f"{name}_routes"]).cuda()
+    margins = torch.from_numpy(ref[f"{name}_margins"]).cuda()
+    differs = (ids.sort(-1).values != want.sort(-1).values).any(-1)  # [L, B, S]
+    seen = torch.cumsum(differs.int(), dim=2).clamp(max=1)  # a flip at or before s, by layer
+    first = differs & (torch.cumsum(seen, dim=0) - seen == 0)  # none in an earlier layer
+
+    def top(mask):
+        return float(margins[mask].max()) if bool(mask.any()) else 0.0
+
+    return dict(flips=int(differs.sum()), first_flips=int(first.sum()), routes=differs.numel(),
+                max_margin=top(first), max_margin_any=top(differs))
 
 
 def _coll_summary(records):
@@ -2417,24 +2711,27 @@ def _update_mismatch(new, ref_new, grad, ref_grad, lr):
     return float(torch.where(held, miss, 0.0).max()), int(held.sum()), held.numel()
 
 
-def _mesh_lm_train(mesh, ref, ref_params, rank, mode):
-    """One Qwen2-1.5B (2 layers) ``make_train_step(cfg, policy=)`` step on the
-    (2, 2) mesh in ``mode`` (FSDP on): loss and grad norm within
-    MESH_TRAIN_TOL relative, every gradient leaf within GRAD_REL of its
-    largest magnitude and every leaf's update within MESH_UPDATE_TOL lr
-    (``_update_mismatch``), against the unsharded step; flash launches, ms,
-    the collectives' ms and bytes, the peak."""
+def _mesh_lm_train(mesh, ref, ref_params, rank, mode, key="train"):
+    """One ``make_train_step(cfg, policy=)`` step on the (2, 2) mesh in
+    ``mode`` (FSDP on) of Qwen2-1.5B ("train") or Mamba2-370M ("ssm_train",
+    the SSD forward and backward at the rank's head shard in tp), 2 layers:
+    loss and grad norm within MESH_TRAIN_TOL relative, every gradient leaf
+    within GRAD_REL of its largest magnitude and every leaf's update within
+    MESH_UPDATE_TOL lr (``_update_mismatch``), against the unsharded step;
+    the kernels' launches, ms, the collectives' ms and bytes, the peak."""
     import torch
 
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.distributed import sharding as sh
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models.api import model_init
     from repro_torch.optim.adamw import _leaves
     from repro_torch.train.train_step import init_train_state
 
-    cfg = _mesh_lm_cfg(MESH_LM_TRAIN)
+    cfg = _mesh_lm_cfg(MESH_LM_TRAIN if key == "train" else MESH_ZOO_TRAIN)
+    ref_params = ref_params[key]
     full = model_init(cfg, _cuda_gen(0), device="cuda")
     pl = sh.param_shardings(cfg, full, mesh, mode=mode)
     pol = sh.make_policy(mesh, mode=mode).with_placements(pl)
@@ -2465,12 +2762,17 @@ def _mesh_lm_train(mesh, ref, ref_params, rank, mode):
     updates = [_update_mismatch(a, w, g, rg, lr) for a, w, g, rg in zip(
         _leaves(new["params"]), _leaves(sh.shard_tree(ref_params["params"], pl, mesh)),
         _leaves(grads[0]), ref_grads)]
-    loss_rel = abs(float(m["loss"]) - ref["train_loss"]) / abs(ref["train_loss"])
-    gn_rel = abs(float(m["grad_norm"]) - ref["train_grad_norm"]) / abs(ref["train_grad_norm"])
-    want_counts = {fa_ops.KERNEL: MESH_LM_LAYERS, fa_ops.TC_KERNEL: MESH_LM_LAYERS,
-                   fa_ops.BWD_DQ_KERNEL: MESH_LM_LAYERS, fa_ops.BWD_DKDV_KERNEL: MESH_LM_LAYERS,
-                   fa_ops.BWD_TC_KERNEL: MESH_LM_LAYERS}
-    row = dict(mode=mode, step_ms=step_ms, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+    loss_rel = abs(float(m["loss"]) - ref[f"{key}_loss"]) / abs(ref[f"{key}_loss"])
+    gn_rel = (abs(float(m["grad_norm"]) - ref[f"{key}_grad_norm"])
+              / abs(ref[f"{key}_grad_norm"]))
+    if key == "train":
+        want_counts = {fa_ops.KERNEL: MESH_LM_LAYERS, fa_ops.TC_KERNEL: MESH_LM_LAYERS,
+                       fa_ops.BWD_DQ_KERNEL: MESH_LM_LAYERS,
+                       fa_ops.BWD_DKDV_KERNEL: MESH_LM_LAYERS,
+                       fa_ops.BWD_TC_KERNEL: MESH_LM_LAYERS}
+    else:
+        want_counts = {ssd_ops.KERNEL: MESH_LM_LAYERS, ssd_ops.KERNEL_BWD: MESH_LM_LAYERS}
+    row = dict(arch=cfg.name, mode=mode, step_ms=step_ms, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                loss_rel=loss_rel, grad_norm_rel=gn_rel, grad_rel_max=max(grad_rels),
                update_lr_max=max(u[0] for u in updates),
                update_held=sum(u[1] for u in updates) / sum(u[2] for u in updates),
@@ -2480,7 +2782,7 @@ def _mesh_lm_train(mesh, ref, ref_params, rank, mode):
     if not (loss_rel < MESH_TRAIN_TOL and gn_rel < MESH_TRAIN_TOL and max(grad_rels) < GRAD_REL
             and row["update_lr_max"] < MESH_UPDATE_TOL
             and all(counts.get(k, 0) == v for k, v in want_counts.items())):
-        raise RuntimeError(f"rank {rank} mesh train {MESH_LM_TRAIN} {mode}: {row} (launches "
+        raise RuntimeError(f"rank {rank} mesh train {cfg.name} {mode}: {row} (launches "
                            f"expected {want_counts})")
     return row
 
@@ -2575,6 +2877,122 @@ def _mesh_lm_moe(mesh, ref, rank):
     return row
 
 
+def _mesh_compress(mesh, rank, kind, directory):
+    """One Qwen2-1.5B (2 layers) tp step on the (2, 2) mesh with the
+    ``kind`` compressor (FSDP on): the compressor's work on the shards held
+    against the unsharded compressor on each whole leaf (the mesh's
+    gradients and error state gathered): what it sent and its new error
+    state bitwise, and AdamW of the sent leaf at the step's norm and lr
+    bitwise the gathered new params; the norm that of the sent gradients.
+    With top-k, the new state is then checkpointed (``save`` gathers it,
+    rank 0 writes) and restored on every rank (``restore`` cuts the shards):
+    bitwise, its bytes and seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.compression import (Int8Compressor, TopKCompressor, int8_leaf,
+                                                     topk_leaf)
+    from repro_torch.kernels import build
+    from repro_torch.models.api import param_shapes
+    from repro_torch.optim.adamw import AdamWConfig, AdamWState, _leaves, adamw_init, adamw_update
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = _mesh_lm_cfg(MESH_LM_TRAIN)
+    pl = sh.param_shardings(cfg, param_shapes(cfg), mesh)
+    pol = sh.make_policy(mesh).with_placements(pl)
+    params = _cut_init(cfg, mesh, pl)
+    comp = (TopKCompressor(ratio=MESH_COMPRESS[kind]) if kind == "topk"
+            else Int8Compressor(seed=MESH_COMPRESS[kind]))
+    calls = []
+
+    class Recording:
+        def init_state(self, grads):
+            return comp.init_state(grads)
+
+        def compress_decompress(self, grads, state, **kw):
+            out = comp.compress_decompress(grads, state, **kw)
+            calls.append((grads, state, out))
+            return out
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        seed=0, step=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab_size).items()}
+    state = init_train_state(cfg, params)
+    state["compress"] = comp.init_state(params)
+    # _mesh_train_step's, with the compressor
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR), warmup=1, total_steps=10,
+                           compressor=Recording(), policy=pol)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    with sh.record_collectives() as coll:
+        t0 = time.perf_counter()
+        new, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    counts = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    (grads, err, (sent, new_err)), = calls
+    # leaf by leaf: the whole gradient (gathered) through the unsharded
+    # compressor from the first step's zero error, cut to this rank's block,
+    # then AdamW on it (elementwise: a block's update is the leaf's)
+    lr, gnorm = m["lr"], m["grad_norm"]
+
+    places = sh.placements_by_leaf(params, pl)
+    coord = sh._coordinate(mesh)
+    bitwise, leaves, sq = True, 0, torch.zeros((), device=batch["tokens"].device)
+    for i, (g, e, snt, ne, p_new, p_old, place) in enumerate(zip(
+            _leaves(grads), _leaves(err), _leaves(sent), _leaves(new_err),
+            _leaves(new["params"]), _leaves(params), places)):
+        whole = sh.gather_tree(g, place, mesh)
+        zero = torch.zeros(whole.shape, dtype=torch.float32, device=whole.device)
+        if kind == "topk":
+            w_snt, w_ne = topk_leaf(whole, zero, comp.ratio)
+        else:
+            w_snt, w_ne = int8_leaf(whole, zero, comp.draws(i, whole.shape, whole.device))
+        sq = sq + torch.sum(torch.square(w_snt.float()))
+        w_snt, w_ne = (sh._local_slice(t, place, mesh, coord) for t in (w_snt, w_ne))
+        w_new = adamw_update({"x": w_snt}, adamw_init({"x": p_old}), {"x": p_old},
+                             AdamWConfig(lr=TRAIN_LR), lr=lr, gnorm=gnorm)[0]["x"]
+        bitwise &= not bool(e.any()) and all(torch.equal(x, y) for x, y in (
+            (snt, w_snt), (ne, w_ne), (p_new, w_new)))
+        leaves += 1
+        del whole, zero, w_snt, w_ne, w_new
+    norm_rel = abs(float(gnorm) - float(torch.sqrt(sq))) / float(torch.sqrt(sq))
+    row = dict(kind=kind, step_ms=step_ms, loss=float(m["loss"]), grad_norm=float(gnorm),
+               norm_rel=norm_rel, bitwise=bitwise, leaves=leaves, launches=counts,
+               peak_bytes=peak, collectives=_coll_summary(coll),
+               collective_ms=sum(r["ms"] for r in coll),
+               collective_mib=sum(r["bytes"] for r in coll) / 2**20)
+    if not (bitwise and norm_rel < 1e-5 and counts.get("flash_attention", 0) == MESH_LM_LAYERS):
+        raise RuntimeError(f"rank {rank} mesh compress {kind}: {row}")
+    if kind == "topk":  # checkpoint the compressed state and restore it
+        d = os.path.join(directory, "ckpt")
+        mesh_kw = dict(placements={"params": pl, "opt": AdamWState(
+            step=sh.replicated(mesh), m=pl, v=pl), "step": sh.replicated(mesh), "compress": pl},
+            mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save(new, d, 1, **mesh_kw)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t0 = time.perf_counter()
+        back = ckpt.restore(d, new, **mesh_kw)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(x, y) for x, y in zip(_leaves(back), _leaves(new)))
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(d, ignore_errors=True)
+        row["checkpoint"] = dict(bytes=nbytes, save_s=save_s, restore_s=restore_s,
+                                 bitwise=same, leaves=len(_leaves(new)))
+        if not same:
+            raise RuntimeError(f"rank {rank} mesh checkpoint: {row['checkpoint']}")
+    return row
+
+
 def _mesh_cmm(mesh, rank):
     """The collective matmuls at Qwen3-8B's MLP shape on the model axis, bf16,
     against ``torch.matmul`` of the gathered operands, each timed beside the
@@ -2634,25 +3052,39 @@ def _mesh_lm(rank, world, directory):
     t0 = time.perf_counter()
     mesh = init_device_mesh("cuda", (2, world // 2), mesh_dim_names=("data", "model"))
     ref = dict(np.load(os.path.join(directory, "lm.npz")))
-    ref["train_loss"], ref["train_grad_norm"] = (float(ref["train_loss"]),
-                                                 float(ref["train_grad_norm"]))
-    out = dict(coordinate=[mesh.get_local_rank(a) for a in ("data", "model")])
-    for name, fn in (("serve", lambda: _mesh_lm_serve(mesh, ref, rank)),
-                     ("moe", lambda: _mesh_lm_moe(mesh, ref, rank)),
-                     ("cmm", lambda: _mesh_cmm(mesh, rank))):
+    for key in ("train", "ssm_train"):
+        for k in (f"{key}_loss", f"{key}_grad_norm"):
+            ref[k] = float(ref[k])
+    out = dict(coordinate=[mesh.get_local_rank(a) for a in ("data", "model")],
+               host={"start": _host_memory()})
+    cases = [("serve", lambda: _mesh_lm_serve(mesh, ref, rank)),
+             ("moe", lambda: _mesh_lm_moe(mesh, ref, rank)),
+             ("cmm", lambda: _mesh_cmm(mesh, rank))]
+    cases += [(name, lambda name=name: _mesh_lm_serve(mesh, ref, rank, name)) for name in MESH_ZOO]
+    cases += [(f"compress_{kind}", lambda kind=kind: _mesh_compress(mesh, rank, kind, directory))
+              for kind in MESH_COMPRESS]
+
+    def done(name, t1):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["host"][name] = host = _host_memory()
+        if rank == 0:  # a live trace: a run the machine ends for memory shows its last case
+            log(f"[mesh] lm rank 0 {name}: {time.perf_counter() - t1:.1f} s; host GiB "
+                + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+
+    for name, fn in cases:
         t1 = time.perf_counter()
         out[name] = fn()
         out[name]["seconds"] = time.perf_counter() - t1
-        gc.collect()
-        torch.cuda.empty_cache()
+        done(name, t1)
     train_params = torch.load(os.path.join(directory, "lm_train_params.pt"), weights_only=False)
-    out["train"] = {}
-    for mode in ("tp", "fsdp"):
-        t1 = time.perf_counter()
-        out["train"][mode] = _mesh_lm_train(mesh, ref, train_params, rank, mode)
-        out["train"][mode]["seconds"] = time.perf_counter() - t1
-        gc.collect()
-        torch.cuda.empty_cache()
+    for key in ("train", "ssm_train"):
+        out[key] = {}
+        for mode in ("tp", "fsdp"):
+            t1 = time.perf_counter()
+            out[key][mode] = _mesh_lm_train(mesh, ref, train_params, rank, mode, key)
+            out[key][mode]["seconds"] = time.perf_counter() - t1
+            done(f"{key}_{mode}", t1)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -2663,8 +3095,9 @@ def _mesh_lm_report(tag, got):
     from repro_torch.distributed.sharding import STAGED_ON_GLOO
 
     lm = [got[r]["lm"] for r in range(SHARDS)]
-    if len({x["serve"]["hash"] for x in lm}) != 1:
-        raise RuntimeError(f"{tag}: the ranks' served logits and tokens differ")
+    for name in ("serve",) + tuple(MESH_ZOO):
+        if len({x[name]["hash"] for x in lm}) != 1:
+            raise RuntimeError(f"{tag}: the ranks' {name} logits and tokens differ")
     for r, x in enumerate(lm):
         sv, mo, cm = x["serve"], x["moe"], x["cmm"]
         log(f"[{tag}] lm rank {r} (data, model) {tuple(x['coordinate'])}: {MESH_LM_SERVE} "
@@ -2675,8 +3108,41 @@ def _mesh_lm_report(tag, got):
             f"greedy steps {sv['step_rel']:.4g}; tokens equal {sv['tokens_equal']} of "
             f"{sv['tokens']} (first differences at near-ties: {sv['first_differences']}); "
             f"repeat bitwise {sv['repeat_bitwise']}; prefill collectives {sv['collectives']}")
-        for mode, t in x["train"].items():
-            log(f"[{tag}] lm rank {r} {MESH_LM_TRAIN} {MESH_LM_LAYERS} layers {mode} step: "
+        for name in MESH_ZOO:
+            z = x[name]
+            log(f"[{tag}] lm rank {r} {name}: {z['arch']} {z['layers']} layers tp, B {z['batch']} "
+                f"x {z['seq']}: made cut in {z['init_s']:.1f} s; prefill "
+                f"{[round(v, 1) for v in z['prefill_ms']]} ms, decode "
+                f"{[round(v, 1) for v in z['decode_ms']]} ms a token, cache leaves "
+                f"{z['cache_shapes']}, launches {z['launches']}, peak "
+                f"{z['peak_bytes'] / 2**30:.2f} GiB; argmax agreement {z['agree']:.4f}, max "
+                f"relative difference {z['rel']:.4g}, greedy steps {z['step_rel']:.4g}; tokens "
+                f"equal {z['tokens_equal']} of {z['tokens']} (first differences at near-ties: "
+                f"{z['first_differences']}); repeat bitwise {z['repeat_bitwise']}; prefill "
+                f"collectives {z['collectives']}; {z['seconds']:.1f} s"
+                + (f"; served on the unsharded run's routes, an unpinned prefill flipped "
+                   f"{z['flips']} of {z['routes']} (at margins <= {z['max_margin_any']:.3g}), "
+                   f"{z['first_flips']} with no flip before them in an earlier layer of their "
+                   f"sequence at margins <= {z['max_margin']:.3g} (< {ROUTE_TIE})"
+                   if "flips" in z else ""))
+        for kind in MESH_COMPRESS:
+            z = x[f"compress_{kind}"]
+            log(f"[{tag}] lm rank {r} {MESH_LM_TRAIN} {MESH_LM_LAYERS} layers tp step with "
+                f"{kind}: {z['step_ms']:.1f} ms, collectives {z['collective_ms']:.1f} ms of "
+                f"{z['collective_mib']:.1f} MiB; sent, error state and new params of all "
+                f"{z['leaves']} leaves bitwise the unsharded compressor's and AdamW's on the "
+                f"gathered leaves: {z['bitwise']}; clip norm {z['grad_norm']:.6f}, the sent "
+                f"gradients' (rel {z['norm_rel']:.2e}); launches {z['launches']}; peak "
+                f"{z['peak_bytes'] / 2**30:.2f} GiB; {z['seconds']:.1f} s")
+            if "checkpoint" in z:
+                c = z["checkpoint"]
+                log(f"[{tag}] lm rank {r} checkpoint of that state: {c['bytes'] / 2**20:.1f} MiB "
+                    f"in {c['leaves']} leaves, save (gather, rank 0 writes, barrier) "
+                    f"{c['save_s']:.2f} s, restore (read whole, cut) {c['restore_s']:.2f} s, "
+                    f"bitwise {c['bitwise']}")
+        for mode, t in [(m, x["train"][m]) for m in x["train"]] + [
+                (m, x["ssm_train"][m]) for m in x["ssm_train"]]:
+            log(f"[{tag}] lm rank {r} {t['arch']} {MESH_LM_LAYERS} layers {mode} step: "
                 f"{t['step_ms']:.1f} ms, collectives {t['collective_ms']:.1f} ms of "
                 f"{t['collective_mib']:.1f} MiB {t['collectives']}; loss {t['loss']:.6f} (rel "
                 f"{t['loss_rel']:.2e}), grad norm rel {t['grad_norm_rel']:.2e}, gradients "
@@ -2701,7 +3167,15 @@ def _mesh_lm_report(tag, got):
             f"reduce-scatter {cm['rs_plain_ms']:.1f}), err {cm['err_rs']:.2e} of max")
         log(f"[{tag}] lm rank {r}: {x['seconds']:.1f} s (serve {sv['seconds']:.1f}, moe "
             f"{mo['seconds']:.1f}, cmm {cm['seconds']:.1f}, train "
-            f"{sum(t['seconds'] for t in x['train'].values()):.1f})")
+            f"{sum(t['seconds'] for t in x['train'].values()):.1f}; the zoo "
+            + ", ".join(f"{n} {x[n]['seconds']:.1f}" for n in MESH_ZOO)
+            + ", " + ", ".join(f"compress {k} {x[f'compress_{k}']['seconds']:.1f}"
+                               for k in MESH_COMPRESS)
+            + f", ssm train {sum(t['seconds'] for t in x['ssm_train'].values()):.1f})")
+    for r, x in enumerate(lm):
+        log(f"[{tag}] lm rank {r} host GiB after each case: " + "; ".join(
+            f"{k} " + ", ".join(f"{n} {v:.2f}" for n, v in h.items())
+            for k, h in x["host"].items()))
     log(f"[{tag}] lm: staged through page-locked host memory on gloo: {list(STAGED_ON_GLOO)}; "
         f"direct: all_gather, all_reduce; {card_line()}")
     return lm
@@ -4658,6 +5132,11 @@ def phase_lm_kernels():
         ("ragged unmasked f32", 4, 100, 1000, 16, 16, 64, torch.float32, False),
         # the mesh's context-parallel rank: Qwen3-8B's rows [1024, 2048) of B 2
         (MESH_CP_LABEL, 2, 1024, 2048, 32, 8, 128, torch.bfloat16, True),
+        # the enc-dec on a tp mesh rank: the encoder's rows [512, 1024) of B 2
+        # against all 1,024 frames, and 2 of the 4-token prefix's rows
+        ("seamless encoder context-parallel rank bf16", 2, 512, 1024, 16, 16, 64,
+         torch.bfloat16, False),
+        ("seamless cross-attention rank bf16", 2, 2, 1024, 16, 16, 64, torch.bfloat16, False),
     ):
         q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, t, kv, hd), generator=gen, device="cuda").to(dt)
@@ -4696,10 +5175,13 @@ def phase_lm_kernels():
 
     ssd = []
     # Mamba2-370M prefill, a ragged chunk, and Jamba's prefill (N 16: half of
-    # one 32-column staging chunk; 128 heads).
+    # one 32-column staging chunk; 128 heads); then each at a tp mesh rank's
+    # head shard (the mesh phase's B 4 and B 2 over 2 data x 2 model ranks).
     for label, b, nc, q_, n, h, p in (("mamba2-370m prefill", 4, 8, 256, 128, 32, 64),
                                       ("ragged chunk Q=200", 4, 2, 200, 128, 32, 64),
-                                      ("jamba prefill", 4, 8, 256, 16, 128, 64)):
+                                      ("jamba prefill", 4, 8, 256, 16, 128, 64),
+                                      ("mamba2-370m mesh rank", 2, 8, 256, 128, 16, 64),
+                                      ("jamba mesh rank", 1, 8, 256, 16, 64, 64)):
         cc = torch.randn((b, nc, q_, n), generator=gen, device="cuda")
         bc = torch.randn((b, nc, q_, n), generator=gen, device="cuda")
         xdt = torch.randn((b, nc, h, q_, p), generator=gen, device="cuda")
@@ -4769,6 +5251,7 @@ SSD_BWD_CASES = (
     ("jamba training", 4, 8, 256, 16, 128, 64),
     ("ragged chunk Q=200", 4, 2, 200, 128, 32, 64),
     ("REDUCED launcher P=16", 8, 1, 64, 16, 8, 16),
+    ("mamba2-370m mesh rank", 2, 8, 256, 128, 16, 64),  # the mesh's tp step, H/tp heads
 )
 
 
@@ -5741,13 +6224,17 @@ def kernel_row(name, source, replaces, launches, row, shape):
 
 
 def _mesh_lm_launches(mesh_row, kernel):
-    """A kernel's launches on each mesh rank: a prefill of the served and the
-    MoE model, a training step in each mode (those that launch it)."""
+    """A kernel's launches on each mesh rank: a prefill of each served model
+    (Qwen3-8B, Granite and the zoo's), a training step in each mode of
+    Qwen2-1.5B and Mamba2-370M and a compressed step (those that launch
+    it)."""
     lm = mesh_row["lm"]
-    out = {"serve_prefill": [x["serve"]["launches"].get(kernel, 0) for x in lm],
-           "moe_prefill": [x["moe"]["launches"].get(kernel, 0) for x in lm]}
-    out.update({f"train_step_{m}": [x["train"][m]["launches"].get(kernel, 0) for x in lm]
-                for m in ("tp", "fsdp")})
+    out = {f"{name}_prefill": [x[name]["launches"].get(kernel, 0) for x in lm]
+           for name in ("serve", "moe") + tuple(MESH_ZOO)}
+    out.update({f"{key}_step_{m}": [x[key][m]["launches"].get(kernel, 0) for x in lm]
+                for key in ("train", "ssm_train") for m in ("tp", "fsdp")})
+    out.update({f"compress_{k}_step": [x[f"compress_{k}"]["launches"].get(kernel, 0) for x in lm]
+                for k in MESH_COMPRESS})
     return {k: v for k, v in out.items() if any(v)}
 
 
@@ -6253,7 +6740,12 @@ def main() -> int:
                         "B={b} NC={nc} Q={q} N={n} H={h} P={p} f32".format(**ssd_rows[0])),
              f32_bound_ms=ssd_rows[0]["f32_bound_ms"],
              launches_by_lm_path=lm_paths(ssd_ops.KERNEL),
-             launches_ssm_train_run=ssm_train_row["launches"].get(ssd_ops.KERNEL, 0)),
+             launches_ssm_train_run=ssm_train_row["launches"].get(ssd_ops.KERNEL, 0),
+             # a mesh rank's, at H/tp heads in tp: the zoo's prefills, the steps
+             launches_mesh_lm=_mesh_lm_launches(mesh_row, ssd_ops.KERNEL),
+             cases={r["case"]: {k: r[k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "f32_bound_ms")} for r in ssd_rows[1:]}),
         # The SSD's backward: launches in the FULL Mamba2-370M training run
         # (TRAIN_STEPS steps, one a layer a step), times at its shape.
         dict(kernel_row("ssd_intra_chunk_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
@@ -6266,6 +6758,7 @@ def main() -> int:
              launches_per_step=ssm_train_row["steps"][-1]["launches"].get(ssd_ops.KERNEL_BWD, 0),
              launches_hybrid_train_run=sum(st["launches"].get(ssd_ops.KERNEL_BWD, 0)
                                            for st in hybrid_train_row["steps"]),
+             launches_mesh_lm=_mesh_lm_launches(mesh_row, ssd_ops.KERNEL_BWD),
              autograd_plain_ms=ssd_bwd_rows[0]["autograd_plain_ms"],
              cases={r["case"]: {k: r[k] for k in (
                  "max_abs_err", "ms", "kernel_ms", "plain_ms", "autograd_plain_ms", "bound_ms",

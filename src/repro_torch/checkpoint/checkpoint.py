@@ -19,6 +19,16 @@ reference writes them (``opt/.m/embed``), so either package restores the
 other's checkpoints. numpy has no bf16, so a bf16 leaf is stored as its bits
 (``u2``) with the dtype in the manifest, and restored through
 ``torch.int16`` → ``.view(torch.bfloat16)``: torch alone, bit for bit.
+
+**A sharded state** (``placements=`` and ``mesh=``: each leaf this rank's
+shard, cut by those placements, as ``shard_tree`` cuts): ``save`` gathers
+every leaf whole, rank 0 writes the files an unsharded save writes, then
+all ranks meet at a barrier; ``save_async`` gathers at the call (collectives
+cannot run on the writer thread) and only rank 0's write is in the
+background; ``restore`` reads the whole leaves on every rank and cuts its
+shards; ``latest_step`` is rank 0's, on every rank. The files are
+interchangeable with unsharded ones, as the reference's resharding restore
+promises.
 """
 from __future__ import annotations
 
@@ -31,7 +41,10 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import (_coordinate, _local_slice, gather_tree,
+                                              placements_by_leaf, whole_shape)
 from repro_torch.optim.adamw import AdamWState, _leaves, _rebuild
 
 __all__ = ["save", "save_async", "restore", "latest_step", "wait_pending"]
@@ -92,14 +105,32 @@ def _describe(state) -> str:
     return "*"
 
 
-def save(state: Any, ckpt_dir: str, step: int, *, keep: int = 3) -> str:
+def _whole(state, placements, mesh):
+    """(the state made whole, whether this rank writes)."""
+    if placements is None:
+        return state, True
+    return gather_tree(state, placements, mesh), dist.get_rank() == 0
+
+
+def save(state: Any, ckpt_dir: str, step: int, *, keep: int = 3, placements=None,
+         mesh=None) -> str:
     """Synchronous atomic save. Returns the final checkpoint path."""
-    arrays, dtypes, paths = _snapshot(state)
-    return _write(arrays, dtypes, paths, _describe(state), ckpt_dir, step, keep)
+    state, writer = _whole(state, placements, mesh)
+    path = os.path.join(ckpt_dir, f"step_{step:09d}")
+    if writer:
+        arrays, dtypes, paths = _snapshot(state)
+        path = _write(arrays, dtypes, paths, _describe(state), ckpt_dir, step, keep)
+    if placements is not None:
+        dist.barrier()
+    return path
 
 
-def save_async(state: Any, ckpt_dir: str, step: int, *, keep: int = 3) -> None:
+def save_async(state: Any, ckpt_dir: str, step: int, *, keep: int = 3, placements=None,
+               mesh=None) -> None:
     """Copy the leaves to host memory now; write them on a background thread."""
+    state, writer = _whole(state, placements, mesh)
+    if not writer:
+        return
     arrays, dtypes, paths = _snapshot(state)
     t = threading.Thread(target=_write,
                          args=(arrays, dtypes, paths, _describe(state), ckpt_dir, step, keep))
@@ -152,9 +183,18 @@ def _list_steps(ckpt_dir: str) -> List[int]:
     return out
 
 
-def latest_step(ckpt_dir: str) -> Optional[int]:
+def latest_step(ckpt_dir: str, *, mesh=None) -> Optional[int]:
+    """The newest complete checkpoint's step; with a ``mesh``, rank 0's
+    (after its pending writes) on every rank."""
+    if mesh is not None:
+        wait_pending()
     steps = _list_steps(ckpt_dir)
-    return max(steps) if steps else None
+    step = max(steps) if steps else None
+    if mesh is not None:
+        box = [step]
+        dist.broadcast_object_list(box, src=0)
+        step = box[0]
+    return step
 
 
 def _from_host(a: np.ndarray, dtype_name: str, device) -> torch.Tensor:
@@ -168,11 +208,17 @@ def _from_host(a: np.ndarray, dtype_name: str, device) -> torch.Tensor:
     return t.to(device)
 
 
-def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None, device=None) -> Any:
+def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None, device=None,
+            placements=None, mesh=None) -> Any:
     """The checkpoint (the newest, or ``step``) in the structure of ``like``,
-    each leaf on its ``like`` leaf's device, or on ``device`` when given."""
+    each leaf on its ``like`` leaf's device, or on ``device`` when given.
+    With ``placements`` (and the ``mesh``), ``like`` holds this rank's
+    shards: each whole leaf is read and cut to the rank's block."""
+    cuts = [None] * len(_leaves(like))
+    if placements is not None:
+        cuts, coord = placements_by_leaf(like, placements), _coordinate(mesh)
     if step is None:
-        step = latest_step(ckpt_dir)
+        step = latest_step(ckpt_dir, mesh=mesh)
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step:09d}")
@@ -183,10 +229,13 @@ def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None, device=None
     if len(recs) != len(like_leaves):
         raise ValueError(f"{d} holds {len(recs)} leaves, the state {len(like_leaves)}")
     out = []
-    for rec, ref in zip(recs, like_leaves):
-        if tuple(rec["shape"]) != tuple(ref.shape):
+    for rec, ref, pl in zip(recs, like_leaves, cuts):
+        shape = list(ref.shape if pl is None else whole_shape(ref.shape, pl, mesh))
+        if list(rec["shape"]) != shape:
             raise ValueError(f"{rec['path']}: shape {rec['shape']} in {d}, "
-                             f"{list(ref.shape)} in the state")
-        a = np.load(os.path.join(d, rec["file"]))
-        out.append(_from_host(a, rec["dtype"], ref.device if device is None else device))
+                             f"{shape} in the state")
+        t = _from_host(np.load(os.path.join(d, rec["file"])), rec["dtype"], "cpu")
+        if pl is not None:
+            t = _local_slice(t, pl, mesh, coord).contiguous()
+        out.append(t.to(ref.device if device is None else device))
     return _rebuild(like, iter(out))

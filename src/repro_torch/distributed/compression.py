@@ -22,6 +22,15 @@ from ``seed`` and the leaf's index on every call, so every step draws the
 same uniforms for a leaf, as the reference's ``fold_in(PRNGKey(seed), i)``
 does (ROADMAP.md, reference caveats). ``int8_leaf`` takes the draws, so a
 caller may feed it any: the tests give it the reference's.
+
+Under a mesh ``policy`` (``compress_decompress(..., policy=)``) each leaf is
+this rank's shard, cut as the policy's params (``policy.placements``), and
+the result is bitwise the unsharded compressor's on the whole leaf: top-k
+takes the leaf's threshold from the union of every shard's top
+``min(k, shard size)`` magnitudes (all-gathered over the mesh dims the leaf
+is cut on: k values a rank, not the leaf); int8 takes its scale from a max
+all-reduce over those dims and its uniforms from the whole leaf's draws,
+cut to the rank's block.
 """
 from __future__ import annotations
 
@@ -30,6 +39,9 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import (_coordinate, _local_slice, all_gather,
+                                              all_reduce, on_mesh, placements_by_leaf,
+                                              whole_shape)
 from repro_torch.optim.adamw import _leaves, _rebuild
 
 __all__ = ["TopKCompressor", "Int8Compressor", "int8_leaf", "topk_leaf", "wire_bytes_ratio"]
@@ -40,30 +52,74 @@ def _zeros_like_tree(grads) -> Any:
                                  for g in _leaves(grads)]))
 
 
-def _map_leaves(fn, grads, state) -> Tuple[Any, Any]:
-    """``fn(index, leaf, its error)`` over the leaves: (sent tree, error tree)."""
-    outs = [fn(i, g, e) for i, (g, e) in enumerate(zip(_leaves(grads), _leaves(state)))]
+class _Shards:
+    """How one leaf is cut on a mesh: the groups of the mesh dims that cut
+    it, its whole numel, and its block of a whole tensor (none on one
+    device)."""
+
+    def __init__(self, policy=None, placements=None):
+        self.policy, self.placements = policy, placements
+        self.groups, self.ranks = [], 1
+        if policy is not None:
+            for i, p in enumerate(placements):
+                if hasattr(p, "dim"):
+                    self.groups.append(policy.mesh.get_group(i))
+                    self.ranks *= int(policy.mesh.size(i))
+
+    def whole_shape(self, shape) -> Tuple[int, ...]:
+        if not self.groups:
+            return tuple(shape)
+        return whole_shape(shape, self.placements, self.policy.mesh)
+
+    def block(self, t: torch.Tensor) -> torch.Tensor:
+        if not self.groups:
+            return t
+        mesh = self.policy.mesh
+        return _local_slice(t, self.placements, mesh, _coordinate(mesh))
+
+
+_WHOLE = _Shards()
+
+
+def _map_leaves(fn, grads, state, policy=None) -> Tuple[Any, Any]:
+    """``fn(index, leaf, its error, its _Shards)`` over the leaves: (sent
+    tree, error tree)."""
+    if on_mesh(policy):
+        cuts = [_Shards(policy, pl)
+                for pl in placements_by_leaf(grads, policy.param_placements())]
+    else:
+        cuts = [_WHOLE] * len(_leaves(grads))
+    outs = [fn(i, g, e, c) for i, (g, e, c) in enumerate(zip(_leaves(grads), _leaves(state), cuts))]
     return (_rebuild(grads, iter([o[0] for o in outs])),
             _rebuild(grads, iter([o[1] for o in outs])))
 
 
-def topk_leaf(g: torch.Tensor, err: torch.Tensor, ratio: float) -> Tuple[torch.Tensor,
-                                                                          torch.Tensor]:
-    """(what is sent, in ``g``'s dtype; the new f32 error) of one leaf."""
+def topk_leaf(g: torch.Tensor, err: torch.Tensor, ratio: float,
+              shards: _Shards = _WHOLE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(what is sent, in ``g``'s dtype; the new f32 error) of one leaf (of
+    its shard, cut as ``shards`` says: the threshold is the whole leaf's)."""
     flat = (g.to(torch.float32) + err).reshape(-1)
-    k = max(1, int(flat.shape[0] * ratio))
-    thresh = torch.topk(flat.abs(), k).values[-1]
+    k = max(1, int(flat.shape[0] * shards.ranks * ratio))
+    top = torch.topk(flat.abs(), min(k, flat.shape[0])).values
+    for grp in shards.groups:  # the union holds the whole leaf's k largest
+        top = torch.cat(all_gather(top, grp))
+        top = torch.topk(top, min(k, top.shape[0])).values
+    thresh = top[k - 1]
     sent = torch.where(flat.abs() >= thresh, flat, 0.0)
     return sent.reshape(g.shape).to(g.dtype), (flat - sent).reshape(g.shape)
 
 
-def int8_leaf(g: torch.Tensor, err: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor,
-                                                                             torch.Tensor]:
+def int8_leaf(g: torch.Tensor, err: torch.Tensor, u: torch.Tensor,
+              shards: _Shards = _WHOLE) -> Tuple[torch.Tensor, torch.Tensor]:
     """(the dequantized codes, in ``g``'s dtype; the new f32 error) of one
     leaf, rounded up where the uniform draw ``u`` (f32, ``g``'s shape) falls
-    below the fraction."""
+    below the fraction (of its shard, cut as ``shards`` says: the scale is
+    the whole leaf's)."""
     g32 = g.to(torch.float32) + err
-    scale = torch.clamp_min(g32.abs().max() / 127.0, 1e-12)
+    amax = g32.abs().max()
+    for grp in shards.groups:
+        amax = all_reduce(amax, grp, op="max")
+    scale = torch.clamp_min(amax / 127.0, 1e-12)
     x = g32 / scale
     lo = torch.floor(x)
     q = torch.clamp(lo + (u < x - lo), -127, 127).to(torch.int8)
@@ -81,9 +137,11 @@ class TopKCompressor:
         return _zeros_like_tree(grads)
 
     @torch.no_grad()
-    def compress_decompress(self, grads, state: Optional[Any]) -> Tuple[Any, Any]:
+    def compress_decompress(self, grads, state: Optional[Any], *,
+                            policy=None) -> Tuple[Any, Any]:
         state = self.init_state(grads) if state is None else state
-        return _map_leaves(lambda i, g, e: topk_leaf(g, e, self.ratio), grads, state)
+        return _map_leaves(lambda i, g, e, c: topk_leaf(g, e, self.ratio, c), grads, state,
+                           policy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,10 +160,12 @@ class Int8Compressor:
         return torch.rand(tuple(shape), generator=gen, dtype=torch.float32, device=device)
 
     @torch.no_grad()
-    def compress_decompress(self, grads, state: Optional[Any]) -> Tuple[Any, Any]:
+    def compress_decompress(self, grads, state: Optional[Any], *,
+                            policy=None) -> Tuple[Any, Any]:
         state = self.init_state(grads) if state is None else state
-        return _map_leaves(lambda i, g, e: int8_leaf(g, e, self.draws(i, g.shape, g.device)),
-                           grads, state)
+        return _map_leaves(lambda i, g, e, c: int8_leaf(
+            g, e, c.block(self.draws(i, c.whole_shape(g.shape), g.device)), c), grads, state,
+            policy)
 
 
 def wire_bytes_ratio(compressor) -> float:

@@ -66,9 +66,9 @@ from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import axis_size, data_axes, mesh_tp
+from repro_torch.optim.adamw import _leaves
 
 __all__ = [
-    "ITEM_16",
     "FSDP_MIN_ELEMENTS",
     "STAGED_ON_GLOO",
     "NO_POLICY",
@@ -79,8 +79,13 @@ __all__ = [
     "state_shardings",
     "batch_shardings",
     "cache_shardings",
+    "cache_spec",
+    "cache_layout",
     "replicated",
     "spec_to_placements",
+    "local_shape",
+    "whole_shape",
+    "placements_by_leaf",
     "shard_tree",
     "gather_tree",
     "record_collectives",
@@ -89,10 +94,6 @@ __all__ = [
     "reduce_scatter",
     "all_to_all",
 ]
-
-# What waits for a later slice: the message every refusal names.
-ITEM_16 = "ROADMAP queue 1 item 16"
-
 
 # ------------------------------------------------------------------- trees
 def _is_leaf(node) -> bool:
@@ -307,30 +308,69 @@ def batch_shardings(cfg: ModelConfig, batch_shape: Dict, mesh, *, mode: str = "t
     return out
 
 
-def cache_shardings(cfg: ModelConfig, cache_shape, mesh, *, batch: int):
-    """Decode-cache placements: K/V [U, B, L, KV, hd] batch over the data
-    axes when divisible and the sequence L over "model"; int8 scales the
-    same; Mamba states shard their heads / channels over "model"."""
+def cache_spec(name: str, shape: Tuple[int, ...], mesh, *, batch: int) -> Tuple:
+    """The spec of one decode-cache leaf (``shape`` with its unit axis):
+    K/V [U, B, L, KV, hd] batch over the data axes when divisible and the
+    sequence L over "model"; int8 scales the same; Mamba states shard their
+    heads / channels over "model"."""
     tp = mesh_tp(mesh)
     b_ax = data_axes(mesh) if batch % _dp_size(mesh) == 0 else None
+    nd = len(shape)
+    if name in ("k", "v", "cross_k", "cross_v") and nd == 5:
+        return (None, b_ax, "model" if shape[2] % tp == 0 else None, None, None)
+    if name in ("k_scale", "v_scale") and nd == 4:
+        return (None, b_ax, "model" if shape[2] % tp == 0 else None, None)
+    if name == "ssm" and nd == 5:  # [U, B, H, P, N]
+        return (None, b_ax, "model" if shape[2] % tp == 0 else None, None, None)
+    if name.startswith("conv_") and nd == 4:  # [U, B, K-1, C]
+        return (None, b_ax, None, "model" if shape[3] % tp == 0 else None)
+    return (None,) * nd
 
-    def assign(path, leaf):
-        name = path.split("/")[-1]
-        shape = _shape(leaf)
-        nd = len(shape)
-        if name in ("k", "v", "cross_k", "cross_v") and nd == 5:
-            spec = (None, b_ax, "model" if shape[2] % tp == 0 else None, None, None)
-        elif name in ("k_scale", "v_scale") and nd == 4:
-            spec = (None, b_ax, "model" if shape[2] % tp == 0 else None, None)
-        elif name == "ssm" and nd == 5:  # [U, B, H, P, N]
-            spec = (None, b_ax, "model" if shape[2] % tp == 0 else None, None, None)
-        elif name.startswith("conv_") and nd == 4:  # [U, B, K-1, C]
-            spec = (None, b_ax, None, "model" if shape[3] % tp == 0 else None)
-        else:
-            spec = (None,) * nd
-        return spec_to_placements(spec, mesh)
 
-    return _map(assign, cache_shape)
+def cache_layout(name: str, shape: Tuple[int, ...], mesh, *, batch: int) -> Tuple:
+    """One unit of a cache leaf's ``cache_spec`` as a layout: per tensor dim
+    after the unit axis, the mesh axes over it (``ShardingPolicy.take`` and
+    ``redistribute`` read it)."""
+    return tuple(_norm(e) for e in cache_spec(name, shape, mesh, batch=batch))[1:]
+
+
+def cache_shardings(cfg: ModelConfig, cache_shape, mesh, *, batch: int):
+    """Decode-cache placements, leaf by leaf (``cache_spec``)."""
+    return _map(lambda path, leaf: spec_to_placements(
+        cache_spec(path.split("/")[-1], _shape(leaf), mesh, batch=batch), mesh), cache_shape)
+
+
+def local_shape(shape, placements, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a leaf of ``shape``."""
+    out = list(_shape(shape))
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            out[p.dim] //= int(mesh.size(i))
+    return tuple(out)
+
+
+def whole_shape(shape, placements, mesh) -> Tuple[int, ...]:
+    """The shape of the whole leaf whose rank block has ``shape``
+    (``local_shape``'s inverse)."""
+    out = list(_shape(shape))
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            out[p.dim] *= int(mesh.size(i))
+    return tuple(out)
+
+
+class _Placed:
+    """One leaf's placements, a leaf of its own for ``_leaves``."""
+
+    def __init__(self, placements):
+        self.placements = placements
+
+
+def placements_by_leaf(tree, placements) -> List:
+    """Each leaf's placements, in the order ``optim.adamw._leaves`` takes
+    the leaves of ``tree`` (dict keys sorted)."""
+    return [p.placements for p in _leaves(_map(lambda _, leaf, pl: _Placed(pl), tree,
+                                                placements))]
 
 
 # --------------------------------------------------------- local shards
@@ -877,22 +917,25 @@ class ShardingPolicy:
         layout)."""
         return x
 
-    def qkv(self, q, k, v, src: Optional[Spec] = None, causal: bool = True):
+    def qkv(self, q, k, v, src: Optional[Spec] = None, causal: bool = True,
+            kv_src: Optional[Spec] = None):
         """q to the sequence over "model" (context parallelism), K/V whole
         over "model" and, when q's rows are split and ``causal``, cut to the
         first ``a + S/tp`` positions this rank's rows ``[a, a + S/tp)`` read.
         ``src``: the layout q, k, v arrive in (default: the compute layout,
-        heads whole)."""
+        heads whole); ``kv_src``: K/V's own layout where it differs
+        (cross-attention: the encoder's positions, or a cache's)."""
         src = src or self.compute_spec()[:2] + ((), ())
+        kv_src = kv_src or src
         qd = self.q_spec()
         q = self.redistribute(q, src, qd)
         split = bool(qd[1])
-        s = self.seq
-        keep = (self._coord("model") + 1) * (s // self.tp) if split and causal else s
         # K/V's layout is q's without "model": gather it from wherever it is
-        gdim = next((d for d, e in enumerate(src) if "model" in e), None)
+        gdim = next((d for d, e in enumerate(kv_src) if "model" in e), None)
         group = self.group("model") if gdim is not None else None
-        if group is None and keep == s and not split:
+        whole = k.shape[1] * (self.tp if gdim == 1 else 1)
+        keep = (self._coord("model") + 1) * (self.seq // self.tp) if split and causal else whole
+        if group is None and keep == whole and not split:
             return q, k, v
         f_group = self.group("model")
         k = _KVGather.apply(k, group, gdim, keep, split, f_group)
@@ -928,6 +971,12 @@ class ShardingPolicy:
         """A model-sharded leaf made whole, for work replicated over
         "model"."""
         return _Gather.apply(w, self.group("model"), dim, False)
+
+    def psum_model(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-rank partial sum (over this rank's channels) summed over
+        "model" for per-rank work: the gradient, partial on each rank, is
+        summed too."""
+        return self.colpar(self.rowpar(x))
 
     def sum_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """A per-rank partial sum over the tokens, summed over the token axes

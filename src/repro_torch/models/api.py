@@ -30,8 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (ITEM_16, NO_POLICY, VocabParallelNLL, all_reduce,
-                                              on_mesh)
+from repro_torch.distributed.sharding import NO_POLICY, VocabParallelNLL, all_reduce, on_mesh
 from repro_torch.models.gnn import api as gnn_api
 from repro_torch.models.lm import encdec, transformer
 
@@ -77,21 +76,13 @@ def model_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
     return transformer.init_lm(cfg, gen, dev)
 
 
-def _mesh_encdec(cfg: ModelConfig, policy) -> bool:
-    """An enc-dec config under a mesh policy: refused (item 16)."""
-    if _is_encdec(cfg) and on_mesh(policy):
-        raise NotImplementedError(f"the enc-dec family ({cfg.name}) under a sharding policy: "
-                                  f"{ITEM_16}")
-    return _is_encdec(cfg)
-
-
 def model_forward(params, cfg: ModelConfig, batch: Dict, *, policy=NO_POLICY):
     """(logits, aux). Under a mesh ``policy`` (``distributed/sharding.py``):
     the global batch and this rank's params in, this rank's logits out."""
     if _is_gnn(cfg):
         return gnn_api.gnn_forward(params, cfg, batch)
-    if _mesh_encdec(cfg, policy):
-        return encdec.forward_encdec(params, cfg, batch)
+    if _is_encdec(cfg):
+        return encdec.forward_encdec(params, cfg, batch, policy=policy)
     return transformer.forward(params, cfg, batch, policy=policy)
 
 
@@ -101,8 +92,8 @@ def model_prefill(params, cfg: ModelConfig, batch: Dict, max_len: int, *, policy
     encoder's cross K/V, and the target length."""
     if _is_gnn(cfg):
         _no_token_cache(cfg, "model_prefill")
-    if _mesh_encdec(cfg, policy):
-        return encdec.prefill(params, cfg, batch, max_len)
+    if _is_encdec(cfg):
+        return encdec.prefill(params, cfg, batch, max_len, policy=policy)
     return transformer.prefill(params, cfg, batch, max_len, policy=policy)
 
 
@@ -112,9 +103,11 @@ def model_init_cache(cfg: ModelConfig, params, batch: Dict, max_len: int, *, pol
     mesh ``policy``: this rank's shard."""
     if _is_gnn(cfg):
         _no_token_cache(cfg, "model_init_cache")
-    if _mesh_encdec(cfg, policy):
-        enc = encdec.encode(params, cfg, batch["src_embeds"])
-        return encdec.init_decoder_cache(params, cfg, enc, max_len)
+    if _is_encdec(cfg):
+        enc = encdec.encode(params, cfg, batch["src_embeds"], policy=policy)
+        b, s = torch.as_tensor(batch["src_embeds"]).shape[:2]
+        return encdec.init_decoder_cache(params, cfg, enc, max_len, policy=policy, batch=b,
+                                         src_len=s)
     b = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[0]
     return transformer.init_cache(cfg, b, max_len, device=params["embed"].device, policy=policy)
 
@@ -123,8 +116,9 @@ def model_decode_step(params, cfg: ModelConfig, batch: Dict, cache, cache_len: i
                       policy=NO_POLICY):
     if _is_gnn(cfg):
         _no_token_cache(cfg, "model_decode_step")
-    if _mesh_encdec(cfg, policy):
-        return encdec.decode_step_encdec(params, cfg, batch["tokens"], cache, cache_len)
+    if _is_encdec(cfg):
+        return encdec.decode_step_encdec(params, cfg, batch["tokens"], cache, cache_len,
+                                         policy=policy)
     return transformer.decode_step(params, cfg, batch, cache, cache_len, policy=policy)
 
 

@@ -22,13 +22,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import ITEM_16, all_reduce, on_mesh
+from repro_torch.distributed.sharding import all_reduce, on_mesh
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.lm.norm import rmsnorm, rmsnorm_init
 from repro_torch.models.lm.rope import apply_mrope, apply_rope
 
-__all__ = ["attn_init", "attention", "project_kv", "decode_attention", "quantize_kv",
-           "AttnStatics"]
+__all__ = ["attn_init", "attention", "project_kv", "project_kv_sharded", "decode_attention",
+           "cross_decode_attention", "quantize_kv", "AttnStatics"]
 
 
 def attn_init(make, d_model: int, num_heads: int, num_kv_heads: int, head_dim: int, *,
@@ -98,7 +98,7 @@ def _project_qkv(params: Dict, x: torch.Tensor, st: AttnStatics,
 def attention(params: Dict, x: torch.Tensor, st: AttnStatics,
               positions: Optional[torch.Tensor] = None,
               kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, return_kv: bool = False,
-              policy=None):
+              policy=None, kv_spec=None):
     """Full-sequence attention (prefill / forward / encoder / cross).
 
     x [B, S, D]. Self-attention projects q, k, v from x, causal when
@@ -106,13 +106,10 @@ def attention(params: Dict, x: torch.Tensor, st: AttnStatics,
     encoder's output) it is cross-attention, unmasked: q is ``x @ wq``
     without ``bq``, then q's qk-norm, as in the reference. ``return_kv=True``
     also returns this layer's k, v, so prefill fills the decode cache in the
-    same pass. Under a mesh ``policy`` (causal self-attention only) see
-    ``_attention_sharded``."""
+    same pass. Under a mesh ``policy`` see ``_attention_sharded`` (``kv_spec``:
+    the layout of a cross-attention's K/V there)."""
     if on_mesh(policy):
-        if kv is not None or not st.causal:
-            raise NotImplementedError(f"encoder and cross-attention under a sharding policy: "
-                                      f"{ITEM_16}")
-        return _attention_sharded(params, x, st, positions, return_kv, policy)
+        return _attention_sharded(params, x, st, positions, return_kv, policy, kv, kv_spec)
     b, s, _ = x.shape
     if kv is None:
         q, k, v = _project_qkv(params, x, st, positions)
@@ -169,7 +166,8 @@ def decode_attention(params: Dict, x: torch.Tensor, st: AttnStatics,
     are left out, where the reference masks them to -1e30 (weight exactly 0).
     Under a mesh ``policy`` see ``_decode_attention_sharded``."""
     if on_mesh(policy):
-        return _decode_attention_sharded(params, x, st, k_cache, v_cache, cache_len, policy)
+        return _decode_attention_sharded(params, x, st, k_cache, v_cache, cache_len, policy,
+                                         k_scale, v_scale)
     b = x.shape[0]
     g = st.num_heads // st.num_kv_heads
     scale = 1.0 / math.sqrt(st.head_dim)
@@ -236,24 +234,37 @@ def _local_heads(params: Dict, st: AttnStatics, policy):
 
 
 def _attention_sharded(params: Dict, x: torch.Tensor, st: AttnStatics,
-                       positions: Optional[torch.Tensor], return_kv: bool, policy):
-    """Causal self-attention on a mesh. x [B', S', D] in the block's compute
-    layout (``policy.compute_spec()``), positions in the same. Head-parallel
-    (``tp``): q/k/v of this rank's heads, then the ``qkv`` hook moves q to
-    its sequence rows ``[a, a + S/tp)`` with every head (one all-to-all) and
-    gathers K/V, cut to the first ``a + S/tp`` positions; flash runs on that
-    local problem unchanged (its causal mask ``kpos - (T - S) > qpos`` is the
-    global one); the output moves back to this rank's heads and ``wo``
-    reduces over "model". Returns the output in the compute layout and, with
-    ``return_kv`` (prefill), k and v of every position and head [B'', S, KV,
-    hd], batch over the data axes: what the cache's shards are cut from."""
+                       positions: Optional[torch.Tensor], return_kv: bool, policy,
+                       kv=None, kv_spec=None):
+    """Full-sequence attention on a mesh. x [B', S', D] in the block's
+    compute layout (``policy.compute_spec()``), positions in the same.
+    Head-parallel (``tp``): q/k/v of this rank's heads, then the ``qkv``
+    hook moves q to its sequence rows ``[a, a + S/tp)`` with every head (one
+    all-to-all) and gathers K/V, cut, when causal, to the first ``a + S/tp``
+    positions; flash runs on that local problem unchanged (its causal mask
+    ``kpos - (T - S) > qpos`` is the global one; an encoder's is none); the
+    output moves back to this rank's heads and ``wo`` reduces over "model".
+    Cross-attention (``kv`` given, ``project_kv_sharded``'s K/V in the
+    layout ``kv_spec``): q is ``x @ wq`` without ``bq``, split over the
+    decoder's rows the same way, against every encoder position, unmasked.
+    Returns the output in the compute layout and, with ``return_kv``
+    (prefill), k and v of every position and head [B'', S, KV, hd], batch
+    over the data axes: what the cache's shards are cut from."""
     b, s, _ = x.shape
     p, lst, hp = _local_heads(params, st, policy)
     compute = policy.compute_spec()
     src = (compute[0], compute[1], ("model",) if hp else (), ())
-    q, k, v = _project_qkv(p, policy.colpar(x) if hp else x, lst, positions)
-    qd, kd, vd = policy.qkv(q, k, v, src, causal=True)
-    out = fa_ops.flash_attention(qd, kd, vd, causal=True)
+    xin = policy.colpar(x) if hp else x
+    if kv is None:
+        q, k, v = _project_qkv(p, xin, lst, positions)
+    else:
+        q = (xin @ p["wq"]).reshape(b, s, lst.num_heads, lst.head_dim)
+        if lst.qk_norm:
+            q = rmsnorm(p["q_norm"], q, eps=lst.norm_eps)
+        k, v = kv
+    causal = st.causal and kv is None
+    qd, kd, vd = policy.qkv(q, k, v, src, causal=causal, kv_src=kv_spec)
+    out = fa_ops.flash_attention(qd, kd, vd, causal=causal)
     out = policy.redistribute(out, policy.q_spec(), src).reshape(b, s, -1) @ p["wo"]
     if hp:
         out = policy.rowpar(out)
@@ -265,47 +276,87 @@ def _attention_sharded(params: Dict, x: torch.Tensor, st: AttnStatics,
     return out
 
 
+def project_kv_sharded(params: Dict, x: torch.Tensor, st: AttnStatics, policy):
+    """``project_kv`` on a mesh, from x [B', T', D] in the (encoder's)
+    compute layout: (k, v, their layout) — this rank's heads when
+    head-parallel (``colpar(x)``: every rank's heads read x), else every
+    head."""
+    p, lst, hp = _local_heads(params, st, policy)
+    compute = policy.compute_spec()
+    k, v = project_kv(p, policy.colpar(x) if hp else x, lst)
+    return k, v, (compute[0], compute[1], ("model",) if hp else (), ())
+
+
+def _combine(qg: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, scale: float, policy,
+             k_scale=None, v_scale=None, dtype=None) -> torch.Tensor:
+    """Attention of one query row per batch row, qg [B, KV, G, hd], over this
+    rank's positions kc, vc [B, n, KV, hd] (n may be 0) of keys split over
+    "model": the softmax combined by a max and a sum all-reduce, then the
+    probability-weighted V by a sum. An int8 cache folds its scales [B, n,
+    KV] in as on one device: the K scale into the scores, the V scale into
+    the f32 probabilities. Returns [B, KV, G, hd] in ``dtype``."""
+    model = policy.group("model")
+    if k_scale is not None:
+        scores = torch.einsum("bkgh,btkh->bkgt", qg.float(), kc.float()) * scale
+        scores = scores * k_scale.transpose(1, 2)[:, :, None, :]
+    else:
+        scores = torch.einsum("bkgh,btkh->bkgt", qg, kc).float() * scale
+    m_loc = (scores.amax(-1) if kc.shape[1] else
+             torch.full(scores.shape[:-1], float("-inf"), device=qg.device))
+    m = all_reduce(m_loc, model, op="max")
+    e = torch.exp(scores - m[..., None])
+    probs = e / all_reduce(e.sum(-1), model)[..., None]
+    if v_scale is not None:
+        pv = probs * v_scale.transpose(1, 2)[:, :, None, :]
+        return all_reduce(torch.einsum("bkgt,btkh->bkgh", pv, vc.float()), model).to(dtype)
+    return all_reduce(torch.einsum("bkgt,btkh->bkgh", probs.to(vc.dtype), vc), model)
+
+
 @torch.no_grad()
 def _decode_attention_sharded(params: Dict, x: torch.Tensor, st: AttnStatics,
                               k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: int,
-                              policy):
+                              policy, k_scale=None, v_scale=None, cross: bool = False):
     """One decode step on a mesh. The local caches [B', L/tp, KV, hd] hold
     this rank's positions ``[m·L/tp, (m+1)·L/tp)`` of its batch rows, every
     head (``cache_shardings``). q and the new k, v are gathered to every
-    head; the new token's K/V go to the rank that holds ``cache_len``; each
-    rank scores its own valid positions, and the softmax is combined by a
-    max and a sum all-reduce over "model", then the probability-weighted V
-    by a sum. Returns (out in the compute layout, k_cache, v_cache)."""
-    if k_cache.dtype == torch.int8:
-        raise NotImplementedError(f"an int8 KV cache under a sharding policy: {ITEM_16}")
+    head; the new token's K/V (int8 with its scales, quantized per position
+    and kv-head as on one device) go to the rank that holds ``cache_len``;
+    each rank scores its own valid positions and ``_combine`` adds them up.
+    ``cross``: the caches are a cross-attention's encoder positions, all
+    valid (no causal limit), q without ``bq``, nothing written. Returns
+    (out in the compute layout, k_cache, v_cache[, k_scale, v_scale])."""
     b = x.shape[0]
     p, lst, hp = _local_heads(params, st, policy)
     compute = policy.compute_spec()
     src = (compute[0], (), ("model",) if hp else (), ())
     dst = ((tuple(a for a in compute[0] if a != "model")), (), (), ())
-    shape = (3, b, 1) if st.mrope else (b, 1)
-    pos = (torch.full(shape, cache_len, dtype=torch.int64, device=x.device)
-           if st.use_rope else None)
-    q, k, v = _project_qkv(p, x, lst, pos)
-    q, k, v = (policy.redistribute(t, src, dst) for t in (q, k, v))
-    model = policy.group("model")
     l_loc = k_cache.shape[1]
-    lo = policy._coord("model") * l_loc
-    if lo <= cache_len < lo + l_loc:
-        k_cache[:, cache_len - lo] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, cache_len - lo] = v[:, 0].to(v_cache.dtype)
-    n = max(0, min(l_loc, cache_len + 1 - lo))
+    if cross:
+        q = (x @ p["wq"]).reshape(b, 1, lst.num_heads, lst.head_dim)
+        if lst.qk_norm:
+            q = rmsnorm(p["q_norm"], q, eps=lst.norm_eps)
+        q = policy.redistribute(q, src, dst)
+        n = l_loc
+    else:
+        shape = (3, b, 1) if st.mrope else (b, 1)
+        pos = (torch.full(shape, cache_len, dtype=torch.int64, device=x.device)
+               if st.use_rope else None)
+        q, k, v = _project_qkv(p, x, lst, pos)
+        q, k, v = (policy.redistribute(t, src, dst) for t in (q, k, v))
+        lo = policy._coord("model") * l_loc
+        if lo <= cache_len < lo + l_loc:
+            if k_scale is not None:
+                (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+                k_scale[:, cache_len - lo], v_scale[:, cache_len - lo] = ks[:, 0], vs[:, 0]
+            k_cache[:, cache_len - lo] = k[:, 0].to(k_cache.dtype)
+            v_cache[:, cache_len - lo] = v[:, 0].to(v_cache.dtype)
+        n = max(0, min(l_loc, cache_len + 1 - lo))
     bq = q.shape[0]
     g = st.num_heads // st.num_kv_heads
     qg = q.reshape(bq, st.num_kv_heads, g, st.head_dim)
-    kc, vc = k_cache[:, :n], v_cache[:, :n]
-    scores = torch.einsum("bkgh,btkh->bkgt", qg, kc).float() * (1.0 / math.sqrt(st.head_dim))
-    m_loc = (scores.amax(-1) if n else
-             torch.full(scores.shape[:-1], float("-inf"), device=x.device))
-    m = all_reduce(m_loc, model, op="max")
-    e = torch.exp(scores - m[..., None])
-    probs = e / all_reduce(e.sum(-1), model)[..., None]
-    out = all_reduce(torch.einsum("bkgt,btkh->bkgh", probs.to(vc.dtype), vc), model)
+    scales = {} if k_scale is None else dict(k_scale=k_scale[:, :n], v_scale=v_scale[:, :n])
+    out = _combine(qg, k_cache[:, :n], v_cache[:, :n], 1.0 / math.sqrt(st.head_dim), policy,
+                   dtype=x.dtype, **scales)
     out = out.reshape(bq, 1, st.num_heads, st.head_dim)
     if hp:  # this rank's heads into its rows of wo, then the row-parallel sum
         out = policy.take(out, ((), (), ("model",)))
@@ -313,4 +364,15 @@ def _decode_attention_sharded(params: Dict, x: torch.Tensor, st: AttnStatics,
     else:
         out = out.reshape(bq, 1, -1) @ p["wo"]
     out = policy.redistribute(out, (dst[0], (), ()), compute)
+    if k_scale is not None:
+        return out, k_cache, v_cache, k_scale, v_scale
     return out, k_cache, v_cache
+
+
+def cross_decode_attention(params: Dict, x: torch.Tensor, st: AttnStatics, k: torch.Tensor,
+                           v: torch.Tensor, policy) -> torch.Tensor:
+    """A decode step's cross-attention on a mesh: x [B', 1, D] in the
+    compute layout against a cross cache [B'', T/tp, KV, hd] cut over the
+    encoder positions (``cache_shardings``), combined over those shards
+    with no causal limit."""
+    return _decode_attention_sharded(params, x, st, k, v, 0, policy, cross=True)[0]

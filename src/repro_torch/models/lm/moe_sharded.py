@@ -18,7 +18,8 @@ collective. Two variants:
   against all the experts (gathered over "data"), with no activation
   collective but the gather of its tokens' outputs.
 
-The aux loss is each shard's, averaged over the token axes. FSDP expert
+The aux loss is the whole batch's, as on one device: the expert counts and
+the router's probability sums are summed over the token shards. FSDP expert
 weights arrive gathered (``ShardingPolicy.gather_params``).
 """
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.distributed.sharding import _G, _Gather, _Slice, on_mesh
+from repro_torch.distributed.sharding import _G, _Gather, _Slice, all_reduce, on_mesh
 from repro_torch.models.lm.mlp import mlp_apply
 from repro_torch.models.lm.moe import _expert_ffn
 
@@ -48,8 +49,7 @@ def sharded_applicable(policy, num_experts: int, t: int, d_ff: int) -> bool:
 def moe_apply_sharded(params: Dict, x: torch.Tensor, *, num_experts: int, top_k: int,
                       kind: str, capacity_factor: float, policy):
     """x [B, S, D], this data shard's tokens replicated over "model" ->
-    (out [B, S, D] replicated over "model", aux averaged over the token
-    axes). ``params["experts"]`` holds this rank's experts (EP: E/tp of
+    (out [B, S, D] replicated over "model", the whole batch's aux). ``params["experts"]`` holds this rank's experts (EP: E/tp of
     them)."""
     b, s, d = x.shape
     t, e, tp = b * s, num_experts, policy.tp
@@ -115,14 +115,17 @@ def moe_apply_sharded(params: Dict, x: torch.Tensor, *, num_experts: int, top_k:
     else:
         out = _Gather.apply(out, model, 0, False)
 
-    # load-balance aux: this shard's, averaged over every token shard
-    f_e = counts.float() / (t_loc * top_k)
-    aux = e * torch.sum(f_e * probs.mean(dim=0))
+    # load-balance aux over every token, as on one device: the expert counts
+    # and the router's probability sums added up over the token shards
     axes = policy.token_axes() + (() if ep else ("model",))
-    n = 1
+    groups = tuple(policy.group(a) for a in axes)
+    n = t_loc
     for a in axes:
         n *= policy._size(a)
-    aux = _G.apply(aux / n, tuple(policy.group(a) for a in axes))
+    total = counts.float()
+    for grp in groups:
+        total = all_reduce(total, grp)
+    aux = e * torch.sum(total / (n * top_k) * (_G.apply(probs.sum(dim=0), groups) / n))
     return out.reshape(b, s, d), aux
 
 

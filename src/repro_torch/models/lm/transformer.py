@@ -31,7 +31,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ITEM_16, NO_POLICY, on_mesh
+from repro_torch.distributed.sharding import (NO_POLICY, _map, cache_shardings, local_shape,
+                                              on_mesh)
 from repro_torch.models.lm.attention import (
     AttnStatics,
     attention,
@@ -268,11 +269,12 @@ def _batch_shape(batch: Dict) -> Tuple[int, int]:
 def _embed(cfg: ModelConfig, emb: torch.Tensor, batch: Dict, pol) -> torch.Tensor:
     """``batch["embeds"]`` [B, S, D] cast to the model dtype, else the
     embedding rows of ``batch["tokens"]`` [B, S]; on a mesh this rank's rows
-    in the compute layout, by a vocab-parallel lookup (each rank its own
-    rows, zero elsewhere, summed over "model") where the table ``emb`` is
-    split."""
+    in the compute layout: its block of the embeds, or a vocab-parallel
+    lookup (each rank its own rows, zero elsewhere, summed over "model")
+    where the table ``emb`` is split."""
     if "embeds" in batch:
-        return torch.as_tensor(batch["embeds"], device=emb.device).to(_dtype(cfg))
+        x = torch.as_tensor(batch["embeds"], device=emb.device)
+        return pol.take(x, pol.compute_spec()).to(_dtype(cfg))
     tok = torch.as_tensor(batch["tokens"], device=emb.device).long()
     tok = pol.take(tok, pol.compute_spec()[:2])
     n = emb.shape[0]
@@ -372,7 +374,7 @@ def _unit(cfg: ModelConfig, roles, st, norm_apply, unit_params: List[Dict], x: t
                 _write_kv(cache[r], u, k, v, pol)
         else:
             out = mamba_apply(p["mamba"], h, chunk=cfg.ssm_chunk,
-                              return_state=cache is not None, **_mamba_kw(cfg))
+                              return_state=cache is not None, policy=pol, **_mamba_kw(cfg))
             if cache is not None:
                 h, state = out
                 for key, val in state.items():
@@ -399,7 +401,6 @@ def _run(params: Dict, cfg: ModelConfig, batch: Dict, cache: Optional[List[Dict]
     is read only by decode, which never checkpoints; prefill neither. The
     unit returns its MoE aux losses one by one, so they are summed in the
     same order as without it (bitwise)."""
-    _check_mesh(cfg, batch, policy)
     pol = policy.bind(*_batch_shape(batch))
     roles = block_roles(cfg)
     st = make_statics(cfg)
@@ -456,14 +457,17 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict, max_len: int, *, policy
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device, dtype=None,
                policy=NO_POLICY) -> List[Dict]:
     """Per-role stacked cache ([U, ...] leading axis), zeros. Under a mesh
-    ``policy``: this rank's shard of a cache for the global ``batch``, its
-    capacity rounded up to a multiple of the model axis (so every rank holds
-    L/tp positions)."""
+    ``policy``: this rank's shard of a cache for the global ``batch``, each
+    leaf at its local shape by ``cache_shardings`` (K/V and int8 scales L/tp
+    positions of a capacity rounded up to a multiple of the model axis; the
+    Mamba states H/tp heads and C/tp channels of each conv window)."""
     if on_mesh(policy):
-        _check_mesh(cfg, {}, policy)
-        dp = policy._dp_size()
-        b_loc = batch // dp if batch % dp == 0 else batch  # cache_shardings' batch rule
-        return init_cache(cfg, b_loc, -(-max_len // policy.tp), device=device, dtype=dtype)
+        mesh = policy.mesh
+        length = -(-max_len // policy.tp) * policy.tp
+        shapes = init_cache(cfg, batch, length, device="meta", dtype=dtype)
+        return _map(lambda _, leaf, pl: torch.zeros(local_shape(leaf.shape, pl, mesh),
+                                                    dtype=leaf.dtype, device=device),
+                    shapes, cache_shardings(cfg, shapes, mesh, batch=batch))
     units = _units(cfg)
     dt = dtype or _dtype(cfg)
     int8kv = cfg.kv_cache_dtype == "int8"
@@ -493,7 +497,6 @@ def decode_step(params: Dict, cfg: ModelConfig, batch: Dict, cache: List[Dict], 
     place at ``cache_len`` (also the position of every M-RoPE stream). Under
     a mesh ``policy``: the global tokens, this rank's params and cache (from
     ``prefill`` or ``init_cache`` under the policy), this rank's logits."""
-    _check_mesh(cfg, batch, policy)
     pol = policy.bind(_batch_shape(batch)[0], 1)
     roles = block_roles(cfg)
     st = make_statics(cfg)
@@ -514,23 +517,10 @@ def decode_step(params: Dict, cfg: ModelConfig, batch: Dict, cache: List[Dict], 
                 h = decode_attention(p["attn"], h, st, c["k"], c["v"], cache_len, policy=pol,
                                      **scales)[0]
             else:
-                h, new = mamba_decode(p["mamba"], h, c, **_mamba_kw(cfg))
+                h, new = mamba_decode(p["mamba"], h, c, policy=pol, **_mamba_kw(cfg))
                 for key, val in new.items():
                     c[key].copy_(val)
             # the residual stream stays in the compute layout: no sequence to split
             x = _ffn(cfg, ffn, p, x + h, norm_apply, [], pol, res=False)
     x = norm_apply(pol.gather_params(params["final_norm"], "final_norm"), x, eps=cfg.norm_eps)
     return _lm_head(cfg, params, emb, x, pol)[:, 0], cache
-
-
-def _check_mesh(cfg: ModelConfig, batch: Dict, policy) -> None:
-    """What a mesh policy does not run yet (ROADMAP queue 1 item 16)."""
-    if not on_mesh(policy):
-        return
-    if any(m == "mamba" for m, _ in block_roles(cfg)):
-        raise NotImplementedError(f"the mamba mixers ({cfg.family} family) under a sharding "
-                                  f"policy: {ITEM_16}")
-    if "embeds" in batch:
-        raise NotImplementedError(f"an embeds input under a sharding policy: {ITEM_16}")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(f"an int8 KV cache under a sharding policy: {ITEM_16}")

@@ -7,7 +7,10 @@ the reference's ``repro/train/loop.py``.
   thread), atomic on disk, and a final one;
 * ``run()`` resumes from the newest checkpoint in ``ckpt_dir``;
 * ``run(crash_at=n)`` raises after step n (fault injection): a resumed run
-  gives bitwise the params of a straight one.
+  gives bitwise the params of a straight one;
+* under a policy the checkpoints hold the whole state (gathered by the
+  state's placements, written by rank 0) and each rank restores its shards,
+  so a mesh run and an unsharded one read each other's checkpoints.
 
 The params come from ``model_init`` with an explicit ``torch.Generator``
 seeded with ``seed``, on ``device`` (``cuda`` unless the caller says
@@ -25,10 +28,10 @@ from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (ITEM_16, NO_POLICY, on_mesh, param_shardings,
+from repro_torch.distributed.sharding import (NO_POLICY, on_mesh, param_shardings, replicated,
                                               shard_tree)
 from repro_torch.models.api import model_init, param_shapes
-from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.adamw import AdamWConfig, AdamWState
 from repro_torch.train.train_step import init_train_state, make_train_step
 
 __all__ = ["TrainerConfig", "Trainer"]
@@ -59,8 +62,6 @@ class Trainer:
         self.tcfg = tcfg
         self.device = resolve_device(device)
         self.policy = NO_POLICY if policy is None else policy
-        if on_mesh(self.policy) and tcfg.ckpt_dir:
-            raise NotImplementedError(f"checkpoints of a sharded state: {ITEM_16}")
         if on_mesh(self.policy) and self.policy.placements is None:
             self.policy = self.policy.with_placements(param_shardings(
                 cfg, param_shapes(cfg), self.policy.mesh, mode=self.policy.mode))
@@ -82,6 +83,19 @@ class Trainer:
             state["compress"] = self.tcfg.compressor.init_state(params)
         return state
 
+    def _ckpt_kw(self, state: Dict) -> Dict:
+        """The checkpoint calls' sharding arguments: the state's placements
+        (the params' for params, AdamW moments and the error feedback) and
+        the mesh, under a policy."""
+        if not on_mesh(self.policy):
+            return {}
+        mesh, pl = self.policy.mesh, self.policy.placements
+        place = {"params": pl, "opt": AdamWState(step=replicated(mesh), m=pl, v=pl),
+                 "step": replicated(mesh)}
+        if "compress" in state:
+            place["compress"] = pl
+        return {"placements": place, "mesh": mesh}
+
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         """The batch of ``step``: ``synthetic_batch(seed, step)`` on the device."""
         b = synthetic_batch(seed=self.tcfg.seed, step=step, batch=self.tcfg.batch,
@@ -95,10 +109,14 @@ class Trainer:
         ``crash_at``: raise after that step completes (fault-injection tests)."""
         t = self.tcfg
         state = self.init_state()
+        kw = self._ckpt_kw(state)
         start = 0
-        if t.ckpt_dir and ckpt.latest_step(t.ckpt_dir) is not None:
-            start = ckpt.latest_step(t.ckpt_dir)
-            state = ckpt.restore(t.ckpt_dir, state)
+        if t.ckpt_dir:
+            ckpt.wait_pending()
+            latest = ckpt.latest_step(t.ckpt_dir, mesh=kw.get("mesh"))
+            if latest is not None:
+                start = latest
+                state = ckpt.restore(t.ckpt_dir, state, step=latest, **kw)
         t0 = time.time()
         for step in range(start, t.steps):
             state, metrics = self.step_fn(state, self.batch(step))
@@ -108,13 +126,11 @@ class Trainer:
                 rec["wall_s"] = time.time() - t0
                 self.metrics_log.append(rec)
             if t.ckpt_dir and (step + 1) % t.ckpt_every == 0:
-                if t.ckpt_async:
-                    ckpt.save_async(state, t.ckpt_dir, step + 1)
-                else:
-                    ckpt.save(state, t.ckpt_dir, step + 1)
+                save = ckpt.save_async if t.ckpt_async else ckpt.save
+                save(state, t.ckpt_dir, step + 1, **kw)
             if crash_at is not None and step + 1 >= crash_at:
                 raise RuntimeError(f"injected fault after step {step + 1}")
         ckpt.wait_pending()
         if t.ckpt_dir:
-            ckpt.save(state, t.ckpt_dir, t.steps)
+            ckpt.save(state, t.ckpt_dir, t.steps, **kw)
         return {"state": state, "metrics": self.metrics_log}

@@ -19,7 +19,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import ITEM_16, NO_POLICY, on_mesh
+from repro_torch.distributed.sharding import NO_POLICY, on_mesh
 from repro_torch.models.api import loss_fn, model_decode_step
 from repro_torch.optim.adamw import (AdamWConfig, _leaves, _rebuild, adamw_init, adamw_update,
                                      global_norm)
@@ -68,22 +68,24 @@ def make_train_step(
     (``shard_tree`` by ``state_shardings``; the policy carries the params'
     placements, ``with_placements``) and the batch is global: the
     gradients of leaves replicated over a token axis are summed there (an
-    FSDP leaf's were reduce-scattered by its gather), the norm is the
-    mesh's, and AdamW updates each rank's own shards."""
+    FSDP leaf's were reduce-scattered by its gather), a compressor works on
+    the shards (bitwise its work on the whole leaves; its error state cut
+    like the params, ``state_shardings``), the norm is the mesh's, taken
+    after compression (AdamW clips by the norm of what it is given, as the
+    reference's ``adamw_update`` does), and AdamW updates each rank's own
+    shards."""
     sched = schedule or functools.partial(
         warmup_cosine, peak_lr=opt_cfg.lr, warmup=warmup, total=total_steps)
     mesh = on_mesh(policy)
-    if mesh and compressor is not None:
-        raise NotImplementedError(f"gradient compression under a sharding policy: {ITEM_16}")
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         loss, metrics, grads = _grads(state["params"], cfg, batch, policy)
-        gnorm = None
         if mesh:
             grads = policy.reduce_grads(grads)
-            gnorm = global_norm(grads, policy=policy)
         if compressor is not None:
-            grads, state_c = compressor.compress_decompress(grads, state.get("compress"))
+            kw = {"policy": policy} if mesh else {}
+            grads, state_c = compressor.compress_decompress(grads, state.get("compress"), **kw)
+        gnorm = global_norm(grads, policy=policy) if mesh else None
         # 1-indexed: warmup starts at lr > 0; on the step's device (no sync)
         lr = sched(state["step"] + 1)
         params, opt, opt_metrics = adamw_update(grads, state["opt"], state["params"], opt_cfg,

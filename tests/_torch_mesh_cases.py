@@ -182,8 +182,10 @@ def _lm_case(case, mesh):
         sh.FSDP_MIN_ELEMENTS = case["fsdp_min"]
     try:
         run = {"lm-train": _lm_train, "lm-decode": _lm_decode, "lm-moe": _lm_moe,
-               "lm-cmm": _lm_cmm, "lm-cp": _lm_cp, "lm-engines": _lm_engines}[case["kind"]]
-        return dict(runs=[run(case, mesh, pol) for _ in range(2)])
+               "lm-cmm": _lm_cmm, "lm-cp": _lm_cp, "lm-engines": _lm_engines,
+               "lm-serve": _lm_serve, "lm-compress": _lm_compress,
+               "lm-ckpt": _lm_ckpt}[case["kind"]]
+        return dict(runs=[run(case, mesh, pol) for _ in range(case.get("runs", 2))])
     finally:
         sh.FSDP_MIN_ELEMENTS = fsdp_min
 
@@ -242,6 +244,201 @@ def _lm_engines(case, mesh, pol):
         p = sh.gather_tree(p, trainer.policy.placements, mesh)
     return dict(tokens=toks.numpy(), loss=[m["loss"] for m in out["metrics"]],
                 params=[t.detach().numpy() for t in _leaves(p)])
+
+
+def _by_spec(x, spec, pol):
+    """A rank's block of a tensor laid out by ``spec`` (per dim, the mesh
+    axes over it, outer first) made whole: inner axes first."""
+    from repro_torch.distributed.sharding import all_gather
+
+    for d, axes in enumerate(spec):
+        for a in reversed(axes):
+            x = torch.cat(all_gather(x.contiguous(), pol.group(a)), d)
+    return x
+
+
+def _logits(lg, pol, b, s, cfg, mesh):
+    """Logits [B', S', V'] (or [B', V'] with ``s`` None) made whole."""
+    if mesh is None:
+        return lg.detach().numpy()
+    spec = pol.bind(b, s or 1).compute_spec()[:1 if s is None else 2]
+    vocab = ("model",) if lg.shape[-1] != cfg.padded_vocab(1) else ()
+    return _by_spec(lg.detach(), spec + (vocab,), pol).numpy()
+
+
+def _cache(cache, cfg, pol, b, length, src_len, mesh):
+    """Every cache leaf made whole (numpy), in leaf order."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.lm.transformer import init_cache
+
+    if mesh is None:
+        return [t.numpy().copy() for t in _leaves(cache)]
+    if isinstance(cache, dict):  # the enc-dec cache
+        kv = (cfg.num_layers, b, length, cfg.num_kv_heads, cfg.resolved_head_dim)
+        shapes = {"k": kv, "v": kv, "cross_k": kv[:2] + (src_len,) + kv[3:]}
+        shapes["cross_v"] = shapes["cross_k"]
+    else:
+        shapes = init_cache(cfg, b, length, device="meta")
+    pl = sh.cache_shardings(cfg, shapes, mesh, batch=b)
+    return [t.numpy().copy() for t in _leaves(sh.gather_tree(cache, pl, mesh))]
+
+
+def _lm_serve(case, mesh, pol):
+    """``model_forward``, ``model_prefill`` (logits, every cache leaf) and
+    ``model_decode_step``s on given tokens (or embeds), all made whole. The
+    enc-dec decodes from ``model_init_cache`` (its prefill leaves the
+    self-attention cache empty). No ``steps``: forward and prefill only."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import api
+
+    cfg, params = case["cfg"], case["params"]
+    if mesh is not None:
+        pl = sh.param_shardings(cfg, params, mesh, fsdp=case.get("fsdp", False), mode=pol.mode)
+        params = sh.shard_tree(params, pl, mesh)
+        pol = pol.with_placements(pl)
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    encdec = "src_embeds" in batch
+    lead = batch["tgt_tokens"] if encdec else batch.get("tokens", batch.get("embeds"))
+    b, s = lead.shape[:2]
+    src_len = batch["src_embeds"].shape[1] if encdec else None
+    length = case["max_len"]
+    out = {}
+    with torch.no_grad():
+        lg, aux = api.model_forward(params, cfg, batch, policy=pol)
+        out["forward"], out["aux"] = _logits(lg, pol, b, s, cfg, mesh), float(aux)
+        lg, cache, n = api.model_prefill(params, cfg, batch, length, policy=pol)
+        out["prefill"] = _logits(lg, pol, b, s, cfg, mesh)
+        out["prefill_cache"] = _cache(cache, cfg, pol, b, length, src_len, mesh)
+        out["cache_shapes"] = [tuple(t.shape) for t in _leaves(cache)]
+        if encdec:
+            cache = api.model_init_cache(cfg, params, batch, length, policy=pol)
+            n = 0
+        steps = []
+        for i, step in enumerate(case["steps"]):
+            lg, cache = api.model_decode_step(params, cfg, {k: torch.from_numpy(v)
+                                                            for k, v in step.items()},
+                                              cache, n + i, policy=pol)
+            steps.append(_logits(lg, pol, b, None, cfg, mesh))
+        out["steps"] = steps
+        if steps:
+            out["decode_cache"] = _cache(cache, cfg, pol, b, length, src_len, mesh)
+    return out
+
+
+class _Recording:
+    """A compressor that keeps what each call was given and returned."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, []
+
+    def init_state(self, grads):
+        return self.inner.init_state(grads)
+
+    def compress_decompress(self, grads, state, **kw):
+        out = self.inner.compress_decompress(grads, state, **kw)
+        self.calls.append((grads, state, out))
+        return out
+
+
+def _compressor(case):
+    from repro_torch.distributed.compression import Int8Compressor, TopKCompressor
+
+    return (TopKCompressor(ratio=case["ratio"]) if case["compress"] == "topk"
+            else Int8Compressor(seed=case["seed"]))
+
+
+def _lm_compress(case, mesh, pol):
+    """One ``make_train_step(cfg, compressor=, policy=)`` step: the
+    gradients the compressor was given, its state, what it sent and its new
+    state, the new params, the loss and grad norm, all whole."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg, params = case["cfg"], case["params"]
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    if mesh is not None:
+        pl = sh.param_shardings(cfg, params, mesh, mode=pol.mode)
+        params = sh.shard_tree(params, pl, mesh)
+        pol = pol.with_placements(pl)
+    comp = _Recording(_compressor(case))
+    state = init_train_state(cfg, params)
+    state["compress"] = comp.init_state(params)
+    new, m = make_train_step(cfg, compressor=comp, policy=pol)(state, batch)
+    (grads, err, (sent, new_err)), = comp.calls
+
+    def whole(tree):
+        if mesh is not None:
+            tree = sh.gather_tree(tree, pl, mesh)
+        return [t.detach().numpy().copy() for t in _leaves(tree)]
+
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), lr=float(m["lr"]),
+                grads=whole(grads), err=whole(err), sent=whole(sent), new_err=whole(new_err),
+                params=whole(new["params"]), state_err=whole(new["compress"]))
+
+
+def _lm_ckpt(case, mesh, pol):
+    """Checkpoints of a Trainer (``case["steps"]`` steps, a compressor's
+    error feedback in the state): on a mesh, a run that crashes after step
+    ``crash`` (async saves) and its resume, beside an uninterrupted run;
+    the mesh checkpoint at ``crash`` resumed by an unsharded Trainer; an
+    unsharded run's checkpoint resumed on the mesh. Unsharded (``mesh``
+    None): the uninterrupted run. Params made whole."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    cfg = case["cfg"]
+    case["_run"] = case.get("_run", 0) + 1
+    root = os.path.join(case["dir"], f"run{case['_run']}")
+
+    def tcfg(**kw):
+        return TrainerConfig(steps=case["steps"], batch=case["batch"], seq=case["seq"],
+                             log_every=1, ckpt_every=1, compressor=_compressor(case), **kw)
+
+    def params(out, trainer):
+        p = out["state"]["params"]
+        if on:
+            p = sh.gather_tree(p, trainer.policy.placements, mesh)
+        return [t.detach().numpy().copy() for t in _leaves(p)]
+
+    on = mesh is not None
+    kw = {"policy": pol} if on else {}
+    straight = Trainer(cfg, tcfg(), device="cpu", **kw)
+    res = dict(straight=params(straight.run(), straight))
+    if not on:
+        return res
+    rank = dist.get_rank()
+    mesh_dir, plain_dir = os.path.join(root, "mesh"), os.path.join(root, "plain")
+    try:
+        Trainer(cfg, tcfg(ckpt_dir=mesh_dir, ckpt_async=True), device="cpu",
+                policy=pol).run(crash_at=case["crash"])
+    except RuntimeError as e:
+        assert "injected fault" in str(e)
+    ckpt.wait_pending()  # rank 0's writer thread, before any rank reads
+    dist.barrier()
+    # each rank resumes its own copy of the mesh checkpoint unsharded
+    mine = os.path.join(root, f"unsharded{rank}")
+    shutil.copytree(os.path.join(mesh_dir, f"step_{case['crash']:09d}"),
+                    os.path.join(mine, f"step_{case['crash']:09d}"))
+    dist.barrier()
+    resumed = Trainer(cfg, tcfg(ckpt_dir=mesh_dir), device="cpu", policy=pol)
+    res["resumed"] = params(resumed.run(), resumed)
+    plain = Trainer(cfg, tcfg(ckpt_dir=mine), device="cpu")
+    res["mesh_to_plain"] = [t.detach().numpy().copy() for t in _leaves(plain.run()["state"]["params"])]
+    if rank == 0:
+        try:
+            Trainer(cfg, tcfg(ckpt_dir=plain_dir), device="cpu").run(crash_at=case["crash"])
+        except RuntimeError as e:
+            assert "injected fault" in str(e)
+    dist.barrier()
+    onto = Trainer(cfg, tcfg(ckpt_dir=plain_dir), device="cpu", policy=pol)
+    res["plain_to_mesh"] = params(onto.run(), onto)
+    res["files"] = sorted(os.listdir(mesh_dir))
+    return res
 
 
 def _lm_decode(case, mesh, pol):
@@ -428,11 +625,24 @@ def run_ranks(directory: str, *, deadline_s: float = 120.0, world: int = WORLD):
 
     Raises if a rank exits non-zero (the others are killed at once) or the
     deadline passes (every rank is killed)."""
+    return wait_ranks(start_ranks(directory, world=world), deadline_s=deadline_s)
+
+
+def start_ranks(directory: str, *, world: int = WORLD):
+    """The rank processes on ``directory/inputs.pt``, started; the caller
+    may work while they run, then ``wait_ranks``."""
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(world),
                                directory], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    t_end = time.monotonic() + deadline_s
+    return dict(procs=procs, directory=directory, t0=time.monotonic())
+
+
+def wait_ranks(started, *, deadline_s: float = 120.0):
+    """Each started rank's outputs (``run_ranks``' checks; the deadline
+    counts from the start)."""
+    procs, directory = started["procs"], started["directory"]
+    t_end = started["t0"] + deadline_s
     try:
         while any(p.poll() is None for p in procs):
             bad = [r for r, p in enumerate(procs) if p.returncode not in (None, 0)]
@@ -450,7 +660,7 @@ def run_ranks(directory: str, *, deadline_s: float = 120.0, world: int = WORLD):
                 p.kill()
             p.wait()
     return [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)]
+            for r in range(len(procs))]
 
 
 # --------------------------------------------------------------- a rank

@@ -892,13 +892,16 @@ def test_flash_attention_unaligned_bf16_takes_the_cuda_core_kernel(cuda):
 # The Mamba2-370M prefill shape; a ragged chunk of 200; P 16, 32, 64 and 128
 # (P 30 and N 37 take the 4-byte copies); N not a multiple of 8; H not a
 # multiple of the 8 heads of a block; Jamba's N 16 (half of one 32-column
-# staging chunk) with its 128 heads of P 64.
+# staging chunk) with its 128 heads of P 64; a tp mesh rank's head shard of
+# each (chip_smoke.py's mesh: Mamba2-370M B 4 and Jamba B 2 over 2 data x 2
+# model ranks).
 @pytest.mark.parametrize("b,nc,q,n,h,p", [
     (1, 2, 16, 8, 2, 8), (2, 3, 32, 16, 4, 16), (1, 1, 64, 32, 1, 32),
     (2, 2, 256, 128, 9, 64), (1, 3, 200, 20, 3, 24), (1, 1, 5, 4, 2, 128),
     (4, 8, 256, 128, 32, 64), (2, 2, 200, 128, 32, 64), (1, 2, 256, 44, 8, 16),
     (1, 2, 192, 37, 5, 32), (1, 1, 256, 130, 3, 128), (1, 2, 100, 16, 3, 30),
     (2, 2, 256, 16, 128, 64), (1, 3, 200, 16, 128, 64),
+    (2, 8, 256, 128, 16, 64), (1, 8, 256, 16, 64, 64),
 ])
 def test_ssd_intra_chunk_matches_plain(cuda, b, nc, q, n, h, p):
     rng = np.random.default_rng(q * h + p)
@@ -930,11 +933,13 @@ def _ssd_bwd_inputs(b, nc, q, n, h, p, seed, device):
 
 # The SSD backward (csrc/ssd_scan_bwd.cu) at the shapes of chip_smoke.py's
 # ``ssd bwd`` phase (the Mamba2-370M training shape, Jamba's N 16 H 128, a
-# ragged Q 200, the REDUCED configs' P 16) and small ragged ones: Q = 1, N
+# ragged Q 200, the REDUCED configs' P 16, a tp mesh rank's head shard of
+# the Mamba2-370M step: 3 runs of 6 heads) and small ragged ones: Q = 1, N
 # and P off the 32-column steps, H odd.
 SSD_BWD_SHAPES = [
     (4, 8, 256, 128, 32, 64), (2, 2, 256, 16, 128, 64), (2, 2, 200, 128, 32, 64),
     (1, 3, 256, 16, 8, 16), (1, 2, 1, 4, 2, 8), (1, 1, 70, 37, 3, 24), (2, 1, 130, 70, 5, 128),
+    (2, 8, 256, 128, 16, 64),
 ]
 
 
@@ -2045,6 +2050,30 @@ def test_flash_attention_at_the_context_parallel_rank_shape(cuda):
     assert after.get(fa_ops.TC_KERNEL, 0) == before.get(fa_ops.TC_KERNEL, 0) + 2
     assert torch.equal(out, again) and torch.isfinite(out).all()
     plain = flash_attention_ref(q, k, v, causal=True)
+    _close(out, plain, True)
+    assert _bf16_equal_share(out, plain) >= 0.99
+
+
+# The enc-dec's unmasked flash calls on a tp mesh rank (SeamlessM4T-medium,
+# B 4 over 2 data ranks, 16 heads of 64, bf16): the encoder's context-parallel
+# rows [512, 1,024) against all 1,024 frames, and the cross-attention's 2 of a
+# 4-token target prefix against them.
+@pytest.mark.parametrize("s", [512, 2], ids=["encoder", "cross"])
+def test_flash_attention_unmasked_at_the_encdec_mesh_rank_shapes(cuda, s):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    b, t, h, hd = 2, 1024, 16, 64
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((b, t, h, hd), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    before = dict(build.launch_counts())
+    out = fa_ops.flash_attention(q, k, v, causal=False)
+    again = fa_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    for kernel in (fa_ops.TC_KERNEL, fa_ops.NONCAUSAL_KERNEL):
+        assert after.get(kernel, 0) == before.get(kernel, 0) + 2
+    assert torch.equal(out, again) and torch.isfinite(out).all()
+    plain = flash_attention_ref(q, k, v, causal=False)
     _close(out, plain, True)
     assert _bf16_equal_share(out, plain) >= 0.99
 

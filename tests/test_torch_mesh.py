@@ -192,6 +192,85 @@ def _lm_cases():
         ("q", (4, 16, 4, 16)), ("k", (4, 16, 2, 16)), ("v", (4, 16, 2, 16)),
         ("r", (4, 16, 4, 16)))}
     out.append(dict(cp, name="lm-cp", kind="lm-cp"))
+    more, more_ref = _lm_zoo_cases()
+    ref.update(more_ref)
+    return out + more, ref
+
+
+# the rest of the zoo under a policy: name -> (arch, overrides, mode, batch)
+SSM_KW = dict(ssm_chunk=4)  # 3 chunks of 12 positions: the inter-chunk recurrence runs
+SERVE_CASES = {
+    "ssm-tp": ("mamba2-370m", SSM_KW, "tp", 4),
+    "ssm-fsdp": ("mamba2-370m", SSM_KW, "fsdp", 4),
+    "ssm-fsdp-seq": ("mamba2-370m", SSM_KW, "fsdp", 2),  # the sequence over "model"
+    "hybrid-tp": ("jamba-v0.1-52b", dict(SSM_KW, capacity_factor=2.0), "tp", 4),
+    "hybrid-fsdp": ("jamba-v0.1-52b", dict(SSM_KW, capacity_factor=2.0), "fsdp", 4),
+    "int8-tp": ("qwen3-8b", dict(kv_cache_dtype="int8"), "tp", 4),
+    "int8-fsdp": ("qwen3-8b", dict(kv_cache_dtype="int8"), "fsdp", 4),
+    "vlm-tp": ("qwen2-vl-7b", {}, "tp", 4),
+    "vlm-fsdp": ("qwen2-vl-7b", {}, "fsdp", 4),
+    "encdec-tp": ("seamless-m4t-medium", {}, "tp", 4),
+    "encdec-fsdp": ("seamless-m4t-medium", {}, "fsdp", 4),
+}
+SERVE_SEQ, SERVE_LEN, SERVE_STEPS, SRC_LEN = 12, 16, 4, 16
+SSM_TRAIN = {"tp": 8, "fsdp": 8, "fsdp-seq": 2}  # mode -> batch (2: the sequence is split)
+COMPRESS = {"topk": dict(compress="topk", ratio=0.05), "int8": dict(compress="int8", seed=3)}
+CKPT = dict(steps=3, crash=2, batch=8, seq=16)
+
+
+def _serve_batch(pcfg, b, rng):
+    """(the prompt batch, the decode steps' batches) of a serve case."""
+    s, d = SERVE_SEQ, pcfg.d_model
+    if pcfg.encoder_layers > 0:
+        tgt = rng.integers(0, pcfg.vocab_size, (b, SERVE_STEPS)).astype(np.int64)
+        batch = {"src_embeds": rng.standard_normal((b, SRC_LEN, d)).astype(np.float32),
+                 "tgt_tokens": tgt}
+        return batch, [{"tokens": tgt[:, i:i + 1]} for i in range(SERVE_STEPS)]
+    if pcfg.family == "vlm":  # distinct M-RoPE streams: a 2 x 4 image grid after 2 text tokens
+        t = np.arange(s)
+        pos = np.stack([t, t, t])
+        pos[1, 2:10], pos[2, 2:10] = 2 + np.arange(8) // 4, 2 + np.arange(8) % 4
+        pos[:, 10:] = np.arange(4, 6)
+        batch = {"embeds": rng.standard_normal((b, s, d)).astype(np.float32),
+                 "positions": np.broadcast_to(pos[:, None], (3, b, s)).astype(np.int64).copy()}
+        return batch, [{"embeds": rng.standard_normal((b, 1, d)).astype(np.float32)}
+                       for _ in range(SERVE_STEPS)]
+    batch = {"tokens": rng.integers(0, pcfg.vocab_size, (b, s)).astype(np.int64)}
+    return batch, [{"tokens": rng.integers(0, pcfg.vocab_size, (b, 1)).astype(np.int64)}
+                   for _ in range(SERVE_STEPS)]
+
+
+def _lm_zoo_cases():
+    """The mamba mixers, int8 KV, embeds, the enc-dec, compression and
+    checkpoints under a policy (and what the reference side needs)."""
+    from repro.data.pipeline import synthetic_batch
+
+    out, ref, pairs = [], {}, {}
+    for name, (arch, kw, mode, b) in SERVE_CASES.items():
+        key = (arch, tuple(sorted(kw.items())))
+        if key not in pairs:
+            pairs[key] = _lm_pair(arch, **kw)
+        rcfg, pcfg, rp, pp = pairs[key]
+        batch, steps = _serve_batch(pcfg, b, np.random.default_rng(20 + b))  # tp, fsdp alike
+        if mode == "fsdp" and b == 2:  # fsdp decode needs rows over both axes
+            steps = []
+        ref[f"serve-{name}"] = (rcfg, rp, batch, steps)
+        out.append(dict(name=f"lm-serve-{name}", kind="lm-serve", mode=mode, cfg=pcfg,
+                        params=pp, batch=batch, steps=steps, max_len=SERVE_LEN, fsdp=True))
+    rcfg, pcfg, rp, pp = pairs[("mamba2-370m", tuple(sorted(SSM_KW.items())))]
+    for mode, b in SSM_TRAIN.items():
+        batch = synthetic_batch(seed=0, step=0, batch=b, seq=16, vocab=pcfg.vocab_size)
+        ref[f"train-ssm-{mode}"] = (rcfg, rp, batch)
+        out.append(dict(name=f"lm-train-ssm-{mode}", kind="lm-train", mode=mode.split("-")[0],
+                        cfg=pcfg, params=pp, batch=batch))
+    rcfg, pcfg, rp, pp = _lm_pair(DECODE_ARCH)
+    batch = synthetic_batch(seed=0, step=0, batch=8, seq=16, vocab=pcfg.vocab_size)
+    for name, kw in COMPRESS.items():
+        ref[f"compress-{name}"] = (rcfg, rp, batch, kw)
+        out.append(dict(kw, name=f"lm-compress-{name}", kind="lm-compress", mode="tp", cfg=pcfg,
+                        params=pp, batch=batch))
+    out.append(dict(CKPT, **COMPRESS["topk"], name="lm-ckpt", kind="lm-ckpt", mode="tp",
+                    cfg=pcfg, runs=1))
     return out, ref
 
 
@@ -247,10 +326,15 @@ def mesh_run(tmp_path_factory):
     case_list = _case_list(models, plan_dir)
     lm_list, lm_ref = _lm_cases()
     case_list += lm_list
+    for c in case_list:
+        if c["kind"] == "lm-ckpt":
+            c["dir"] = os.path.join(d, "ckpt")
     torch.save({"cases": case_list, "timeout_s": 60}, os.path.join(d, "inputs.pt"))
     cmm_proc, cmm_paths = _start_reference_cmm(d, lm_ref["cmm"])
     try:
-        ranks = cases.run_ranks(d, deadline_s=180.0)
+        started = cases.start_ranks(d)
+        lm_ref["zoo"] = _zoo_reference(lm_ref)  # while the ranks run
+        ranks = cases.wait_ranks(started, deadline_s=240.0)
         host = {c["name"]: cases.run_case(c, None) for c in case_list if c.get("host", True)}
         _, err = cmm_proc.communicate(timeout=300)
     finally:
@@ -538,13 +622,14 @@ def test_mesh_refuses_rows_on_another_device(gcn_small):
 
 # ------------------------------------------------------- the LM on a mesh
 def _lm_runs(ranks, name, per_rank=()):
-    """Each rank's two runs of an LM case, after checking that the second is
-    bitwise the first and that every rank returned the same bits (but for
-    the ``per_rank`` keys)."""
+    """Each rank's runs of an LM case (two, or the case's ``runs``), after
+    checking that each is bitwise the first and that every rank returned
+    the same bits (but for the ``per_rank`` keys)."""
     first = ranks[0][name]["runs"][0]
     for r in ranks:
-        a, b = r[name]["runs"]
-        _same_bits(a, b, name)
+        a, *rest = r[name]["runs"]
+        for b in rest:
+            _same_bits(a, b, name)
         _same_bits({k: v for k, v in a.items() if k not in per_rank},
                    {k: v for k, v in first.items() if k not in per_rank}, name)
     return first
@@ -704,4 +789,221 @@ def test_mesh_serve_engine_and_trainer_take_the_policy(mesh_run, mode):
     assert got["tokens"].shape == (want["tokens"].shape[0], 8 + 4)
     assert max(abs(a - b) for a, b in zip(got["loss"], want["loss"])) <= 1e-5
     for g, w in zip(got["params"], want["params"]):
+        _close(g, w, 1e-5)
+
+
+# ------------------------------------------- the rest of the zoo on a mesh
+LM_ATOL, LM_RTOL = 5e-4, 1e-3  # f32 LM paths, tests/test_torch_lm.py:12-13
+
+
+def _ref_close(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=LM_ATOL, rtol=LM_RTOL)
+
+
+def _ref_serve(rcfg, rp, batch, steps):
+    """The reference's single-device forward, prefill and decode steps of a
+    serve case (the enc-dec decodes from ``model_init_cache``)."""
+    from repro.models import api as ref_models
+
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    out = {"forward": np.asarray(ref_models.model_forward(rp, rcfg, jb)[0])}
+    lg, cache, n = ref_models.model_prefill(rp, rcfg, jb, SERVE_LEN)
+    out["prefill"] = np.asarray(lg)
+    out["prefill_cache"] = [np.asarray(a) for a in jax.tree_util.tree_leaves(cache)]
+    if "src_embeds" in batch:
+        cache, n = ref_models.model_init_cache(rcfg, rp, jb, SERVE_LEN), 0
+    out["steps"] = []
+    for i, step in enumerate(steps):
+        lg, cache = ref_models.model_decode_step(
+            rp, rcfg, {k: jnp.asarray(v) for k, v in step.items()}, cache,
+            jnp.asarray(int(n) + i, jnp.int32))
+        out["steps"].append(np.asarray(lg))
+    out["decode_cache"] = [np.asarray(a) for a in jax.tree_util.tree_leaves(cache)]
+    return out
+
+
+@pytest.mark.parametrize("name", list(SERVE_CASES))
+def test_mesh_lm_serves_the_rest_of_the_zoo(mesh_run, name):
+    """``model_forward``, ``model_prefill`` and ``SERVE_STEPS`` decode steps
+    under the policy (FSDP on every large leaf) of the mamba mixers (the SSD
+    at the rank's H/tp heads in tp; fsdp rows over both axes, or the
+    sequence over "model" with B 2), the hybrid's (mamba, attention and the
+    sharded MoE in one unit), an int8 KV cache, an embeds input with
+    distinct M-RoPE streams and the enc-dec (encoder, cross-attention, the
+    cross caches cut over the encoder's positions; decode from
+    ``model_init_cache``): logits, every prefill and decode cache leaf
+    gathered by ``cache_shardings`` within 1e-5 of the unsharded port and
+    within the LM tolerances of the reference's single device; the same
+    bits on every rank and in a second run; every rank's cache at its local
+    shape."""
+    _, ranks, host, models, _ = mesh_run
+    got = _lm_runs(ranks, f"lm-serve-{name}", per_rank=("cache_shapes",))
+    want = host[f"lm-serve-{name}"]["runs"][0]
+    ref = models["lm_ref"]["zoo"][f"serve-{name}"]
+    steps = models["lm_ref"][f"serve-{name}"][3]
+    assert len(got["steps"]) == len(steps)
+    for key in ("forward", "prefill", "steps", "prefill_cache") + (
+            ("decode_cache",) if steps else ()):
+        assert len(got[key]) == len(want[key]) == len(ref[key]), key
+        for g, w, r in zip(got[key], want[key], ref[key]):
+            _close(g, w, 1e-5)
+            _ref_close(g, r)
+    assert abs(got["aux"] - want["aux"]) <= 1e-5
+    whole = [w.shape for w in want["prefill_cache"]]
+    for r in ranks:  # heads, channels, positions over "model"; rows over "data"
+        for loc, full in zip(r[f"lm-serve-{name}"]["runs"][0]["cache_shapes"], whole):
+            assert len(loc) == len(full) and loc[0] == full[0]
+            assert loc[1] == full[1] // 2 and all(f in (l_, 2 * l_) for l_, f in zip(loc, full))
+
+
+def _zoo_reference(lm_ref):
+    """The reference's single-device side of the zoo cases: each serve
+    input's forward, prefill and decode (once for tp and fsdp alike), the
+    mamba train steps and the top-k compressed step (jitted, as
+    ``tests/test_distributed.py:45-86``)."""
+    from repro.distributed.compression import TopKCompressor as RefTopK
+    from repro.train.train_step import init_train_state, make_train_step
+
+    out, seen = {}, {}
+    for key, entry in lm_ref.items():
+        if key.startswith("serve-"):
+            rcfg, rp, batch, steps = entry
+            inputs = (rcfg.name, rcfg.kv_cache_dtype, len(next(iter(batch.values()))), len(steps))
+            if inputs not in seen:
+                seen[inputs] = _ref_serve(rcfg, rp, batch, steps)
+            out[key] = seen[inputs]
+        elif key.startswith("train-ssm") or key == "compress-topk":
+            rcfg, rp, batch = entry[:3]
+            comp = RefTopK(ratio=entry[3]["ratio"]) if key == "compress-topk" else None
+            state = init_train_state(rcfg, rp)
+            if comp is not None:
+                state["compress"] = comp.init_state(rp)
+            s1, m1 = jax.jit(make_train_step(rcfg, compressor=comp))(
+                state, {k: jnp.asarray(v) for k, v in batch.items()})
+            out[key] = (float(m1["loss"]), [np.asarray(a, np.float32)
+                                            for a in jax.tree_util.tree_leaves(s1["params"])])
+    return out
+
+
+@pytest.fixture(scope="module")
+def lm_zoo_reference_steps(mesh_run):
+    return mesh_run[3]["lm_ref"]["zoo"]
+
+
+@pytest.mark.parametrize("mode", list(SSM_TRAIN))
+def test_mesh_mamba_train_step_matches_the_reference_and_the_unsharded_port(
+        mesh_run, lm_zoo_reference_steps, mode):
+    """One ``make_train_step(cfg, policy=)`` step of REDUCED mamba2-370m: tp
+    runs the SSD forward and backward at the rank's head shard (B and C
+    whole on every rank, their gradient summed over "model"; the gated
+    norm's squares summed over "model"); fsdp on rows over both axes, or (B
+    2) on the sequence gathered over "model". Within 1e-5 of the unsharded
+    port's step, within the reference's bounds of its single-device step
+    (loss 5e-3, params 5e-2); the same bits on every rank and in a second
+    run."""
+    _, ranks, host, _, _ = mesh_run
+    name = f"lm-train-ssm-{mode}"
+    got = _lm_runs(ranks, name)
+    want = host[name]["runs"][0]
+    assert abs(got["loss"] - want["loss"]) <= 1e-5
+    assert abs(got["grad_norm"] - want["grad_norm"]) <= 1e-5 * max(1.0, want["grad_norm"])
+    for g, w in zip(got["params"], want["params"]):
+        _close(g, w, 1e-5)
+    ref_loss, ref_params = lm_zoo_reference_steps[f"train-ssm-{mode}"]
+    assert abs(got["loss"] - ref_loss) < 5e-3
+    assert max(float(np.abs(g - w).max()) for g, w in zip(got["params"], ref_params)) < 5e-2
+
+
+def _bitwise_trees(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("kind", list(COMPRESS))
+def test_mesh_compressed_step_is_bitwise_the_unsharded_compressor(mesh_run, kind):
+    """A REDUCED qwen2-1.5b tp step with each compressor: given the mesh's
+    gradients (gathered), the unsharded port's compressor sends bitwise what
+    the shards sent and keeps bitwise their error state (top-k's threshold
+    from the union of every shard's top k, int8's scale from a max
+    all-reduce and its draws cut from the whole leaf's), and AdamW on what
+    was sent, at the step's norm and lr, gives bitwise the mesh's new
+    params; the same bits on every rank and in a second run."""
+    from repro_torch.distributed.compression import Int8Compressor, TopKCompressor
+    from repro_torch.optim.adamw import AdamWConfig, _rebuild, adamw_init, adamw_update
+
+    _, ranks, host, _, _ = mesh_run
+    name = f"lm-compress-{kind}"
+    got = _lm_runs(ranks, name)
+    case = mesh_run[0][name]
+    comp = (TopKCompressor(ratio=case["ratio"]) if kind == "topk"
+            else Int8Compressor(seed=case["seed"]))
+    like = case["params"]
+
+    def tree(leaves):
+        return _rebuild(like, iter(torch.from_numpy(a) for a in leaves))
+
+    sent, err = comp.compress_decompress(tree(got["grads"]), tree(got["err"]))
+    _bitwise_trees([t.numpy() for t in cases._leaves(sent)], got["sent"])
+    _bitwise_trees([t.numpy() for t in cases._leaves(err)], got["new_err"])
+    _bitwise_trees(got["new_err"], got["state_err"])
+    params = tree([t.numpy() for t in cases._leaves(like)])
+    new, _, _ = adamw_update(sent, adamw_init(params), params, AdamWConfig(),
+                             lr=torch.tensor(got["lr"], dtype=torch.float32),
+                             gnorm=torch.tensor(got["grad_norm"], dtype=torch.float32))
+    _bitwise_trees([t.detach().numpy() for t in cases._leaves(new)], got["params"])
+    want = host[name]["runs"][0]  # the unsharded port's own compressed step
+    assert abs(got["loss"] - want["loss"]) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", list(COMPRESS))
+def test_mesh_clip_norm_is_the_compressed_gradients_norm(mesh_run, kind):
+    """Under a policy with a compressor AdamW clips by the norm of what the
+    compressor sent (the reference's ``adamw_update`` takes the norm of the
+    compressed gradients), not of the gradients before it: the step's
+    grad_norm is the sent tree's norm and differs from the raw one's."""
+    from repro_torch.optim.adamw import global_norm
+
+    _, ranks, _, _, _ = mesh_run
+    got = _lm_runs(ranks, f"lm-compress-{kind}")
+    sent = float(global_norm([torch.from_numpy(a) for a in got["sent"]]))
+    raw = float(global_norm([torch.from_numpy(a) for a in got["grads"]]))
+    assert abs(got["grad_norm"] - sent) <= 1e-6 * sent
+    assert abs(raw - sent) > 1e-4 * raw
+
+
+def test_mesh_topk_step_matches_the_reference_compressed_step(mesh_run, lm_zoo_reference_steps):
+    """The mesh's top-k compressed step within the train-step bounds (loss
+    5e-3, params 5e-2) of the reference's single-device compressed step."""
+    _, ranks, _, _, _ = mesh_run
+    got = _lm_runs(ranks, "lm-compress-topk")
+    ref_loss, ref_params = lm_zoo_reference_steps["compress-topk"]
+    assert abs(got["loss"] - ref_loss) < 5e-3
+    assert max(float(np.abs(g - w).max()) for g, w in zip(got["params"], ref_params)) < 5e-2
+
+
+def test_mesh_checkpoint_resume_is_bitwise_a_straight_run(mesh_run):
+    """``Trainer(ckpt_dir=, policy=)`` (top-k error feedback in the state,
+    async saves gathered at the call and written by rank 0) crashed after
+    step 2 and resumed: bitwise the uninterrupted mesh run on every rank."""
+    _, ranks, _, _, _ = mesh_run
+    got = _lm_runs(ranks, "lm-ckpt")
+    _bitwise_trees(got["resumed"], got["straight"])
+    assert got["files"] == [f"step_{s:09d}" for s in range(1, CKPT["steps"] + 1)]
+
+
+def test_mesh_and_unsharded_checkpoints_restore_into_each_other(mesh_run):
+    """The mesh's step-2 checkpoint resumed by an unsharded Trainer, and an
+    unsharded run's step-2 checkpoint resumed under the policy: each within
+    1e-5 of the other side's uninterrupted run."""
+    _, ranks, host, _, _ = mesh_run
+    got = _lm_runs(ranks, "lm-ckpt")
+    want = host["lm-ckpt"]["runs"][0]["straight"]
+    for g, w in zip(got["mesh_to_plain"], got["straight"]):
+        _close(g, w, 1e-5)
+    for g, w in zip(got["plain_to_mesh"], want):
+        _close(g, w, 1e-5)
+    for g, w in zip(got["straight"], want):
         _close(g, w, 1e-5)

@@ -13,8 +13,8 @@ axis names and sizes), must equal each ``PartitionSpec`` read per mesh axis:
 ``elastic.py`` is standard library in both packages and is compared over a
 sweep. The port's ``moe_apply`` under a stub policy (dispatch groups 2 and
 4, identity ``ebuf``, no mesh) is held within 1e-5 of the reference's, which
-takes its grouped path on one device, with equal expert loads. What a mesh
-policy does not run yet raises, naming ROADMAP queue 1 item 16.
+takes its grouped path on one device, with equal expert loads. A policy's
+``init_cache`` makes each rank's block of the whole cache.
 """
 from __future__ import annotations
 
@@ -44,12 +44,11 @@ from repro_torch.models.lm.moe import moe_apply
 from repro_torch.models.lm.transformer import init_cache
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.serve.engine import ServeEngine
-from repro_torch.train.loop import Trainer, TrainerConfig
-from repro_torch.train.train_step import make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["qwen3-8b", "qwen2-1.5b", "smollm-360m", "nemotron-4-15b", "granite-moe-3b-a800m",
-         "llama4-maverick-400b-a17b"]
+         "llama4-maverick-400b-a17b", "mamba2-370m", "jamba-v0.1-52b", "qwen2-vl-7b",
+         "seamless-m4t-medium"]
 MESHES = {"2x4": (2, 4), "2x2": (2, 2)}
 BATCHES = (8, 6, 4, 2, 1)
 CACHES = ((8, 32), (3, 30))
@@ -336,31 +335,29 @@ def _policy(mode="tp"):
     return sh.make_policy(StandIn((2, 2)), mode=mode)
 
 
-@pytest.mark.parametrize("arch,batch", [
-    ("mamba2-370m", {"tokens": np.zeros((4, 8), np.int64)}),
-    ("jamba-v0.1-52b", {"tokens": np.zeros((4, 8), np.int64)}),
-    ("qwen2-vl-7b", {"embeds": np.zeros((4, 8, 32), np.float32)}),
-    ("seamless-m4t-medium", {"src_embeds": np.zeros((4, 8, 32), np.float32),
-                             "tgt_tokens": np.zeros((4, 4), np.int64)}),
-], ids=["ssm", "hybrid", "vlm-embeds", "encdec"])
-def test_what_waits_for_item_16_is_refused_under_a_policy(arch, batch):
-    cfg = get_config(arch, reduced=True)
-    params = api.model_init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
-        api.model_forward(params, cfg, batch, policy=_policy())
-
-
-def test_compression_checkpoints_and_int8_caches_are_refused_under_a_policy(tmp_path):
-    from repro_torch.distributed.compression import TopKCompressor
-
-    cfg = get_config("qwen2-1.5b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
-        make_train_step(cfg, compressor=TopKCompressor(), policy=_policy())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
-        Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path)), device="cpu", policy=_policy())
-    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
-        init_cache(int8, 4, 16, device="cpu", policy=_policy())
+@pytest.mark.parametrize("arch,kw", [
+    ("mamba2-370m", {}), ("jamba-v0.1-52b", {}), ("qwen3-8b", {"kv_cache_dtype": "int8"}),
+], ids=["ssm", "hybrid", "int8-kv"])
+@pytest.mark.parametrize("batch", [4, 3])
+def test_init_cache_under_a_policy_is_each_rank_s_block(arch, kw, batch):
+    """``init_cache(..., policy=)`` makes every leaf at the local shape of its
+    ``cache_shardings`` block (K/V and int8 scales L/tp positions of a
+    capacity rounded up to the model axis, the SSM state H/tp heads, every
+    conv window C/tp channels, rows over "data" when they divide): the
+    shapes and dtypes of ``shard_tree``'s blocks of the whole cache, at
+    every coordinate."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **kw)
+    full = init_cache(cfg, batch, 16, device="cpu")
+    for c in itertools.product(range(2), range(2)):
+        mesh = StandIn((2, 2), coordinate=c)
+        got = init_cache(cfg, batch, 15, device="cpu", policy=sh.make_policy(mesh))
+        pl = sh.cache_shardings(cfg, full, mesh, batch=batch)
+        want = sh.shard_tree(full, pl, mesh)
+        for g, w in zip(_flat_leaves(got), _flat_leaves(want)):
+            assert g.shape == w.shape and g.dtype == w.dtype and not g.any()
+    names = {k for entry in full for k in entry}
+    assert names >= ({"ssm", "conv_x", "conv_b", "conv_c"} if arch != "qwen3-8b"
+                     else {"k_scale", "v_scale"})
 
 
 def test_a_mesh_entry_point_needs_the_placements_the_params_were_cut_with():
